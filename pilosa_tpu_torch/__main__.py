@@ -1,0 +1,54 @@
+"""Command line: ``python -m pilosa_tpu_torch server -d DIR --port P``.
+
+Runs on the GPU (``--device cuda``, the default) unless ``--device cpu``
+is given; asking for cuda on a machine without one exits with an error.
+"""
+
+from __future__ import annotations
+
+import argparse
+import signal
+import sys
+import threading
+
+
+def cmd_server(args) -> int:
+    from pilosa_tpu_torch.server import Server
+
+    server = Server(args.data_dir, bind=args.bind, port=args.port,
+                    device=args.device,
+                    budget_bytes=args.residency_budget_bytes).open()
+    print(f"pilosa_tpu_torch serving {args.data_dir} on "
+          f"http://{args.bind}:{server.port} ({server.holder.device})",
+          flush=True)
+    try:
+        stop = threading.Event()
+        signal.signal(signal.SIGINT, lambda *a: stop.set())
+        signal.signal(signal.SIGTERM, lambda *a: stop.set())
+        stop.wait()
+    finally:
+        server.close()
+    return 0
+
+
+def main(argv=None) -> int:
+    from pilosa_tpu_torch.storage.residency import DEFAULT_BUDGET_BYTES
+
+    parser = argparse.ArgumentParser(prog="pilosa_tpu_torch")
+    sub = parser.add_subparsers(dest="cmd", required=True)
+    p = sub.add_parser("server", help="run a server node")
+    p.add_argument("-d", "--data-dir", required=True)
+    p.add_argument("-b", "--bind", default="localhost")
+    p.add_argument("--port", type=int, default=10101)
+    p.add_argument("--device", default=None,
+                   help="cuda (default) or cpu")
+    p.add_argument("--residency-budget-bytes", type=int,
+                   default=DEFAULT_BUDGET_BYTES,
+                   help="device bytes for resident leaves")
+    p.set_defaults(fn=cmd_server)
+    args = parser.parse_args(argv)
+    return args.fn(args)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

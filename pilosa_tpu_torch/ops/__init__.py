@@ -1,0 +1,3 @@
+"""Host-side bit packing (the device kernels live in ``pilosa_tpu_torch.kernels``)."""
+
+from pilosa_tpu_torch.ops.packing import pack_bits, pack_shard_row, unpack_bits

@@ -1,0 +1,267 @@
+"""Hand-written recursive-descent PQL parser.
+
+Produces the reference AST shape (pql.ParseString → Query of Calls —
+SURVEY.md §2 #11) without the PEG/codegen machinery. Accepted surface is
+the v1.x call set with v0.x aliases (SetBit/ClearBit/Bitmap — SURVEY.md
+EVIDENCE STATUS rename table).
+
+Positional conventions (matching reference PQL usage):
+- a bare identifier positional arg is the field: ``TopN(stargazer, n=5)``
+  → args['_field'] = 'stargazer'
+- a bare number/string positional arg is the column: ``Set(10, f=1)``
+  → args['_col'] = 10
+- ``field <op> value`` becomes a Condition arg: ``Range(fare > 10)``
+"""
+
+from __future__ import annotations
+
+from pilosa_tpu_torch.pql.ast import Call, Condition, Query
+
+ALIASES = {
+    "SetBit": "Set",
+    "ClearBit": "Clear",
+    "Bitmap": "Row",
+    "ClearRowBit": "Clear",
+    # v0.x-era BSI write spelling; v1.x writes int fields via
+    # Set(col, field=value), which Set already implements
+    "SetValue": "Set",
+}
+
+WRITE_CALLS = {
+    "Set", "Clear", "ClearRow", "Store",
+    "SetRowAttrs", "SetColumnAttrs", "Delete",
+}
+
+CALL_NAMES = {
+    "Row", "Union", "Intersect", "Difference", "Xor", "Not", "All", "Shift",
+    "Count", "TopN", "Min", "Max", "Sum", "Range", "Rows", "GroupBy",
+    "Set", "Clear", "ClearRow", "Store", "SetRowAttrs",
+    "SetColumnAttrs", "Options", "IncludesColumn",
+    # pseudo-call: appears only as an arg value —
+    # GroupBy(..., having=Condition(count > 10))
+    "Condition",
+} | set(ALIASES)
+
+_CMP_OPS = ("><", "<=", ">=", "==", "!=", "<", ">")
+
+
+class ParseError(ValueError):
+    def __init__(self, msg: str, pos: int):
+        super().__init__(f"parse error at offset {pos}: {msg}")
+        self.pos = pos
+
+
+class _Lexer:
+    def __init__(self, src: str):
+        self.src = src
+        self.pos = 0
+
+    def _skip_ws(self):
+        while self.pos < len(self.src) and self.src[self.pos] in " \t\r\n;":
+            self.pos += 1
+
+    def peek(self) -> str | None:
+        self._skip_ws()
+        return self.src[self.pos] if self.pos < len(self.src) else None
+
+    def expect(self, ch: str):
+        if self.peek() != ch:
+            raise ParseError(f"expected {ch!r}", self.pos)
+        self.pos += 1
+
+    def try_take(self, ch: str) -> bool:
+        if self.peek() == ch:
+            self.pos += 1
+            return True
+        return False
+
+    def take_cmp(self) -> str | None:
+        self._skip_ws()
+        for op in _CMP_OPS:
+            if self.src.startswith(op, self.pos):
+                self.pos += len(op)
+                return op
+        return None
+
+    def peek_cmp(self) -> str | None:
+        self._skip_ws()
+        for op in _CMP_OPS:
+            if self.src.startswith(op, self.pos):
+                return op
+        return None
+
+    def take_ident(self) -> str:
+        self._skip_ws()
+        start = self.pos
+        if self.pos < len(self.src) and (
+            self.src[self.pos].isalpha() or self.src[self.pos] in "_"
+        ):
+            self.pos += 1
+            while self.pos < len(self.src) and (
+                self.src[self.pos].isalnum() or self.src[self.pos] in "_-"
+            ):
+                self.pos += 1
+        if start == self.pos:
+            raise ParseError("expected identifier", self.pos)
+        return self.src[start : self.pos]
+
+    def take_string(self) -> str:
+        quote = self.peek()
+        self.pos += 1
+        out = []
+        while self.pos < len(self.src):
+            c = self.src[self.pos]
+            if c == "\\" and self.pos + 1 < len(self.src):
+                out.append(self.src[self.pos + 1])
+                self.pos += 2
+                continue
+            if c == quote:
+                self.pos += 1
+                return "".join(out)
+            out.append(c)
+            self.pos += 1
+        raise ParseError("unterminated string", self.pos)
+
+    def take_number(self):
+        self._skip_ws()
+        start = self.pos
+        if self.src[self.pos] in "+-":
+            self.pos += 1
+        while self.pos < len(self.src) and self.src[self.pos].isdigit():
+            self.pos += 1
+        is_float = False
+        if self.pos < len(self.src) and self.src[self.pos] == ".":
+            is_float = True
+            self.pos += 1
+            while self.pos < len(self.src) and self.src[self.pos].isdigit():
+                self.pos += 1
+        text = self.src[start : self.pos]
+        if text in ("", "+", "-"):
+            raise ParseError("expected number", start)
+        return float(text) if is_float else int(text)
+
+
+# Parsed-query memo. Call/Query trees are immutable after parse (the
+# executor only reads them), so repeated query texts — the common serving
+# pattern, and ~130 us/query of the pipelined submit path — share one
+# tree. Bounded by wholesale clear: queries with embedded unique literals
+# (bulk Set streams) would otherwise grow it without limit, and a clear
+# only costs the next parse.
+_PARSE_CACHE: dict[str, Query] = {}
+_PARSE_CACHE_MAX = 4096
+
+
+def parse(src: str) -> Query:
+    cached = _PARSE_CACHE.get(src)
+    if cached is not None:
+        return cached
+    lex = _Lexer(src)
+    calls = []
+    while lex.peek() is not None:
+        calls.append(_parse_call(lex))
+    if not calls:
+        raise ParseError("empty query", 0)
+    out = Query(calls)
+    if len(_PARSE_CACHE) >= _PARSE_CACHE_MAX:
+        _PARSE_CACHE.clear()
+    _PARSE_CACHE[src] = out
+    return out
+
+
+def _parse_call(lex: _Lexer) -> Call:
+    pos = lex.pos
+    name = lex.take_ident()
+    name = ALIASES.get(name, name)
+    if name not in CALL_NAMES:
+        raise ParseError(f"unknown call {name!r}", pos)
+    lex.expect("(")
+    call = Call(name)
+    first = True
+    while not lex.try_take(")"):
+        if not first:
+            lex.expect(",")
+        first = False
+        _parse_arg(lex, call)
+    return call
+
+
+def _parse_arg(lex: _Lexer, call: Call) -> None:
+    c = lex.peek()
+    if c is None:
+        raise ParseError("unexpected end of input", lex.pos)
+    if c.isalpha() or c == "_":
+        save = lex.pos
+        ident = lex.take_ident()
+        nxt = lex.peek()
+        if nxt == "(":
+            lex.pos = save
+            call.children.append(_parse_call(lex))
+            return
+        if nxt == "=" and lex.peek_cmp() != "==":
+            lex.expect("=")
+            call.args[ident] = _parse_value(lex)
+            return
+        op = lex.take_cmp()
+        if op is not None:
+            if isinstance(call.args.get(ident), Condition):
+                # Condition(count > 1, count < 5) would silently keep only
+                # the last condition; ranges must use `count >< [lo, hi]`
+                raise ParseError(
+                    f"duplicate condition on {ident!r} (use >< for ranges)",
+                    lex.pos,
+                )
+            call.args[ident] = Condition(op, _parse_value(lex))
+            return
+        if ident in ("true", "false"):
+            _add_positional(call, ident == "true", lex.pos)
+            return
+        if ident == "null":
+            _add_positional(call, None, lex.pos)
+            return
+        # bare identifier positional → field name
+        if "_field" in call.args:
+            raise ParseError(f"duplicate positional field {ident!r}", lex.pos)
+        call.args["_field"] = ident
+        return
+    value = _parse_value(lex)
+    _add_positional(call, value, lex.pos)
+
+
+def _add_positional(call: Call, value, pos: int) -> None:
+    if "_col" in call.args:
+        raise ParseError("duplicate positional value", pos)
+    call.args["_col"] = value
+
+
+def _parse_value(lex: _Lexer):
+    c = lex.peek()
+    if c is None:
+        raise ParseError("expected value", lex.pos)
+    if c in "'\"":
+        return lex.take_string()
+    if c == "[":
+        lex.expect("[")
+        out = []
+        first = True
+        while not lex.try_take("]"):
+            if not first:
+                lex.expect(",")
+            first = False
+            out.append(_parse_value(lex))
+        return out
+    if c.isdigit() or c in "+-":
+        return lex.take_number()
+    if c.isalpha() or c == "_":
+        save = lex.pos
+        ident = lex.take_ident()
+        if lex.peek() == "(":
+            lex.pos = save
+            return _parse_call(lex)
+        if ident == "true":
+            return True
+        if ident == "false":
+            return False
+        if ident == "null":
+            return None
+        return ident  # bare identifier value → string (e.g. field=fare)
+    raise ParseError(f"unexpected character {c!r}", lex.pos)

@@ -1,0 +1,156 @@
+"""The API layer between HTTP and the holder/executor (reference api.go).
+
+The port's thin copy of ``pilosa_tpu.server.api``: schema writes, PQL
+queries answered as pre-serialized JSON bytes, and bulk bit imports, with
+the reference's validation and error texts so both packages answer the
+same bytes. A write is acknowledged only once durable: every fragment op
+is fsynced before the call returns (per-op durability). Cluster, QoS,
+tracing, the cost plane, the result cache and multi-process serving are
+not ported yet.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pilosa_tpu_torch.executor.executor import Executor, PQLError
+from pilosa_tpu_torch.executor.result import results_json_bytes
+from pilosa_tpu_torch.pql import ParseError, parse
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
+from pilosa_tpu_torch.storage.field import FieldOptions
+from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+
+# The reference's max-writes-per-request default: the most Set/Clear
+# calls in one query, and the most bits in one import body.
+MAX_WRITES_PER_REQUEST = 5000
+
+
+class ApiError(Exception):
+    def __init__(self, message: str, status: int = 400):
+        super().__init__(message)
+        self.status = status
+
+
+class API:
+    def __init__(self, holder):
+        self.holder = holder
+        self.executor = Executor(holder, device=holder.device)
+        self.max_writes_per_request = MAX_WRITES_PER_REQUEST
+
+    # ----------------------------------------------------------------- query
+
+    def query_raw(self, index: str, pql: str) -> list:
+        """Execute and return the raw result objects. Reads submit every
+        call before resolving any, so concurrent requests share
+        micro-batched launches."""
+        try:
+            query = parse(pql)
+            writes = len(query.write_calls())
+            if 0 < self.max_writes_per_request < writes:
+                raise ApiError(
+                    f"too many writes in request: {writes} > "
+                    f"max-writes-per-request {self.max_writes_per_request}"
+                )
+            if writes:
+                return self.executor.execute(index, query)
+            return [d.result() for d in self.executor.submit(index, query)]
+        except (ParseError, PQLError) as e:
+            raise ApiError(str(e)) from e
+
+    def query_json_bytes(self, index: str, pql: str) -> bytes:
+        """The whole ``{"results": [...]}`` response envelope as bytes."""
+        return results_json_bytes(self.query_raw(index, pql))
+
+    # ---------------------------------------------------------------- schema
+
+    def create_index(self, name: str, keys: bool = False,
+                     track_existence: bool = True) -> dict:
+        try:
+            idx = self.holder.create_index(name, keys=keys,
+                                           track_existence=track_existence)
+        except ValueError as e:
+            status = 409 if "already exists" in str(e) else 400
+            raise ApiError(str(e), status) from e
+        return idx.schema()
+
+    def create_field(self, index: str, name: str,
+                     options: dict | None = None) -> dict:
+        idx = self._index(index)
+        try:
+            field = idx.create_field(name, FieldOptions.from_dict(options or {}))
+        except ValueError as e:
+            status = 409 if "already exists" in str(e) else 400
+            raise ApiError(str(e), status) from e
+        return {"name": field.name, "options": field.options.to_dict()}
+
+    # ---------------------------------------------------------------- import
+
+    def import_bits(self, index: str, field: str, rows, columns,
+                    timestamps=None, clear: bool = False) -> int:
+        """Bulk bit import (reference api.Import / fragment.bulkImport),
+        grouped by shard and written fragment-wise."""
+        idx = self._index(index)
+        fld = self._field(idx, field)
+        try:
+            rows_i = np.asarray(rows, dtype=np.int64)
+            columns_i = np.asarray(columns, dtype=np.int64)
+        except OverflowError as e:
+            raise ApiError(f"row/column id out of range: {e}") from e
+        if rows_i.shape != columns_i.shape:
+            raise ApiError("rows and columns must be the same length")
+        if rows_i.size and (rows_i.min() < 0 or columns_i.min() < 0):
+            raise ApiError("rows and columns must be non-negative")
+        if timestamps is not None and any(t for t in timestamps):
+            raise ApiError("timestamped imports are not yet ported")
+        try:
+            fld.options.check_ported()
+        except ValueError as e:
+            raise ApiError(str(e)) from e
+        rows = rows_i.astype(np.uint64)
+        columns = columns_i.astype(np.uint64)
+        if rows.size == 0:
+            return 0
+        order, bounds, shards_sorted = shard_groups(columns)
+        rows, columns = rows[order], columns[order]
+        changed = 0
+        for i in range(bounds.size - 1):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            if clear:
+                for r, c in zip(rows[lo:hi].tolist(), columns[lo:hi].tolist()):
+                    changed += fld.clear_bit(int(r), int(c))
+                continue
+            shard = int(shards_sorted[lo])
+            pos = columns[lo:hi] & np.uint64(SHARD_WIDTH - 1)
+            idx.mark_columns_exist(columns[lo:hi])
+            frag = fld.view(VIEW_STANDARD, create=True).fragment(shard,
+                                                                 create=True)
+            changed += frag.bulk_import(rows[lo:hi], pos)
+        return int(changed)
+
+    # ---------------------------------------------------------------- status
+
+    def status(self) -> dict:
+        return {
+            "state": "NORMAL",
+            "nodes": [{"id": "local", "uri": "localhost",
+                       "isCoordinator": True, "state": "NORMAL"}],
+            "localID": "local",
+            "maxWritesPerRequest": self.max_writes_per_request,
+            "epoch": 0,
+            "clusterDegraded": False,
+            "storageDegraded": False,
+            "storageDegradedReason": "",
+        }
+
+    def _index(self, name: str):
+        idx = self.holder.index(name)
+        if idx is None:
+            raise ApiError(f"index {name!r} not found", 404)
+        return idx
+
+    @staticmethod
+    def _field(idx, name: str):
+        fld = idx.field(name)
+        if fld is None:
+            raise ApiError(f"field {name!r} not found", 404)
+        return fld

@@ -1,0 +1,246 @@
+"""Fragment: one (index, field, view, shard) slice of the bitmap matrix.
+
+The port's thin copy of ``pilosa_tpu.storage.fragment``. Row ``r``
+occupies bit positions [r·2^20, (r+1)·2^20) of the fragment bitmap. The
+file is a roaring snapshot followed by an append-only op log, in the
+reference's byte layout, compacted once the op count crosses a
+threshold; opening replays the log (torn tails dropped).
+
+Durability is the reference's ``per-op`` mode: a write is acknowledged
+only after its op record is appended to this fragment's file and
+fsynced. (The group-commit WAL is not ported yet, and no weaker mode is
+offered.) Every mutation emits a ``WriteEvent`` to the holder's residency
+cache, which patches the dependent resident leaves in place.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+import numpy as np
+
+from pilosa_tpu_torch.roaring import OP_ADD, OP_REMOVE, RoaringBitmap
+from pilosa_tpu_torch.roaring.format import (
+    deserialize,
+    encode_op,
+    replay_ops,
+    serialize,
+)
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.storage.residency import WriteEvent
+
+# Snapshot (compact) once this many op records have accumulated (the
+# reference's DEFAULT_SNAPSHOT_OP_THRESHOLD).
+DEFAULT_SNAPSHOT_OP_THRESHOLD = 2048
+
+# Sidecars the reference package keeps beside a fragment file: block
+# digests of the snapshot (verified on load) and the TopN row-count
+# cache. A rewritten snapshot or a mutation makes them stale, and the
+# port maintains neither, so it removes them; the reference then loads
+# unverified and recounts rows from the bitmap.
+CHECKSUM_SUFFIX = ".checksums"
+ROW_CACHE_SUFFIX = ".cache"
+
+
+def fsync_dir(path: str) -> None:
+    """Make a rename or unlink in ``path`` durable."""
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+    finally:
+        os.close(fd)
+
+
+def _unlink(path: str) -> None:
+    try:
+        os.unlink(path)
+    except FileNotFoundError:
+        pass
+
+
+def _group_by_row(rows: np.ndarray, positions: np.ndarray):
+    """Yield ``(row, positions_in_row)`` ascending by row."""
+    if rows.size == 0:
+        return
+    order = np.argsort(rows, kind="stable")
+    sorted_rows = rows[order]
+    sorted_pos = positions[order]
+    uniq, starts = np.unique(sorted_rows, return_index=True)
+    bounds = np.append(starts, sorted_rows.size)
+    for i, r in enumerate(uniq.tolist()):
+        yield int(r), sorted_pos[bounds[i]:bounds[i + 1]]
+
+
+class Fragment:
+    def __init__(self, path: str, index: str, field: str, view: str,
+                 shard: int, scope: str = "", cache=None,
+                 snapshot_threshold: int = DEFAULT_SNAPSHOT_OP_THRESHOLD):
+        self.path = path
+        self.index = index
+        self.field = field
+        self.view = view
+        self.shard = shard
+        self.scope = scope
+        self.cache = cache  # the holder's DeviceRowCache (None: no device)
+        self.frag_id = (scope, index, field, view, shard)
+        self.bitmap = RoaringBitmap()
+        self.op_n = 0
+        self.snapshot_threshold = snapshot_threshold
+        self._file = None
+        self._open = False
+        self._sidecars_dropped = False
+        # one writer at a time; row reads stay lock-free against the
+        # bitmap's atomic container swaps
+        self.lock = threading.RLock()
+
+    # ------------------------------------------------------------- lifecycle
+
+    def open(self) -> "Fragment":
+        os.makedirs(os.path.dirname(self.path), exist_ok=True)
+        torn = False
+        if os.path.exists(self.path):
+            with open(self.path, "rb") as f:
+                buf = f.read()
+            if buf:
+                self.bitmap, ops_at = deserialize(buf)
+                self.op_n, ops_end = replay_ops(self.bitmap, buf, ops_at)
+                torn = ops_end < len(buf)
+        else:
+            with open(self.path, "wb") as f:
+                f.write(serialize(self.bitmap))
+                f.flush()
+                os.fsync(f.fileno())
+            fsync_dir(os.path.dirname(self.path))
+        self._file = open(self.path, "ab")
+        self._open = True
+        if torn or self.op_n > self.snapshot_threshold:
+            # a torn tail left by a crash mid-append must go before any
+            # new record is appended behind it, or replay would stop at
+            # the tear and drop every acknowledged write after it
+            self.snapshot()
+        return self
+
+    def close(self) -> None:
+        with self.lock:
+            if not self._open:
+                return
+            if self._file is not None:
+                self._file.close()
+                self._file = None
+            if self.cache is not None:
+                self.cache.invalidate_fragment(self.frag_id)
+            self._open = False
+
+    # ----------------------------------------------------------------- reads
+
+    def row_words(self, row: int) -> np.ndarray:
+        """Dense uint32[32768] for one row (host side)."""
+        base = row << 20
+        return self.bitmap.dense_range_words32(base, base + SHARD_WIDTH)
+
+    def count_row(self, row: int) -> int:
+        base = row << 20
+        return self.bitmap.count_range(base, base + SHARD_WIDTH)
+
+    def contains(self, row: int, pos: int) -> bool:
+        return (row << 20) + pos in self.bitmap
+
+    # ---------------------------------------------------------------- writes
+
+    def set_bit(self, row: int, pos: int) -> bool:
+        self._check_pos(pos)
+        with self.lock:
+            changed = self.bitmap.add_ids([(row << 20) + pos]) > 0
+            if changed:
+                self._log_op(OP_ADD, [(row << 20) + pos])
+                self._after_row_write(row, [pos], added=True)
+            return changed
+
+    def clear_bit(self, row: int, pos: int) -> bool:
+        self._check_pos(pos)
+        with self.lock:
+            changed = self.bitmap.remove_ids([(row << 20) + pos]) > 0
+            if changed:
+                self._log_op(OP_REMOVE, [(row << 20) + pos])
+                self._after_row_write(row, [pos], added=False)
+            return changed
+
+    def bulk_import(self, rows, positions) -> int:
+        """Batched import of (row, position) pairs (reference
+        fragment.bulkImport). Returns #bits changed."""
+        rows = np.asarray(rows, dtype=np.uint64)
+        positions = np.asarray(positions, dtype=np.uint64)
+        if rows.shape != positions.shape:
+            raise ValueError("rows and positions must have identical shape")
+        if positions.size and positions.max() >= SHARD_WIDTH:
+            raise ValueError("position out of shard range")
+        ids = (rows << np.uint64(20)) + positions
+        with self.lock:
+            changed = self.bitmap.add_ids(ids)
+            if changed:
+                self._log_op(OP_ADD, ids)
+                for row, p in _group_by_row(rows, positions):
+                    self._after_row_write(row, p, added=True)
+            return changed
+
+    def replace_bitmap(self, bitmap: RoaringBitmap, rows) -> None:
+        """Install a whole new bitmap (bulk dense load) as a fresh
+        snapshot; ``rows`` are the rows whose content changed."""
+        with self.lock:
+            self.bitmap = bitmap
+            self._snapshot_locked()
+            for row in rows:
+                self._after_row_write(int(row), None, added=None)
+
+    # ------------------------------------------------------------ durability
+
+    def _drop_sidecars(self) -> None:
+        if not self._sidecars_dropped:
+            _unlink(self.path + ROW_CACHE_SUFFIX)
+            self._sidecars_dropped = True
+
+    def _log_op(self, op: int, ids) -> None:
+        if self._file is None:
+            raise RuntimeError(f"fragment {self.path} is closed")
+        self._drop_sidecars()
+        self._file.write(encode_op(op, ids))
+        self._file.flush()
+        os.fsync(self._file.fileno())
+        self.op_n += 1
+        if self.op_n > self.snapshot_threshold:
+            self._snapshot_locked()
+
+    def snapshot(self) -> None:
+        """Compact: rewrite the file as a clean snapshot, dropping the log."""
+        with self.lock:
+            self._snapshot_locked()
+
+    def _snapshot_locked(self) -> None:
+        self._drop_sidecars()
+        if self._file is not None:
+            self._file.close()
+            self._file = None
+        tmp = self.path + ".snapshotting"
+        with open(tmp, "wb") as f:
+            f.write(serialize(self.bitmap))
+            f.flush()
+            os.fsync(f.fileno())
+        # the old digests must go before the new snapshot is published
+        _unlink(self.path + CHECKSUM_SUFFIX)
+        os.replace(tmp, self.path)
+        fsync_dir(os.path.dirname(self.path))
+        self.op_n = 0
+        if self._open:
+            self._file = open(self.path, "ab")
+
+    def _after_row_write(self, row: int, positions, added) -> None:
+        if self.cache is not None:
+            self.cache.apply_write(WriteEvent(
+                self.index, self.field, self.view, self.shard, row,
+                positions=positions, added=added, scope=self.scope,
+            ))
+
+    def _check_pos(self, pos: int) -> None:
+        if not 0 <= pos < SHARD_WIDTH:
+            raise ValueError(f"position {pos} outside shard width {SHARD_WIDTH}")

@@ -1,0 +1,147 @@
+"""Index: a named database of fields + existence tracking (reference index.go).
+
+The port's thin copy of ``pilosa_tpu.storage.index``: the same ``.meta``
+file and field layout, and the internal ``_exists`` field recording which
+columns exist (row 0 of its standard view).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+
+import numpy as np
+
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
+from pilosa_tpu_torch.storage.field import Field, FieldOptions, TYPE_SET
+from pilosa_tpu_torch.storage.fragment import fsync_dir
+from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+
+EXISTENCE_FIELD = "_exists"
+
+
+class Index:
+    def __init__(self, path: str, name: str, keys: bool = False,
+                 track_existence: bool = True, cache=None):
+        self.path = path
+        self.name = name
+        # residency scope: unique per holder data dir, so two holders in
+        # one process never share cache keys or write-routing tags
+        self.scope = path
+        self.keys = keys
+        self.track_existence = track_existence
+        self.cache = cache
+        self.fields: dict[str, Field] = {}
+        self._create_lock = threading.Lock()
+        # schema epoch: bumped on field create so cached plans revalidate
+        self.plan_epoch = 0
+        self._shards_memo: tuple[int, list[int]] | None = None
+
+    def open(self) -> "Index":
+        os.makedirs(self.path, exist_ok=True)
+        meta = os.path.join(self.path, ".meta")
+        if os.path.exists(meta):
+            with open(meta) as f:
+                d = json.load(f)
+            self.keys = d.get("keys", False)
+            self.track_existence = d.get("trackExistence", True)
+        else:
+            self._save_meta()
+        for entry in sorted(os.listdir(self.path)):
+            p = os.path.join(self.path, entry)
+            if os.path.isdir(p) and not entry.startswith("."):
+                self.fields[entry] = Field(p, self.name, entry,
+                                           scope=self.scope,
+                                           cache=self.cache).open()
+        if self.track_existence and EXISTENCE_FIELD not in self.fields:
+            self.create_field(EXISTENCE_FIELD,
+                              FieldOptions(type=TYPE_SET, cache_type="none"))
+        return self
+
+    def close(self) -> None:
+        for f in list(self.fields.values()):
+            f.close()
+
+    def _save_meta(self) -> None:
+        meta = os.path.join(self.path, ".meta")
+        with open(meta, "w") as f:
+            json.dump({"keys": self.keys,
+                       "trackExistence": self.track_existence}, f)
+            f.flush()
+            os.fsync(f.fileno())
+        fsync_dir(self.path)
+        fsync_dir(os.path.dirname(self.path) or ".")
+
+    def create_field(self, name: str, options: FieldOptions | None = None
+                     ) -> Field:
+        options = options or FieldOptions()
+        options.check_ported()
+        with self._create_lock:
+            if name in self.fields:
+                raise ValueError(f"field {name!r} already exists")
+            _validate_name(name, allow_internal=name == EXISTENCE_FIELD)
+            field = Field(os.path.join(self.path, name), self.name, name,
+                          options, scope=self.scope, cache=self.cache).open()
+            self.fields[name] = field
+            self.plan_epoch += 1
+            return field
+
+    def field(self, name: str) -> Field | None:
+        return self.fields.get(name)
+
+    def public_fields(self) -> list[Field]:
+        return [f for n, f in sorted(self.fields.items())
+                if not n.startswith("_")]
+
+    def mark_columns_exist(self, columns) -> None:
+        """Set row 0 of the _exists field for every column, one bulk
+        import per shard."""
+        if not self.track_existence:
+            return
+        cols = np.asarray(columns, np.uint64)
+        if cols.size == 0:
+            return
+        view = self.fields[EXISTENCE_FIELD].view(VIEW_STANDARD, create=True)
+        order, bounds, shards_sorted = shard_groups(cols)
+        cols = cols[order]
+        zeros = np.zeros(cols.size, np.uint64)
+        for i in range(bounds.size - 1):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            frag = view.fragment(int(shards_sorted[lo]), create=True)
+            frag.bulk_import(zeros[lo:hi],
+                             cols[lo:hi] & np.uint64(SHARD_WIDTH - 1))
+
+    def available_shards(self) -> list[int]:
+        """Sorted union of every field's shard set, memoized on the total
+        fragment count (the shard set only grows, by fragment creation);
+        the same list object is returned until it changes, which keys
+        the executor's shard-block memo."""
+        n_frags = sum(len(v.fragments) for f in list(self.fields.values())
+                      for v in list(f.views.values()))
+        memo = self._shards_memo
+        if memo is not None and memo[0] == n_frags:
+            return memo[1]
+        shards: set[int] = set()
+        for f in list(self.fields.values()):
+            shards.update(f.available_shards())
+        out = sorted(shards)
+        self._shards_memo = (n_frags, out)
+        return out
+
+    def schema(self) -> dict:
+        return {
+            "name": self.name,
+            "options": {"keys": self.keys,
+                        "trackExistence": self.track_existence},
+            "fields": [{"name": f.name, "options": f.options.to_dict()}
+                       for f in self.public_fields()],
+        }
+
+
+def _validate_name(name: str, allow_internal: bool = False) -> None:
+    ok_first = name[:1].isalpha() or (allow_internal and name[:1] == "_")
+    if not name or len(name) > 230 or not ok_first or not all(
+        c.isalnum() or c in "-_" for c in name
+    ):
+        raise ValueError(f"invalid name {name!r}")

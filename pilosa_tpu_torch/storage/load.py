@@ -1,0 +1,108 @@
+"""Bulk load of dense row words into a holder's fragments.
+
+The counterpart of carrying weights over: the tests fill both packages
+from one numpy seed, and ``chip_smoke.py`` builds a 1B-column data
+directory, without pushing billions of column ids through the op log.
+Each touched fragment is rewritten as one fresh snapshot, in the
+container forms ``Container.from_lows`` would pick, so the files are the
+ones either package writes for the same bits.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from pilosa_tpu_torch.roaring.bitmap import (
+    ARRAY_MAX,
+    BITMAP,
+    Container,
+    RoaringBitmap,
+)
+from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD
+from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+
+CONTAINER_WORDS = 2048  # uint32 words per roaring container
+CONTAINERS_PER_ROW = WORDS_PER_SHARD // CONTAINER_WORDS
+
+
+def canonical_containers(words: np.ndarray) -> list:
+    """uint32[n, 2048] container words → the n containers (None for an
+    empty one) that ``Container.from_lows`` builds for the same bits. The
+    form is decided for all containers at once; only array and run
+    containers, which are small, go through ``from_lows``."""
+    words = np.ascontiguousarray(words, np.uint32)
+    n = np.bitwise_count(words).sum(axis=1, dtype=np.int64)
+    carry = np.zeros_like(words)
+    carry[:, 1:] = words[:, :-1] >> np.uint32(31)
+    starts = words & ~((words << np.uint32(1)) | carry)
+    n_runs = np.bitwise_count(starts).sum(axis=1, dtype=np.int64)
+    is_bitmap = (n > ARRAY_MAX) & (4 * n_runs >= np.minimum(2 * n, 8192))
+    out = []
+    for i in range(words.shape[0]):
+        if n[i] == 0:
+            out.append(None)
+        elif is_bitmap[i]:
+            out.append(Container(BITMAP, words[i].view("<u8").copy(), int(n[i])))
+        else:
+            bits = np.unpackbits(words[i].view(np.uint8), bitorder="little")
+            out.append(Container.from_lows(np.nonzero(bits)[0].astype(np.uint16)))
+    return out
+
+
+def _load_fragment(frag, rows: dict) -> int:
+    """OR ``rows`` ({row: uint32[32768]}) into one fragment as a fresh
+    snapshot; returns the number of bits the fragment gained."""
+    old = frag.bitmap
+    bm = RoaringBitmap()
+    bm._containers = dict(old._containers)
+    before = old.count()
+    for row, words in rows.items():
+        block = np.array(words, np.uint32).reshape(CONTAINERS_PER_ROW,
+                                                   CONTAINER_WORDS)
+        base_key = row << 4
+        for j in range(CONTAINERS_PER_ROW):
+            c = old.container(base_key + j)
+            if c is not None:
+                block[j] |= c.dense_words32()
+        for j, c in enumerate(canonical_containers(block)):
+            if c is None:
+                bm._containers.pop(base_key + j, None)
+            else:
+                bm._containers[base_key + j] = c
+    bm.keys = sorted(bm._containers)
+    frag.replace_bitmap(bm, rows)
+    return bm.count() - before
+
+
+def load_from_dense(holder, fields: dict, *, index: str) -> int:
+    """Set the bits of dense words in ``index`` (created, with its set
+    fields, when missing): ``fields`` is ``{field: {row: words}}`` where
+    ``words`` are uint32, ``n_shards x 32768`` of them, shard-major —
+    bit ``b`` of the flat array is column ``b``. Columns that gain a bit
+    are marked existing, as an import marks them. Returns the number of
+    bits set that were not set before."""
+    idx = holder.index(index) or holder.create_index(index)
+    exists: dict[int, np.ndarray] = {}
+    gained = 0
+    for fname, rows in fields.items():
+        fld = idx.field(fname) or idx.create_field(fname)
+        fld.options.check_ported()
+        view = fld.view(VIEW_STANDARD, create=True)
+        per_shard: dict[int, dict] = {}
+        for row, words in rows.items():
+            if int(row) < 0:
+                raise ValueError(f"row {row} is negative")
+            w = np.asarray(words, np.uint32).reshape(-1, WORDS_PER_SHARD)
+            for shard in np.flatnonzero(w.any(axis=1)).tolist():
+                per_shard.setdefault(shard, {})[int(row)] = w[shard]
+                acc = exists.get(shard)
+                exists[shard] = w[shard] if acc is None else acc | w[shard]
+        for shard, shard_rows in sorted(per_shard.items()):
+            gained += _load_fragment(view.fragment(shard, create=True),
+                                     shard_rows)
+    if idx.track_existence and exists:
+        view = idx.field(EXISTENCE_FIELD).view(VIEW_STANDARD, create=True)
+        for shard, words in sorted(exists.items()):
+            _load_fragment(view.fragment(shard, create=True), {0: words})
+    return gained

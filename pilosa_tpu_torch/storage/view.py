@@ -1,0 +1,61 @@
+"""Views: named fragment groups within a field (reference view.go).
+
+The port's thin copy of ``pilosa_tpu.storage.view``: the same directory
+layout (``views/<name>/fragments/<shard>``). Only the ``standard`` view is
+queried in this slice; other views on disk are opened and left alone.
+"""
+
+from __future__ import annotations
+
+import os
+import threading
+
+from pilosa_tpu_torch.storage.fragment import Fragment
+
+VIEW_STANDARD = "standard"
+
+
+class View:
+    def __init__(self, path: str, index: str, field: str, name: str,
+                 scope: str = "", cache=None):
+        self.path = path  # .../views/<name>
+        self.index = index
+        self.field = field
+        self.name = name
+        self.scope = scope
+        self.cache = cache
+        self.fragments: dict[int, Fragment] = {}
+        # serializes first-write fragment creation: two writers racing an
+        # unlocked check-then-create would get distinct Fragment objects
+        # for one file and one writer's bits would vanish
+        self._create_lock = threading.Lock()
+
+    def _new_fragment(self, shard: int) -> Fragment:
+        return Fragment(os.path.join(self.path, "fragments", str(shard)),
+                        self.index, self.field, self.name, shard,
+                        scope=self.scope, cache=self.cache)
+
+    def open(self) -> "View":
+        frag_dir = os.path.join(self.path, "fragments")
+        os.makedirs(frag_dir, exist_ok=True)
+        for entry in sorted(os.listdir(frag_dir)):
+            if entry.isdigit():
+                self.fragments[int(entry)] = self._new_fragment(int(entry)).open()
+        return self
+
+    def close(self) -> None:
+        for frag in list(self.fragments.values()):
+            frag.close()
+
+    def fragment(self, shard: int, create: bool = False) -> Fragment | None:
+        frag = self.fragments.get(shard)
+        if frag is None and create:
+            with self._create_lock:
+                frag = self.fragments.get(shard)
+                if frag is None:
+                    frag = self._new_fragment(shard).open()
+                    self.fragments[shard] = frag
+        return frag
+
+    def available_shards(self) -> list[int]:
+        return sorted(self.fragments)

@@ -1,0 +1,188 @@
+"""The port's kernel plain versions against the JAX functions they replace.
+
+On the CPU every kernel wrapper runs its plain PyTorch version (a CUDA
+tensor would launch the kernel), so these tests pin the arithmetic the
+CUDA kernels must match: exact integer equality, zero tolerance. Inputs
+are made with numpy from a seed and handed to both packages.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from bench_pallas import pallas_intersect_count
+from pilosa_tpu.executor import batch as jbatch
+from pilosa_tpu_torch import kernels
+from pilosa_tpu_torch.executor import batch, expr
+
+torch.set_num_threads(1)
+
+W = 32768
+
+
+def _t(words: np.ndarray) -> torch.Tensor:
+    """uint32 host words → the port's int32 view (no copy)."""
+    return torch.from_numpy(np.ascontiguousarray(words, np.uint32).view(np.int32))
+
+
+def _u(t: torch.Tensor) -> np.ndarray:
+    return t.numpy().view(np.uint32)
+
+
+def test_popcount32_matches_numpy():
+    rng = np.random.default_rng(0)
+    words = np.concatenate([
+        rng.integers(0, 1 << 32, 4096, dtype=np.uint32),
+        np.array([0, 1, 0x7FFFFFFF, 0x80000000, 0xFFFFFFFF, 0xAAAAAAAA],
+                 np.uint32),
+    ])
+    got = kernels.popcount32(_t(words)).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, np.bitwise_count(words).astype(np.int32))
+
+
+@pytest.mark.parametrize("salt", [0, 7, 0x80000001])
+def test_intersect_count_matches_pallas_interpret(salt):
+    rows, words, bw = 8, 4096, 512
+    fn = pallas_intersect_count(bw, rows=rows, words=words, interpret=True)
+    rng = np.random.default_rng(salt & 0xFF)
+    a = rng.integers(0, 1 << 32, (rows, words), dtype=np.uint32)
+    b = rng.integers(0, 1 << 32, (rows, words), dtype=np.uint32)
+    want = np.asarray(fn(a, b, np.full(1, salt, np.uint32))).ravel()
+    got = kernels.intersect_count(_t(a), _t(b), salt).numpy()
+    assert got.dtype == np.int32
+    assert np.array_equal(got, want)
+
+
+def _random_tree(rng, n_leaves: int, depth: int = 0):
+    """A random and/or/xor/diff tree using every leaf index < n_leaves,
+    with the occasional const0."""
+    if n_leaves == 1 and (depth > 2 or rng.random() < 0.5):
+        return ("const0",) if rng.random() < 0.1 else ("leaf", 0)
+    op = ["and", "or", "xor", "diff"][int(rng.integers(4))]
+    if n_leaves == 1:
+        return (op, ("leaf", 0), ("const0",))
+    split = int(rng.integers(1, n_leaves))
+    left = _random_tree(rng, split, depth + 1)
+    right = _shift_leaves(_random_tree(rng, n_leaves - split, depth + 1),
+                          split)
+    return (op, left, right)
+
+
+def _shift_leaves(node, k):
+    if node[0] == "leaf":
+        return ("leaf", node[1] + k)
+    if node[0] == "const0":
+        return node
+    return (node[0],) + tuple(_shift_leaves(c, k) for c in node[1:])
+
+
+def _stacked(rng, n_shards: int, n: int, density: float = 0.5):
+    """n stacked leaves uint32[next_pow2(n_shards), W], zero padding."""
+    padded = 1 << (n_shards - 1).bit_length() if n_shards > 1 else 1
+    out = []
+    for _ in range(n):
+        leaf = np.zeros((padded, W), np.uint32)
+        bits = rng.random((n_shards, W * 32)) < density
+        leaf[:n_shards] = np.packbits(bits, axis=1,
+                                      bitorder="little").view("<u4")
+        out.append(leaf)
+    return out
+
+
+@pytest.mark.parametrize("seed,n_leaves,n_shards", [
+    (1, 1, 1), (2, 2, 3), (3, 3, 2), (4, 4, 3), (5, 2, 5), (6, 3, 1),
+])
+def test_count_and_row_match_local_fn(seed, n_leaves, n_shards):
+    rng = np.random.default_rng(seed)
+    tree = _random_tree(rng, n_leaves)
+    leaves = _stacked(rng, n_shards, n_leaves, density=float(rng.random()))
+    ranks = (1,) * n_leaves
+    tl = [_t(x) for x in leaves]
+
+    want_count = np.asarray(jbatch.local_fn(("count", tree), "count", ranks,
+                                            0)(*leaves))
+    got_count = batch.local_fn(("count", tree), "count", ranks)(*tl)
+    assert got_count.dtype == torch.int32
+    assert np.array_equal(got_count.numpy(), want_count)
+
+    want_rows = np.asarray(jbatch.local_fn(tree, "row", ranks, 0)(*leaves))
+    got_rows = batch.local_fn(tree, "row", ranks)(*tl)
+    assert np.array_equal(_u(got_rows), want_rows)
+    # the plain recursive evaluator agrees with the compiled program
+    assert np.array_equal(_u(expr.evaluate(tree, tl)), want_rows)
+
+
+def test_micro_batch_matches_local_fn_batched():
+    rng = np.random.default_rng(11)
+    tree = ("diff", ("or", ("leaf", 0), ("leaf", 1)), ("leaf", 2))
+    structure = ("count", tree)
+    n_q, ranks = 3, (1, 1, 1)
+    leaves = _stacked(rng, 3, 3 * n_q, density=0.3)
+    want = np.asarray(jbatch.local_fn_batched(structure, "count", ranks, 0,
+                                              n_q)(*leaves))
+    got = batch.local_fn_batched(structure, "count", ranks,
+                                 n_q)(*[_t(x) for x in leaves])
+    assert want.shape == (n_q, 2)
+    assert np.array_equal(got.numpy(), want)
+
+
+def test_const0_only_count_is_zero():
+    leaves = [np.zeros((4, W), np.uint32)]
+    structure = ("count", ("or", ("const0",), ("const0",)))
+    want = np.asarray(jbatch.local_fn(structure, "count", (1,), 0)(*leaves))
+    got = batch.local_fn(structure, "count", (1,))(*[_t(x) for x in leaves])
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("clear", [False, True])
+def test_word_patch_matches_delta_with_bit31_and_pads(clear):
+    rng = np.random.default_rng(21)
+    arr = rng.integers(0, 1 << 32, (4, W), dtype=np.uint32)
+    positions = rng.choice(W * 32, 300, replace=False).astype(np.uint32)
+    # bit 31 of every touched word: a mask that is negative as int32
+    positions = np.union1d(positions, (positions & ~np.uint32(31)) | 31)
+    jw, jm = jbatch._word_masks(positions)  # padded to a power of two
+    n_real = np.unique(positions >> 5).size
+    assert jw.size > n_real and (jm[:n_real] >> 31).all()
+    fn = jbatch._andnot_delta if clear else jbatch._or_delta
+    want = np.asarray(fn(arr, 2, jw, jm))
+
+    leaf = _t(arr.copy())
+    kernels.word_patch(leaf, 2, jw, jm, n_real, clear)  # pads past n_real
+    assert np.array_equal(_u(leaf), want)
+
+    # the port's own masks are the reference's without the padding
+    pw, pm = batch._word_masks(positions)
+    assert np.array_equal(pw, jw[:n_real]) and np.array_equal(pm, jm[:n_real])
+    leaf = _t(arr.copy())
+    kernels.word_patch(leaf, 2, pw, pm, pw.size, clear)
+    assert np.array_equal(_u(leaf), want)
+
+
+def test_word_patch_rejects_bad_input():
+    leaf = torch.zeros((2, W), dtype=torch.int32)
+    with pytest.raises(IndexError):
+        kernels.word_patch(leaf, 2, np.array([0]), np.array([1]), 1, False)
+    with pytest.raises(IndexError):
+        kernels.word_patch(leaf, 0, np.array([W]), np.array([1]), 1, False)
+    with pytest.raises(ValueError):
+        kernels.word_patch(leaf, 0, np.array([3, 3]), np.array([1, 2]), 2,
+                           False)
+    with pytest.raises(TypeError):
+        kernels.word_patch(leaf.to(torch.int64), 0, np.array([0]),
+                           np.array([1]), 1, False)
+
+
+def test_program_checks():
+    with pytest.raises(ValueError):
+        kernels.check_program((kernels.OP_AND,), 1)  # stack underflow
+    with pytest.raises(ValueError):
+        kernels.check_program((kernels.OP_LEAF | (3 << 8),), 2)  # leaf 3 of 2
+    with pytest.raises(ValueError):
+        kernels.check_program((kernels.OP_LEAF, kernels.OP_LEAF), 1)  # 2 left
+    deep = ("leaf", 0)
+    for i in range(1, 17):
+        deep = ("or", ("leaf", i), deep)  # right-deep: stack of 17
+    with pytest.raises(ValueError):
+        expr.compile_program(deep)

@@ -1,0 +1,216 @@
+"""Data directories shared by pilosa_tpu and the port: each opens the other's.
+
+The reference holder is closed before the port opens its directory: in
+its default group-commit mode the ops live in WAL segments until a clean
+close snapshots every fragment, so the port needs no WAL replay.
+"""
+
+import os
+import shutil
+
+import numpy as np
+import pytest
+import torch
+
+import pilosa_tpu.storage as jstorage
+from pilosa_tpu_torch.storage import Holder, load_from_dense
+
+torch.set_num_threads(1)
+
+W = 32768
+SHARDS = 3
+
+
+def _seed_rows(seed: int, rows=(1, 2, 7), density=0.02) -> dict:
+    rng = np.random.default_rng(seed)
+    out = {}
+    for r in rows:
+        bits = rng.random(SHARDS * W * 32) < density
+        out[r] = np.packbits(bits, bitorder="little").view("<u4")
+    return out
+
+
+def _columns(words: np.ndarray) -> np.ndarray:
+    bits = np.unpackbits(words.view(np.uint8), bitorder="little")
+    return np.flatnonzero(bits).astype(np.uint64)
+
+
+def _rows_of(field, rows) -> dict:
+    """{row: uint32[SHARDS * W]} read through either package's fragments."""
+    view = field.view("standard")
+    out = {}
+    for r in rows:
+        parts = []
+        for s in range(SHARDS):
+            frag = view.fragment(s) if view else None
+            parts.append(frag.row_words(r) if frag is not None
+                         else np.zeros(W, np.uint32))
+        out[r] = np.concatenate(parts)
+    return out
+
+
+def _jax_fill(path, fields: dict) -> None:
+    """Write the seed through the reference's own import path."""
+    h = jstorage.Holder(str(path)).open()
+    idx = h.create_index("i")
+    for fname, rows in fields.items():
+        fld = idx.create_field(fname)
+        view = fld.view("standard", create=True)
+        for r, words in rows.items():
+            cols = _columns(words)
+            for s in range(SHARDS):
+                sel = (cols >> np.uint64(20)) == s
+                if sel.any():
+                    view.fragment(s, create=True).bulk_import(
+                        np.full(int(sel.sum()), r, np.uint64),
+                        cols[sel] & np.uint64(W * 32 - 1))
+    h.close()
+
+
+def test_reference_dir_opens_in_port(tmp_path):
+    fields = {"f": _seed_rows(1), "g": _seed_rows(2, rows=(7,))}
+    _jax_fill(tmp_path / "jax", fields)
+    # single-bit writes too, so the files carry an op history
+    h = jstorage.Holder(str(tmp_path / "jax")).open()
+    f = h.index("i").field("f")
+    f.set_bit(1, 5)
+    f.clear_bit(2, int(_columns(fields["f"][2])[0]))
+    want = _rows_of(f, (1, 2, 7))
+    h.close()
+
+    p = Holder(str(tmp_path / "jax"), device="cpu").open()
+    try:
+        got = _rows_of(p.index("i").field("f"), (1, 2, 7))
+        for r in want:
+            assert np.array_equal(got[r], want[r]), r
+        assert np.array_equal(_rows_of(p.index("i").field("g"), (7,))[7],
+                              fields["g"][7])
+        assert p.index("i").track_existence
+        assert "_exists" in p.index("i").fields
+    finally:
+        p.close()
+
+
+def test_port_writes_survive_close_and_reopen(tmp_path):
+    rows = _seed_rows(3)
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    fld = h.index("i").field("f")
+    fld.set_bit(1, 2 * W * 32 + 77)
+    cleared = int(_columns(rows[2])[3])
+    assert fld.clear_bit(2, cleared)
+    assert not fld.clear_bit(2, cleared)  # already clear: no op
+    want = _rows_of(fld, (1, 2, 7))
+    h.close()
+
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    try:
+        got = _rows_of(h.index("i").field("f"), (1, 2, 7))
+        for r in want:
+            assert np.array_equal(got[r], want[r]), r
+        assert not h.index("i").field("f").view("standard").fragment(
+            cleared >> 20).contains(2, cleared & (W * 32 - 1))
+    finally:
+        h.close()
+
+
+def test_reference_reads_port_files(tmp_path):
+    rows = _seed_rows(4)
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    fld = h.index("i").field("f")
+    fld.set_bit(7, 123)
+    fld.clear_bit(1, int(_columns(rows[1])[0]))
+    want = _rows_of(fld, (1, 2, 7))
+    exists = h.index("i").field("_exists").view("standard").fragment(0) \
+        .count_row(0)
+    h.close()
+
+    j = jstorage.Holder(str(tmp_path / "d")).open()  # verify-on-load default
+    try:
+        got = _rows_of(j.index("i").field("f"), (1, 2, 7))
+        for r in want:
+            assert np.array_equal(got[r], want[r]), r
+        assert j.index("i").field("_exists").view("standard").fragment(0) \
+            .count_row(0) == exists
+    finally:
+        j.close()
+
+
+def test_port_rewrite_drops_stale_reference_sidecars(tmp_path):
+    """A reference-written fragment carries digest and row-count
+    sidecars; after the port rewrites its snapshot, the reference must
+    still open it (no quarantine) and see the new bits."""
+    fields = {"f": _seed_rows(5)}
+    _jax_fill(tmp_path / "d", fields)
+    frag_path = tmp_path / "d" / "i" / "f" / "views" / "standard" / \
+        "fragments" / "0"
+    assert os.path.exists(str(frag_path) + ".checksums")
+    extra = {9: _seed_rows(6, rows=(9,))[9]}
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": extra}, index="i")
+    h.index("i").field("f").set_bit(1, 99)
+    want = _rows_of(h.index("i").field("f"), (1, 2, 7, 9))
+    h.close()
+
+    j = jstorage.Holder(str(tmp_path / "d")).open()
+    try:
+        got = _rows_of(j.index("i").field("f"), (1, 2, 7, 9))
+        for r in want:
+            assert np.array_equal(got[r], want[r]), r
+        assert not any(".quarantine-" in n
+                       for n in os.listdir(frag_path.parent))
+    finally:
+        j.close()
+
+
+@pytest.mark.parametrize("density", [0.0003, 0.02, 0.6])
+def test_dense_load_writes_the_reference_bytes(tmp_path, density):
+    """One numpy seed through both packages' fill paths gives byte-equal
+    fragment files: the loader picks the reference's container forms."""
+    fields = {"f": _seed_rows(7, density=density)}
+    _jax_fill(tmp_path / "jax", fields)
+    h = Holder(str(tmp_path / "port"), device="cpu").open()
+    load_from_dense(h, fields, index="i")
+    h.close()
+    rel = os.path.join("i", "f", "views", "standard", "fragments")
+    for s in range(SHARDS):
+        with open(tmp_path / "jax" / rel / str(s), "rb") as a, \
+                open(tmp_path / "port" / rel / str(s), "rb") as b:
+            assert a.read() == b.read(), s
+
+
+def test_port_refuses_unreplayed_wal(tmp_path):
+    d = tmp_path / "d"
+    (d / ".wal").mkdir(parents=True)
+    (d / ".wal" / "seg-0").write_bytes(b"\x01")
+    with pytest.raises(RuntimeError, match="write-ahead-log"):
+        Holder(str(d), device="cpu").open()
+    shutil.rmtree(d / ".wal")
+    Holder(str(d), device="cpu").open().close()
+
+
+def test_write_after_torn_tail_survives_reopen(tmp_path):
+    """A crash mid-append leaves a torn op record; the next open must
+    drop it before appending, or replay would stop at the tear and lose
+    every acknowledged write behind it."""
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    fld = h.create_index("i").create_field("f")
+    fld.set_bit(1, 10)
+    path = fld.view("standard").fragment(0).path
+    h.close()
+    with open(path, "ab") as f:
+        f.write(b"\x50\x4f\x01\x00\x05")  # a record header cut short
+
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    fld = h.index("i").field("f")
+    assert fld.set_bit(1, 20)
+    h.close()
+    for holder in (Holder(str(tmp_path / "d"), device="cpu"),
+                   jstorage.Holder(str(tmp_path / "d"))):
+        holder.open()
+        try:
+            frag = holder.index("i").field("f").view("standard").fragment(0)
+            assert frag.contains(1, 10) and frag.contains(1, 20)
+        finally:
+            holder.close()
