@@ -1,5 +1,5 @@
 // Postfix bitwise-program interpreter shared by tree_count.cu (K1) and
-// tree_rows.cu (K2).
+// tree_rows.cu (K2), and used by no other kernel.
 //
 // A query's bitmap tree (executor/expr.py) compiles to a short postfix
 // program over up to MAX_LEAVES leaves. Each instruction is one int:
@@ -11,8 +11,7 @@
 // as int32.
 #pragma once
 
-#include <cstdint>
-#include <cuda_runtime.h>
+#include "words.cuh"
 
 namespace pilosa {
 
@@ -30,6 +29,7 @@ enum Op : int {
   OP_XOR = 5,   // a ^ b
   OP_DIFF = 6,  // a & ~b
   OP_SALT = 7,  // top ^= salt of the query
+  OP_NOT = 8,   // top = ~top
 };
 
 struct TreeParams {
@@ -44,45 +44,14 @@ struct TreeParams {
   long long tiles_per_row;
 };
 
-__device__ __forceinline__ uint32_t splat(uint32_t s, uint32_t) { return s; }
-__device__ __forceinline__ uint4 splat(uint32_t s, uint4) {
-  return make_uint4(s, s, s, s);
-}
-
-__device__ __forceinline__ uint32_t load_word(const uint32_t* p, long long w,
-                                              uint32_t) {
-  return __ldg(p + w);
-}
-__device__ __forceinline__ uint4 load_word(const uint32_t* p, long long w,
-                                           uint4) {
-  return __ldg(reinterpret_cast<const uint4*>(p + w));
-}
-
-__device__ __forceinline__ uint32_t apply(int op, uint32_t a, uint32_t b) {
+template <typename T>
+__device__ __forceinline__ T apply(int op, T a, T b) {
   switch (op) {
     case OP_AND: return a & b;
     case OP_OR: return a | b;
     case OP_XOR: return a ^ b;
     default: return a & ~b;  // OP_DIFF
   }
-}
-__device__ __forceinline__ uint4 apply(int op, uint4 a, uint4 b) {
-  return make_uint4(apply(op, a.x, b.x), apply(op, a.y, b.y),
-                    apply(op, a.z, b.z), apply(op, a.w, b.w));
-}
-
-__device__ __forceinline__ int popc(uint32_t v) { return __popc(v); }
-__device__ __forceinline__ int popc(uint4 v) {
-  return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);
-}
-
-__device__ __forceinline__ void store_word(uint32_t* p, long long w,
-                                           uint32_t v) {
-  p[w] = v;
-}
-__device__ __forceinline__ void store_word(uint32_t* p, long long w,
-                                           uint4 v) {
-  *reinterpret_cast<uint4*>(p + w) = v;
 }
 
 // Evaluates query q's program at word offset w (T = one word or four).
@@ -99,7 +68,9 @@ __device__ __forceinline__ T eval_program(const TreeParams& p, int q,
     } else if (op == OP_ZERO) {
       st[sp++] = splat(0u, T());
     } else if (op == OP_SALT) {
-      st[sp - 1] = apply(OP_XOR, st[sp - 1], splat(p.salt[q], T()));
+      st[sp - 1] = st[sp - 1] ^ splat(p.salt[q], T());
+    } else if (op == OP_NOT) {
+      st[sp - 1] = ~st[sp - 1];
     } else {
       --sp;
       st[sp - 1] = apply(op, st[sp - 1], st[sp]);
@@ -124,7 +95,7 @@ inline bool valid_program(const int* code, int n_ops, int n_leaves) {
       if (arg < 0 || arg >= n_leaves || ++sp > MAX_STACK) return false;
     } else if (op == OP_ZERO) {
       if (++sp > MAX_STACK) return false;
-    } else if (op == OP_SALT) {
+    } else if (op == OP_SALT || op == OP_NOT) {
       if (sp < 1) return false;
     } else if (op >= OP_AND && op <= OP_DIFF) {
       if (--sp < 1) return false;

@@ -1,16 +1,24 @@
-"""Batched shard evaluation: one kernel launch, one readback per query.
+"""Batched shard evaluation: few kernel launches, one readback per query.
 
-The port's copy of ``pilosa_tpu.executor.batch`` for the slice's two
-reduce kinds. A query's leaves are stacked ``int32[S_padded, 32768]``
-tensors (one slot per shard, the shard count padded to a power of two
-with zero slots, as in the reference, so packed results compare equal),
-built once per (query leaf, shard set) and kept resident by the holder's
-``DeviceRowCache``. Writes patch resident leaves in place (K3) instead of
+The port's copy of ``pilosa_tpu.executor.batch``. A query's leaves are
+stacked ``int32[S_padded, 32768]`` row tensors or ``int32[S_padded, 2 +
+depth, 32768]`` BSI plane tensors (one slot per shard, the shard count
+padded to a power of two with zero slots, as in the reference, so packed
+results compare equal), built once per (query leaf, shard set) and kept
+resident by the holder's ``DeviceRowCache``. Writes patch resident
+leaves in place (K3, on a plane leaf through its row form) instead of
 evicting them.
 
+A structure's shift and bsicmp nodes run first, each through its own
+kernel (K4, K5) into a temporary row (``materialize``, see
+``expr.plan``); the elementwise rest goes to K1 (counts) or K2 (rows).
+
 Reduce kinds and their packed results (int32):
-  'count' → [2]: split-sum scalar; the micro-batched form is [B, 2]
-  'row'   → [S_padded, words] (the only multi-row readback)
+  'count'     → [2]: split-sum scalar; the micro-batched form is [B, 2]
+  'bsisum'    → [2, depth + 1]: per-plane popcount split sums ++ [n]
+  'min'/'max' → [3]: [offset-encoded extremum, count_lo, count_hi]
+                (count 0 → empty)
+  'row'       → [S_padded, words] (the only multi-row readback)
 
 Split sums: partial popcounts are int32 and a per-shard popcount can
 reach 2^20, so every cross-row sum is carried in two int32 channels — lo
@@ -30,6 +38,8 @@ from pilosa_tpu_torch.storage.residency import upload
 
 SPLIT_SHIFT = 15
 SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
+INT32_MIN = -(1 << 31)
+INT32_MAX = (1 << 31) - 1
 
 # Row width of the count reduction: per-row partials of 2^18 words stay
 # <= 2^23 and fit int32. Divides every stacked block of 8+ slots
@@ -38,12 +48,13 @@ SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
 COUNT_CHUNK_WORDS = 1 << 18
 
 
-def split_sum(x: torch.Tensor) -> torch.Tensor:
-    """Sum int32 partials over the last axis in two overflow-safe int32
-    channels: [..., n] → [..., 2] (lo-bit sums, hi-bit sums)."""
-    lo = (x & SPLIT_MASK).sum(dim=-1, dtype=torch.int32)
-    hi = (x >> SPLIT_SHIFT).sum(dim=-1, dtype=torch.int32)
-    return torch.stack([lo, hi], dim=-1)
+def split_sum(x: torch.Tensor, dim: int = -1) -> torch.Tensor:
+    """Sum int32 partials over ``dim`` in two overflow-safe int32
+    channels, stacked on that axis: [..., n] → [..., 2] (lo-bit sums,
+    hi-bit sums); ``dim=0`` gives the reference's [2, ...] layout."""
+    lo = (x & SPLIT_MASK).sum(dim=dim, dtype=torch.int32)
+    hi = (x >> SPLIT_SHIFT).sum(dim=dim, dtype=torch.int32)
+    return torch.stack([lo, hi], dim=dim)
 
 
 def merge_split(packed: np.ndarray) -> np.ndarray:
@@ -87,6 +98,18 @@ def host_row(idx, spec, shard: int) -> np.ndarray:
     return acc if acc is not None else np.zeros(WORDS_PER_SHARD, np.uint32)
 
 
+def host_planes(idx, spec, shard: int, depth: int) -> np.ndarray:
+    """uint32[depth, words] BSI plane matrix for one shard (host side);
+    ``depth`` counts the exists and sign rows. A field deleted or a view
+    missing reads zeros."""
+    field = idx.field(spec.field)
+    view = field.view(field.bsi_view_name()) if field is not None else None
+    frag = view.fragment(shard) if view else None
+    if frag is None:
+        return np.zeros((depth, WORDS_PER_SHARD), np.uint32)
+    return np.stack([frag.row_words(r) for r in range(depth)])
+
+
 # ------------------------------------------------------ cached stacked leaves
 
 
@@ -102,28 +125,32 @@ def _word_masks(positions) -> tuple[np.ndarray, np.ndarray]:
     return uw, masks
 
 
-def _make_probe(block: ShardBlock, match, decode_row, delta_on_clear: bool):
+def _make_probe(block: ShardBlock, match, row_pos_of, decode_row,
+                delta_on_clear: bool):
     """Write-routing probe for a stacked leaf: None when the event does
     not touch the leaf, else ``apply(arr)`` patching the shard's slot in
     place — the exact word delta (K3) when the event carries positions,
-    a fresh host decode of the row otherwise. ``delta_on_clear``: clears
-    may delta-patch (single-view leaves only: with several OR'd views a
-    cleared bit may survive in another view)."""
+    a fresh host decode of the row otherwise. ``row_pos_of(ev)``: the
+    inner row of an ``[S, R, W]`` leaf (None for ``[S, W]`` leaves).
+    ``delta_on_clear``: clears may delta-patch (single-view leaves only:
+    with several OR'd views a cleared bit may survive in another view)."""
     slot_of = {s: i for i, s in enumerate(block.shards)}
 
     def probe(ev):
         slot = slot_of.get(ev.shard)
         if slot is None or not match(ev):
             return None
+        row = row_pos_of(ev) if row_pos_of is not None else None
         if ev.positions is not None and (
                 ev.added or (ev.added is False and delta_on_clear)):
             word_idx, masks = _word_masks(ev.positions)
             clear = not ev.added
             return lambda arr: kernels.word_patch(arr, slot, word_idx, masks,
-                                                  word_idx.size, clear)
+                                                  word_idx.size, clear, row)
 
         def set_row(arr):
-            arr[slot].copy_(upload(decode_row(ev), arr.device))
+            target = arr[slot] if row is None else arr[slot, row]
+            target.copy_(upload(decode_row(ev), arr.device))
 
         return set_row
 
@@ -134,6 +161,7 @@ def leaf_key(idx, spec, block: ShardBlock) -> tuple:
     """Residency key of a compiled spec's stacked leaf."""
     from pilosa_tpu_torch.executor.executor import (
         PQLError,
+        _PlanesSpec,
         _RowSpec,
         _ZeroSpec,
     )
@@ -141,6 +169,9 @@ def leaf_key(idx, spec, block: ShardBlock) -> tuple:
     if isinstance(spec, _RowSpec):
         return ("stack", idx.scope, idx.name, spec.field, spec.views,
                 spec.row, block.key())
+    if isinstance(spec, _PlanesSpec):
+        return ("stackp", idx.scope, idx.name, spec.field, 2 + spec.depth,
+                block.key())
     if isinstance(spec, _ZeroSpec):
         return ("stackz", block.key())
     raise PQLError(f"unknown leaf spec {type(spec).__name__}")
@@ -148,27 +179,61 @@ def leaf_key(idx, spec, block: ShardBlock) -> tuple:
 
 def stacked_leaf(idx, spec, block: ShardBlock, cache) -> torch.Tensor:
     """Device-resident stacked leaf for a compiled spec, via ``cache``."""
-    from pilosa_tpu_torch.executor.executor import PQLError, _RowSpec, _ZeroSpec
+    from pilosa_tpu_torch.executor.executor import (
+        PQLError,
+        _PlanesSpec,
+        _RowSpec,
+        _ZeroSpec,
+    )
+    from pilosa_tpu_torch.storage.view import view_name_bsi
 
     key = leaf_key(idx, spec, block)
     if isinstance(spec, _ZeroSpec):
         return cache.get_row(
             key, lambda: np.zeros((block.padded, WORDS_PER_SHARD), np.uint32))
-    if not isinstance(spec, _RowSpec):
+    if isinstance(spec, _RowSpec):
+        def decode():
+            return block.stack(lambda shard: host_row(idx, spec, shard),
+                               inner=(WORDS_PER_SHARD,))
+
+        def probe():
+            views = frozenset(spec.views)
+            return _make_probe(
+                block,
+                match=lambda ev: ev.row == spec.row and ev.view in views,
+                row_pos_of=None,
+                decode_row=lambda ev: host_row(idx, spec, ev.shard),
+                delta_on_clear=len(spec.views) == 1,
+            )
+    elif isinstance(spec, _PlanesSpec):
+        # compile-time depth and a name-derived view: a delete_field racing
+        # the query reads zeros of the planned shape
+        depth = 2 + spec.depth
+        bsi_view = view_name_bsi(spec.field)
+
+        def decode():
+            return block.stack(
+                lambda shard: host_planes(idx, spec, shard, depth),
+                inner=(depth, WORDS_PER_SHARD))
+
+        def decode_row(ev):
+            field = idx.field(spec.field)
+            view = field.view(bsi_view) if field is not None else None
+            frag = view.fragment(ev.shard) if view else None
+            if frag is None:
+                return np.zeros(WORDS_PER_SHARD, np.uint32)
+            return frag.row_words(ev.row)
+
+        def probe():
+            return _make_probe(
+                block,
+                match=lambda ev: ev.view == bsi_view and ev.row < depth,
+                row_pos_of=lambda ev: ev.row,
+                decode_row=decode_row,
+                delta_on_clear=True,
+            )
+    else:
         raise PQLError(f"unknown leaf spec {type(spec).__name__}")
-
-    def decode():
-        return block.stack(lambda shard: host_row(idx, spec, shard),
-                           inner=(WORDS_PER_SHARD,))
-
-    def probe():
-        views = frozenset(spec.views)
-        return _make_probe(
-            block,
-            match=lambda ev: ev.row == spec.row and ev.view in views,
-            decode_row=lambda ev: host_row(idx, spec, ev.shard),
-            delta_on_clear=len(spec.views) == 1,
-        )
 
     return cache.get_or_build(key, (idx.scope, idx.name, spec.field),
                               probe, decode)
@@ -225,22 +290,11 @@ def _check_kind(structure, reduce_kind: str, leaf_ranks: tuple) -> tuple:
     return expr.compile_program(structure)
 
 
-def local_fn(structure, reduce_kind: str, leaf_ranks: tuple):
-    """The single-query evaluator for a query shape, called as
-    ``fn(*leaves)`` with stacked leaves: 'count' → int32[2] split sums
-    (K1), 'row' → int32[S_padded, words] (K2). The reference's
-    ``local_fn`` contract without scalar operands (no shift yet)."""
-    program = _check_kind(structure, reduce_kind, leaf_ranks)
-    if reduce_kind == "count":
-        return lambda *leaves: count_flat(program, list(leaves))
-    return lambda *leaves: kernels.tree_rows(program, list(leaves))
-
-
 def local_fn_batched(structure, reduce_kind: str, leaf_ranks: tuple,
                      n_queries: int):
-    """ONE launch evaluating ``n_queries`` same-shape count queries (the
-    micro-batch): args are the queries' leaves back to back; returns
-    int32[n_queries, 2]."""
+    """ONE launch evaluating ``n_queries`` same-shape elementwise count
+    queries (the micro-batch): args are the queries' leaves back to back;
+    returns int32[n_queries, 2]."""
     if reduce_kind != "count":
         raise ValueError("only count queries are micro-batched")
     program = _check_kind(structure, reduce_kind, leaf_ranks)
@@ -250,5 +304,131 @@ def local_fn_batched(structure, reduce_kind: str, leaf_ranks: tuple,
         batch = [list(args[i * n_leaves:(i + 1) * n_leaves])
                  for i in range(n_queries)]
         return count_flat_batched(program, batch)
+
+    return fn
+
+
+# ---------------------------------------------------------- planned dispatch
+
+
+def row_expr(sub, tensors: list, zeros) -> torch.Tensor:
+    """The words of a ``(node, operands)`` row expression over its
+    resolved operand tensors: the operand itself when the node is a bare
+    leaf (read-only uses), else K2 (``zeros()`` stands in for an
+    operand-free node)."""
+    node, _ = sub
+    if node == ("leaf", 0) and len(tensors) == 1:
+        return tensors[0]
+    return kernels.tree_rows(expr.compile_program(node), tensors or [zeros()])
+
+
+def materialize(plan: expr.Plan, leaves: list, scalars, zeros):
+    """Run a plan's steps, innermost first, each through its own kernel
+    (K4 shift, K5 bsicmp) into a temporary [S, W] row. Returns
+    ``resolve(operands) -> tensors`` over the stacked leaves and those
+    temporaries. Every launch is queued on the stream now, so the
+    temporaries see the leaves as they are at submit."""
+    temps: list = []
+
+    def resolve(operands) -> list:
+        return [leaves[i] if kind == "spec" else temps[i]
+                for kind, i in operands]
+
+    for step in plan.steps:
+        if step[0] == "shift":
+            _, sub, j = step
+            temps.append(kernels.row_shift(
+                row_expr(sub, resolve(sub[1]), zeros), int(scalars[j])))
+        else:
+            _, op, planes_i, sub, j = step
+            temps.append(kernels.bsi_compare(
+                leaves[planes_i], row_expr(sub, resolve(sub[1]), zeros), op,
+                int(scalars[j])))
+    return resolve
+
+
+def bsi_sum_packed(planes: torch.Tensor, filt) -> torch.Tensor:
+    """K6's per-shard counts split-summed over shards on the device: the
+    reference's packed int32[2, depth + 1] (plane counts ++ n)."""
+    return split_sum(kernels.bsi_sum(planes, filt), dim=0)
+
+
+def minmax_mask(values, counts, want_max: bool):
+    """Per-shard masking for the Min/Max merge: shards with no candidates
+    (count 0 — padded slots included) get the opposite-extreme sentinel so
+    they lose every comparison. Returns (masked, valid)."""
+    valid = counts > 0
+    sentinel = INT32_MIN if want_max else INT32_MAX
+    return torch.where(valid, values, sentinel), valid
+
+
+def minmax_at_best(values, counts, valid, best):
+    """Split-sum count of the candidates holding the extremum."""
+    return split_sum(torch.where(valid & (values == best), counts, 0))
+
+
+def minmax_finalize(best, n, any_valid):
+    """Pack [best, count_lo, count_hi] int32 (count 0 → empty result)."""
+    best = torch.where(any_valid, best, 0)
+    return torch.cat([best.to(torch.int32).reshape(1), n])
+
+
+def minmax_merge(values, counts, want_max: bool) -> torch.Tensor:
+    """Device-side cross-shard Min/Max merge of K7's per-shard pairs: a
+    few tensor ops on [S] values."""
+    masked, valid = minmax_mask(values, counts, want_max)
+    best = masked.max() if want_max else masked.min()
+    n = minmax_at_best(values, counts, valid, best)
+    return minmax_finalize(best, n, valid.any())
+
+
+def run_plan(plan: expr.Plan, reduce_kind: str, leaves: list, scalars,
+             zeros) -> torch.Tensor:
+    """One query of a planned structure, packed as ``reduce_kind`` packs
+    it: steps first, then K1 ('count'), K2 ('row'), K6 ('bsisum') or K7 +
+    merge ('min' / 'max')."""
+    resolve = materialize(plan, leaves, scalars, zeros)
+    if reduce_kind in ("count", "row"):
+        if plan.kind != reduce_kind:
+            raise ValueError(f"a {plan.kind} plan cannot reduce as "
+                             f"{reduce_kind!r}")
+        node, operands = plan.root
+        tensors = resolve(operands) or [zeros()]
+        program = _check_kind(node, reduce_kind, tuple(t.dim() - 1
+                                                       for t in tensors))
+        if reduce_kind == "count":
+            return count_flat(program, tensors)
+        return kernels.tree_rows(program, tensors)
+    want = {"bsisum": "bsisum", "min": "bsiminmax", "max": "bsiminmax"}
+    if want.get(reduce_kind) != plan.kind:
+        raise ValueError(f"reduce kind {reduce_kind!r} does not fit a "
+                         f"{plan.kind} plan")
+    planes = leaves[plan.planes]
+    filt = (row_expr(plan.root, resolve(plan.root[1]), zeros)
+            if plan.root is not None else None)
+    if reduce_kind == "bsisum":
+        return bsi_sum_packed(planes, filt)
+    values, counts = kernels.bsi_minmax(planes, filt, reduce_kind == "max")
+    return minmax_merge(values, counts, reduce_kind == "max")
+
+
+def local_fn(structure, reduce_kind: str, leaf_ranks: tuple,
+             n_scalars: int = 0):
+    """The single-query evaluator for a query shape (the reference's
+    ``local_fn`` contract), called as ``fn(*leaves, *scalars)`` with
+    stacked leaves: 'count' → int32[2] split sums, 'row' →
+    int32[S_padded, words], 'bsisum' → int32[2, depth + 1], 'min'/'max'
+    → int32[3]."""
+    plan = expr.plan(structure)
+    n_leaves = len(leaf_ranks)
+
+    def fn(*args):
+        leaves = list(args[:n_leaves])
+        scalars = [int(x) for x in args[n_leaves:n_leaves + n_scalars]]
+        first = leaves[0]
+        return run_plan(plan, reduce_kind, leaves, scalars,
+                        lambda: torch.zeros((first.shape[0], first.shape[-1]),
+                                            dtype=torch.int32,
+                                            device=first.device))
 
     return fn

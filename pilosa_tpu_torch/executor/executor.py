@@ -1,18 +1,21 @@
 """The query executor: compile, dispatch, micro-batch, reduce.
 
-The port's copy of ``pilosa_tpu.executor.executor`` for this slice:
-Row, Union, Intersect, Difference and Xor over set fields in the
-standard view, Count of any such tree, and the Set/Clear writes. A
-bitmap call compiles to a structure (``expr``) over stacked leaves; a
-Count runs K1 over the leaves and a row call K2, and pipelined Counts of
-one shape share one K1 launch per micro-batch. Other calls, time ranges,
-BSI conditions, Not/All/Shift and keys raise ``PQLError("... not yet
-ported")``.
+The port's copy of ``pilosa_tpu.executor.executor`` for these slices:
+Row, Union, Intersect, Difference, Xor, Not, All, Shift and Range over
+set fields and int (BSI) fields, Count of any such tree, Sum/Min/Max
+with or without a filter, and the Set/Clear writes (int fields
+included). A call compiles to a structure (``expr``) over stacked leaves
+and query-time scalars; shift and BSI-comparison nodes run first, each
+through its own kernel (K4, K5), then a Count runs K1 over the rest and
+a row call K2, and pipelined Counts of one shape share one K1 launch per
+micro-batch; Sum runs K6 and Min/Max K7 (one launch per query). Other
+calls, time ranges and keys raise ``PQLError("... not yet ported")``.
 """
 
 from __future__ import annotations
 
 import collections
+import math
 import threading
 import weakref
 
@@ -21,10 +24,11 @@ import numpy as np
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch import kernels
 from pilosa_tpu_torch.executor import batch, expr
-from pilosa_tpu_torch.executor.result import RowResult
+from pilosa_tpu_torch.executor.result import RowResult, ValCount
 from pilosa_tpu_torch.pql import Call, Condition, parse
 from pilosa_tpu_torch.pql.ast import Query
-from pilosa_tpu_torch.storage.index import Index
+from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_SET
+from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
 
 _RESERVED_ARGS = {"_field", "_col", "from", "to", "n", "limit", "offset",
@@ -32,7 +36,9 @@ _RESERVED_ARGS = {"_field", "_col", "from", "to", "n", "limit", "offset",
                   "excludeColumns", "shards", "aggregate", "columnAttrs",
                   "attrName", "attrValue", "like", "threshold", "having"}
 
-_BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor"}
+_BITMAP_CALLS = {"Row", "Union", "Intersect", "Difference", "Xor", "Not",
+                 "All", "Shift", "Range"}
+_AGGREGATES = ("Sum", "Min", "Max")
 
 
 class PQLError(ValueError):
@@ -50,16 +56,31 @@ class _RowSpec:
         self.row = row
 
 
+class _PlanesSpec:
+    """Device leaf: the stacked BSI plane matrix int32[S, 2+depth, W].
+    ``depth`` is fixed at compile time, so a racing delete_field reads
+    zeros of the planned shape."""
+
+    __slots__ = ("field", "depth")
+
+    def __init__(self, field: str, depth: int):
+        self.field = field
+        self.depth = depth
+
+
 class _ZeroSpec:
     __slots__ = ()
 
 
 class _Compiled:
-    """A bitmap call compiled to (structure, leaf specs)."""
+    """A call compiled to (structure, leaf specs, scalars) and its plan
+    for the card (``expr.plan``)."""
 
-    def __init__(self, node, specs):
+    def __init__(self, node, specs, scalars):
         self.node = node
         self.specs = specs
+        self.scalars = scalars
+        self.plan = None
 
 
 def _node_has_const0(node) -> bool:
@@ -136,6 +157,8 @@ class Executor:
     def _submit_one(self, idx: Index, call: Call, shards=None) -> Deferred:
         if call.name == "Count":
             return self._submit_count(idx, call, shards, pipeline=True)
+        if call.name in _AGGREGATES:
+            return self._submit_bsi_aggregate(idx, call, shards)
         if call.name in _BITMAP_CALLS:
             return self._submit_bitmap(idx, call, shards)
         return Deferred(value=self._execute_call(idx, call, shards))
@@ -148,6 +171,8 @@ class Executor:
             return self._execute_clear(idx, call)
         if name == "Count":
             return self._submit_count(idx, call, shards).result()
+        if name in _AGGREGATES:
+            return self._submit_bsi_aggregate(idx, call, shards).result()
         if name in _BITMAP_CALLS:
             return self._submit_bitmap(idx, call, shards).result()
         raise PQLError(f"call {name!r} is not yet ported")
@@ -177,17 +202,21 @@ class Executor:
     # ------------------------------------------------------ batched mapping
 
     def _eval_operands(self, idx: Index, compiled: _Compiled, block):
+        """The stacked leaf of every compiled spec, resident on the card."""
         cache = self.holder.cache
-        leaves = [batch.stacked_leaf(idx, spec, block, cache)
-                  for spec in compiled.specs]
-        if not leaves:
-            leaves = [batch.stacked_leaf(idx, _ZeroSpec(), block, cache)]
-        return leaves
+        return [batch.stacked_leaf(idx, spec, block, cache)
+                for spec in compiled.specs]
 
-    def _dispatch(self, node, reduce_kind: str, leaves):
-        fn = batch.local_fn(node, reduce_kind,
-                            tuple(l.dim() - 1 for l in leaves))
-        return fn(*leaves)
+    def _zeros(self, idx: Index, block):
+        """A resident all-zero [S, W] leaf for operand-free trees."""
+        return lambda: batch.stacked_leaf(idx, _ZeroSpec(), block,
+                                          self.holder.cache)
+
+    def _run(self, idx: Index, compiled: _Compiled, block, reduce_kind):
+        """One query's kernels, launched now (``batch.run_plan``)."""
+        return batch.run_plan(compiled.plan, reduce_kind,
+                              self._eval_operands(idx, compiled, block),
+                              compiled.scalars, self._zeros(idx, block))
 
     # ------------------------------------------------- query micro-batching
     #
@@ -258,8 +287,7 @@ class Executor:
         if not shard_list:
             return Deferred(value=RowResult({}))
         block = self._shard_block(shard_list)
-        leaves = self._eval_operands(idx, compiled, block)
-        stacked = self._dispatch(compiled.node, "row", leaves)
+        stacked = self._run(idx, compiled, block, "row")
 
         def finish() -> RowResult:
             host = stacked.cpu().numpy().view(np.uint32)
@@ -280,20 +308,92 @@ class Executor:
         if not shard_list:
             return Deferred(value=0)
         block = self._shard_block(shard_list)
-        leaves = self._eval_operands(idx, compiled, block)
-        if pipeline:
-            read = self._microbatch_enqueue(compiled.node, "count", leaves)
-            return Deferred(lambda: int(batch.merge_split(read())))
-        packed = self._dispatch(compiled.node, "count", leaves)
-        return Deferred(lambda: int(batch.merge_split(packed.cpu().numpy())))
+        if not pipeline:
+            packed = self._run(idx, compiled, block, "count")
+            return Deferred(
+                lambda: int(batch.merge_split(packed.cpu().numpy())))
+        # the plan's steps launch now; the elementwise rest joins a
+        # micro-batch of its shape
+        zeros = self._zeros(idx, block)
+        resolve = batch.materialize(compiled.plan,
+                                    self._eval_operands(idx, compiled, block),
+                                    compiled.scalars, zeros)
+        node, operands = compiled.plan.root
+        read = self._microbatch_enqueue(node, "count",
+                                        resolve(operands) or [zeros()])
+        return Deferred(lambda: int(batch.merge_split(read())))
+
+    # ------------------------------------------------------- BSI aggregates
+
+    def _submit_bsi_aggregate(self, idx: Index, call: Call, shards=None
+                              ) -> Deferred:
+        """Sum / Min / Max of an int field, optionally under a filter
+        child: K6 (Sum) or K7 + the cross-shard merge (Min / Max) launch
+        at submit; the packed result is read back at result()."""
+        field_name = call.arg("field") or call.arg("_field")
+        if field_name is None:
+            raise PQLError(f"{call.name} requires field=")
+        field = idx.field(field_name)
+        if field is None or field.options.type != TYPE_INT:
+            raise PQLError(f"{call.name} requires an int field")
+        if (call.name != "Sum" and field.options.bit_depth
+                > kernels.BSI_MINMAX_MAX_DEPTH):
+            raise PQLError(f"{call.name} over more than "
+                           f"{kernels.BSI_MINMAX_MAX_DEPTH} bit planes is "
+                           "not yet ported")
+        filt_call = call.children[0] if call.children else None
+
+        def build() -> _Compiled:
+            specs: list = []
+            scalars: list = []
+            planes_i = self._planes_index(field, specs)
+            filt_node = (self._compile_node(idx, filt_call, specs, scalars)
+                         if filt_call else None)
+            if call.name == "Sum":
+                node = ("bsisum", planes_i, filt_node)
+            else:
+                node = ("bsiminmax", 1 if call.name == "Max" else 0,
+                        planes_i, filt_node)
+            return _Compiled(node, specs, scalars)
+
+        compiled = self._compile_cached(idx, call, wrap="agg", build=build)
+        base = field.options.base
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return Deferred(value=ValCount(0, 0))
+        block = self._shard_block(shard_list)
+        packed = self._run(idx, compiled, block,
+                           "bsisum" if call.name == "Sum"
+                           else call.name.lower())
+
+        if call.name == "Sum":
+            def finish() -> ValCount:
+                merged = batch.merge_split(packed.cpu().numpy())
+                # [depth + 1]: plane counts ++ n
+                count = int(merged[-1])
+                total = sum(int(c) << i
+                            for i, c in enumerate(merged[:-1].tolist()))
+                return ValCount(total + base * count, count)
+        else:
+            def finish() -> ValCount:
+                host = packed.cpu().numpy()  # [best, count_lo, count_hi]
+                count = int(batch.merge_split(host[1:]))
+                if count == 0:
+                    return ValCount(0, 0)
+                return ValCount(int(host[0]) + base, count)
+
+        return Deferred(finish)
 
     # -------------------------------------------------------------- compile
 
     def _compile_cached(self, idx: Index, call: Call,
-                        wrap: str | None = None) -> _Compiled:
-        """_compile with a plan memo keyed by the (memoized, immutable)
-        Call tree's identity, revalidated against the Index object and its
-        schema epoch. Plans that degenerated to const0 are not cached."""
+                        wrap: str | None = None, build=None) -> _Compiled:
+        """_compile (or ``build()``) with a plan memo keyed by the
+        (memoized, immutable) Call tree's identity, revalidated against
+        the Index object and its schema epoch. The scalars (shift amounts,
+        predicates) are part of the compiled plan, the structure holds
+        only their indices. Plans that degenerated to const0 are not
+        cached."""
         key = (idx.name, id(call), wrap)
         entry = self._plan_cache.get(key)
         if entry is not None:
@@ -302,56 +402,144 @@ class Executor:
                     and epoch == idx.plan_epoch):
                 return compiled
         epoch = idx.plan_epoch
-        specs: list = []
-        node = self._compile_node(idx, call, specs)
-        if wrap == "count":
-            node = ("count", node)
-        if len(specs) > kernels.MAX_LEAVES:
-            raise PQLError(f"trees over more than {kernels.MAX_LEAVES} rows "
-                           "are not yet ported")
+        if build is not None:
+            compiled = build()
+        else:
+            specs: list = []
+            scalars: list = []
+            node = self._compile_node(idx, call, specs, scalars)
+            if wrap == "count":
+                node = ("count", node)
+            compiled = _Compiled(node, specs, scalars)
         try:
-            expr.compile_program(node)  # the kernels' length/depth limits
+            # the kernels' operand, length and depth limits
+            compiled.plan = expr.plan(compiled.node)
         except ValueError as e:
             raise PQLError(f"query tree is not yet ported: {e}") from e
-        compiled = _Compiled(node, specs)
         if not _node_has_const0(compiled.node):
             if len(self._plan_cache) >= self.PLAN_CACHE_MAX:
                 self._plan_cache.clear()
             self._plan_cache[key] = (call, weakref.ref(idx), epoch, compiled)
         return compiled
 
-    def _compile_node(self, idx: Index, call: Call, specs):
+    def _compile_node(self, idx: Index, call: Call, specs, scalars):
         name = call.name
-        if name == "Row":
-            return self._compile_row(idx, call, specs)
+        if name in ("Row", "Range"):
+            return self._compile_row(idx, call, specs, scalars)
         if name in ("Union", "Intersect", "Xor", "Difference"):
             if not call.children:
                 return ("const0",)
             tag = {"Union": "or", "Intersect": "and", "Xor": "xor",
                    "Difference": "diff"}[name]
-            node = self._compile_node(idx, call.children[0], specs)
+            node = self._compile_node(idx, call.children[0], specs, scalars)
             for child in call.children[1:]:
-                node = (tag, node, self._compile_node(idx, child, specs))
+                node = (tag, node,
+                        self._compile_node(idx, child, specs, scalars))
             return node
-        if name in ("Not", "All", "Shift", "Range"):
-            raise PQLError(f"call {name!r} is not yet ported")
+        if name == "Not":
+            if len(call.children) != 1:
+                raise PQLError("Not requires exactly one child call")
+            exists = self._existence_node(idx, specs)
+            return ("diff", exists,
+                    self._compile_node(idx, call.children[0], specs, scalars))
+        if name == "All":
+            return self._existence_node(idx, specs)
+        if name == "Shift":
+            if len(call.children) != 1:
+                raise PQLError("Shift requires exactly one child call")
+            scalars.append(int(call.arg("n", 1)))
+            return ("shift",
+                    self._compile_node(idx, call.children[0], specs, scalars),
+                    len(scalars) - 1)
         raise PQLError(f"call {name!r} is not a bitmap (row-producing) call")
 
-    def _compile_row(self, idx: Index, call: Call, specs):
-        if call.condition_field()[0] is not None:
-            raise PQLError("BSI conditions are not yet ported")
+    def _compile_row(self, idx: Index, call: Call, specs, scalars):
+        cond_field, cond = call.condition_field()
+        if cond is not None:
+            return self._compile_bsi_compare(idx, cond_field, cond, specs,
+                                             scalars)
         if call.arg("from") is not None or call.arg("to") is not None:
             raise PQLError("time ranges are not yet ported")
         field_name, row = self._row_field_and_value(call)
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
-        if field.options.type != "set" or not isinstance(row, int):
+        if field.options.type not in (TYPE_SET, TYPE_INT) or \
+                not isinstance(row, int):
             raise PQLError(f"{field.options.type} fields and row keys are "
                            "not yet ported")
         if row < 0:
             return ("const0",)  # negative rows cannot exist
         specs.append(_RowSpec(field_name, (VIEW_STANDARD,), row))
+        return ("leaf", len(specs) - 1)
+
+    def _compile_bsi_compare(self, idx: Index, field_name: str,
+                             cond: Condition, specs, scalars):
+        field = idx.field(field_name)
+        if field is None:
+            raise PQLError(f"field {field_name!r} not found")
+        if field.options.type != TYPE_INT:
+            raise PQLError(f"comparison on non-int field {field_name!r}")
+        if cond.op == "><":
+            lo, hi = cond.value
+            if lo > hi:
+                return ("const0",)
+            ge = self._compile_bsi_compare(idx, field_name,
+                                           Condition(">=", lo), specs, scalars)
+            le = self._compile_bsi_compare(idx, field_name,
+                                           Condition("<=", hi), specs, scalars)
+            return ("and", ge, le)
+
+        base = field.options.base
+        max_stored = (1 << field.options.bit_depth) - 1
+        value = cond.value
+        op = cond.op
+        # fractional predicates only arrive as parser floats; stored values
+        # are integers, so x < 1.5 is x <= 1 and x > 1.5 is x >= 2, and
+        # ==/!= degenerate (plain int() would wrongly turn x < 1.5 into
+        # x < 1)
+        if isinstance(value, float) and not value.is_integer():
+            if op == "==":
+                return ("const0",)
+            if op == "!=":
+                return self._bsi_exists_node(field, specs)
+            if math.isinf(value):
+                everything = (value > 0) == (op in ("<", "<="))
+                return (self._bsi_exists_node(field, specs) if everything
+                        else ("const0",))
+            fl = math.floor(value)
+            value, op = (fl, "<=") if op in ("<", "<=") else (fl + 1, ">=")
+        pred = int(value) - base
+        exists = self._bsi_exists_node(field, specs)
+        # range clamp: out-of-range predicates degenerate to empty/universe
+        if pred < 0:
+            if op in ("<", "<=", "=="):
+                return ("const0",)
+            return exists  # >, >=, != of anything stored
+        if pred > max_stored:
+            if op in (">", ">=", "=="):
+                return ("const0",)
+            return exists
+        planes_i = self._planes_index(field, specs)
+        scalars.append(pred)
+        return ("bsicmp", op, planes_i, exists, len(scalars) - 1)
+
+    def _planes_index(self, field, specs) -> int:
+        for i, s in enumerate(specs):
+            if isinstance(s, _PlanesSpec) and s.field == field.name:
+                return i
+        specs.append(_PlanesSpec(field.name, field.options.bit_depth))
+        return len(specs) - 1
+
+    def _bsi_exists_node(self, field, specs):
+        specs.append(_RowSpec(field.name, (field.bsi_view_name(),),
+                              BSI_EXISTS_ROW))
+        return ("leaf", len(specs) - 1)
+
+    def _existence_node(self, idx: Index, specs):
+        if not idx.track_existence:
+            raise PQLError("Not/All require trackExistence on the index")
+        specs.append(_RowSpec(EXISTENCE_FIELD, (VIEW_STANDARD,), 0))
         return ("leaf", len(specs) - 1)
 
     @staticmethod
@@ -364,6 +552,8 @@ class Executor:
     # ---------------------------------------------------------------- writes
 
     def _write_target(self, idx: Index, call: Call):
+        """(column, field, row or value) of a Set/Clear; an int field's
+        value is checked by the field itself."""
         col = call.arg("_col")
         if col is None:
             raise PQLError(f"{call.name} requires a column")
@@ -375,6 +565,8 @@ class Executor:
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
+        if field.options.type == TYPE_INT:
+            return col, field, row
         if not isinstance(row, int):
             raise PQLError(
                 f"row key {row!r} requires key translation (field keys)")
@@ -387,7 +579,10 @@ class Executor:
     def _execute_set(self, idx: Index, call: Call) -> bool:
         col, field, row = self._write_target(idx, call)
         try:
-            changed = field.set_bit(row, col)
+            if field.options.type == TYPE_INT:
+                changed = field.set_value(col, int(row))
+            else:
+                changed = field.set_bit(row, col)
         except ValueError as e:
             raise PQLError(str(e)) from e
         idx.mark_columns_exist([col])
@@ -396,6 +591,8 @@ class Executor:
     def _execute_clear(self, idx: Index, call: Call) -> bool:
         col, field, row = self._write_target(idx, call)
         try:
+            if field.options.type == TYPE_INT:
+                return field.clear_value(col)
             return field.clear_bit(row, col)
         except ValueError as e:
             raise PQLError(str(e)) from e

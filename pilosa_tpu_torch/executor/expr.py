@@ -1,18 +1,31 @@
-"""Bitmap-expression structures, their plain evaluator and their compiler.
+"""Bitmap-expression structures, their plain evaluator, planner and compiler.
 
 A PQL bitmap call tree is lowered to a *structure* — nested hashable
-tuples with leaf indices, the grammar of ``pilosa_tpu.executor.expr`` —
-and each distinct structure is compiled once (module-level cache keyed by
-the structure, as ``_JIT_CACHE`` is there) to the postfix program that
-the CUDA kernels interpret (``pilosa_tpu_torch.kernels``).
+tuples with leaf and scalar indices, the grammar of
+``pilosa_tpu.executor.expr`` — evaluated against (leaves, scalars):
+leaves are stacked int32 rows ``[S, W]`` or BSI plane matrices
+``[S, 2 + depth, W]``, scalars query-time integers (shift amounts,
+offset-encoded BSI predicates), so one structure serves every query of
+its shape.
 
-Node grammar of this slice:
-  ('leaf', i)                     — int32[words] row leaf
+Node grammar:
+  ('leaf', i)                     — int32[S, W] row leaf
   ('const0',)                     — empty row
   ('and'|'or'|'xor'|'diff', a, b)
-  ('count', a)                    — int32 scalar popcount reduction
+  ('flipall', a)                  — bitwise NOT over the full shard width
+  ('shift', a, j)                 — shift each shard row by scalars[j]
+  ('bsicmp', op, i_planes, a, j)  — BSI comparison row (a: exists row)
+  ('count', a)                    — int32 popcount reduction
+  ('bsisum', i_planes, a|None)    — (int32[S, depth] plane counts, int32[S] n)
+  ('bsiminmax', want_max, i_planes, a|None) — (int32[S] value, int32[S] count)
 
-(flipall, shift and the BSI/countrows nodes are not ported yet.)
+On the card the elementwise part (leaf/const0/and/or/xor/diff/flipall)
+compiles once per structure (module-level cache, as ``_JIT_CACHE`` is
+there) to the postfix program that K1 and K2 interpret. The reference
+fuses shift and bsicmp into the same XLA pass; here ``plan`` lifts each
+of them out as a *step* that its own kernel (K4, K5) materializes into a
+temporary row, innermost first, and the rest becomes an elementwise
+structure over the stacked leaves and those temporaries.
 """
 
 from __future__ import annotations
@@ -20,13 +33,21 @@ from __future__ import annotations
 import torch
 
 from pilosa_tpu_torch import kernels
+from pilosa_tpu_torch.ops.bitops import shift
 
 _PROGRAM_CACHE: dict = {}
+_PLAN_CACHE: dict = {}
+
+PLANES_EXISTS = 0
+PLANES_OFFSET = 2
+
+_ELEMENTWISE = ("and", "or", "xor", "diff")
 
 
 def compile_program(structure) -> tuple:
-    """Postfix program (tuple of int instructions) for a bitmap structure;
-    a ('count', sub) structure compiles its ``sub``. Cached by structure."""
+    """Postfix program (tuple of int instructions) for an elementwise
+    structure; a ('count', sub) structure compiles its ``sub``. Cached by
+    structure."""
     prog = _PROGRAM_CACHE.get(structure)
     if prog is None:
         node = structure[1] if structure[0] == "count" else structure
@@ -52,28 +73,147 @@ def _emit(node, out: list) -> None:
         _emit(node[1], out)
         _emit(node[2], out)
         out.append(kernels.OP_NAMES[tag])
+    elif tag == "flipall":
+        _emit(node[1], out)
+        out.append(kernels.OP_NOT)
     else:
-        raise ValueError(f"expr node {tag!r} is not ported yet")
+        raise ValueError(f"expr node {tag!r} is not elementwise")
 
 
-def evaluate(node, leaves):
+# ------------------------------------------------------------------ planning
+
+
+class Plan:
+    """A structure split for dispatch on the card.
+
+    ``steps``: the materializing kernels, innermost first — ``('shift',
+    sub, j)`` and ``('bsicmp', op, i_planes, sub, j)``, where ``sub`` is
+    a ``(node, operands)`` row expression. ``root``: the elementwise rest
+    — the structure itself for 'count' and row structures (with the
+    'count' wrapper kept), the filter's row expression or None for
+    'bsisum' / 'bsiminmax'. An *operand* is ``('spec', i)`` (stacked leaf
+    i) or ``('temp', k)`` (the row step k produced); a row expression's
+    node indexes its operand list. ``kind``: 'count', 'row', 'bsisum' or
+    'bsiminmax'; ``planes``: the aggregates' plane leaf index."""
+
+    __slots__ = ("steps", "root", "kind", "planes")
+
+    def __init__(self, steps: tuple, root, kind: str, planes=None):
+        self.steps = steps
+        self.root = root
+        self.kind = kind
+        self.planes = planes
+
+
+def plan(structure) -> Plan:
+    """Split ``structure`` into steps and an elementwise root (cached by
+    structure). Raises ValueError when a part is over the kernels'
+    limits (more than 16 operands, too deep a program)."""
+    out = _PLAN_CACHE.get(structure)
+    if out is not None:
+        return out
+    steps: list = []
+    tag = structure[0]
+    planes = None
+    if tag == "count":
+        node, ops = _split(structure[1], steps)
+        root = (("count", node), ops)
+    elif tag in ("bsisum", "bsiminmax"):
+        planes, filt = structure[-2], structure[-1]
+        root = _split(filt, steps) if filt is not None else None
+    else:
+        tag = "row"
+        root = _split(structure, steps)
+    for expr_ in [s[-2] for s in steps] + ([root] if root else []):
+        _check_limits(*expr_)
+    out = Plan(tuple(steps), root, tag, planes)
+    if len(_PLAN_CACHE) >= 4096:
+        _PLAN_CACHE.clear()
+    _PLAN_CACHE[structure] = out
+    return out
+
+
+def _split(node, steps: list) -> tuple:
+    """Lift shift/bsicmp out of ``node``: returns (elementwise node over an
+    operand list, operands), appending the lifted steps to ``steps``."""
+    operands: list = []
+
+    def go(n):
+        tag = n[0]
+        if tag == "leaf":
+            operands.append(("spec", n[1]))
+            return ("leaf", len(operands) - 1)
+        if tag == "const0":
+            return n
+        if tag in _ELEMENTWISE:
+            return (tag, go(n[1]), go(n[2]))
+        if tag == "flipall":
+            return (tag, go(n[1]))
+        if tag == "shift":
+            steps.append(("shift", _split(n[1], steps), n[2]))
+        elif tag == "bsicmp":
+            steps.append(("bsicmp", n[1], n[2], _split(n[3], steps), n[4]))
+        else:
+            raise ValueError(f"expr node {tag!r} is not a row node")
+        operands.append(("temp", len(steps) - 1))
+        return ("leaf", len(operands) - 1)
+
+    node = go(node)
+    return node, tuple(operands)
+
+
+def _check_limits(node, operands) -> None:
+    if len(operands) > kernels.MAX_LEAVES:
+        raise ValueError(f"{len(operands)} operands, the kernels take "
+                         f"{kernels.MAX_LEAVES}")
+    compile_program(node)
+
+
+# ------------------------------------------------------------ plain evaluator
+
+
+def evaluate(node, leaves, scalars=()):
     """Plain recursive evaluator over torch tensors (the reference form of
-    what the compiled program computes); ('count', a) returns an int32
-    scalar tensor."""
+    what the kernels compute), on stacked leaves: rows int32[..., W],
+    planes int32[..., 2 + depth, W]. ('count', a) returns an int32
+    scalar tensor; 'bsisum' and 'bsiminmax' return their pairs of per
+    leading-index tensors."""
     tag = node[0]
     if tag == "leaf":
         return leaves[node[1]]
     if tag == "const0":
-        return torch.zeros_like(leaves[0])
+        first = leaves[0]
+        return torch.zeros_like(first if first.dim() != 3 else first[:, 0])
     if tag == "and":
-        return evaluate(node[1], leaves) & evaluate(node[2], leaves)
+        return evaluate(node[1], leaves, scalars) & evaluate(node[2], leaves,
+                                                             scalars)
     if tag == "or":
-        return evaluate(node[1], leaves) | evaluate(node[2], leaves)
+        return evaluate(node[1], leaves, scalars) | evaluate(node[2], leaves,
+                                                             scalars)
     if tag == "xor":
-        return evaluate(node[1], leaves) ^ evaluate(node[2], leaves)
+        return evaluate(node[1], leaves, scalars) ^ evaluate(node[2], leaves,
+                                                             scalars)
     if tag == "diff":
-        return evaluate(node[1], leaves) & ~evaluate(node[2], leaves)
+        return evaluate(node[1], leaves, scalars) & ~evaluate(node[2], leaves,
+                                                              scalars)
+    if tag == "flipall":
+        return ~evaluate(node[1], leaves, scalars)
+    if tag == "shift":
+        return shift(evaluate(node[1], leaves, scalars), int(scalars[node[2]]))
     if tag == "count":
-        return kernels.popcount32(evaluate(node[1], leaves)).sum(
+        return kernels.popcount32(evaluate(node[1], leaves, scalars)).sum(
             dtype=torch.int32)
-    raise ValueError(f"expr node {tag!r} is not ported yet")
+    if tag == "bsicmp":
+        return kernels.bsi_compare_plain(
+            leaves[node[2]], evaluate(node[3], leaves, scalars), node[1],
+            int(scalars[node[4]]))
+    if tag == "bsisum":
+        filt = (evaluate(node[2], leaves, scalars)
+                if node[2] is not None else None)
+        packed = kernels.bsi_sum_plain(leaves[node[1]], filt)
+        return packed[:, :-1], packed[:, -1]
+    if tag == "bsiminmax":
+        filt = (evaluate(node[3], leaves, scalars)
+                if node[3] is not None else None)
+        return kernels.bsi_minmax_plain(leaves[node[2]], filt, bool(node[1]))
+    raise ValueError(f"unknown expr node {tag!r}")

@@ -1,15 +1,24 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Three kernels carry the main path (sources in ``csrc/``):
+Seven kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
   up to 16 stacked leaves, one launch per micro-batch (replaces
   ``bench_pallas.pallas_intersect_count`` and ``batch.count_flat``);
 - K2 ``tree_rows``: the words of the same program, for row results
-  (replaces ``expr._go`` under the 'row' reduce kind);
+  (replaces ``expr._go`` under the 'row' reduce kind, ``flipall``
+  included as ``OP_NOT``);
 - K3 ``word_patch``: OR / AND-NOT host-deduplicated word masks into one
-  row of a resident leaf, in place (replaces ``batch._or_delta`` /
-  ``_andnot_delta``).
+  row of a resident ``[S, W]`` or ``[S, R, W]`` leaf, in place (replaces
+  ``batch._or_delta`` / ``_andnot_delta`` and their ``_row`` forms);
+- K4 ``row_shift``: every shard row's bits shifted by n (replaces
+  ``ops/bitops.py::shift``);
+- K5 ``bsi_compare``: the bit-sliced comparison of a BSI plane leaf
+  against a predicate (replaces ``expr._bsi_compare``);
+- K6 ``bsi_sum``: per-shard plane popcounts under exists and a filter
+  (replaces the 'bsisum' node);
+- K7 ``bsi_minmax``: per-shard greedy extremum and its count (replaces
+  ``expr._bsi_minmax``).
 
 Each source builds with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and is
@@ -32,19 +41,27 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from pilosa_tpu_torch.ops.bitops import shift
+
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
-SOURCES = ("tree_count", "tree_rows", "word_patch")
+SOURCES = ("tree_count", "tree_rows", "word_patch", "row_shift",
+           "bsi_compare", "bsi_sum", "bsi_minmax")
 
 # Opcodes of the postfix program (csrc/tree_program.cuh holds the same).
-OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT = range(1, 8)
+OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT, OP_NOT = range(1, 9)
 OP_NAMES = {"and": OP_AND, "or": OP_OR, "xor": OP_XOR, "diff": OP_DIFF}
 MAX_BATCH = 16
 MAX_LEAVES = 16
 MAX_OPS = 64
 MAX_STACK = 16
+# BSI comparison operators, numbered as csrc/bsi_compare.cu numbers them.
+BSI_OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
+BSI_MAX_DEPTH = 63         # bit planes K5 and K6 take (a 64-bit predicate)
+BSI_MINMAX_MAX_DEPTH = 31  # K7's extremum is an int32
+MINMAX_MAX_WORDS = 32768  # words per shard row K7 takes (one block each)
 
 # --------------------------------------------------------------- launches
 
@@ -88,7 +105,7 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     digest = hashlib.sha256()
-    for src in (CSRC / f"{name}.cu", CSRC / "tree_program.cuh"):
+    for src in (CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))):
         digest.update(src.read_bytes())
     digest.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
@@ -146,13 +163,16 @@ def _lib(name: str):
 
 def _bind(name: str, lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    if name == "tree_count":
-        lib.tree_count_launch.argtypes = [p, i, i, p, p, i, ll, ll, i, p, p]
-    elif name == "tree_rows":
-        lib.tree_rows_launch.argtypes = [p, i, ctypes.c_uint32, p, i, ll, i,
-                                         p, p]
-    else:
-        lib.word_patch_launch.argtypes = [p, p, i, i, p]
+    argtypes = {
+        "tree_count": [p, i, i, p, p, i, ll, ll, i, p, p],
+        "tree_rows": [p, i, ctypes.c_uint32, p, i, ll, i, p, p],
+        "word_patch": [p, p, i, i, p],
+        "row_shift": [p, p, ll, ll, ll, i, p],
+        "bsi_compare": [p, p, p, ll, ll, i, ctypes.c_ulonglong, i, i, p],
+        "bsi_sum": [p, p, p, ll, ll, i, i, p],
+        "bsi_minmax": [p, p, ll, ll, i, i, p, p, p],
+    }
+    getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
@@ -194,9 +214,9 @@ def check_program(program, n_leaves: int) -> None:
             sp += 1
         elif op == OP_ZERO:
             sp += 1
-        elif op == OP_SALT:
+        elif op in (OP_SALT, OP_NOT):
             if sp < 1:
-                raise ValueError("salt on an empty stack")
+                raise ValueError("unary op on an empty stack")
         elif OP_AND <= op <= OP_DIFF:
             sp -= 1
             if sp < 1:
@@ -247,6 +267,8 @@ def eval_program_plain(program, leaves, salt: int = 0) -> torch.Tensor:
             stack.append(torch.zeros_like(leaves[0]))
         elif op == OP_SALT:
             stack.append(stack.pop() ^ _salt_i32(salt))
+        elif op == OP_NOT:
+            stack.append(~stack.pop())
         else:
             b = stack.pop()
             a = stack.pop()
@@ -274,19 +296,83 @@ def tree_rows_plain(program, leaves, salt: int = 0) -> torch.Tensor:
 
 
 def word_patch_plain(leaf: torch.Tensor, slot: int, pairs: np.ndarray,
-                     clear: bool) -> None:
+                     clear: bool, row: int | None = None) -> None:
     idx = torch.from_numpy(np.ascontiguousarray(pairs[0], np.int64)).to(
         leaf.device)
     masks = torch.from_numpy(np.ascontiguousarray(pairs[1]).view(np.int32)
                              ).to(leaf.device)
-    row = leaf[slot]
+    target = leaf[slot] if row is None else leaf[slot, row]
     if clear:
-        row[idx] = row[idx] & ~masks
+        target[idx] = target[idx] & ~masks
     else:
-        row[idx] = row[idx] | masks
+        target[idx] = target[idx] | masks
+
+
+row_shift_plain = shift  # ops/bitops.py holds K4's plain version
+
+
+def bsi_compare_plain(planes: torch.Tensor, exists: torch.Tensor, op: str,
+                      pred: int) -> torch.Tensor:
+    """The classic O(depth) bit-sliced comparison (``expr._bsi_compare``)
+    on stacked shards: planes int32[S, 2 + depth, W], exists int32[S, W],
+    ``pred`` the offset-encoded predicate."""
+    depth = planes.shape[1] - 2
+    zeros = torch.zeros_like(exists)
+    eq, lt, gt = exists, zeros, zeros
+    for i in reversed(range(depth)):
+        p = planes[:, 2 + i]
+        if (pred >> i) & 1:
+            lt = lt | (eq & ~p)
+            eq = eq & p
+        else:
+            gt = gt | (eq & p)
+            eq = eq & ~p
+    return {"<": lt, "<=": lt | eq, ">": gt, ">=": gt | eq, "==": eq,
+            "!=": exists & ~eq}[op].clone()
+
+
+def bsi_sum_plain(planes: torch.Tensor, filt: torch.Tensor | None
+                  ) -> torch.Tensor:
+    """Per-shard popcounts of every plane under exists (& filter), then
+    of exists (& filter) itself: int32[S, depth + 1]."""
+    depth = planes.shape[1] - 2
+    mask = planes[:, 0] if filt is None else planes[:, 0] & filt
+    cols = [popcount32(planes[:, 2 + i] & mask).sum(dim=1, dtype=torch.int32)
+            for i in range(depth)]
+    cols.append(popcount32(mask).sum(dim=1, dtype=torch.int32))
+    return torch.stack(cols, dim=1)
+
+
+def bsi_minmax_plain(planes: torch.Tensor, filt: torch.Tensor | None,
+                     want_max: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """The greedy MSB-first walk (``expr._bsi_minmax``) per shard:
+    (offset-encoded extremum int32[S], candidate count int32[S]); a shard
+    with no candidate has count 0."""
+    depth = planes.shape[1] - 2
+    cand = planes[:, 0] if filt is None else planes[:, 0] & filt
+    value = torch.zeros(planes.shape[0], dtype=torch.int32,
+                        device=planes.device)
+    for i in reversed(range(depth)):
+        p = planes[:, 2 + i]
+        t = cand & (p if want_max else ~p)
+        nonempty = (t != 0).any(dim=1)  # per shard, as the vmap has it
+        cand = torch.where(nonempty[:, None], t, cand)
+        bit = nonempty if want_max else ~nonempty
+        value = value | (bit.to(torch.int32) << i)
+    return value, popcount32(cand).sum(dim=1, dtype=torch.int32)
 
 
 # ----------------------------------------------------------------- wrappers
+
+
+def _on_cpu(t: torch.Tensor) -> bool:
+    """True for a CPU tensor (take the plain version); False for a CUDA
+    one (launch); raise for anything else."""
+    if t.device.type == "cpu":
+        return True
+    if t.device.type != "cuda":
+        raise ValueError(f"unsupported device {t.device}")
+    return False
 
 
 def tree_count(program, batch_leaves, salts, row_words: int) -> torch.Tensor:
@@ -310,10 +396,8 @@ def tree_count(program, batch_leaves, salts, row_words: int) -> torch.Tensor:
         raise ValueError("every query needs the same number of equal leaves")
     check_program(program, n_leaves)
     _check_words(flat, first.device)
-    if first.device.type == "cpu":
+    if _on_cpu(first):
         return tree_count_plain(program, batch_leaves, salts, row_words)
-    if first.device.type != "cuda":
-        raise ValueError(f"unsupported device {first.device}")
     lib = _lib("tree_count")
     out = torch.zeros((len(batch_leaves), n_words // row_words),
                       dtype=torch.int32, device=first.device)
@@ -338,10 +422,8 @@ def tree_rows(program, leaves, salt: int = 0) -> torch.Tensor:
         raise ValueError("tree_rows needs at most 16 leaves of one shape")
     check_program(program, len(leaves))
     _check_words(leaves, first.device)
-    if first.device.type == "cpu":
+    if _on_cpu(first):
         return tree_rows_plain(program, leaves, salt)
-    if first.device.type != "cuda":
-        raise ValueError(f"unsupported device {first.device}")
     lib = _lib("tree_rows")
     out = torch.empty_like(first)
     n_words = first.numel()
@@ -357,42 +439,156 @@ def tree_rows(program, leaves, salt: int = 0) -> torch.Tensor:
 
 
 def word_patch(leaf: torch.Tensor, slot: int, word_idx, masks, n: int,
-               clear: bool) -> None:
+               clear: bool, row: int | None = None) -> None:
     """K3: ``leaf[slot, word_idx[i]] |= masks[i]`` (or ``&= ~masks[i]``
-    when ``clear``) for the first ``n`` pairs, in place. Word indices must
-    be unique; pairs past ``n`` (padding) are ignored."""
-    if leaf.dim() != 2:
-        raise ValueError("word_patch patches a [slots, words] leaf")
+    when ``clear``) for the first ``n`` pairs, in place; with ``row``, the
+    same into ``leaf[slot, row]`` of an ``[S, R, W]`` leaf (BSI planes).
+    Word indices must be unique; pairs past ``n`` (padding) are ignored."""
+    if leaf.dim() != (2 if row is None else 3):
+        raise ValueError("word_patch patches a [slots, words] leaf, or with "
+                         "row= a [slots, rows, words] leaf")
     _check_words([leaf], leaf.device)
     if not 0 <= slot < leaf.shape[0]:
         raise IndexError(f"slot {slot} outside {leaf.shape[0]} slots")
+    if row is not None and not 0 <= row < leaf.shape[1]:
+        raise IndexError(f"row {row} outside {leaf.shape[1]} rows")
     idx = np.asarray(word_idx)[:n].astype(np.int64)
     m = np.asarray(masks)[:n].astype(np.uint32)
     if idx.size != n or m.size != n:
         raise ValueError("fewer pairs than n")
     if n == 0:
         return
-    if idx.min() < 0 or idx.max() >= leaf.shape[1]:
+    if idx.min() < 0 or idx.max() >= leaf.shape[-1]:
         raise IndexError("word index outside the row")
     if np.unique(idx).size != n:
         raise ValueError("word indices must be unique")
     pairs = np.stack([idx.astype(np.int32), m.view(np.int32)])
-    if leaf.device.type == "cpu":
-        word_patch_plain(leaf, slot, pairs, clear)
+    if _on_cpu(leaf):
+        word_patch_plain(leaf, slot, pairs, clear, row)
         return
-    if leaf.device.type != "cuda":
-        raise ValueError(f"unsupported device {leaf.device}")
     lib = _lib("word_patch")
     # pinned + non_blocking: a pageable copy would first wait for every
     # kernel already queued on the stream
     dev_pairs = torch.from_numpy(pairs).pin_memory().to(leaf.device,
                                                         non_blocking=True)
-    row_ptr = leaf.data_ptr() + slot * leaf.shape[1] * leaf.element_size()
+    first_word = slot * leaf.shape[1] if row is None else \
+        (slot * leaf.shape[1] + row) * leaf.shape[2]
+    row_ptr = leaf.data_ptr() + first_word * leaf.element_size()
     rc = lib.word_patch_launch(ctypes.c_void_p(row_ptr),
                                ctypes.c_void_p(dev_pairs.data_ptr()), n,
                                int(clear), _stream(leaf))
     _check("word_patch", lib, rc)
     _count_launch("word_patch")
+
+
+def row_shift(words: torch.Tensor, n: int) -> torch.Tensor:
+    """K4: every row of int32[S, W] shifted by ``n`` bit positions
+    (``ops.bitops.shift`` per row: negative n toward lower positions,
+    nothing crosses a row's ends). Returns a new tensor."""
+    if words.dim() != 2:
+        raise ValueError("row_shift takes [rows, words]")
+    _check_words([words], words.device)
+    if _on_cpu(words):
+        return row_shift_plain(words, n)
+    lib = _lib("row_shift")
+    out = torch.empty_like(words)
+    n_rows, row_words = words.shape
+    word_shift, bit_shift = int(n) // 32, int(n) % 32
+    # past a whole row every word reads as zero: keep the shift in range
+    word_shift = max(-row_words - 1, min(row_words + 1, word_shift))
+    rc = lib.row_shift_launch(ctypes.c_void_p(words.data_ptr()),
+                              ctypes.c_void_p(out.data_ptr()), n_rows,
+                              row_words, word_shift, bit_shift, _stream(out))
+    _check("row_shift", lib, rc)
+    _count_launch("row_shift")
+    return out
+
+
+def _check_planes(planes: torch.Tensor, rows, max_depth: int) -> int:
+    """Validate a stacked planes leaf int32[S, 2 + depth, W] and the
+    [S, W] rows used beside it; returns depth."""
+    if planes.dim() != 3 or planes.shape[1] < 2:
+        raise ValueError("planes must be [shards, 2 + depth, words]")
+    depth = planes.shape[1] - 2
+    if depth > max_depth:
+        raise ValueError(f"bit depth {depth} over the kernel's {max_depth}")
+    present = [r for r in rows if r is not None]
+    for r in present:
+        if r.shape != (planes.shape[0], planes.shape[2]):
+            raise ValueError(f"row operand {tuple(r.shape)} does not match "
+                             f"planes {tuple(planes.shape)}")
+    _check_words([planes, *present], planes.device)
+    return depth
+
+
+def _ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr() if t is not None else None)
+
+
+def bsi_compare(planes: torch.Tensor, exists: torch.Tensor, op: str,
+                pred: int) -> torch.Tensor:
+    """K5: int32[S, W] rows of the columns whose offset-encoded value
+    compares ``op`` against ``pred`` (0 <= pred < 2^depth)."""
+    if op not in BSI_OPS:
+        raise ValueError(f"bad bsi op {op!r}")
+    depth = _check_planes(planes, [exists], BSI_MAX_DEPTH)
+    if not 0 <= pred < (1 << 63):
+        raise ValueError(f"predicate {pred} outside the encoded range")
+    if _on_cpu(planes):
+        return bsi_compare_plain(planes, exists, op, pred)
+    lib = _lib("bsi_compare")
+    out = torch.empty_like(exists)
+    n_shards, row_words = exists.shape
+    vec = int(row_words % 4 == 0 and _aligned([planes, exists, out]))
+    rc = lib.bsi_compare_launch(_ptr(planes), _ptr(exists), _ptr(out),
+                                n_shards, row_words, depth, pred,
+                                BSI_OPS[op], vec, _stream(out))
+    _check("bsi_compare", lib, rc)
+    _count_launch("bsi_compare")
+    return out
+
+
+def bsi_sum(planes: torch.Tensor, filt: torch.Tensor | None = None
+            ) -> torch.Tensor:
+    """K6: int32[S, depth + 1] per-shard popcounts of each plane under
+    exists (planes row 0) and ``filt`` (None: no filter), then of exists
+    & filt."""
+    depth = _check_planes(planes, [filt], BSI_MAX_DEPTH)
+    if _on_cpu(planes):
+        return bsi_sum_plain(planes, filt)
+    lib = _lib("bsi_sum")
+    n_shards, _, row_words = planes.shape
+    out = torch.zeros((n_shards, depth + 1), dtype=torch.int32,
+                      device=planes.device)
+    tensors = [planes] + ([filt] if filt is not None else [])
+    vec = int(row_words % 4 == 0 and _aligned(tensors))
+    rc = lib.bsi_sum_launch(_ptr(planes), _ptr(filt), _ptr(out), n_shards,
+                            row_words, depth, vec, _stream(out))
+    _check("bsi_sum", lib, rc)
+    _count_launch("bsi_sum")
+    return out
+
+
+def bsi_minmax(planes: torch.Tensor, filt: torch.Tensor | None,
+               want_max: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """K7: per shard (offset-encoded extremum, count of candidates holding
+    it) as two int32[S]; count 0 marks a shard without candidates."""
+    depth = _check_planes(planes, [filt], BSI_MINMAX_MAX_DEPTH)
+    if _on_cpu(planes):
+        return bsi_minmax_plain(planes, filt, want_max)
+    n_shards, _, row_words = planes.shape
+    if row_words > MINMAX_MAX_WORDS:
+        raise ValueError(f"bsi_minmax takes rows of at most "
+                         f"{MINMAX_MAX_WORDS} words")
+    lib = _lib("bsi_minmax")
+    values = torch.empty(n_shards, dtype=torch.int32, device=planes.device)
+    counts = torch.empty_like(values)
+    rc = lib.bsi_minmax_launch(_ptr(planes), _ptr(filt), n_shards, row_words,
+                               depth, int(bool(want_max)), _ptr(values),
+                               _ptr(counts), _stream(values))
+    _check("bsi_minmax", lib, rc)
+    _count_launch("bsi_minmax")
+    return values, counts
 
 
 def intersect_count(a: torch.Tensor, b: torch.Tensor, salt: int = 0

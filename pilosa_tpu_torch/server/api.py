@@ -1,12 +1,12 @@
 """The API layer between HTTP and the holder/executor (reference api.go).
 
 The port's thin copy of ``pilosa_tpu.server.api``: schema writes, PQL
-queries answered as pre-serialized JSON bytes, and bulk bit imports, with
-the reference's validation and error texts so both packages answer the
-same bytes. A write is acknowledged only once durable: every fragment op
-is fsynced before the call returns (per-op durability). Cluster, QoS,
-tracing, the cost plane, the result cache and multi-process serving are
-not ported yet.
+queries answered as pre-serialized JSON bytes, bulk bit imports and int
+fields' value imports, with the reference's validation and error texts
+so both packages answer the same bytes. A write is acknowledged only
+once durable: every fragment op is fsynced before the call returns
+(per-op durability). Cluster, QoS, tracing, the cost plane, the result
+cache and multi-process serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -17,7 +17,7 @@ from pilosa_tpu_torch.executor.executor import Executor, PQLError
 from pilosa_tpu_torch.executor.result import results_json_bytes
 from pilosa_tpu_torch.pql import ParseError, parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
-from pilosa_tpu_torch.storage.field import FieldOptions
+from pilosa_tpu_torch.storage.field import TYPE_INT, FieldOptions
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
 
 # The reference's max-writes-per-request default: the most Set/Clear
@@ -125,6 +125,38 @@ class API:
             frag = fld.view(VIEW_STANDARD, create=True).fragment(shard,
                                                                  create=True)
             changed += frag.bulk_import(rows[lo:hi], pos)
+        return int(changed)
+
+    def import_values(self, index: str, field: str, columns, values,
+                      clear: bool = False) -> int:
+        """Batched BSI value import (reference api.ImportValue), single
+        node: duplicate columns keep the last value; imported columns are
+        marked existing. ``clear`` clears the columns' values instead."""
+        idx = self._index(index)
+        fld = self._field(idx, field)
+        if fld.options.type != TYPE_INT:
+            raise ApiError(f"field {field!r} is not an int field")
+        if len(columns) != len(values):
+            raise ApiError("columns and values must be the same length")
+        try:
+            cols_i = np.asarray(columns, dtype=np.int64)
+        except OverflowError as e:  # ids beyond int64: a 400, not a 500
+            raise ApiError(f"column id out of range: {e}") from e
+        if cols_i.size and cols_i.min() < 0:
+            raise ApiError(f"column {int(cols_i.min())} is negative")
+        if clear:
+            changed = 0
+            for col in cols_i.tolist():
+                try:
+                    changed += fld.clear_value(int(col))
+                except ValueError as e:
+                    raise ApiError(str(e)) from e
+            return int(changed)
+        try:
+            changed = fld.import_values(cols_i.astype(np.uint64), values)
+        except (ValueError, OverflowError) as e:
+            raise ApiError(str(e)) from e
+        idx.mark_columns_exist(cols_i)
         return int(changed)
 
     # ---------------------------------------------------------------- status

@@ -5,6 +5,8 @@ Routes of this slice, with the reference's request and response bytes:
 - ``POST /index/{i}`` and ``POST /index/{i}/field/{f}``: schema;
 - ``POST /index/{i}/query``: raw PQL in, ``{"results": [...]}`` out;
 - ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns``;
+- ``POST /index/{i}/field/{f}/import-value``: JSON ``columns``/``values``
+  for int fields (a protobuf body is not yet ported);
 - ``GET /status``.
 """
 
@@ -21,6 +23,8 @@ from pilosa_tpu_torch.server.api import API, ApiError
 _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/index/([^/]+)/query$"), "post_query"),
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)/import$"), "post_import"),
+    ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)/import-value$"),
+     "post_import_value"),
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)$"), "post_field"),
     ("POST", re.compile(r"^/index/([^/]+)$"), "post_index"),
     ("GET", re.compile(r"^/status$"), "get_status"),
@@ -140,18 +144,32 @@ class HTTPHandler(BaseHTTPRequestHandler):
         self._json(self.api.create_field(index, field,
                                          body.get("options", {})))
 
+    def _check_import_size(self, n: int) -> None:
+        limit = self.api.max_writes_per_request
+        if 0 < limit < n:
+            raise ApiError(
+                f"import batch of {n} rows exceeds max-writes-per-request "
+                f"{limit}; split the batch (the CLI clamps --batch-size to "
+                "this server's limit automatically)", 413)
+
     def post_import(self, index, field):
         body = self._json_body()
         rows, columns = body.get("rows", []), body.get("columns", [])
-        limit = self.api.max_writes_per_request
-        if 0 < limit < len(columns):
-            raise ApiError(
-                f"import batch of {len(columns)} rows exceeds "
-                f"max-writes-per-request {limit}; split the batch (the CLI "
-                "clamps --batch-size to this server's limit automatically)",
-                413)
+        self._check_import_size(len(columns))
         changed = self.api.import_bits(
             index, field, rows, columns, timestamps=body.get("timestamps"),
+            clear=bool(body.get("clear", False)))
+        self._json({"changed": changed})
+
+    def post_import_value(self, index, field):
+        if "application/x-protobuf" in self.headers.get("Content-Type", ""):
+            raise ApiError("protobuf import-value bodies are not yet "
+                           "ported; send JSON", 415)
+        body = self._json_body()
+        columns, values = body.get("columns", []), body.get("values", [])
+        self._check_import_size(len(columns))
+        changed = self.api.import_values(
+            index, field, columns, values,
             clear=bool(body.get("clear", False)))
         self._json({"changed": changed})
 

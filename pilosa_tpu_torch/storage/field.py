@@ -2,8 +2,11 @@
 
 The port's thin copy of ``pilosa_tpu.storage.field``. The ``.meta`` file
 and the view layout are the reference's, so every field type on disk
-opens; this slice writes and queries ``set`` fields in the standard view
-only, and refuses the other types.
+opens. This package writes and queries ``set`` fields in the standard
+view and ``int`` fields: BSI bit-sliced integers in one ``bsig_<field>``
+view whose rows are [exists, sign, bit 0 … bit depth-1], offset-encoded
+against the field minimum so every stored magnitude is non-negative
+(aggregates add ``base·count`` back). The other types are refused.
 """
 
 from __future__ import annotations
@@ -12,12 +15,26 @@ import json
 import os
 import threading
 
-from pilosa_tpu_torch.shardwidth import position, shard_of
+import numpy as np
+
+from pilosa_tpu_torch.shardwidth import (
+    SHARD_WIDTH,
+    keep_last_unique,
+    position,
+    shard_groups,
+    shard_of,
+)
 from pilosa_tpu_torch.storage.fragment import fsync_dir
-from pilosa_tpu_torch.storage.view import VIEW_STANDARD, View
+from pilosa_tpu_torch.storage.view import VIEW_STANDARD, View, view_name_bsi
 
 TYPE_SET = "set"
+TYPE_INT = "int"
 FIELD_TYPES = ("set", "int", "time", "mutex", "bool")
+
+# BSI plane layout within the bsig view.
+BSI_EXISTS_ROW = 0
+BSI_SIGN_ROW = 1  # reserved; offset encoding keeps magnitudes non-negative
+BSI_OFFSET_ROW = 2
 CACHE_TYPE_RANKED = "ranked"
 DEFAULT_CACHE_SIZE = 50_000
 
@@ -31,6 +48,8 @@ class FieldOptions:
                  max: int = 0, time_quantum: str = "", keys: bool = False):
         if type not in FIELD_TYPES:
             raise ValueError(f"invalid field type {type!r}")
+        if type == TYPE_INT and max < min:
+            raise ValueError("int field requires max >= min")
         self.type = type
         self.cache_type = cache_type
         self.cache_size = cache_size
@@ -38,6 +57,15 @@ class FieldOptions:
         self.max = max
         self.time_quantum = time_quantum
         self.keys = keys
+
+    @property
+    def base(self) -> int:
+        return self.min
+
+    @property
+    def bit_depth(self) -> int:
+        span = self.max - self.min
+        return max(1, span.bit_length())
 
     def to_dict(self) -> dict:
         return {
@@ -64,7 +92,7 @@ class FieldOptions:
 
     def check_ported(self) -> None:
         """Raise for the schema features this slice cannot serve."""
-        if self.type != TYPE_SET:
+        if self.type not in (TYPE_SET, TYPE_INT):
             raise ValueError(f"field type {self.type!r} is not yet ported")
         if self.keys:
             raise ValueError("field keys are not yet ported")
@@ -132,8 +160,15 @@ class Field:
             shards.update(v.available_shards())
         return sorted(shards)
 
+    def bsi_view_name(self) -> str:
+        return view_name_bsi(self.name)
+
+    # ---------------------------------------------------------------- writes
+
     def set_bit(self, row: int, column: int) -> bool:
         self.options.check_ported()
+        if self.options.type == TYPE_INT:
+            raise ValueError("set_bit on int field; use set_value")
         frag = self.view(VIEW_STANDARD, create=True).fragment(
             shard_of(column), create=True)
         return frag.set_bit(row, position(column))
@@ -142,7 +177,96 @@ class Field:
         self.options.check_ported()
         changed = False
         for v in list(self.views.values()):
+            if v.name == self.bsi_view_name():
+                continue
             frag = v.fragment(shard_of(column))
             if frag is not None:
                 changed |= frag.clear_bit(row, position(column))
+        return changed
+
+    def _check_int(self, what: str) -> None:
+        if self.options.type != TYPE_INT:
+            raise ValueError(f"{what} on non-int field")
+
+    def set_value(self, column: int, value: int) -> bool:
+        """BSI write (reference field.SetValue): offset-encode and write the
+        exists bit + magnitude bit planes."""
+        self._check_int("set_value")
+        if not self.options.min <= value <= self.options.max:
+            raise ValueError(
+                f"value {value} outside field range "
+                f"[{self.options.min}, {self.options.max}]"
+            )
+        stored = value - self.options.base
+        pos = position(column)
+        frag = self.view(self.bsi_view_name(), create=True).fragment(
+            shard_of(column), create=True)
+        changed = frag.set_bit(BSI_EXISTS_ROW, pos)
+        for i in range(self.options.bit_depth):
+            if (stored >> i) & 1:
+                changed |= frag.set_bit(BSI_OFFSET_ROW + i, pos)
+            else:
+                changed |= frag.clear_bit(BSI_OFFSET_ROW + i, pos)
+        return changed
+
+    def import_values(self, columns, values) -> int:
+        """Batched BSI import (reference field.importValue): validates and
+        offset-encodes the whole batch, groups by shard, and writes each
+        shard's planes in one locked fragment pass (Fragment.import_bsi).
+        Duplicate columns keep the LAST value. Returns the number of
+        columns whose value changed."""
+        self._check_int("import_values")
+        columns = np.atleast_1d(np.asarray(columns, np.uint64))
+        values = np.atleast_1d(np.asarray(values, np.int64))
+        if columns.size == 0:
+            return 0
+        bad = (values < self.options.min) | (values > self.options.max)
+        if bad.any():
+            v = int(values[bad][0])
+            raise ValueError(
+                f"value {v} outside field range "
+                f"[{self.options.min}, {self.options.max}]"
+            )
+        keep = keep_last_unique(columns)
+        columns, values = columns[keep], values[keep]
+        stored = (values - self.options.base).astype(np.uint64)
+        view = self.view(self.bsi_view_name(), create=True)
+        order, bounds, shards_sorted = shard_groups(columns)
+        cols_s, stored_s = columns[order], stored[order]
+        changed = 0
+        for i in range(bounds.size - 1):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            frag = view.fragment(int(shards_sorted[lo]), create=True)
+            changed += frag.import_bsi(
+                cols_s[lo:hi] & np.uint64(SHARD_WIDTH - 1),
+                stored_s[lo:hi], self.options.bit_depth,
+                exists_row=BSI_EXISTS_ROW, offset_row=BSI_OFFSET_ROW,
+            )
+        return changed
+
+    def value(self, column: int) -> tuple[int, bool]:
+        """One column's BSI value, read on the host (reference
+        field.Value)."""
+        self._check_int("value")
+        pos = position(column)
+        view = self.view(self.bsi_view_name())
+        frag = view.fragment(shard_of(column)) if view else None
+        if frag is None or not frag.contains(BSI_EXISTS_ROW, pos):
+            return 0, False
+        stored = 0
+        for i in range(self.options.bit_depth):
+            if frag.contains(BSI_OFFSET_ROW + i, pos):
+                stored |= 1 << i
+        return stored + self.options.base, True
+
+    def clear_value(self, column: int) -> bool:
+        self._check_int("clear_value")
+        pos = position(column)
+        view = self.view(self.bsi_view_name())
+        frag = view.fragment(shard_of(column)) if view else None
+        if frag is None:
+            return False
+        changed = frag.clear_bit(BSI_EXISTS_ROW, pos)
+        for i in range(self.options.bit_depth):
+            frag.clear_bit(BSI_OFFSET_ROW + i, pos)
         return changed

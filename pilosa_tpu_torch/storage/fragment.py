@@ -184,6 +184,57 @@ class Fragment:
                     self._after_row_write(row, p, added=True)
             return changed
 
+    def _has_bits(self, row: int, positions: np.ndarray) -> np.ndarray:
+        """Membership of each in-shard position in ``row`` (bool)."""
+        words = self.row_words(row)
+        return ((words[positions >> np.uint64(5)]
+                 >> (positions & np.uint64(31)).astype(np.uint32)) & 1) == 1
+
+    def import_bsi(self, positions, stored, bit_depth: int,
+                   exists_row: int = 0, offset_row: int = 2) -> int:
+        """Batched BSI write (reference fragment.importValue): one lock,
+        one logged add op and one logged remove op for a whole (position,
+        stored-value) batch. ``positions`` must be duplicate-free. Every
+        touched plane row emits one write event carrying its positions,
+        so resident plane leaves are patched, not re-decoded. Returns the
+        number of columns whose existence or stored value changed."""
+        positions = np.asarray(positions, np.uint64)
+        stored = np.asarray(stored, np.uint64)
+        if positions.size and int(positions.max()) >= SHARD_WIDTH:
+            raise ValueError("position out of shard range")
+        with self.lock:
+            added: list = []
+            removed: list = []
+            exists_new = ~self._has_bits(exists_row, positions)
+            changed = exists_new.copy()
+            if exists_new.any():
+                added.append((exists_row, positions[exists_new]))
+            for i in range(bit_depth):
+                want = ((stored >> np.uint64(i)) & np.uint64(1)) == 1
+                cur = self._has_bits(offset_row + i, positions)
+                add_m, rem_m = want & ~cur, ~want & cur
+                if add_m.any():
+                    added.append((offset_row + i, positions[add_m]))
+                if rem_m.any():
+                    removed.append((offset_row + i, positions[rem_m]))
+                changed |= add_m | rem_m
+            if not changed.any():
+                return 0
+            for parts, op, bitmap_op in ((added, OP_ADD, self.bitmap.add_ids),
+                                         (removed, OP_REMOVE,
+                                          self.bitmap.remove_ids)):
+                if parts:
+                    ids = np.sort(np.concatenate(
+                        [(np.uint64(r) << np.uint64(20)) + p
+                         for r, p in parts]))
+                    bitmap_op(ids)
+                    self._log_op(op, ids)
+            for r, p in added:
+                self._after_row_write(r, p, added=True)
+            for r, p in removed:
+                self._after_row_write(r, p, added=False)
+            return int(changed.sum())
+
     def replace_bitmap(self, bitmap: RoaringBitmap, rows) -> None:
         """Install a whole new bitmap (bulk dense load) as a fresh
         snapshot; ``rows`` are the rows whose content changed."""

@@ -19,6 +19,12 @@ from pilosa_tpu_torch.roaring.bitmap import (
     RoaringBitmap,
 )
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+from pilosa_tpu_torch.storage.field import (
+    BSI_EXISTS_ROW,
+    BSI_OFFSET_ROW,
+    TYPE_INT,
+    FieldOptions,
+)
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
 
@@ -75,29 +81,70 @@ def _load_fragment(frag, rows: dict) -> int:
     return bm.count() - before
 
 
-def load_from_dense(holder, fields: dict, *, index: str) -> int:
-    """Set the bits of dense words in ``index`` (created, with its set
-    fields, when missing): ``fields`` is ``{field: {row: words}}`` where
-    ``words`` are uint32, ``n_shards x 32768`` of them, shard-major —
-    bit ``b`` of the flat array is column ``b``. Columns that gain a bit
-    are marked existing, as an import marks them. Returns the number of
-    bits set that were not set before."""
+def _check_planes(name: str, opts: FieldOptions, planes: np.ndarray) -> None:
+    """Plane words must hold values the field can store: no magnitude or
+    sign bit on a column that does not exist, and no stored value above
+    ``max - min`` (checked on the values only when some depth-bit value
+    would exceed it)."""
+    depth = opts.bit_depth
+    if planes.ndim != 2 or planes.shape[0] != BSI_OFFSET_ROW + depth:
+        raise ValueError(f"int field {name!r} takes {BSI_OFFSET_ROW + depth} "
+                         f"plane rows, got {planes.shape}")
+    missing = ~planes[BSI_EXISTS_ROW]
+    if any((row & missing).any() for row in planes[1:]):
+        raise ValueError(f"int field {name!r}: plane bits on columns "
+                         "without the exists bit")
+    span = opts.max - opts.min
+    if span < (1 << depth) - 1:
+        bits = np.unpackbits(planes[BSI_OFFSET_ROW:].view(np.uint8), axis=1,
+                             bitorder="little").astype(np.uint64)
+        weights = np.uint64(1) << np.arange(depth, dtype=np.uint64)
+        if int((weights @ bits).max()) > span:
+            raise ValueError(f"int field {name!r}: a stored value exceeds "
+                             f"max - min = {span}")
+
+
+def load_from_dense(holder, fields: dict, *, index: str,
+                    int_fields: dict | None = None) -> int:
+    """Set the bits of dense words in ``index`` (created, with its fields,
+    when missing).
+
+    ``fields`` is ``{field: {row: words}}`` for set fields, where
+    ``words`` are uint32, ``n_shards x 32768`` of them, shard-major — bit
+    ``b`` of the flat array is column ``b``. ``int_fields`` is ``{field:
+    (min, max, planes)}`` for int fields, ``planes`` being uint32[2 +
+    depth, n_shards x 32768]: the exists row, the sign row and the bit
+    planes of the offset-encoded values, as the field's ``bsig`` view
+    holds them. Columns that gain a bit (int fields: the exists bit) are
+    marked existing, as an import marks them. Returns the number of bits
+    set that were not set before."""
     idx = holder.index(index) or holder.create_index(index)
     exists: dict[int, np.ndarray] = {}
     gained = 0
-    for fname, rows in fields.items():
-        fld = idx.field(fname) or idx.create_field(fname)
+    layers = [(fname, VIEW_STANDARD, rows, None)
+              for fname, rows in fields.items()]
+    for fname, (lo, hi, planes) in (int_fields or {}).items():
+        opts = FieldOptions(type=TYPE_INT, min=lo, max=hi)
+        planes = np.asarray(planes, np.uint32)
+        _check_planes(fname, opts, planes)
+        layers.append((fname, None, dict(enumerate(planes)), opts))
+    for fname, vname, rows, opts in layers:
+        fld = idx.field(fname) or idx.create_field(fname, opts)
         fld.options.check_ported()
-        view = fld.view(VIEW_STANDARD, create=True)
+        if (fld.options.type == TYPE_INT) != (opts is not None):
+            raise ValueError(f"field {fname!r} is a {fld.options.type} field")
+        view = fld.view(vname or fld.bsi_view_name(), create=True)
         per_shard: dict[int, dict] = {}
         for row, words in rows.items():
             if int(row) < 0:
                 raise ValueError(f"row {row} is negative")
             w = np.asarray(words, np.uint32).reshape(-1, WORDS_PER_SHARD)
+            marks = opts is None or int(row) == BSI_EXISTS_ROW
             for shard in np.flatnonzero(w.any(axis=1)).tolist():
                 per_shard.setdefault(shard, {})[int(row)] = w[shard]
-                acc = exists.get(shard)
-                exists[shard] = w[shard] if acc is None else acc | w[shard]
+                if marks:
+                    acc = exists.get(shard)
+                    exists[shard] = w[shard] if acc is None else acc | w[shard]
         for shard, shard_rows in sorted(per_shard.items()):
             gained += _load_fragment(view.fragment(shard, create=True),
                                      shard_rows)

@@ -1,8 +1,9 @@
 """Views: named fragment groups within a field (reference view.go).
 
 The port's thin copy of ``pilosa_tpu.storage.view``: the same directory
-layout (``views/<name>/fragments/<shard>``). Only the ``standard`` view is
-queried in this slice; other views on disk are opened and left alone.
+layout (``views/<name>/fragments/<shard>``). The ``standard`` view holds
+set rows and ``bsig_<field>`` an int field's bit planes; other views on
+disk (time quanta) are opened and left alone.
 """
 
 from __future__ import annotations
@@ -13,6 +14,10 @@ import threading
 from pilosa_tpu_torch.storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
+
+
+def view_name_bsi(field_name: str) -> str:
+    return f"bsig_{field_name}"
 
 
 class View:

@@ -80,3 +80,87 @@ def test_word_patch_matches_plain(dev, clear):
                              clear)
     assert torch.equal(k, p)
     assert torch.equal(k[:2], leaf[:2]) and torch.equal(k[3:], leaf[3:])
+
+
+def test_tree_rows_not_matches_plain(dev):
+    prog = expr.compile_program(("diff", ("flipall", ("leaf", 0)),
+                                 ("flipall", ("leaf", 1))))
+    leaves = _leaves(dev, 2, (4, W), 12)
+    assert torch.equal(kernels.tree_rows(prog, leaves),
+                       kernels.tree_rows_plain(prog, leaves))
+
+
+@pytest.mark.parametrize("clear", [False, True])
+def test_word_patch_row_form_matches_plain(dev, clear):
+    (leaf,) = _leaves(dev, 1, (4, 6, W), 13)
+    rng = np.random.default_rng(14)
+    pos = rng.choice(W * 32, 500, replace=False).astype(np.uint32)
+    word_idx, masks = batch._word_masks(np.union1d(pos, pos | 31))
+    k, p = leaf.clone(), leaf.clone()
+    kernels.word_patch(k, 2, word_idx, masks, word_idx.size, clear, row=4)
+    kernels.word_patch_plain(p, 2, np.stack([word_idx, masks.view(np.int32)]),
+                             clear, row=4)
+    assert torch.equal(k, p)
+    k[2, 4] = leaf[2, 4]
+    assert torch.equal(k, leaf)  # nothing but slot 2's row 4 changed
+
+
+SHIFTS = [0, 1, -1, 31, -31, 32, -32, 33, -33, W * 32 - 1, -(W * 32 - 1),
+          1 << 20, -(1 << 20), (1 << 20) + 5, -(1 << 20) + 5]
+
+
+@pytest.mark.parametrize("shape", [(4, W), (3, 1001)])
+def test_row_shift_matches_plain(dev, shape):
+    (words,) = _leaves(dev, 1, shape, 15)
+    for n in SHIFTS:
+        assert torch.equal(kernels.row_shift(words, n),
+                           kernels.row_shift_plain(words, n)), n
+
+
+def _planes(dev, n_shards, depth, row_words, seed, density_words=2):
+    rng = np.random.default_rng(seed)
+    exists = np.full((n_shards, row_words), 0xFFFFFFFF, np.uint32)
+    for _ in range(density_words):
+        exists &= rng.integers(0, 1 << 32, exists.shape, dtype=np.uint32)
+    planes = rng.integers(0, 1 << 32, (n_shards, 2 + depth, row_words),
+                          dtype=np.uint32) & exists[:, None]
+    planes[:, 0] = exists
+    planes[:, 1] = 0
+    return torch.from_numpy(planes.view(np.int32)).to(dev)
+
+
+@pytest.mark.parametrize("row_words", [W, 1001])
+def test_bsi_compare_matches_plain(dev, row_words):
+    depth = 20
+    planes = _planes(dev, 5, depth, row_words, 16)
+    exists = planes[:, 0].contiguous()
+    for op in kernels.BSI_OPS:
+        for pred in (0, 1, 777777, (1 << depth) - 1):
+            assert torch.equal(kernels.bsi_compare(planes, exists, op, pred),
+                               kernels.bsi_compare_plain(planes, exists, op,
+                                                         pred)), (op, pred)
+
+
+@pytest.mark.parametrize("row_words", [W, 1001])
+def test_bsi_sum_matches_plain(dev, row_words):
+    planes = _planes(dev, 5, 20, row_words, 17)
+    (filt,) = _leaves(dev, 1, (5, row_words), 18)
+    for f in (None, filt):
+        assert torch.equal(kernels.bsi_sum(planes, f),
+                           kernels.bsi_sum_plain(planes, f))
+
+
+@pytest.mark.parametrize("want_max", [False, True])
+def test_bsi_minmax_matches_plain(dev, want_max):
+    planes = _planes(dev, 6, 20, W, 19, density_words=12)
+    (filt,) = _leaves(dev, 1, (6, W), 20)
+    filt[1] = 0
+    filt[4] = 0  # shards without candidates
+    for f in (None, filt):
+        got_v, got_n = kernels.bsi_minmax(planes, f, want_max)
+        want_v, want_n = kernels.bsi_minmax_plain(planes, f, want_max)
+        assert torch.equal(got_n, want_n)
+        live = want_n > 0
+        assert torch.equal(got_v[live], want_v[live])
+        assert torch.equal(batch.minmax_merge(got_v, got_n, want_max),
+                           batch.minmax_merge(want_v, want_n, want_max))

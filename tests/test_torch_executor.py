@@ -122,7 +122,7 @@ def test_micro_batch_coalesces_counts(pair):
 
 
 @pytest.mark.parametrize("pql", [
-    "Count(Not(Row(f=1)))", "Shift(Row(f=1), n=1)", "Row(f > 10)",
+    "Rows(f)", "GroupBy(Rows(f))", "IncludesColumn(Row(f=1), column=5)",
     "TopN(f, n=2)", "Count(Row(f=1, from='2020-01-01', to='2021-01-01'))",
 ])
 def test_unported_calls_raise(pair, pql):

@@ -160,6 +160,42 @@ def test_word_patch_matches_delta_with_bit31_and_pads(clear):
     assert np.array_equal(_u(leaf), want)
 
 
+@pytest.mark.parametrize("clear", [False, True])
+def test_word_patch_row_form_matches_delta_row(clear):
+    """K3 into one inner row of an [S, R, W] leaf (a BSI plane matrix)."""
+    rng = np.random.default_rng(22)
+    arr = rng.integers(0, 1 << 32, (4, 5, W), dtype=np.uint32)
+    positions = rng.choice(W * 32, 200, replace=False).astype(np.uint32)
+    positions = np.union1d(positions, (positions & ~np.uint32(31)) | 31)
+    jw, jm = jbatch._word_masks(positions)
+    fn = jbatch._andnot_delta_row if clear else jbatch._or_delta_row
+    want = np.asarray(fn(arr, 1, 3, jw, jm))
+    leaf = _t(arr.copy())
+    pw, pm = batch._word_masks(positions)
+    kernels.word_patch(leaf, 1, pw, pm, pw.size, clear, row=3)
+    assert np.array_equal(_u(leaf), want)
+    with pytest.raises(IndexError):
+        kernels.word_patch(leaf, 1, pw, pm, pw.size, clear, row=5)
+    with pytest.raises(ValueError):
+        kernels.word_patch(leaf[:, 0].contiguous(), 1, pw, pm, pw.size,
+                           clear, row=0)
+
+
+def test_flipall_program_matches_reference_rows():
+    """OP_NOT: the grammar's flipall in K2's program."""
+    rng = np.random.default_rng(23)
+    leaves = _stacked(rng, 3, 2, density=0.4)
+    tree = ("or", ("flipall", ("leaf", 0)), ("diff", ("leaf", 1),
+                                            ("flipall", ("const0",))))
+    want = np.asarray(jbatch.local_fn(tree, "row", (1, 1), 0)(*leaves))
+    prog = expr.compile_program(tree)
+    assert kernels.OP_NOT in [c & 0xFF for c in prog]
+    got = kernels.tree_rows(prog, [_t(x) for x in leaves])
+    assert np.array_equal(_u(got), want)
+    # a count of flipall stays off the flat K1 path (padding slots)
+    assert batch.count_elementwise_sub(("count", tree), (1, 1)) is None
+
+
 def test_word_patch_rejects_bad_input():
     leaf = torch.zeros((2, W), dtype=torch.int32)
     with pytest.raises(IndexError):
@@ -181,6 +217,8 @@ def test_program_checks():
         kernels.check_program((kernels.OP_LEAF | (3 << 8),), 2)  # leaf 3 of 2
     with pytest.raises(ValueError):
         kernels.check_program((kernels.OP_LEAF, kernels.OP_LEAF), 1)  # 2 left
+    with pytest.raises(ValueError):
+        kernels.check_program((kernels.OP_NOT, kernels.OP_LEAF), 1)  # empty
     deep = ("leaf", 0)
     for i in range(1, 17):
         deep = ("or", ("leaf", i), deep)  # right-deep: stack of 17
