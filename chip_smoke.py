@@ -6,14 +6,16 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the seven CUDA kernels from ``pilosa_tpu_torch/csrc`` (one nvcc
+2. build the nine CUDA kernels from ``pilosa_tpu_torch/csrc`` (one nvcc
    per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card,
    bit-exact, at the main paths' shapes (int32[1024, 32768] leaves, a
    4-query micro-batch, a patch whose masks have bit 31 set, the
-   int32[1024, 22, 32768] planes of a depth-20 int field), and time both
-   with CUDA events beside the kernel's memory bound;
-4. drive two main paths through the port's HTTP server on 127.0.0.1 over
+   int32[1024, 22, 32768] planes of a depth-20 int field, an 8-row TopN
+   chunk int32[1024, 8, 32768], GroupBy levels of 80 and 1024
+   candidates), and time both with CUDA events beside the kernel's
+   memory bound;
+4. drive three main paths through the port's HTTP server on 127.0.0.1 over
    one 1B-column (1024-shard) data directory written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -26,7 +28,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       and an int field ``tip`` filled through /import-value; Range,
       between, Sum, Min and Max, a Set on ``tip`` that the next
       aggregates must show, then 16 concurrent clients over five BSI
-      shapes.
+      shapes;
+   c. the taxi queries on ``rides`` (BASELINE config 2; Litwintschik's
+      "1.1 Billion Taxi Rides" queries 1-4): set fields
+      ``passenger_count``, ``pickup_year`` and ``trip_distance``, one row
+      per ride each; TopN (filtered too), Rows, GroupBy over one, two and
+      three dimensions (the last past the dense limit, so pruned level by
+      level), Sum aggregate, having, Options(shards=), IncludesColumn, a
+      Set that the next TopN and GroupBy must show, then 16 concurrent
+      clients over five shapes of queries 1-3.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
@@ -43,6 +53,7 @@ import subprocess
 import sys
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
@@ -63,6 +74,20 @@ SHIFTS = (0, 1, -1, 31, -31, 32, -32, 33, -33, WORDS * 32 - 1,
           -(WORDS * 32 - 1), 1 << 20, -(1 << 20), (1 << 20) + 5,
           -(1 << 20) + 5)
 NO_LIBRARY = None  # no PyTorch call computes a popcount or a bit shift
+# The taxi path's set fields (Litwintschik's "1.1 Billion Taxi Rides"
+# queries 1-4): field -> (first row, share of the rides in each row). One
+# row per ride and field, drawn from --seed with this skew.
+TAXI_FIELDS = {
+    "passenger_count": (0, (0.004, 0.70, 0.14, 0.04, 0.02, 0.05, 0.03,
+                            0.0005, 0.0003, 0.0002)),
+    "pickup_year": (2009, (0.15, 0.15, 0.14, 0.13, 0.12, 0.11, 0.10, 0.10)),
+    # rounded miles 0-62, and 63 for 63 miles or more
+    "trip_distance": (0, tuple(0.7 ** k + 0.002 for k in range(63))
+                      + (0.01,)),
+}
+# Device bytes the server may keep resident: the rides path's 7.2 GB
+# beside the taxi path's 10.25 GiB of dimension rows and TopN chunks
+SERVER_BUDGET_BYTES = 64 << 30
 
 
 def fail(msg: str) -> None:
@@ -351,6 +376,100 @@ def check_port_kernels(torch, kernels, batch, leaves, planes) -> list:
     return out
 
 
+def check_taxi_kernels(torch, kernels, leaves, planes) -> list:
+    """Phase 3, slice 3: K8 and K9 against their plain versions,
+    bit-exact, at the taxi path's shapes: an 8-row TopN chunk
+    int32[1024, 8, 32768] with and without a filter and with zero pad
+    rows; GroupBy levels of Q3 (dimensions of 10 and 8 rows, C = 80, a
+    filter), Q2 (10 rows, the depth-20 fare planes) and a pruned level (3
+    dimensions, 1000 candidates padded with index 0 to 1024)."""
+    import itertools
+
+    out = []
+    row_bytes = leaves[0].numel() * 4
+    n_shards = leaves[0].shape[0]
+
+    # K8
+    matrix = torch.stack(leaves[:8], dim=1)
+    padded = matrix.clone()
+    padded[:, 6:] = 0
+    filt = leaves[8]
+    err = 0
+    for m in (matrix, padded):
+        for f in (None, filt):
+            err = max(err, max_abs_err(torch, kernels.count_rows(m, f),
+                                       kernels.count_rows_plain(m, f)))
+    if err != 0:
+        fail(f"count_rows disagrees with its plain version by {err}")
+    out.append({
+        "name": "count_rows", "route": "cuda",
+        "source": "pilosa_tpu_torch/csrc/count_rows.cu",
+        "replaces": "pilosa_tpu/executor/expr.py:86",
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: kernels.count_rows(matrix, filt)),
+        "plain_ms": cuda_ms(torch, lambda: kernels.count_rows_plain(
+            matrix, filt), launches=2, reps=3),
+        "bound_ms": _bytes_ms(9 * row_bytes + n_shards * 8 * 4),
+        "bound_by": "bytes", "library_ms": NO_LIBRARY,
+        "shape": f"int32[{n_shards}, 8, {WORDS}] + filter",
+    })
+    del matrix, padded
+
+    # K9: Q3's level, Q2's level and a pruned level
+    d10 = torch.stack(leaves[:10], dim=1)
+    d8 = torch.stack(leaves[8:16], dim=1)
+    d16 = torch.stack(leaves[:16], dim=1)
+    q3 = np.array(list(itertools.product(range(10), range(8))), np.int32).T
+    rng = np.random.default_rng(9)
+    pick = rng.choice(10 * 8 * 16, 1000, replace=False)
+    pruned = np.zeros((3, 1024), np.int32)  # 24 pad candidates at index 0
+    pruned[:, :1000] = np.stack(np.unravel_index(pick, (10, 8, 16)))
+    levels = {
+        "Q3": ([d10, d8], list(q3), leaves[15], None),
+        "Q2": ([d10], [np.arange(10)], None, planes),
+        "pruned": ([d10, d8, d16], list(pruned), leaves[3], None),
+    }
+    err = 0
+    for dims, idxs, f, p in levels.values():
+        got = kernels.groupby_level(dims, idxs, f, p)
+        want = kernels.groupby_level_plain(dims, idxs, f, p)
+        err = max(err, max_abs_err(torch, got, want))
+        del got, want
+    if err != 0:
+        fail(f"groupby_level disagrees with its plain version by {err}")
+    for name, (dims, idxs, f, p) in levels.items():
+        c = len(idxs[0])
+        rows = sum(len(np.unique(ix)) for ix in idxs)
+        extra = (f is not None) + (p.shape[1] if p is not None else 0)
+        k = 1 if p is None else p.shape[1]
+        bound = _bytes_ms((rows + extra) * row_bytes + n_shards * k * c * 4)
+        gather = c * len(dims) * row_bytes
+        ms = cuda_ms(torch, lambda: kernels.groupby_level(dims, idxs, f, p),
+                     launches=3, reps=3)
+        print(f"kernel groupby_level at {name}: {len(dims)} dimensions, "
+              f"C = {c}{', filter' if f is not None else ''}"
+              f"{', depth-20 planes' if p is not None else ''}: {ms} ms, "
+              f"bound {bound} ms by bytes, gather {gather} bytes "
+              f"({gather / 2**30:.1f} GiB), distinct input "
+              f"{(rows + extra) * row_bytes} bytes", flush=True)
+    dims, idxs, f, p = levels["Q3"]
+    out.append({
+        "name": "groupby_level", "route": "cuda",
+        "source": "pilosa_tpu_torch/csrc/groupby_level.cu",
+        "replaces": "pilosa_tpu/executor/batch.py:696",
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: kernels.groupby_level(dims, idxs, f, p),
+                      launches=3, reps=3),
+        "plain_ms": cuda_ms(torch, lambda: kernels.groupby_level_plain(
+            dims, idxs, f, p), launches=1, reps=3),
+        "bound_ms": _bytes_ms(19 * row_bytes + n_shards * 80 * 4),
+        "bound_by": "bytes", "library_ms": NO_LIBRARY,
+        "shape": f"Q3 level: int32[{n_shards}, 10|8, {WORDS}], C = 80, "
+                 "filter",
+    })
+    return out
+
+
 class Client:
     """One keep-alive HTTP connection to the server."""
 
@@ -374,22 +493,24 @@ class Client:
 
 
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
-                   rng, kernels) -> tuple[dict, dict, dict, dict]:
-    """Phase 4 through one server: the Star-Trace path, then the rides
-    path, each with the launch counters zeroed just before it and read
-    just after. Returns (star numbers, star launches, rides numbers,
-    rides launches)."""
+                   taxi: dict, rng, kernels) -> dict:
+    """Phase 4 through one server: the Star-Trace path, the rides path and
+    the taxi path, each with the launch counters zeroed just before it and
+    read just after. Returns {path: (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
 
-    server = Server(data_dir, bind="127.0.0.1", port=0).open()
+    server = Server(data_dir, bind="127.0.0.1", port=0,
+                    budget_bytes=SERVER_BUDGET_BYTES).open()
     try:
-        kernels.reset_launches()
-        star = _serve_and_check(server, words, rng)
-        star_launched = kernels.launches()
-        kernels.reset_launches()
-        ride_stats = _serve_rides(server, rides, oracle)
-        rides_launched = kernels.launches()
-        return star, star_launched, ride_stats, rides_launched
+        out = {}
+        for path, serve in (
+                ("Star-Trace", lambda: _serve_and_check(server, words, rng)),
+                ("rides", lambda: _serve_rides(server, rides, oracle)),
+                ("taxi", lambda: _serve_taxi(server, taxi))):
+            kernels.reset_launches()
+            stats = serve()
+            out[path] = (stats, kernels.launches())
+        return out
     finally:
         server.close()
 
@@ -567,11 +688,13 @@ def _tip_answers(cols, vals, fare_of: dict) -> dict:
     }
 
 
-def rides_oracle(rides: dict) -> dict:
+def rides_oracle(rides: dict, group: np.ndarray, n_groups: int) -> dict:
     """Every rides answer, from the host words, one chunk of shards at a
     time; also a ride with fare > FARE_THRESHOLDS[1] and no tip (for the
-    write check)."""
+    write check), and the fare sum of each category of ``group`` (one
+    uint8 category per ride)."""
     planes, cab1 = rides["fare"], rides["cab"][1]
+    group_sums = np.zeros(n_groups, np.int64)
     gt = dict.fromkeys(FARE_THRESHOLDS, 0)
     between = cab_sum = cab_n = 0
     lo_v, hi_v = FARE_BETWEEN
@@ -589,6 +712,10 @@ def rides_oracle(rides: dict) -> dict:
                                     bitorder="little").astype(bool)
         cab_sum += int(values[c1].sum(dtype=np.int64))
         cab_n += int(np.count_nonzero(c1))
+        g = group[lo * 32:(lo + chunk) * 32]
+        # float64 weights: every chunk's sums stay below 2^53, exact
+        group_sums += np.bincount(g[exists], weights=values[exists],
+                                  minlength=n_groups).astype(np.int64)
         if free_col is None:
             for c in np.flatnonzero(exists & (values > FARE_THRESHOLDS[1])):
                 if lo * 32 + int(c) not in tipped:
@@ -606,7 +733,8 @@ def rides_oracle(rides: dict) -> dict:
     truth['Sum(Row(cab_type=1), field="fare")'] = {"value": cab_sum,
                                                    "count": cab_n}
     truth.update(_tip_answers(cols, rides["tip_vals"], fare_of))
-    return {"truth": truth, "fare_of": fare_of, "free_col": free_col}
+    return {"truth": truth, "fare_of": fare_of, "free_col": free_col,
+            "group_sums": group_sums}
 
 
 def _serve_rides(server, rides: dict, oracle: dict) -> dict:
@@ -675,6 +803,215 @@ def _serve_rides(server, rides: dict, oracle: dict) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------- taxi path
+
+
+def _category_lut(p) -> np.ndarray:
+    """uint8[65536]: the category of each 16-bit draw, category k on about
+    p[k] of the draws and on at least one."""
+    p = np.asarray(p, float) / sum(p)
+    counts = np.maximum(1, np.round(p * 65536).astype(np.int64))
+    counts[np.argmax(counts)] += 65536 - int(counts.sum())
+    return np.repeat(np.arange(p.size, dtype=np.uint8), counts)
+
+
+def make_taxi(rng) -> dict:
+    """Per-ride categories of the three taxi set fields: uint8[2^30]
+    each, ride i in category cat[i] (its row is TAXI_FIELDS' first row +
+    cat[i]), drawn with TAXI_FIELDS' skew."""
+    n = N_SHARDS * WORDS * 32
+    step = 1 << 26
+    out = {}
+    for field, (_, p) in TAXI_FIELDS.items():
+        lut = _category_lut(p)
+        cat = np.empty(n, np.uint8)
+        for lo in range(0, n, step):
+            cat[lo:lo + step] = lut[rng.integers(0, 1 << 16, min(step, n - lo),
+                                                 dtype=np.uint16)]
+        out[field] = cat
+    return out
+
+
+def category_rows(cat: np.ndarray, n_rows: int) -> dict:
+    """{category: uint32 words} of a per-ride category array: each bit of
+    the categories packed into a plane, then the rows split out of the
+    planes one bit at a time (one AND per prefix), so every ride lands in
+    exactly one row."""
+    n_bits = max(1, (n_rows - 1).bit_length())
+    planes = [np.packbits((cat >> np.uint8(b)) & np.uint8(1),
+                          bitorder="little").view("<u4")
+              for b in range(n_bits)]
+    masks = {0: None}  # prefix of the top bits -> its rides (None: all)
+    for b in reversed(range(n_bits)):
+        nxt = {}
+        for v, m in masks.items():
+            for bit in (0, 1):
+                w = (v << 1) | bit
+                if w << b >= n_rows:
+                    continue  # no category below n_rows has this prefix
+                p = planes[b] if bit else ~planes[b]
+                nxt[w] = p if m is None else m & p
+        masks = nxt
+    return masks
+
+
+def _pairs(counts, rows, n: int = 10) -> list:
+    """TopN's JSON: (row, count) by count descending, then row."""
+    order = sorted((-int(c), int(r)) for r, c in zip(rows, counts) if c > 0)
+    return [{"id": r, "count": -c} for c, r in (order[:n] if n else order)]
+
+
+def _groups(names: list, keys: list, counts, sums=None) -> list:
+    """GroupBy's JSON for groups with a count, keys ascending."""
+    out = []
+    for i, key in enumerate(keys):
+        if counts[i] <= 0:
+            continue
+        g = {"group": [{"field": f, "rowID": int(r)}
+                       for f, r in zip(names, key)], "count": int(counts[i])}
+        if sums is not None:
+            g["sum"] = int(sums[i])
+        out.append(g)
+    return out
+
+
+def taxi_oracle(rides: dict, taxi: dict, fare_sums: np.ndarray) -> dict:
+    """Every taxi answer from the per-ride categories (np.bincount over
+    the combined group key, chunk by chunk), the cab_type words and the
+    fare sums per passenger count; also the Set check's ride and row."""
+    pc, yr, dist = (taxi[f] for f in TAXI_FIELDS)
+    (pc0, pcp), (yr0, yrp), (d0, dp) = TAXI_FIELDS.values()
+    n_pc, n_yr, n_d = len(pcp), len(yrp), len(dp)
+    groups = np.zeros(n_pc * n_yr * n_d, np.int64)
+    pc_cab1 = np.zeros(n_pc, np.int64)
+    cab = rides["cab"]
+    step = 1 << 26
+    for lo in range(0, pc.size, step):
+        key = (pc[lo:lo + step].astype(np.int32) * n_yr
+               + yr[lo:lo + step]) * n_d + dist[lo:lo + step]
+        groups += np.bincount(key, minlength=groups.size)
+        c1 = np.unpackbits(cab[1][lo // 32:(lo + step) // 32].view(np.uint8),
+                           bitorder="little").astype(bool)
+        pc_cab1 += np.bincount(pc[lo:lo + step][c1], minlength=n_pc)
+    g3 = groups.reshape(n_pc, n_yr, n_d)
+    by_pc, by_d = g3.sum(axis=(1, 2)), g3.sum(axis=(0, 1))
+    q3 = g3.sum(axis=2).reshape(-1)
+    cab_rows = sorted(cab)
+    cab_n = [int(np.bitwise_count(cab[r]).sum(dtype=np.int64))
+             for r in cab_rows]
+    cab_02 = [int(np.bitwise_count(np.concatenate(
+        [cab[r][:WORDS], cab[r][2 * WORDS:3 * WORDS]])).sum(dtype=np.int64))
+        for r in cab_rows]
+    pc_rows = [pc0 + k for k in range(n_pc)]
+    yr_rows = [yr0 + k for k in range(n_yr)]
+    d_rows = [d0 + k for k in range(n_d)]
+    having = int(np.median(by_pc))
+    q3_keys = [(p, y) for p in pc_rows for y in yr_rows]
+    q4_keys = [(p, y, d) for p in pc_rows for y in yr_rows for d in d_rows]
+    names = list(TAXI_FIELDS)
+    shard3 = np.unpackbits(cab[1][3 * WORDS:4 * WORDS].view(np.uint8),
+                           bitorder="little")
+    top_d = _pairs(by_d, d_rows, 5)
+    set_row = top_d[-1]["id"]  # the fifth distance row gains a ride
+    set_col = int(np.flatnonzero(dist[:1 << 20] != set_row - d0)[0])
+    truth = {
+        "TopN(cab_type)": _pairs(cab_n, cab_rows),
+        "GroupBy(Rows(cab_type))": _groups(["cab_type"], [(r,) for r in
+                                                          cab_rows], cab_n),
+        'GroupBy(Rows(passenger_count), aggregate=Sum(field="fare"))':
+            _groups(["passenger_count"], [(r,) for r in pc_rows], by_pc,
+                    fare_sums),
+        "GroupBy(Rows(passenger_count), Rows(pickup_year))":
+            _groups(names[:2], q3_keys, q3),
+        "TopN(passenger_count, Row(cab_type=1), n=5)":
+            _pairs(pc_cab1, pc_rows, 5),
+        "TopN(trip_distance, n=5)": top_d,
+        "Rows(passenger_count)": [r for r, c in zip(pc_rows, by_pc) if c],
+        "Rows(trip_distance, limit=10)":
+            [r for r, c in zip(d_rows, by_d) if c][:10],
+        f"GroupBy(Rows(passenger_count), having=Condition(count > {having}))":
+            [g for g in _groups(["passenger_count"], [(r,) for r in pc_rows],
+                                by_pc) if g["count"] > having],
+        "Options(TopN(cab_type), shards=[0, 2])": _pairs(cab_02, cab_rows),
+        f"IncludesColumn(Row(cab_type=1), column="
+        f"{3 * WORDS * 32 + int(np.flatnonzero(shard3)[0])})": True,
+        f"IncludesColumn(Row(cab_type=1), column="
+        f"{3 * WORDS * 32 + int(np.flatnonzero(shard3 == 0)[0])})": False,
+    }
+    q4 = "GroupBy(Rows(passenger_count), Rows(pickup_year), " \
+         "Rows(trip_distance))"
+    after = groups.copy()
+    after[(int(pc[set_col]) * n_yr + int(yr[set_col])) * n_d
+          + set_row - d0] += 1
+    by_d_after = by_d.copy()
+    by_d_after[set_row - d0] += 1
+    return {"truth": truth, "q4": q4,
+            "q4_truth": _groups(names, q4_keys, groups),
+            "q4_after": _groups(names, q4_keys, after),
+            "set": f"Set({set_col}, trip_distance={set_row})",
+            "topn_after": _pairs(by_d_after, d_rows, 5),
+            "q4_groups": int(np.count_nonzero(groups)),
+            "avg_fare": {r: float(s) / float(c) for r, s, c in
+                         zip(pc_rows, fare_sums, by_pc) if c}}
+
+
+def build_oracles(rides: dict, taxi: dict) -> tuple[dict, dict]:
+    """The rides and the taxi oracles."""
+    t0 = time.perf_counter()
+    oracle = rides_oracle(rides, taxi["passenger_count"],
+                          len(TAXI_FIELDS["passenger_count"][1]))
+    truth = taxi_oracle(rides, taxi, oracle["group_sums"])
+    print(f"rides and taxi oracles: {time.perf_counter() - t0:.1f}s",
+          flush=True)
+    return oracle, truth
+
+
+def _serve_taxi(server, oracle: dict) -> dict:
+    """Phase 4c: the taxi queries through the server; returns its
+    numbers."""
+    stats = {}
+    truth = oracle["truth"]
+    c = Client(server.port, "rides")
+    t0 = time.perf_counter()
+    for pql, want in truth.items():  # first touch: matrices decoded
+        got = c.query(pql)[0]
+        if got != want:
+            fail(f"{pql} = {str(got)[:300]}, oracle {str(want)[:300]}")
+    stats["first_touch_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    if c.query(oracle["q4"])[0] != oracle["q4_truth"]:
+        fail(f"{oracle['q4']} differs from the oracle")
+    stats["q4_first_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    c.query(oracle["q4"])
+    stats["q4_warm_s"] = time.perf_counter() - t0
+    stats["q4_groups"] = oracle["q4_groups"]
+
+    # a write the resident matrices must show (K3's row form)
+    if c.query(oracle["set"]) != [True]:
+        fail(f"{oracle['set']} changed nothing")
+    if c.query("TopN(trip_distance, n=5)")[0] != oracle["topn_after"]:
+        fail("TopN(trip_distance) after the Set differs from the oracle")
+    if c.query(oracle["q4"])[0] != oracle["q4_after"]:
+        fail(f"{oracle['q4']} after the Set differs from the oracle")
+
+    shapes = ["TopN(cab_type)", "GroupBy(Rows(cab_type))",
+              'GroupBy(Rows(passenger_count), aggregate=Sum(field="fare"))',
+              "GroupBy(Rows(passenger_count), Rows(pickup_year))",
+              "TopN(passenger_count, Row(cab_type=1), n=5)"]
+    n_clients, per_client = 16, 20
+    per_shape: dict = {}
+    latencies, wall = closed_loop(server.port, "rides", shapes, truth,
+                                  n_clients, per_client, per_shape)
+    stats.update(_latency_stats(latencies, wall), clients=n_clients,
+                 resident_bytes=server.holder.cache.bytes_used)
+    stats["p50_ms_by_shape"] = {
+        pql: 1e3 * sorted(lat)[len(lat) // 2] for pql, lat in per_shape.items()}
+    stats["avg_fare_cents_by_passenger_count"] = oracle["avg_fare"]
+    c.close()
+    return stats
+
+
 def _latency_stats(latencies: list, wall: float) -> dict:
     lat = sorted(latencies)
     return {"qps": len(lat) / wall, "queries": len(lat),
@@ -683,10 +1020,12 @@ def _latency_stats(latencies: list, wall: float) -> dict:
 
 
 def closed_loop(port: int, index: str, shapes: list, truth: dict,
-                n_clients: int, per_client: int) -> tuple[list, float]:
+                n_clients: int, per_client: int, per_shape=None
+                ) -> tuple[list, float]:
     """``n_clients`` keep-alive clients, each sending ``per_client``
     queries back to back over ``shapes``; every answer is held against
-    ``truth``. Returns (latencies in s, wall s)."""
+    ``truth``. Returns (latencies in s, wall s); ``per_shape``, a dict,
+    also gets each shape's latencies."""
     errors: list = []
     latencies: list = []
     lock = threading.Lock()
@@ -701,6 +1040,8 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
                 dt = time.perf_counter() - t
                 with lock:
                     latencies.append(dt)
+                    if per_shape is not None:
+                        per_shape.setdefault(pql, []).append(dt)
                     if got != truth[pql]:
                         errors.append((pql, got))
         finally:
@@ -776,6 +1117,7 @@ def main() -> int:
     planes = torch.from_numpy(rides["fare"].view(np.int32)).to(dev).reshape(
         2 + FARE_DEPTH, N_SHARDS, WORDS).permute(1, 0, 2).contiguous()
     report += check_port_kernels(torch, kernels, batch, leaves, planes)
+    report += check_taxi_kernels(torch, kernels, leaves, planes)
     del leaves, planes
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -789,6 +1131,13 @@ def main() -> int:
     # phase 4: the main paths
     scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
+    t0 = time.perf_counter()
+    taxi = make_taxi(rng)
+    print(f"taxi categories: {time.perf_counter() - t0:.1f}s", flush=True)
+    # the oracles run in a thread beside the data-dir build: numpy's bulk
+    # work and the build's fsyncs release the interpreter lock
+    pool = ThreadPoolExecutor(1)
+    oracles = pool.submit(build_oracles, rides, taxi)
     try:
         t0 = time.perf_counter()
         holder = Holder(str(scratch / "data")).open()
@@ -801,33 +1150,45 @@ def main() -> int:
         t0 = time.perf_counter()
         load_from_dense(holder, {"cab_type": rides["cab"]}, index="rides",
                         int_fields={"fare": (0, FARE_MAX, rides["fare"])})
-        holder.close()
         print(f"data dir rides: {time.perf_counter() - t0:.1f}s", flush=True)
+        for field, (row0, p) in TAXI_FIELDS.items():  # one field at a time
+            t0 = time.perf_counter()
+            rows = category_rows(taxi[field], len(p))
+            load_from_dense(holder, {field: {row0 + k: w
+                                             for k, w in rows.items()}},
+                            index="rides")
+            del rows
+            print(f"data dir rides, {field}: {len(p)} rows in "
+                  f"{time.perf_counter() - t0:.1f}s", flush=True)
+        holder.close()
         t0 = time.perf_counter()
-        oracle = rides_oracle(rides)
-        print(f"rides oracle: {time.perf_counter() - t0:.1f}s", flush=True)
-        star, star_launched, ride_stats, rides_launched = run_main_paths(
-            str(scratch / "data"), words, rides, oracle, rng, kernels)
+        oracle, taxi_truth = oracles.result()
+        del taxi
+        print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
+              flush=True)
+        paths = run_main_paths(str(scratch / "data"), words, rides, oracle,
+                               taxi_truth, rng, kernels)
     finally:
+        pool.shutdown()
         shutil.rmtree(scratch, ignore_errors=True)
     expected = {
-        "Star-Trace": (star_launched, ("tree_count", "tree_rows",
-                                       "word_patch", "row_shift")),
-        "rides": (rides_launched, ("tree_count", "word_patch", "bsi_compare",
-                                   "bsi_sum", "bsi_minmax")),
+        "Star-Trace": ("tree_count", "tree_rows", "word_patch", "row_shift"),
+        "rides": ("tree_count", "word_patch", "bsi_compare", "bsi_sum",
+                  "bsi_minmax"),
+        "taxi": ("count_rows", "groupby_level", "word_patch"),
     }
-    for path, (launched, names) in expected.items():
+    for path, names in expected.items():
         for name in names:
-            if launched[name] <= 0:
+            if paths[path][1][name] <= 0:
                 fail(f"kernel {name} was not launched on the {path} path")
     for k in report:
-        k["launches"] = star_launched[k["name"]] + rides_launched[k["name"]]
+        k["launches"] = sum(launched[k["name"]]
+                            for _, launched in paths.values())
         if k["launches"] <= 0:
             fail(f"kernel {k['name']} was not launched on a main path")
-    print("main path Star-Trace: " + json.dumps(star), flush=True)
-    print(f"launches Star-Trace: {json.dumps(star_launched)}", flush=True)
-    print("main path rides: " + json.dumps(ride_stats), flush=True)
-    print(f"launches rides: {json.dumps(rides_launched)}", flush=True)
+    for path, (stats, launched) in paths.items():
+        print(f"main path {path}: " + json.dumps(stats), flush=True)
+        print(f"launches {path}: {json.dumps(launched)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in report]}),

@@ -12,9 +12,13 @@ evicting them.
 A structure's shift and bsicmp nodes run first, each through its own
 kernel (K4, K5) into a temporary row (``materialize``, see
 ``expr.plan``); the elementwise rest goes to K1 (counts) or K2 (rows).
+TopN's candidate rows and GroupBy's dimensions are stacked row matrices
+``int32[S_padded, R, 32768]`` (``stacked_matrix``), reduced by K8
+(``countrows``) and K9 (a GroupBy level).
 
 Reduce kinds and their packed results (int32):
   'count'     → [2]: split-sum scalar; the micro-batched form is [B, 2]
+  'countrows' → [2, R]: split sums of each matrix row's popcount
   'bsisum'    → [2, depth + 1]: per-plane popcount split sums ++ [n]
   'min'/'max' → [3]: [offset-encoded extremum, count_lo, count_hi]
                 (count 0 → empty)
@@ -239,6 +243,58 @@ def stacked_leaf(idx, spec, block: ShardBlock, cache) -> torch.Tensor:
                               probe, decode)
 
 
+def stacked_matrix(idx, field_name: str, view, row_ids, block: ShardBlock,
+                   cache, pad_rows: int = 0) -> torch.Tensor:
+    """Device-resident row matrix ``int32[padded, len(row_ids) + pad_rows,
+    words]`` of one view (TopN's phase-2 candidates, GroupBy's
+    dimensions), via ``cache``. ``pad_rows`` appends zero rows, never
+    duplicates of a real row: the write probe maps each row id to ONE
+    inner position, and patches it there in place (K3's row form)."""
+    view_name = view.name if view is not None else None
+    n_rows = len(row_ids) + pad_rows
+    key = ("stackm", idx.scope, idx.name, field_name, view_name,
+           tuple(row_ids), pad_rows, block.key())
+
+    def live_view():
+        # by NAME at decode time: a field deleted or recreated while the
+        # matrix builds reads the live schema, not a dead view
+        field = idx.field(field_name)
+        return field.view(view_name) if field and view_name else None
+
+    def decode():
+        v = live_view()
+
+        def per_shard(shard):
+            out = np.zeros((n_rows, WORDS_PER_SHARD), np.uint32)
+            frag = v.fragment(shard) if v else None
+            if frag is not None:
+                for i, r in enumerate(row_ids):
+                    out[i] = frag.row_words(r)
+            return out
+
+        return block.stack(per_shard, inner=(n_rows, WORDS_PER_SHARD))
+
+    def decode_row(ev):
+        v = live_view()
+        frag = v.fragment(ev.shard) if v else None
+        if frag is None:
+            return np.zeros(WORDS_PER_SHARD, np.uint32)
+        return frag.row_words(ev.row)
+
+    def probe():
+        row_pos = {r: i for i, r in enumerate(row_ids)}
+        return _make_probe(
+            block,
+            match=lambda ev: ev.view == view_name and ev.row in row_pos,
+            row_pos_of=lambda ev: row_pos[ev.row],
+            decode_row=decode_row,
+            delta_on_clear=True,
+        )
+
+    return cache.get_or_build(key, (idx.scope, idx.name, field_name), probe,
+                              decode)
+
+
 # ------------------------------------------------------------------ programs
 
 
@@ -347,6 +403,22 @@ def materialize(plan: expr.Plan, leaves: list, scalars, zeros):
     return resolve
 
 
+def filter_row(plan: expr.Plan, leaves: list, scalars, zeros):
+    """The words of a row plan, or of an aggregate plan's filter (None
+    without one): its steps, then its elementwise root (K2, or the bare
+    leaf itself)."""
+    if plan.root is None:
+        return None
+    resolve = materialize(plan, leaves, scalars, zeros)
+    return row_expr(plan.root, resolve(plan.root[1]), zeros)
+
+
+def count_rows_packed(matrix: torch.Tensor, filt) -> torch.Tensor:
+    """K8's per-shard counts split-summed over shards on the device: the
+    reference's packed int32[2, R]."""
+    return split_sum(kernels.count_rows(matrix, filt), dim=0)
+
+
 def bsi_sum_packed(planes: torch.Tensor, filt) -> torch.Tensor:
     """K6's per-shard counts split-summed over shards on the device: the
     reference's packed int32[2, depth + 1] (plane counts ++ n)."""
@@ -385,13 +457,13 @@ def minmax_merge(values, counts, want_max: bool) -> torch.Tensor:
 def run_plan(plan: expr.Plan, reduce_kind: str, leaves: list, scalars,
              zeros) -> torch.Tensor:
     """One query of a planned structure, packed as ``reduce_kind`` packs
-    it: steps first, then K1 ('count'), K2 ('row'), K6 ('bsisum') or K7 +
-    merge ('min' / 'max')."""
-    resolve = materialize(plan, leaves, scalars, zeros)
+    it: steps first, then K1 ('count'), K2 ('row'), K8 ('countrows'), K6
+    ('bsisum') or K7 + merge ('min' / 'max')."""
     if reduce_kind in ("count", "row"):
         if plan.kind != reduce_kind:
             raise ValueError(f"a {plan.kind} plan cannot reduce as "
                              f"{reduce_kind!r}")
+        resolve = materialize(plan, leaves, scalars, zeros)
         node, operands = plan.root
         tensors = resolve(operands) or [zeros()]
         program = _check_kind(node, reduce_kind, tuple(t.dim() - 1
@@ -399,13 +471,15 @@ def run_plan(plan: expr.Plan, reduce_kind: str, leaves: list, scalars,
         if reduce_kind == "count":
             return count_flat(program, tensors)
         return kernels.tree_rows(program, tensors)
-    want = {"bsisum": "bsisum", "min": "bsiminmax", "max": "bsiminmax"}
+    want = {"bsisum": "bsisum", "min": "bsiminmax", "max": "bsiminmax",
+            "countrows": "countrows"}
     if want.get(reduce_kind) != plan.kind:
         raise ValueError(f"reduce kind {reduce_kind!r} does not fit a "
                          f"{plan.kind} plan")
     planes = leaves[plan.planes]
-    filt = (row_expr(plan.root, resolve(plan.root[1]), zeros)
-            if plan.root is not None else None)
+    filt = filter_row(plan, leaves, scalars, zeros)
+    if reduce_kind == "countrows":
+        return count_rows_packed(planes, filt)
     if reduce_kind == "bsisum":
         return bsi_sum_packed(planes, filt)
     values, counts = kernels.bsi_minmax(planes, filt, reduce_kind == "max")
@@ -417,8 +491,8 @@ def local_fn(structure, reduce_kind: str, leaf_ranks: tuple,
     """The single-query evaluator for a query shape (the reference's
     ``local_fn`` contract), called as ``fn(*leaves, *scalars)`` with
     stacked leaves: 'count' → int32[2] split sums, 'row' →
-    int32[S_padded, words], 'bsisum' → int32[2, depth + 1], 'min'/'max'
-    → int32[3]."""
+    int32[S_padded, words], 'countrows' → int32[2, R], 'bsisum' →
+    int32[2, depth + 1], 'min'/'max' → int32[3]."""
     plan = expr.plan(structure)
     n_leaves = len(leaf_ranks)
 
@@ -430,5 +504,52 @@ def local_fn(structure, reduce_kind: str, leaf_ranks: tuple,
                         lambda: torch.zeros((first.shape[0], first.shape[-1]),
                                             dtype=torch.int32,
                                             device=first.device))
+
+    return fn
+
+
+# ------------------------------------------------------------ GroupBy level
+
+
+def groupby_level_packed(dims: list, idxs, filt, planes) -> torch.Tensor:
+    """One GroupBy level through K9, split-summed over shards on the
+    device into the reference's packed layout: counts [2·C], then with
+    planes n_g [2·C] and plane counts [2·depth·C] (each a [2, ...] split
+    sum, raveled)."""
+    out = split_sum(kernels.groupby_level(dims, idxs, filt, planes), dim=0)
+    if planes is None:
+        return out[:, 0].reshape(-1)
+    return torch.cat([out[:, 0].reshape(-1), out[:, 1].reshape(-1),
+                      out[:, 2:].reshape(-1)])
+
+
+def local_groupby_level_fn(filt_structure, n_filt: int, n_scalars: int,
+                           n_gather: int, has_agg: bool):
+    """The reference's single-device GroupBy level contract: called as
+    ``fn(*filt_leaves, *dim_matrices, [planes], *idx_arrays, *scalars)``
+    with dimension matrices int32[S, n_i, W], planes int32[S, 2 + depth,
+    W] and one host int32[C] candidate index array per dimension; returns
+    the packed level (``groupby_level_packed``). The filter structure, a
+    row structure over the filter leaves, runs first (its steps, then
+    K2)."""
+    plan = expr.plan(filt_structure) if filt_structure is not None else None
+    n_leaves = n_filt + n_gather + (1 if has_agg else 0)
+
+    def fn(*args):
+        leaves = list(args[:n_leaves])
+        idxs = args[n_leaves:n_leaves + n_gather]
+        scalars = [int(x) for x in args[n_leaves + n_gather:
+                                        n_leaves + n_gather + n_scalars]]
+        dims = leaves[n_filt:n_filt + n_gather]
+        planes = leaves[n_filt + n_gather] if has_agg else None
+        first = dims[0]
+
+        def zeros():
+            return torch.zeros((first.shape[0], first.shape[-1]),
+                               dtype=torch.int32, device=first.device)
+
+        filt = (filter_row(plan, leaves[:n_filt], scalars, zeros)
+                if plan is not None else None)
+        return groupby_level_packed(dims, idxs, filt, planes)
 
     return fn

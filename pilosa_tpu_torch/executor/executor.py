@@ -3,13 +3,16 @@
 The port's copy of ``pilosa_tpu.executor.executor`` for these slices:
 Row, Union, Intersect, Difference, Xor, Not, All, Shift and Range over
 set fields and int (BSI) fields, Count of any such tree, Sum/Min/Max
-with or without a filter, and the Set/Clear writes (int fields
-included). A call compiles to a structure (``expr``) over stacked leaves
-and query-time scalars; shift and BSI-comparison nodes run first, each
-through its own kernel (K4, K5), then a Count runs K1 over the rest and
-a row call K2, and pipelined Counts of one shape share one K1 launch per
-micro-batch; Sum runs K6 and Min/Max K7 (one launch per query). Other
-calls, time ranges and keys raise ``PQLError("... not yet ported")``.
+with or without a filter, TopN, Rows, GroupBy (aggregate=Sum, having=),
+IncludesColumn, Options (shards=, excludeColumns=) and the Set/Clear
+writes (int fields included). A call compiles to a structure (``expr``)
+over stacked leaves and query-time scalars; shift and BSI-comparison
+nodes run first, each through its own kernel (K4, K5), then a Count runs
+K1 over the rest and a row call K2, and pipelined Counts of one shape
+share one K1 launch per micro-batch; Sum runs K6 and Min/Max K7 (one
+launch per query). TopN recounts its candidates with K8 over stacked
+candidate matrices, GroupBy runs K9 once per level. Other calls, time
+ranges, keys and attributes raise ``PQLError("... not yet ported")``.
 """
 
 from __future__ import annotations
@@ -20,16 +23,47 @@ import threading
 import weakref
 
 import numpy as np
+import torch
 
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch import kernels
 from pilosa_tpu_torch.executor import batch, expr
-from pilosa_tpu_torch.executor.result import RowResult, ValCount
+from pilosa_tpu_torch.executor.result import (
+    GroupCount,
+    Pair,
+    RowResult,
+    ValCount,
+)
 from pilosa_tpu_torch.pql import Call, Condition, parse
 from pilosa_tpu_torch.pql.ast import Query
+from pilosa_tpu_torch.shardwidth import (
+    WORDS_PER_SHARD,
+    next_pow2,
+    position,
+    shard_of,
+)
 from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_SET
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+
+# TopN phase-1 candidate overfetch per shard (the reference's value).
+TOPN_CANDIDATE_FACTOR = 4
+
+# Device bytes of one TopN phase-2 candidate matrix chunk: a candidate row
+# costs shards x 128 KiB (128 MiB at 1024 shards), so chunks hold a
+# power-of-two number of candidates under this budget (the reference's).
+TOPN_MATRIX_BUDGET_BYTES = 1 << 30
+
+# GroupBy cross-products of at most this many groups run as one level
+# (one readback); larger ones prune one dimension per level (the
+# reference's threshold, read at call time).
+GROUPBY_DENSE_MAX_GROUPS = 4096
+
+# K9 builds each candidate's mask in registers and never materializes the
+# reference's [C, W] masks, so the reference's mask budget
+# (GROUPBY_MASK_BUDGET_BYTES) does not size the port's level chunks: K9's
+# per-shard output int32[S, K, C] does, at most this many bytes a chunk.
+GROUPBY_OUT_BUDGET_BYTES = 256 << 20
 
 _RESERVED_ARGS = {"_field", "_col", "from", "to", "n", "limit", "offset",
                   "previous", "column", "filter", "field", "ids", "timestamp",
@@ -159,12 +193,26 @@ class Executor:
             return self._submit_count(idx, call, shards, pipeline=True)
         if call.name in _AGGREGATES:
             return self._submit_bsi_aggregate(idx, call, shards)
+        if call.name == "TopN":
+            return self._submit_topn(idx, call, shards)
+        if call.name == "GroupBy":
+            return self._submit_groupby(idx, call, shards)
         if call.name in _BITMAP_CALLS:
             return self._submit_bitmap(idx, call, shards)
+        if call.name == "Options" and call.children:
+            # the child pipelines; the result options apply at result()
+            inner = self._submit_one(idx, options_child(call),
+                                     options_restrict_shards(call, shards))
+            return Deferred(lambda: apply_options_result(call,
+                                                         inner.result()))
         return Deferred(value=self._execute_call(idx, call, shards))
 
     def _execute_call(self, idx: Index, call: Call, shards=None):
         name = call.name
+        if name == "Options":
+            res = self._execute_call(idx, options_child(call),
+                                     options_restrict_shards(call, shards))
+            return apply_options_result(call, res)
         if name == "Set":
             return self._execute_set(idx, call)
         if name == "Clear":
@@ -175,6 +223,14 @@ class Executor:
             return self._submit_bsi_aggregate(idx, call, shards).result()
         if name in _BITMAP_CALLS:
             return self._submit_bitmap(idx, call, shards).result()
+        if name == "TopN":
+            return self._submit_topn(idx, call, shards).result()
+        if name == "Rows":
+            return self._execute_rows(idx, call, shards)
+        if name == "GroupBy":
+            return self._submit_groupby(idx, call, shards).result()
+        if name == "IncludesColumn":
+            return self._execute_includes_column(idx, call, shards)
         raise PQLError(f"call {name!r} is not yet ported")
 
     # --------------------------------------------------------------- shards
@@ -384,6 +440,299 @@ class Executor:
 
         return Deferred(finish)
 
+    # ----------------------------------------------------------------- TopN
+
+    def _plan(self, node) -> expr.Plan:
+        try:
+            return expr.plan(node)  # the kernels' operand and depth limits
+        except ValueError as e:
+            raise PQLError(f"query tree is not yet ported: {e}") from e
+
+    def _filter_row(self, idx: Index, filt_call, block):
+        """Compile a TopN / GroupBy filter call and launch its row (its
+        steps, then K2; a bare leaf as it is). None without a filter."""
+        if filt_call is None:
+            return None
+        specs: list = []
+        scalars: list = []
+        node = self._compile_node(idx, filt_call, specs, scalars)
+        plan = self._plan(node)
+        leaves = [batch.stacked_leaf(idx, s, block, self.holder.cache)
+                  for s in specs]
+        return batch.filter_row(plan, leaves, scalars, self._zeros(idx, block))
+
+    def _submit_topn(self, idx: Index, call: Call, shards=None) -> Deferred:
+        """TopN in two phases. Phase 1 takes each shard's candidates from
+        its exact row counts (``Fragment.top``, overfetched); phase 2
+        recounts every candidate over all shards: stacked candidate
+        matrices in power-of-two chunks padded with zero rows (the
+        reference's shapes), one K8 launch per chunk at submit, read back
+        at result()."""
+        field_name = call.arg("_field") or call.arg("field")
+        if field_name is None:
+            raise PQLError("TopN requires a field")
+        field = idx.field(field_name)
+        if field is None:
+            raise PQLError(f"field {field_name!r} not found")
+        if call.arg("attrName") is not None:
+            raise PQLError("TopN(attrName=) is not yet ported: row "
+                           "attributes are not")
+        n = call.arg("n", 10)
+        filt_call = call.children[0] if call.children else None
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return Deferred(value=[])
+        view = field.view(VIEW_STANDARD)
+        explicit_ids = call.arg("ids")
+        if explicit_ids is not None:
+            candidates = sorted(int(i) for i in explicit_ids)
+        else:
+            overfetch = max(n * TOPN_CANDIDATE_FACTOR, n + 10)
+            cand: set[int] = set()
+            for shard in shard_list:
+                frag = view.fragment(shard) if view else None
+                if frag is not None:
+                    cand.update(r for r, _ in frag.top(overfetch))
+            candidates = sorted(cand)
+        if not candidates:
+            return Deferred(value=[])
+
+        block = self._shard_block(shard_list)
+        bytes_per_cand = block.padded * WORDS_PER_SHARD * 4
+        rows = max(1, min(next_pow2(len(candidates)),
+                          TOPN_MATRIX_BUDGET_BYTES // bytes_per_cand))
+        rows = 1 << (rows.bit_length() - 1)  # down to a power of two
+        filt = self._filter_row(idx, filt_call, block)
+        reads = []
+        for lo in range(0, len(candidates), rows):
+            chunk = candidates[lo:lo + rows]
+            matrix = batch.stacked_matrix(idx, field_name, view, chunk, block,
+                                          self.holder.cache,
+                                          pad_rows=rows - len(chunk))
+            reads.append((chunk, batch.count_rows_packed(matrix, filt)))
+
+        def finish() -> list[Pair]:
+            # threshold=: the least total a row needs, after the recount
+            floor = max(1, int(call.arg("threshold", 0) or 0))
+            order = []
+            for chunk, packed in reads:
+                totals = batch.merge_split(packed.cpu().numpy())[:len(chunk)]
+                order += [(-c, r) for r, c in zip(chunk, totals.tolist())
+                          if c >= floor]
+            order.sort()
+            if n:
+                order = order[:n]
+            return [Pair(r, -negc) for negc, r in order]
+
+        return Deferred(finish)
+
+    # ----------------------------------------------------------------- Rows
+
+    def _execute_rows(self, idx: Index, call: Call, shards=None) -> list:
+        field_name = call.arg("_field") or call.arg("field")
+        field = idx.field(field_name) if field_name else None
+        if call.arg("like") is not None and (field is None
+                                             or not field.options.keys):
+            raise PQLError("Rows(like=) requires a field with keys=true")
+        return self._rows_ids(idx, call, shards)
+
+    def _rows_ids(self, idx: Index, call: Call, shards=None) -> list[int]:
+        """The sorted non-empty rows of a field's standard view (from row
+        counts, or those holding ``column=``), after ``previous=`` and cut
+        to ``limit=``."""
+        field_name = call.arg("_field") or call.arg("field")
+        if field_name is None:
+            raise PQLError("Rows requires a field")
+        field = idx.field(field_name)
+        if field is None:
+            raise PQLError(f"field {field_name!r} not found")
+        if field.options.keys:
+            raise PQLError("field keys are not yet ported")
+        limit = call.arg("limit", 0)
+        previous = call.arg("previous")
+        column = call.arg("column")
+        view = field.view(VIEW_STANDARD)
+        if view is None:
+            return []
+        rows: set[int] = set()
+        if column is not None:
+            frag = view.fragment(shard_of(int(column)))
+            if frag is not None:
+                rows.update(frag.rows_containing(position(int(column))))
+        else:
+            for shard in self._shards(idx, shards):
+                frag = view.fragment(shard)
+                if frag is not None:
+                    rows.update(frag.row_counts()[0].tolist())
+        out = sorted(rows)
+        if previous is not None:
+            out = [r for r in out if r > int(previous)]
+        if limit:
+            out = out[:int(limit)]
+        return out
+
+    # -------------------------------------------------------------- GroupBy
+
+    def _groupby_prelude(self, idx: Index, call: Call, shards=None):
+        """GroupBy's arguments: (limit, filter call or None, aggregate int
+        field or None, dims [(field, row ids)], having predicate or
+        None); dims is empty when a dimension has no rows."""
+        if not call.children or any(c.name != "Rows" for c in call.children):
+            raise PQLError("GroupBy requires Rows(...) children")
+        limit = call.arg("limit", 0)
+        filt_call = call.arg("filter")
+        if not isinstance(filt_call, Call):
+            filt_call = None
+        agg_call = call.arg("aggregate")
+        agg_field = None
+        if isinstance(agg_call, Call):
+            if agg_call.name != "Sum":
+                raise PQLError("GroupBy aggregate supports only Sum(...)")
+            agg_name = agg_call.arg("field") or agg_call.arg("_field")
+            agg_field = idx.field(agg_name) if agg_name else None
+            if agg_field is None or agg_field.options.type != TYPE_INT:
+                raise PQLError("GroupBy aggregate requires an int field")
+        # before the empty-dims return: a malformed having errors anyway
+        having = having_predicate(call, has_agg=agg_field is not None)
+        dims = []
+        for child in call.children:
+            row_ids = self._rows_ids(idx, child, shards)
+            if not row_ids:
+                return limit, filt_call, agg_field, [], having
+            dims.append((child.arg("_field") or child.arg("field"), row_ids))
+        return limit, filt_call, agg_field, dims, having
+
+    @staticmethod
+    def _groupby_result(dims, counts: dict, sums: dict, agg_field, limit,
+                        having=None) -> list[GroupCount]:
+        """Groups with a count, after having=, ordered by their row ids,
+        cut to limit= (row keys are not ported)."""
+        if having is not None:
+            counts = {k: c for k, c in counts.items()
+                      if having(c, sums.get(k))}
+        out = [GroupCount([{"field": dims[i][0], "rowID": row}
+                           for i, row in enumerate(key)], c,
+                          sum=sums.get(key) if agg_field is not None
+                          else None)
+               for key, c in sorted(counts.items())]
+        if limit:
+            out = out[:int(limit)]
+        return out
+
+    def _submit_groupby(self, idx: Index, call: Call, shards=None
+                        ) -> Deferred:
+        """GroupBy as K9 levels. A cross-product of at most
+        GROUPBY_DENSE_MAX_GROUPS groups is one level, launched at submit
+        and read back at result(); a larger one extends the candidates one
+        dimension per level, dropping the empty prefixes after each
+        level's readback (an AND only shrinks a group). The matrices are
+        patched in place by writes, so a write landing between two levels
+        is seen by the later levels only."""
+        limit, filt_call, agg_field, dims, having = self._groupby_prelude(
+            idx, call, shards)
+        if not dims:
+            return Deferred(value=[])
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return Deferred(value=[])
+        if len(dims) > kernels.MAX_LEAVES:
+            raise PQLError(f"GroupBy over {len(dims)} dimensions is not yet "
+                           f"ported (K9 takes {kernels.MAX_LEAVES})")
+        block = self._shard_block(shard_list)
+        cache = self.holder.cache
+        filt = self._filter_row(idx, filt_call, block)
+        mats = []
+        for fname, row_ids in dims:
+            field = idx.field(fname)
+            view = field.view(VIEW_STANDARD) if field else None
+            mats.append(batch.stacked_matrix(idx, fname, view, row_ids, block,
+                                             cache))
+        planes = None
+        depth = 0
+        if agg_field is not None:
+            depth = agg_field.options.bit_depth
+            planes = batch.stacked_leaf(
+                idx, _PlanesSpec(agg_field.name, depth), block, cache)
+        sizes = [len(row_ids) for _, row_ids in dims]
+        base = agg_field.options.base if agg_field is not None else 0
+
+        def collect(cand, counts_arr, agg_arrs) -> list[GroupCount]:
+            counts: dict[tuple, int] = {}
+            sums: dict[tuple, int] = {}
+            for j in range(cand.shape[0]):
+                c = int(counts_arr[j])
+                if c <= 0:
+                    continue
+                key = tuple(dims[d][1][int(cand[j, d])]
+                            for d in range(cand.shape[1]))
+                counts[key] = c
+                if agg_arrs is not None:
+                    n_g, pc = agg_arrs
+                    sums[key] = sum(int(v) << b for b, v in
+                                    enumerate(pc[:, j].tolist())) \
+                        + base * int(n_g[j])
+            return self._groupby_result(dims, counts, sums, agg_field, limit,
+                                        having)
+
+        def level(k: int, cand: np.ndarray, last: bool):
+            """Launch one level over the first k + 1 dimensions."""
+            return _groupby_level_enqueue(block, mats[:k + 1], cand, filt,
+                                          planes if last else None, depth)
+
+        if math.prod(sizes) <= GROUPBY_DENSE_MAX_GROUPS:
+            cand = np.zeros((1, 0), np.int32)
+            for n in sizes:
+                cand = _index_cross(cand, n)
+            packed, layout = level(len(dims) - 1, cand, True)
+
+            def finish() -> list[GroupCount]:
+                return collect(cand, *_groupby_level_unpack(
+                    packed.cpu().numpy(), layout, planes is not None, depth))
+
+            return Deferred(finish)
+
+        cand = np.zeros((1, 0), np.int32)
+        counts_arr = agg_arrs = None
+        for k, n in enumerate(sizes):
+            cand = _index_cross(cand, n)
+            last = k == len(sizes) - 1
+            packed, layout = level(k, cand, last)
+            counts_arr, agg_arrs = _groupby_level_unpack(
+                packed.cpu().numpy(), layout, last and planes is not None,
+                depth)
+            keep = counts_arr > 0
+            cand, counts_arr = cand[keep], counts_arr[keep]
+            if agg_arrs is not None:
+                agg_arrs = (agg_arrs[0][keep], agg_arrs[1][:, keep])
+            if cand.shape[0] == 0:
+                return Deferred(value=[])
+        return Deferred(value=collect(cand, counts_arr, agg_arrs))
+
+    # ------------------------------------------------------- IncludesColumn
+
+    def _execute_includes_column(self, idx: Index, call: Call,
+                                 shards=None) -> bool:
+        """The child's row on the column's one shard (the row plan over a
+        one-slot block), then the column's bit."""
+        col = call.arg("column")
+        if col is None:
+            raise PQLError("IncludesColumn requires column=")
+        if len(call.children) != 1:
+            raise PQLError("IncludesColumn requires one child call")
+        if not isinstance(col, int):
+            if not idx.keys:
+                raise PQLError(f"column key {col!r} on index {idx.name!r} "
+                               "without keys=true")
+            raise PQLError("column keys are not yet ported")
+        shard = shard_of(col)
+        if shards is not None and shard not in shards:
+            return False  # Options(shards=) excludes the column's shard
+        pos = position(col)
+        compiled = self._compile_cached(idx, call.children[0])
+        words = self._run(idx, compiled, batch.ShardBlock([shard]), "row")
+        word = int(words[0, pos // 32].item()) & 0xFFFFFFFF
+        return bool((word >> (pos % 32)) & 1)
+
     # -------------------------------------------------------------- compile
 
     def _compile_cached(self, idx: Index, call: Call,
@@ -411,11 +760,7 @@ class Executor:
             if wrap == "count":
                 node = ("count", node)
             compiled = _Compiled(node, specs, scalars)
-        try:
-            # the kernels' operand, length and depth limits
-            compiled.plan = expr.plan(compiled.node)
-        except ValueError as e:
-            raise PQLError(f"query tree is not yet ported: {e}") from e
+        compiled.plan = self._plan(compiled.node)
         if not _node_has_const0(compiled.node):
             if len(self._plan_cache) >= self.PLAN_CACHE_MAX:
                 self._plan_cache.clear()
@@ -596,3 +941,144 @@ class Executor:
             return field.clear_bit(row, col)
         except ValueError as e:
             raise PQLError(str(e)) from e
+
+
+# ------------------------------------------------------------ GroupBy level
+
+
+def _groupby_level_enqueue(block, mats: list, cand: np.ndarray, filt, planes,
+                           depth: int):
+    """Launch one level's K9 chunks over the candidates ``cand`` [C, k]
+    (indices into each matrix's rows), each chunk sized so K9's output
+    stays under GROUPBY_OUT_BUDGET_BYTES, the packed chunks concatenated
+    on the device. Returns (packed, chunk sizes); no readback."""
+    per_cand = block.padded * 4 * (1 if planes is None else 2 + depth)
+    chunk = max(1, GROUPBY_OUT_BUDGET_BYTES // per_cand)
+    packs, layout = [], []
+    for lo in range(0, cand.shape[0], chunk):
+        part = cand[lo:lo + chunk]
+        packs.append(batch.groupby_level_packed(
+            mats, [part[:, d] for d in range(part.shape[1])], filt, planes))
+        layout.append(part.shape[0])
+    packed = packs[0] if len(packs) == 1 else torch.cat(packs)
+    return packed, layout
+
+
+def _groupby_level_unpack(host: np.ndarray, layout: list, has_agg: bool,
+                          depth: int):
+    """A level's packed chunks on the host: per-candidate counts, and with
+    an aggregate (n, plane counts [depth, C])."""
+    total = sum(layout)
+    counts = np.zeros(total, np.int64)
+    n_g = np.zeros(total, np.int64) if has_agg else None
+    pc = np.zeros((depth, total), np.int64) if has_agg else None
+    off = out = 0
+    for c in layout:
+        counts[out:out + c] = batch.merge_split(
+            host[off:off + 2 * c].reshape(2, c))
+        off += 2 * c
+        if has_agg:
+            n_g[out:out + c] = batch.merge_split(
+                host[off:off + 2 * c].reshape(2, c))
+            off += 2 * c
+            pc[:, out:out + c] = batch.merge_split(
+                host[off:off + 2 * depth * c].reshape(2, depth, c))
+            off += 2 * depth * c
+        out += c
+    return counts, (n_g, pc) if has_agg else None
+
+
+def _index_cross(cand: np.ndarray, n: int) -> np.ndarray:
+    """Extend candidate index tuples [P, k] by every index of the next
+    dimension → [P·n, k+1]."""
+    left = np.repeat(cand, n, axis=0)
+    right = np.tile(np.arange(n, dtype=np.int32), cand.shape[0])[:, None]
+    return np.concatenate([left, right], axis=1)
+
+
+# ----------------------------------------------------------------- Options
+
+
+def options_child(call: Call) -> Call:
+    """Validate and return an Options() call's single child."""
+    if len(call.children) != 1:
+        raise PQLError("Options requires one child call")
+    return call.children[0]
+
+
+def options_restrict_shards(call: Call, shards):
+    """Options(shards=) intersected with an engine-supplied shard list
+    (each shard once)."""
+    opt = call.arg("shards")
+    if opt is None:
+        return shards
+    opt = sorted({int(s) for s in opt})
+    return opt if shards is None else sorted(set(opt) & set(shards))
+
+
+def apply_options_result(call: Call, res):
+    """Options' result arguments on a row result: excludeColumns drops the
+    columns; columnAttrs is not ported (there are no attributes)."""
+    if isinstance(res, RowResult):
+        if call.arg("columnAttrs"):
+            raise PQLError("Options(columnAttrs=) is not yet ported")
+        if call.arg("excludeColumns"):
+            out = RowResult({}, attrs=res.attrs,
+                            keys=[] if res.keys is not None else None)
+            out.column_attrs = res.column_attrs
+            return out
+    return res
+
+
+# ------------------------------------------------------------------ having
+
+
+def _condition_value(v):
+    """Numeric coercion of a Condition's threshold: ints and floats as
+    they are (``count < 1.5`` keeps count 1), quoted numbers parsed, junk
+    a PQLError."""
+    if isinstance(v, (int, float)):
+        return v
+    try:
+        return int(v)
+    except (TypeError, ValueError):
+        try:
+            return float(v)
+        except (TypeError, ValueError):
+            raise PQLError(f"condition value {v!r} is not numeric") from None
+
+
+def condition_test(cond: Condition, val: int) -> bool:
+    """A PQL Condition against a scalar (having= filters)."""
+    if cond.op == "><":
+        lo, hi = cond.value
+        return _condition_value(lo) <= val <= _condition_value(hi)
+    ref = _condition_value(cond.value)
+    return {"<": val < ref, "<=": val <= ref, ">": val > ref,
+            ">=": val >= ref, "==": val == ref, "!=": val != ref}[cond.op]
+
+
+def having_predicate(call: Call, has_agg: bool):
+    """GroupBy(having=Condition(count <op> N)) or Condition(sum <op> N):
+    exactly one condition, applied to whole groups before limit=; a sum
+    condition needs aggregate=Sum(...). Returns ``pred(count, sum)`` or
+    None."""
+    having = call.arg("having")
+    if having is None:
+        return None
+    if not isinstance(having, Call) or having.name != "Condition":
+        raise PQLError("having= requires Condition(count/sum <op> value)")
+    conds = [(k, v) for k, v in having.args.items()
+             if isinstance(v, Condition)]
+    if len(conds) != 1 or conds[0][0] not in ("count", "sum"):
+        raise PQLError("having= supports exactly one condition on count or "
+                       "sum")
+    subject, cond = conds[0]
+    if subject == "sum" and not has_agg:
+        raise PQLError("having on sum requires aggregate=Sum(...)")
+
+    def pred(count: int, sum_) -> bool:
+        return condition_test(cond, count if subject == "count"
+                              else int(sum_ or 0))
+
+    return pred

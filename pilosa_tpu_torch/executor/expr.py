@@ -16,6 +16,8 @@ Node grammar:
   ('shift', a, j)                 — shift each shard row by scalars[j]
   ('bsicmp', op, i_planes, a, j)  — BSI comparison row (a: exists row)
   ('count', a)                    — int32 popcount reduction
+  ('countrows', i_matrix, a|None) — int32[S, R] popcount of each row of the
+                                    [S, R, W] matrix leaf, under filter a
   ('bsisum', i_planes, a|None)    — (int32[S, depth] plane counts, int32[S] n)
   ('bsiminmax', want_max, i_planes, a|None) — (int32[S] value, int32[S] count)
 
@@ -91,10 +93,11 @@ class Plan:
     a ``(node, operands)`` row expression. ``root``: the elementwise rest
     — the structure itself for 'count' and row structures (with the
     'count' wrapper kept), the filter's row expression or None for
-    'bsisum' / 'bsiminmax'. An *operand* is ``('spec', i)`` (stacked leaf
-    i) or ``('temp', k)`` (the row step k produced); a row expression's
-    node indexes its operand list. ``kind``: 'count', 'row', 'bsisum' or
-    'bsiminmax'; ``planes``: the aggregates' plane leaf index."""
+    'bsisum', 'bsiminmax' and 'countrows'. An *operand* is ``('spec', i)``
+    (stacked leaf i) or ``('temp', k)`` (the row step k produced); a row
+    expression's node indexes its operand list. ``kind``: 'count', 'row',
+    'bsisum', 'bsiminmax' or 'countrows'; ``planes``: the index of the
+    [S, R, W] leaf an aggregate reduces (BSI planes, countrows' matrix)."""
 
     __slots__ = ("steps", "root", "kind", "planes")
 
@@ -118,7 +121,7 @@ def plan(structure) -> Plan:
     if tag == "count":
         node, ops = _split(structure[1], steps)
         root = (("count", node), ops)
-    elif tag in ("bsisum", "bsiminmax"):
+    elif tag in ("bsisum", "bsiminmax", "countrows"):
         planes, filt = structure[-2], structure[-1]
         root = _split(filt, steps) if filt is not None else None
     else:
@@ -176,8 +179,8 @@ def evaluate(node, leaves, scalars=()):
     """Plain recursive evaluator over torch tensors (the reference form of
     what the kernels compute), on stacked leaves: rows int32[..., W],
     planes int32[..., 2 + depth, W]. ('count', a) returns an int32
-    scalar tensor; 'bsisum' and 'bsiminmax' return their pairs of per
-    leading-index tensors."""
+    scalar tensor, ('countrows', ...) int32[S, R]; 'bsisum' and
+    'bsiminmax' return their pairs of per leading-index tensors."""
     tag = node[0]
     if tag == "leaf":
         return leaves[node[1]]
@@ -207,6 +210,10 @@ def evaluate(node, leaves, scalars=()):
         return kernels.bsi_compare_plain(
             leaves[node[2]], evaluate(node[3], leaves, scalars), node[1],
             int(scalars[node[4]]))
+    if tag == "countrows":
+        filt = (evaluate(node[2], leaves, scalars)
+                if node[2] is not None else None)
+        return kernels.count_rows_plain(leaves[node[1]], filt)
     if tag == "bsisum":
         filt = (evaluate(node[2], leaves, scalars)
                 if node[2] is not None else None)

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Seven kernels carry the main paths (sources in ``csrc/``):
+Nine kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
   up to 16 stacked leaves, one launch per micro-batch (replaces
@@ -18,7 +18,13 @@ Seven kernels carry the main paths (sources in ``csrc/``):
 - K6 ``bsi_sum``: per-shard plane popcounts under exists and a filter
   (replaces the 'bsisum' node);
 - K7 ``bsi_minmax``: per-shard greedy extremum and its count (replaces
-  ``expr._bsi_minmax``).
+  ``expr._bsi_minmax``);
+- K8 ``count_rows``: per-shard popcount of every row of a stacked row
+  matrix under an optional filter row (replaces the 'countrows' node,
+  TopN's phase 2);
+- K9 ``groupby_level``: per shard and candidate group, the popcount of
+  the AND of one row of each dimension matrix and a filter, with the
+  aggregate's plane counts (replaces ``batch.groupby_level_body``).
 
 Each source builds with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and is
@@ -48,7 +54,8 @@ BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("tree_count", "tree_rows", "word_patch", "row_shift",
-           "bsi_compare", "bsi_sum", "bsi_minmax")
+           "bsi_compare", "bsi_sum", "bsi_minmax", "count_rows",
+           "groupby_level")
 
 # Opcodes of the postfix program (csrc/tree_program.cuh holds the same).
 OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT, OP_NOT = range(1, 9)
@@ -62,6 +69,9 @@ BSI_OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
 BSI_MAX_DEPTH = 63         # bit planes K5 and K6 take (a 64-bit predicate)
 BSI_MINMAX_MAX_DEPTH = 31  # K7's extremum is an int32
 MINMAX_MAX_WORDS = 32768  # words per shard row K7 takes (one block each)
+GROUPBY_MAX_DEPTH = 63     # bit planes of K9's aggregate (as K6)
+# Masks the plain GroupBy level holds at once ([S, chunk, W] per step)
+GROUPBY_PLAIN_MASK_BYTES = 256 << 20
 
 # --------------------------------------------------------------- launches
 
@@ -171,6 +181,8 @@ def _bind(name: str, lib) -> None:
         "bsi_compare": [p, p, p, ll, ll, i, ctypes.c_ulonglong, i, i, p],
         "bsi_sum": [p, p, p, ll, ll, i, i, p],
         "bsi_minmax": [p, p, ll, ll, i, i, p, p, p],
+        "count_rows": [p, p, p, ll, i, ll, i, p],
+        "groupby_level": [p, p, i, p, i, p, p, i, ll, ll, i, p, p],
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
@@ -247,13 +259,19 @@ def _salt_i32(salt: int) -> int:
 
 def popcount32(words: torch.Tensor) -> torch.Tensor:
     """Per-word popcount of int32 words (their uint32 bit patterns), as
-    int32: a SWAR count on the words widened to int64, where every shift
-    is logical and no step overflows."""
-    v = words.to(torch.int64) & 0xFFFFFFFF
+    int32: a SWAR count in int32. torch's ``>>`` is arithmetic, but every
+    mask after a shift clears the copied sign bits, and the subtraction
+    wraps as uint32 would; from the nibble step on every value is
+    non-negative, and the byte sums are added without a multiply. The
+    words are read once (a copy): on the CPU a write may patch a resident
+    leaf while a count reads it, and two reads of one word could see two
+    values."""
+    v = words.clone()
     v = v - ((v >> 1) & 0x55555555)
     v = (v & 0x33333333) + ((v >> 2) & 0x33333333)
     v = (v + (v >> 4)) & 0x0F0F0F0F
-    return (((v * 0x01010101) & 0xFFFFFFFF) >> 24).to(torch.int32)
+    v = v + (v >> 8)
+    return (v + (v >> 16)) & 0x3F
 
 
 def eval_program_plain(program, leaves, salt: int = 0) -> torch.Tensor:
@@ -360,6 +378,51 @@ def bsi_minmax_plain(planes: torch.Tensor, filt: torch.Tensor | None,
         bit = nonempty if want_max else ~nonempty
         value = value | (bit.to(torch.int32) << i)
     return value, popcount32(cand).sum(dim=1, dtype=torch.int32)
+
+
+def count_rows_plain(matrix: torch.Tensor, filt: torch.Tensor | None
+                     ) -> torch.Tensor:
+    """Per-shard popcount of every row of int32[S, R, W] (ANDed with the
+    filter row int32[S, W] when given): int32[S, R]. One row at a time,
+    so the widened popcount stays [S, W]."""
+    cols = []
+    for r in range(matrix.shape[1]):
+        row = matrix[:, r] if filt is None else matrix[:, r] & filt
+        cols.append(popcount32(row).sum(dim=1, dtype=torch.int32))
+    return torch.stack(cols, dim=1)
+
+
+def groupby_level_plain(dims, idxs, filt: torch.Tensor | None = None,
+                        planes: torch.Tensor | None = None) -> torch.Tensor:
+    """``batch.groupby_level_body`` per shard, stacked: int32[S, K, C],
+    K = 1 or 2 + depth (counts, then n and the plane counts under the
+    aggregate's exists row). Candidate masks are built in chunks of at
+    most GROUPBY_PLAIN_MASK_BYTES."""
+    first = dims[0]
+    n_shards, row_words = first.shape[0], first.shape[2]
+    sel = [torch.as_tensor(np.asarray(ix, np.int64), device=first.device)
+           for ix in idxs]
+    n_cand = sel[0].numel()
+    depth = planes.shape[1] - 2 if planes is not None else 0
+    out = torch.zeros((n_shards, 1 if planes is None else 2 + depth, n_cand),
+                      dtype=torch.int32, device=first.device)
+    chunk = max(1, GROUPBY_PLAIN_MASK_BYTES // (n_shards * row_words * 4))
+    for lo in range(0, n_cand, chunk):
+        part = slice(lo, lo + chunk)
+        mask = first[:, sel[0][part]]
+        for d, ii in zip(dims[1:], sel[1:]):
+            mask = mask & d[:, ii[part]]
+        if filt is not None:
+            mask = mask & filt[:, None]
+        out[:, 0, part] = popcount32(mask).sum(dim=2, dtype=torch.int32)
+        if planes is None:
+            continue
+        g = mask & planes[:, 0:1]
+        out[:, 1, part] = popcount32(g).sum(dim=2, dtype=torch.int32)
+        for b in range(depth):
+            out[:, 2 + b, part] = popcount32(planes[:, 2 + b:3 + b] & g).sum(
+                dim=2, dtype=torch.int32)
+    return out
 
 
 # ----------------------------------------------------------------- wrappers
@@ -589,6 +652,87 @@ def bsi_minmax(planes: torch.Tensor, filt: torch.Tensor | None,
     _check("bsi_minmax", lib, rc)
     _count_launch("bsi_minmax")
     return values, counts
+
+
+def count_rows(matrix: torch.Tensor, filt: torch.Tensor | None = None
+               ) -> torch.Tensor:
+    """K8: int32[S, R] per-shard popcounts of every row of the stacked
+    matrix int32[S, R, W], ANDed with the filter row int32[S, W] when
+    one is given (None: no filter)."""
+    if matrix.dim() != 3 or matrix.shape[1] < 1:
+        raise ValueError("count_rows takes a [shards, rows >= 1, words] matrix")
+    n_shards, n_rows, row_words = matrix.shape
+    if filt is not None and filt.shape != (n_shards, row_words):
+        raise ValueError(f"filter {tuple(filt.shape)} does not match matrix "
+                         f"{tuple(matrix.shape)}")
+    _check_words([matrix] + ([filt] if filt is not None else []),
+                 matrix.device)
+    if _on_cpu(matrix):
+        return count_rows_plain(matrix, filt)
+    lib = _lib("count_rows")
+    out = torch.zeros((n_shards, n_rows), dtype=torch.int32,
+                      device=matrix.device)
+    tensors = [matrix] + ([filt] if filt is not None else [])
+    vec = int(row_words % 4 == 0 and _aligned(tensors))
+    rc = lib.count_rows_launch(_ptr(matrix), _ptr(filt), _ptr(out), n_shards,
+                               n_rows, row_words, vec, _stream(out))
+    _check("count_rows", lib, rc)
+    _count_launch("count_rows")
+    return out
+
+
+def groupby_level(dims, idxs, filt: torch.Tensor | None = None,
+                  planes: torch.Tensor | None = None) -> torch.Tensor:
+    """K9: one GroupBy level, int32[S, K, C] per-shard counts. ``dims``:
+    up to MAX_LEAVES stacked dimension matrices int32[S, n_d, W];
+    ``idxs``: one host integer array of C candidate row positions per
+    dimension; ``filt``: int32[S, W] or None; ``planes``: the aggregate's
+    int32[S, 2 + depth, W] or None. K is 1 (counts) or 2 + depth (counts,
+    n, plane counts)."""
+    if not 1 <= len(dims) <= MAX_LEAVES or len(idxs) != len(dims):
+        raise ValueError(f"groupby_level takes 1..{MAX_LEAVES} dimensions, "
+                         "one index array each")
+    first = dims[0]
+    if any(d.dim() != 3 or d.shape[0] != first.shape[0]
+           or d.shape[2] != first.shape[2] for d in dims):
+        raise ValueError("dimension matrices must be [shards, rows, words] "
+                         "over one shard block")
+    n_shards, row_words = first.shape[0], first.shape[2]
+    host_idx = [np.asarray(ix, np.int64).reshape(-1) for ix in idxs]
+    n_cand = host_idx[0].size
+    if n_cand < 1 or any(ix.size != n_cand for ix in host_idx):
+        raise ValueError("every dimension needs the same candidate count >= 1")
+    for ix, d in zip(host_idx, dims):
+        if ix.min() < 0 or ix.max() >= d.shape[1]:
+            raise IndexError("candidate row outside its dimension matrix")
+    if filt is not None and filt.shape != (n_shards, row_words):
+        raise ValueError(f"filter {tuple(filt.shape)} does not match "
+                         f"[{n_shards}, {row_words}]")
+    depth = 0
+    if planes is not None:
+        depth = _check_planes(planes, [filt], GROUPBY_MAX_DEPTH)
+        if planes.shape[0] != n_shards or planes.shape[2] != row_words:
+            raise ValueError("planes do not match the dimension matrices")
+    tensors = list(dims) + [t for t in (filt, planes) if t is not None]
+    _check_words(tensors, first.device)
+    if _on_cpu(first):
+        return groupby_level_plain(dims, host_idx, filt, planes)
+    lib = _lib("groupby_level")
+    idx = np.ascontiguousarray(np.stack(host_idx).astype(np.int32))
+    dev_idx = torch.from_numpy(idx).pin_memory().to(first.device,
+                                                    non_blocking=True)
+    out = torch.zeros((n_shards, 1 if planes is None else 2 + depth, n_cand),
+                      dtype=torch.int32, device=first.device)
+    ptrs = (ctypes.c_void_p * len(dims))(*[d.data_ptr() for d in dims])
+    rows = (ctypes.c_longlong * len(dims))(*[d.shape[1] for d in dims])
+    vec = int(row_words % 4 == 0 and _aligned(tensors))
+    rc = lib.groupby_level_launch(ptrs, rows, len(dims), _ptr(dev_idx),
+                                  n_cand, _ptr(filt), _ptr(planes), depth,
+                                  n_shards, row_words, vec, _ptr(out),
+                                  _stream(out))
+    _check("groupby_level", lib, rc)
+    _count_launch("groupby_level")
+    return out
 
 
 def intersect_count(a: torch.Tensor, b: torch.Tensor, salt: int = 0

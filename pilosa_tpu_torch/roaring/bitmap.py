@@ -98,11 +98,13 @@ class Container:
         """Container as 2048 uint32 words (65536 bits)."""
         if self.kind == BITMAP:
             return np.ascontiguousarray(self.data).view("<u4").copy()
-        words = np.zeros(2048 * 4, np.uint8)
-        lows = self.lows()
-        if lows.size:
-            _scatter_bits(words, lows)
-        return words.view("<u4").copy()
+        bits = np.zeros(1 << 16, bool)
+        if self.kind == ARRAY:
+            bits[self.data] = True
+        else:
+            for start, end in self.data.tolist():
+                bits[start:end + 1] = True
+        return np.packbits(bits, bitorder="little").view("<u4")
 
 
 class RoaringBitmap:

@@ -3,7 +3,10 @@
 Routes of this slice, with the reference's request and response bytes:
 
 - ``POST /index/{i}`` and ``POST /index/{i}/field/{f}``: schema;
-- ``POST /index/{i}/query``: raw PQL in, ``{"results": [...]}`` out;
+- ``POST /index/{i}/query``: raw PQL in, ``{"results": [...]}`` out:
+  Count, row algebra, Range, Shift, Not/All, Sum/Min/Max, TopN, Rows,
+  GroupBy (``aggregate=Sum``, ``having=``), IncludesColumn, Options
+  (``shards=``, ``excludeColumns=``), Set and Clear;
 - ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns``;
 - ``POST /index/{i}/field/{f}/import-value``: JSON ``columns``/``values``
   for int fields (a protobuf body is not yet ported);

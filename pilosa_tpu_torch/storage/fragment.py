@@ -37,8 +37,11 @@ DEFAULT_SNAPSHOT_OP_THRESHOLD = 2048
 # Sidecars the reference package keeps beside a fragment file: block
 # digests of the snapshot (verified on load) and the TopN row-count
 # cache. A rewritten snapshot or a mutation makes them stale, and the
-# port maintains neither, so it removes them; the reference then loads
-# unverified and recounts rows from the bitmap.
+# port maintains neither, so it removes them. The reference then loads
+# unverified and starts with an empty row cache: it counts TopN's
+# candidates exactly until its first write, and after one ranks only the
+# rows written since it opened, until ``POST /recalculate-caches``. The
+# port always ranks the exact counts (``top``).
 CHECKSUM_SUFFIX = ".checksums"
 ROW_CACHE_SUFFIX = ".cache"
 
@@ -90,6 +93,10 @@ class Fragment:
         self._file = None
         self._open = False
         self._sidecars_dropped = False
+        # bumped after every bitmap change; keys the row-count memo
+        self.mutations = 0
+        self._row_counts_memo = None
+        self._top_memo = None
         # one writer at a time; row reads stay lock-free against the
         # bitmap's atomic container swaps
         self.lock = threading.RLock()
@@ -145,6 +152,66 @@ class Fragment:
 
     def contains(self, row: int, pos: int) -> bool:
         return (row << 20) + pos in self.bitmap
+
+    def row_counts(self) -> tuple[np.ndarray, np.ndarray]:
+        """Exact (row_ids, counts) of every row with a container, from
+        container metadata alone: a row spans 16 containers (key >> 4) and
+        each container knows its cardinality. Empty containers are dropped
+        by every write, so every listed row is non-empty. Memoized on the
+        mutation counter, read BEFORE the pass, so a racing write forces a
+        recount and never a stale hit. Callers must not mutate the
+        returned arrays."""
+        memo = self._row_counts_memo
+        if memo is not None and memo[0] == self.mutations:
+            return memo[1]
+        version = self.mutations
+        bm = self.bitmap
+        pairs = [(k, c.n) for k in list(bm.keys)
+                 if (c := bm.container(k)) is not None]
+        if not pairs:
+            out = (np.empty(0, np.int64), np.empty(0, np.int64))
+        else:
+            keys, cards = np.array(pairs, np.int64).T
+            rows, inv = np.unique(keys >> 4, return_inverse=True)
+            counts = np.zeros(rows.size, np.int64)
+            np.add.at(counts, inv, cards)
+            out = (rows, counts)
+        for a in out:
+            a.setflags(write=False)
+        self._row_counts_memo = (version, out)
+        return out
+
+    def rows_containing(self, pos: int) -> list[int]:
+        """All rows with bit ``pos`` set (Rows(column=)): only the
+        (key & 15) == pos >> 16 container of each row can hold it."""
+        keys = list(self.bitmap.keys)
+        if not keys:
+            return []
+        arr = np.array(keys, np.int64)
+        low = pos & 0xFFFF
+        out = []
+        for key in arr[(arr & 15) == (pos >> 16)].tolist():
+            c = self.bitmap.container(key)
+            if c is not None and c.contains_low(low):
+                out.append(key >> 4)
+        return out
+
+    def top(self, n: int = 10) -> list[tuple[int, int]]:
+        """TopN phase-1 candidates of this fragment: (row, count) pairs by
+        count descending, then row, the first ``n`` (all for n = 0). The
+        reference reads its ranked row cache here and falls back to these
+        exact counts when the cache is cold; the port keeps no row cache
+        and always counts exactly. The ranking is memoized as the counts
+        are."""
+        memo = self._top_memo
+        if memo is None or memo[0] != self.mutations:
+            version = self.mutations
+            rows, counts = self.row_counts()
+            ranked = sorted(((r, c) for r, c in zip(rows.tolist(),
+                                                    counts.tolist()) if c > 0),
+                            key=lambda rc: (-rc[1], rc[0]))
+            memo = self._top_memo = (version, ranked)
+        return memo[1][:n] if n else list(memo[1])
 
     # ---------------------------------------------------------------- writes
 
@@ -240,6 +307,7 @@ class Fragment:
         snapshot; ``rows`` are the rows whose content changed."""
         with self.lock:
             self.bitmap = bitmap
+            self.mutations += 1
             self._snapshot_locked()
             for row in rows:
                 self._after_row_write(int(row), None, added=None)
@@ -286,6 +354,7 @@ class Fragment:
             self._file = open(self.path, "ab")
 
     def _after_row_write(self, row: int, positions, added) -> None:
+        self.mutations += 1
         if self.cache is not None:
             self.cache.apply_write(WriteEvent(
                 self.index, self.field, self.view, self.shard, row,

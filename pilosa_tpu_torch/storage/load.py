@@ -3,7 +3,7 @@
 The counterpart of carrying weights over: the tests fill both packages
 from one numpy seed, and ``chip_smoke.py`` builds a 1B-column data
 directory, without pushing billions of column ids through the op log.
-Each touched fragment is rewritten as one fresh snapshot, in the
+Each fragment that gains a bit is rewritten as one fresh snapshot, in the
 container forms ``Container.from_lows`` would pick, so the files are the
 ones either package writes for the same bits.
 """
@@ -13,8 +13,10 @@ from __future__ import annotations
 import numpy as np
 
 from pilosa_tpu_torch.roaring.bitmap import (
+    ARRAY,
     ARRAY_MAX,
     BITMAP,
+    RUN,
     Container,
     RoaringBitmap,
 )
@@ -32,33 +34,60 @@ CONTAINER_WORDS = 2048  # uint32 words per roaring container
 CONTAINERS_PER_ROW = WORDS_PER_SHARD // CONTAINER_WORDS
 
 
+def _lows(words: np.ndarray) -> list:
+    """uint32[k, 2048] container words → each container's sorted uint16
+    set positions, from its nonzero words only (one pass for all k)."""
+    ci, wi = np.nonzero(words)
+    bits = np.unpackbits(words[ci, wi].view(np.uint8).reshape(-1, 4), axis=1,
+                         bitorder="little")
+    r, b = np.nonzero(bits)
+    lows = (wi[r] * 32 + b).astype(np.uint16)
+    bounds = np.searchsorted(ci[r], np.arange(words.shape[0] + 1))
+    return [lows[bounds[i]:bounds[i + 1]] for i in range(words.shape[0])]
+
+
 def canonical_containers(words: np.ndarray) -> list:
     """uint32[n, 2048] container words → the n containers (None for an
     empty one) that ``Container.from_lows`` builds for the same bits. The
-    form is decided for all containers at once; only array and run
-    containers, which are small, go through ``from_lows``."""
+    form is decided for all containers at once from their cardinalities
+    and run counts; a run container's runs come from the bits where a run
+    starts and ends, an array container's values from its set bits."""
     words = np.ascontiguousarray(words, np.uint32)
     n = np.bitwise_count(words).sum(axis=1, dtype=np.int64)
     carry = np.zeros_like(words)
     carry[:, 1:] = words[:, :-1] >> np.uint32(31)
     starts = words & ~((words << np.uint32(1)) | carry)
     n_runs = np.bitwise_count(starts).sum(axis=1, dtype=np.int64)
-    is_bitmap = (n > ARRAY_MAX) & (4 * n_runs >= np.minimum(2 * n, 8192))
+    runs = 4 * n_runs < np.minimum(2 * n, 8192)  # runs beat both forms
+    is_bitmap = (n > ARRAY_MAX) & ~runs
+    is_array = (n > 0) & ~is_bitmap & ~runs
+    carry[:, :-1] = words[:, 1:] << np.uint32(31)
+    carry[:, -1] = 0
+    ends = words & ~((words >> np.uint32(1)) | carry)
+    forms = {}
+    for mask, src in ((is_array, (words,)), (runs, (starts, ends))):
+        idx = np.flatnonzero(mask)
+        if idx.size:
+            parts = [_lows(a[idx]) for a in src]
+            forms.update(zip(idx.tolist(), zip(*parts)))
     out = []
     for i in range(words.shape[0]):
         if n[i] == 0:
             out.append(None)
         elif is_bitmap[i]:
             out.append(Container(BITMAP, words[i].view("<u8").copy(), int(n[i])))
+        elif runs[i]:
+            first, last = forms[i]
+            out.append(Container(RUN, np.stack([first, last], axis=1), int(n[i])))
         else:
-            bits = np.unpackbits(words[i].view(np.uint8), bitorder="little")
-            out.append(Container.from_lows(np.nonzero(bits)[0].astype(np.uint16)))
+            out.append(Container(ARRAY, forms[i][0], int(n[i])))
     return out
 
 
 def _load_fragment(frag, rows: dict) -> int:
     """OR ``rows`` ({row: uint32[32768]}) into one fragment as a fresh
-    snapshot; returns the number of bits the fragment gained."""
+    snapshot, unless it gains no bit; returns the number of bits the
+    fragment gained."""
     old = frag.bitmap
     bm = RoaringBitmap()
     bm._containers = dict(old._containers)
@@ -77,8 +106,10 @@ def _load_fragment(frag, rows: dict) -> int:
             else:
                 bm._containers[base_key + j] = c
     bm.keys = sorted(bm._containers)
-    frag.replace_bitmap(bm, rows)
-    return bm.count() - before
+    gained = bm.count() - before
+    if gained:  # bits are only added: an equal count is an equal bitmap
+        frag.replace_bitmap(bm, rows)
+    return gained
 
 
 def _check_planes(name: str, opts: FieldOptions, planes: np.ndarray) -> None:

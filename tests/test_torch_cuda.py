@@ -164,3 +164,32 @@ def test_bsi_minmax_matches_plain(dev, want_max):
         assert torch.equal(got_v[live], want_v[live])
         assert torch.equal(batch.minmax_merge(got_v, got_n, want_max),
                            batch.minmax_merge(want_v, want_n, want_max))
+
+
+@pytest.mark.parametrize("row_words", [W, 1001])
+def test_count_rows_matches_plain(dev, row_words):
+    (matrix,) = _leaves(dev, 1, (5, 8, row_words), 21)
+    matrix[:, 6:] = 0  # zero pad rows
+    (filt,) = _leaves(dev, 1, (5, row_words), 22)
+    for f in (None, filt):
+        got = kernels.count_rows(matrix, f)
+        torch.cuda.synchronize()
+        assert torch.equal(got, kernels.count_rows_plain(matrix, f))
+    assert kernels.launches()["count_rows"] > 0
+
+
+@pytest.mark.parametrize("row_words", [W, 1001])
+@pytest.mark.parametrize("agg", [False, True])
+def test_groupby_level_matches_plain(dev, row_words, agg):
+    dims = [_leaves(dev, 1, (5, n, row_words), 23 + n)[0] for n in (3, 4, 2)]
+    rng = np.random.default_rng(27)
+    idxs = [rng.integers(0, d.shape[1], 70) for d in dims]
+    (filt,) = _leaves(dev, 1, (5, row_words), 28)
+    planes = _planes(dev, 5, 20, row_words, 29) if agg else None
+    for k in (1, 3):
+        for f in (None, filt):
+            got = kernels.groupby_level(dims[:k], idxs[:k], f, planes)
+            torch.cuda.synchronize()
+            want = kernels.groupby_level_plain(dims[:k], idxs[:k], f, planes)
+            assert torch.equal(got, want), (k, f is None)
+    assert kernels.launches()["groupby_level"] > 0

@@ -122,8 +122,10 @@ def test_micro_batch_coalesces_counts(pair):
 
 
 @pytest.mark.parametrize("pql", [
-    "Rows(f)", "GroupBy(Rows(f))", "IncludesColumn(Row(f=1), column=5)",
-    "TopN(f, n=2)", "Count(Row(f=1, from='2020-01-01', to='2021-01-01'))",
+    "Store(Row(f=1), f=5)", "ClearRow(f=1)",
+    "Options(Row(f=1), columnAttrs=true)",
+    'TopN(f, n=2, attrName="x", attrValue=1)',
+    "Count(Row(f=1, from='2020-01-01', to='2021-01-01'))",
 ])
 def test_unported_calls_raise(pair, pql):
     with pytest.raises(PQLError, match="not yet ported"):
