@@ -13,10 +13,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    4-query micro-batch, a patch whose masks have bit 31 set, the
    int32[1024, 22, 32768] planes of a depth-20 int field, an 8-row TopN
    chunk int32[1024, 8, 32768], GroupBy levels of 80 and 1024
-   candidates), and time both with CUDA events beside the kernel's
-   memory bound;
+   candidates), K2 in every program form and K9 at its edge shapes, and
+   time both with CUDA events beside the kernel's bound (K9 also beside
+   its popcount floor, with the bytes it stages and its plan variants).
+   Meanwhile one worker process per field (and one for the existence
+   rows) writes the data directory from the same host words;
 4. drive three main paths through the port's HTTP server on 127.0.0.1 over
-   one 1B-column (1024-shard) data directory written through the port's
+   that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
    and read just after it:
@@ -45,21 +48,27 @@ The second-to-last line is the kernels JSON; the last line is
 from __future__ import annotations
 
 import argparse
+import copy
 import http.client
+import itertools
 import json
+import multiprocessing
+import os
 import shutil
 import statistics
 import subprocess
 import sys
 import threading
 import time
-from concurrent.futures import ThreadPoolExecutor
+from concurrent.futures import ProcessPoolExecutor, ThreadPoolExecutor
 from pathlib import Path
 
 import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3 rate
 INT_OPS_PER_S = 67e12      # H100 SXM non-tensor-core peak
+SMS = 132                  # H100 SXM streaming multiprocessors
+POPC_PER_CLOCK_PER_SM = 16  # 32-bit popcounts, compute capability 9.0
 N_SHARDS = 1024            # 2^30 columns: BASELINE configs 1-3
 WORDS = 32768
 SPARSE_ROW = 10
@@ -74,6 +83,41 @@ SHIFTS = (0, 1, -1, 31, -31, 32, -32, 33, -33, WORDS * 32 - 1,
           -(WORDS * 32 - 1), 1 << 20, -(1 << 20), (1 << 20) + 5,
           -(1 << 20) + 5)
 NO_LIBRARY = None  # no PyTorch call computes a popcount or a bit shift
+
+
+def _chain(op: str, leaves: list):
+    node = ("leaf", leaves[0])
+    for i in leaves[1:]:
+        node = (op, node, ("leaf", i))
+    return node
+
+
+def _right_deep(op: str, leaves: list):
+    node = ("leaf", leaves[-1])
+    for i in reversed(leaves[:-1]):
+        node = (op, ("leaf", i), node)
+    return node
+
+
+# K2's program forms, each with the form its classifier must give (0
+# general, 1 chain, 2 head-diff): a chain in every leaf bucket, head-diffs
+# of leaves and of a fold, OP_NOT after the root, and the general
+# interpreter up to a 16-deep stack over 16 leaves
+K2_FORMS = [
+    (("leaf", 3), 1), (("flipall", ("leaf", 1)), 1),
+    (_chain("and", [0, 1]), 1), (_chain("or", [0, 1, 2]), 1),
+    (_chain("xor", [4, 0, 2, 1, 3]), 1), (_chain("and", list(range(9))), 1),
+    (("flipall", _chain("or", list(range(16)))), 1),
+    (_right_deep("xor", list(range(16))), 1),
+    (_chain("diff", [2, 0]), 2), (_chain("diff", [0, 1, 2, 3, 4]), 2),
+    (("diff", ("leaf", 5), _chain("and", [0, 1, 2])), 2),
+    (("flipall", ("diff", ("leaf", 15), _chain("xor", list(range(15))))), 2),
+    (("diff", ("flipall", ("leaf", 0)), ("flipall", ("leaf", 1))), 0),
+    (("xor", ("diff", ("leaf", 0), ("leaf", 1)),
+      ("or", ("leaf", 2), ("const0",))), 0),
+    (_right_deep("diff", list(range(16))), 0),
+]
+
 # The taxi path's set fields (Litwintschik's "1.1 Billion Taxi Rides"
 # queries 1-4): field -> (first row, share of the rides in each row). One
 # row per ride and field, drawn from --seed with this skew.
@@ -168,32 +212,61 @@ def check_kernels(torch, kernels, batch, leaves, rng) -> list:
         "shape": "4 queries x 2 leaves x int32[1024, 32768]",
     })
 
-    # K2: Intersect(Row, Row) words at 1B columns
+    # K2: Intersect(Row, Row) words at 1B columns, then every program form
     prog2 = expr.compile_program(("and", ("leaf", 0), ("leaf", 1)))
     pair = [leaves[0], leaves[4]]
     got = kernels.tree_rows(prog2, pair)
     want = kernels.tree_rows_plain(prog2, pair)
     err = max_abs_err(torch, got, want)
-    wide_rows = expr.compile_program(
-        ("xor", ("diff", ("leaf", 0), ("leaf", 1)), ("or", ("leaf", 2),
-                                                     ("const0",))))
-    err = max(err, max_abs_err(
-        torch, kernels.tree_rows(wide_rows, trio[0]),
-        kernels.tree_rows_plain(wide_rows, trio[0])))
+    del got, want
+    for structure, form in K2_FORMS:
+        p = expr.compile_program(structure)
+        if kernels.classify_program(p).kind != form:
+            fail(f"tree_rows classified {structure} as "
+                 f"{kernels.classify_program(p)}, not form {form}")
+        err = max(err, max_abs_err(torch, kernels.tree_rows(p, leaves),
+                                   kernels.tree_rows_plain(p, leaves)))
     if err != 0:
         fail(f"tree_rows disagrees with its plain version by {err}")
-    del got, want
+    print(f"kernel tree_rows: {len(K2_FORMS) + 1} programs (chains and "
+          "head-diffs in each leaf bucket, the general form to a 16-deep "
+          "stack) bit-exact", flush=True)
+    # the kernel and the library in turns (kernel, library, library,
+    # kernel), each the mean of its two turns
+    turns = [cuda_ms(torch, fn) for fn in (
+        lambda: kernels.tree_rows(prog2, pair),
+        lambda: torch.bitwise_and(*pair), lambda: torch.bitwise_and(*pair),
+        lambda: kernels.tree_rows(prog2, pair))]
+    k2_ms, lib_ms = (turns[0] + turns[3]) / 2, (turns[1] + turns[2]) / 2
+    print(f"kernel tree_rows 2-leaf AND in turns with torch.bitwise_and, "
+          f"ms: {turns}", flush=True)
+    for name, structure, n in (
+            ("3-leaf Union", ("or", ("or", ("leaf", 0), ("leaf", 1)),
+                              ("leaf", 2)), 3),
+            ("2-leaf Difference under OP_NOT",
+             ("diff", ("flipall", ("leaf", 0)), ("flipall", ("leaf", 1))),
+             2)):
+        p = expr.compile_program(structure)
+        form = kernels.classify_program(p).kind
+        ms = cuda_ms(torch, lambda: kernels.tree_rows(p, leaves[:n]))
+        print(f"kernel tree_rows {name} (form {form}): {ms} ms, bound "
+              f"{_bytes_ms((n + 1) * leaf_bytes)} ms, "
+              f"{(n + 1) * leaf_bytes / ms / 1e6:.1f} GB/s", flush=True)
+    print(f"kernel tree_rows 2-leaf AND: {k2_ms} ms = "
+          f"{3 * leaf_bytes / k2_ms / 1e6:.1f} GB/s; torch.bitwise_and "
+          f"{lib_ms} ms = {3 * leaf_bytes / lib_ms / 1e6:.1f} GB/s",
+          flush=True)
     out.append({
         "name": "tree_rows", "route": "cuda",
         "source": "pilosa_tpu_torch/csrc/tree_rows.cu",
         "replaces": "pilosa_tpu/executor/expr.py:62",
         "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: kernels.tree_rows(prog2, pair)),
+        "ms": k2_ms,
         "plain_ms": cuda_ms(torch, lambda: kernels.tree_rows_plain(prog2,
                                                                    pair)),
         "bound_ms": 1e3 * 3 * leaf_bytes / HBM_BYTES_PER_S,
         "bound_by": "bytes",
-        "library_ms": cuda_ms(torch, lambda: torch.bitwise_and(*pair)),
+        "library_ms": lib_ms,
         "shape": "2 leaves x int32[1024, 32768] -> int32[1024, 32768]",
     })
 
@@ -376,6 +449,68 @@ def check_port_kernels(torch, kernels, batch, leaves, planes) -> list:
     return out
 
 
+def _sm_clock_hz() -> float:
+    """The card's maximum SM clock (nvidia-smi), for the popcount floor."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                          "--format=csv,noheader,nounits"],
+                         capture_output=True, text=True, timeout=60)
+    try:
+        return float(smi.stdout.split()[0]) * 1e6
+    except (IndexError, ValueError):
+        fail(f"nvidia-smi gave no SM clock: {smi.stdout!r} {smi.stderr!r}")
+
+
+def _k9_edges(torch, kernels, leaves) -> int:
+    """K9 against its plain version at the edge shapes, over 64 shards:
+    one candidate; 300 candidates over 16 dimensions of 8 rows, which the
+    plan must split into tiles; the pruned level's duplicated pad index
+    0; candidates out of lexicographic order with depth-20 planes; 16
+    dimensions; depth-63 planes; rows of 1001 words (no 16-byte groups)
+    and of 3076 words (a ragged last word tile). Returns the largest
+    error."""
+    rng = np.random.default_rng(11)
+    s = 64
+
+    def dim(first, n, words=WORDS):
+        return torch.stack([leaves[(first + j) % 16][:s, :words]
+                            for j in range(n)], dim=1).contiguous()
+
+    def planes(depth, words=WORDS):
+        return torch.stack([leaves[i % 16][:s, :words] ^ (i * 40503)
+                            for i in range(2 + depth)], dim=1).contiguous()
+
+    cases = {
+        "one candidate": ([dim(0, 4), dim(5, 3)], 1, None, WORDS),
+        "split tiles": ([dim(d, 8) for d in range(16)], 300, None, WORDS),
+        "pad index 0": ([dim(0, 10), dim(3, 8), dim(7, 16)], 200, None,
+                        WORDS),
+        "unsorted, depth 20": ([dim(2, 5), dim(9, 7)], 35, 20, WORDS),
+        "16 dimensions": ([dim(d, 2) for d in range(16)], 64, None, WORDS),
+        "depth 63": ([dim(4, 6)], 6, 63, WORDS),
+        "1001 words": ([dim(1, 5, 1001), dim(6, 3, 1001)], 15, 7, 1001),
+        "3076 words": ([dim(1, 5, 3076), dim(6, 3, 3076)], 15, None, 3076),
+    }
+    err = 0
+    for name, (dims, n_cand, depth, words) in cases.items():
+        idxs = [rng.integers(0, d.shape[1], n_cand) for d in dims]
+        if name == "pad index 0":
+            for ix in idxs:
+                ix[n_cand // 2:] = 0
+        f = leaves[15][:s, :words].contiguous()
+        p = planes(depth, words) if depth is not None else None
+        plan = kernels.groupby_plan(idxs, True, depth, words, words % 4 == 0)
+        if name == "split tiles" and len(plan.tiles) < 2:
+            fail("the split-tiles edge case fit one tile")
+        got = kernels.groupby_level(dims, idxs, f, p)
+        want = kernels.groupby_level_plain(dims, idxs, f, p)
+        e = max_abs_err(torch, got, want)
+        print(f"kernel groupby_level edge {name}: {len(dims)} dimensions, "
+              f"C = {n_cand}, {words} words, {len(plan.tiles)} tile(s): "
+              f"max_abs_err {e}", flush=True)
+        err = max(err, e)
+    return err
+
+
 def check_taxi_kernels(torch, kernels, leaves, planes) -> list:
     """Phase 3, slice 3: K8 and K9 against their plain versions,
     bit-exact, at the taxi path's shapes: an 8-row TopN chunk
@@ -383,8 +518,6 @@ def check_taxi_kernels(torch, kernels, leaves, planes) -> list:
     rows; GroupBy levels of Q3 (dimensions of 10 and 8 rows, C = 80, a
     filter), Q2 (10 rows, the depth-20 fare planes) and a pruned level (3
     dimensions, 1000 candidates padded with index 0 to 1024)."""
-    import itertools
-
     out = []
     row_bytes = leaves[0].numel() * 4
     n_shards = leaves[0].shape[0]
@@ -435,23 +568,50 @@ def check_taxi_kernels(torch, kernels, leaves, planes) -> list:
         want = kernels.groupby_level_plain(dims, idxs, f, p)
         err = max(err, max_abs_err(torch, got, want))
         del got, want
+    err = max(err, _k9_edges(torch, kernels, leaves))
     if err != 0:
         fail(f"groupby_level disagrees with its plain version by {err}")
+    sm_hz = _sm_clock_hz()
     for name, (dims, idxs, f, p) in levels.items():
         c = len(idxs[0])
         rows = sum(len(np.unique(ix)) for ix in idxs)
         extra = (f is not None) + (p.shape[1] if p is not None else 0)
         k = 1 if p is None else p.shape[1]
         bound = _bytes_ms((rows + extra) * row_bytes + n_shards * k * c * 4)
+        # one popcount per mask word per count (count, n, each plane)
+        popc_ms = 1e3 * c * k * leaves[0].numel() / (
+            POPC_PER_CLOCK_PER_SM * SMS * sm_hz)
         gather = c * len(dims) * row_bytes
         ms = cuda_ms(torch, lambda: kernels.groupby_level(dims, idxs, f, p),
                      launches=3, reps=3)
+        depth = None if p is None else p.shape[1] - 2
+        plan = kernels.groupby_plan(idxs, f is not None, depth, WORDS, True)
+        staged = plan.staged_rows * row_bytes
         print(f"kernel groupby_level at {name}: {len(dims)} dimensions, "
               f"C = {c}{', filter' if f is not None else ''}"
               f"{', depth-20 planes' if p is not None else ''}: {ms} ms, "
-              f"bound {bound} ms by bytes, gather {gather} bytes "
-              f"({gather / 2**30:.1f} GiB), distinct input "
-              f"{(rows + extra) * row_bytes} bytes", flush=True)
+              f"bound {bound} ms by bytes, popcount floor {popc_ms} ms at "
+              f"{sm_hz / 1e9:.3f} GHz; staged from HBM {staged} bytes "
+              f"({staged / ((rows + extra) * row_bytes):.3f}x the distinct "
+              f"input {(rows + extra) * row_bytes} bytes; a gather per "
+              f"candidate reads {gather}); plan: {len(plan.tiles)} tile(s), "
+              f"{len(plan.groups)} groups, TW {plan.tile_words}, chunk "
+              f"{plan.chunk_elems}, {plan.smem_bytes} B shared", flush=True)
+        variants = {}
+        for tw, ce, gm in itertools.product(kernels.GROUPBY_TILE_WORDS,
+                                            (2, 4), (None, 8, 2)):
+            try:
+                v = kernels.groupby_plan(idxs, f is not None, depth, WORDS,
+                                         True, tile_words=tw, chunk_elems=ce,
+                                         group_max=gm)
+            except ValueError:
+                continue  # that word tile does not fit
+            variants[f"TW{tw}/ce{ce}/g{gm or 'auto'}"] = round(cuda_ms(
+                torch, lambda: kernels.groupby_level(dims, idxs, f, p,
+                                                     plan=v),
+                launches=2, reps=3), 4)
+        print(f"kernel groupby_level at {name}, plan variants (ms): "
+              + json.dumps(variants), flush=True)
     dims, idxs, f, p = levels["Q3"]
     out.append({
         "name": "groupby_level", "route": "cuda",
@@ -1062,6 +1222,99 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
     return latencies, wall
 
 
+# ------------------------------------------------------------ data dirs
+
+# Host data the data-dir builders read: set before they fork, so each
+# worker process inherits it instead of receiving a pickled copy.
+_BUILD_DATA: dict = {}
+# one worker each, all at once; "existence" writes the indexes' _exists
+# rows straight into the data dir, the others a field each into a part
+DATA_JOBS = ("repository", "rides", *TAXI_FIELDS, "existence")
+
+
+def _category_words(cat: np.ndarray, n_rows: int) -> np.ndarray:
+    """uint32 words of the rides that hold a category below n_rows (each
+    of them sits in one of the field's rows)."""
+    return np.packbits(cat < n_rows, bitorder="little").view("<u4")
+
+
+def _build_part(job: str, out_dir: str) -> float:
+    """Write one job's part of the data dir through a Holder on the CPU
+    (in a worker process); returns its seconds."""
+    from pilosa_tpu_torch.storage import Holder, load_existence, \
+        load_from_dense
+
+    t0 = time.perf_counter()
+    words, rides, taxi = (_BUILD_DATA[k] for k in ("words", "rides", "taxi"))
+    holder = Holder(out_dir, device="cpu").open()
+    if job == "repository":
+        fields: dict = {}
+        for (f, r), w in words.items():
+            fields.setdefault(f, {})[r] = w
+        load_from_dense(holder, fields, index="repository", existence=False)
+    elif job == "rides":
+        load_from_dense(holder, {"cab_type": rides["cab"]}, index="rides",
+                        int_fields={"fare": (0, FARE_MAX, rides["fare"])},
+                        existence=False)
+    elif job == "existence":
+        rep = np.zeros(N_SHARDS * WORDS, np.uint32)
+        for w in words.values():
+            rep |= w
+        load_existence(holder, rep, index="repository")
+        del rep
+        ride = rides["fare"][0].copy()  # an int field marks its exists row
+        for w in rides["cab"].values():
+            ride |= w
+        for field, (_, p) in TAXI_FIELDS.items():
+            ride |= _category_words(taxi[field], len(p))
+        load_existence(holder, ride, index="rides")
+    else:
+        row0, p = TAXI_FIELDS[job]
+        rows = category_rows(taxi[job], len(p))
+        load_from_dense(holder, {job: {row0 + k: w for k, w in rows.items()}},
+                        index="rides", existence=False)
+    holder.close()
+    return time.perf_counter() - t0
+
+
+def start_data_dirs(scratch: Path, words: dict, rides: dict, taxi: dict):
+    """Fork one worker per DATA_JOBS entry to build the data dir in
+    parallel: each field into its own part directory under ``scratch``,
+    the existence rows into ``scratch / "data"``. Returns the executor
+    with each job's future as ``.jobs``."""
+    _BUILD_DATA.update(words=words, rides=rides, taxi=taxi)
+    builders = ProcessPoolExecutor(len(DATA_JOBS),
+                                   mp_context=multiprocessing.get_context(
+                                       "fork"))
+    builders.jobs = {
+        job: builders.submit(_build_part, job, str(
+            scratch / ("data" if job == "existence" else f"part-{job}")))
+        for job in DATA_JOBS}
+    return builders
+
+
+def finish_data_dirs(builders, scratch: Path, data_dir: Path) -> None:
+    """Wait for every builder, then move each part's fields into the data
+    dir (renames within one file system)."""
+    for job, fut in builders.jobs.items():
+        try:
+            secs = fut.result()
+        except Exception as exc:  # a failed build fails the run
+            fail(f"data dir job {job} failed: {exc!r}")
+        print(f"data dir {job}: {secs:.1f}s", flush=True)
+    builders.shutdown()
+    for job in DATA_JOBS:
+        part = scratch / f"part-{job}"
+        if job == "existence":
+            continue
+        for index in os.listdir(part):
+            for field in os.listdir(part / index):
+                if (part / index / field).is_dir() and \
+                        not field.startswith("_"):
+                    os.rename(part / index / field, data_dir / index / field)
+        shutil.rmtree(part)
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=20261016)
@@ -1078,7 +1331,6 @@ def main() -> int:
         return 2
     from pilosa_tpu_torch import kernels
     from pilosa_tpu_torch.executor import batch
-    from pilosa_tpu_torch.storage import Holder, load_from_dense
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -1107,68 +1359,58 @@ def main() -> int:
     rides = make_rides(rng)
     print(f"data: 8 Star-Trace rows, 3 cab_type rows and 22 fare planes x "
           f"{N_SHARDS} shards in {time.perf_counter() - t0:.1f}s", flush=True)
+    # The taxi categories come from the generator as it stands after
+    # phase 3's one draw (the K3 patch positions), drawn now so that the
+    # data dirs build during phase 3; the main paths go on from there.
+    path_rng = copy.deepcopy(rng)
+    path_rng.choice(WORDS * 32, 1024, replace=False)
+    t0 = time.perf_counter()
+    taxi = make_taxi(path_rng)
+    print(f"taxi categories: {time.perf_counter() - t0:.1f}s", flush=True)
 
-    # phase 3: kernels against their plain versions on the card
-    leaves = [torch.from_numpy(w.view(np.int32)).to(dev).reshape(N_SHARDS,
-                                                                WORDS)
-              for w in words.values()]
-    leaves += [torch.roll(leaf, 1, 0) for leaf in leaves]  # 16 for R=8 x 2
-    report = check_kernels(torch, kernels, batch, leaves, rng)
-    planes = torch.from_numpy(rides["fare"].view(np.int32)).to(dev).reshape(
-        2 + FARE_DEPTH, N_SHARDS, WORDS).permute(1, 0, 2).contiguous()
-    report += check_port_kernels(torch, kernels, batch, leaves, planes)
-    report += check_taxi_kernels(torch, kernels, leaves, planes)
-    del leaves, planes
-    torch.cuda.synchronize()
-    torch.cuda.empty_cache()
-    for k in report:
-        print(f"kernel {k['name']}: bit-exact, {k['ms']} ms "
-              f"(plain {k['plain_ms']} ms, bound {k['bound_ms']} ms"
-              f" by {k['bound_by']}) at {k['shape']}", flush=True)
-    print("kernel tree_rows with OP_NOT and word_patch's [S, R, W] row "
-          "form: bit-exact", flush=True)
-
-    # phase 4: the main paths
     scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
-    t0 = time.perf_counter()
-    taxi = make_taxi(rng)
-    print(f"taxi categories: {time.perf_counter() - t0:.1f}s", flush=True)
-    # the oracles run in a thread beside the data-dir build: numpy's bulk
-    # work and the build's fsyncs release the interpreter lock
+    data_dir = scratch / "data"
+    builders = start_data_dirs(scratch, words, rides, taxi)
+    # the oracles run in a thread beside phase 3 and the data-dir build:
+    # numpy's bulk work releases the interpreter lock
     pool = ThreadPoolExecutor(1)
     oracles = pool.submit(build_oracles, rides, taxi)
     try:
+        # phase 3: kernels against their plain versions on the card
+        leaves = [torch.from_numpy(w.view(np.int32)).to(dev).reshape(
+            N_SHARDS, WORDS) for w in words.values()]
+        leaves += [torch.roll(leaf, 1, 0) for leaf in leaves]  # 16: R=8 x 2
+        report = check_kernels(torch, kernels, batch, leaves, rng)
+        planes = torch.from_numpy(rides["fare"].view(np.int32)).to(
+            dev).reshape(2 + FARE_DEPTH, N_SHARDS, WORDS).permute(
+                1, 0, 2).contiguous()
+        report += check_port_kernels(torch, kernels, batch, leaves, planes)
+        report += check_taxi_kernels(torch, kernels, leaves, planes)
+        del leaves, planes
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        for k in report:
+            print(f"kernel {k['name']}: bit-exact, {k['ms']} ms "
+                  f"(plain {k['plain_ms']} ms, bound {k['bound_ms']} ms"
+                  f" by {k['bound_by']}) at {k['shape']}", flush=True)
+        print("kernel tree_rows with OP_NOT and word_patch's [S, R, W] row "
+              "form: bit-exact", flush=True)
+
+        # phase 4: the main paths
         t0 = time.perf_counter()
-        holder = Holder(str(scratch / "data")).open()
-        fields = {}
-        for (f, r), w in words.items():
-            fields.setdefault(f, {})[r] = w
-        load_from_dense(holder, fields, index="repository")
-        print(f"data dir repository: {time.perf_counter() - t0:.1f}s",
+        finish_data_dirs(builders, scratch, data_dir)
+        print(f"data dirs waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
-        t0 = time.perf_counter()
-        load_from_dense(holder, {"cab_type": rides["cab"]}, index="rides",
-                        int_fields={"fare": (0, FARE_MAX, rides["fare"])})
-        print(f"data dir rides: {time.perf_counter() - t0:.1f}s", flush=True)
-        for field, (row0, p) in TAXI_FIELDS.items():  # one field at a time
-            t0 = time.perf_counter()
-            rows = category_rows(taxi[field], len(p))
-            load_from_dense(holder, {field: {row0 + k: w
-                                             for k, w in rows.items()}},
-                            index="rides")
-            del rows
-            print(f"data dir rides, {field}: {len(p)} rows in "
-                  f"{time.perf_counter() - t0:.1f}s", flush=True)
-        holder.close()
         t0 = time.perf_counter()
         oracle, taxi_truth = oracles.result()
         del taxi
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
-        paths = run_main_paths(str(scratch / "data"), words, rides, oracle,
-                               taxi_truth, rng, kernels)
+        paths = run_main_paths(str(data_dir), words, rides, oracle,
+                               taxi_truth, path_rng, kernels)
     finally:
+        builders.shutdown(cancel_futures=True)
         pool.shutdown()
         shutil.rmtree(scratch, ignore_errors=True)
     expected = {

@@ -37,6 +37,7 @@ from __future__ import annotations
 
 import ctypes
 import hashlib
+import heapq
 import os
 import shutil
 import subprocess
@@ -72,6 +73,17 @@ MINMAX_MAX_WORDS = 32768  # words per shard row K7 takes (one block each)
 GROUPBY_MAX_DEPTH = 63     # bit planes of K9's aggregate (as K6)
 # Masks the plain GroupBy level holds at once ([S, chunk, W] per step)
 GROUPBY_PLAIN_MASK_BYTES = 256 << 20
+# K9's block (csrc/groupby_level.cu holds the same numbers): shared
+# memory it may use, the part kept for its row pointers, the staged rows a
+# candidate tile may hold, the candidates of one group and the warps
+GROUPBY_SMEM_BYTES = 232448
+GROUPBY_SMEM_RESERVE = 1024
+GROUPBY_MAX_SLOTS = 128
+GROUPBY_GROUP_MAX = 8
+GROUPBY_WARPS = 16
+GROUPBY_TILE_WORDS = (1024, 512, 256)  # word tiles the plan picks from
+GROUPBY_SRC_FILT = MAX_LEAVES          # slot sources past the dimensions
+GROUPBY_SRC_PLANES = MAX_LEAVES + 1
 
 # --------------------------------------------------------------- launches
 
@@ -175,14 +187,15 @@ def _bind(name: str, lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     argtypes = {
         "tree_count": [p, i, i, p, p, i, ll, ll, i, p, p],
-        "tree_rows": [p, i, ctypes.c_uint32, p, i, ll, i, p, p],
+        "tree_rows": [p, i, i, i, ctypes.c_uint32, ctypes.c_uint32, p, i,
+                      ll, i, p, p],
         "word_patch": [p, p, i, i, p],
         "row_shift": [p, p, ll, ll, ll, i, p],
         "bsi_compare": [p, p, p, ll, ll, i, ctypes.c_ulonglong, i, i, p],
         "bsi_sum": [p, p, p, ll, ll, i, i, p],
         "bsi_minmax": [p, p, ll, ll, i, i, p, p, p],
         "count_rows": [p, p, p, ll, i, ll, i, p],
-        "groupby_level": [p, p, i, p, i, p, p, i, ll, ll, i, p, p],
+        "groupby_level": [p, p, i, p, p, p, p, i, ll, ll, i, i, p, p],
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
@@ -239,6 +252,111 @@ def check_program(program, n_leaves: int) -> None:
             raise ValueError(f"stack deeper than {MAX_STACK}")
     if sp != 1:
         raise ValueError("program must leave exactly one result")
+
+
+# K2's program forms (csrc/tree_rows.cu numbers them the same)
+FORM_GENERAL, FORM_CHAIN, FORM_HEAD_DIFF = 0, 1, 2
+_FOLD_OPS = (OP_AND, OP_OR, OP_XOR)
+_FORM_CACHE: dict = {}
+
+
+class Form(tuple):
+    """A classified K2 program: ``(kind, op, leaves, n_not, n_salt)``.
+    ``kind`` is FORM_CHAIN (a left fold of ``op`` over the leaf indices
+    ``leaves``), FORM_HEAD_DIFF (``leaves[0] & ~fold(op, leaves[1:])``)
+    or FORM_GENERAL (the program as it is; ``op`` 0, ``leaves`` empty);
+    the result is then xored with ~0 ``n_not`` times and with the salt
+    ``n_salt`` times (only for the two folds: the general program keeps
+    its own unary ops)."""
+
+    __slots__ = ()
+
+    kind = property(lambda self: self[0])
+    op = property(lambda self: self[1])
+    leaves = property(lambda self: self[2])
+    n_not = property(lambda self: self[3])
+    n_salt = property(lambda self: self[4])
+
+    def xor_mask(self, salt: int) -> int:
+        """The uint32 a fold's result is xored with."""
+        mask = 0xFFFFFFFF if self.n_not % 2 else 0
+        return mask ^ (_salt_u32(salt) if self.n_salt % 2 else 0)
+
+
+def _program_tree(program):
+    """The postfix program as a nested tuple: ('leaf', i), ('zero',),
+    (op, a) for OP_NOT / OP_SALT, (op, a, b) for the binary ops."""
+    stack = []
+    for code in program:
+        op, arg = code & 0xFF, code >> 8
+        if op == OP_LEAF:
+            stack.append(("leaf", arg))
+        elif op == OP_ZERO:
+            stack.append(("zero",))
+        elif op in (OP_SALT, OP_NOT):
+            stack.append((op, stack.pop()))
+        else:
+            b = stack.pop()
+            stack.append((op, stack.pop(), b))
+    return stack[0]
+
+
+def _fold_leaves(node, op):
+    """The leaf indices of ``node`` when it is a tree of ``op`` over bare
+    leaves (any association: and, or and xor are associative and
+    commutative), else None."""
+    if node[0] == "leaf":
+        return [node[1]]
+    if node[0] != op or len(node) != 3:
+        return None
+    a, b = _fold_leaves(node[1], op), _fold_leaves(node[2], op)
+    return None if a is None or b is None else a + b
+
+
+def _classify(program) -> Form:
+    root = _program_tree(program)
+    n_not = n_salt = 0
+    while root[0] in (OP_NOT, OP_SALT):
+        n_not += root[0] == OP_NOT
+        n_salt += root[0] == OP_SALT
+        root = root[1]
+    if root[0] == "leaf":
+        return Form((FORM_CHAIN, OP_OR, (root[1],), n_not, n_salt))
+    if root[0] in _FOLD_OPS:
+        leaves = _fold_leaves(root, root[0])
+        if leaves is not None and len(leaves) <= MAX_LEAVES:
+            return Form((FORM_CHAIN, root[0], tuple(leaves), n_not, n_salt))
+    if root[0] == OP_DIFF:
+        subs = []  # a - b - c as head a and subtrahends [b, c]
+        head = root
+        while head[0] == OP_DIFF:
+            subs.insert(0, head[2])
+            head = head[1]
+        if head[0] == "leaf":
+            if all(s[0] == "leaf" for s in subs):
+                rest = [s[1] for s in subs]
+                op = OP_OR
+            elif len(subs) == 1 and subs[0][0] in _FOLD_OPS:
+                op = subs[0][0]
+                rest = _fold_leaves(subs[0], op)
+            else:
+                rest = None
+            if rest is not None and 1 + len(rest) <= MAX_LEAVES:
+                return Form((FORM_HEAD_DIFF, op, (head[1], *rest), n_not,
+                             n_salt))
+    return Form((FORM_GENERAL, 0, (), 0, 0))
+
+
+def classify_program(program) -> Form:
+    """K2's form of a valid postfix program (cached by program)."""
+    program = tuple(program)
+    form = _FORM_CACHE.get(program)
+    if form is None:
+        form = _classify(program)
+        if len(_FORM_CACHE) >= 4096:
+            _FORM_CACHE.clear()
+        _FORM_CACHE[program] = form
+    return form
 
 
 def _aligned(tensors) -> bool:
@@ -311,6 +429,23 @@ def tree_count_plain(program, batch_leaves, salts, row_words: int) -> torch.Tens
 
 def tree_rows_plain(program, leaves, salt: int = 0) -> torch.Tensor:
     return eval_program_plain(program, leaves, salt).clone()
+
+
+def eval_form_plain(form: Form, leaves, salt: int = 0) -> torch.Tensor:
+    """A classified chain or head-diff form on whole tensors: the
+    arithmetic K2's form kernels do (tests hold it against
+    ``tree_rows_plain``)."""
+    if form.kind == FORM_GENERAL:
+        raise ValueError("the general form runs the program itself")
+    fold = {OP_AND: torch.bitwise_and, OP_OR: torch.bitwise_or,
+            OP_XOR: torch.bitwise_xor}[form.op]
+    first = 1 if form.kind == FORM_HEAD_DIFF else 0
+    acc = leaves[form.leaves[first]].clone()
+    for i in form.leaves[first + 1:]:
+        acc = fold(acc, leaves[i])
+    if form.kind == FORM_HEAD_DIFF:
+        acc = leaves[form.leaves[0]] & ~acc
+    return acc ^ _salt_i32(form.xor_mask(salt))
 
 
 def word_patch_plain(leaf: torch.Tensor, slot: int, pairs: np.ndarray,
@@ -425,6 +560,339 @@ def groupby_level_plain(dims, idxs, filt: torch.Tensor | None = None,
     return out
 
 
+# ------------------------------------------------------------ K9's plan
+
+
+class GroupPlan:
+    """K9's host plan for one GroupBy level.
+
+    Candidates are sorted lexicographically by their row in each
+    dimension (``order[i]`` is the caller's position of sorted candidate
+    i) and cut into *tiles*, contiguous runs of sorted candidates whose
+    distinct rows fit a block's shared memory; a block stages each of its
+    tile's distinct rows once per word tile and evaluates every candidate
+    of the tile from there. A tile's *slots* are its staged rows, in the
+    order [filter] + dimension rows + [exists, bit planes]; a *group* is
+    a run of at most GROUPBY_GROUP_MAX candidates of one tile that share
+    their rows in every dimension but the last (their AND, the group's
+    prefix, is built once per word); with the aggregate a group is one
+    candidate. A *unit* is a group, or with the aggregate one *part* of
+    a candidate's plane counts (``part_planes`` planes; part 0 also
+    counts the mask and n). Each of the block's GROUPBY_WARPS warps
+    walks its own list of units over every word tile; the lists balance
+    the units' popcounts (longest first, onto the least-loaded warp).
+
+    Arrays (int32): ``tiles`` [T, 6] (first slot, slots, first group,
+    groups, first candidate, candidates), ``slots`` [N, 2] (source: a
+    dimension 0..15, GROUPBY_SRC_FILT or GROUPBY_SRC_PLANES; row),
+    ``groups`` [G, 2] (first sorted candidate, count), ``cslots`` [C,
+    n_dims] (each sorted candidate's slot per dimension, tile-local),
+    ``cout`` [C] (``order``), ``units`` [U, 2] (group, part), ``warps``
+    [T, GROUPBY_WARPS + 1] (each warp's first unit, then the end).
+    ``packed`` holds them back to back at ``offsets``. ``tile_words``
+    (TW), ``chunk_elems`` (word groups per lane per step) and
+    ``smem_bytes`` size the launch."""
+
+    def __init__(self, n_dims: int, has_filt: bool, depth: int | None,
+                 order, tiles, slots, groups, cslots, units, warps,
+                 part_planes: int, tile_words: int, chunk_elems: int,
+                 smem_bytes: int):
+        self.n_dims = n_dims
+        self.has_filt = has_filt
+        self.depth = depth
+        self.order = order
+        self.tiles = tiles
+        self.slots = slots
+        self.groups = groups
+        self.cslots = cslots
+        self.cout = order.astype(np.int32)
+        self.units = units
+        self.warps = warps
+        self.part_planes = part_planes
+        self.tile_words = tile_words
+        self.chunk_elems = chunk_elems
+        self.smem_bytes = smem_bytes
+        parts = [tiles, slots, groups, cslots, self.cout, units, warps]
+        sizes = np.cumsum([0] + [a.size for a in parts])
+        self.offsets = tuple(int(x) for x in sizes[:-1])
+        self.packed = np.ascontiguousarray(np.concatenate(
+            [a.reshape(-1) for a in parts]).astype(np.int32))
+        self._device: dict = {}
+        self._lock = threading.Lock()
+
+    @property
+    def staged_rows(self) -> int:
+        """Rows staged per shard, summed over tiles: the HBM bytes of a
+        level are staged_rows x shards x row words x 4."""
+        return int(self.tiles[:, 1].sum())
+
+    def meta(self) -> list:
+        """The launch's int[12]: tiles, the seven array offsets, TW, the
+        chunk, the planes of a part and the shared-memory bytes."""
+        return [len(self.tiles), *self.offsets, self.tile_words,
+                self.chunk_elems, self.part_planes, self.smem_bytes]
+
+    def on(self, device) -> torch.Tensor:
+        """The packed plan on ``device`` (copied once, then kept)."""
+        with self._lock:
+            t = self._device.get(device)
+            if t is None:
+                t = torch.from_numpy(self.packed).pin_memory().to(
+                    device, non_blocking=True)
+                self._device[device] = t
+        return t
+
+
+def _tile_bytes(n_slots: int, n_cands: int, k: int, tile_words: int) -> int:
+    return GROUPBY_SMEM_RESERVE + 8 * n_slots * tile_words + 4 * n_cands * k
+
+
+def _cut_tiles(cands: np.ndarray, fixed: int, k: int, max_slots: int):
+    """[(lo, hi)] runs of the sorted candidates [C, n_dims] whose distinct
+    rows, plus ``fixed`` rows every tile stages, fit max_slots and the
+    shared memory at the smallest word tile."""
+    n_cand = cands.shape[0]
+    tw = GROUPBY_TILE_WORDS[-1]
+
+    def fits(n_slots, n):
+        return (n_slots <= max_slots and
+                _tile_bytes(n_slots, n, k, tw) <= GROUPBY_SMEM_BYTES)
+
+    whole = fixed + sum(np.unique(cands[:, d]).size
+                        for d in range(cands.shape[1]))
+    if fits(whole, n_cand):
+        return [(0, n_cand)]
+    out, lo, seen = [], 0, set()
+    for c in range(n_cand):
+        new = {(d, int(r)) for d, r in enumerate(cands[c])} - seen
+        if c > lo and not fits(fixed + len(seen) + len(new), c - lo + 1):
+            out.append((lo, c))
+            lo, seen = c, set()
+            new = {(d, int(r)) for d, r in enumerate(cands[c])}
+        seen |= new
+        if not fits(fixed + len(seen), 1):
+            raise ValueError("one GroupBy candidate's rows do not fit K9's "
+                             "shared memory")
+    out.append((lo, n_cand))
+    return out
+
+
+def _groups(cands: np.ndarray, lo: int, hi: int, group_max: int) -> list:
+    """[(first, count)] of one tile: runs of sorted candidates with one
+    prefix (every dimension's row but the last), at most group_max."""
+    cut = np.zeros(hi - lo, bool)
+    cut[0] = True
+    if cands.shape[1] > 1:
+        cut[1:] = (cands[lo + 1:hi, :-1] != cands[lo:hi - 1, :-1]).any(1)
+    starts = np.flatnonzero(cut)
+    ends = np.append(starts[1:], hi - lo)
+    out = []
+    for a, b in zip(starts.tolist(), ends.tolist()):
+        out += [(lo + c, min(group_max, b - c))
+                for c in range(a, b, group_max)]
+    return out
+
+
+# A unit's cost in popcount rows, beside its popcounts: building the
+# prefix (a staged row read and ANDed, per row) and its fixed overhead
+_PREFIX_COST = 0.25
+_UNIT_COST = 6.0
+
+
+def _units(groups: list, n_prefix: int, depth: int | None,
+           part_planes: int) -> list:
+    """[(group, part, cost)] of one tile's groups (indices local)."""
+    out = []
+    for g, (_, k) in enumerate(groups):
+        if depth is None:
+            out.append((g, 0, k + _PREFIX_COST * n_prefix + _UNIT_COST))
+            continue
+        for part in range(max(1, -(-depth // part_planes))):
+            planes = min(part_planes, depth - part * part_planes)
+            out.append((g, part, planes + 2 * (part == 0)
+                        + _PREFIX_COST * (n_prefix + 2) + _UNIT_COST))
+    return out
+
+
+def _assign(units: list) -> tuple[list, float, float]:
+    """Each warp's units (longest first onto the least-loaded warp), the
+    busiest warp's load and that over the mean load."""
+    heap = [(0.0, w) for w in range(GROUPBY_WARPS)]
+    lists: list = [[] for _ in range(GROUPBY_WARPS)]
+    for g, part, cost in sorted(units, key=lambda u: -u[2]):
+        load, w = heapq.heappop(heap)
+        heapq.heappush(heap, (load + cost, w))
+        lists[w].append((g, part))
+    busiest = max(load for load, _ in heap)
+    return lists, busiest, busiest * GROUPBY_WARPS / sum(u[2] for u in units)
+
+
+def groupby_plan(idxs, has_filt: bool, depth: int | None, row_words: int,
+                 vec: bool, max_slots: int = GROUPBY_MAX_SLOTS,
+                 tile_words: int | None = None,
+                 chunk_elems: int | None = None,
+                 group_max: int | None = None) -> GroupPlan:
+    """K9's plan (``GroupPlan``) for candidate index arrays ``idxs`` (one
+    int array of C rows per dimension), a filter or none, the aggregate's
+    depth (None: no aggregate), over rows of ``row_words`` words.
+    ``max_slots`` caps a tile's staged rows (tests lower it to force a
+    split). The plan picks the group size (without the aggregate) or the
+    planes of a part (with it) that balance the warps best, the word tile
+    (the largest that lets two blocks share an SM, else the largest that
+    fits) and the chunk (as many word groups a lane as the tile holds, up
+    to 4); ``tile_words``, ``chunk_elems`` and ``group_max`` force them
+    (measurements; with the aggregate ``group_max`` sets the planes of a
+    part)."""
+    idx = np.stack([np.asarray(ix, np.int64).reshape(-1) for ix in idxs])
+    n_dims, n_cand = idx.shape
+    order = np.lexsort(idx[::-1])
+    cands = np.ascontiguousarray(idx[:, order].T)
+    k = 1 if depth is None else 2 + depth
+    fixed = int(has_filt) + (0 if depth is None else 1 + depth)
+    bounds = _cut_tiles(cands, fixed, k, max_slots)
+    slots, tiles = [], []
+    cslots = np.zeros((n_cand, n_dims), np.int32)
+    for lo, hi in bounds:
+        part = cands[lo:hi]
+        local = [(GROUPBY_SRC_FILT, 0)] if has_filt else []
+        for d in range(n_dims):
+            rows, inv = np.unique(part[:, d], return_inverse=True)
+            cslots[lo:hi, d] = len(local) + inv.reshape(-1)
+            local += [(d, int(r)) for r in rows]
+        if depth is not None:
+            local += [(GROUPBY_SRC_PLANES, 0)] + [
+                (GROUPBY_SRC_PLANES, 2 + b) for b in range(depth)]
+        tiles.append((len(slots), len(local), lo, hi - lo))
+        slots += local
+    n_prefix = int(has_filt) + n_dims - 1
+    choices = [group_max] if group_max else (
+        range(GROUPBY_GROUP_MAX, 0, -1))
+    best = None
+    for gm in choices:  # group size, or planes of a part
+        per_tile = []
+        worst = spread = 0.0
+        for _, _, lo, n in tiles:
+            groups = _groups(cands, lo, lo + n,
+                             1 if depth is not None else gm)
+            lists, busiest, ratio = _assign(_units(groups, n_prefix, depth,
+                                                   gm))
+            per_tile.append((groups, lists))
+            worst, spread = max(worst, busiest), max(spread, ratio)
+        if best is None or worst < best[0] - 1e-9:
+            best = (worst, gm, per_tile)
+        if spread <= 1.05:  # balanced: smaller units only cost more
+            break
+    _, gm, per_tile = best
+    groups, units, warps, packed_tiles = [], [], [], []
+    for (slot0, n_slots, lo, n), (tile_groups, lists) in zip(tiles,
+                                                              per_tile):
+        packed_tiles.append((slot0, n_slots, len(groups), len(tile_groups),
+                             lo, n))
+        first = len(groups)
+        groups += tile_groups
+        offs = [len(units)]
+        for w in lists:
+            units += [(first + g, part) for g, part in w]
+            offs.append(len(units))
+        warps.append(offs)
+
+    kw = 4 if vec else 1
+    cap = -(-row_words // kw) * kw
+
+    def launch_bytes(tw):
+        return max(_tile_bytes(n, c, k, min(tw, cap))
+                   for _, n, _, c in tiles)
+
+    if tile_words is None:
+        tile_words = ([tw for tw in GROUPBY_TILE_WORDS
+                       if 2 * launch_bytes(tw) <= GROUPBY_SMEM_BYTES] +
+                      [tw for tw in GROUPBY_TILE_WORDS
+                       if launch_bytes(tw) <= GROUPBY_SMEM_BYTES])[0]
+    elif tile_words % 4 or launch_bytes(tile_words) > GROUPBY_SMEM_BYTES:
+        raise ValueError(f"word tile {tile_words} does not fit")
+    tw = min(tile_words, cap)
+    if chunk_elems is None:
+        chunk_elems = next(c for c in (4, 2, 1) if c == 1 or
+                           32 * c <= tw // kw)
+    elif chunk_elems not in (1, 2, 4):
+        raise ValueError("chunk_elems is 1, 2 or 4")
+    return GroupPlan(n_dims, has_filt, depth, order,
+                     np.array(packed_tiles, np.int32).reshape(-1, 6),
+                     np.array(slots, np.int32).reshape(-1, 2),
+                     np.array(groups, np.int32).reshape(-1, 2), cslots,
+                     np.array(units, np.int32).reshape(-1, 2),
+                     np.array(warps, np.int32).reshape(-1, GROUPBY_WARPS + 1),
+                     gm if depth is not None else GROUPBY_GROUP_MAX, tw,
+                     chunk_elems, launch_bytes(tile_words))
+
+
+_GROUPBY_PLANS: dict = {}
+_plans_lock = threading.Lock()
+
+
+def _cached_plan(host_idx, has_filt, depth, row_words, vec) -> GroupPlan:
+    idx = np.ascontiguousarray(np.stack(host_idx).astype(np.int32))
+    key = (idx.shape, idx.tobytes(), has_filt, depth, row_words, vec)
+    with _plans_lock:
+        plan = _GROUPBY_PLANS.get(key)
+    if plan is None:
+        plan = groupby_plan(list(idx), has_filt, depth, row_words, vec)
+        with _plans_lock:
+            if len(_GROUPBY_PLANS) >= 64:
+                _GROUPBY_PLANS.clear()
+            _GROUPBY_PLANS[key] = plan
+    return plan
+
+
+def groupby_plan_plain(plan: GroupPlan, dims, filt=None, planes=None
+                       ) -> torch.Tensor:
+    """The level evaluated the way K9 walks its plan, on whole tensors:
+    per tile the staged rows gathered by slot, per warp its units, per
+    unit the group's prefix (the filter and every dimension but the last)
+    built once, then each candidate's mask and counts (with the aggregate
+    the part's plane counts) added at its caller position. Tests hold it
+    against ``groupby_level_plain``."""
+    first = dims[0]
+    n_shards = first.shape[0]
+    depth = plan.depth or 0
+    k = 1 if plan.depth is None else 2 + depth
+    out = torch.zeros((n_shards, k, plan.cout.size), dtype=torch.int32,
+                      device=first.device)
+
+    def count(m):
+        return popcount32(m).sum(dim=1, dtype=torch.int32)
+
+    for t, (slot0, n_slots, _, _, _, _) in enumerate(plan.tiles.tolist()):
+        rows = []
+        for src, row in plan.slots[slot0:slot0 + n_slots].tolist():
+            rows.append(filt if src == GROUPBY_SRC_FILT else
+                        planes[:, row] if src == GROUPBY_SRC_PLANES else
+                        dims[src][:, row])
+        lo, hi = plan.warps[t, 0], plan.warps[t, -1]
+        for g, part in plan.units[lo:hi].tolist():
+            c0, n = plan.groups[g].tolist()
+            pre = torch.full_like(rows[0], -1)
+            if plan.has_filt:
+                pre = pre & rows[0]
+            for d in range(plan.n_dims - 1):
+                pre = pre & rows[plan.cslots[c0, d]]
+            for c in range(c0, c0 + n):
+                m = pre & rows[plan.cslots[c, -1]]
+                col = int(plan.cout[c])
+                if plan.depth is None:
+                    out[:, 0, col] += count(m)
+                    continue
+                g_rows = m & rows[n_slots - 1 - depth]
+                if part == 0:
+                    out[:, 0, col] += count(m)
+                    out[:, 1, col] += count(g_rows)
+                b0 = part * plan.part_planes
+                for b in range(b0, min(depth, b0 + plan.part_planes)):
+                    out[:, 2 + b, col] += count(
+                        rows[n_slots - depth + b] & g_rows)
+    return out
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -477,7 +945,10 @@ def tree_count(program, batch_leaves, salts, row_words: int) -> torch.Tensor:
 
 
 def tree_rows(program, leaves, salt: int = 0) -> torch.Tensor:
-    """K2: the program's words over ``leaves`` (same shape as a leaf)."""
+    """K2: the program's words over ``leaves`` (same shape as a leaf).
+    The program is classified on the host (``classify_program``): a chain
+    or head-diff launches its template kernel over the form's leaves, any
+    other program the register-stack interpreter."""
     if not leaves:
         raise ValueError("tree_rows needs at least one leaf")
     first = leaves[0]
@@ -490,12 +961,21 @@ def tree_rows(program, leaves, salt: int = 0) -> torch.Tensor:
     lib = _lib("tree_rows")
     out = torch.empty_like(first)
     n_words = first.numel()
-    ptrs = (ctypes.c_void_p * len(leaves))(*[t.data_ptr() for t in leaves])
-    code = (ctypes.c_int * len(program))(*program)
     vec = int(n_words % 4 == 0 and _aligned(list(leaves) + [out]))
-    rc = lib.tree_rows_launch(ptrs, len(leaves), _salt_u32(salt), code,
-                              len(program), n_words, vec,
-                              ctypes.c_void_p(out.data_ptr()), _stream(out))
+    form = classify_program(program)
+    if not vec:
+        form = Form((FORM_GENERAL, 0, (), 0, 0))
+    if form.kind == FORM_GENERAL:
+        ptr_list, mask = [t.data_ptr() for t in leaves], 0
+    else:
+        ptr_list = [leaves[i].data_ptr() for i in form.leaves]
+        mask = form.xor_mask(salt)
+    ptrs = (ctypes.c_void_p * len(ptr_list))(*ptr_list)
+    code = (ctypes.c_int * len(program))(*program)
+    rc = lib.tree_rows_launch(ptrs, len(ptr_list), form.kind, form.op, mask,
+                              _salt_u32(salt), code, len(program), n_words,
+                              vec, ctypes.c_void_p(out.data_ptr()),
+                              _stream(out))
     _check("tree_rows", lib, rc)
     _count_launch("tree_rows")
     return out
@@ -682,13 +1162,16 @@ def count_rows(matrix: torch.Tensor, filt: torch.Tensor | None = None
 
 
 def groupby_level(dims, idxs, filt: torch.Tensor | None = None,
-                  planes: torch.Tensor | None = None) -> torch.Tensor:
+                  planes: torch.Tensor | None = None,
+                  plan: GroupPlan | None = None) -> torch.Tensor:
     """K9: one GroupBy level, int32[S, K, C] per-shard counts. ``dims``:
     up to MAX_LEAVES stacked dimension matrices int32[S, n_d, W];
     ``idxs``: one host integer array of C candidate row positions per
     dimension; ``filt``: int32[S, W] or None; ``planes``: the aggregate's
     int32[S, 2 + depth, W] or None. K is 1 (counts) or 2 + depth (counts,
-    n, plane counts)."""
+    n, plane counts). ``plan`` replaces the cached host plan (it must be
+    ``groupby_plan``'s for these arguments; measurements compare
+    plans)."""
     if not 1 <= len(dims) <= MAX_LEAVES or len(idxs) != len(dims):
         raise ValueError(f"groupby_level takes 1..{MAX_LEAVES} dimensions, "
                          "one index array each")
@@ -718,17 +1201,25 @@ def groupby_level(dims, idxs, filt: torch.Tensor | None = None,
     if _on_cpu(first):
         return groupby_level_plain(dims, host_idx, filt, planes)
     lib = _lib("groupby_level")
-    idx = np.ascontiguousarray(np.stack(host_idx).astype(np.int32))
-    dev_idx = torch.from_numpy(idx).pin_memory().to(first.device,
-                                                    non_blocking=True)
-    out = torch.zeros((n_shards, 1 if planes is None else 2 + depth, n_cand),
+    vec = row_words % 4 == 0 and _aligned(tensors)
+    agg_depth = depth if planes is not None else None
+    if plan is None:
+        plan = _cached_plan(host_idx, filt is not None, agg_depth, row_words,
+                            vec)
+    elif (plan.n_dims, plan.cout.size, plan.has_filt, plan.depth) != (
+            len(dims), n_cand, filt is not None, agg_depth):
+        raise ValueError("the plan was made for another level")
+    if int(plan.tiles[:, 1].max()) > GROUPBY_MAX_SLOTS:
+        raise ValueError("a candidate tile stages more rows than K9 takes")
+    dev_plan = plan.on(first.device)
+    out = torch.empty((n_shards, 1 if planes is None else 2 + depth, n_cand),
                       dtype=torch.int32, device=first.device)
     ptrs = (ctypes.c_void_p * len(dims))(*[d.data_ptr() for d in dims])
     rows = (ctypes.c_longlong * len(dims))(*[d.shape[1] for d in dims])
-    vec = int(row_words % 4 == 0 and _aligned(tensors))
-    rc = lib.groupby_level_launch(ptrs, rows, len(dims), _ptr(dev_idx),
-                                  n_cand, _ptr(filt), _ptr(planes), depth,
-                                  n_shards, row_words, vec, _ptr(out),
+    meta = (ctypes.c_int * 12)(*plan.meta())
+    rc = lib.groupby_level_launch(ptrs, rows, len(dims), _ptr(dev_plan), meta,
+                                  _ptr(filt), _ptr(planes), depth, n_shards,
+                                  row_words, int(vec), n_cand, _ptr(out),
                                   _stream(out))
     _check("groupby_level", lib, rc)
     _count_launch("groupby_level")

@@ -9,5 +9,5 @@ from pilosa_tpu_torch.storage.field import Field, FieldOptions
 from pilosa_tpu_torch.storage.fragment import Fragment
 from pilosa_tpu_torch.storage.holder import Holder
 from pilosa_tpu_torch.storage.index import Index
-from pilosa_tpu_torch.storage.load import load_from_dense
+from pilosa_tpu_torch.storage.load import load_existence, load_from_dense
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, View

@@ -136,7 +136,8 @@ def _check_planes(name: str, opts: FieldOptions, planes: np.ndarray) -> None:
 
 
 def load_from_dense(holder, fields: dict, *, index: str,
-                    int_fields: dict | None = None) -> int:
+                    int_fields: dict | None = None,
+                    existence: bool = True) -> int:
     """Set the bits of dense words in ``index`` (created, with its fields,
     when missing).
 
@@ -147,8 +148,10 @@ def load_from_dense(holder, fields: dict, *, index: str,
     depth, n_shards x 32768]: the exists row, the sign row and the bit
     planes of the offset-encoded values, as the field's ``bsig`` view
     holds them. Columns that gain a bit (int fields: the exists bit) are
-    marked existing, as an import marks them. Returns the number of bits
-    set that were not set before."""
+    marked existing, as an import marks them, unless ``existence`` is
+    False (a caller building fields in parallel marks them once with
+    ``load_existence``). Returns the number of bits set that were not set
+    before."""
     idx = holder.index(index) or holder.create_index(index)
     exists: dict[int, np.ndarray] = {}
     gained = 0
@@ -179,8 +182,24 @@ def load_from_dense(holder, fields: dict, *, index: str,
         for shard, shard_rows in sorted(per_shard.items()):
             gained += _load_fragment(view.fragment(shard, create=True),
                                      shard_rows)
+    if existence:
+        _load_existence(idx, exists)
+    return gained
+
+
+def _load_existence(idx, exists: dict) -> None:
     if idx.track_existence and exists:
         view = idx.field(EXISTENCE_FIELD).view(VIEW_STANDARD, create=True)
         for shard, words in sorted(exists.items()):
             _load_fragment(view.fragment(shard, create=True), {0: words})
-    return gained
+
+
+def load_existence(holder, words, *, index: str) -> None:
+    """Mark the columns whose bit is set in dense ``words`` (uint32,
+    ``n_shards x 32768`` of them, shard-major) existing in ``index``
+    (created when missing), as ``load_from_dense`` marks the columns it
+    loads."""
+    idx = holder.index(index) or holder.create_index(index)
+    w = np.asarray(words, np.uint32).reshape(-1, WORDS_PER_SHARD)
+    _load_existence(idx, {shard: w[shard] for shard in
+                          np.flatnonzero(w.any(axis=1)).tolist()})

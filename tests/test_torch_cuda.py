@@ -193,3 +193,129 @@ def test_groupby_level_matches_plain(dev, row_words, agg):
             want = kernels.groupby_level_plain(dims[:k], idxs[:k], f, planes)
             assert torch.equal(got, want), (k, f is None)
     assert kernels.launches()["groupby_level"] > 0
+
+
+def _chain(op, leaves):
+    node = ("leaf", leaves[0])
+    for i in leaves[1:]:
+        node = (op, node, ("leaf", i))
+    return node
+
+
+def _right_deep(op, leaves):
+    node = ("leaf", leaves[-1])
+    for i in reversed(leaves[:-1]):
+        node = (op, ("leaf", i), node)
+    return node
+
+
+K2_PROGRAMS = [  # (structure, the form classify_program must give)
+    (("leaf", 3), kernels.FORM_CHAIN),
+    (("flipall", ("leaf", 1)), kernels.FORM_CHAIN),
+    (_chain("and", [0, 1]), kernels.FORM_CHAIN),
+    (_chain("or", [0, 1, 2]), kernels.FORM_CHAIN),
+    (_chain("xor", [4, 0, 2, 1, 3]), kernels.FORM_CHAIN),
+    (_chain("and", list(range(9))), kernels.FORM_CHAIN),
+    (("flipall", _chain("or", list(range(16)))), kernels.FORM_CHAIN),
+    (_right_deep("xor", list(range(16))), kernels.FORM_CHAIN),
+    (_chain("diff", [2, 0]), kernels.FORM_HEAD_DIFF),
+    (_chain("diff", [0, 1, 2, 3, 4]), kernels.FORM_HEAD_DIFF),
+    (("diff", ("leaf", 5), _chain("and", [0, 1, 2])), kernels.FORM_HEAD_DIFF),
+    (("flipall", ("diff", ("leaf", 15), _chain("xor", list(range(15))))),
+     kernels.FORM_HEAD_DIFF),
+    (("diff", ("flipall", ("leaf", 0)), ("flipall", ("leaf", 1))),
+     kernels.FORM_GENERAL),
+    (("xor", ("diff", ("leaf", 0), ("leaf", 1)), ("or", ("leaf", 2),
+                                                  ("const0",))),
+     kernels.FORM_GENERAL),
+    (_right_deep("diff", list(range(16))), kernels.FORM_GENERAL),  # depth 16
+]
+
+
+@pytest.mark.parametrize("shape", [(4, W), (3, 1001)])
+@pytest.mark.parametrize("i", range(len(K2_PROGRAMS)))
+def test_tree_rows_forms_match_plain(dev, shape, i):
+    """Every K2 program form (chains and head-diffs in each leaf bucket,
+    with OP_NOT after the root, the general register-stack interpreter
+    up to a 16-deep stack), on 16-byte groups and on a ragged row (one
+    word at a time)."""
+    structure, form = K2_PROGRAMS[i]
+    prog = expr.compile_program(structure)
+    assert kernels.classify_program(prog).kind == form
+    leaves = _leaves(dev, 16, shape, 40 + i)
+    got = kernels.tree_rows(prog, leaves)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.tree_rows_plain(prog, leaves))
+
+
+def test_tree_rows_salt_after_the_root_matches_plain(dev):
+    prog = (kernels.OP_LEAF, kernels.OP_LEAF | 256, kernels.OP_AND,
+            kernels.OP_SALT, kernels.OP_NOT)
+    assert kernels.classify_program(prog).kind == kernels.FORM_CHAIN
+    leaves = _leaves(dev, 2, (4, W), 60)
+    for salt in (0, 7, 0x80000001):
+        assert torch.equal(kernels.tree_rows(prog, leaves, salt),
+                           kernels.tree_rows_plain(prog, leaves, salt))
+
+
+def _level_case(dev, sizes, n_cand, seed, row_words=W, depth=None,
+                filt=True, order="random"):
+    rng = np.random.default_rng(seed)
+    dims = [_leaves(dev, 1, (3, n, row_words), seed + d)[0]
+            for d, n in enumerate(sizes)]
+    idxs = [rng.integers(0, n, n_cand) for n in sizes]
+    if order == "pad":  # the pruned level's pad candidates at index 0
+        for ix in idxs:
+            ix[n_cand // 2:] = 0
+    f = _leaves(dev, 1, (3, row_words), seed + 99)[0] if filt else None
+    planes = (_planes(dev, 3, depth, row_words, seed + 98)
+              if depth is not None else None)
+    return dims, idxs, f, planes
+
+
+K9_EDGES = {  # name -> (sizes, C, depth, row_words, order)
+    "one candidate": ((4, 3), 1, None, W, "random"),
+    "C over the tile, not a multiple": ((8,) * 16, 300, None, W, "random"),
+    "duplicated pads": ((10, 8, 16), 200, None, W, "pad"),
+    "non-lexicographic": ((5, 7), 35, 20, W, "random"),
+    "16 dimensions": ((2,) * 16, 64, None, W, "random"),
+    "depth 63": ((6,), 6, 63, W, "random"),
+    "ragged, vec 0": ((5, 3), 15, 7, 1001, "random"),
+    "ragged tile": ((5, 3), 15, None, 3 * 1024 + 4, "random"),
+}
+
+
+@pytest.mark.parametrize("name", list(K9_EDGES))
+def test_groupby_level_edges_match_plain(dev, name):
+    sizes, n_cand, depth, row_words, order = K9_EDGES[name]
+    dims, idxs, f, planes = _level_case(dev, sizes, n_cand, 70, row_words,
+                                        depth, order=order)
+    plan = kernels.groupby_plan(idxs, True, depth, row_words,
+                                row_words % 4 == 0)
+    if name.startswith("C over"):
+        assert len(plan.tiles) > 1  # the plan had to split
+    got = kernels.groupby_level(dims, idxs, f, planes)
+    torch.cuda.synchronize()
+    assert torch.equal(got, kernels.groupby_level_plain(dims, idxs, f,
+                                                        planes))
+
+
+@pytest.mark.parametrize("chunk", [2, 4])
+@pytest.mark.parametrize("tile_words", [256, 512, 1024])
+def test_groupby_level_plan_variants_match_plain(dev, chunk, tile_words):
+    """K9 under forced plans: every word tile that fits, both chunks,
+    groups of 8 and of 2."""
+    dims, idxs, f, _ = _level_case(dev, (10, 8, 16), 300, 90)
+    want = kernels.groupby_level_plain(dims, idxs, f)
+    for group_max in (8, 2):
+        try:
+            plan = kernels.groupby_plan(idxs, True, None, W, True,
+                                        tile_words=tile_words,
+                                        chunk_elems=chunk,
+                                        group_max=group_max)
+        except ValueError:  # 35 rows of 1024 words do not fit
+            assert tile_words == 1024
+            return
+        got = kernels.groupby_level(dims, idxs, f, plan=plan)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want), group_max

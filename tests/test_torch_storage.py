@@ -13,7 +13,7 @@ import pytest
 import torch
 
 import pilosa_tpu.storage as jstorage
-from pilosa_tpu_torch.storage import Holder, load_from_dense
+from pilosa_tpu_torch.storage import Holder, load_existence, load_from_dense
 
 torch.set_num_threads(1)
 
@@ -214,3 +214,53 @@ def test_write_after_torn_tail_survives_reopen(tmp_path):
             assert frag.contains(1, 10) and frag.contains(1, 20)
         finally:
             holder.close()
+
+
+def _tree_bytes(root) -> dict:
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def test_fields_built_apart_then_existence_match_one_load(tmp_path):
+    """chip_smoke's parallel build: each field loaded into its own
+    directory without existence marks, the field directories moved into
+    one data dir whose existence rows ``load_existence`` wrote, gives the
+    same files as one ``load_from_dense`` call, and the reference reads
+    it."""
+    fields = {"f": _seed_rows(5), "g": _seed_rows(6, rows=(0, 3))}
+    one = Holder(str(tmp_path / "one"), device="cpu").open()
+    load_from_dense(one, fields, index="i")
+    one.close()
+
+    exists = np.zeros(SHARDS * W, np.uint32)
+    for rows in fields.values():
+        for words in rows.values():
+            exists |= words
+    main = Holder(str(tmp_path / "main"), device="cpu").open()
+    load_existence(main, exists, index="i")
+    main.close()
+    for fname, rows in fields.items():
+        part = tmp_path / f"part-{fname}"
+        h = Holder(str(part), device="cpu").open()
+        load_from_dense(h, {fname: rows}, index="i", existence=False)
+        assert h.index("i").field("_exists").view("standard") is None or \
+            not h.index("i").field("_exists").view("standard").fragments
+        h.close()
+        os.rename(part / "i" / fname, tmp_path / "main" / "i" / fname)
+    assert _tree_bytes(tmp_path / "main") == _tree_bytes(tmp_path / "one")
+
+    j = jstorage.Holder(str(tmp_path / "main")).open()
+    try:
+        got = _rows_of(j.index("i").field("g"), (0, 3))
+        for r in (0, 3):
+            assert np.array_equal(got[r], fields["g"][r])
+        assert j.index("i").field("_exists").view("standard").fragment(
+            1).count_row(0) == int(np.bitwise_count(
+                exists[W:2 * W]).sum())
+    finally:
+        j.close()
