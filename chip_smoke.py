@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Chip smoke test of pilosa_tpu_torch on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--verify-on-load]
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
@@ -13,19 +13,27 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    4-query micro-batch, a patch whose masks have bit 31 set, the
    int32[1024, 22, 32768] planes of a depth-20 int field, an 8-row TopN
    chunk int32[1024, 8, 32768], GroupBy levels of 80 and 1024
-   candidates), K2 in every program form and K9 at its edge shapes, and
-   time both with CUDA events beside the kernel's bound (K9 also beside
-   its popcount floor, with the bytes it stages and its plan variants).
+   candidates), K1 and K2 in every program form (K1 as a 4-query
+   micro-batch with four salts), K7 on synthetic depth-41 and depth-63
+   planes against a numpy oracle, K9 at its edge shapes, and time each
+   with CUDA events beside the kernel's bound (K1 per form, with ptxas'
+   registers and stack of every K1 and K7 instance;
+   K9 also beside its popcount floor, with the bytes it stages and its
+   plan variants).
    Meanwhile one worker process per field (and one for the existence
    rows) writes the data directory from the same host words;
 4. drive three main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
-   and read just after it:
+   and read just after it. The server opens without verifying the
+   fragments' .checksums, and times the verification of 64 fragments;
+   with --verify-on-load it opens as the port does by default,
+   verifying every fragment, and times that open:
    a. Star-Trace (index ``repository``): Count and row algebra (16
-      concurrent Count clients), Shift and Not, writes through /import
-      and Set/Clear;
+      concurrent Count clients), Shift and Not, a 20-leaf Union and a
+      20-deep nested tree (cut into K2 'tree' steps), writes through
+      /import and Set/Clear;
    b. NYC-taxi rides (index ``rides``, BASELINE config 3): a set field
       ``cab_type``, an int field ``fare`` (cents, 0..1048575, depth 20)
       and an int field ``tip`` filled through /import-value; Range,
@@ -37,7 +45,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       ``passenger_count``, ``pickup_year`` and ``trip_distance``, one row
       per ride each; TopN (filtered too), Rows, GroupBy over one, two and
       three dimensions (the last past the dense limit, so pruned level by
-      level), Sum aggregate, having, Options(shards=), IncludesColumn, a
+      level) and over 17 (past K9's 16), Sum aggregate, having, Options(shards=), IncludesColumn, a
       Set that the next TopN and GroupBy must show, then 16 concurrent
       clients over five shapes of queries 1-3.
 
@@ -196,6 +204,7 @@ def check_kernels(torch, kernels, batch, leaves, rng) -> list:
     del a, b
     if err != 0:
         fail(f"tree_count disagrees with its plain version by {err}")
+    check_k1_forms(torch, kernels, expr, leaves, row_words)
     n_bytes = 4 * 2 * leaf_bytes
     out.append({
         "name": "tree_count", "route": "cuda",
@@ -309,6 +318,75 @@ def check_kernels(torch, kernels, batch, leaves, rng) -> list:
 
 def _bytes_ms(n_bytes: float) -> float:
     return 1e3 * n_bytes / HBM_BYTES_PER_S
+
+
+K1_SALTS = (0, 7, 0x80000001, 0xFFFFFFFF)
+
+
+def check_k1_forms(torch, kernels, expr, leaves, row_words: int) -> None:
+    """K1 in every program form of K2_FORMS (and each with OP_SALT after
+    the root), as a 4-query micro-batch with four salts over rotations of
+    the 16 leaves, bit-exact; then K1's times per form beside their
+    bounds."""
+    batch4 = [leaves[q:] + leaves[:q] for q in range(4)]
+    err = 0
+    for structure, form in K2_FORMS:
+        p = expr.compile_program(structure)
+        for prog in (p, p + (kernels.OP_SALT,)):
+            got_form = kernels.classify_program(prog).kind
+            if got_form != form:
+                fail(f"tree_count classified {prog} as form {got_form}, "
+                     f"not {form}")
+            err = max(err, max_abs_err(
+                torch, kernels.tree_count(prog, batch4, K1_SALTS, row_words),
+                kernels.tree_count_plain(prog, batch4, K1_SALTS, row_words)))
+    if err != 0:
+        fail(f"tree_count's forms disagree with the plain version by {err}")
+    print(f"kernel tree_count: {2 * len(K2_FORMS)} programs in every form "
+          f"and leaf bucket, 4 queries with salts {list(K1_SALTS)}, "
+          "bit-exact", flush=True)
+    leaf_bytes = leaves[0].numel() * 4
+    for name, structure, n in (
+            ("2-leaf AND", ("and", ("leaf", 0), ("leaf", 1)), 2),
+            ("3-leaf Union", _chain("or", [0, 1, 2]), 3),
+            ("2-leaf Difference under OP_NOT (general)",
+             ("diff", ("flipall", ("leaf", 0)), ("flipall", ("leaf", 1))),
+             2)):
+        prog = expr.compile_program(structure)
+        form = kernels.classify_program(prog).kind
+        mb = [batch4[q][:n] for q in range(4)]
+        bound = _bytes_ms(4 * n * leaf_bytes)
+        ms = cuda_ms(torch, lambda: kernels.tree_count(
+            prog, mb, [0] * 4, row_words))
+        print(f"kernel tree_count {name} (form {form}, "
+              f"{kernels.TREE_COUNT_STEPS[form]} steps a block), 4 queries: "
+              f"{ms} ms, bound {bound} ms, {100 * bound / ms:.1f}% of the "
+              "bound", flush=True)
+
+
+def print_ptxas(kernels, name: str) -> None:
+    """Registers, stack frame and spills of every instance in a kernel's
+    build log (ptxas -v)."""
+    logs = sorted(kernels.BUILD_DIR.glob(f"lib{name}-*.log"))
+    if not logs:
+        print(f"ptxas {name}: no build log (built before this run)")
+        return
+    entry, rows = None, []
+    for line in logs[-1].read_text().splitlines():
+        if "Compiling entry function" in line:
+            entry = line.split("'")[1]
+        elif "stack frame" in line and entry:
+            frame = line.strip()
+        elif "Used" in line and "registers" in line and entry:
+            regs = line.split("Used")[1].split("registers")[0].strip()
+            rows.append((entry, regs, frame))
+            entry = None
+    framed = [r for r in rows if not r[2].startswith("0 bytes stack frame, "
+                                                     "0 bytes spill stores")]
+    print(f"ptxas {name}: {len(rows)} instances, {len(framed)} with a stack "
+          "frame or spills", flush=True)
+    for entry, regs, frame in rows:
+        print(f"  {name} {entry[:60]}: {regs} registers; {frame}")
 
 
 def check_port_kernels(torch, kernels, batch, leaves, planes) -> list:
@@ -434,6 +512,7 @@ def check_port_kernels(torch, kernels, batch, leaves, planes) -> list:
                 fail("bsi_minmax's merged result disagrees")
     if err != 0:
         fail(f"bsi_minmax disagrees with its plain version by {err}")
+    check_k7_wide(torch, kernels, batch, planes.device)
     out.append({
         "name": "bsi_minmax", "route": "cuda",
         "source": "pilosa_tpu_torch/csrc/bsi_minmax.cu",
@@ -447,6 +526,72 @@ def check_port_kernels(torch, kernels, batch, leaves, planes) -> list:
         "shape": f"planes int32[{N_SHARDS}, {depth + 2}, {WORDS}] + filter",
     })
     return out
+
+
+def _minmax_oracle(planes: np.ndarray, mask: np.ndarray, want_max: bool):
+    """Per shard (value, count) of the masked columns' values, built in
+    uint64 from the planes; (None, 0) for a shard without one."""
+    out = []
+    for s in range(planes.shape[0]):
+        cols = np.flatnonzero(np.unpackbits(mask[s].view(np.uint8),
+                                            bitorder="little"))
+        if cols.size == 0:
+            out.append((None, 0))
+            continue
+        vals = np.zeros(cols.size, np.uint64)
+        for b in range(planes.shape[1] - 2):
+            bits = np.unpackbits(planes[s, 2 + b].view(np.uint8),
+                                 bitorder="little")[cols]
+            vals |= bits.astype(np.uint64) << np.uint64(b)
+        best = vals.max() if want_max else vals.min()
+        out.append((int(best), int((vals == best).sum())))
+    return out
+
+
+def check_k7_wide(torch, kernels, batch, dev) -> None:
+    """K7 past 31 planes: synthetic depth-41 and depth-63 planes over 64
+    shards, every stored value at least 2^40 (plane 40 set on every
+    column), sparse columns, one shard without any and one the filter
+    empties; Max and Min with and without the filter, against the plain
+    version and a Python-int oracle, and the merged result."""
+    rng = np.random.default_rng(41)
+    for depth in (41, 63):
+        exists = np.full((64, WORDS), 0xFFFFFFFF, np.uint32)
+        for _ in range(10):
+            exists &= rng.integers(0, 1 << 32, exists.shape, dtype=np.uint32)
+        exists[5] = 0
+        host = rng.integers(0, 1 << 32, (64, 2 + depth, WORDS),
+                            dtype=np.uint32) & exists[:, None]
+        host[:, 0], host[:, 1], host[:, 2 + 40] = exists, 0, exists
+        filt = rng.integers(0, 1 << 32, (64, WORDS), dtype=np.uint32)
+        filt[9] = 0
+        planes = torch.from_numpy(host.view(np.int32)).to(dev)
+        f_dev = torch.from_numpy(filt.view(np.int32)).to(dev)
+        for want_max in (True, False):
+            for f, mask in ((None, exists), (f_dev, exists & filt)):
+                got_v, got_n = kernels.bsi_minmax(planes, f, want_max)
+                want_v, want_n = kernels.bsi_minmax_plain(planes, f, want_max)
+                live = want_n > 0
+                if not (torch.equal(got_n, want_n)
+                        and torch.equal(got_v[live], want_v[live])):
+                    fail(f"bsi_minmax at depth {depth} disagrees with its "
+                         "plain version")
+                oracle = _minmax_oracle(host, mask, want_max)
+                if [int(n) for n in got_n.tolist()] != [n for _, n in oracle]\
+                        or any(n and int(got_v[s]) != v
+                               for s, (v, n) in enumerate(oracle)):
+                    fail(f"bsi_minmax at depth {depth} disagrees with the "
+                         "oracle")
+                best = [v for v, n in oracle if n]
+                best = max(best) if want_max else min(best)
+                merged = batch.minmax_merge(got_v, got_n, want_max)
+                if int(merged[0]) != best or best < 1 << 40:
+                    fail(f"bsi_minmax's merge at depth {depth} gave "
+                         f"{int(merged[0])}, oracle {best}")
+        del planes, f_dev
+    print("kernel bsi_minmax: depth 41 and 63 over 64 shards (values of "
+          "2^40 and more), Max and Min, filtered and not: bit-exact and "
+          "equal to the oracle", flush=True)
 
 
 def _sm_clock_hz() -> float:
@@ -653,14 +798,24 @@ class Client:
 
 
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
-                   taxi: dict, rng, kernels) -> dict:
+                   taxi: dict, rng, kernels, verify_on_load: bool) -> dict:
     """Phase 4 through one server: the Star-Trace path, the rides path and
     the taxi path, each with the launch counters zeroed just before it and
     read just after. Returns {path: (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
 
+    # verify-on-load (the port's default) digests every bit id of the
+    # 1B-column dirs, ~21e9 of them: minutes of set-up that no kernel
+    # runs in, so unless asked this server opens without it and a sample
+    # of the heaviest view is verified and timed instead
+    t0 = time.perf_counter()
     server = Server(data_dir, bind="127.0.0.1", port=0,
-                    budget_bytes=SERVER_BUDGET_BYTES).open()
+                    budget_bytes=SERVER_BUDGET_BYTES,
+                    verify_on_load=verify_on_load).open()
+    print(f"server open (verify-on-load {verify_on_load}): "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
+    if not verify_on_load:
+        _time_verify_sample(server.holder)
     try:
         out = {}
         for path, serve in (
@@ -673,6 +828,30 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
         return out
     finally:
         server.close()
+
+
+def _time_verify_sample(holder, n: int = 64) -> None:
+    """Verify-on-load's work (read, decode, digest every bit id, compare
+    with .checksums) over the first ``n`` fragments of the fare planes,
+    in 8 threads as ``View.open`` runs it; prints the rate."""
+    from pilosa_tpu_torch.storage.integrity import load_verified
+
+    view = holder.index("rides").field("fare").view("bsig_fare")
+    frags = [view.fragments[s] for s in sorted(view.fragments)[:n]]
+    n = len(frags)
+
+    def verify(frag) -> int:
+        with open(frag.path, "rb") as f:
+            bitmap, _ = load_verified(f.read(), frag.path, verify=True)
+        return bitmap.count()
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(8) as pool:
+        n_ids = sum(pool.map(verify, frags))
+    secs = time.perf_counter() - t0
+    print(f"verify-on-load sample: {n} bsig_fare fragments, {n_ids} bit ids "
+          f"in {secs:.2f}s ({n_ids / secs / 1e6:.1f}M ids/s in 8 threads)",
+          flush=True)
 
 
 def _count_oracle(words, op, leaves) -> int:
@@ -764,6 +943,35 @@ def _serve_and_check(server, words: dict, rng) -> dict:
     got = c.query("Count(Not(Row(stargazer=1)))")[0]
     if got != want:
         fail(f"Count(Not(Row(stargazer=1))) = {got}, oracle {want}")
+
+    # trees past K1/K2's 16 operands and 16 stack slots: the plan cuts
+    # them into K2 'tree' steps, whose launches count as tree_rows'
+    from pilosa_tpu_torch import kernels
+
+    dense = [(f, r) for f in ("stargazer", "language") for r in range(4)]
+    union = [dense[(3 * k) % 8] for k in range(20)]
+    nested, acc = f"Row({dense[0][0]}={dense[0][1]})", words[dense[0]]
+    for k in range(20):
+        f, r = dense[(5 * k + 1) % 8]
+        if k % 2:
+            nested, acc = f"Difference(Row({f}={r}), {nested})", \
+                words[(f, r)] & ~acc
+        else:
+            nested, acc = f"Union(Row({f}={r}), {nested})", \
+                words[(f, r)] | acc
+    wide = {
+        "Count(Union(" + ", ".join(f"Row({f}={r})" for f, r in union) + "))":
+            _count_oracle(words, "or", union),
+        f"Count({nested})": int(np.bitwise_count(acc).sum(dtype=np.int64)),
+    }
+    before = kernels.launches()["tree_rows"]
+    for pql, want in wide.items():
+        got = c.query(pql)[0]
+        if got != want:
+            fail(f"{pql[:60]}... = {got}, oracle {want}")
+    stats["wide_tree_steps"] = kernels.launches()["tree_rows"] - before
+    if stats["wide_tree_steps"] < len(wide):
+        fail("the wide trees ran without K2 'tree' steps")
 
     # a write a resident leaf must show (K3 OR), then its undo (K3 AND-NOT)
     sg0, lang1 = words[("stargazer", 0)], words[("language", 1)]
@@ -1100,12 +1308,21 @@ def taxi_oracle(rides: dict, taxi: dict, fare_sums: np.ndarray) -> dict:
     }
     q4 = "GroupBy(Rows(passenger_count), Rows(pickup_year), " \
          "Rows(trip_distance))"
+    # past K9's 16 dimensions: the first three passenger counts by year,
+    # the year repeated 16 times (a ride has one year)
+    q17 = ("GroupBy(Rows(passenger_count, limit=3), "
+           + ", ".join(["Rows(pickup_year)"] * 16) + ")")
+    q17_keys = [(p,) + (y,) * 16 for p in pc_rows[:3] for y in yr_rows]
+    q17_counts = [int(q3[(p - pc0) * n_yr + y - yr0]) for p, y, *_ in
+                  q17_keys]
     after = groups.copy()
     after[(int(pc[set_col]) * n_yr + int(yr[set_col])) * n_d
           + set_row - d0] += 1
     by_d_after = by_d.copy()
     by_d_after[set_row - d0] += 1
-    return {"truth": truth, "q4": q4,
+    return {"truth": truth, "q4": q4, "q17": q17,
+            "q17_truth": _groups(names[:1] + names[1:2] * 16, q17_keys,
+                                 q17_counts),
             "q4_truth": _groups(names, q4_keys, groups),
             "q4_after": _groups(names, q4_keys, after),
             "set": f"Set({set_col}, trip_distance={set_row})",
@@ -1146,6 +1363,10 @@ def _serve_taxi(server, oracle: dict) -> dict:
     c.query(oracle["q4"])
     stats["q4_warm_s"] = time.perf_counter() - t0
     stats["q4_groups"] = oracle["q4_groups"]
+    t0 = time.perf_counter()
+    if c.query(oracle["q17"])[0] != oracle["q17_truth"]:
+        fail("GroupBy over 17 dimensions differs from the oracle")
+    stats["groupby_17_dims_s"] = time.perf_counter() - t0
 
     # a write the resident matrices must show (K3's row form)
     if c.query(oracle["set"]) != [True]:
@@ -1318,6 +1539,9 @@ def finish_data_dirs(builders, scratch: Path, data_dir: Path) -> None:
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--seed", type=int, default=20261016)
+    ap.add_argument("--verify-on-load", action="store_true",
+                    help="open the server as the port does by default, "
+                    "verifying every fragment's .checksums, and time it")
     args = ap.parse_args()
 
     if not (Path(__file__).resolve().parent / "pilosa_tpu_torch").is_dir():
@@ -1346,9 +1570,13 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f}s "
           + json.dumps({k: round(v, 1) for k, v in built.items()}), flush=True)
     for log in sorted(kernels.BUILD_DIR.glob("*.log")):
+        if log.name.startswith(("libtree_count", "libbsi_minmax")):
+            continue  # printed per instance below
         for line in log.read_text().splitlines():
             if "registers" in line or "spill" in line:
                 print(f"  {log.name.split('-')[0]}: {line.strip()}")
+    print_ptxas(kernels, "tree_count")
+    print_ptxas(kernels, "bsi_minmax")
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda")
@@ -1378,6 +1606,7 @@ def main() -> int:
     oracles = pool.submit(build_oracles, rides, taxi)
     try:
         # phase 3: kernels against their plain versions on the card
+        t3 = time.perf_counter()
         leaves = [torch.from_numpy(w.view(np.int32)).to(dev).reshape(
             N_SHARDS, WORDS) for w in words.values()]
         leaves += [torch.roll(leaf, 1, 0) for leaf in leaves]  # 16: R=8 x 2
@@ -1387,6 +1616,7 @@ def main() -> int:
                 1, 0, 2).contiguous()
         report += check_port_kernels(torch, kernels, batch, leaves, planes)
         report += check_taxi_kernels(torch, kernels, leaves, planes)
+        print(f"phase 3: {time.perf_counter() - t3:.1f}s", flush=True)
         del leaves, planes
         torch.cuda.synchronize()
         torch.cuda.empty_cache()
@@ -1408,7 +1638,8 @@ def main() -> int:
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
         paths = run_main_paths(str(data_dir), words, rides, oracle,
-                               taxi_truth, path_rng, kernels)
+                               taxi_truth, path_rng, kernels,
+                               args.verify_on_load)
     finally:
         builders.shutdown(cancel_futures=True)
         pool.shutdown()

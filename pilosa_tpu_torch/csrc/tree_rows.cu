@@ -10,40 +10,30 @@
 //   ((leaves + 1) x words x 4 bytes) / 3.35 TB/s,
 // 120 us for a 2-leaf tree over 1B columns.
 //
-// Design. The wrapper (kernels.classify_program) sorts a program into one
-// of three forms on the host:
-//   - chain: a left fold of one op (and, or, xor) over n <= 16 leaves,
-//   - head-diff: head & ~(fold of one op over n - 1 <= 15 leaves), which
-//     is also a left-deep chain of diffs (a - b - c = a & ~(b | c)),
-//   - general: any other program,
-// each followed by an optional xor with a mask (OP_NOT and OP_SALT after
-// the root compose to one xor). A chain or head-diff runs a template
-// kernel per (op, head-diff, leaf-count bucket 2/4/8/16): each thread
-// takes R 16-byte groups a step (R = 4, 4, 2, 1 for the four buckets, so
-// the leaves of a step fill at most 64 registers), issues every leaf load
-// of the step through a fully unrolled, guarded loop before any
-// operation, and writes the result with streaming stores (__stcs: the
-// host reads it back, the card does not; plain stores ran slower, and
-// plain loads or loads that skip L1 and prefetch 256-byte L2 sectors ran
-// no faster than read-only __ldg loads). The general form interprets
-// the postfix program with the operand stack held as D registers (D = 4
-// or 8 slots of 16-byte groups, or 16 slots of single words for deeper
-// programs, the program's depth rounded up) that a push or a binary op
-// shifts at compile-time positions, so no stack lives in local memory
-// (tree_program.cuh's interpreter, which K1 keeps, indexes its stack at
-// run time). The grid has one block per step: capped at a wave of
-// resident blocks (the occupancy calculator's count) over a grid-stride
-// loop it ran 4-6% slower. Rows whose word count is not a multiple of 4,
-// or that are not 16-byte aligned, take the general form one word at a
-// time.
+// Design. The wrapper classifies the program (tree_program.cuh: chain,
+// head-diff or general). A chain or head-diff runs a template kernel per
+// (op, head-diff, leaf-count bucket 2/4/8/16): each thread takes R
+// 16-byte groups a step (R = 4, 4, 2, 1 for the four buckets, so the
+// leaves of a step fill at most 64 registers), issues every leaf load of
+// the step before any operation (eval_form), and writes the result with
+// streaming stores (__stcs: the host reads it back, the card does not;
+// plain stores ran slower, and plain loads or loads that skip L1 and
+// prefetch 256-byte L2 sectors ran no faster than read-only __ldg
+// loads). The general form runs eval_general with D = 4 or 8 slots of
+// 16-byte groups, or 16 slots of single words for deeper programs, the
+// program's depth rounded up. The grid has one block per step: capped
+// at a wave of resident blocks (the occupancy calculator's count) over
+// a grid-stride loop it ran 4-6% slower. Rows whose word count is not a
+// multiple of 4, or that are not 16-byte aligned, take the general form
+// one word at a time.
 #include "tree_program.cuh"
 
 namespace {
 
 constexpr int THREADS = 256;
-constexpr int FORM_GENERAL = 0;
-constexpr int FORM_CHAIN = 1;
-constexpr int FORM_HEAD_DIFF = 2;
+using pilosa::FORM_CHAIN;
+using pilosa::FORM_GENERAL;
+using pilosa::FORM_HEAD_DIFF;
 
 struct RowsParams {
   const uint32_t* leaves[pilosa::MAX_LEAVES];
@@ -63,13 +53,6 @@ __device__ __forceinline__ void store_cs(uint32_t* p, long long w, uint4 v) {
   __stcs(reinterpret_cast<uint4*>(p + w), v);
 }
 
-template <int OP>
-__device__ __forceinline__ uint4 fold(uint4 a, uint4 b) {
-  if constexpr (OP == pilosa::OP_AND) return a & b;
-  if constexpr (OP == pilosa::OP_OR) return a | b;
-  return a ^ b;  // OP_XOR
-}
-
 // Chain and head-diff forms over 16-byte groups: N is the leaf bucket,
 // R the groups a thread takes per step.
 template <int OP, bool HEAD_DIFF, int N, int R>
@@ -81,45 +64,18 @@ form_kernel(const __grid_constant__ RowsParams p, uint32_t* __restrict__ out) {
   for (long long base = static_cast<long long>(blockIdx.x) * THREADS * R +
                         threadIdx.x;
        base < n4; base += step) {
-    uint4 v[N][R];
-#pragma unroll
-    for (int j = 0; j < N; ++j) {
-#pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const long long i = base + static_cast<long long>(r) * THREADS;
-        v[j][r] = (j < p.n_leaves && i < n4)
-                      ? pilosa::load_word(p.leaves[j], 4 * i, uint4())
-                      : make_uint4(0, 0, 0, 0);
-      }
-    }
+    uint4 acc[R];
+    pilosa::eval_form<OP, HEAD_DIFF, N, R>(p.leaves, p.n_leaves, base,
+                                           THREADS, n4, acc);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long i = base + static_cast<long long>(r) * THREADS;
-      const int first = HEAD_DIFF ? 1 : 0;
-      uint4 acc = v[first][r];
-#pragma unroll
-      for (int j = first + 1; j < N; ++j)
-        if (j < p.n_leaves) acc = fold<OP>(acc, v[j][r]);
-      if constexpr (HEAD_DIFF) acc = v[0][r] & ~acc;
-      if (i < n4) store_cs(out, 4 * i, acc ^ mask);
+      if (i < n4) store_cs(out, 4 * i, acc[r] ^ mask);
     }
   }
 }
 
-template <typename T>
-__device__ __forceinline__ T apply_op(int op, T a, T b) {
-  switch (op) {
-    case pilosa::OP_AND: return a & b;
-    case pilosa::OP_OR: return a | b;
-    case pilosa::OP_XOR: return a ^ b;
-    default: return a & ~b;  // OP_DIFF
-  }
-}
-
-// The general form: the postfix program over a register stack of D
-// slots, top at st[0]. A push shifts every slot up one, a binary op
-// combines st[1] and st[0] and shifts the rest down; every index is a
-// compile-time constant after unrolling.
+// The general form over elements of T (one word or a 16-byte group).
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(THREADS)
 general_kernel(const __grid_constant__ RowsParams p,
@@ -127,50 +83,16 @@ general_kernel(const __grid_constant__ RowsParams p,
   constexpr int KW = pilosa::kWords<T>;
   const long long n = p.n_words / KW;
   const long long step = static_cast<long long>(gridDim.x) * THREADS * R;
-  const T zero = pilosa::splat(0u, T());
   for (long long base = static_cast<long long>(blockIdx.x) * THREADS * R +
                         threadIdx.x;
        base < n; base += step) {
-    T st[D][R];
-#pragma unroll
-    for (int k = 0; k < D; ++k)
-#pragma unroll
-      for (int r = 0; r < R; ++r) st[k][r] = zero;
-    for (int i = 0; i < p.n_ops; ++i) {
-      const int c = p.code[i];
-      const int op = c & 0xff;
-      if (op == pilosa::OP_LEAF || op == pilosa::OP_ZERO) {
-#pragma unroll
-        for (int k = D - 1; k > 0; --k)
-#pragma unroll
-          for (int r = 0; r < R; ++r) st[k][r] = st[k - 1][r];
-        const uint32_t* leaf = op == pilosa::OP_LEAF ? p.leaves[c >> 8]
-                                                     : nullptr;
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const long long e = base + static_cast<long long>(r) * THREADS;
-          st[0][r] = (leaf != nullptr && e < n)
-                         ? pilosa::load_word(leaf, KW * e, T())
-                         : zero;
-        }
-      } else if (op == pilosa::OP_SALT || op == pilosa::OP_NOT) {
-        const T m = pilosa::splat(op == pilosa::OP_SALT ? p.salt : ~0u, T());
-#pragma unroll
-        for (int r = 0; r < R; ++r) st[0][r] = st[0][r] ^ m;
-      } else {
-#pragma unroll
-        for (int r = 0; r < R; ++r)
-          st[0][r] = apply_op(op, st[1][r], st[0][r]);
-#pragma unroll
-        for (int k = 1; k < D - 1; ++k)
-#pragma unroll
-          for (int r = 0; r < R; ++r) st[k][r] = st[k + 1][r];
-      }
-    }
+    T acc[R];
+    pilosa::eval_general<T, D, R>(p.code, p.n_ops, p.leaves, p.salt, base,
+                                  THREADS, n, acc);
 #pragma unroll
     for (int r = 0; r < R; ++r) {
       const long long e = base + static_cast<long long>(r) * THREADS;
-      if (e < n) store_cs(out, KW * e, st[0][r]);
+      if (e < n) store_cs(out, KW * e, acc[r]);
     }
   }
 }
@@ -223,18 +145,6 @@ int launch_deep(const RowsParams& p, uint32_t* out, cudaStream_t st) {
   return launch(general_kernel<uint32_t, 16, 2>, p, p.n_words, 2, out, st);
 }
 
-// The deepest the program's stack gets (0 for an invalid program).
-int stack_depth(const int* code, int n_ops) {
-  int sp = 0, deepest = 0;
-  for (int i = 0; i < n_ops; ++i) {
-    const int op = code[i] & 0xff;
-    if (op == pilosa::OP_LEAF || op == pilosa::OP_ZERO) ++sp;
-    else if (op >= pilosa::OP_AND && op <= pilosa::OP_DIFF) --sp;
-    if (sp > deepest) deepest = sp;
-  }
-  return deepest;
-}
-
 }  // namespace
 
 // form: 0 general, 1 chain, 2 head-diff. leaves: host array of n_leaves
@@ -273,7 +183,7 @@ extern "C" int tree_rows_launch(const void* const* leaves, int n_leaves,
     return static_cast<int>(cudaErrorInvalidValue);
   for (int i = 0; i < n_ops; ++i) p.code[i] = code[i];
   p.n_ops = n_ops;
-  const int depth = stack_depth(code, n_ops);
+  const int depth = pilosa::stack_depth(code, n_ops);
   if (depth > 8) return launch_deep(p, o, st);
   return vec ? launch_general<uint4>(depth, p, o, st)
              : launch_general<uint32_t>(depth, p, o, st);

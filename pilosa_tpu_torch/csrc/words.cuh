@@ -50,6 +50,11 @@ __device__ __forceinline__ void store_word(uint32_t* p, long long w,
   *reinterpret_cast<uint4*>(p + w) = v;
 }
 
+__device__ __forceinline__ bool nonzero(uint32_t v) { return v != 0; }
+__device__ __forceinline__ bool nonzero(uint4 v) {
+  return (v.x | v.y | v.z | v.w) != 0;
+}
+
 __device__ __forceinline__ int popc(uint32_t v) { return __popc(v); }
 __device__ __forceinline__ int popc(uint4 v) {
   return __popc(v.x) + __popc(v.y) + __popc(v.z) + __popc(v.w);

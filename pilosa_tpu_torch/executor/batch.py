@@ -9,9 +9,10 @@ resident by the holder's ``DeviceRowCache``. Writes patch resident
 leaves in place (K3, on a plane leaf through its row form) instead of
 evicting them.
 
-A structure's shift and bsicmp nodes run first, each through its own
-kernel (K4, K5) into a temporary row (``materialize``, see
-``expr.plan``); the elementwise rest goes to K1 (counts) or K2 (rows).
+A structure's shift and bsicmp nodes, and the subtrees cut off a tree
+over the kernels' limits, run first, each through its own kernel (K4,
+K5, K2) into a temporary row (``materialize``, see ``expr.plan``); the
+elementwise rest goes to K1 (counts) or K2 (rows).
 TopN's candidate rows and GroupBy's dimensions are stacked row matrices
 ``int32[S_padded, R, 32768]`` (``stacked_matrix``), reduced by K8
 (``countrows``) and K9 (a GroupBy level).
@@ -20,8 +21,9 @@ Reduce kinds and their packed results (int32):
   'count'     → [2]: split-sum scalar; the micro-batched form is [B, 2]
   'countrows' → [2, R]: split sums of each matrix row's popcount
   'bsisum'    → [2, depth + 1]: per-plane popcount split sums ++ [n]
-  'min'/'max' → [3]: [offset-encoded extremum, count_lo, count_hi]
-                (count 0 → empty)
+  'min'/'max' → int64 [3]: [offset-encoded extremum, count_lo,
+                count_hi] (count 0 → empty; the reference packs int32 and
+                wraps an extremum past 31 bits)
   'row'       → [S_padded, words] (the only multi-row readback)
 
 Split sums: partial popcounts are int32 and a per-shard popcount can
@@ -42,8 +44,8 @@ from pilosa_tpu_torch.storage.residency import upload
 
 SPLIT_SHIFT = 15
 SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
-INT32_MIN = -(1 << 31)
-INT32_MAX = (1 << 31) - 1
+INT64_MIN = -(1 << 63)
+INT64_MAX = (1 << 63) - 1
 
 # Row width of the count reduction: per-row partials of 2^18 words stay
 # <= 2^23 and fit int32. Divides every stacked block of 8+ slots
@@ -380,7 +382,7 @@ def row_expr(sub, tensors: list, zeros) -> torch.Tensor:
 
 def materialize(plan: expr.Plan, leaves: list, scalars, zeros):
     """Run a plan's steps, innermost first, each through its own kernel
-    (K4 shift, K5 bsicmp) into a temporary [S, W] row. Returns
+    (K2 tree, K4 shift, K5 bsicmp) into a temporary [S, W] row. Returns
     ``resolve(operands) -> tensors`` over the stacked leaves and those
     temporaries. Every launch is queued on the stream now, so the
     temporaries see the leaves as they are at submit."""
@@ -391,7 +393,9 @@ def materialize(plan: expr.Plan, leaves: list, scalars, zeros):
                 for kind, i in operands]
 
     for step in plan.steps:
-        if step[0] == "shift":
+        if step[0] == "tree":
+            temps.append(row_expr(step[1], resolve(step[1][1]), zeros))
+        elif step[0] == "shift":
             _, sub, j = step
             temps.append(kernels.row_shift(
                 row_expr(sub, resolve(sub[1]), zeros), int(scalars[j])))
@@ -430,7 +434,7 @@ def minmax_mask(values, counts, want_max: bool):
     (count 0 — padded slots included) get the opposite-extreme sentinel so
     they lose every comparison. Returns (masked, valid)."""
     valid = counts > 0
-    sentinel = INT32_MIN if want_max else INT32_MAX
+    sentinel = INT64_MIN if want_max else INT64_MAX
     return torch.where(valid, values, sentinel), valid
 
 
@@ -440,9 +444,9 @@ def minmax_at_best(values, counts, valid, best):
 
 
 def minmax_finalize(best, n, any_valid):
-    """Pack [best, count_lo, count_hi] int32 (count 0 → empty result)."""
+    """Pack [best, count_lo, count_hi] int64 (count 0 → empty result)."""
     best = torch.where(any_valid, best, 0)
-    return torch.cat([best.to(torch.int32).reshape(1), n])
+    return torch.cat([best.to(torch.int64).reshape(1), n.to(torch.int64)])
 
 
 def minmax_merge(values, counts, want_max: bool) -> torch.Tensor:

@@ -11,8 +11,11 @@ nodes run first, each through its own kernel (K4, K5), then a Count runs
 K1 over the rest and a row call K2, and pipelined Counts of one shape
 share one K1 launch per micro-batch; Sum runs K6 and Min/Max K7 (one
 launch per query). TopN recounts its candidates with K8 over stacked
-candidate matrices, GroupBy runs K9 once per level. Other calls, time
-ranges, keys and attributes raise ``PQLError("... not yet ported")``.
+candidate matrices, GroupBy runs K9 once per level (past 16 dimensions
+the surviving prefix groups fold into one temporary matrix). A tree over
+the kernels' 16 operands or 16 stack slots runs part by part as K2
+'tree' steps. Other calls, time ranges, keys and attributes raise
+``PQLError("... not yet ported")``.
 """
 
 from __future__ import annotations
@@ -392,11 +395,6 @@ class Executor:
         field = idx.field(field_name)
         if field is None or field.options.type != TYPE_INT:
             raise PQLError(f"{call.name} requires an int field")
-        if (call.name != "Sum" and field.options.bit_depth
-                > kernels.BSI_MINMAX_MAX_DEPTH):
-            raise PQLError(f"{call.name} over more than "
-                           f"{kernels.BSI_MINMAX_MAX_DEPTH} bit planes is "
-                           "not yet ported")
         filt_call = call.children[0] if call.children else None
 
         def build() -> _Compiled:
@@ -444,9 +442,9 @@ class Executor:
 
     def _plan(self, node) -> expr.Plan:
         try:
-            return expr.plan(node)  # the kernels' operand and depth limits
-        except ValueError as e:
-            raise PQLError(f"query tree is not yet ported: {e}") from e
+            return expr.plan(node)
+        except ValueError as e:  # a malformed tree
+            raise PQLError(f"malformed query tree: {e}") from e
 
     def _filter_row(self, idx: Index, filt_call, block):
         """Compile a TopN / GroupBy filter call and launch its row (its
@@ -622,10 +620,9 @@ class Executor:
     def _submit_groupby(self, idx: Index, call: Call, shards=None
                         ) -> Deferred:
         """GroupBy as K9 levels. A cross-product of at most
-        GROUPBY_DENSE_MAX_GROUPS groups is one level, launched at submit
-        and read back at result(); a larger one extends the candidates one
-        dimension per level, dropping the empty prefixes after each
-        level's readback (an AND only shrinks a group). The matrices are
+        GROUPBY_DENSE_MAX_GROUPS groups over at most 16 dimensions is one
+        level, launched at submit and read back at result(); any other
+        runs the pruned levels (``_groupby_pruned``). The matrices are
         patched in place by writes, so a write landing between two levels
         is seen by the later levels only."""
         limit, filt_call, agg_field, dims, having = self._groupby_prelude(
@@ -635,9 +632,6 @@ class Executor:
         shard_list = self._shards(idx, shards)
         if not shard_list:
             return Deferred(value=[])
-        if len(dims) > kernels.MAX_LEAVES:
-            raise PQLError(f"GroupBy over {len(dims)} dimensions is not yet "
-                           f"ported (K9 takes {kernels.MAX_LEAVES})")
         block = self._shard_block(shard_list)
         cache = self.holder.cache
         filt = self._filter_row(idx, filt_call, block)
@@ -674,39 +668,22 @@ class Executor:
             return self._groupby_result(dims, counts, sums, agg_field, limit,
                                         having)
 
-        def level(k: int, cand: np.ndarray, last: bool):
-            """Launch one level over the first k + 1 dimensions."""
-            return _groupby_level_enqueue(block, mats[:k + 1], cand, filt,
-                                          planes if last else None, depth)
-
-        if math.prod(sizes) <= GROUPBY_DENSE_MAX_GROUPS:
+        if len(dims) <= kernels.MAX_LEAVES and \
+                math.prod(sizes) <= GROUPBY_DENSE_MAX_GROUPS:
             cand = np.zeros((1, 0), np.int32)
             for n in sizes:
                 cand = _index_cross(cand, n)
-            packed, layout = level(len(dims) - 1, cand, True)
+            packed, layout = _groupby_level_enqueue(block, mats, cand, filt,
+                                                    planes, depth)
 
             def finish() -> list[GroupCount]:
                 return collect(cand, *_groupby_level_unpack(
                     packed.cpu().numpy(), layout, planes is not None, depth))
 
             return Deferred(finish)
-
-        cand = np.zeros((1, 0), np.int32)
-        counts_arr = agg_arrs = None
-        for k, n in enumerate(sizes):
-            cand = _index_cross(cand, n)
-            last = k == len(sizes) - 1
-            packed, layout = level(k, cand, last)
-            counts_arr, agg_arrs = _groupby_level_unpack(
-                packed.cpu().numpy(), layout, last and planes is not None,
-                depth)
-            keep = counts_arr > 0
-            cand, counts_arr = cand[keep], counts_arr[keep]
-            if agg_arrs is not None:
-                agg_arrs = (agg_arrs[0][keep], agg_arrs[1][:, keep])
-            if cand.shape[0] == 0:
-                return Deferred(value=[])
-        return Deferred(value=collect(cand, counts_arr, agg_arrs))
+        return Deferred(value=collect(*_groupby_pruned(
+            block, [], np.zeros((1, 0), np.int32), mats, sizes, filt, planes,
+            depth)))
 
     # ------------------------------------------------------- IncludesColumn
 
@@ -962,6 +939,100 @@ def _groupby_level_enqueue(block, mats: list, cand: np.ndarray, filt, planes,
         layout.append(part.shape[0])
     packed = packs[0] if len(packs) == 1 else torch.cat(packs)
     return packed, layout
+
+
+def _groupby_pruned(block, level_mats: list, cand: np.ndarray, mats: list,
+                    sizes: list, filt, planes, depth: int):
+    """The pruned levels: extend the prefix candidates ``cand`` [P, k]
+    (indices into the rows of ``level_mats``) one dimension of ``mats``
+    a level, dropping the empty groups after each level's readback (an
+    AND only shrinks a group). A level that would need a 17th matrix
+    goes on in ``_groupby_folded``. Returns (candidates [G, k +
+    len(mats)], counts [G], and with ``planes`` on the last level (n,
+    plane counts)) of the non-empty groups."""
+    width = cand.shape[1] + len(sizes)
+    counts_arr = agg_arrs = None
+    for k, n in enumerate(sizes):
+        if len(level_mats) == kernels.MAX_LEAVES:
+            return _groupby_folded(block, level_mats, cand, mats[k:],
+                                   sizes[k:], filt, planes, depth)
+        level_mats = level_mats + [mats[k]]
+        cand = _index_cross(cand, n)
+        last = k == len(sizes) - 1
+        packed, layout = _groupby_level_enqueue(
+            block, level_mats, cand, filt, planes if last else None, depth)
+        counts_arr, agg_arrs = _groupby_level_unpack(
+            packed.cpu().numpy(), layout, last and planes is not None, depth)
+        keep = counts_arr > 0
+        cand, counts_arr = cand[keep], counts_arr[keep]
+        if agg_arrs is not None:
+            agg_arrs = (agg_arrs[0][keep], agg_arrs[1][:, keep])
+        if cand.shape[0] == 0:
+            return np.zeros((0, width), np.int32), counts_arr, None
+    return cand, counts_arr, agg_arrs
+
+
+def _groupby_folded(block, level_mats: list, cand: np.ndarray, mats: list,
+                    sizes: list, filt, planes, depth: int):
+    """``_groupby_pruned`` past K9's 16 matrices: per chunk of the prefix
+    groups ``cand``, each group's AND over ``level_mats`` becomes one row
+    of a temporary int32[S, chunk, W] matrix (``_groupby_prefix_matrix``,
+    each chunk's matrix under GROUPBY_OUT_BUDGET_BYTES), which stands
+    for those dimensions in the remaining levels; the chunks' groups are
+    concatenated in order."""
+    first = level_mats[0]
+    per_group = first.shape[0] * first.shape[2] * 4
+    chunk = max(1, GROUPBY_OUT_BUDGET_BYTES // per_group)
+    parts = []
+    for lo in range(0, cand.shape[0], chunk):
+        prefix = cand[lo:lo + chunk]
+        folded = _groupby_prefix_matrix(level_mats, prefix)
+        sub, counts_arr, agg_arrs = _groupby_pruned(
+            block, [folded], np.arange(prefix.shape[0], dtype=np.int32)[:, None],
+            mats, sizes, filt, planes, depth)
+        del folded
+        if sub.shape[0]:
+            parts.append((np.concatenate([prefix[sub[:, 0]], sub[:, 1:]], 1),
+                          counts_arr, agg_arrs))
+    if not parts:
+        return (np.zeros((0, cand.shape[1] + len(sizes)), np.int32),
+                np.zeros(0, np.int64), None)
+    agg_arrs = None
+    if planes is not None:
+        agg_arrs = (np.concatenate([p[2][0] for p in parts]),
+                    np.concatenate([p[2][1] for p in parts], axis=1))
+    return (np.concatenate([p[0] for p in parts]),
+            np.concatenate([p[1] for p in parts]), agg_arrs)
+
+
+def _groupby_prefix_matrix(mats: list, cand: np.ndarray) -> torch.Tensor:
+    """The AND of each candidate's rows, one row per candidate:
+    int32[S, P, W] for candidates ``cand`` [P, k] (indices into the k <=
+    16 matrices' rows). Per chunk of candidates, each matrix's rows are
+    gathered (a plain gather) and K2 ANDs them, the chunks sized so the
+    gathers stay under GROUPBY_OUT_BUDGET_BYTES (one candidate at
+    least)."""
+    first = mats[0]
+    n_shards, row_words = first.shape[0], first.shape[2]
+    out = torch.empty((n_shards, cand.shape[0], row_words),
+                      dtype=torch.int32, device=first.device)
+    per_cand = n_shards * row_words * 4 * (len(mats) + 1)
+    chunk = max(1, GROUPBY_OUT_BUDGET_BYTES // per_cand)
+    program = expr.compile_program(_and_chain(len(mats)))
+    for lo in range(0, cand.shape[0], chunk):
+        part = cand[lo:lo + chunk]
+        rows = [m[:, torch.as_tensor(part[:, d].astype(np.int64),
+                                     device=m.device)]
+                for d, m in enumerate(mats)]
+        out[:, lo:lo + part.shape[0]] = kernels.tree_rows(program, rows)
+    return out
+
+
+def _and_chain(n: int):
+    node = ("leaf", 0)
+    for i in range(1, n):
+        node = ("and", node, ("leaf", i))
+    return node
 
 
 def _groupby_level_unpack(host: np.ndarray, layout: list, has_agg: bool,

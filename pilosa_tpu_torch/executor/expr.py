@@ -27,7 +27,10 @@ there) to the postfix program that K1 and K2 interpret. The reference
 fuses shift and bsicmp into the same XLA pass; here ``plan`` lifts each
 of them out as a *step* that its own kernel (K4, K5) materializes into a
 temporary row, innermost first, and the rest becomes an elementwise
-structure over the stacked leaves and those temporaries.
+structure over the stacked leaves and those temporaries. An elementwise
+part over the kernels' limits (more than 16 operands, a program longer
+than 64 instructions or deeper than 16 stack slots) gives up whole
+subtrees as ``tree`` steps, which K2 materializes the same way.
 """
 
 from __future__ import annotations
@@ -89,8 +92,9 @@ class Plan:
     """A structure split for dispatch on the card.
 
     ``steps``: the materializing kernels, innermost first — ``('shift',
-    sub, j)`` and ``('bsicmp', op, i_planes, sub, j)``, where ``sub`` is
-    a ``(node, operands)`` row expression. ``root``: the elementwise rest
+    sub, j)``, ``('bsicmp', op, i_planes, sub, j)`` and ``('tree', sub)``
+    (K2 over a subtree cut off to keep every program inside the kernels'
+    limits), where ``sub`` is a ``(node, operands)`` row expression. ``root``: the elementwise rest
     — the structure itself for 'count' and row structures (with the
     'count' wrapper kept), the filter's row expression or None for
     'bsisum', 'bsiminmax' and 'countrows'. An *operand* is ``('spec', i)``
@@ -110,8 +114,7 @@ class Plan:
 
 def plan(structure) -> Plan:
     """Split ``structure`` into steps and an elementwise root (cached by
-    structure). Raises ValueError when a part is over the kernels'
-    limits (more than 16 operands, too deep a program)."""
+    structure). Raises ValueError only for a malformed structure."""
     out = _PLAN_CACHE.get(structure)
     if out is not None:
         return out
@@ -127,7 +130,8 @@ def plan(structure) -> Plan:
     else:
         tag = "row"
         root = _split(structure, steps)
-    for expr_ in [s[-2] for s in steps] + ([root] if root else []):
+    subs = [s[1] if s[0] == "tree" else s[-2] for s in steps]
+    for expr_ in subs + ([root] if root else []):
         _check_limits(*expr_)
     out = Plan(tuple(steps), root, tag, planes)
     if len(_PLAN_CACHE) >= 4096:
@@ -138,7 +142,8 @@ def plan(structure) -> Plan:
 
 def _split(node, steps: list) -> tuple:
     """Lift shift/bsicmp out of ``node``: returns (elementwise node over an
-    operand list, operands), appending the lifted steps to ``steps``."""
+    operand list, operands), appending the lifted steps to ``steps``; a
+    part over the kernels' limits is cut to fit (``_fit``)."""
     operands: list = []
 
     def go(n):
@@ -162,7 +167,74 @@ def _split(node, steps: list) -> tuple:
         return ("leaf", len(operands) - 1)
 
     node = go(node)
-    return node, tuple(operands)
+    return _fit(node, operands, steps)
+
+
+def _size(node) -> tuple:
+    """(operands, instructions, stack depth) of an elementwise node's
+    postfix program."""
+    tag = node[0]
+    if tag in ("leaf", "const0"):
+        return (tag == "leaf", 1, 1)
+    if tag == "flipall":
+        n, ins, depth = _size(node[1])
+        return n, ins + 1, depth
+    na, ia, da = _size(node[1])
+    nb, ib, db = _size(node[2])
+    return na + nb, ia + ib + 1, max(da, db + 1)
+
+
+def _fits(size) -> bool:
+    n, ins, depth = size
+    return (n <= kernels.MAX_LEAVES and ins <= kernels.MAX_OPS
+            and depth <= kernels.MAX_STACK)
+
+
+def _local(node, operands) -> tuple:
+    """``node`` renumbered over the operands it uses, in order of use:
+    (node, operands)."""
+    used: list = []
+
+    def go(n):
+        if n[0] == "leaf":
+            used.append(operands[n[1]])
+            return ("leaf", len(used) - 1)
+        if n[0] == "const0":
+            return n
+        return (n[0], *[go(c) for c in n[1:]])
+
+    node = go(node)
+    return node, tuple(used)
+
+
+def _fit(node, operands: list, steps: list) -> tuple:
+    """(node, operands) with every program inside the kernels' limits.
+    Bottom-up, a node that does not fit while its children do cuts its
+    largest child (by operands, then depth, then instructions) into a
+    ``('tree', sub)`` step, and the other too if that is not enough: a
+    left-deep fold of 40 leaves becomes two steps of 16 and a root of
+    10."""
+
+    def cut(n):
+        sub = _local(n, operands)
+        steps.append(("tree", sub))
+        operands.append(("temp", len(steps) - 1))
+        return ("leaf", len(operands) - 1)
+
+    def go(n):
+        tag = n[0]
+        if tag in ("leaf", "const0"):
+            return n
+        kids = [go(c) for c in n[1:]]
+        while not _fits(_size((tag, *kids))):
+            order = sorted(
+                (i for i, k in enumerate(kids) if k[0] != "leaf"),
+                key=lambda i: (_size(kids[i])[0], _size(kids[i])[2],
+                               _size(kids[i])[1]))
+            kids[order[-1]] = cut(kids[order[-1]])
+        return (tag, *kids)
+
+    return _local(go(node), operands)
 
 
 def _check_limits(node, operands) -> None:

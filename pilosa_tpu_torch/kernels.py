@@ -3,8 +3,9 @@
 Nine kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
-  up to 16 stacked leaves, one launch per micro-batch (replaces
-  ``bench_pallas.pallas_intersect_count`` and ``batch.count_flat``);
+  up to 16 stacked leaves, one launch per micro-batch, in the program's
+  form as K2 classifies it (replaces ``bench_pallas.pallas_intersect_count``
+  and ``batch.count_flat``);
 - K2 ``tree_rows``: the words of the same program, for row results
   (replaces ``expr._go`` under the 'row' reduce kind, ``flipall``
   included as ``OP_NOT``);
@@ -17,8 +18,8 @@ Nine kernels carry the main paths (sources in ``csrc/``):
   against a predicate (replaces ``expr._bsi_compare``);
 - K6 ``bsi_sum``: per-shard plane popcounts under exists and a filter
   (replaces the 'bsisum' node);
-- K7 ``bsi_minmax``: per-shard greedy extremum and its count (replaces
-  ``expr._bsi_minmax``);
+- K7 ``bsi_minmax``: per-shard greedy extremum (64 bits) and its count,
+  one thread block cluster a shard (replaces ``expr._bsi_minmax``);
 - K8 ``count_rows``: per-shard popcount of every row of a stacked row
   matrix under an optional filter row (replaces the 'countrows' node,
   TopN's phase 2);
@@ -68,8 +69,8 @@ MAX_STACK = 16
 # BSI comparison operators, numbered as csrc/bsi_compare.cu numbers them.
 BSI_OPS = {"<": 0, "<=": 1, ">": 2, ">=": 3, "==": 4, "!=": 5}
 BSI_MAX_DEPTH = 63         # bit planes K5 and K6 take (a 64-bit predicate)
-BSI_MINMAX_MAX_DEPTH = 31  # K7's extremum is an int32
-MINMAX_MAX_WORDS = 32768  # words per shard row K7 takes (one block each)
+BSI_MINMAX_MAX_DEPTH = 63  # K7's extremum is an int64 (as K5's predicate)
+MINMAX_MAX_WORDS = 32768  # words per shard row K7 takes (one cluster each)
 GROUPBY_MAX_DEPTH = 63     # bit planes of K9's aggregate (as K6)
 # Masks the plain GroupBy level holds at once ([S, chunk, W] per step)
 GROUPBY_PLAIN_MASK_BYTES = 256 << 20
@@ -186,14 +187,14 @@ def _lib(name: str):
 def _bind(name: str, lib) -> None:
     p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     argtypes = {
-        "tree_count": [p, i, i, p, p, i, ll, ll, i, p, p],
+        "tree_count": [p, i, i, i, i, p, p, p, i, ll, ll, i, i, p, p],
         "tree_rows": [p, i, i, i, ctypes.c_uint32, ctypes.c_uint32, p, i,
                       ll, i, p, p],
         "word_patch": [p, p, i, i, p],
         "row_shift": [p, p, ll, ll, ll, i, p],
         "bsi_compare": [p, p, p, ll, ll, i, ctypes.c_ulonglong, i, i, p],
         "bsi_sum": [p, p, p, ll, ll, i, i, p],
-        "bsi_minmax": [p, p, ll, ll, i, i, p, p, p],
+        "bsi_minmax": [p, p, ll, ll, i, i, i, p, p, p],
         "count_rows": [p, p, p, ll, i, ll, i, p],
         "groupby_level": [p, p, i, p, p, p, p, i, ll, ll, i, i, p, p],
     }
@@ -254,8 +255,13 @@ def check_program(program, n_leaves: int) -> None:
         raise ValueError("program must leave exactly one result")
 
 
-# K2's program forms (csrc/tree_rows.cu numbers them the same)
+# K1's and K2's program forms (csrc/tree_program.cuh numbers them the same)
 FORM_GENERAL, FORM_CHAIN, FORM_HEAD_DIFF = 0, 1, 2
+# Steps of R groups a thread that one K1 block walks inside its row, per
+# form, as scripts/k1_steps_sweep.py measured them on an H100 (PERF.md
+# §6): the folds ran fastest at one or two steps, the general form
+# fastest at four
+TREE_COUNT_STEPS = {FORM_CHAIN: 1, FORM_HEAD_DIFF: 1, FORM_GENERAL: 4}
 _FOLD_OPS = (OP_AND, OP_OR, OP_XOR)
 _FORM_CACHE: dict = {}
 
@@ -499,11 +505,12 @@ def bsi_sum_plain(planes: torch.Tensor, filt: torch.Tensor | None
 def bsi_minmax_plain(planes: torch.Tensor, filt: torch.Tensor | None,
                      want_max: bool) -> tuple[torch.Tensor, torch.Tensor]:
     """The greedy MSB-first walk (``expr._bsi_minmax``) per shard:
-    (offset-encoded extremum int32[S], candidate count int32[S]); a shard
-    with no candidate has count 0."""
+    (offset-encoded extremum int64[S], candidate count int32[S]); a shard
+    with no candidate has count 0. The value is built in 64 bits: the
+    reference accumulates it in int32 and wraps past 31 planes."""
     depth = planes.shape[1] - 2
     cand = planes[:, 0] if filt is None else planes[:, 0] & filt
-    value = torch.zeros(planes.shape[0], dtype=torch.int32,
+    value = torch.zeros(planes.shape[0], dtype=torch.int64,
                         device=planes.device)
     for i in reversed(range(depth)):
         p = planes[:, 2 + i]
@@ -511,7 +518,7 @@ def bsi_minmax_plain(planes: torch.Tensor, filt: torch.Tensor | None,
         nonempty = (t != 0).any(dim=1)  # per shard, as the vmap has it
         cand = torch.where(nonempty[:, None], t, cand)
         bit = nonempty if want_max else ~nonempty
-        value = value | (bit.to(torch.int32) << i)
+        value = value | (bit.to(torch.int64) << i)
     return value, popcount32(cand).sum(dim=1, dtype=torch.int32)
 
 
@@ -909,7 +916,10 @@ def _on_cpu(t: torch.Tensor) -> bool:
 def tree_count(program, batch_leaves, salts, row_words: int) -> torch.Tensor:
     """K1: ``int32[B, n_words // row_words]`` partial popcounts of the
     program over each query's leaves (queries in ``batch_leaves``, each a
-    list of same-shaped int32 tensors). One launch for the whole batch."""
+    list of same-shaped int32 tensors). One launch for the whole batch,
+    of the form ``classify_program`` gives the program (every query runs
+    the same program; a fold's xor mask is per query, from its salt); a
+    block walks the form's TREE_COUNT_STEPS steps."""
     first = batch_leaves[0][0] if batch_leaves and batch_leaves[0] else None
     if first is None:
         raise ValueError("tree_count needs at least one leaf")
@@ -932,12 +942,25 @@ def tree_count(program, batch_leaves, salts, row_words: int) -> torch.Tensor:
     lib = _lib("tree_count")
     out = torch.zeros((len(batch_leaves), n_words // row_words),
                       dtype=torch.int32, device=first.device)
-    ptrs = (ctypes.c_void_p * len(flat))(*[t.data_ptr() for t in flat])
+    vec = int(row_words % 4 == 0 and _aligned(flat))
+    form = classify_program(program) if vec else Form((FORM_GENERAL, 0, (),
+                                                       0, 0))
+    steps = TREE_COUNT_STEPS[form.kind]
+    if form.kind == FORM_GENERAL:
+        ptr_list, masks = [t.data_ptr() for t in flat], [0] * len(salts)
+        n_ptrs = n_leaves
+    else:
+        ptr_list = [leaves[i].data_ptr() for leaves in batch_leaves
+                    for i in form.leaves]
+        masks = [form.xor_mask(s) for s in salts]
+        n_ptrs = len(form.leaves)
+    ptrs = (ctypes.c_void_p * len(ptr_list))(*ptr_list)
+    mask_arr = (ctypes.c_uint32 * len(masks))(*masks)
     salt_arr = (ctypes.c_uint32 * len(salts))(*[_salt_u32(s) for s in salts])
     code = (ctypes.c_int * len(program))(*program)
-    vec = int(row_words % 4 == 0 and _aligned(flat))
-    rc = lib.tree_count_launch(ptrs, len(batch_leaves), n_leaves, salt_arr,
-                               code, len(program), n_words, row_words, vec,
+    rc = lib.tree_count_launch(ptrs, len(batch_leaves), n_ptrs, form.kind,
+                               form.op, mask_arr, salt_arr, code,
+                               len(program), n_words, row_words, vec, steps,
                                ctypes.c_void_p(out.data_ptr()), _stream(out))
     _check("tree_count", lib, rc)
     _count_launch("tree_count")
@@ -1114,8 +1137,9 @@ def bsi_sum(planes: torch.Tensor, filt: torch.Tensor | None = None
 
 def bsi_minmax(planes: torch.Tensor, filt: torch.Tensor | None,
                want_max: bool) -> tuple[torch.Tensor, torch.Tensor]:
-    """K7: per shard (offset-encoded extremum, count of candidates holding
-    it) as two int32[S]; count 0 marks a shard without candidates."""
+    """K7: per shard the offset-encoded extremum int64[S] and the count of
+    candidates holding it int32[S]; count 0 marks a shard without
+    candidates."""
     depth = _check_planes(planes, [filt], BSI_MINMAX_MAX_DEPTH)
     if _on_cpu(planes):
         return bsi_minmax_plain(planes, filt, want_max)
@@ -1124,10 +1148,12 @@ def bsi_minmax(planes: torch.Tensor, filt: torch.Tensor | None,
         raise ValueError(f"bsi_minmax takes rows of at most "
                          f"{MINMAX_MAX_WORDS} words")
     lib = _lib("bsi_minmax")
-    values = torch.empty(n_shards, dtype=torch.int32, device=planes.device)
-    counts = torch.empty_like(values)
+    values = torch.empty(n_shards, dtype=torch.int64, device=planes.device)
+    counts = torch.empty(n_shards, dtype=torch.int32, device=planes.device)
+    tensors = [planes] + ([filt] if filt is not None else [])
+    vec = int(row_words % 4 == 0 and _aligned(tensors))
     rc = lib.bsi_minmax_launch(_ptr(planes), _ptr(filt), n_shards, row_words,
-                               depth, int(bool(want_max)), _ptr(values),
+                               depth, int(bool(want_max)), vec, _ptr(values),
                                _ptr(counts), _stream(values))
     _check("bsi_minmax", lib, rc)
     _count_launch("bsi_minmax")

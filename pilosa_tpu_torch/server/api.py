@@ -159,6 +159,15 @@ class API:
         idx.mark_columns_exist(cols_i)
         return int(changed)
 
+    def recalculate_caches(self) -> None:
+        """Recount and save every fragment's row-count cache (reference
+        ``POST /recalculate-caches``), before returning."""
+        for idx in list(self.holder.indexes.values()):
+            for field in list(idx.fields.values()):
+                for view in list(field.views.values()):
+                    for frag in list(view.fragments.values()):
+                        frag.recalculate_cache()
+
     # ---------------------------------------------------------------- status
 
     def status(self) -> dict:

@@ -10,6 +10,8 @@ Routes of this slice, with the reference's request and response bytes:
 - ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns``;
 - ``POST /index/{i}/field/{f}/import-value``: JSON ``columns``/``values``
   for int fields (a protobuf body is not yet ported);
+- ``POST /recalculate-caches``: every fragment's row-count cache
+  recounted and saved, 204;
 - ``GET /status``.
 """
 
@@ -30,6 +32,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
      "post_import_value"),
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)$"), "post_field"),
     ("POST", re.compile(r"^/index/([^/]+)$"), "post_index"),
+    ("POST", re.compile(r"^/recalculate-caches$"), "post_recalculate_caches"),
     ("GET", re.compile(r"^/status$"), "get_status"),
 ]
 
@@ -175,6 +178,12 @@ class HTTPHandler(BaseHTTPRequestHandler):
             index, field, columns, values,
             clear=bool(body.get("clear", False)))
         self._json({"changed": changed})
+
+    def post_recalculate_caches(self):
+        self._body()
+        self.api.recalculate_caches()
+        self.send_response(204)  # no body, so no Content-Length
+        self.end_headers()
 
     def get_status(self):
         self._json(self.api.status())

@@ -15,9 +15,11 @@ from pilosa_tpu_torch.storage.residency import DEFAULT_BUDGET_BYTES
 class Server:
     def __init__(self, data_dir: str, bind: str = "localhost",
                  port: int = 10101, device=None,
-                 budget_bytes: int = DEFAULT_BUDGET_BYTES):
+                 budget_bytes: int = DEFAULT_BUDGET_BYTES,
+                 verify_on_load: bool = True):
         self.holder = Holder(data_dir, device=device,
-                             budget_bytes=budget_bytes)
+                             budget_bytes=budget_bytes,
+                             verify_on_load=verify_on_load)
         self.bind = bind
         self._port = port
         self.api = None

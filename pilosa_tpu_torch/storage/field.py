@@ -24,6 +24,7 @@ from pilosa_tpu_torch.shardwidth import (
     shard_groups,
     shard_of,
 )
+from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
 from pilosa_tpu_torch.storage.fragment import fsync_dir
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, View, view_name_bsi
 
@@ -35,8 +36,6 @@ FIELD_TYPES = ("set", "int", "time", "mutex", "bool")
 BSI_EXISTS_ROW = 0
 BSI_SIGN_ROW = 1  # reserved; offset encoding keeps magnitudes non-negative
 BSI_OFFSET_ROW = 2
-CACHE_TYPE_RANKED = "ranked"
-DEFAULT_CACHE_SIZE = 50_000
 
 
 class FieldOptions:
@@ -101,13 +100,14 @@ class FieldOptions:
 class Field:
     def __init__(self, path: str, index: str, name: str,
                  options: FieldOptions | None = None, scope: str = "",
-                 cache=None):
+                 cache=None, verify_on_load: bool = False):
         self.path = path
         self.index = index
         self.name = name
         self.options = options or FieldOptions()
         self.scope = scope
         self.cache = cache
+        self.verify_on_load = verify_on_load
         self.views: dict[str, View] = {}
         self._create_lock = threading.Lock()
 
@@ -133,7 +133,10 @@ class Field:
 
     def _new_view(self, name: str) -> View:
         return View(os.path.join(self.path, "views", name), self.index,
-                    self.name, name, scope=self.scope, cache=self.cache)
+                    self.name, name, scope=self.scope, cache=self.cache,
+                    cache_type=self.options.cache_type,
+                    cache_size=self.options.cache_size,
+                    verify_on_load=self.verify_on_load)
 
     def _save_meta(self) -> None:
         meta = os.path.join(self.path, ".meta")

@@ -11,6 +11,13 @@ only after its op record is appended to this fragment's file and
 fsynced. (The group-commit WAL is not ported yet, and no weaker mode is
 offered.) Every mutation emits a ``WriteEvent`` to the holder's residency
 cache, which patches the dependent resident leaves in place.
+
+The reference's sidecars are kept as it keeps them: every snapshot
+writes the ``.checksums`` block digests (``storage/integrity.py``), which
+an open with ``verify_on_load`` checks; every write path updates the
+row-count cache (``storage/cache.py``), which a clean close saves as
+``.cache`` and ``recalculate_cache`` rebuilds. TopN's phase 1 still
+ranks exact counts (``top``).
 """
 
 from __future__ import annotations
@@ -22,27 +29,32 @@ import numpy as np
 
 from pilosa_tpu_torch.roaring import OP_ADD, OP_REMOVE, RoaringBitmap
 from pilosa_tpu_torch.roaring.format import (
-    deserialize,
     encode_op,
     replay_ops,
     serialize,
 )
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.storage.cache import (
+    CACHE_TYPE_RANKED,
+    DEFAULT_CACHE_SIZE,
+    new_row_cache,
+)
+from pilosa_tpu_torch.storage.integrity import (
+    BLOCK_ROWS,
+    CHECKSUM_SUFFIX,
+    DECODE_ERRORS,
+    CorruptFragmentError,
+    block_digests,
+    load_verified,
+    save_checksums,
+)
 from pilosa_tpu_torch.storage.residency import WriteEvent
 
 # Snapshot (compact) once this many op records have accumulated (the
 # reference's DEFAULT_SNAPSHOT_OP_THRESHOLD).
 DEFAULT_SNAPSHOT_OP_THRESHOLD = 2048
 
-# Sidecars the reference package keeps beside a fragment file: block
-# digests of the snapshot (verified on load) and the TopN row-count
-# cache. A rewritten snapshot or a mutation makes them stale, and the
-# port maintains neither, so it removes them. The reference then loads
-# unverified and starts with an empty row cache: it counts TopN's
-# candidates exactly until its first write, and after one ranks only the
-# rows written since it opened, until ``POST /recalculate-caches``. The
-# port always ranks the exact counts (``top``).
-CHECKSUM_SUFFIX = ".checksums"
+# The row-count cache's sidecar beside the fragment file.
 ROW_CACHE_SUFFIX = ".cache"
 
 
@@ -78,7 +90,10 @@ def _group_by_row(rows: np.ndarray, positions: np.ndarray):
 class Fragment:
     def __init__(self, path: str, index: str, field: str, view: str,
                  shard: int, scope: str = "", cache=None,
-                 snapshot_threshold: int = DEFAULT_SNAPSHOT_OP_THRESHOLD):
+                 snapshot_threshold: int = DEFAULT_SNAPSHOT_OP_THRESHOLD,
+                 cache_type: str = CACHE_TYPE_RANKED,
+                 cache_size: int = DEFAULT_CACHE_SIZE,
+                 verify_on_load: bool = False):
         self.path = path
         self.index = index
         self.field = field
@@ -92,8 +107,12 @@ class Fragment:
         self.snapshot_threshold = snapshot_threshold
         self._file = None
         self._open = False
-        self._sidecars_dropped = False
-        # bumped after every bitmap change; keys the row-count memo
+        # open() checks the snapshot's block digests against .checksums
+        self.verify_on_load = verify_on_load
+        # the TopN row-count cache, saved as the .cache sidecar on close
+        self.row_cache = new_row_cache(cache_type, cache_size)
+        # bumped after every bitmap change; keys the row-count and ranking
+        # memos
         self.mutations = 0
         self._row_counts_memo = None
         self._top_memo = None
@@ -110,8 +129,16 @@ class Fragment:
             with open(self.path, "rb") as f:
                 buf = f.read()
             if buf:
-                self.bitmap, ops_at = deserialize(buf)
-                self.op_n, ops_end = replay_ops(self.bitmap, buf, ops_at)
+                # the sidecar describes the snapshot alone: verify before
+                # the op log is replayed
+                self.bitmap, ops_at = load_verified(
+                    buf, self.path, verify=self.verify_on_load)
+                try:
+                    self.op_n, ops_end = replay_ops(self.bitmap, buf, ops_at)
+                except DECODE_ERRORS as e:
+                    raise CorruptFragmentError(
+                        self.path, f"op replay failed: {e}",
+                        offset=ops_at) from e
                 torn = ops_end < len(buf)
         else:
             with open(self.path, "wb") as f:
@@ -119,6 +146,7 @@ class Fragment:
                 f.flush()
                 os.fsync(f.fileno())
             fsync_dir(os.path.dirname(self.path))
+        self.row_cache.load(self.path + ROW_CACHE_SUFFIX)
         self._file = open(self.path, "ab")
         self._open = True
         if torn or self.op_n > self.snapshot_threshold:
@@ -132,6 +160,10 @@ class Fragment:
         with self.lock:
             if not self._open:
                 return
+            try:
+                self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
+            except OSError:
+                pass  # derived data: recalculate_cache rebuilds it
             if self._file is not None:
                 self._file.close()
                 self._file = None
@@ -200,9 +232,9 @@ class Fragment:
         """TopN phase-1 candidates of this fragment: (row, count) pairs by
         count descending, then row, the first ``n`` (all for n = 0). The
         reference reads its ranked row cache here and falls back to these
-        exact counts when the cache is cold; the port keeps no row cache
-        and always counts exactly. The ranking is memoized as the counts
-        are."""
+        exact counts when the cache is cold; the port always counts
+        exactly (its row cache is kept only for the sidecar). The ranking
+        is memoized as the counts are."""
         memo = self._top_memo
         if memo is None or memo[0] != self.mutations:
             version = self.mutations
@@ -309,20 +341,31 @@ class Fragment:
             self.bitmap = bitmap
             self.mutations += 1
             self._snapshot_locked()
-            for row in rows:
-                self._after_row_write(int(row), None, added=None)
+            r_ids, r_counts = self.row_counts()
+            counts = dict(zip(r_ids.tolist(), r_counts.tolist()))
+            for row in sorted(int(r) for r in rows):
+                self._after_row_write(row, None, added=None,
+                                      row_count=counts.get(row, 0))
+
+    def recalculate_cache(self) -> None:
+        """Rebuild the row cache from exact container cardinalities and
+        save it (``POST /recalculate-caches``)."""
+        with self.lock:
+            if not self._open:
+                return
+            fresh = new_row_cache(self.row_cache.kind,
+                                  self.row_cache.max_size)
+            rows, counts = self.row_counts()
+            for r, c in zip(rows.tolist(), counts.tolist()):
+                fresh.bulk_add(r, c)
+            self.row_cache = fresh
+            self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
 
     # ------------------------------------------------------------ durability
-
-    def _drop_sidecars(self) -> None:
-        if not self._sidecars_dropped:
-            _unlink(self.path + ROW_CACHE_SUFFIX)
-            self._sidecars_dropped = True
 
     def _log_op(self, op: int, ids) -> None:
         if self._file is None:
             raise RuntimeError(f"fragment {self.path} is closed")
-        self._drop_sidecars()
         self._file.write(encode_op(op, ids))
         self._file.flush()
         os.fsync(self._file.fileno())
@@ -336,7 +379,6 @@ class Fragment:
             self._snapshot_locked()
 
     def _snapshot_locked(self) -> None:
-        self._drop_sidecars()
         if self._file is not None:
             self._file.close()
             self._file = None
@@ -349,12 +391,18 @@ class Fragment:
         _unlink(self.path + CHECKSUM_SUFFIX)
         os.replace(tmp, self.path)
         fsync_dir(os.path.dirname(self.path))
+        # the digests of exactly these bytes, for verify-on-load
+        save_checksums(self.path + CHECKSUM_SUFFIX,
+                       block_digests(self.bitmap.iter_ids(), BLOCK_ROWS))
         self.op_n = 0
         if self._open:
             self._file = open(self.path, "ab")
 
-    def _after_row_write(self, row: int, positions, added) -> None:
+    def _after_row_write(self, row: int, positions, added,
+                         row_count: int | None = None) -> None:
         self.mutations += 1
+        self.row_cache.add(row, self.count_row(row) if row_count is None
+                           else row_count)
         if self.cache is not None:
             self.cache.apply_write(WriteEvent(
                 self.index, self.field, self.view, self.shard, row,

@@ -33,8 +33,12 @@ def _wal_has_ops(data_dir: str) -> bool:
 
 class Holder:
     def __init__(self, data_dir: str, device=None,
-                 budget_bytes: int = DEFAULT_BUDGET_BYTES):
+                 budget_bytes: int = DEFAULT_BUDGET_BYTES,
+                 verify_on_load: bool = True):
         self.data_dir = os.path.expanduser(data_dir)
+        # every fragment's snapshot is checked against its .checksums
+        # sidecar on open (the reference holder's default)
+        self.verify_on_load = bool(verify_on_load)
         self.device = device_mod.resolve(device)
         self.cache = DeviceRowCache(budget_bytes, self.device)
         self.indexes: dict[str, Index] = {}
@@ -49,7 +53,9 @@ class Holder:
         for entry in sorted(os.listdir(self.data_dir)):
             p = os.path.join(self.data_dir, entry)
             if os.path.isdir(p) and not entry.startswith("."):
-                self.indexes[entry] = Index(p, entry, cache=self.cache).open()
+                self.indexes[entry] = Index(
+                    p, entry, cache=self.cache,
+                    verify_on_load=self.verify_on_load).open()
         return self
 
     def close(self) -> None:
@@ -66,8 +72,8 @@ class Holder:
                 raise ValueError(f"index {name!r} already exists")
             _validate_name(name)
             idx = Index(os.path.join(self.data_dir, name), name,
-                        track_existence=track_existence,
-                        cache=self.cache).open()
+                        track_existence=track_existence, cache=self.cache,
+                        verify_on_load=self.verify_on_load).open()
             self.indexes[name] = idx
             return idx
 

@@ -23,7 +23,8 @@ EXISTENCE_FIELD = "_exists"
 
 class Index:
     def __init__(self, path: str, name: str, keys: bool = False,
-                 track_existence: bool = True, cache=None):
+                 track_existence: bool = True, cache=None,
+                 verify_on_load: bool = False):
         self.path = path
         self.name = name
         # residency scope: unique per holder data dir, so two holders in
@@ -32,6 +33,7 @@ class Index:
         self.keys = keys
         self.track_existence = track_existence
         self.cache = cache
+        self.verify_on_load = verify_on_load
         self.fields: dict[str, Field] = {}
         self._create_lock = threading.Lock()
         # schema epoch: bumped on field create so cached plans revalidate
@@ -51,9 +53,9 @@ class Index:
         for entry in sorted(os.listdir(self.path)):
             p = os.path.join(self.path, entry)
             if os.path.isdir(p) and not entry.startswith("."):
-                self.fields[entry] = Field(p, self.name, entry,
-                                           scope=self.scope,
-                                           cache=self.cache).open()
+                self.fields[entry] = Field(
+                    p, self.name, entry, scope=self.scope, cache=self.cache,
+                    verify_on_load=self.verify_on_load).open()
         if self.track_existence and EXISTENCE_FIELD not in self.fields:
             self.create_field(EXISTENCE_FIELD,
                               FieldOptions(type=TYPE_SET, cache_type="none"))
@@ -82,7 +84,8 @@ class Index:
                 raise ValueError(f"field {name!r} already exists")
             _validate_name(name, allow_internal=name == EXISTENCE_FIELD)
             field = Field(os.path.join(self.path, name), self.name, name,
-                          options, scope=self.scope, cache=self.cache).open()
+                          options, scope=self.scope, cache=self.cache,
+                          verify_on_load=self.verify_on_load).open()
             self.fields[name] = field
             self.plan_epoch += 1
             return field

@@ -10,6 +10,9 @@ ones either package writes for the same bits.
 
 from __future__ import annotations
 
+import os
+from concurrent.futures import ThreadPoolExecutor
+
 import numpy as np
 
 from pilosa_tpu_torch.roaring.bitmap import (
@@ -179,9 +182,14 @@ def load_from_dense(holder, fields: dict, *, index: str,
                 if marks:
                     acc = exists.get(shard)
                     exists[shard] = w[shard] if acc is None else acc | w[shard]
-        for shard, shard_rows in sorted(per_shard.items()):
-            gained += _load_fragment(view.fragment(shard, create=True),
-                                     shard_rows)
+        # fragments are independent: several are built at once (their
+        # container forms, snapshot and block digests are numpy and
+        # hashlib work that runs outside the GIL)
+        jobs = sorted(per_shard.items())
+        with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
+            gained += sum(pool.map(
+                lambda job: _load_fragment(view.fragment(job[0], create=True),
+                                           job[1]), jobs))
     if existence:
         _load_existence(idx, exists)
     return gained

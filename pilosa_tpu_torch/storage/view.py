@@ -10,7 +10,9 @@ from __future__ import annotations
 
 import os
 import threading
+from concurrent.futures import ThreadPoolExecutor
 
+from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
 from pilosa_tpu_torch.storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
@@ -22,13 +24,19 @@ def view_name_bsi(field_name: str) -> str:
 
 class View:
     def __init__(self, path: str, index: str, field: str, name: str,
-                 scope: str = "", cache=None):
+                 scope: str = "", cache=None,
+                 cache_type: str = CACHE_TYPE_RANKED,
+                 cache_size: int = DEFAULT_CACHE_SIZE,
+                 verify_on_load: bool = False):
         self.path = path  # .../views/<name>
         self.index = index
         self.field = field
         self.name = name
         self.scope = scope
         self.cache = cache
+        self.cache_type = cache_type
+        self.cache_size = cache_size
+        self.verify_on_load = verify_on_load
         self.fragments: dict[int, Fragment] = {}
         # serializes first-write fragment creation: two writers racing an
         # unlocked check-then-create would get distinct Fragment objects
@@ -38,14 +46,27 @@ class View:
     def _new_fragment(self, shard: int) -> Fragment:
         return Fragment(os.path.join(self.path, "fragments", str(shard)),
                         self.index, self.field, self.name, shard,
-                        scope=self.scope, cache=self.cache)
+                        scope=self.scope, cache=self.cache,
+                        cache_type=self.cache_type,
+                        cache_size=self.cache_size,
+                        verify_on_load=self.verify_on_load)
 
     def open(self) -> "View":
+        """Open every fragment file, several at once: verifying a
+        snapshot's digests is numpy and hashlib work that runs outside
+        the GIL."""
         frag_dir = os.path.join(self.path, "fragments")
         os.makedirs(frag_dir, exist_ok=True)
-        for entry in sorted(os.listdir(frag_dir)):
-            if entry.isdigit():
-                self.fragments[int(entry)] = self._new_fragment(int(entry)).open()
+        frags = [self._new_fragment(int(entry))
+                 for entry in sorted(os.listdir(frag_dir)) if entry.isdigit()]
+        workers = min(8, os.cpu_count() or 1, len(frags))
+        if workers > 1:
+            with ThreadPoolExecutor(workers) as pool:
+                list(pool.map(Fragment.open, frags))
+        else:
+            for frag in frags:
+                frag.open()
+        self.fragments.update((f.shard, f) for f in frags)
         return self
 
     def close(self) -> None:

@@ -319,3 +319,127 @@ def test_groupby_level_plan_variants_match_plain(dev, chunk, tile_words):
         got = kernels.groupby_level(dims, idxs, f, plan=plan)
         torch.cuda.synchronize()
         assert torch.equal(got, want), group_max
+
+
+K1_SALTS = [0, 7, 0x80000001, 0xFFFFFFFF]
+
+
+@pytest.mark.parametrize("row_words", [W, 4099])
+@pytest.mark.parametrize("i", range(len(K2_PROGRAMS)))
+def test_tree_count_forms_match_plain(dev, monkeypatch, row_words, i):
+    """K1 in every program form and leaf bucket (the general form up to a
+    16-deep stack), over a 4-query micro-batch with four salts, on 16-byte
+    groups and on ragged rows (one word at a time), one step a block and
+    four."""
+    structure, form = K2_PROGRAMS[i]
+    prog = expr.compile_program(structure)
+    for salted in (prog, prog + (kernels.OP_SALT,)):
+        assert kernels.classify_program(salted).kind == form
+        qs = [_leaves(dev, 16, (3 * row_words,), 80 + 4 * i + q)
+              for q in range(len(K1_SALTS))]
+        want = kernels.tree_count_plain(salted, qs, K1_SALTS, row_words)
+        for steps in (1, 4):
+            monkeypatch.setitem(kernels.TREE_COUNT_STEPS, form, steps)
+            got = kernels.tree_count(salted, qs, K1_SALTS, row_words)
+            torch.cuda.synchronize()
+            assert torch.equal(got, want), steps
+
+
+def _wide_planes(dev, n_shards, depth, row_words, seed):
+    """Sparse planes whose every stored value is at least 2^40 when depth
+    > 40, with shard 1 holding no column at all."""
+    planes = _planes(dev, n_shards, depth, row_words, seed, density_words=10)
+    if depth > 40:
+        planes[:, 2 + 40] = planes[:, 0]
+    planes[1] = 0
+    return planes
+
+
+def _minmax_oracle(planes, filt, want_max):
+    """Per shard (value, count) from the set columns' Python-int values."""
+    host = planes.cpu().numpy().view(np.uint32)
+    mask = host[:, 0] if filt is None else host[:, 0] & filt.cpu().numpy(
+    ).view(np.uint32)
+    out = []
+    for s in range(host.shape[0]):
+        bits = np.unpackbits(mask[s].view(np.uint8), bitorder="little")
+        cols = np.flatnonzero(bits)
+        if cols.size == 0:
+            out.append((None, 0))
+            continue
+        vals = [0] * cols.size
+        for b in range(host.shape[1] - 2):
+            plane = np.unpackbits(host[s, 2 + b].view(np.uint8),
+                                  bitorder="little")[cols]
+            for j in np.flatnonzero(plane):
+                vals[j] |= 1 << b
+        best = max(vals) if want_max else min(vals)
+        out.append((best, vals.count(best)))
+    return out
+
+
+@pytest.mark.parametrize("row_words", [W, 1001])
+@pytest.mark.parametrize("depth", [20, 41, 63])
+@pytest.mark.parametrize("want_max", [False, True])
+def test_bsi_minmax_wide_matches_plain_and_oracle(dev, row_words, depth,
+                                                  want_max):
+    """K7 at depth 20, 41 and 63 (values of 2^40 and more), with and
+    without a filter, with a shard that has no column and one the filter
+    empties, against the plain version and a Python-int oracle."""
+    planes = _wide_planes(dev, 6, depth, row_words, 100 + depth)
+    (filt,) = _leaves(dev, 1, (6, row_words), 101)
+    filt[4] = 0
+    for f in (None, filt):
+        got_v, got_n = kernels.bsi_minmax(planes, f, want_max)
+        torch.cuda.synchronize()
+        want_v, want_n = kernels.bsi_minmax_plain(planes, f, want_max)
+        assert got_v.dtype == torch.int64
+        assert torch.equal(got_n, want_n)
+        live = want_n > 0
+        assert torch.equal(got_v[live], want_v[live])
+        for s, (value, count) in enumerate(_minmax_oracle(planes, f,
+                                                          want_max)):
+            assert int(got_n[s]) == count, s
+            if count:
+                assert int(got_v[s]) == value, s
+        assert int(got_n[1]) == 0 and (f is None or int(got_n[4]) == 0)
+    assert kernels.launches()["bsi_minmax"] > 0
+
+
+def test_wide_tree_runs_as_tree_steps_on_the_card(dev, tmp_path):
+    """A 40-leaf Union and a 20-deep nested tree: the plan cuts 'tree'
+    steps that K2 materializes, then K1 or K2 runs the root; the answers
+    equal the same executor's on the CPU."""
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.storage import Holder, load_from_dense
+
+    rng = np.random.default_rng(110)
+    rows = {r: rng.integers(0, 1 << 32, 2 * W, dtype=np.uint32)
+            & rng.integers(0, 1 << 32, 2 * W, dtype=np.uint32)
+            for r in range(6)}
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    h.close()
+    union = "Union(" + ", ".join(f"Row(f={k % 6})" for k in range(40)) + ")"
+    nested = "Row(f=0)"
+    for k in range(20):
+        op = "Difference" if k % 2 else "Union"
+        nested = f"{op}(Row(f={k % 6}), {nested})"
+    queries = [f"Count({union})", f"Count({nested})", nested,
+               f"Count(Intersect({union}, {nested}))"]
+    answers = {}
+    for device in ("cpu", "cuda"):
+        hd = Holder(str(tmp_path / "d"), device=device).open()
+        try:
+            kernels.reset_launches()
+            answers[device] = [Executor(hd, device=device).execute("i", q)[0]
+                               for q in queries]
+            if device == "cuda":
+                assert kernels.launches()["tree_rows"] >= 4
+        finally:
+            hd.close()
+    cpu, cuda = answers["cpu"], answers["cuda"]
+    assert cpu[:2] == cuda[:2] and cpu[3] == cuda[3]
+    assert cpu[2].segments.keys() == cuda[2].segments.keys()
+    for shard, words in cpu[2].segments.items():
+        assert np.array_equal(words, cuda[2].segments[shard])

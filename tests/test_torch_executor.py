@@ -18,7 +18,7 @@ import pilosa_tpu.storage as jstorage
 from __graft_entry__ import DRYRUN_QUERY_SHAPES
 from pilosa_tpu.executor import Executor as JExecutor
 from pilosa_tpu.executor.result import result_to_json as j_result_to_json
-from pilosa_tpu_torch.executor import Executor, PQLError, result_to_json
+from pilosa_tpu_torch.executor import Executor, PQLError, expr, result_to_json
 from pilosa_tpu_torch.storage import Holder, load_from_dense
 
 torch.set_num_threads(1)
@@ -132,13 +132,50 @@ def test_unported_calls_raise(pair, pql):
         pair[1].execute("i", pql)
 
 
-def test_wide_unions_are_refused_not_miscounted(pair):
-    rows = ", ".join(f"Row(f={r})" for r in range(17))
-    with pytest.raises(PQLError, match="not yet ported"):
-        pair[1].execute("i", f"Count(Union({rows}))")
-    rows16 = ", ".join(f"Row(f={r})" for r in range(16))
-    assert pair[1].execute("i", f"Count(Union({rows16}))") == \
-        pair[0].execute("i", f"Count(Union({rows16}))")
+_WIDE_ROWS = ["Row(f=1)", "Row(f=2)", "Row(g=7)", "Row(f=3)",
+              "Shift(Row(f=1), n=1)"]
+
+
+def _wide(op: str, n: int) -> str:
+    return f"{op}(" + ", ".join(_WIDE_ROWS[k % 5] for k in range(n)) + ")"
+
+
+def _nested(depth: int) -> str:
+    """A right-nested Difference/Union tree: one stack slot per level."""
+    node = "Row(f=1)"
+    for k in range(depth):
+        leaf = ["Row(f=2)", "Row(g=7)", "Row(f=1)"][k % 3]
+        node = (f"Difference({leaf}, {node})" if k % 2
+                else f"Union({leaf}, {node})")
+    return node
+
+
+WIDE = [f"Count({_wide('Union', 16)})", f"Count({_wide('Union', 17)})",
+        f"Count({_wide('Union', 40)})", f"Count({_wide('Xor', 17)})",
+        _wide("Xor", 40), f"Count({_nested(20)})", _nested(20),
+        f"Count(Intersect({_wide('Union', 20)}, {_nested(17)}))"]
+
+
+@pytest.mark.parametrize("pql", WIDE)
+def test_wide_unions_are_refused_not_miscounted(pair, pql):
+    """Trees past the kernels' 16 operands or 16 stack slots are cut into
+    K2 'tree' steps and answer as the reference does (they were refused
+    before the cut existed)."""
+    jex, pex = pair
+    assert _bytes(result_to_json, pex.execute("i", pql)) == \
+        _bytes(j_result_to_json, jex.execute("i", pql))
+
+
+def test_wide_union_cuts_the_fewest_tree_steps():
+    leaves = [("leaf", i) for i in range(40)]
+    node = leaves[0]
+    for leaf in leaves[1:]:
+        node = ("or", node, leaf)
+    plan = expr.plan(("count", node))
+    assert [s[0] for s in plan.steps] == ["tree", "tree"]
+    assert [len(s[1][1]) for s in plan.steps] == [16, 16]
+    assert len(plan.root[1]) == 10
+    assert plan.root[1][0] == ("temp", 1)
 
 
 def test_concurrent_counts_and_sets_lose_no_patch(seed_dir, tmp_path):

@@ -224,3 +224,47 @@ def test_program_checks():
         deep = ("or", ("leaf", i), deep)  # right-deep: stack of 17
     with pytest.raises(ValueError):
         expr.compile_program(deep)
+
+
+K1_FORM_PROGRAMS = [
+    ("and", ("leaf", 0), ("leaf", 1)),
+    ("or", ("or", ("leaf", 0), ("leaf", 1)), ("leaf", 2)),
+    ("xor", ("leaf", 2), ("xor", ("leaf", 0), ("leaf", 1))),
+    ("diff", ("diff", ("leaf", 0), ("leaf", 1)), ("leaf", 2)),
+    ("diff", ("leaf", 2), ("or", ("leaf", 0), ("leaf", 1))),
+    ("flipall", ("and", ("leaf", 1), ("leaf", 0))),
+]
+K1_SALTS = [0, 7, 0x80000001, 0xFFFFFFFF]
+
+
+def _tree_count_form(form, batch_leaves, salts, row_words: int):
+    """K1's arithmetic for a chain or head-diff form: the form's fold per
+    query, with that query's own xor mask, then per-row popcounts."""
+    out = []
+    for leaves, salt in zip(batch_leaves, salts):
+        words = kernels.eval_form_plain(form, leaves, salt)
+        out.append(kernels.popcount32(words.reshape(-1, row_words)).sum(
+            dim=1, dtype=torch.int32))
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("i", range(len(K1_FORM_PROGRAMS)))
+@pytest.mark.parametrize("salted", [False, True])
+def test_k1_form_with_per_query_salts_matches_plain(i, salted):
+    """K1 runs a fold form with one xor mask a query (from its salt): the
+    form's arithmetic over a 4-query micro-batch with four salts equals
+    the program's plain count, query by query."""
+    program = expr.compile_program(K1_FORM_PROGRAMS[i])
+    if salted:
+        program = program + (kernels.OP_SALT,)
+    form = kernels.classify_program(program)
+    assert form.kind in (kernels.FORM_CHAIN, kernels.FORM_HEAD_DIFF)
+    rng = np.random.default_rng(90 + i)
+    batch_leaves = [[_t(x) for x in _stacked(rng, 2, 3, 0.4)]
+                    for _ in K1_SALTS]
+    want = kernels.tree_count_plain(program, batch_leaves, K1_SALTS, W)
+    got = _tree_count_form(form, batch_leaves, K1_SALTS, W)
+    assert torch.equal(got, want)
+    if salted:  # the salts really differ between the queries
+        assert not torch.equal(want[1], kernels.tree_count_plain(
+            program, batch_leaves[1:2], [0], W)[0])

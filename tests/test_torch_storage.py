@@ -5,15 +5,27 @@ its default group-commit mode the ops live in WAL segments until a clean
 close snapshots every fragment, so the port needs no WAL replay.
 """
 
+import json
 import os
 import shutil
+import urllib.request
 
 import numpy as np
 import pytest
 import torch
 
 import pilosa_tpu.storage as jstorage
-from pilosa_tpu_torch.storage import Holder, load_existence, load_from_dense
+from pilosa_tpu.executor import Executor as JExecutor
+from pilosa_tpu.executor.result import result_to_json as j_result_to_json
+from pilosa_tpu.storage.field import FieldOptions as JFieldOptions
+from pilosa_tpu_torch.executor import Executor, result_to_json
+from pilosa_tpu_torch.server import Server
+from pilosa_tpu_torch.storage import (
+    FieldOptions,
+    Holder,
+    load_existence,
+    load_from_dense,
+)
 
 torch.set_num_threads(1)
 
@@ -139,8 +151,9 @@ def test_reference_reads_port_files(tmp_path):
 
 def test_port_rewrite_drops_stale_reference_sidecars(tmp_path):
     """A reference-written fragment carries digest and row-count
-    sidecars; after the port rewrites its snapshot, the reference must
-    still open it (no quarantine) and see the new bits."""
+    sidecars; after the port rewrites its snapshot (and the sidecars with
+    it), the reference must still open it (no quarantine) and see the new
+    bits."""
     fields = {"f": _seed_rows(5)}
     _jax_fill(tmp_path / "d", fields)
     frag_path = tmp_path / "d" / "i" / "f" / "views" / "standard" / \
@@ -175,9 +188,10 @@ def test_dense_load_writes_the_reference_bytes(tmp_path, density):
     h.close()
     rel = os.path.join("i", "f", "views", "standard", "fragments")
     for s in range(SHARDS):
-        with open(tmp_path / "jax" / rel / str(s), "rb") as a, \
-                open(tmp_path / "port" / rel / str(s), "rb") as b:
-            assert a.read() == b.read(), s
+        for name in (str(s), f"{s}.checksums", f"{s}.cache"):
+            with open(tmp_path / "jax" / rel / name, "rb") as a, \
+                    open(tmp_path / "port" / rel / name, "rb") as b:
+                assert a.read() == b.read(), name
 
 
 def test_port_refuses_unreplayed_wal(tmp_path):
@@ -263,4 +277,117 @@ def test_fields_built_apart_then_existence_match_one_load(tmp_path):
             1).count_row(0) == int(np.bitwise_count(
                 exists[W:2 * W]).sum())
     finally:
+        j.close()
+
+
+# ------------------------------------------------------------- sidecars
+
+
+def _write_script(holder, options_cls) -> None:
+    """One sequence of Set/Clear/import writes, a snapshot in the middle,
+    then a close: the same calls on either package's storage tree."""
+    idx = holder.create_index("i")
+    f = idx.create_field("f")
+    v = idx.create_field("v", options_cls(type="int", min=-5, max=1000))
+    for c in (3, 70, 1048576 + 5, 2 * 1048576 + 9):
+        f.set_bit(1, c)
+    f.set_bit(2, 70)
+    f.set_bit(4, 2 * 1048576 + 1)
+    f.clear_bit(1, 70)
+    rng = np.random.default_rng(11)
+    pos = np.unique(rng.integers(0, W * 32, 3000)).astype(np.uint64)
+    rows = rng.integers(0, 12, pos.size).astype(np.uint64)
+    f.view("standard").fragment(1, create=True).bulk_import(rows, pos)
+    v.set_value(5, 17)
+    v.set_value(1048576 + 3, -5)
+    cols = rng.integers(0, SHARDS * W * 32, 500)
+    v.import_values(cols, rng.integers(-5, 1001, cols.size))
+    v.clear_value(5)
+    idx.mark_columns_exist([3, 1048576 + 5, 2 * 1048576 + 1])
+    for view in list(f.views.values()) + list(v.views.values()):
+        for frag in view.fragments.values():
+            frag.snapshot()
+    f.set_bit(3, 11)
+    f.clear_bit(2, 70)
+    v.set_value(9, 999)
+    v.import_values([9, 1048576 + 3], [0, 1000])
+    holder.close()
+
+
+def _view_files(root) -> dict:
+    return {k: b for k, b in _tree_bytes(root).items()
+            if os.sep + "views" + os.sep in k}
+
+
+def test_same_writes_write_the_reference_files_and_sidecars(tmp_path):
+    """The port writes each fragment file, its .checksums and its .cache
+    byte for byte as the reference does (per-op durability, the port's
+    only mode) for the same writes."""
+    _write_script(jstorage.Holder(str(tmp_path / "jax"),
+                                  durability_mode="per-op").open(),
+                  JFieldOptions)
+    _write_script(Holder(str(tmp_path / "port"), device="cpu").open(),
+                  FieldOptions)
+    want, got = _view_files(tmp_path / "jax"), _view_files(tmp_path / "port")
+    assert sorted(got) == sorted(want)
+    assert sum(k.endswith(".checksums") for k in got) >= 2 * SHARDS
+    assert sum(k.endswith(".cache") for k in got) >= 2 * SHARDS
+    for k in want:
+        assert got[k] == want[k], k
+
+
+def test_reference_ranks_topn_on_a_port_dir_without_recount(tmp_path):
+    """A directory the port wrote and closed carries complete row caches:
+    the reference, reopened on it, ranks TopN's candidates from them
+    exactly as the port ranks exact counts, with no recount first."""
+    rows = _seed_rows(8, rows=(1, 2, 3, 7, 9), density=0.01)
+    rows[9] = rows[9] & rows[1]  # rows of very different sizes
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    fld = h.index("i").field("f")
+    for c in range(0, 4000, 7):
+        fld.set_bit(9, c)
+    fld.clear_bit(1, int(_columns(rows[1])[0]))
+    h.close()
+    shutil.copytree(tmp_path / "d", tmp_path / "copy")
+    j = jstorage.Holder(str(tmp_path / "d")).open()
+    p = Holder(str(tmp_path / "copy"), device="cpu").open()
+    try:
+        frag = j.index("i").field("f").view("standard").fragment(0)
+        assert len(frag.row_cache) == 5
+        for pql in ("TopN(f, n=3)", "TopN(f)", "TopN(f, Row(f=7), n=2)"):
+            assert json.dumps(result_to_json(Executor(p, device="cpu")
+                                             .execute("i", pql))) == \
+                json.dumps(j_result_to_json(JExecutor(j).execute("i", pql)))
+    finally:
+        j.close()
+        p.close()
+
+
+def test_http_recalculate_caches(tmp_path):
+    """POST /recalculate-caches over the port's HTTP answers 204 and
+    rewrites every .cache as the reference's recount writes it."""
+    rows = _seed_rows(9, rows=(1, 4))
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    h.close()
+    rel = os.path.join("i", "f", "views", "standard", "fragments", "0.cache")
+    with open(tmp_path / "d" / rel, "w") as fh:
+        fh.write('{"kind": "ranked", "counts": [[4, 1]]}')  # stale
+    shutil.copytree(tmp_path / "d", tmp_path / "jax")
+    j = jstorage.Holder(str(tmp_path / "jax")).open()
+    j.index("i").field("f").view("standard").fragment(0).recalculate_cache()
+    server = Server(str(tmp_path / "d"), port=0, device="cpu").open()
+    try:
+        req = urllib.request.Request(
+            f"http://localhost:{server.port}/recalculate-caches", data=b"",
+            method="POST")
+        with urllib.request.urlopen(req, timeout=60) as resp:
+            assert resp.status == 204
+            assert resp.read() == b""
+        with open(tmp_path / "d" / rel, "rb") as a, \
+                open(tmp_path / "jax" / rel, "rb") as b:
+            assert a.read() == b.read()
+    finally:
+        server.close()
         j.close()

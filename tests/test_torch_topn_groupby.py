@@ -301,18 +301,10 @@ def _probe(seed_dir) -> tuple[int, int]:
 
 
 def _reference_holder(path) -> "jstorage.Holder":
-    """The reference's holder on ``path`` with every TopN row cache
-    recounted, as ``POST /recalculate-caches`` does. A data directory
-    written by the port has no ``.cache`` sidecars: the reference's ranked
-    caches then hold only the rows written after it opened, and its TopN
-    phase 1 reads those until a recount. The port always counts exactly."""
-    jh = jstorage.Holder(str(path)).open()
-    for idx in jh.indexes.values():
-        for field in idx.fields.values():
-            for view in field.views.values():
-                for frag in view.fragments.values():
-                    frag.recalculate_cache()
-    return jh
+    """The reference's holder on ``path``, as it opens (verifying the
+    port's .checksums sidecars, reading its .cache row caches: no
+    recount is needed first)."""
+    return jstorage.Holder(str(path)).open()
 
 
 def _open_pair(seed_dir, tmp_path):
@@ -471,9 +463,60 @@ def test_groupby_refusals_match_reference(pair):
         assert str(got.value) == str(want.value), pql
     with pytest.raises(PQLError, match="not yet ported"):
         pex.execute("i", 'TopN(f, attrName="a", attrValue=1)')
-    dims = ", ".join(["Rows(g)"] * (kernels.MAX_LEAVES + 1))
-    with pytest.raises(PQLError, match="not yet ported"):
-        pex.execute("i", f"GroupBy({dims})")
+    # past K9's 16 dimensions the port answers (it refused before the
+    # prefix fold existed)
+    dims = ", ".join(["Rows(g, limit=2)"] + ["Rows(g, limit=1)"]
+                     * kernels.MAX_LEAVES)
+    assert _json(result_to_json, pex.execute("i", f"GroupBy({dims})")) == \
+        _json(j_result_to_json, jex.execute("i", f"GroupBy({dims})"))
+
+
+def _wide_dims(n: int) -> str:
+    """n GroupBy dimensions that stay cheap: at most 12 candidates a
+    level, and row g=1 repeated (an AND with itself keeps it)."""
+    head = ["Rows(f, limit=3)", "Rows(g, limit=2)",
+            "Rows(g, previous=1, limit=2)"]
+    return ", ".join(head + ["Rows(g, limit=1)"] * (n - len(head)))
+
+
+WIDE_GROUPBY = [
+    f"GroupBy({_wide_dims(17)})",
+    f"GroupBy({_wide_dims(18)}, limit=5)",
+    f"GroupBy({_wide_dims(18)}, having=Condition(count > 400))",
+    f'GroupBy({_wide_dims(17)}, filter=Row(f=1), '
+    'aggregate=Sum(field="fare"), having=Condition(sum > 0))',
+    f"GroupBy({_wide_dims(17)}, Rows(h))",
+]
+
+
+@pytest.mark.parametrize("pql", WIDE_GROUPBY)
+def test_groupby_past_sixteen_dimensions_matches_reference(pair, pql):
+    jh, ph = pair
+    assert _json(result_to_json, Executor(ph, device="cpu").execute(
+        "i", pql)) == _json(j_result_to_json, JExecutor(jh).execute("i", pql))
+
+
+@pytest.mark.parametrize("pql", [
+    f'GroupBy({_wide_dims(18)}, aggregate=Sum(field="fare"))',
+    f"GroupBy({_wide_dims(34)}, limit=7)",
+])
+def test_groupby_fold_chunks_match_reference(pair, monkeypatch, pql):
+    """With the budget at two prefix groups' rows, the fold past 16
+    dimensions runs chunk by chunk (and at 34 dimensions folds again
+    inside each chunk); the groups concatenate as the reference's."""
+    jh, ph = pair
+    want = _json(j_result_to_json, JExecutor(jh).execute("i", pql))
+    slots = SHARDS + 1  # the stacked matrices' zero slot
+    monkeypatch.setattr(executor_mod, "GROUPBY_OUT_BUDGET_BYTES",
+                        2 * slots * W * 4)
+    folds = []
+    fold = executor_mod._groupby_prefix_matrix
+    monkeypatch.setattr(executor_mod, "_groupby_prefix_matrix",
+                        lambda mats, cand: folds.append(len(cand)) or
+                        fold(mats, cand))
+    got = _json(result_to_json, Executor(ph, device="cpu").execute("i", pql))
+    assert got == want
+    assert len(folds) > 1 and max(folds) == 2
 
 
 def test_groupby_level_chunks_concatenate_in_order(pair, monkeypatch):
