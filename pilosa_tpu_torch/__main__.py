@@ -2,6 +2,8 @@
 
 Runs on the GPU (``--device cuda``, the default) unless ``--device cpu``
 is given; asking for cuda on a machine without one exits with an error.
+``--durability-mode`` (group, per-op or flush-only), ``--group-commit-max-ms``
+and ``--group-commit-max-ops`` are the reference's durability knobs.
 """
 
 from __future__ import annotations
@@ -17,7 +19,10 @@ def cmd_server(args) -> int:
 
     server = Server(args.data_dir, bind=args.bind, port=args.port,
                     device=args.device,
-                    budget_bytes=args.residency_budget_bytes).open()
+                    budget_bytes=args.residency_budget_bytes,
+                    durability_mode=args.durability_mode,
+                    group_commit_max_ms=args.group_commit_max_ms,
+                    group_commit_max_ops=args.group_commit_max_ops).open()
     print(f"pilosa_tpu_torch serving {args.data_dir} on "
           f"http://{args.bind}:{server.port} ({server.holder.device})",
           flush=True)
@@ -33,6 +38,12 @@ def cmd_server(args) -> int:
 
 def main(argv=None) -> int:
     from pilosa_tpu_torch.storage.residency import DEFAULT_BUDGET_BYTES
+    from pilosa_tpu_torch.storage.wal import (
+        DEFAULT_GROUP_MAX_MS,
+        DEFAULT_GROUP_MAX_OPS,
+        DURABILITY_MODES,
+        MODE_GROUP,
+    )
 
     parser = argparse.ArgumentParser(prog="pilosa_tpu_torch")
     sub = parser.add_subparsers(dest="cmd", required=True)
@@ -45,6 +56,17 @@ def main(argv=None) -> int:
     p.add_argument("--residency-budget-bytes", type=int,
                    default=DEFAULT_BUDGET_BYTES,
                    help="device bytes for resident leaves")
+    p.add_argument("--durability-mode", choices=DURABILITY_MODES,
+                   default=MODE_GROUP,
+                   help="what an HTTP 200 on a write means: group (one "
+                   "fsync a commit group), per-op (one fsync a record) or "
+                   "flush-only (no fsync)")
+    p.add_argument("--group-commit-max-ms", type=float,
+                   default=DEFAULT_GROUP_MAX_MS,
+                   help="longest a record waits for its group's fsync")
+    p.add_argument("--group-commit-max-ops", type=int,
+                   default=DEFAULT_GROUP_MAX_OPS,
+                   help="most op records fsynced in one group")
     p.set_defaults(fn=cmd_server)
     args = parser.parse_args(argv)
     return args.fn(args)

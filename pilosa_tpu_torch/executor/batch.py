@@ -40,7 +40,7 @@ import torch
 from pilosa_tpu_torch import kernels
 from pilosa_tpu_torch.executor import expr
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD, next_pow2
-from pilosa_tpu_torch.storage.residency import upload
+from pilosa_tpu_torch.storage.residency import WordPatch, upload
 
 SPLIT_SHIFT = 15
 SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
@@ -134,9 +134,10 @@ def _word_masks(positions) -> tuple[np.ndarray, np.ndarray]:
 def _make_probe(block: ShardBlock, match, row_pos_of, decode_row,
                 delta_on_clear: bool):
     """Write-routing probe for a stacked leaf: None when the event does
-    not touch the leaf, else ``apply(arr)`` patching the shard's slot in
-    place — the exact word delta (K3) when the event carries positions,
-    a fresh host decode of the row otherwise. ``row_pos_of(ev)``: the
+    not touch the leaf, else how to patch the shard's slot in place — the
+    exact word delta as a ``WordPatch`` (K3, launched with the rest of
+    the write request's patches) when the event carries positions, else
+    ``apply(arr)``, a fresh host decode of the row. ``row_pos_of(ev)``: the
     inner row of an ``[S, R, W]`` leaf (None for ``[S, W]`` leaves).
     ``delta_on_clear``: clears may delta-patch (single-view leaves only:
     with several OR'd views a cleared bit may survive in another view)."""
@@ -150,9 +151,7 @@ def _make_probe(block: ShardBlock, match, row_pos_of, decode_row,
         if ev.positions is not None and (
                 ev.added or (ev.added is False and delta_on_clear)):
             word_idx, masks = _word_masks(ev.positions)
-            clear = not ev.added
-            return lambda arr: kernels.word_patch(arr, slot, word_idx, masks,
-                                                  word_idx.size, clear, row)
+            return WordPatch(slot, row, word_idx, masks, not ev.added)
 
         def set_row(arr):
             target = arr[slot] if row is None else arr[slot, row]

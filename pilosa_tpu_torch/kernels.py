@@ -9,9 +9,10 @@ Nine kernels carry the main paths (sources in ``csrc/``):
 - K2 ``tree_rows``: the words of the same program, for row results
   (replaces ``expr._go`` under the 'row' reduce kind, ``flipall``
   included as ``OP_NOT``);
-- K3 ``word_patch``: OR / AND-NOT host-deduplicated word masks into one
-  row of a resident ``[S, W]`` or ``[S, R, W]`` leaf, in place (replaces
-  ``batch._or_delta`` / ``_andnot_delta`` and their ``_row`` forms);
+- K3 ``word_patch``: OR / AND-NOT host-deduplicated word masks into a
+  batch of rows of resident ``[S, W]`` and ``[S, R, W]`` leaves, in
+  place, one launch a write request (replaces ``batch._or_delta`` /
+  ``_andnot_delta`` and their ``_row`` forms);
 - K4 ``row_shift``: every shard row's bits shifted by n (replaces
   ``ops/bitops.py::shift``);
 - K5 ``bsi_compare``: the bit-sliced comparison of a BSI plane leaf
@@ -39,6 +40,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import heapq
+import itertools
 import os
 import shutil
 import subprocess
@@ -190,7 +192,7 @@ def _bind(name: str, lib) -> None:
         "tree_count": [p, i, i, i, i, p, p, p, i, ll, ll, i, i, p, p],
         "tree_rows": [p, i, i, i, ctypes.c_uint32, ctypes.c_uint32, p, i,
                       ll, i, p, p],
-        "word_patch": [p, p, i, i, p],
+        "word_patch": [p, i, i, p],
         "row_shift": [p, p, ll, ll, ll, i, p],
         "bsi_compare": [p, p, p, ll, ll, i, ctypes.c_ulonglong, i, i, p],
         "bsi_sum": [p, p, p, ll, ll, i, i, p],
@@ -200,6 +202,11 @@ def _bind(name: str, lib) -> None:
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
+    if name == "word_patch":
+        lib.word_patch_staged_launch.argtypes = [p, p, i, i, i, p]
+        lib.word_patch_staged_launch.restype = i
+        lib.word_patch_empty_launch.argtypes = [p]
+        lib.word_patch_empty_launch.restype = i
     err = getattr(lib, f"{name}_error_string")
     err.argtypes = [i]
     err.restype = ctypes.c_char_p
@@ -454,17 +461,20 @@ def eval_form_plain(form: Form, leaves, salt: int = 0) -> torch.Tensor:
     return acc ^ _salt_i32(form.xor_mask(salt))
 
 
-def word_patch_plain(leaf: torch.Tensor, slot: int, pairs: np.ndarray,
-                     clear: bool, row: int | None = None) -> None:
-    idx = torch.from_numpy(np.ascontiguousarray(pairs[0], np.int64)).to(
-        leaf.device)
-    masks = torch.from_numpy(np.ascontiguousarray(pairs[1]).view(np.int32)
-                             ).to(leaf.device)
-    target = leaf[slot] if row is None else leaf[slot, row]
-    if clear:
-        target[idx] = target[idx] & ~masks
-    else:
-        target[idx] = target[idx] | masks
+def word_patch_batch_plain(targets) -> None:
+    """K3's plain version: each target ``(leaf, slot, row, word_idx,
+    masks, clear)`` ORs its masks into (or, with ``clear``, clears them
+    from) the words ``word_idx`` of ``leaf[slot]``, or of
+    ``leaf[slot, row]`` when ``row`` is not None, in place, in order."""
+    for leaf, slot, row, word_idx, masks, clear in targets:
+        idx = torch.from_numpy(np.asarray(word_idx, np.int64)).to(leaf.device)
+        m = torch.from_numpy(np.ascontiguousarray(masks, np.uint32).view(
+            np.int32)).to(leaf.device)
+        target = leaf[slot] if row is None else leaf[slot, row]
+        if clear:
+            target[idx] = target[idx] & ~m
+        else:
+            target[idx] = target[idx] | m
 
 
 row_shift_plain = shift  # ops/bitops.py holds K4's plain version
@@ -1004,47 +1014,193 @@ def tree_rows(program, leaves, salt: int = 0) -> torch.Tensor:
     return out
 
 
-def word_patch(leaf: torch.Tensor, slot: int, word_idx, masks, n: int,
-               clear: bool, row: int | None = None) -> None:
-    """K3: ``leaf[slot, word_idx[i]] |= masks[i]`` (or ``&= ~masks[i]``
-    when ``clear``) for the first ``n`` pairs, in place; with ``row``, the
-    same into ``leaf[slot, row]`` of an ``[S, R, W]`` leaf (BSI planes).
-    Word indices must be unique; pairs past ``n`` (padding) are ignored."""
-    if leaf.dim() != (2 if row is None else 3):
-        raise ValueError("word_patch patches a [slots, words] leaf, or with "
-                         "row= a [slots, rows, words] leaf")
-    _check_words([leaf], leaf.device)
-    if not 0 <= slot < leaf.shape[0]:
-        raise IndexError(f"slot {slot} outside {leaf.shape[0]} slots")
-    if row is not None and not 0 <= row < leaf.shape[1]:
-        raise IndexError(f"row {row} outside {leaf.shape[1]} rows")
-    idx = np.asarray(word_idx)[:n].astype(np.int64)
-    m = np.asarray(masks)[:n].astype(np.uint32)
-    if idx.size != n or m.size != n:
-        raise ValueError("fewer pairs than n")
-    if n == 0:
-        return
-    if idx.min() < 0 or idx.max() >= leaf.shape[-1]:
+# K3's staging: pinned host buffers a device, each with its device buffer
+# and an event recorded behind the launch that last read it. A buffer is
+# refilled only once its event has completed. When none is free and large
+# enough, a new one is made (a free one too small is replaced by one twice
+# its size), so taking a buffer never waits on the card: it runs under the
+# residency cache's lock, and an event may sit behind long queued work.
+# The pool keeps as many buffers as batches were ever in flight at once.
+_pools: dict = {}
+_pools_lock = threading.Lock()
+
+
+class _StagingPool:
+    def __init__(self, device):
+        self.device = device
+        # [pinned tensor, its numpy view, device tensor, event]
+        self.slots: list = []
+        self.next = 0
+        self.lock = threading.Lock()
+
+    def take(self, n_bytes: int):
+        """A buffer of at least ``n_bytes`` whose last launch has
+        completed; round robin from the last one taken, never waiting."""
+        small = None
+        for step in range(len(self.slots)):
+            k = (self.next + step) % len(self.slots)
+            slot = self.slots[k]
+            if not slot[3].query():
+                continue
+            if slot[1].size >= n_bytes:
+                self.next = k + 1
+                return slot
+            small = k if small is None else small
+        cap = 4096 if small is None else 2 * self.slots[small][1].size
+        while cap < n_bytes:
+            cap *= 2
+        pinned = torch.empty(cap, dtype=torch.uint8, pin_memory=True)
+        slot = [pinned, pinned.numpy(),
+                torch.empty(cap, dtype=torch.uint8, device=self.device),
+                torch.cuda.Event()]
+        if small is None:
+            self.slots.append(slot)
+            self.next = len(self.slots)
+        else:
+            self.slots[small] = slot
+            self.next = small + 1
+        return slot
+
+
+def _pool(device) -> _StagingPool:
+    device = torch.device(device)
+    if device.index is None:
+        device = torch.device(device.type, torch.cuda.current_device())
+    with _pools_lock:
+        pool = _pools.get(device)
+        if pool is None:
+            pool = _pools[device] = _StagingPool(device)
+        return pool
+
+
+def _check_patch_targets(targets):
+    """Validate a K3 batch; returns (row addresses, run ends, clear flags,
+    word indices, masks) as numpy arrays."""
+    first = targets[0][0]
+    leaves: dict = {}
+    rows, counts, clears, words, masks, limits = [], [], [], [], [], []
+    for leaf, slot, row, w, m, clear in targets:
+        info = leaves.get(id(leaf))
+        if info is None:
+            _check_words([leaf], first.device)
+            info = leaves[id(leaf)] = (leaf.dim(), leaf.shape, leaf.stride(),
+                                       leaf.data_ptr(), leaf.element_size())
+        dim, shape, stride, ptr, size = info
+        if dim != (2 if row is None else 3):
+            raise ValueError("word_patch patches a [slots, words] leaf, or "
+                             "with a row a [slots, rows, words] leaf")
+        if not 0 <= slot < shape[0]:
+            raise IndexError(f"slot {slot} outside {shape[0]} slots")
+        if row is not None and not 0 <= row < shape[1]:
+            raise IndexError(f"row {row} outside {shape[1]} rows")
+        if len(w) != len(m) or len(w) == 0:
+            raise ValueError("a target needs as many masks as words, and one")
+        rows.append(ptr + size * (slot * stride[0] + (
+            0 if row is None else row * stride[1])))
+        counts.append(len(w))
+        clears.append(1 if clear else 0)
+        words.append(w)
+        masks.append(m)
+        limits.append(shape[-1])
+    if len(set(rows)) != len(rows):
+        raise ValueError("a batch patches each row at most once")
+    ends = list(itertools.accumulate(counts))
+    if len(words) == 1:  # one run: a write into one row (cheap checks)
+        words, masks = np.asarray(words[0]), np.asarray(masks[0])
+        bad_order = words.size > 1 and bool((words[1:] <= words[:-1]).any())
+        bad_range = words.ndim != 1 or words[0] < 0 or words[-1] >= limits[0]
+    else:
+        words, masks = np.concatenate(words), np.concatenate(masks)
+        ends_a = np.asarray(ends)
+        step = np.diff(words)
+        step[ends_a[:-1] - 1] = 1  # run boundaries may step down
+        bad_order = bool((step <= 0).any())
+        bad_range = bool(words[ends_a - np.asarray(counts)].min() < 0 or (
+            words[ends_a - 1] >= np.asarray(limits)).any())
+    if words.ndim != 1 or words.shape != masks.shape:
+        raise ValueError("word indices and masks must be flat and equal")
+    # ascending within each run (so unique): no two threads share a word
+    if bad_order:
+        raise ValueError("a target's word indices must ascend, unique")
+    if bad_range:
         raise IndexError("word index outside the row")
-    if np.unique(idx).size != n:
-        raise ValueError("word indices must be unique")
-    pairs = np.stack([idx.astype(np.int32), m.view(np.int32)])
-    if _on_cpu(leaf):
-        word_patch_plain(leaf, slot, pairs, clear, row)
+    return (np.asarray(rows, np.uint64), ends, np.asarray(clears, np.int32),
+            words.astype(np.int32, copy=False),
+            masks.astype(np.uint32, copy=False))
+
+
+def word_patch_pack(targets) -> tuple[np.ndarray, int, int]:
+    """The staged blob of a checked K3 batch (csrc/word_patch.cu's
+    layout), with its target and pair counts."""
+    parts = _check_patch_targets(targets)
+    t, n = parts[0].size, parts[3].size
+    blob = np.empty(16 * t + 4 + 8 * n, np.uint8)
+    _fill_blob(blob, *parts)
+    return blob, t, n
+
+
+def _fill_blob(blob, rows, ends, clears, words, masks) -> None:
+    t, n = rows.size, words.size
+    blob[:8 * t].view(np.uint64)[:] = rows
+    offs = blob[8 * t:12 * t + 4].view(np.int32)
+    offs[0] = 0
+    offs[1:] = ends
+    blob[12 * t + 4:16 * t + 4].view(np.int32)[:] = clears
+    blob[16 * t + 4:16 * t + 4 + 4 * n].view(np.int32)[:] = words
+    blob[16 * t + 4 + 4 * n:].view(np.uint32)[:] = masks
+
+
+def word_patch_batch(targets) -> None:
+    """K3: every target ``(leaf, slot, row, word_idx, masks, clear)``
+    patched in place, one launch for the batch: ``leaf[slot,
+    word_idx[i]] |= masks[i]`` (``&= ~masks[i]`` with ``clear``), or into
+    ``leaf[slot, row]`` of an ``[S, R, W]`` leaf when ``row`` is not None.
+    A target's word indices ascend (unique); a batch holds each row at
+    most once, so the order of its targets does not matter. The batch
+    travels through a pinned staging buffer that the card has finished
+    reading (never waiting for one): one host-to-device copy and one
+    launch, issued together by one C call."""
+    if not targets:
         return
+    first = targets[0][0]
+    if _on_cpu(first):
+        _check_patch_targets(targets)
+        word_patch_batch_plain(targets)
+        return
+    parts = _check_patch_targets(targets)
+    t, n = parts[0].size, parts[3].size
+    n_bytes = 16 * t + 4 + 8 * n
     lib = _lib("word_patch")
-    # pinned + non_blocking: a pageable copy would first wait for every
-    # kernel already queued on the stream
-    dev_pairs = torch.from_numpy(pairs).pin_memory().to(leaf.device,
-                                                        non_blocking=True)
-    first_word = slot * leaf.shape[1] if row is None else \
-        (slot * leaf.shape[1] + row) * leaf.shape[2]
-    row_ptr = leaf.data_ptr() + first_word * leaf.element_size()
-    rc = lib.word_patch_launch(ctypes.c_void_p(row_ptr),
-                               ctypes.c_void_p(dev_pairs.data_ptr()), n,
-                               int(clear), _stream(leaf))
+    stream = torch.cuda.current_stream(first.device)
+    pool = _pool(first.device)
+    with pool.lock:
+        pinned, host, staged, event = pool.take(n_bytes)
+        _fill_blob(host[:n_bytes], *parts)
+        rc = lib.word_patch_staged_launch(
+            ctypes.c_void_p(pinned.data_ptr()),
+            ctypes.c_void_p(staged.data_ptr()), n_bytes, t, n,
+            ctypes.c_void_p(stream.cuda_stream))
+        event.record(stream)
     _check("word_patch", lib, rc)
     _count_launch("word_patch")
+
+
+def word_patch_launch_staged(staged: torch.Tensor, n_targets: int,
+                             n_pairs: int) -> None:
+    """K3's launch alone, on a blob already staged on the card (no count:
+    for timing the device side)."""
+    lib = _lib("word_patch")
+    _check("word_patch", lib, lib.word_patch_launch(
+        ctypes.c_void_p(staged.data_ptr()), n_targets, n_pairs,
+        _stream(staged)))
+
+
+def launch_floor(device) -> None:
+    """An empty kernel launched through K3's C path (the launch floor)."""
+    lib = _lib("word_patch")
+    stream = torch.cuda.current_stream(device)
+    _check("word_patch", lib, lib.word_patch_empty_launch(
+        ctypes.c_void_p(stream.cuda_stream)))
 
 
 def row_shift(words: torch.Tensor, n: int) -> torch.Tensor:

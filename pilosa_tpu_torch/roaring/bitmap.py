@@ -94,6 +94,21 @@ class Container:
         i = int(np.searchsorted(runs[:, 0], low, side="right")) - 1
         return i >= 0 and low <= int(runs[i, 1])
 
+    def contains_lows(self, lows: np.ndarray) -> np.ndarray:
+        """Membership of each uint16 low (bool), vectorized."""
+        if self.kind == BITMAP:
+            words = self.data[(lows >> np.uint16(6)).astype(np.int64)]
+            return ((words >> (lows & np.uint16(63)).astype(np.uint64))
+                    & np.uint64(1)).astype(bool)
+        data = self.data if self.kind == ARRAY else self.data[:, 0]
+        if data.size == 0:
+            return np.zeros(lows.size, bool)
+        if self.kind == ARRAY:
+            i = np.minimum(np.searchsorted(data, lows), data.size - 1)
+            return data[i] == lows
+        i = np.searchsorted(data, lows, side="right") - 1
+        return (i >= 0) & (lows <= self.data[np.maximum(i, 0), 1])
+
     def dense_words32(self) -> np.ndarray:
         """Container as 2048 uint32 words (65536 bits)."""
         if self.kind == BITMAP:
@@ -218,6 +233,13 @@ class RoaringBitmap:
             elif not remove and c is None and batch.size > ARRAY_MAX:
                 self._containers[key] = Container.from_lows(batch)
                 delta = int(batch.size)
+            if delta is None and c is not None:
+                # nothing to change (columns already marked existing, a
+                # clear of absent bits): skip decoding and re-sorting a
+                # run or array container of up to 65536 values
+                present = c.contains_lows(batch)
+                if present.all() if not remove else not present.any():
+                    delta = 0
             if delta is None:
                 existing = c.lows() if c is not None else np.empty(0, np.uint16)
                 if remove:

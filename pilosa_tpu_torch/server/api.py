@@ -4,9 +4,13 @@ The port's thin copy of ``pilosa_tpu.server.api``: schema writes, PQL
 queries answered as pre-serialized JSON bytes, bulk bit imports and int
 fields' value imports, with the reference's validation and error texts
 so both packages answer the same bytes. A write is acknowledged only
-once durable: every fragment op is fsynced before the call returns
-(per-op durability). Cluster, QoS, tracing, the cost plane, the result
-cache and multi-process serving are not ported yet.
+once durable (``_ack_durable``): in ``group`` mode the request waits for
+the WAL group holding its records to be fsynced, in ``per-op`` mode every
+record was fsynced inline, and ``flush-only`` promises nothing. Before
+that, the request's patches of resident leaves launch together
+(``DeviceRowCache.batch_writes``: one K3 launch a request). Cluster, QoS,
+tracing, the cost plane, the result cache and multi-process serving are
+not ported yet.
 """
 
 from __future__ import annotations
@@ -19,6 +23,7 @@ from pilosa_tpu_torch.pql import ParseError, parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
 from pilosa_tpu_torch.storage.field import TYPE_INT, FieldOptions
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+from pilosa_tpu_torch.storage.wal import MODE_FLUSH_ONLY
 
 # The reference's max-writes-per-request default: the most Set/Clear
 # calls in one query, and the most bits in one import body.
@@ -52,10 +57,21 @@ class API:
                     f"max-writes-per-request {self.max_writes_per_request}"
                 )
             if writes:
-                return self.executor.execute(index, query)
+                with self.holder.cache.batch_writes():
+                    results = self.executor.execute(index, query)
+                self._ack_durable()
+                return results
             return [d.result() for d in self.executor.submit(index, query)]
         except (ParseError, PQLError) as e:
             raise ApiError(str(e)) from e
+
+    def _ack_durable(self) -> None:
+        """The ACK gate: a 200 on a write means its op records are
+        fsynced (group mode waits for their group; per-op fsynced inline;
+        flush-only promises nothing)."""
+        wal = self.holder.wal
+        if wal.mode != MODE_FLUSH_ONLY:
+            wal.barrier()
 
     def query_json_bytes(self, index: str, pql: str) -> bytes:
         """The whole ``{"results": [...]}`` response envelope as bytes."""
@@ -113,18 +129,21 @@ class API:
         order, bounds, shards_sorted = shard_groups(columns)
         rows, columns = rows[order], columns[order]
         changed = 0
-        for i in range(bounds.size - 1):
-            lo, hi = int(bounds[i]), int(bounds[i + 1])
-            if clear:
-                for r, c in zip(rows[lo:hi].tolist(), columns[lo:hi].tolist()):
-                    changed += fld.clear_bit(int(r), int(c))
-                continue
-            shard = int(shards_sorted[lo])
-            pos = columns[lo:hi] & np.uint64(SHARD_WIDTH - 1)
-            idx.mark_columns_exist(columns[lo:hi])
-            frag = fld.view(VIEW_STANDARD, create=True).fragment(shard,
-                                                                 create=True)
-            changed += frag.bulk_import(rows[lo:hi], pos)
+        with self.holder.cache.batch_writes():
+            for i in range(bounds.size - 1):
+                lo, hi = int(bounds[i]), int(bounds[i + 1])
+                if clear:
+                    for r, c in zip(rows[lo:hi].tolist(),
+                                    columns[lo:hi].tolist()):
+                        changed += fld.clear_bit(int(r), int(c))
+                    continue
+                shard = int(shards_sorted[lo])
+                pos = columns[lo:hi] & np.uint64(SHARD_WIDTH - 1)
+                idx.mark_columns_exist(columns[lo:hi])
+                frag = fld.view(VIEW_STANDARD, create=True).fragment(
+                    shard, create=True)
+                changed += frag.bulk_import(rows[lo:hi], pos)
+        self._ack_durable()
         return int(changed)
 
     def import_values(self, index: str, field: str, columns, values,
@@ -144,19 +163,19 @@ class API:
             raise ApiError(f"column id out of range: {e}") from e
         if cols_i.size and cols_i.min() < 0:
             raise ApiError(f"column {int(cols_i.min())} is negative")
-        if clear:
-            changed = 0
-            for col in cols_i.tolist():
-                try:
-                    changed += fld.clear_value(int(col))
-                except ValueError as e:
-                    raise ApiError(str(e)) from e
-            return int(changed)
-        try:
-            changed = fld.import_values(cols_i.astype(np.uint64), values)
-        except (ValueError, OverflowError) as e:
-            raise ApiError(str(e)) from e
-        idx.mark_columns_exist(cols_i)
+        changed = 0
+        with self.holder.cache.batch_writes():
+            try:
+                if clear:
+                    for col in cols_i.tolist():
+                        changed += fld.clear_value(int(col))
+                else:
+                    changed = fld.import_values(cols_i.astype(np.uint64),
+                                                values)
+                    idx.mark_columns_exist(cols_i)
+            except (ValueError, OverflowError) as e:
+                raise ApiError(str(e)) from e
+        self._ack_durable()
         return int(changed)
 
     def recalculate_caches(self) -> None:

@@ -62,7 +62,7 @@ class RankCache:
     def save(self, path: str) -> None:
         """Write the sidecar atomically: fsynced under a temporary name,
         renamed, the directory fsynced."""
-        from pilosa_tpu_torch.storage.fragment import fsync_dir
+        from pilosa_tpu_torch.storage.wal import fsync_dir
 
         self._trim()
         tmp = path + ".tmp"

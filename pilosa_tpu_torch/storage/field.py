@@ -25,8 +25,8 @@ from pilosa_tpu_torch.shardwidth import (
     shard_of,
 )
 from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
-from pilosa_tpu_torch.storage.fragment import fsync_dir
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, View, view_name_bsi
+from pilosa_tpu_torch.storage.wal import fsync_dir
 
 TYPE_SET = "set"
 TYPE_INT = "int"
@@ -100,7 +100,7 @@ class FieldOptions:
 class Field:
     def __init__(self, path: str, index: str, name: str,
                  options: FieldOptions | None = None, scope: str = "",
-                 cache=None, verify_on_load: bool = False):
+                 cache=None, verify_on_load: bool = False, wal=None):
         self.path = path
         self.index = index
         self.name = name
@@ -108,6 +108,7 @@ class Field:
         self.scope = scope
         self.cache = cache
         self.verify_on_load = verify_on_load
+        self.wal = wal
         self.views: dict[str, View] = {}
         self._create_lock = threading.Lock()
 
@@ -136,7 +137,7 @@ class Field:
                     self.name, name, scope=self.scope, cache=self.cache,
                     cache_type=self.options.cache_type,
                     cache_size=self.options.cache_size,
-                    verify_on_load=self.verify_on_load)
+                    verify_on_load=self.verify_on_load, wal=self.wal)
 
     def _save_meta(self) -> None:
         meta = os.path.join(self.path, ".meta")

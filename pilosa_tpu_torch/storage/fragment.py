@@ -6,11 +6,15 @@ file is a roaring snapshot followed by an append-only op log, in the
 reference's byte layout, compacted once the op count crosses a
 threshold; opening replays the log (torn tails dropped).
 
-Durability is the reference's ``per-op`` mode: a write is acknowledged
-only after its op record is appended to this fragment's file and
-fsynced. (The group-commit WAL is not ported yet, and no weaker mode is
-offered.) Every mutation emits a ``WriteEvent`` to the holder's residency
-cache, which patches the dependent resident leaves in place.
+Where the op log lives depends on the holder's durability mode
+(``storage/wal.py``): ``group`` routes each record through the holder's
+group-commit WAL (one fsync per group of concurrent writers; the file
+holds snapshots only, and a clean close snapshots a dirty fragment);
+``per-op`` appends to this fragment's own file and fsyncs it before the
+mutator returns; ``flush-only`` appends and flushes without an fsync. A
+fragment built without a WAL logs as ``per-op``. Every mutation emits a
+``WriteEvent`` to the holder's residency cache, which patches the
+dependent resident leaves.
 
 The reference's sidecars are kept as it keeps them: every snapshot
 writes the ``.checksums`` block digests (``storage/integrity.py``), which
@@ -49,6 +53,7 @@ from pilosa_tpu_torch.storage.integrity import (
     save_checksums,
 )
 from pilosa_tpu_torch.storage.residency import WriteEvent
+from pilosa_tpu_torch.storage.wal import MODE_PER_OP, fsync_dir, wal_fsync
 
 # Snapshot (compact) once this many op records have accumulated (the
 # reference's DEFAULT_SNAPSHOT_OP_THRESHOLD).
@@ -56,15 +61,6 @@ DEFAULT_SNAPSHOT_OP_THRESHOLD = 2048
 
 # The row-count cache's sidecar beside the fragment file.
 ROW_CACHE_SUFFIX = ".cache"
-
-
-def fsync_dir(path: str) -> None:
-    """Make a rename or unlink in ``path`` durable."""
-    fd = os.open(path, os.O_RDONLY)
-    try:
-        os.fsync(fd)
-    finally:
-        os.close(fd)
 
 
 def _unlink(path: str) -> None:
@@ -93,7 +89,7 @@ class Fragment:
                  snapshot_threshold: int = DEFAULT_SNAPSHOT_OP_THRESHOLD,
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
-                 verify_on_load: bool = False):
+                 verify_on_load: bool = False, wal=None):
         self.path = path
         self.index = index
         self.field = field
@@ -101,6 +97,9 @@ class Fragment:
         self.shard = shard
         self.scope = scope
         self.cache = cache  # the holder's DeviceRowCache (None: no device)
+        # the holder's WriteAheadLog (None: log per-op to this file)
+        self.wal = wal
+        self.wal_key = f"{index}/{field}/{view}/{shard}"
         self.frag_id = (scope, index, field, view, shard)
         self.bitmap = RoaringBitmap()
         self.op_n = 0
@@ -156,15 +155,37 @@ class Fragment:
             self.snapshot()
         return self
 
-    def close(self) -> None:
+    def close(self, discard: bool = False) -> None:
+        """``discard``: the caller is about to unlink the files (a shard
+        delete that replay redoes), so nothing is written first."""
         with self.lock:
             if not self._open:
                 return
-            try:
-                self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
-            except OSError:
-                pass  # derived data: recalculate_cache rebuilds it
+            grouped = self.wal is not None and self.wal.grouped
+            if not discard:
+                if grouped and self.op_n > 0:
+                    # group mode keeps ops only in the WAL: a clean close
+                    # snapshots, so the file is self-contained and the WAL
+                    # can be dropped. A failed snapshot leaves the ops in
+                    # their segments for the next open's recover().
+                    try:
+                        self._snapshot_locked()
+                    except OSError:
+                        pass
+                try:
+                    self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
+                except OSError:
+                    pass  # derived data: recalculate_cache rebuilds it
+            elif grouped:
+                self.wal.discard_key(self.wal_key)
             if self._file is not None:
+                if self.op_n > 0 and not discard and not grouped:
+                    # flush-only's op tail: one fsync a fragment at close
+                    try:
+                        self._file.flush()
+                        os.fsync(self._file.fileno())
+                    except OSError:
+                        pass
                 self._file.close()
                 self._file = None
             if self.cache is not None:
@@ -366,12 +387,39 @@ class Fragment:
     def _log_op(self, op: int, ids) -> None:
         if self._file is None:
             raise RuntimeError(f"fragment {self.path} is closed")
-        self._file.write(encode_op(op, ids))
-        self._file.flush()
-        os.fsync(self._file.fileno())
+        record = encode_op(op, ids)
+        wal = self.wal
+        if wal is not None and wal.grouped:
+            # the record rides the holder's WAL; the ACK point barriers on
+            # it, so the mutator never waits on the disk under this lock
+            wal.append_op(self.wal_key, record, self)
+        else:
+            self._file.write(record)
+            self._file.flush()
+            if wal is None or wal.mode == MODE_PER_OP:
+                wal_fsync(self._file.fileno())
         self.op_n += 1
         if self.op_n > self.snapshot_threshold:
             self._snapshot_locked()
+
+    def apply_recovered(self, op: int, ids) -> None:
+        """Apply one replayed WAL op (holder open): the bitmap change
+        without logging; the caller snapshots and recounts the row cache
+        once per touched fragment afterwards. Dependent resident leaves
+        are invalidated or rebuilt from the host, not patched."""
+        ids = np.atleast_1d(np.asarray(ids, np.uint64))
+        with self.lock:
+            if op == OP_ADD:
+                self.bitmap.add_ids(ids)
+            else:
+                self.bitmap.remove_ids(ids)
+            self.mutations += 1
+        if self.cache is not None:
+            self.cache.invalidate_fragment(self.frag_id)
+            for row in np.unique(ids >> np.uint64(20)).tolist():
+                self.cache.apply_write(WriteEvent(
+                    self.index, self.field, self.view, self.shard, row,
+                    scope=self.scope))
 
     def snapshot(self) -> None:
         """Compact: rewrite the file as a clean snapshot, dropping the log."""
@@ -394,6 +442,10 @@ class Fragment:
         # the digests of exactly these bytes, for verify-on-load
         save_checksums(self.path + CHECKSUM_SUFFIX,
                        block_digests(self.bitmap.iter_ids(), BLOCK_ROWS))
+        if self.wal is not None:
+            # the lock is held: every op of this fragment appended so far
+            # is in the snapshot and no longer pins a WAL segment
+            self.wal.note_snapshot(self.wal_key, self.wal.current_seq())
         self.op_n = 0
         if self._open:
             self._file = open(self.path, "ab")

@@ -2,16 +2,18 @@
 
 The port's thin copy of ``pilosa_tpu.storage.holder``. It opens the same
 directory layout, so a data directory written by either package opens in
-the other once the writer has closed it cleanly (the reference's
-group-commit WAL is empty after a clean close; this package does not
-replay WAL segments, and refuses a directory that still holds some). The
-holder owns the device residency cache that every fragment reports its
-writes to.
+the other. The holder owns the write-ahead log every fragment logs
+through (``storage/wal.py``): ``durability_mode`` selects group commit
+(the default), per-op fsync or flush-only, and ``open()`` replays the
+segments a crash left behind, whichever package wrote them, before
+serving. It also owns the device residency cache that every fragment
+reports its writes to.
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import threading
 
 from pilosa_tpu_torch import device as device_mod
@@ -20,47 +22,59 @@ from pilosa_tpu_torch.storage.residency import (
     DEFAULT_BUDGET_BYTES,
     DeviceRowCache,
 )
-
-
-def _wal_has_ops(data_dir: str) -> bool:
-    wal = os.path.join(data_dir, ".wal")
-    if not os.path.isdir(wal):
-        return False
-    return any(os.path.getsize(os.path.join(wal, f)) > 0
-               for f in os.listdir(wal)
-               if os.path.isfile(os.path.join(wal, f)))
+from pilosa_tpu_torch.storage.wal import (
+    DEFAULT_GROUP_MAX_MS,
+    DEFAULT_GROUP_MAX_OPS,
+    MODE_GROUP,
+    WriteAheadLog,
+)
 
 
 class Holder:
     def __init__(self, data_dir: str, device=None,
                  budget_bytes: int = DEFAULT_BUDGET_BYTES,
-                 verify_on_load: bool = True):
+                 verify_on_load: bool = True,
+                 durability_mode: str = MODE_GROUP,
+                 group_commit_max_ms: float = DEFAULT_GROUP_MAX_MS,
+                 group_commit_max_ops: int = DEFAULT_GROUP_MAX_OPS):
         self.data_dir = os.path.expanduser(data_dir)
         # every fragment's snapshot is checked against its .checksums
         # sidecar on open (the reference holder's default)
         self.verify_on_load = bool(verify_on_load)
+        self.wal = WriteAheadLog(os.path.join(self.data_dir, ".wal"),
+                                 mode=durability_mode,
+                                 group_max_ms=group_commit_max_ms,
+                                 group_max_ops=group_commit_max_ops)
         self.device = device_mod.resolve(device)
         self.cache = DeviceRowCache(budget_bytes, self.device)
         self.indexes: dict[str, Index] = {}
         self._create_lock = threading.Lock()
 
+    def _index(self, path: str, name: str, **kw) -> Index:
+        return Index(path, name, cache=self.cache, wal=self.wal,
+                     verify_on_load=self.verify_on_load, **kw).open()
+
     def open(self) -> "Holder":
         os.makedirs(self.data_dir, exist_ok=True)
-        if _wal_has_ops(self.data_dir):
-            raise RuntimeError(
-                f"{self.data_dir} holds unreplayed write-ahead-log segments; "
-                "open and close it with pilosa_tpu first")
         for entry in sorted(os.listdir(self.data_dir)):
             p = os.path.join(self.data_dir, entry)
-            if os.path.isdir(p) and not entry.startswith("."):
-                self.indexes[entry] = Index(
-                    p, entry, cache=self.cache,
-                    verify_on_load=self.verify_on_load).open()
+            if entry.startswith(".trash-"):
+                # a reference delete_index crashed between rename and rmtree
+                shutil.rmtree(p, ignore_errors=True)
+            elif os.path.isdir(p) and not entry.startswith("."):
+                self.indexes[entry] = self._index(p, entry)
+        # replay the acknowledged but unsnapshotted ops a crash left in
+        # the WAL (in any mode), snapshot what they touched, start afresh
+        self.wal.recover(self)
+        self.wal.start()
         return self
 
     def close(self) -> None:
         for idx in list(self.indexes.values()):
-            idx.close()
+            idx.close()  # group mode: dirty fragments snapshot here
+        # every fragment snapshotted: the WAL truncates to nothing (a
+        # failed snapshot leaves its segment for the next recover())
+        self.wal.close()
         self.cache.clear()
 
     def create_index(self, name: str, keys: bool = False,
@@ -71,9 +85,8 @@ class Holder:
             if name in self.indexes:
                 raise ValueError(f"index {name!r} already exists")
             _validate_name(name)
-            idx = Index(os.path.join(self.data_dir, name), name,
-                        track_existence=track_existence, cache=self.cache,
-                        verify_on_load=self.verify_on_load).open()
+            idx = self._index(os.path.join(self.data_dir, name), name,
+                              track_existence=track_existence)
             self.indexes[name] = idx
             return idx
 

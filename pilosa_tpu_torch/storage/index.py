@@ -15,8 +15,8 @@ import numpy as np
 
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
 from pilosa_tpu_torch.storage.field import Field, FieldOptions, TYPE_SET
-from pilosa_tpu_torch.storage.fragment import fsync_dir
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+from pilosa_tpu_torch.storage.wal import fsync_dir
 
 EXISTENCE_FIELD = "_exists"
 
@@ -24,7 +24,7 @@ EXISTENCE_FIELD = "_exists"
 class Index:
     def __init__(self, path: str, name: str, keys: bool = False,
                  track_existence: bool = True, cache=None,
-                 verify_on_load: bool = False):
+                 verify_on_load: bool = False, wal=None):
         self.path = path
         self.name = name
         # residency scope: unique per holder data dir, so two holders in
@@ -34,6 +34,7 @@ class Index:
         self.track_existence = track_existence
         self.cache = cache
         self.verify_on_load = verify_on_load
+        self.wal = wal
         self.fields: dict[str, Field] = {}
         self._create_lock = threading.Lock()
         # schema epoch: bumped on field create so cached plans revalidate
@@ -55,7 +56,7 @@ class Index:
             if os.path.isdir(p) and not entry.startswith("."):
                 self.fields[entry] = Field(
                     p, self.name, entry, scope=self.scope, cache=self.cache,
-                    verify_on_load=self.verify_on_load).open()
+                    verify_on_load=self.verify_on_load, wal=self.wal).open()
         if self.track_existence and EXISTENCE_FIELD not in self.fields:
             self.create_field(EXISTENCE_FIELD,
                               FieldOptions(type=TYPE_SET, cache_type="none"))
@@ -85,7 +86,8 @@ class Index:
             _validate_name(name, allow_internal=name == EXISTENCE_FIELD)
             field = Field(os.path.join(self.path, name), self.name, name,
                           options, scope=self.scope, cache=self.cache,
-                          verify_on_load=self.verify_on_load).open()
+                          verify_on_load=self.verify_on_load,
+                          wal=self.wal).open()
             self.fields[name] = field
             self.plan_epoch += 1
             return field

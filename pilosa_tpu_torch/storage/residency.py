@@ -7,23 +7,34 @@ stay the source of truth; a miss decodes on the host and uploads.
 
 Derived entries (the executor's stacked query leaves) register an
 *updater*: a write to one fragment row becomes an in-place patch of the
-affected shard slot (kernel K3, ``kernels.word_patch``) instead of an
-eviction. Because the patch is in place, the cache tells its patch
+affected shard slot (kernel K3, ``kernels.word_patch_batch``) instead of
+an eviction. Because the patch is in place, the cache tells its patch
 listeners (the executors) which tensor is about to change first, so a
 queued micro-batch holding it launches before the write lands — the
 submit-time snapshot that the JAX package gets from functional updates.
-The compressed and host tiers are not ported yet.
+
+Patches are collected, not launched one by one: inside a
+``batch_writes()`` scope (one write request) they wait until the scope
+closes and then go to the card in as few K3 launches as ordering allows
+(one, unless a row is patched both ways); outside a scope each write
+flushes at once. Any lookup flushes first, so a read sees every write
+collected before it, and collection keeps the order of the fragments'
+writes across threads, so the leaves end as the host rows are. The
+compressed and host tiers are not ported yet.
 """
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import weakref
 from collections import OrderedDict
-from typing import Callable
+from typing import Callable, NamedTuple
 
 import numpy as np
 import torch
+
+from pilosa_tpu_torch import kernels
 
 # Default device budget for resident leaves: 16 GiB of an 80 GB card.
 DEFAULT_BUDGET_BYTES = 16 << 30
@@ -50,6 +61,54 @@ class WriteEvent:
         self.positions = positions
         self.added = added
         self.scope = scope
+
+
+class WordPatch(NamedTuple):
+    """One K3 patch of a resident leaf: word masks ORed into (or, with
+    ``clear``, cleared from) ``leaf[slot]``, or ``leaf[slot, row]`` when
+    ``row`` is not None. ``word_idx`` ascends, unique."""
+
+    slot: int
+    row: int | None
+    word_idx: np.ndarray
+    masks: np.ndarray
+    clear: bool
+
+
+def merge_word_patches(patches) -> list:
+    """``(leaf, WordPatch)`` pairs in write order → K3 launches, each a
+    list of ``word_patch_batch`` targets holding every row at most once.
+    A row's patches merge on the host while they go one way; a row
+    patched the other way starts the next launch, so the writes apply in
+    their order."""
+    launches, cur = [], {}
+    for leaf, p in patches:
+        key = (leaf.data_ptr(), p.slot, p.row)
+        prev = cur.get(key)
+        if prev is not None and prev[3] != p.clear:
+            launches.append(cur)
+            cur, prev = {}, None
+        if prev is None:
+            cur[key] = (leaf, p.slot, p.row, p.clear, [p.word_idx],
+                        [p.masks])
+        else:
+            prev[4].append(p.word_idx)
+            prev[5].append(p.masks)
+    if cur:
+        launches.append(cur)
+    out = []
+    for launch in launches:
+        targets = []
+        for leaf, slot, row, clear, words, masks in launch.values():
+            if len(words) == 1:
+                w, m = words[0], masks[0]
+            else:
+                w, inv = np.unique(np.concatenate(words), return_inverse=True)
+                m = np.zeros(w.size, np.uint32)
+                np.bitwise_or.at(m, inv, np.concatenate(masks))
+            targets.append((leaf, slot, row, w, m, clear))
+        out.append(targets)
+    return out
 
 
 def upload(host: np.ndarray, device) -> torch.Tensor:
@@ -89,6 +148,10 @@ class DeviceRowCache:
         # the entry after its unlocked decode
         self._pending_builds: dict[tuple, list] = {}
         self._build_done = threading.Condition(self._lock)
+        # K3 patches collected in write order, (leaf, WordPatch), and the
+        # per-thread depth of open batch_writes() scopes
+        self._patches: list = []
+        self._scope = threading.local()
 
     @property
     def bytes_used(self) -> int:
@@ -110,7 +173,41 @@ class DeviceRowCache:
                 live.append(ref)
         self._patch_listeners = live
 
+    @contextlib.contextmanager
+    def batch_writes(self):
+        """One write request's scope: the K3 patches its writes collect
+        launch together when the outermost scope of this thread closes
+        (before the request's acknowledgement)."""
+        depth = getattr(self._scope, "depth", 0)
+        self._scope.depth = depth + 1
+        try:
+            yield
+        finally:
+            self._scope.depth = depth
+            if depth == 0:
+                with self._lock:
+                    self._flush_patches_locked()
+
+    def _flush_patches_locked(self) -> None:
+        if not self._patches:
+            return
+        patches, self._patches = self._patches, []
+        for targets in merge_word_patches(patches):
+            kernels.word_patch_batch(targets)
+
+    def _route_locked(self, arr: torch.Tensor, apply) -> None:
+        """Collect a K3 patch of ``arr``, or run a host row decode (after
+        the patches collected before it, to keep the writes' order)."""
+        self._before_patch(arr)
+        if isinstance(apply, WordPatch):
+            self._patches.append((arr, apply))
+        else:
+            self._flush_patches_locked()
+            apply(arr)
+        self.updates += 1
+
     def _lookup_locked(self, key: tuple):
+        self._flush_patches_locked()  # a read sees every collected write
         arr = self._rows.get(key)
         if arr is not None:
             self.hits += 1
@@ -177,7 +274,8 @@ class DeviceRowCache:
                 for ev in buf:  # replay writes that landed mid-decode
                     apply = reg[1](ev)
                     if apply is not None and key in self._rows:
-                        apply(self._rows[key])
+                        self._route_locked(arr, apply)
+                self._flush_patches_locked()
                 return arr
             finally:
                 self._pending_builds.pop(key, None)
@@ -243,13 +341,13 @@ class DeviceRowCache:
                 if key not in self._rows:
                     self.invalidate(key)
                     continue
-                arr = self._rows[key]
-                self._before_patch(arr)
-                apply(arr)
-                self.updates += 1
+                self._route_locked(self._rows[key], apply)
+            if getattr(self._scope, "depth", 0) == 0:
+                self._flush_patches_locked()
 
     def clear(self) -> None:
         with self._lock:
+            self._patches.clear()
             self._rows.clear()
             self._updaters.clear()
             self._tag_index.clear()

@@ -22,12 +22,23 @@ def view_name_bsi(field_name: str) -> str:
     return f"bsig_{field_name}"
 
 
+def _each(fn, frags: list) -> None:
+    """``fn`` on every fragment, in up to 8 threads."""
+    workers = min(8, os.cpu_count() or 1, len(frags))
+    if workers > 1:
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(fn, frags))
+    else:
+        for frag in frags:
+            fn(frag)
+
+
 class View:
     def __init__(self, path: str, index: str, field: str, name: str,
                  scope: str = "", cache=None,
                  cache_type: str = CACHE_TYPE_RANKED,
                  cache_size: int = DEFAULT_CACHE_SIZE,
-                 verify_on_load: bool = False):
+                 verify_on_load: bool = False, wal=None):
         self.path = path  # .../views/<name>
         self.index = index
         self.field = field
@@ -37,6 +48,7 @@ class View:
         self.cache_type = cache_type
         self.cache_size = cache_size
         self.verify_on_load = verify_on_load
+        self.wal = wal
         self.fragments: dict[int, Fragment] = {}
         # serializes first-write fragment creation: two writers racing an
         # unlocked check-then-create would get distinct Fragment objects
@@ -49,7 +61,7 @@ class View:
                         scope=self.scope, cache=self.cache,
                         cache_type=self.cache_type,
                         cache_size=self.cache_size,
-                        verify_on_load=self.verify_on_load)
+                        verify_on_load=self.verify_on_load, wal=self.wal)
 
     def open(self) -> "View":
         """Open every fragment file, several at once: verifying a
@@ -59,19 +71,14 @@ class View:
         os.makedirs(frag_dir, exist_ok=True)
         frags = [self._new_fragment(int(entry))
                  for entry in sorted(os.listdir(frag_dir)) if entry.isdigit()]
-        workers = min(8, os.cpu_count() or 1, len(frags))
-        if workers > 1:
-            with ThreadPoolExecutor(workers) as pool:
-                list(pool.map(Fragment.open, frags))
-        else:
-            for frag in frags:
-                frag.open()
+        _each(Fragment.open, frags)
         self.fragments.update((f.shard, f) for f in frags)
         return self
 
     def close(self) -> None:
-        for frag in list(self.fragments.values()):
-            frag.close()
+        """Close every fragment, several at once: in group mode each dirty
+        one snapshots and digests its bit ids."""
+        _each(Fragment.close, list(self.fragments.values()))
 
     def fragment(self, shard: int, create: bool = False) -> Fragment | None:
         frag = self.fragments.get(shard)

@@ -75,11 +75,89 @@ def test_word_patch_matches_plain(dev, clear):
     pos = rng.choice(W * 32, 500, replace=False).astype(np.uint32)
     word_idx, masks = batch._word_masks(np.union1d(pos, pos | 31))
     k, p = leaf.clone(), leaf.clone()
-    kernels.word_patch(k, 2, word_idx, masks, word_idx.size, clear)
-    kernels.word_patch_plain(p, 2, np.stack([word_idx, masks.view(np.int32)]),
-                             clear)
+    kernels.word_patch_batch([(k, 2, None, word_idx, masks, clear)])
+    kernels.word_patch_batch_plain([(p, 2, None, word_idx, masks, clear)])
     assert torch.equal(k, p)
     assert torch.equal(k[:2], leaf[:2]) and torch.equal(k[3:], leaf[3:])
+
+
+def _mixed_targets(rng, flat, planes, n_targets):
+    """Distinct (leaf, slot[, row]) targets of both directions."""
+    spots = [(0, s, None) for s in range(flat.shape[0])] + \
+        [(1, s, r) for s in range(planes.shape[0])
+         for r in range(planes.shape[1])]
+    picks = rng.choice(len(spots), n_targets, replace=False)
+    out = []
+    for i in picks:
+        leaf_i, slot, row = spots[i]
+        pos = rng.choice(W * 32, int(rng.integers(1, 600)),
+                         replace=False).astype(np.uint32)
+        w, m = batch._word_masks(np.union1d(pos, pos | 31))
+        out.append((leaf_i, slot, row, w, m, bool(rng.integers(0, 2))))
+    return out
+
+
+@pytest.mark.parametrize("n_targets", [1, 7, 30])
+def test_word_patch_batch_mixed_matches_plain(dev, n_targets):
+    """One launch over [S, W] and [S, R, W] targets of both directions,
+    bit-exact against the plain version; the staging buffers are reused
+    and grown across many batches."""
+    flat, planes = _leaves(dev, 1, (8, W), 40)[0], \
+        _leaves(dev, 1, (4, 6, W), 41)[0]
+    rng = np.random.default_rng(42 + n_targets)
+    k = [flat.clone(), planes.clone()]
+    p = [flat.clone(), planes.clone()]
+    before = kernels.launches()["word_patch"]
+    for _ in range(9):
+        spec = _mixed_targets(rng, flat, planes, n_targets)
+        kernels.word_patch_batch([(k[i], s, r, w, m, c)
+                                  for i, s, r, w, m, c in spec])
+        kernels.word_patch_batch_plain([(p[i], s, r, w, m, c)
+                                        for i, s, r, w, m, c in spec])
+    torch.cuda.synchronize()
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
+    assert kernels.launches()["word_patch"] - before == 9
+
+
+def test_word_patch_staging_never_waits(dev):
+    """Batches issued while the stream is still busy take new staging
+    buffers instead of waiting for the card; once it is idle, a buffer is
+    reused. Each batch still lands in order, as the plain version has it;
+    the launch floor's empty kernel runs."""
+    flat, planes = _leaves(dev, 1, (8, W), 43)[0], \
+        _leaves(dev, 1, (4, 6, W), 44)[0]
+    rng = np.random.default_rng(45)
+    k = [flat.clone(), planes.clone()]
+    p = [flat.clone(), planes.clone()]
+    specs = []
+
+    def patch():
+        specs.append(_mixed_targets(rng, flat, planes, 5))
+        kernels.word_patch_batch([(k[i], s, r, w, m, c)
+                                  for i, s, r, w, m, c in specs[-1]])
+
+    patch()  # builds the kernel and makes the device's pool
+    torch.cuda.synchronize()
+    pool = kernels._pool(flat.device)
+    assert kernels._pool(dev) is pool
+    held = len(pool.slots)
+    torch.cuda._sleep(1 << 30)  # keeps the stream busy for about 0.5 s
+    for _ in range(3):
+        patch()
+    # the plain version (which copies to the card) runs only after this
+    assert not torch.cuda.current_stream(dev).query(), \
+        "a staged batch waited for the card"
+    assert len(pool.slots) >= 3
+    torch.cuda.synchronize()
+    grown = len(pool.slots)
+    patch()
+    kernels.launch_floor(dev)
+    torch.cuda.synchronize()
+    assert len(pool.slots) == grown >= held
+    for spec in specs:
+        kernels.word_patch_batch_plain([(p[i], s, r, w, m, c)
+                                        for i, s, r, w, m, c in spec])
+    assert torch.equal(k[0], p[0]) and torch.equal(k[1], p[1])
 
 
 def test_tree_rows_not_matches_plain(dev):
@@ -97,9 +175,8 @@ def test_word_patch_row_form_matches_plain(dev, clear):
     pos = rng.choice(W * 32, 500, replace=False).astype(np.uint32)
     word_idx, masks = batch._word_masks(np.union1d(pos, pos | 31))
     k, p = leaf.clone(), leaf.clone()
-    kernels.word_patch(k, 2, word_idx, masks, word_idx.size, clear, row=4)
-    kernels.word_patch_plain(p, 2, np.stack([word_idx, masks.view(np.int32)]),
-                             clear, row=4)
+    kernels.word_patch_batch([(k, 2, 4, word_idx, masks, clear)])
+    kernels.word_patch_batch_plain([(p, 2, 4, word_idx, masks, clear)])
     assert torch.equal(k, p)
     k[2, 4] = leaf[2, 4]
     assert torch.equal(k, leaf)  # nothing but slot 2's row 4 changed

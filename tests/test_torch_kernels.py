@@ -148,16 +148,15 @@ def test_word_patch_matches_delta_with_bit31_and_pads(clear):
     fn = jbatch._andnot_delta if clear else jbatch._or_delta
     want = np.asarray(fn(arr, 2, jw, jm))
 
-    leaf = _t(arr.copy())
-    kernels.word_patch(leaf, 2, jw, jm, n_real, clear)  # pads past n_real
-    assert np.array_equal(_u(leaf), want)
-
     # the port's own masks are the reference's without the padding
     pw, pm = batch._word_masks(positions)
     assert np.array_equal(pw, jw[:n_real]) and np.array_equal(pm, jm[:n_real])
     leaf = _t(arr.copy())
-    kernels.word_patch(leaf, 2, pw, pm, pw.size, clear)
+    kernels.word_patch_batch([(leaf, 2, None, pw, pm, clear)])
     assert np.array_equal(_u(leaf), want)
+    # the reference's pads repeat word 0: K3 takes no pad
+    with pytest.raises(ValueError):
+        kernels.word_patch_batch([(_t(arr.copy()), 2, None, jw, jm, clear)])
 
 
 @pytest.mark.parametrize("clear", [False, True])
@@ -172,14 +171,93 @@ def test_word_patch_row_form_matches_delta_row(clear):
     want = np.asarray(fn(arr, 1, 3, jw, jm))
     leaf = _t(arr.copy())
     pw, pm = batch._word_masks(positions)
-    kernels.word_patch(leaf, 1, pw, pm, pw.size, clear, row=3)
+    kernels.word_patch_batch([(leaf, 1, 3, pw, pm, clear)])
     assert np.array_equal(_u(leaf), want)
     with pytest.raises(IndexError):
-        kernels.word_patch(leaf, 1, pw, pm, pw.size, clear, row=5)
+        kernels.word_patch_batch([(leaf, 1, 5, pw, pm, clear)])
     with pytest.raises(ValueError):
-        kernels.word_patch(leaf[:, 0].contiguous(), 1, pw, pm, pw.size,
-                           clear, row=0)
+        kernels.word_patch_batch([(leaf[:, 0].contiguous(), 1, 0, pw, pm,
+                                   clear)])
 
+
+def _positions(rng, n: int) -> np.ndarray:
+    pos = rng.choice(W * 32, n, replace=False).astype(np.uint32)
+    return np.union1d(pos, (pos & ~np.uint32(31)) | 31)
+
+
+@pytest.mark.parametrize("seed", [31, 32, 33])
+def test_word_patch_batch_plain_matches_reference_forms(seed):
+    """One K3 batch of mixed targets (two [S, W] leaves, an [S, R, W]
+    leaf, several slots and rows, both directions) against the
+    reference's _or_delta / _andnot_delta and their _row forms applied
+    one by one."""
+    rng = np.random.default_rng(seed)
+    flat = [rng.integers(0, 1 << 32, (4, W), dtype=np.uint32)
+            for _ in range(2)]
+    planes = rng.integers(0, 1 << 32, (4, 5, W), dtype=np.uint32)
+    leaves = [_t(a.copy()) for a in flat] + [_t(planes.copy())]
+    want = [a.copy() for a in flat] + [planes.copy()]
+    targets = []
+    spots = [(0, 0, None), (0, 3, None), (1, 3, None), (2, 1, 0), (2, 1, 4),
+             (2, 3, 4), (1, 0, None)]
+    for k, (leaf_i, slot, row) in enumerate(spots):
+        clear = bool(rng.integers(0, 2))
+        pos = _positions(rng, int(rng.integers(1, 400)))
+        jw, jm = jbatch._word_masks(pos)
+        if row is None:
+            fn = jbatch._andnot_delta if clear else jbatch._or_delta
+            want[leaf_i] = np.asarray(fn(want[leaf_i], slot, jw, jm))
+        else:
+            fn = jbatch._andnot_delta_row if clear else jbatch._or_delta_row
+            want[leaf_i] = np.asarray(fn(want[leaf_i], slot, row, jw, jm))
+        pw, pm = batch._word_masks(pos)
+        targets.append((leaves[leaf_i], slot, row, pw, pm, clear))
+    order = rng.permutation(len(targets))  # one row a target: any order
+    kernels.word_patch_batch([targets[i] for i in order])
+    for got, w in zip(leaves, want):
+        assert np.array_equal(_u(got), w)
+    blob, t, n = kernels.word_patch_pack(targets)
+    assert (t, n) == (len(targets), sum(x[3].size for x in targets))
+    assert blob.size == 16 * t + 4 + 8 * n
+
+
+def test_word_patches_of_one_row_both_ways_apply_in_order():
+    """Set then Clear of one bit (and Clear then Set of another) in one
+    request: merge_word_patches splits the batch where a row turns, so
+    the last write wins, as the reference's patches applied one by one."""
+    from pilosa_tpu_torch.storage.residency import (
+        WordPatch,
+        merge_word_patches,
+    )
+
+    arr = np.zeros((2, W), np.uint32)
+    arr[1, 9] = 1 << 4
+    leaf = _t(arr.copy())
+    one = np.array([7], np.int32)
+    nine = np.array([9], np.int32)
+    bit = np.array([1 << 31], np.uint32)
+    patches = [(leaf, WordPatch(1, None, one, bit, False)),   # Set
+               (leaf, WordPatch(0, None, one, bit, False)),   # other slot
+               (leaf, WordPatch(1, None, nine, bit, False)),  # merges
+               (leaf, WordPatch(1, None, one, bit, True)),    # Clear: splits
+               (leaf, WordPatch(1, None, nine,
+                                np.array([1 << 4], np.uint32), True)),
+               (leaf, WordPatch(1, None, nine,
+                                np.array([1 << 4], np.uint32), False))]
+    launches = merge_word_patches(patches)
+    assert len(launches) == 3
+    assert [len(t) for t in launches] == [2, 1, 1]
+    assert launches[0][0][3].tolist() == [7, 9]  # one merged target
+    jnp_apply = arr.copy()
+    for p in [p for _, p in patches]:
+        fn = jbatch._andnot_delta if p.clear else jbatch._or_delta
+        jnp_apply = np.asarray(fn(jnp_apply, p.slot, p.word_idx, p.masks))
+    want = jnp_apply
+    for targets in launches:
+        kernels.word_patch_batch(targets)
+    assert np.array_equal(_u(leaf), want)
+    assert want[1, 7] == 0 and want[0, 7] == 1 << 31
+    assert want[1, 9] == (1 << 31) | (1 << 4)
 
 def test_flipall_program_matches_reference_rows():
     """OP_NOT: the grammar's flipall in K2's program."""
@@ -198,16 +276,23 @@ def test_flipall_program_matches_reference_rows():
 
 def test_word_patch_rejects_bad_input():
     leaf = torch.zeros((2, W), dtype=torch.int32)
+    one, m = np.array([0]), np.array([1])
     with pytest.raises(IndexError):
-        kernels.word_patch(leaf, 2, np.array([0]), np.array([1]), 1, False)
+        kernels.word_patch_batch([(leaf, 2, None, one, m, False)])
     with pytest.raises(IndexError):
-        kernels.word_patch(leaf, 0, np.array([W]), np.array([1]), 1, False)
+        kernels.word_patch_batch([(leaf, 0, None, np.array([W]), m, False)])
     with pytest.raises(ValueError):
-        kernels.word_patch(leaf, 0, np.array([3, 3]), np.array([1, 2]), 2,
-                           False)
+        kernels.word_patch_batch([(leaf, 0, None, np.array([3, 3]),
+                                   np.array([1, 2]), False)])
+    with pytest.raises(ValueError):  # two targets on one row
+        kernels.word_patch_batch([(leaf, 0, None, one, m, False),
+                                  (leaf, 0, None, np.array([5]), m, True)])
+    with pytest.raises(ValueError):  # a target without a pair
+        kernels.word_patch_batch([(leaf, 0, None, one[:0], m[:0], False)])
     with pytest.raises(TypeError):
-        kernels.word_patch(leaf.to(torch.int64), 0, np.array([0]),
-                           np.array([1]), 1, False)
+        kernels.word_patch_batch([(leaf.to(torch.int64), 0, None, one, m,
+                                   False)])
+    assert torch.equal(leaf, torch.zeros_like(leaf))
 
 
 def test_program_checks():

@@ -1,13 +1,14 @@
 """Data directories shared by pilosa_tpu and the port: each opens the other's.
 
-The reference holder is closed before the port opens its directory: in
-its default group-commit mode the ops live in WAL segments until a clean
-close snapshots every fragment, so the port needs no WAL replay.
+Here each holder is closed before the other opens its directory;
+``test_torch_wal.py`` opens directories copied from a live holder, whose
+acknowledged ops still sit in the write-ahead log.
 """
 
 import json
 import os
 import shutil
+import threading
 import urllib.request
 
 import numpy as np
@@ -194,16 +195,6 @@ def test_dense_load_writes_the_reference_bytes(tmp_path, density):
                 assert a.read() == b.read(), name
 
 
-def test_port_refuses_unreplayed_wal(tmp_path):
-    d = tmp_path / "d"
-    (d / ".wal").mkdir(parents=True)
-    (d / ".wal" / "seg-0").write_bytes(b"\x01")
-    with pytest.raises(RuntimeError, match="write-ahead-log"):
-        Holder(str(d), device="cpu").open()
-    shutil.rmtree(d / ".wal")
-    Holder(str(d), device="cpu").open().close()
-
-
 def test_write_after_torn_tail_survives_reopen(tmp_path):
     """A crash mid-append leaves a torn op record; the next open must
     drop it before appending, or replay would stop at the tear and lose
@@ -319,14 +310,16 @@ def _view_files(root) -> dict:
             if os.sep + "views" + os.sep in k}
 
 
-def test_same_writes_write_the_reference_files_and_sidecars(tmp_path):
+@pytest.mark.parametrize("mode", ["per-op", "group", "flush-only"])
+def test_same_writes_write_the_reference_files_and_sidecars(tmp_path, mode):
     """The port writes each fragment file, its .checksums and its .cache
-    byte for byte as the reference does (per-op durability, the port's
-    only mode) for the same writes."""
+    byte for byte as the reference does, in each durability mode, for the
+    same writes (group mode's files are the clean close's snapshots)."""
     _write_script(jstorage.Holder(str(tmp_path / "jax"),
-                                  durability_mode="per-op").open(),
+                                  durability_mode=mode).open(),
                   JFieldOptions)
-    _write_script(Holder(str(tmp_path / "port"), device="cpu").open(),
+    _write_script(Holder(str(tmp_path / "port"), device="cpu",
+                         durability_mode=mode).open(),
                   FieldOptions)
     want, got = _view_files(tmp_path / "jax"), _view_files(tmp_path / "port")
     assert sorted(got) == sorted(want)
@@ -391,3 +384,164 @@ def test_http_recalculate_caches(tmp_path):
     finally:
         server.close()
         j.close()
+
+
+# ------------------------------------------- one K3 launch a write request
+
+
+def _resident_leaf(holder, field, row):
+    """The resident [S, W] stacked leaf of Row(field=row)."""
+    for key, arr in holder.cache._rows.items():
+        if key[0] == "stack" and key[3] == field and key[5] == row:
+            return arr
+    raise AssertionError(f"Row({field}={row}) is not resident")
+
+
+def _rebuilt(holder, field, row, shards) -> np.ndarray:
+    view = holder.index("i").field(field).view("standard")
+    return np.stack([view.fragment(s).row_words(row)
+                     if view.fragment(s) is not None
+                     else np.zeros(W, np.uint32) for s in shards])
+
+
+@pytest.fixture
+def eight_shards(tmp_path, monkeypatch):
+    """A port server's API over 8 shards with row 1 of f and the
+    existence row resident (row 2 is not), and a spy on K3's batch
+    wrapper."""
+    from pilosa_tpu_torch import kernels
+    from pilosa_tpu_torch.server.api import API
+
+    rng = np.random.default_rng(12)
+    rows = {}
+    for r in (1, 2):
+        bits = rng.random(8 * W * 32) < 0.01
+        rows[r] = np.packbits(bits, bitorder="little").view("<u4")
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    api = API(h)
+    api.query_raw("i", "Count(Not(Row(f=1)))")
+    calls = []
+    real = kernels.word_patch_batch
+
+    def spy(targets):
+        calls.append([(t[1], t[2], t[5]) for t in targets])
+        return real(targets)
+
+    monkeypatch.setattr(kernels, "word_patch_batch", spy)
+    yield api, rows, calls
+    h.close()
+
+
+def test_import_into_resident_rows_is_one_k3_launch(eight_shards):
+    """An /import of one new column into each of 8 shards patches the
+    resident row and the existence leaf in one K3 batch (16 targets), and
+    the next Counts show the writes."""
+    api, rows, calls = eight_shards
+    h = api.holder
+    exists = rows[1] | rows[2]
+    cols = [s * W * 32 + int(np.flatnonzero(
+        exists[s * W:(s + 1) * W] == 0)[0]) * 32 for s in range(8)]
+    assert api.import_bits("i", "f", [1] * 8, cols) == 8
+    assert len(calls) == 1
+    assert sorted(calls[0]) == sorted([(s, None, False) for s in range(8)]
+                                      * 2)
+    want = int(np.bitwise_count(rows[1]).sum()) + 8
+    assert api.query_raw("i", "Count(Row(f=1))") == [want]
+    assert api.query_raw("i", "Count(Not(Row(f=1)))") == \
+        [int(np.bitwise_count(exists & ~rows[1]).sum())]
+    assert np.array_equal(_resident_leaf(h, "f", 1).numpy().view(np.uint32),
+                          _rebuilt(h, "f", 1, range(8)))
+    # import-value and a write query open the same scope
+    assert api.query_raw("i", "Set(5, f=1) Set(2097157, f=1)") == [True, True]
+    assert len(calls) == 2  # row 1 (and _exists) in shards 0 and 2: one
+
+
+def test_set_then_clear_in_one_request_applies_in_order(eight_shards):
+    api, rows, calls = eight_shards
+    h = api.holder
+    col = int(np.flatnonzero(rows[1][:W] == 0)[0]) * 32
+    before = api.query_raw("i", "Count(Row(f=1))")
+    assert api.query_raw("i", f"Set({col}, f=1) Clear({col}, f=1)") == \
+        [True, True]
+    assert len(calls) == 2  # the row turned: the batch split
+    assert api.query_raw("i", "Count(Row(f=1))") == before
+    assert api.query_raw("i", f"Clear({col}, f=1) Set({col}, f=1)") == \
+        [False, True]
+    assert api.query_raw("i", "Count(Row(f=1))") == [before[0] + 1]
+    assert np.array_equal(_resident_leaf(h, "f", 1).numpy().view(np.uint32),
+                          _rebuilt(h, "f", 1, range(8)))
+
+
+def test_leaf_built_inside_a_write_scope_equals_a_rebuild(eight_shards,
+                                                           monkeypatch):
+    """A leaf whose decode is under way while a write scope collects
+    patches (the cache's pending build) ends equal to a rebuild from the
+    fragments, and so does the resident leaf the scope patched."""
+    from pilosa_tpu_torch.executor import batch
+
+    api, rows, _ = eight_shards
+    h = api.holder
+    entered, release = threading.Event(), threading.Event()
+    real_host_row = batch.host_row
+
+    def held_host_row(idx, spec, shard):
+        if spec.row == 2 and not entered.is_set():
+            entered.set()
+            release.wait(60)
+        return real_host_row(idx, spec, shard)
+
+    monkeypatch.setattr(batch, "host_row", held_host_row)
+    out = []
+    reader = threading.Thread(target=lambda: out.append(
+        api.query_raw("i", "Count(Row(f=2))")))
+    # Count(Row(f=2)) has not run yet, so its leaf is not resident
+    reader.start()
+    assert entered.wait(60)
+    fld = h.index("i").field("f")
+    assert len(h.cache._pending_builds) == 1  # Row(f=2)'s, mid-decode
+    with h.cache.batch_writes():
+        for s in range(8):
+            for r in (1, 2):
+                fld.set_bit(r, s * W * 32 + 64 + r)
+                fld.clear_bit(r, s * W * 32 + int(np.flatnonzero(
+                    rows[r][s * W:(s + 1) * W])[0]) * 32
+                    + int(np.flatnonzero(np.unpackbits(
+                        rows[r][s * W:(s + 1) * W][np.flatnonzero(
+                            rows[r][s * W:(s + 1) * W])[:1]].view(np.uint8),
+                        bitorder="little"))[0]))
+        release.set()
+        reader.join(60)
+    for r in (1, 2):
+        assert np.array_equal(
+            _resident_leaf(h, "f", r).numpy().view(np.uint32),
+            _rebuilt(h, "f", r, range(8))), r
+    want = int(np.bitwise_count(_rebuilt(h, "f", 2, range(8))).sum())
+    assert api.query_raw("i", "Count(Row(f=2))") == [want]
+
+
+@pytest.mark.parametrize("kind", ["run", "array", "bitmap"])
+def test_adding_present_bits_leaves_the_container(kind):
+    """Existence marks of columns already marked (and clears of absent
+    bits) change nothing and keep the container as it was, for each
+    container form; a batch with one new bit still merges."""
+    from pilosa_tpu_torch.roaring import RoaringBitmap
+    from pilosa_tpu_torch.roaring.bitmap import ARRAY, BITMAP, RUN
+
+    rng = np.random.default_rng(4)
+    lows = {"run": np.arange(100, 60000),
+            "array": np.sort(rng.choice(65536, 900, replace=False)),
+            "bitmap": np.sort(rng.choice(65536, 30000, replace=False))}[kind]
+    bm = RoaringBitmap()
+    bm.add_ids(lows.astype(np.uint64) + (7 << 16))
+    c = bm.container(7)
+    assert c.kind == {"run": RUN, "array": ARRAY, "bitmap": BITMAP}[kind]
+    present = rng.choice(lows, 50, replace=False).astype(np.uint64) + (7 << 16)
+    absent = np.setdiff1d(np.arange(65536), lows)[:50].astype(np.uint64) + \
+        (7 << 16)
+    assert bm.add_ids(present) == 0 and bm.container(7) is c
+    assert bm.remove_ids(absent) == 0 and bm.container(7) is c
+    assert np.array_equal(c.contains_lows(np.arange(65536, dtype=np.uint16)),
+                          np.isin(np.arange(65536), lows))
+    assert bm.add_ids(np.append(present, absent[:1])) == 1
+    assert bm.container(7).n == lows.size + 1
