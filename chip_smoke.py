@@ -23,9 +23,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    apart from its launch alone and the launch floor;
    K9 also beside its popcount floor, with the bytes it stages and its
    plan variants).
-   Meanwhile one worker process per field (and one for the existence
-   rows) writes the data directory from the same host words;
-4. drive three main paths through the port's HTTP server on 127.0.0.1 over
+   Meanwhile worker processes (one per field, three for the time
+   field's views, one for the existence rows) write the data directory
+   from the same host words;
+4. drive four main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -56,12 +57,25 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       level) and over 17 (past K9's 16), Sum aggregate, having, Options(shards=), IncludesColumn, a
       Set that the next TopN and GroupBy must show, then 16 concurrent
       clients over five shapes of queries 1-3;
+   d. the time path (index ``events``, BASELINE config 4): a YMDH time
+      field over 8 event-hours, a mutex and a bool field; 16 concurrent
+      clients over five shapes (Counts over one Y view and over 65-view
+      windows, their Union, an Intersect with a mutex row, a TopN under
+      a window), the bool row, a GroupBy under a window and an empty
+      window; then a timestamped Set into the resident 65-view leaf (one
+      K3 launch) and a Clear (the slot re-decoded), a timestamped
+      /import at an hour with no view (one K3 launch), a mutex /import
+      moving 1024 columns (one K3 launch), a Store of a sparse row and a
+      ClearRow of it (one K3 launch, the leaf still resident), every
+      answer against the oracle after each;
 5. the crash phase, on a 64-shard directory of its own: a port server
-   process on the card takes Set, Clear, /import and /import-value writes
-   from 4 HTTP clients and is SIGKILLed after 400 acknowledged writes; a
-   port Holder reopens the directory on the card, replays the WAL, and
-   every acknowledged write must read back and every Count equal the
-   numpy oracle, with the WAL empty after the open.
+   process on the card takes Set, Clear, /import, /import-value,
+   timestamped Sets into a YMDH field and Sets moving columns of a mutex
+   field from 4 HTTP clients and is SIGKILLed after 400 acknowledged
+   writes; a port Holder reopens the directory on the card, replays the
+   WAL, and every acknowledged write must read back (in each of its time
+   views), every Count equal the numpy oracle, no mutex column sit in two
+   rows, and the WAL be empty after the open.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
@@ -71,11 +85,13 @@ from __future__ import annotations
 
 import argparse
 import copy
+import datetime as dt
 import http.client
 import itertools
 import json
 import multiprocessing
 import os
+import resource
 import shutil
 import statistics
 import subprocess
@@ -849,14 +865,19 @@ CRASH_SHARDS = 64
 CRASH_CLIENTS = 4
 CRASH_ACKS = 400           # acknowledged writes before the SIGKILL
 CRASH_VALUE_MAX = 1000
+# the hours of the crash phase's timestamped Sets
+CRASH_STAMPS = ("2019-03-15T06:00", "2019-12-31T23:00", "2020-02-29T12:00",
+                "2020-03-15T07:00")
 
 
 def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
                   errors: list) -> None:
     """One client of the crash phase: Set, Clear, /import and import-value
-    on columns of its own (col % CRASH_CLIENTS == k), each write's effect
-    applied to ``oracle`` only once its 200 arrives; the write in flight
-    is kept in ``oracle["inflight"][k]``."""
+    on columns of its own (col % CRASH_CLIENTS == k), timestamped Sets into
+    the YMDH field ``ts`` and Sets moving columns of its own between rows
+    of the mutex field ``mx``, each write's effect applied to ``oracle``
+    only once its 200 arrives; the write in flight is kept in
+    ``oracle["inflight"][k]``."""
     n_cols = CRASH_SHARDS * WORDS * 32
     mine = oracle["bits"], oracle["vals"]
     own_bits: list = []
@@ -865,9 +886,10 @@ def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
     def fresh(n: int) -> np.ndarray:
         return rng.integers(0, n_cols // CRASH_CLIENTS, n) * CRASH_CLIENTS + k
 
+    mx_cols = np.unique(fresh(16)).tolist()  # moved between mutex rows
     j = 0
     while True:
-        op = j % 4
+        op = j % 6
         j += 1
         if op == 0:
             r, col = int(rng.integers(0, 4)), int(fresh(1)[0])
@@ -884,6 +906,17 @@ def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
             body = json.dumps({"columns": cols.tolist(),
                                "values": vals.tolist()}).encode()
             effect = [("val", int(v), int(col)) for col, v in zip(cols, vals)]
+        elif op == 4:
+            r, col = int(rng.integers(0, 4)), int(fresh(1)[0])
+            stamp = CRASH_STAMPS[int(rng.integers(0, len(CRASH_STAMPS)))]
+            path = "/index/crash/query"
+            body = f"Set({col}, ts={r}, timestamp='{stamp}')".encode()
+            effect = [("tset", (r, stamp), col)]
+        elif op == 5:
+            r = int(rng.integers(0, 4))
+            col = mx_cols[int(rng.integers(0, len(mx_cols)))]
+            path, body = "/index/crash/query", f"Set({col}, mx={r})".encode()
+            effect = [("mset", r, col)]
         else:
             cols = np.unique(fresh(32))
             rows = rng.integers(0, 4, cols.size)
@@ -909,6 +942,10 @@ def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
                     own_bits.append((a, col))
                 elif kind == "clear":
                     mine[0][a].discard(col)
+                elif kind == "tset":
+                    oracle["tsets"].add((a[0], a[1], col))
+                elif kind == "mset":
+                    oracle["mx"][col] = a
                 else:
                     mine[1][col] = a
             oracle["inflight"][k] = []
@@ -946,7 +983,13 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
                            ("/index/crash/field/v", json.dumps(
                                {"options": {"type": "int", "min": 0,
                                             "max": CRASH_VALUE_MAX}}
-                           ).encode())):
+                           ).encode()),
+                           ("/index/crash/field/ts", json.dumps(
+                               {"options": {"type": "time",
+                                            "timeQuantum": "YMDH"}}
+                           ).encode()),
+                           ("/index/crash/field/mx", json.dumps(
+                               {"options": {"type": "mutex"}}).encode())):
             status, resp = c.post(path, body)
             if status != 200:
                 fail(f"crash phase: {path} answered {status} {resp!r}")
@@ -958,6 +1001,7 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
         if status != 200:
             fail(f"crash phase: the first import answered {status} {resp!r}")
         oracle = {"bits": {r: set() for r in range(4)}, "vals": {},
+                  "tsets": set(), "mx": {},
                   "inflight": {k: [] for k in range(CRASH_CLIENTS)}}
         oracle["bits"][0].update(first.tolist())
         for pql in ("Count(Row(f=0))", "Count(Row(f=1))",
@@ -1014,6 +1058,8 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
                 got, there = vfld.value(col)
                 if there:
                     vals[col] = got
+            elif kind in ("tset", "mset"):
+                continue  # held against the time views and rows below
             elif fld.view("standard").fragment(col >> 20) is not None and \
                     fld.view("standard").fragment(col >> 20).contains(
                         a, col & (WORDS * 32 - 1)):
@@ -1021,6 +1067,9 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
             else:
                 bits[a].discard(col)
         ex = Executor(holder)
+        _check_crash_time_mutex(holder, ex, oracle, inflight)
+        stats["timestamped_sets"] = len(oracle["tsets"])
+        stats["mutex_columns"] = len(oracle["mx"])
         for r in range(4):
             got = result_to_json(ex.execute("crash", f"Row(f={r})"))[0]
             if got["columns"] != sorted(bits[r]):
@@ -1052,11 +1101,72 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
     return stats
 
 
+def _holds(field, view: str, row: int, col: int) -> bool:
+    v = field.view(view)
+    frag = v.fragment(col >> 20) if v is not None else None
+    return frag is not None and frag.contains(row, col & (WORDS * 32 - 1))
+
+
+def _check_crash_time_mutex(holder, ex, oracle: dict, inflight: list
+                            ) -> None:
+    """After the crash phase's replay: every acknowledged timestamped Set
+    in the standard view and in each of its Y, M, D and H views, the time
+    windows' Counts equal to the acknowledged bits (an in-flight Set
+    counted where its Y view holds it: a request's records are durable
+    in the order written), and the mutex field's rows disjoint and as the
+    acknowledged Sets left them (an in-flight Set's column in its old row
+    or its new one)."""
+    from pilosa_tpu_torch.executor import result_to_json
+    from pilosa_tpu_torch.storage.view import views_for_time
+
+    ts, mx = holder.index("crash").field("ts"), \
+        holder.index("crash").field("mx")
+    want = {r: set() for r in range(4)}
+    for r, stamp, col in oracle["tsets"]:
+        views = ["standard"] + views_for_time(
+            "standard", "YMDH", dt.datetime.fromisoformat(stamp))
+        lost = [v for v in views if not _holds(ts, v, r, col)]
+        if lost:
+            fail(f"crash phase: the acknowledged Set({col}, ts={r}, "
+                 f"timestamp='{stamp}') is missing from {lost}")
+        want[r].add(col)
+    for kind, a, col in inflight:
+        if kind == "tset" and _holds(ts, views_for_time(
+                "standard", "Y", dt.datetime.fromisoformat(a[1]))[0], a[0],
+                col):
+            want[a[0]].add(col)
+    for r in range(4):
+        got = ex.execute("crash", f"Count(Row(ts={r}, from='2019-01-01', "
+                                  "to='2021-01-01'))")[0]
+        if got != len(want[r]):
+            fail(f"crash phase: Count(Row(ts={r}, <2019-2020>)) = {got}, "
+                 f"acknowledged {len(want[r])}")
+    rows = {r: set(result_to_json(ex.execute("crash", f"Row(mx={r})"))[0][
+        "columns"]) for r in range(4)}
+    for r, s in itertools.combinations(range(4), 2):
+        if rows[r] & rows[s]:
+            fail(f"crash phase: mutex rows {r} and {s} share columns "
+                 f"{sorted(rows[r] & rows[s])[:5]}")
+    moving = {col: a for kind, a, col in inflight if kind == "mset"}
+    for col, r in oracle["mx"].items():
+        ok = {r, moving[col]} if col in moving else {r}
+        if not any(col in rows[x] for x in ok):
+            fail(f"crash phase: the acknowledged Set({col}, mx={r}) reads "
+                 f"back in no row of {sorted(ok)}")
+    owned = set(oracle["mx"]) | set(moving)
+    stray = set().union(*rows.values()) - owned
+    if stray:
+        fail(f"crash phase: mutex columns {sorted(stray)[:5]} were never "
+             "written")
+
+
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
-                   taxi: dict, rng, kernels, verify_on_load: bool) -> dict:
-    """Phase 4 through one server: the Star-Trace path, the rides path and
-    the taxi path, each with the launch counters zeroed just before it and
-    read just after. Returns {path: (numbers, launches)}."""
+                   taxi: dict, events: dict, rng, kernels,
+                   verify_on_load: bool) -> dict:
+    """Phase 4 through one server: the Star-Trace path, the rides path,
+    the taxi path and the time path, each with the launch counters zeroed
+    just before it and read just after. Returns {path: (numbers,
+    launches)}."""
     from pilosa_tpu_torch.server import Server
 
     # verify-on-load (the port's default) digests every bit id of the
@@ -1076,7 +1186,8 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
         for path, serve in (
                 ("Star-Trace", lambda: _serve_and_check(server, words, rng)),
                 ("rides", lambda: _serve_rides(server, rides, oracle)),
-                ("taxi", lambda: _serve_taxi(server, taxi))):
+                ("taxi", lambda: _serve_taxi(server, taxi)),
+                ("time", lambda: _serve_time(server, events))):
             kernels.reset_launches()
             stats = serve()
             out[path] = (stats, kernels.launches())
@@ -1738,6 +1849,345 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
     return latencies, wall
 
 
+# ---------------------------------------------------------------- time path
+
+# BASELINE config 4 (time-quantum YMDH views: multi-view Union + Count over
+# a one-year window): index ``events``, a time field ``t`` (quantum YMDH,
+# rows 0-3) set at 8 event-hours, each hour setting each column of row r
+# with probability 2^-EVENT_ROW_LOG2[r] (1/64, 1/256, 1/1024, 1/4096 of a
+# shard), the bit in the standard view and in its Y, M, D and H views as
+# a timestamped write puts it; a mutex field ``kind`` (rows 0-3, every
+# column in one, KIND_SHARES) and a bool field ``active`` (row 1 on 70% of
+# the columns, row 0 on the rest). The cut from a live YMDH deployment: 8
+# event-hours, not one an hour (with 16 the command overran its 1200 s on
+# a slow host of an H100 80GB HBM3 at 700 W: each event-hour adds up to 4
+# views of 1024 fragments to build, open and close). They straddle both
+# window edges: 06:00 and 07:00 on 2019-03-15 and on 2020-03-15.
+EVENT_HOURS = tuple(dt.datetime.fromisoformat(s) for s in (
+    "2019-01-01T00:00", "2019-03-15T06:00", "2019-03-15T07:00",
+    "2019-06-01T12:00", "2019-12-31T23:00", "2020-02-29T12:00",
+    "2020-03-15T06:00", "2020-03-15T07:00"))
+EVENT_ROW_LOG2 = (6, 8, 10, 12)
+KIND_SHARES = (0.50, 0.25, 0.15, 0.10)
+ACTIVE_SHARES = (0.30, 0.70)
+WINDOW_A, WINDOW_B = "2019-03-15T07:00", "2020-03-15T07:00"
+WINDOW = f"from='{WINDOW_A}', to='{WINDOW_B}'"
+YEAR_2019 = "from='2019-01-01T00:00', to='2020-01-01T00:00'"
+SET_STAMP = "2019-06-01T12:00"   # the timestamped Set's hour
+NEW_HOUR = "2019-09-17T05:00"    # no event there: its H, D and M views
+TIME_SHAPES = [
+    f"Count(Row(t=0, {YEAR_2019}))",                        # one Y view
+    f"Count(Row(t=1, {WINDOW}))",                           # 65 views
+    f"Count(Union(Row(t=0, {WINDOW}), Row(t=1, {WINDOW})))",
+    f"Count(Intersect(Row(t=2, {WINDOW}), Row(kind=1)))",
+    f"TopN(kind, Row(t=0, {WINDOW}), n=4)",
+]
+TIME_SINGLES = [
+    "Count(Row(active=true))",
+    f"GroupBy(Rows(kind), filter=Row(t=1, {WINDOW}))",
+    f"Count(Row(t=1, from='{WINDOW_B}', to='{WINDOW_A}'))",  # empty cover
+    "Count(Intersect(Row(kind=0), Row(kind=2)))",           # mutex: none
+    "Count(Union(Row(kind=0), Row(kind=1), Row(kind=2), Row(kind=3)))",
+]
+
+
+def _bernoulli_words(rng, log2: int) -> np.ndarray:
+    """uint32 words of the 2^30 columns, each column set with probability
+    2^-log2 on its own: the gaps between set columns are geometric."""
+    n_cols = N_SHARDS * WORDS * 32
+    p = 1.0 / (1 << log2)
+    parts, end = [], -1
+    while end < n_cols:
+        n = int((n_cols - end) * p * 1.01) + 4096
+        steps = np.cumsum(rng.geometric(p, n), dtype=np.int64) + end
+        parts.append(steps)
+        end = int(steps[-1])
+    pos = np.concatenate(parts)
+    pos = pos[pos < n_cols]
+    word = pos >> 5
+    bits = np.uint32(1) << (pos & 31).astype(np.uint32)
+    starts = np.flatnonzero(np.diff(word, prepend=-1))
+    out = np.zeros(N_SHARDS * WORDS, np.uint32)
+    out[word[starts]] = np.bitwise_or.reduceat(bits, starts)
+    return out
+
+
+def _share_rows(seed: int, tag: int, shares) -> dict:
+    """{row: uint32 words}: each column in exactly one row, row k on about
+    shares[k] of them, drawn 2^26 columns a task from its own generator."""
+    lut = _category_lut(shares)
+    n_cols = N_SHARDS * WORDS * 32
+    step = min(1 << 26, n_cols)
+    out = {r: np.empty(N_SHARDS * WORDS, np.uint32)
+           for r in range(len(shares))}
+
+    def chunk(lo: int) -> None:
+        rng = np.random.default_rng([seed, tag, lo // step])
+        cat = lut[rng.integers(0, 1 << 16, step, dtype=np.uint16)]
+        for r, w in out.items():
+            w[lo // 32:(lo + step) // 32] = np.packbits(
+                cat == r, bitorder="little").view("<u4")
+
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(chunk, range(0, n_cols, step)))
+    return out
+
+
+def make_events(seed: int) -> dict:
+    """Host words of the events index: ``hours[h][r]`` the columns that
+    event-hour h sets in row r of ``t``, ``kind`` and ``active`` rows. Each
+    array comes from a generator of its own (seeded from ``seed``), eight
+    at a time."""
+    jobs = [(h, r) for h in range(len(EVENT_HOURS))
+            for r in range(len(EVENT_ROW_LOG2))]
+
+    def draw(job):
+        h, r = job
+        return _bernoulli_words(np.random.default_rng([seed, 4, h, r]),
+                                EVENT_ROW_LOG2[r])
+
+    with ThreadPoolExecutor(8) as pool:
+        words = list(pool.map(draw, jobs))
+    hours = [words[h * 4:(h + 1) * 4] for h in range(len(EVENT_HOURS))]
+    return {"hours": hours, "kind": _share_rows(seed, 5, KIND_SHARES),
+            "active": _share_rows(seed, 6, ACTIVE_SHARES)}
+
+
+def event_views(quantum: str = "YMDH") -> dict:
+    """{view name: event-hour indices whose bits it holds}: the standard
+    view holds every hour, each quantum view the hours it spans."""
+    from pilosa_tpu_torch.storage.view import views_for_time
+
+    out: dict = {"standard": list(range(len(EVENT_HOURS)))}
+    for h, t in enumerate(EVENT_HOURS):
+        for name in views_for_time("standard", quantum, t):
+            out.setdefault(name, []).append(h)
+    return out
+
+
+def _or_hours(ev: dict, hours, row: int) -> np.ndarray:
+    acc = np.zeros(N_SHARDS * WORDS, np.uint32)
+    for h in hours:
+        acc |= ev["hours"][h][row]
+    return acc
+
+
+def _popcount(w) -> int:
+    return int(np.bitwise_count(w).sum(dtype=np.int64))
+
+
+def events_oracle(ev: dict) -> dict:
+    """The words the time path's answers come from: each row over the
+    window [WINDOW_A, WINDOW_B), row 0 over 2019, every hour's rows 0 and
+    1 together (the columns a write may take as free), ``kind`` and
+    ``active``. ``time_truth`` turns them into answers; the writes update
+    them."""
+    a, b = (dt.datetime.fromisoformat(s) for s in (WINDOW_A, WINDOW_B))
+    inside = [h for h, t in enumerate(EVENT_HOURS) if a <= t < b]
+    every = range(len(EVENT_HOURS))
+    return {"win": [_or_hours(ev, inside, r) for r in range(4)],
+            "y0": _or_hours(ev, [h for h, t in enumerate(EVENT_HOURS)
+                                 if t.year == 2019], 0),
+            "any01": _or_hours(ev, every, 0) | _or_hours(ev, every, 1),
+            "kind": {r: w.copy() for r, w in ev["kind"].items()},
+            "active": ev["active"][1], "inside_hours": len(inside)}
+
+
+def time_truth(o: dict) -> dict:
+    """Every served and single answer of the time path from the oracle's
+    words."""
+    win, kind = o["win"], o["kind"]
+    by_kind = [_popcount(kind[r] & win[0]) for r in range(4)]
+    filt = [_popcount(kind[r] & win[1]) for r in range(4)]
+    n = N_SHARDS * WORDS * 32
+    vals = [_popcount(o["y0"]), _popcount(win[1]),
+            _popcount(win[0] | win[1]), _popcount(win[2] & kind[1]),
+            _pairs(by_kind, range(4), 4),
+            _popcount(o["active"]),
+            _groups(["kind"], [(r,) for r in range(4)], filt), 0,
+            _popcount(kind[0] & kind[2]),
+            n if sum(_popcount(kind[r]) for r in range(4)) == n else -1]
+    return dict(zip(TIME_SHAPES + TIME_SINGLES, vals))
+
+
+def _set_bits(w: np.ndarray, cols) -> None:
+    cols = np.asarray(cols, np.int64)
+    np.bitwise_or.at(w, cols >> 5, np.uint32(1) << (cols & 31).astype(
+        np.uint32))
+
+
+def _clear_bits(w: np.ndarray, cols) -> None:
+    cols = np.asarray(cols, np.int64)
+    np.bitwise_and.at(w, cols >> 5, ~(np.uint32(1) << (cols & 31).astype(
+        np.uint32)))
+
+
+def _first_per_shard(w: np.ndarray, want_set: bool) -> np.ndarray:
+    """Each shard's first column whose bit in ``w`` is (or is not) set."""
+    shards = w.reshape(N_SHARDS, WORDS)
+    probe = shards if want_set else ~shards
+    word = np.argmax(probe != 0, axis=1)
+    vals = probe[np.arange(N_SHARDS), word]
+    low = np.array([(v & -v).bit_length() - 1 for v in vals.tolist()])
+    return (np.arange(N_SHARDS) * WORDS + word) * 32 + low
+
+
+def _check_time(c, o: dict, what: str) -> None:
+    truth = time_truth(o)
+    for pql, want in truth.items():
+        got = c.query(pql)[0]
+        if got != want:
+            fail(f"time path, {what}: {pql} = {str(got)[:200]}, oracle "
+                 f"{str(want)[:200]}")
+
+
+def _k3(kernels) -> int:
+    return kernels.launches()["word_patch"]
+
+
+def _serve_time(server, o: dict) -> dict:
+    """Phase 4d: BASELINE config 4 through the server: the five served
+    shapes (16 clients), the single checks, then the writes, each
+    followed by every answer against the oracle."""
+    from pilosa_tpu_torch import kernels
+    from pilosa_tpu_torch.storage.view import views_by_time_range
+
+    stats: dict = {}
+    c = Client(server.port, "events")
+    truth = time_truth(o)
+    window = views_by_time_range(
+        "standard", "YMDH", dt.datetime.fromisoformat(WINDOW_A),
+        dt.datetime.fromisoformat(WINDOW_B))
+    stats["views_per_leaf"] = {"window": len(window), "year_2019": 1}
+    stats["event_hours_in_window"] = o["inside_hours"]
+    if len(window) != 65:
+        fail(f"the window's cover has {len(window)} views, not 65")
+    # the first touch of one 65-view leaf: the host ORs up to 65 views of
+    # 1024 shards, then one upload
+    t0 = time.perf_counter()
+    pql = TIME_SHAPES[1]
+    if c.query(pql)[0] != truth[pql]:
+        fail(f"{pql} differs from the oracle")
+    stats["first_touch_65_view_leaf_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for pql in TIME_SHAPES + TIME_SINGLES:
+        got = c.query(pql)[0]
+        if got != truth[pql]:
+            fail(f"{pql} = {str(got)[:200]}, oracle {str(truth[pql])[:200]}")
+    stats["first_touch_s"] = time.perf_counter() - t0
+
+    n_clients, per_client = 16, 20
+    per_shape: dict = {}
+    latencies, wall = closed_loop(server.port, "events", TIME_SHAPES, truth,
+                                  n_clients, per_client, per_shape)
+    stats.update(_latency_stats(latencies, wall), clients=n_clients)
+    stats["p50_ms_by_shape"] = {
+        pql: 1e3 * sorted(lat)[len(lat) // 2] for pql, lat in per_shape.items()}
+
+    # a timestamped Set into the resident 65-view leaf (K3 OR), then a
+    # Clear across the time views (the slot is re-decoded)
+    col = int(_first_per_shard(o["any01"], want_set=False)[N_SHARDS // 2])
+    before = _k3(kernels)
+    if c.query(f"Set({col}, t=1, timestamp='{SET_STAMP}')") != [True]:
+        fail("the timestamped Set changed nothing")
+    stats["timestamped_set_k3_launches"] = _k3(kernels) - before
+    _set_bits(o["win"][1], [col])
+    _check_time(c, o, "after the timestamped Set")
+    before = _k3(kernels)
+    if c.query(f"Clear({col}, t=1)") != [True]:
+        fail("the Clear on the time field changed nothing")
+    stats["clear_k3_launches"] = _k3(kernels) - before
+    _clear_bits(o["win"][1], [col])
+    _check_time(c, o, "after the Clear")
+    if stats["timestamped_set_k3_launches"] != 1:
+        fail(f"the timestamped Set made {stats['timestamped_set_k3_launches']}"
+             " K3 launches, not 1")
+
+    # a timestamped /import of a bit a shard at an hour with no view: one
+    # K3 launch for the window leaves of rows 0 and 1 and the 2019 leaf
+    cols = _first_per_shard(o["any01"], want_set=False)
+    rows = np.arange(N_SHARDS) % 2
+    body = json.dumps({"rows": rows.tolist(), "columns": cols.tolist(),
+                       "timestamps": [NEW_HOUR] * N_SHARDS}).encode()
+    before = _k3(kernels)
+    t0 = time.perf_counter()
+    status, resp = c.post("/index/events/field/t/import", body)
+    stats["timestamped_import_ms"] = 1e3 * (time.perf_counter() - t0)
+    stats["timestamped_import_k3_launches"] = _k3(kernels) - before
+    if status != 200 or json.loads(resp)["changed"] != N_SHARDS:
+        fail(f"the timestamped import answered {status} {resp!r}")
+    if stats["timestamped_import_k3_launches"] != 1:
+        fail(f"the timestamped import made "
+             f"{stats['timestamped_import_k3_launches']} K3 launches, not 1")
+    for r in (0, 1):
+        _set_bits(o["win"][r], cols[rows == r])
+    _set_bits(o["y0"], cols[rows == 0])
+    _set_bits(o["any01"], cols)
+    _check_time(c, o, "after the timestamped import")
+
+    # a mutex /import moving a column a shard from kind=0 to kind=2, with
+    # both rows resident: one K3 launch (AND-NOT and OR)
+    for r in (0, 2):
+        if c.query(f"Count(Row(kind={r}))")[0] != _popcount(o["kind"][r]):
+            fail(f"Count(Row(kind={r})) differs from the oracle")
+    cols = _first_per_shard(o["kind"][0], want_set=True)
+    body = json.dumps({"rows": [2] * N_SHARDS,
+                       "columns": cols.tolist()}).encode()
+    before = _k3(kernels)
+    t0 = time.perf_counter()
+    status, resp = c.post("/index/events/field/kind/import", body)
+    stats["mutex_import_ms"] = 1e3 * (time.perf_counter() - t0)
+    stats["mutex_import_k3_launches"] = _k3(kernels) - before
+    if status != 200 or json.loads(resp)["changed"] != N_SHARDS:
+        fail(f"the mutex import answered {status} {resp!r}")
+    if stats["mutex_import_k3_launches"] != 1:
+        fail(f"the mutex import made {stats['mutex_import_k3_launches']} K3 "
+             "launches, not 1")
+    _clear_bits(o["kind"][0], cols)
+    _set_bits(o["kind"][2], cols)
+    for r in (0, 2):
+        if c.query(f"Count(Row(kind={r}))")[0] != _popcount(o["kind"][r]):
+            fail(f"Count(Row(kind={r})) after the mutex import is wrong")
+    _check_time(c, o, "after the mutex import")
+
+    # Store of a sparse row, then ClearRow on its resident leaf
+    wal = server.holder.wal
+    stored = o["win"][3] & o["kind"][1]
+    bytes0 = wal.metrics()["bytes_total"]
+    t0 = time.perf_counter()
+    if c.query(f"Store(Intersect(Row(t=3, {WINDOW}), Row(kind=1)), "
+               "seg=1)") != [True]:
+        fail("Store answered other than true")
+    stats["store_s"] = time.perf_counter() - t0
+    stats["store_wal_bytes"] = wal.metrics()["bytes_total"] - bytes0
+    stats["store_bits"] = _popcount(stored)
+    if c.query("Count(Row(seg=1))")[0] != stats["store_bits"]:
+        fail("Count(Row(seg=1)) after the Store differs from the oracle")
+    if c.query("Row(seg=1)")[0]["columns"][:1000] != \
+            np.flatnonzero(np.unpackbits(stored.view(np.uint8),
+                                         bitorder="little"))[:1000].tolist():
+        fail("Row(seg=1) after the Store differs from the oracle")
+    cache = server.holder.cache
+    evictions = cache.evictions
+    before = _k3(kernels)
+    if c.query("ClearRow(seg=1)") != [True]:
+        fail("ClearRow answered other than true")
+    stats["clear_row_k3_launches"] = _k3(kernels) - before
+    if c.query("Count(Row(seg=1))")[0] != 0:
+        fail("Count(Row(seg=1)) after ClearRow is not 0")
+    resident = any(k[0] == "stack" and k[2] == "events" and k[3] == "seg"
+                   for k in list(cache._rows))
+    if stats["clear_row_k3_launches"] != 1 or not resident or \
+            cache.evictions != evictions:
+        fail(f"ClearRow did not patch the resident leaf in one K3 launch "
+             f"({stats['clear_row_k3_launches']} launches, resident "
+             f"{resident})")
+    _check_time(c, o, "after Store and ClearRow")
+    stats["resident_bytes"] = cache.bytes_used
+    c.close()
+    return stats
+
+
 # ------------------------------------------------------------ data dirs
 
 # Host data the data-dir builders read: set before they fork, so each
@@ -1745,7 +2195,28 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
 _BUILD_DATA: dict = {}
 # one worker each, all at once; "existence" writes the indexes' _exists
 # rows straight into the data dir, the others a field each into a part
-DATA_JOBS = ("repository", "rides", *TAXI_FIELDS, "existence")
+EVENT_JOBS = ("events-0", "events-1", "events-2")  # the time field's views
+DATA_JOBS = ("repository", "rides", *TAXI_FIELDS, *EVENT_JOBS, "events-kind",
+             "existence")
+
+
+def event_view_groups(job: str) -> list:
+    """The time views one events job writes, as (event-hours, view names)
+    groups: views over the same event-hours hold the same bits (a day or
+    a month of one event-hour equals its hour), so a group is built once
+    and its files copied to the other names. The groups are dealt to the
+    jobs by their hours, largest first, each to the least loaded job."""
+    by_hours: dict = {}
+    for name, hours in event_views().items():
+        by_hours.setdefault(tuple(hours), []).append(name)
+    load = {j: 0 for j in EVENT_JOBS}
+    mine = []
+    for hours, names in sorted(by_hours.items(), key=lambda g: -len(g[0])):
+        j = min(load, key=load.get)
+        load[j] += 4 + len(hours)  # a view's fixed cost, then its bits
+        if j == job:
+            mine.append((hours, names))
+    return mine
 
 
 def _category_words(cat: np.ndarray, n_rows: int) -> np.ndarray:
@@ -1757,11 +2228,12 @@ def _category_words(cat: np.ndarray, n_rows: int) -> np.ndarray:
 def _build_part(job: str, out_dir: str) -> float:
     """Write one job's part of the data dir through a Holder on the CPU
     (in a worker process); returns its seconds."""
-    from pilosa_tpu_torch.storage import Holder, load_existence, \
-        load_from_dense
+    from pilosa_tpu_torch.storage import FieldOptions, Holder, \
+        load_existence, load_from_dense
 
     t0 = time.perf_counter()
-    words, rides, taxi = (_BUILD_DATA[k] for k in ("words", "rides", "taxi"))
+    words, rides, taxi, events = (_BUILD_DATA[k] for k in (
+        "words", "rides", "taxi", "events"))
     holder = Holder(out_dir, device="cpu").open()
     if job == "repository":
         fields: dict = {}
@@ -1784,6 +2256,30 @@ def _build_part(job: str, out_dir: str) -> float:
         for field, (_, p) in TAXI_FIELDS.items():
             ride |= _category_words(taxi[field], len(p))
         load_existence(holder, ride, index="rides")
+        del ride
+        # every column of events is in one kind row
+        load_existence(holder, np.full(N_SHARDS * WORDS, 0xFFFFFFFF,
+                                       np.uint32), index="events")
+    elif job == "events-kind":
+        load_from_dense(holder, {"kind": events["kind"],
+                                 "active": events["active"]},
+                        options={"kind": FieldOptions(type="mutex"),
+                                 "active": FieldOptions(type="bool")},
+                        index="events", existence=False)
+    elif job in EVENT_JOBS:
+        t_opts = {"t": FieldOptions(type="time", time_quantum="YMDH")}
+        groups = event_view_groups(job)
+        for hours, names in groups:
+            rows = {r: _or_hours(events, hours, r)
+                    for r in range(len(EVENT_ROW_LOG2))}
+            load_from_dense(holder, {}, views={"t": {names[0]: rows}},
+                            options=t_opts, index="events", existence=False)
+        holder.close()  # the copies take the .cache sidecars written here
+        views = Path(out_dir) / "events" / "t" / "views"
+        for _, names in groups:
+            for name in names[1:]:
+                shutil.copytree(views / names[0], views / name)
+        return time.perf_counter() - t0
     else:
         row0, p = TAXI_FIELDS[job]
         rows = category_rows(taxi[job], len(p))
@@ -1793,12 +2289,13 @@ def _build_part(job: str, out_dir: str) -> float:
     return time.perf_counter() - t0
 
 
-def start_data_dirs(scratch: Path, words: dict, rides: dict, taxi: dict):
+def start_data_dirs(scratch: Path, words: dict, rides: dict, taxi: dict,
+                    events: dict):
     """Fork one worker per DATA_JOBS entry to build the data dir in
     parallel: each field into its own part directory under ``scratch``,
     the existence rows into ``scratch / "data"``. Returns the executor
     with each job's future as ``.jobs``."""
-    _BUILD_DATA.update(words=words, rides=rides, taxi=taxi)
+    _BUILD_DATA.update(words=words, rides=rides, taxi=taxi, events=events)
     builders = ProcessPoolExecutor(len(DATA_JOBS),
                                    mp_context=multiprocessing.get_context(
                                        "fork"))
@@ -1819,15 +2316,22 @@ def finish_data_dirs(builders, scratch: Path, data_dir: Path) -> None:
             fail(f"data dir job {job} failed: {exc!r}")
         print(f"data dir {job}: {secs:.1f}s", flush=True)
     builders.shutdown()
+    _BUILD_DATA.clear()
     for job in DATA_JOBS:
         part = scratch / f"part-{job}"
         if job == "existence":
             continue
         for index in os.listdir(part):
             for field in os.listdir(part / index):
-                if (part / index / field).is_dir() and \
-                        not field.startswith("_"):
-                    os.rename(part / index / field, data_dir / index / field)
+                src, dst = part / index / field, data_dir / index / field
+                if not src.is_dir() or field.startswith("_"):
+                    continue
+                if not dst.exists():
+                    os.rename(src, dst)
+                    continue
+                # a field built in parts (the time field's views)
+                for view in os.listdir(src / "views"):
+                    os.rename(src / "views" / view, dst / "views" / view)
         shutil.rmtree(part)
 
 
@@ -1848,6 +2352,13 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    # the server keeps every fragment file open: about 61 000 of them with
+    # the time path's views
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard == resource.RLIM_INFINITY:
+        hard = 1 << 20
+    resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    print(f"open files: soft limit {soft} raised to {hard}", flush=True)
     from pilosa_tpu_torch import kernels
     from pilosa_tpu_torch.executor import batch
 
@@ -1890,15 +2401,20 @@ def main() -> int:
     t0 = time.perf_counter()
     taxi = make_taxi(path_rng)
     print(f"taxi categories: {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    events = make_events(args.seed)
+    print(f"events: {len(EVENT_HOURS)} event-hours x 4 rows, kind and "
+          f"active in {time.perf_counter() - t0:.1f}s", flush=True)
 
     scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
     data_dir = scratch / "data"
-    builders = start_data_dirs(scratch, words, rides, taxi)
+    builders = start_data_dirs(scratch, words, rides, taxi, events)
     # the oracles run in a thread beside phase 3 and the data-dir build:
     # numpy's bulk work releases the interpreter lock
     pool = ThreadPoolExecutor(1)
     oracles = pool.submit(build_oracles, rides, taxi)
+    time_oracle = pool.submit(events_oracle, events)
     try:
         # phase 3: kernels against their plain versions on the card
         t3 = time.perf_counter()
@@ -1928,11 +2444,12 @@ def main() -> int:
               flush=True)
         t0 = time.perf_counter()
         oracle, taxi_truth = oracles.result()
-        del taxi
+        ev_oracle = time_oracle.result()
+        del taxi, events
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
         paths = run_main_paths(str(data_dir), words, rides, oracle,
-                               taxi_truth, path_rng, kernels,
+                               taxi_truth, ev_oracle, path_rng, kernels,
                                args.verify_on_load)
         kernels.reset_launches()
         crash = run_crash_phase(scratch, args.seed, kernels)
@@ -1946,6 +2463,8 @@ def main() -> int:
         "rides": ("tree_count", "word_patch", "bsi_compare", "bsi_sum",
                   "bsi_minmax"),
         "taxi": ("count_rows", "groupby_level", "word_patch"),
+        "time": ("tree_count", "tree_rows", "word_patch", "count_rows",
+                 "groupby_level"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
     }
     for path, names in expected.items():

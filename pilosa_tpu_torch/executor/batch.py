@@ -140,7 +140,11 @@ def _make_probe(block: ShardBlock, match, row_pos_of, decode_row,
     ``apply(arr)``, a fresh host decode of the row. ``row_pos_of(ev)``: the
     inner row of an ``[S, R, W]`` leaf (None for ``[S, W]`` leaves).
     ``delta_on_clear``: clears may delta-patch (single-view leaves only:
-    with several OR'd views a cleared bit may survive in another view)."""
+    with several OR'd views a cleared bit may survive in another view).
+    An event without positions (a row replaced by Store) or with more
+    positions than half a row's words (ClearRow of a dense row) decodes
+    the row instead: its (word, mask) pairs would stage more bytes than
+    the row's upload."""
     slot_of = {s: i for i, s in enumerate(block.shards)}
 
     def probe(ev):
@@ -148,8 +152,9 @@ def _make_probe(block: ShardBlock, match, row_pos_of, decode_row,
         if slot is None or not match(ev):
             return None
         row = row_pos_of(ev) if row_pos_of is not None else None
-        if ev.positions is not None and (
-                ev.added or (ev.added is False and delta_on_clear)):
+        if ev.positions is not None and \
+                len(ev.positions) <= WORDS_PER_SHARD // 2 and (
+                    ev.added or (ev.added is False and delta_on_clear)):
             word_idx, masks = _word_masks(ev.positions)
             return WordPatch(slot, row, word_idx, masks, not ev.added)
 

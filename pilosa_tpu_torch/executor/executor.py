@@ -4,23 +4,27 @@ The port's copy of ``pilosa_tpu.executor.executor`` for these slices:
 Row, Union, Intersect, Difference, Xor, Not, All, Shift and Range over
 set fields and int (BSI) fields, Count of any such tree, Sum/Min/Max
 with or without a filter, TopN, Rows, GroupBy (aggregate=Sum, having=),
-IncludesColumn, Options (shards=, excludeColumns=) and the Set/Clear
-writes (int fields included). A call compiles to a structure (``expr``)
-over stacked leaves and query-time scalars; shift and BSI-comparison
-nodes run first, each through its own kernel (K4, K5), then a Count runs
-K1 over the rest and a row call K2, and pipelined Counts of one shape
-share one K1 launch per micro-batch; Sum runs K6 and Min/Max K7 (one
-launch per query). TopN recounts its candidates with K8 over stacked
-candidate matrices, GroupBy runs K9 once per level (past 16 dimensions
-the surviving prefix groups fold into one temporary matrix). A tree over
-the kernels' 16 operands or 16 stack slots runs part by part as K2
-'tree' steps. Other calls, time ranges, keys and attributes raise
-``PQLError("... not yet ported")``.
+IncludesColumn, Options (shards=, excludeColumns=), time windows
+(``Row(f=r, from=, to=)`` ORs the quantum views that cover the window
+into one leaf), and the Set/Clear (timestamped, mutex and int fields
+included), ClearRow and Store writes. A call compiles to a structure
+(``expr``) over stacked leaves and query-time scalars; shift and
+BSI-comparison nodes run first, each through its own kernel (K4, K5),
+then a Count runs K1 over the rest and a row call K2, and pipelined
+Counts of one shape share one K1 launch per micro-batch; Sum runs K6 and
+Min/Max K7 (one launch per query). TopN recounts its candidates with K8
+over stacked candidate matrices, GroupBy runs K9 once per level (past 16
+dimensions the surviving prefix groups fold into one temporary matrix).
+A tree over the kernels' 16 operands or 16 stack slots runs part by
+part as K2 'tree' steps. Store takes its child's row through K2 and
+writes each shard's words. Keys and attributes raise ``PQLError("...
+not yet ported")``.
 """
 
 from __future__ import annotations
 
 import collections
+import datetime as dt
 import math
 import threading
 import weakref
@@ -45,9 +49,9 @@ from pilosa_tpu_torch.shardwidth import (
     position,
     shard_of,
 )
-from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_SET
+from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_TIME
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD, Index
-from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+from pilosa_tpu_torch.storage.view import VIEW_STANDARD, views_by_time_range
 
 # TopN phase-1 candidate overfetch per shard (the reference's value).
 TOPN_CANDIDATE_FACTOR = 4
@@ -220,6 +224,10 @@ class Executor:
             return self._execute_set(idx, call)
         if name == "Clear":
             return self._execute_clear(idx, call)
+        if name == "ClearRow":
+            return self._execute_clear_row(idx, call, shards)
+        if name == "Store":
+            return self._execute_store(idx, call, shards)
         if name == "Count":
             return self._submit_count(idx, call, shards).result()
         if name in _AGGREGATES:
@@ -776,23 +784,32 @@ class Executor:
         raise PQLError(f"call {name!r} is not a bitmap (row-producing) call")
 
     def _compile_row(self, idx: Index, call: Call, specs, scalars):
+        """Row/Range of one row: the standard view, or with from=/to= on
+        a time field the quantum views covering [from, to), OR'd into
+        one leaf (an empty cover reads zeros)."""
         cond_field, cond = call.condition_field()
         if cond is not None:
             return self._compile_bsi_compare(idx, cond_field, cond, specs,
                                              scalars)
-        if call.arg("from") is not None or call.arg("to") is not None:
-            raise PQLError("time ranges are not yet ported")
         field_name, row = self._row_field_and_value(call)
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
-        if field.options.type not in (TYPE_SET, TYPE_INT) or \
-                not isinstance(row, int):
-            raise PQLError(f"{field.options.type} fields and row keys are "
-                           "not yet ported")
+        row = _translate_row(field, row)
         if row < 0:
             return ("const0",)  # negative rows cannot exist
-        specs.append(_RowSpec(field_name, (VIEW_STANDARD,), row))
+        t_from, t_to = call.arg("from"), call.arg("to")
+        if t_from is not None or t_to is not None:
+            if field.options.type != TYPE_TIME:
+                raise PQLError("from/to args require a time field")
+            # a missing bound parses as the reference parses it: a bare
+            # ValueError (Invalid isoformat string: 'None')
+            views = tuple(views_by_time_range(
+                VIEW_STANDARD, field.options.time_quantum,
+                parse_time(t_from), parse_time(t_to)))
+        else:
+            views = (VIEW_STANDARD,)
+        specs.append(_RowSpec(field_name, views, row))
         return ("leaf", len(specs) - 1)
 
     def _compile_bsi_compare(self, idx: Index, field_name: str,
@@ -889,35 +906,106 @@ class Executor:
             raise PQLError(f"field {field_name!r} not found")
         if field.options.type == TYPE_INT:
             return col, field, row
-        if not isinstance(row, int):
-            raise PQLError(
-                f"row key {row!r} requires key translation (field keys)")
-        if row < 0:
-            raise PQLError(f"row {row} is negative")
-        if call.arg("timestamp") is not None:
-            raise PQLError("timestamped writes are not yet ported")
+        row = _translate_row(field, row)
+        _check_row(row)
         return col, field, row
 
     def _execute_set(self, idx: Index, call: Call) -> bool:
+        """Set; the field's own ValueErrors (a bool row past 1, a
+        timestamp on a field that is not a time field) and a timestamp
+        that does not parse propagate bare, as in the reference."""
         col, field, row = self._write_target(idx, call)
-        try:
-            if field.options.type == TYPE_INT:
+        if field.options.type == TYPE_INT:
+            try:
                 changed = field.set_value(col, int(row))
-            else:
-                changed = field.set_bit(row, col)
-        except ValueError as e:
-            raise PQLError(str(e)) from e
+            except ValueError as e:
+                raise PQLError(str(e)) from e
+        else:
+            ts = call.arg("timestamp")
+            changed = field.set_bit(
+                row, col, timestamp=parse_time(ts) if ts is not None
+                else None)
         idx.mark_columns_exist([col])
         return changed
 
     def _execute_clear(self, idx: Index, call: Call) -> bool:
         col, field, row = self._write_target(idx, call)
-        try:
-            if field.options.type == TYPE_INT:
-                return field.clear_value(col)
-            return field.clear_bit(row, col)
-        except ValueError as e:
-            raise PQLError(str(e)) from e
+        if field.options.type == TYPE_INT:
+            return field.clear_value(col)
+        return field.clear_bit(row, col)
+
+    def _execute_clear_row(self, idx: Index, call: Call, shards=None) -> bool:
+        """ClearRow(f=r): every bit of the row in the field's standard
+        view (time views keep theirs, as in the reference), over the
+        query's shards."""
+        field_name, row = self._row_field_and_value(call)
+        field = idx.field(field_name)
+        if field is None:
+            raise PQLError(f"field {field_name!r} not found")
+        row = _translate_row(field, row)
+        _check_row(row)
+        view = field.view(VIEW_STANDARD)
+        changed = False
+        if view is not None:
+            for shard in self._shards(idx, shards):
+                frag = view.fragment(shard)
+                if frag is not None:
+                    changed |= frag.clear_row(row) > 0
+        return changed
+
+    def _execute_store(self, idx: Index, call: Call, shards=None) -> bool:
+        """Store(child, f=r): the child's row (its plan, then K2), read
+        back once, replaces row r of f's standard view in every shard of
+        the query, empty shards included. A missing f is created as a
+        set field, after the row is checked."""
+        if len(call.children) != 1:
+            raise PQLError("Store requires one child call")
+        field_name, row = self._row_field_and_value(call)
+        field = idx.field(field_name)
+        if field is None:
+            _check_row(row)
+            field = idx.create_field(field_name)
+        else:
+            row = _translate_row(field, row)
+            _check_row(row)
+        shard_list = self._shards(idx, shards)
+        if not shard_list:
+            return True
+        compiled = self._compile_cached(idx, call.children[0])
+        block = self._shard_block(shard_list)
+        host = self._run(idx, compiled, block, "row").cpu().numpy().view(
+            np.uint32)
+        view = field.view(VIEW_STANDARD, create=True)
+        for i, shard in enumerate(block.shards):
+            view.fragment(shard, create=True).write_row_words(row, host[i])
+        return True
+
+
+def _translate_row(field, row):
+    """A row id as it is; a row key is an error (keys are not ported, and
+    a field without keys refuses them with the reference's text)."""
+    if isinstance(row, int):
+        return row
+    if not field.options.keys:
+        raise PQLError(f"row key {row!r} on field {field.name!r} without "
+                       "keys=true")
+    raise PQLError("field keys are not yet ported")
+
+
+def _check_row(row) -> None:
+    if not isinstance(row, int):
+        raise PQLError(f"row key {row!r} requires key translation "
+                       "(field keys)")
+    if row < 0:
+        raise PQLError(f"row {row} is negative")
+
+
+def parse_time(value) -> dt.datetime:
+    """A from=/to=/timestamp= argument as a datetime, parsed from its
+    string form as the reference parses it."""
+    if isinstance(value, dt.datetime):
+        return value
+    return dt.datetime.fromisoformat(str(value))
 
 
 # ------------------------------------------------------------ GroupBy level

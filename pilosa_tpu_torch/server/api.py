@@ -1,9 +1,11 @@
 """The API layer between HTTP and the holder/executor (reference api.go).
 
 The port's thin copy of ``pilosa_tpu.server.api``: schema writes, PQL
-queries answered as pre-serialized JSON bytes, bulk bit imports and int
-fields' value imports, with the reference's validation and error texts
-so both packages answer the same bytes. A write is acknowledged only
+queries answered as pre-serialized JSON bytes, bulk bit imports (a mutex
+or bool field's through ``Fragment.import_mutex``, a time field's
+timestamped bits also into each quantum view, one bulk import a view)
+and int fields' value imports, with the reference's validation and
+error texts so both packages answer the same bytes. A write is acknowledged only
 once durable (``_ack_durable``): in ``group`` mode the request waits for
 the WAL group holding its records to be fsynced, in ``per-op`` mode every
 record was fsynced inline, and ``flush-only`` promises nothing. Before
@@ -17,12 +19,18 @@ from __future__ import annotations
 
 import numpy as np
 
-from pilosa_tpu_torch.executor.executor import Executor, PQLError
+from pilosa_tpu_torch.executor.executor import Executor, PQLError, parse_time
 from pilosa_tpu_torch.executor.result import results_json_bytes
 from pilosa_tpu_torch.pql import ParseError, parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
-from pilosa_tpu_torch.storage.field import TYPE_INT, FieldOptions
-from pilosa_tpu_torch.storage.view import VIEW_STANDARD
+from pilosa_tpu_torch.storage.field import (
+    TYPE_BOOL,
+    TYPE_INT,
+    TYPE_MUTEX,
+    TYPE_TIME,
+    FieldOptions,
+)
+from pilosa_tpu_torch.storage.view import VIEW_STANDARD, views_for_time
 from pilosa_tpu_torch.storage.wal import MODE_FLUSH_ONLY
 
 # The reference's max-writes-per-request default: the most Set/Clear
@@ -104,7 +112,11 @@ class API:
     def import_bits(self, index: str, field: str, rows, columns,
                     timestamps=None, clear: bool = False) -> int:
         """Bulk bit import (reference api.Import / fragment.bulkImport),
-        grouped by shard and written fragment-wise."""
+        grouped by shard and written fragment-wise: a mutex or bool field
+        clears each column's previous row in the same pass, and a time
+        field's timestamped bits also go into each quantum view, one bulk
+        import a view and shard. Returns the bits changed in the standard
+        view."""
         idx = self._index(index)
         fld = self._field(idx, field)
         try:
@@ -116,8 +128,11 @@ class API:
             raise ApiError("rows and columns must be the same length")
         if rows_i.size and (rows_i.min() < 0 or columns_i.min() < 0):
             raise ApiError("rows and columns must be non-negative")
-        if timestamps is not None and any(t for t in timestamps):
-            raise ApiError("timestamped imports are not yet ported")
+        if timestamps is not None and len(timestamps) != rows_i.size:
+            raise ApiError("timestamps must match rows length")
+        if (fld.options.type == TYPE_BOOL and rows_i.size
+                and rows_i.max() > 1):
+            raise ApiError("bool field rows must be 0 (false) or 1 (true)")
         try:
             fld.options.check_ported()
         except ValueError as e:
@@ -128,6 +143,10 @@ class API:
             return 0
         order, bounds, shards_sorted = shard_groups(columns)
         rows, columns = rows[order], columns[order]
+        stamps = ([timestamps[i] for i in order]
+                  if timestamps is not None and fld.options.type == TYPE_TIME
+                  else None)
+        mutex = fld.options.type in (TYPE_MUTEX, TYPE_BOOL)
         changed = 0
         with self.holder.cache.batch_writes():
             for i in range(bounds.size - 1):
@@ -142,9 +161,33 @@ class API:
                 idx.mark_columns_exist(columns[lo:hi])
                 frag = fld.view(VIEW_STANDARD, create=True).fragment(
                     shard, create=True)
-                changed += frag.bulk_import(rows[lo:hi], pos)
+                if mutex:
+                    changed += frag.import_mutex(rows[lo:hi], pos)
+                else:
+                    changed += frag.bulk_import(rows[lo:hi], pos)
+                if stamps is not None:
+                    self._import_time_views(fld, shard, rows[lo:hi], pos,
+                                            stamps[lo:hi])
         self._ack_durable()
         return int(changed)
+
+    @staticmethod
+    def _import_time_views(fld, shard: int, rows, pos, stamps) -> None:
+        """One shard's timestamped bits into the quantum views of their
+        timestamps, one bulk import a view (a bit without a timestamp
+        stays in the standard view alone)."""
+        by_view: dict[str, list] = {}
+        for j, ts in enumerate(stamps):
+            if not ts:
+                continue
+            for vname in views_for_time(VIEW_STANDARD,
+                                        fld.options.time_quantum,
+                                        parse_time(ts)):
+                by_view.setdefault(vname, []).append(j)
+        for vname, sel in by_view.items():
+            sel = np.asarray(sel, np.int64)
+            fld.view(vname, create=True).fragment(
+                shard, create=True).bulk_import(rows[sel], pos[sel])
 
     def import_values(self, index: str, field: str, columns, values,
                       clear: bool = False) -> int:

@@ -2,12 +2,15 @@
 
 Routes of this slice, with the reference's request and response bytes:
 
-- ``POST /index/{i}`` and ``POST /index/{i}/field/{f}``: schema;
+- ``POST /index/{i}`` and ``POST /index/{i}/field/{f}``: schema (field
+  ``type`` set, int, time with its ``timeQuantum``, mutex or bool);
 - ``POST /index/{i}/query``: raw PQL in, ``{"results": [...]}`` out:
-  Count, row algebra, Range, Shift, Not/All, Sum/Min/Max, TopN, Rows,
-  GroupBy (``aggregate=Sum``, ``having=``), IncludesColumn, Options
-  (``shards=``, ``excludeColumns=``), Set and Clear;
-- ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns``;
+  Count, row algebra, Range, time windows (``from=``/``to=``), Shift,
+  Not/All, Sum/Min/Max, TopN, Rows, GroupBy (``aggregate=Sum``,
+  ``having=``), IncludesColumn, Options (``shards=``,
+  ``excludeColumns=``), Set (``timestamp=``), Clear, ClearRow and Store;
+- ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns`` and
+  optional ``timestamps``;
 - ``POST /index/{i}/field/{f}/import-value``: JSON ``columns``/``values``
   for int fields (a protobuf body is not yet ported);
 - ``POST /recalculate-caches``: every fragment's row-count cache

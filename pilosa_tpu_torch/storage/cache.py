@@ -73,13 +73,17 @@ class RankCache:
         os.replace(tmp, path)
         fsync_dir(os.path.dirname(path) or ".")
 
-    def load(self, path: str) -> None:
+    def load(self, path: str) -> bool:
+        """Read the sidecar; False (and an empty cache) when it is missing
+        or unreadable."""
         try:
             with open(path) as f:
                 data = json.load(f)
             self._counts = {int(r): int(c) for r, c in data.get("counts", [])}
         except (OSError, ValueError):
             self._counts = {}
+            return False
+        return True
 
 
 class LRUCache(RankCache):
@@ -122,8 +126,8 @@ class NoneCache(RankCache):
     def save(self, path: str) -> None:
         pass
 
-    def load(self, path: str) -> None:
-        pass
+    def load(self, path: str) -> bool:
+        return True  # nothing is ever saved
 
 
 def new_row_cache(kind: str, size: int = DEFAULT_CACHE_SIZE):

@@ -1,16 +1,25 @@
 """Field: a named boolean matrix with a schema (reference field.go).
 
-The port's thin copy of ``pilosa_tpu.storage.field``. The ``.meta`` file
-and the view layout are the reference's, so every field type on disk
-opens. This package writes and queries ``set`` fields in the standard
-view and ``int`` fields: BSI bit-sliced integers in one ``bsig_<field>``
-view whose rows are [exists, sign, bit 0 … bit depth-1], offset-encoded
-against the field minimum so every stored magnitude is non-negative
-(aggregates add ``base·count`` back). The other types are refused.
+The port's copy of ``pilosa_tpu.storage.field``, with the reference's
+``.meta`` file and view layout and its five types:
+
+- ``set``: rows in the standard view;
+- ``mutex``: a column in one row at most, so a Set clears the column's
+  previous row;
+- ``bool``: a mutex field of rows 0 (false) and 1 (true);
+- ``time``: a set field whose timestamped writes also land in one view
+  per unit of its time quantum (``standard_YYYY[MM[DD[HH]]]``);
+- ``int``: BSI bit-sliced integers in one ``bsig_<field>`` view whose
+  rows are [exists, sign, bit 0 … bit depth-1], offset-encoded against
+  the field minimum so every stored magnitude is non-negative
+  (aggregates add ``base·count`` back).
+
+Fields with keys are refused: key translation is not ported yet.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 import json
 import os
 import threading
@@ -25,12 +34,21 @@ from pilosa_tpu_torch.shardwidth import (
     shard_of,
 )
 from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
-from pilosa_tpu_torch.storage.view import VIEW_STANDARD, View, view_name_bsi
+from pilosa_tpu_torch.storage.view import (
+    VIEW_STANDARD,
+    View,
+    validate_quantum,
+    view_name_bsi,
+    views_for_time,
+)
 from pilosa_tpu_torch.storage.wal import fsync_dir
 
 TYPE_SET = "set"
 TYPE_INT = "int"
-FIELD_TYPES = ("set", "int", "time", "mutex", "bool")
+TYPE_TIME = "time"
+TYPE_MUTEX = "mutex"
+TYPE_BOOL = "bool"
+FIELD_TYPES = (TYPE_SET, TYPE_INT, TYPE_TIME, TYPE_MUTEX, TYPE_BOOL)
 
 # BSI plane layout within the bsig view.
 BSI_EXISTS_ROW = 0
@@ -49,6 +67,10 @@ class FieldOptions:
             raise ValueError(f"invalid field type {type!r}")
         if type == TYPE_INT and max < min:
             raise ValueError("int field requires max >= min")
+        if type == TYPE_TIME:
+            validate_quantum(time_quantum)
+            if not time_quantum:
+                raise ValueError("time field requires a time quantum")
         self.type = type
         self.cache_type = cache_type
         self.cache_size = cache_size
@@ -90,9 +112,7 @@ class FieldOptions:
         )
 
     def check_ported(self) -> None:
-        """Raise for the schema features this slice cannot serve."""
-        if self.type not in (TYPE_SET, TYPE_INT):
-            raise ValueError(f"field type {self.type!r} is not yet ported")
+        """Raise for the schema features the port cannot serve yet."""
         if self.keys:
             raise ValueError("field keys are not yet ported")
 
@@ -169,15 +189,38 @@ class Field:
 
     # ---------------------------------------------------------------- writes
 
-    def set_bit(self, row: int, column: int) -> bool:
+    def set_bit(self, row: int, column: int,
+                timestamp: dt.datetime | None = None) -> bool:
+        """Set (row, column). A mutex or bool field clears the column's
+        previous row first; a timestamp also writes the bit into each of
+        the time quantum's views (after the standard view, so a
+        timestamp on another type raises with the standard bit set, as
+        in the reference)."""
         self.options.check_ported()
         if self.options.type == TYPE_INT:
             raise ValueError("set_bit on int field; use set_value")
-        frag = self.view(VIEW_STANDARD, create=True).fragment(
-            shard_of(column), create=True)
-        return frag.set_bit(row, position(column))
+        if self.options.type == TYPE_BOOL and row not in (0, 1):
+            raise ValueError("bool field rows must be 0 (false) or 1 (true)")
+        shard, pos = shard_of(column), position(column)
+        frag = self.view(VIEW_STANDARD, create=True).fragment(shard,
+                                                              create=True)
+        if self.options.type in (TYPE_MUTEX, TYPE_BOOL):
+            for other in frag.row_ids():
+                if other != row and frag.contains(other, pos):
+                    frag.clear_bit(other, pos)
+        changed = frag.set_bit(row, pos)
+        if timestamp is not None:
+            if self.options.type != TYPE_TIME:
+                raise ValueError("timestamped write on non-time field")
+            for vname in views_for_time(VIEW_STANDARD,
+                                        self.options.time_quantum, timestamp):
+                self.view(vname, create=True).fragment(
+                    shard, create=True).set_bit(row, pos)
+        return changed
 
     def clear_bit(self, row: int, column: int) -> bool:
+        """Clear (row, column) in every view but the BSI planes: the
+        standard view and each time view."""
         self.options.check_ported()
         changed = False
         for v in list(self.views.values()):

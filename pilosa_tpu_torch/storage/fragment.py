@@ -20,7 +20,8 @@ The reference's sidecars are kept as it keeps them: every snapshot
 writes the ``.checksums`` block digests (``storage/integrity.py``), which
 an open with ``verify_on_load`` checks; every write path updates the
 row-count cache (``storage/cache.py``), which a clean close saves as
-``.cache`` and ``recalculate_cache`` rebuilds. TopN's phase 1 still
+``.cache`` (when it changed since it was loaded or saved) and
+``recalculate_cache`` rebuilds. TopN's phase 1 still
 ranks exact counts (``top``).
 """
 
@@ -31,13 +32,15 @@ import threading
 
 import numpy as np
 
-from pilosa_tpu_torch.roaring import OP_ADD, OP_REMOVE, RoaringBitmap
+from pilosa_tpu_torch.ops.packing import unpack_bits
+from pilosa_tpu_torch.roaring import OP_ADD, OP_REMOVE, RoaringBitmap, \
+    merge_kernels
 from pilosa_tpu_torch.roaring.format import (
     encode_op,
     replay_ops,
     serialize,
 )
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, keep_last_unique
 from pilosa_tpu_torch.storage.cache import (
     CACHE_TYPE_RANKED,
     DEFAULT_CACHE_SIZE,
@@ -110,6 +113,9 @@ class Fragment:
         self.verify_on_load = verify_on_load
         # the TopN row-count cache, saved as the .cache sidecar on close
         self.row_cache = new_row_cache(cache_type, cache_size)
+        # the .cache sidecar holds the row cache as it is (loaded or saved
+        # since the last write): a clean close need not rewrite it
+        self._cache_saved = False
         # bumped after every bitmap change; keys the row-count and ranking
         # memos
         self.mutations = 0
@@ -145,8 +151,7 @@ class Fragment:
                 f.flush()
                 os.fsync(f.fileno())
             fsync_dir(os.path.dirname(self.path))
-        self.row_cache.load(self.path + ROW_CACHE_SUFFIX)
-        self._file = open(self.path, "ab")
+        self._cache_saved = self.row_cache.load(self.path + ROW_CACHE_SUFFIX)
         self._open = True
         if torn or self.op_n > self.snapshot_threshold:
             # a torn tail left by a crash mid-append must go before any
@@ -173,7 +178,8 @@ class Fragment:
                     except OSError:
                         pass
                 try:
-                    self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
+                    if not self._cache_saved:
+                        self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
                 except OSError:
                     pass  # derived data: recalculate_cache rebuilds it
             elif grouped:
@@ -205,6 +211,15 @@ class Fragment:
 
     def contains(self, row: int, pos: int) -> bool:
         return (row << 20) + pos in self.bitmap
+
+    def row_ids(self) -> list[int]:
+        """Rows with a container (every such row is non-empty: writes
+        drop empty containers)."""
+        return sorted({k >> 4 for k in list(self.bitmap.keys)})
+
+    def row_columns(self, row: int) -> np.ndarray:
+        """Sorted in-shard positions set in ``row`` (uint64)."""
+        return unpack_bits(self.row_words(row))
 
     def row_counts(self) -> tuple[np.ndarray, np.ndarray]:
         """Exact (row_ids, counts) of every row with a container, from
@@ -286,6 +301,36 @@ class Fragment:
                 self._after_row_write(row, [pos], added=False)
             return changed
 
+    def clear_row(self, row: int) -> int:
+        """Remove every bit of a row (ClearRow), logged as one REMOVE
+        record; its write event carries the whole row's positions.
+        Returns the number of bits cleared."""
+        with self.lock:
+            cols = self.row_columns(row)
+            if cols.size == 0:
+                return 0
+            ids = cols + np.uint64(row << 20)
+            removed = self.bitmap.remove_ids(ids)
+            self._log_op(OP_REMOVE, ids)
+            self._after_row_write(row, cols, added=False)
+            return removed
+
+    def write_row_words(self, row: int, words: np.ndarray) -> None:
+        """Replace a row with dense words (Store), logged as a REMOVE of
+        the old bits and an ADD of the new ones, each when non-empty; its
+        write event carries no positions (the row is re-read)."""
+        with self.lock:
+            base = np.uint64(row << 20)
+            old = self.row_columns(row) + base
+            new = unpack_bits(words) + base
+            if old.size:
+                self.bitmap.remove_ids(old)
+                self._log_op(OP_REMOVE, old)
+            if new.size:
+                self.bitmap.add_ids(new)
+                self._log_op(OP_ADD, new)
+            self._after_row_write(row, None, added=None)
+
     def bulk_import(self, rows, positions) -> int:
         """Batched import of (row, position) pairs (reference
         fragment.bulkImport). Returns #bits changed."""
@@ -303,6 +348,48 @@ class Fragment:
                 for row, p in _group_by_row(rows, positions):
                     self._after_row_write(row, p, added=True)
             return changed
+
+    def import_mutex(self, rows, positions) -> int:
+        """Mutex-aware batched import (reference
+        fragment.bulkImportMutex): each column's previous row clears in
+        the same locked pass, one ADD and one REMOVE record for the
+        batch. Duplicate positions keep the LAST row. Returns the number
+        of columns whose bit was newly set (a moved column counts once, a
+        column already in its row not at all)."""
+        rows = np.asarray(rows, np.uint64)
+        positions = np.asarray(positions, np.uint64)
+        if rows.shape != positions.shape:
+            raise ValueError("rows and positions must have identical shape")
+        if positions.size == 0:
+            return 0
+        if int(positions.max()) >= SHARD_WIDTH:
+            raise ValueError("position out of shard range")
+        keep = keep_last_unique(positions)
+        rows, positions = rows[keep], positions[keep]
+        with self.lock:
+            cur_rows, cur_idx = merge_kernels.set_rows_for_positions(
+                self.bitmap, positions)
+            conflict = cur_rows.astype(np.uint64) != rows[cur_idx]
+            target_set = np.zeros(positions.size, bool)
+            target_set[cur_idx[~conflict]] = True
+            removed = list(_group_by_row(cur_rows[conflict],
+                                         positions[cur_idx[conflict]]))
+            add_m = ~target_set
+            added = list(_group_by_row(rows[add_m], positions[add_m]))
+            for parts, op, bitmap_op in ((added, OP_ADD, self.bitmap.add_ids),
+                                         (removed, OP_REMOVE,
+                                          self.bitmap.remove_ids)):
+                if parts:
+                    ids = np.sort(np.concatenate(
+                        [(np.uint64(r) << np.uint64(20)) + p
+                         for r, p in parts]))
+                    bitmap_op(ids)
+                    self._log_op(op, ids)
+            for r, p in added:
+                self._after_row_write(r, p, added=True)
+            for r, p in removed:
+                self._after_row_write(r, p, added=False)
+            return int(add_m.sum())
 
     def _has_bits(self, row: int, positions: np.ndarray) -> np.ndarray:
         """Membership of each in-shard position in ``row`` (bool)."""
@@ -381,11 +468,12 @@ class Fragment:
                 fresh.bulk_add(r, c)
             self.row_cache = fresh
             self.row_cache.save(self.path + ROW_CACHE_SUFFIX)
+            self._cache_saved = True
 
     # ------------------------------------------------------------ durability
 
     def _log_op(self, op: int, ids) -> None:
-        if self._file is None:
+        if not self._open:
             raise RuntimeError(f"fragment {self.path} is closed")
         record = encode_op(op, ids)
         wal = self.wal
@@ -394,6 +482,12 @@ class Fragment:
             # it, so the mutator never waits on the disk under this lock
             wal.append_op(self.wal_key, record, self)
         else:
+            if self._file is None:
+                # opened at the first record appended here: a group-mode
+                # holder keeps no descriptor a fragment (a YMDH field at
+                # 1024 shards holds tens of thousands of them, past common
+                # open-file limits)
+                self._file = open(self.path, "ab")
             self._file.write(record)
             self._file.flush()
             if wal is None or wal.mode == MODE_PER_OP:
@@ -447,12 +541,11 @@ class Fragment:
             # is in the snapshot and no longer pins a WAL segment
             self.wal.note_snapshot(self.wal_key, self.wal.current_seq())
         self.op_n = 0
-        if self._open:
-            self._file = open(self.path, "ab")
 
     def _after_row_write(self, row: int, positions, added,
                          row_count: int | None = None) -> None:
         self.mutations += 1
+        self._cache_saved = False
         self.row_cache.add(row, self.count_row(row) if row_count is None
                            else row_count)
         if self.cache is not None:

@@ -5,7 +5,9 @@ from one numpy seed, and ``chip_smoke.py`` builds a 1B-column data
 directory, without pushing billions of column ids through the op log.
 Each fragment that gains a bit is rewritten as one fresh snapshot, in the
 container forms ``Container.from_lows`` would pick, so the files are the
-ones either package writes for the same bits.
+ones either package writes for the same bits. Rows may go into a named
+view (a time field's quantum views), and a mutex or bool field's rows
+are checked to hold each column once.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
 from pilosa_tpu_torch.storage.field import (
     BSI_EXISTS_ROW,
     BSI_OFFSET_ROW,
+    TYPE_BOOL,
     TYPE_INT,
+    TYPE_MUTEX,
     FieldOptions,
 )
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD
@@ -39,13 +43,22 @@ CONTAINERS_PER_ROW = WORDS_PER_SHARD // CONTAINER_WORDS
 
 def _lows(words: np.ndarray) -> list:
     """uint32[k, 2048] container words → each container's sorted uint16
-    set positions, from its nonzero words only (one pass for all k)."""
+    set positions. The nonzero words give up their lowest set bit a pass
+    (its index read off the float exponent), so the work grows with the
+    set bits, not with 32 a nonzero word."""
     ci, wi = np.nonzero(words)
-    bits = np.unpackbits(words[ci, wi].view(np.uint8).reshape(-1, 4), axis=1,
-                         bitorder="little")
-    r, b = np.nonzero(bits)
-    lows = (wi[r] * 32 + b).astype(np.uint16)
-    bounds = np.searchsorted(ci[r], np.arange(words.shape[0] + 1))
+    w = words[ci, wi]
+    base = (ci.astype(np.int64) << 16) | (wi.astype(np.int64) << 5)
+    keys = []
+    while w.size:
+        low = w & (~w + np.uint32(1))
+        keys.append(base + (np.frexp(low.astype(np.float64))[1] - 1))
+        w = w ^ low
+        left = w != 0
+        w, base = w[left], base[left]
+    key = np.sort(np.concatenate(keys)) if keys else np.empty(0, np.int64)
+    lows = (key & 0xFFFF).astype(np.uint16)
+    bounds = np.searchsorted(key >> 16, np.arange(words.shape[0] + 1))
     return [lows[bounds[i]:bounds[i + 1]] for i in range(words.shape[0])]
 
 
@@ -87,28 +100,39 @@ def canonical_containers(words: np.ndarray) -> list:
     return out
 
 
-def _load_fragment(frag, rows: dict) -> int:
+def _load_fragment(frag, rows: dict, single_valued: bool = False) -> int:
     """OR ``rows`` ({row: uint32[32768]}) into one fragment as a fresh
     snapshot, unless it gains no bit; returns the number of bits the
-    fragment gained."""
+    fragment gained. ``single_valued`` (a mutex or bool field): a column
+    set in two rows of the result is a ValueError."""
     old = frag.bitmap
     bm = RoaringBitmap()
     bm._containers = dict(old._containers)
     before = old.count()
-    for row, words in rows.items():
-        block = np.array(words, np.uint32).reshape(CONTAINERS_PER_ROW,
-                                                   CONTAINER_WORDS)
-        base_key = row << 4
-        for j in range(CONTAINERS_PER_ROW):
-            c = old.container(base_key + j)
-            if c is not None:
-                block[j] |= c.dense_words32()
-        for j, c in enumerate(canonical_containers(block)):
-            if c is None:
-                bm._containers.pop(base_key + j, None)
-            else:
-                bm._containers[base_key + j] = c
+    # every row's containers in one block, so their forms are decided in
+    # one pass
+    keys = [(row << 4) + j for row in rows for j in range(CONTAINERS_PER_ROW)]
+    block = np.stack([np.asarray(w, np.uint32) for w in rows.values()]) \
+        .reshape(len(keys), CONTAINER_WORDS)
+    for i, key in enumerate(keys):
+        c = old.container(key)
+        if c is not None:
+            block[i] |= c.dense_words32()
+    for key, c in zip(keys, canonical_containers(block)):
+        if c is None:
+            bm._containers.pop(key, None)
+        else:
+            bm._containers[key] = c
     bm.keys = sorted(bm._containers)
+    if single_valued:
+        seen = np.zeros(WORDS_PER_SHARD, np.uint32)
+        for row in sorted({k >> 4 for k in bm.keys}):
+            words = bm.dense_range_words32(row << 20, (row + 1) << 20)
+            if (seen & words).any():
+                raise ValueError(f"{frag.field}: a column of shard "
+                                 f"{frag.shard} is in two rows of a mutex "
+                                 "field")
+            seen |= words
     gained = bm.count() - before
     if gained:  # bits are only added: an equal count is an equal bitmap
         frag.replace_bitmap(bm, rows)
@@ -140,26 +164,37 @@ def _check_planes(name: str, opts: FieldOptions, planes: np.ndarray) -> None:
 
 def load_from_dense(holder, fields: dict, *, index: str,
                     int_fields: dict | None = None,
+                    views: dict | None = None,
+                    options: dict | None = None,
                     existence: bool = True) -> int:
     """Set the bits of dense words in ``index`` (created, with its fields,
     when missing).
 
-    ``fields`` is ``{field: {row: words}}`` for set fields, where
+    ``fields`` is ``{field: {row: words}}`` for set-like fields, where
     ``words`` are uint32, ``n_shards x 32768`` of them, shard-major — bit
-    ``b`` of the flat array is column ``b``. ``int_fields`` is ``{field:
-    (min, max, planes)}`` for int fields, ``planes`` being uint32[2 +
-    depth, n_shards x 32768]: the exists row, the sign row and the bit
-    planes of the offset-encoded values, as the field's ``bsig`` view
-    holds them. Columns that gain a bit (int fields: the exists bit) are
-    marked existing, as an import marks them, unless ``existence`` is
-    False (a caller building fields in parallel marks them once with
-    ``load_existence``). Returns the number of bits set that were not set
-    before."""
+    ``b`` of the flat array is column ``b``. ``views`` is ``{field:
+    {view: {row: words}}}``: rows written into a named view of the field
+    (a time field's ``standard_YYYY…`` views). ``options`` is ``{field:
+    FieldOptions}`` for the set-like fields the loader creates (a set
+    field by default); a mutex or bool field's rows must leave each
+    column in one row at most, and a bool field has rows 0 and 1 alone.
+    ``int_fields`` is ``{field: (min, max, planes)}`` for int fields,
+    ``planes`` being uint32[2 + depth, n_shards x 32768]: the exists row,
+    the sign row and the bit planes of the offset-encoded values, as the
+    field's ``bsig`` view holds them. Columns that gain a bit (int
+    fields: the exists bit) are marked existing, as an import marks them,
+    unless ``existence`` is False (a caller building fields in parallel
+    marks them once with ``load_existence``). Returns the number of bits
+    set that were not set before."""
     idx = holder.index(index) or holder.create_index(index)
+    options = options or {}
     exists: dict[int, np.ndarray] = {}
     gained = 0
-    layers = [(fname, VIEW_STANDARD, rows, None)
+    layers = [(fname, VIEW_STANDARD, rows, options.get(fname))
               for fname, rows in fields.items()]
+    layers += [(fname, vname, rows, options.get(fname))
+               for fname, by_view in (views or {}).items()
+               for vname, rows in by_view.items()]
     for fname, (lo, hi, planes) in (int_fields or {}).items():
         opts = FieldOptions(type=TYPE_INT, min=lo, max=hi)
         planes = np.asarray(planes, np.uint32)
@@ -168,15 +203,20 @@ def load_from_dense(holder, fields: dict, *, index: str,
     for fname, vname, rows, opts in layers:
         fld = idx.field(fname) or idx.create_field(fname, opts)
         fld.options.check_ported()
-        if (fld.options.type == TYPE_INT) != (opts is not None):
+        bsi = vname is None
+        if (fld.options.type == TYPE_INT) != bsi:
             raise ValueError(f"field {fname!r} is a {fld.options.type} field")
+        single_valued = fld.options.type in (TYPE_MUTEX, TYPE_BOOL)
+        if fld.options.type == TYPE_BOOL and any(int(r) not in (0, 1)
+                                                 for r in rows):
+            raise ValueError(f"bool field {fname!r} has rows 0 and 1 only")
         view = fld.view(vname or fld.bsi_view_name(), create=True)
         per_shard: dict[int, dict] = {}
         for row, words in rows.items():
             if int(row) < 0:
                 raise ValueError(f"row {row} is negative")
             w = np.asarray(words, np.uint32).reshape(-1, WORDS_PER_SHARD)
-            marks = opts is None or int(row) == BSI_EXISTS_ROW
+            marks = not bsi or int(row) == BSI_EXISTS_ROW
             for shard in np.flatnonzero(w.any(axis=1)).tolist():
                 per_shard.setdefault(shard, {})[int(row)] = w[shard]
                 if marks:
@@ -189,7 +229,7 @@ def load_from_dense(holder, fields: dict, *, index: str,
         with ThreadPoolExecutor(min(8, os.cpu_count() or 1)) as pool:
             gained += sum(pool.map(
                 lambda job: _load_fragment(view.fragment(job[0], create=True),
-                                           job[1]), jobs))
+                                           job[1], single_valued), jobs))
     if existence:
         _load_existence(idx, exists)
     return gained

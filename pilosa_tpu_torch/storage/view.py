@@ -2,12 +2,15 @@
 
 The port's thin copy of ``pilosa_tpu.storage.view``: the same directory
 layout (``views/<name>/fragments/<shard>``). The ``standard`` view holds
-set rows and ``bsig_<field>`` an int field's bit planes; other views on
-disk (time quanta) are opened and left alone.
+set rows, ``bsig_<field>`` an int field's bit planes, and a time field's
+quantum views ``standard_YYYY[MM[DD[HH]]]`` its timestamped bits.
+``views_by_time_range`` covers a [from, to) window with the coarsest
+views the quantum provides, name for name as the reference does.
 """
 
 from __future__ import annotations
 
+import datetime as dt
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
@@ -16,10 +19,78 @@ from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
 from pilosa_tpu_torch.storage.fragment import Fragment
 
 VIEW_STANDARD = "standard"
+_UNITS = "YMDH"
 
 
 def view_name_bsi(field_name: str) -> str:
     return f"bsig_{field_name}"
+
+
+def validate_quantum(q: str) -> str:
+    """``q`` if it is "" or a subsequence of YMDH, else ValueError."""
+    if q == "":
+        return q
+    if any(c not in _UNITS for c in q) or \
+            "".join(u for u in _UNITS if u in q) != q:
+        raise ValueError(
+            f"invalid time quantum {q!r} (want a subsequence of YMDH)")
+    return q
+
+
+def _trunc(t: dt.datetime, unit: str) -> dt.datetime:
+    if unit == "Y":
+        return t.replace(month=1, day=1, hour=0, minute=0, second=0,
+                         microsecond=0)
+    if unit == "M":
+        return t.replace(day=1, hour=0, minute=0, second=0, microsecond=0)
+    if unit == "D":
+        return t.replace(hour=0, minute=0, second=0, microsecond=0)
+    return t.replace(minute=0, second=0, microsecond=0)
+
+
+def _advance(t: dt.datetime, unit: str) -> dt.datetime:
+    if unit == "Y":
+        return t.replace(year=t.year + 1)
+    if unit == "M":
+        return (t.replace(day=28) + dt.timedelta(days=4)).replace(day=1)
+    if unit == "D":
+        return t + dt.timedelta(days=1)
+    return t + dt.timedelta(hours=1)
+
+
+def _name(base: str, t: dt.datetime, unit: str) -> str:
+    fmt = {"Y": "%Y", "M": "%Y%m", "D": "%Y%m%d", "H": "%Y%m%d%H"}[unit]
+    return f"{base}_{t.strftime(fmt)}"
+
+
+def views_for_time(base: str, quantum: str, t: dt.datetime) -> list[str]:
+    """The views a write stamped ``t`` lands in besides ``base``: one per
+    unit of the quantum."""
+    return [_name(base, t, u) for u in quantum]
+
+
+def views_by_time_range(base: str, quantum: str, t_from: dt.datetime,
+                        t_to: dt.datetime) -> list[str]:
+    """The cover of [t_from, t_to) by quantum views, in time order: from
+    ``t_from`` truncated to the finest unit, each step takes the coarsest
+    unit aligned there whose span ends by ``t_to``, else the finest unit
+    (a window edge inside an hour takes that whole hour). Empty when
+    t_from >= t_to or the quantum is empty."""
+    if not quantum:
+        return []
+    units = [u for u in _UNITS if u in quantum]  # coarse to fine
+    finest = units[-1]
+    out: list[str] = []
+    t = _trunc(t_from, finest)
+    while t < t_to:
+        for u in units:
+            if _trunc(t, u) == t and _advance(t, u) <= t_to:
+                break
+        else:
+            u = finest
+        out.append(_name(base, t, u))
+        t = _advance(t, u)
+    return out
 
 
 def _each(fn, frags: list) -> None:

@@ -520,3 +520,144 @@ def test_wide_tree_runs_as_tree_steps_on_the_card(dev, tmp_path):
     assert cpu[2].segments.keys() == cuda[2].segments.keys()
     for shard, words in cpu[2].segments.items():
         assert np.array_equal(words, cuda[2].segments[shard])
+
+
+def _time_mutex_dir(path) -> None:
+    """4 shards: a YMDH time field t filled by timestamped imports, a
+    mutex field k and a set field f, written on the CPU."""
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.storage import FieldOptions, Holder
+
+    rng = np.random.default_rng(120)
+    h = Holder(str(path), device="cpu").open()
+    idx = h.create_index("i")
+    idx.create_field("t", FieldOptions(type="time", time_quantum="YMDH"))
+    idx.create_field("k", FieldOptions(type="mutex"))
+    idx.create_field("f")
+    api = API(h)
+    cols = rng.integers(0, 4 * W * 32, 4000)
+    stamps = [f"2019-{1 + m % 12:02d}-0{1 + m % 9}T{m % 24:02d}:00"
+              for m in rng.integers(0, 1000, cols.size)]
+    api.import_bits("i", "t", rng.integers(0, 3, cols.size).tolist(),
+                    cols.tolist(), timestamps=stamps)
+    cols = np.unique(rng.integers(0, 4 * W * 32, 20000))
+    api.import_bits("i", "k", rng.integers(0, 4, cols.size).tolist(),
+                    cols.tolist())
+    api.import_bits("i", "f", [1] * 3000,
+                    rng.integers(0, 4 * W * 32, 3000).tolist())
+    h.close()
+
+
+def _on_both_devices(tmp_path, script) -> None:
+    """``script(api)`` on a CPU and a CUDA server API over copies of one
+    time/mutex dir: the same answers, the CUDA one's K3 launches as
+    ``script`` asserts, and each resident leaf equal to the OR of its
+    views' host rows."""
+    import shutil
+
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.storage import Holder
+
+    _time_mutex_dir(tmp_path / "seed")
+    answers = {}
+    for device in ("cpu", "cuda"):
+        shutil.copytree(tmp_path / "seed", tmp_path / device)
+        h = Holder(str(tmp_path / device), device=device).open()
+        try:
+            kernels.reset_launches()
+            answers[device] = script(API(h), device)
+            idx = h.index("i")
+            for key, arr in list(h.cache._rows.items()):
+                if key[0] != "stack":
+                    continue
+                field, views, row = key[3], key[4], key[5]
+                host = arr.cpu().numpy().view(np.uint32)
+                want = np.zeros_like(host)
+                for s in range(4):
+                    for vname in views:
+                        view = idx.field(field).view(vname)
+                        frag = view.fragment(s) if view else None
+                        if frag is not None:
+                            want[s] |= frag.row_words(row)
+                assert np.array_equal(host, want), key[3:6]
+        finally:
+            h.close()
+    assert answers["cpu"] == answers["cuda"]
+
+
+WINDOW = "from='2019-03-15T07:00', to='2020-03-15T07:00'"
+
+
+def test_multi_view_leaf_patch_on_the_card(dev, tmp_path):
+    """A timestamped Set into a view that did not exist when the 65-view
+    leaf was built patches it through one K3 launch; a Clear on the time
+    field re-decodes the slot; a timestamped import at a new hour is one
+    launch for every leaf whose cover names it."""
+    def script(api, device):
+        q = [f"Count(Row(t=1, {WINDOW}))", f"Count(Row(t=0, {WINDOW}))",
+             "Count(Row(t=1, from='2019-01-01', to='2020-01-01'))"]
+        out = [api.query_raw("i", pql)[0] for pql in q]
+        before = kernels.launches()["word_patch"]
+        out += api.query_raw("i", "Set(1048579, t=1, "
+                                  "timestamp='2019-06-28T13:00')")
+        if device == "cuda":
+            assert kernels.launches()["word_patch"] == before + 1
+        out += [api.query_raw("i", pql)[0] for pql in q]
+        out += api.query_raw("i", "Clear(1048579, t=1)")
+        out += [api.query_raw("i", pql)[0] for pql in q]
+        before = kernels.launches()["word_patch"]
+        cols = [s * W * 32 + 77 for s in range(4)]
+        out.append(api.import_bits("i", "t", [0, 1, 0, 1], cols,
+                                   timestamps=["2019-09-17T05:00"] * 4))
+        if device == "cuda":
+            assert kernels.launches()["word_patch"] == before + 1
+        return out + [api.query_raw("i", pql)[0] for pql in q]
+
+    _on_both_devices(tmp_path, script)
+
+
+def test_mutex_import_is_one_k3_launch_on_the_card(dev, tmp_path):
+    def script(api, device):
+        q = ["Count(Row(k=0))", "Count(Row(k=2))",
+             "Count(Intersect(Row(k=0), Row(k=2)))"]
+        out = [api.query_raw("i", pql)[0] for pql in q]
+        topn = api.query_raw("i", "TopN(k)")[0]
+        h = api.holder
+        frag_cols = []
+        for s in range(4):
+            frag = h.index("i").field("k").view("standard").fragment(s)
+            frag_cols.append(s * W * 32 + int(frag.row_columns(0)[0]))
+        before = kernels.launches()["word_patch"]
+        out.append(api.import_bits("i", "k", [2] * 4, frag_cols))
+        if device == "cuda":
+            assert kernels.launches()["word_patch"] == before + 1
+        out += [api.query_raw("i", pql)[0] for pql in q]
+        return out + [[(p.id, p.count) for p in topn],
+                      [(p.id, p.count) for p in
+                       api.query_raw("i", "TopN(k)")[0]]]
+
+    _on_both_devices(tmp_path, script)
+
+
+def test_store_and_clear_row_on_the_card(dev, tmp_path):
+    """Store takes its child's row through K2 and rewrites each shard's
+    row (re-read into the resident leaf); ClearRow of that sparse row is
+    one K3 launch and leaves the leaf resident, empty."""
+    def script(api, device):
+        out = api.query_raw("i", f"Store(Union(Row(t=2, {WINDOW}), "
+                                 "Row(k=1)), s=1)")
+        out += api.query_raw("i", "Count(Row(s=1)) Count(Row(f=1))")
+        assert out[1] > 0
+        out += api.query_raw("i", "Store(Row(k=3), f=1)")
+        out += api.query_raw("i", "Count(Row(f=1)) Count(Row(k=3))")
+        before = kernels.launches()["word_patch"]
+        out += api.query_raw("i", "ClearRow(s=1)")
+        if device == "cuda":
+            assert kernels.launches()["word_patch"] == before + 1
+            assert kernels.launches()["tree_rows"] >= 2
+        out += api.query_raw("i", "Count(Row(s=1))")
+        assert any(k[0] == "stack" and k[3] == "s"
+                   for k in api.holder.cache._rows)
+        return out
+
+    _on_both_devices(tmp_path, script)

@@ -545,3 +545,37 @@ def test_adding_present_bits_leaves_the_container(kind):
                           np.isin(np.arange(65536), lows))
     assert bm.add_ids(np.append(present, absent[:1])) == 1
     assert bm.container(7).n == lows.size + 1
+
+
+def test_open_holds_no_descriptors_and_close_keeps_clean_sidecars(tmp_path):
+    """A group-mode holder keeps no file descriptor a fragment (a YMDH
+    field at 1024 shards holds tens of thousands), and a clean close
+    leaves a .cache sidecar it did not change as it was; a per-op write
+    opens its fragment's file, and a written fragment's sidecar is
+    rewritten."""
+    rows = _seed_rows(13, rows=(1, 2))
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    load_from_dense(h, {"f": rows}, index="i")
+    h.close()
+    frags = os.path.join(str(tmp_path / "d"), "i", "f", "views", "standard",
+                         "fragments")
+    before = {n: os.stat(os.path.join(frags, n)).st_mtime_ns
+              for n in os.listdir(frags) if n.endswith(".cache")}
+    assert len(before) == SHARDS
+    fds = len(os.listdir("/proc/self/fd"))
+    h = Holder(str(tmp_path / "d"), device="cpu").open()
+    try:
+        assert len(os.listdir("/proc/self/fd")) <= fds + 4  # the WAL's
+        h.index("i").field("f").set_bit(3, 5)  # shard 0 changes
+    finally:
+        h.close()
+    after = {n: os.stat(os.path.join(frags, n)).st_mtime_ns for n in before}
+    assert [n for n in before if after[n] != before[n]] == ["0.cache"]
+    p = Holder(str(tmp_path / "d"), device="cpu",
+               durability_mode="per-op").open()
+    try:
+        fds = len(os.listdir("/proc/self/fd"))
+        p.index("i").field("f").set_bit(3, 6)
+        assert len(os.listdir("/proc/self/fd")) == fds + 1
+    finally:
+        p.close()

@@ -250,6 +250,81 @@ def test_crash_copy_opens_in_the_other_package(tmp_path, writer):
         assert got[k] == want[k], k
 
 
+def _time_mutex_script(holder, options_cls) -> None:
+    """Timestamped Sets into a YMDH field (each creates its time views),
+    a mutex import that moves columns, a Clear across the time views, a
+    Store and a ClearRow: the same calls on either package's holder."""
+    idx = holder.create_index("i")
+    t = idx.create_field("t", options_cls(type="time", time_quantum="YMDH"))
+    k = idx.create_field("k", options_cls(type="mutex"))
+    f = idx.create_field("f")
+    import datetime as dt
+
+    rng = np.random.default_rng(23)
+    for j, col in enumerate(rng.integers(0, SHARDS * SW, 40).tolist()):
+        t.set_bit(j % 3, col, timestamp=dt.datetime(2019, 1 + j % 12, 3,
+                                                    j % 24))
+    t.clear_bit(1, int(col))
+    cols = np.unique(rng.integers(0, SW, 300)).astype(np.uint64)
+    frag = k.view("standard", create=True).fragment(0, create=True)
+    frag.import_mutex(np.zeros(cols.size, np.uint64), cols)
+    frag.import_mutex(np.full(cols.size // 2, 2, np.uint64),
+                      cols[:cols.size // 2])
+    for s in range(SHARDS):
+        f.view("standard", create=True).fragment(s, create=True).bulk_import(
+            np.ones(50, np.uint64),
+            rng.integers(0, SW, 50).astype(np.uint64))
+    k.view("standard").fragment(0).clear_row(2)
+    words = f.view("standard").fragment(1).row_words(1)
+    f.view("standard").fragment(2).write_row_words(4, words)
+    f.view("standard").fragment(1).clear_row(1)
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_time_view_and_clear_row_records_replay_in_either_package(
+        tmp_path, writer):
+    """A crash copy whose WAL holds timestamped writes, mutex moves, a
+    Store's REMOVE/ADD and ClearRow records, with one time view's
+    directory gone (it exists only in the log): either package's open
+    recreates the view and replays into the same files and answers."""
+    if writer == "reference":
+        live = jstorage.Holder(str(tmp_path / "live")).open()
+        _time_mutex_script(live, JFieldOptions)
+    else:
+        live = _port(tmp_path / "live").open()
+        _time_mutex_script(live, FieldOptions)
+    try:
+        copies = [_crash_copy(live, tmp_path / n) for n in ("cj", "cp")]
+    finally:
+        live.close()
+    gone = os.path.join("i", "t", "views", "standard_2019050304")
+    for c in copies:
+        shutil.rmtree(os.path.join(c, gone))
+    j = jstorage.Holder(copies[0]).open()
+    p = _port(copies[1]).open()
+    try:
+        assert p.wal.metrics()["recovered_ops_total"] == \
+            j.wal.metrics()["recovered_ops_total"] > 0
+        assert p.index("i").field("t").view("standard_2019050304") \
+            is not None
+        window = "from='2019-01-01T00:00', to='2019-12-31T00:00'"
+        corpus = [f"Row(t={r}, {window})" for r in range(3)] + [
+            "Row(t=0, from='2019-05-03T04:00', to='2019-05-03T05:00')",
+            "Row(k=0)", "Row(k=2)", "Row(f=1)", "Row(f=4)", "TopN(k)"]
+        jex, pex = JExecutor(j), Executor(p, device="cpu")
+        assert _answers(lambda q: pex.execute("i", q), result_to_json,
+                        corpus) == \
+            _answers(lambda q: jex.execute("i", q), j_result_to_json, corpus)
+    finally:
+        j.close()
+        p.close()
+    want, got = _view_files(copies[0]), _view_files(copies[1])
+    assert any("standard_2019050304" in k for k in got)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k] == want[k], k
+
+
 def test_recovered_fragments_verify_and_rank(tmp_path):
     """Replay snapshots every touched fragment, so the next verified open
     (the default) checks fresh .checksums, and recounts its row cache."""
