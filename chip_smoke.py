@@ -24,9 +24,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    K9 also beside its popcount floor, with the bytes it stages and its
    plan variants).
    Meanwhile worker processes (one per field, three for the time
-   field's views, one for the existence rows) write the data directory
-   from the same host words;
-4. drive four main paths through the port's HTTP server on 127.0.0.1 over
+   field's views, one for the existence rows; the pickup_year worker
+   also writes payment_type, the repository worker the users index)
+   write the data directory from the same host words;
+4. drive five main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -68,14 +69,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       moving 1024 columns (one K3 launch), a Store of a sparse row and a
       ClearRow of it (one K3 launch, the leaf still resident), every
       answer against the oracle after each;
+   e. the keys path (upstream pilosa's ``keys`` option; the taxi
+      records' string payment_type column): a mutex field
+      ``payment_type`` with row keys on ``rides`` (1024 shards) and an
+      index ``users`` with 2^22 column keys and a keyed field
+      ``segment``; 16 concurrent clients over five shapes (a keyed
+      Intersect Count, TopN and GroupBy on rides, a Count and a Row
+      returned as column keys on users), then Rows with like=, row and
+      column attrs (SetRowAttrs, TopN(attrName=), Options(columnAttrs=),
+      ?excludeRowAttrs), IncludesColumn by key, a keyed Set that creates
+      a row key and moves a mutex column (one K3 launch), a new column
+      key that opens a fifth users shard, 1000 keys through
+      /internal/translate/keys then /import by id, and the translate
+      log's new bytes;
 5. the crash phase, on a 64-shard directory of its own: a port server
    process on the card takes Set, Clear, /import, /import-value,
-   timestamped Sets into a YMDH field and Sets moving columns of a mutex
-   field from 4 HTTP clients and is SIGKILLed after 400 acknowledged
-   writes; a port Holder reopens the directory on the card, replays the
-   WAL, and every acknowledged write must read back (in each of its time
-   views), every Count equal the numpy oracle, no mutex column sit in two
-   rows, and the WAL be empty after the open.
+   timestamped Sets into a YMDH field, Sets moving columns of a mutex
+   field and keyed Sets (new column keys, new and old row keys) from 4
+   HTTP clients and is SIGKILLed after 400 acknowledged writes; a port
+   Holder reopens the directory on the card, replays the WAL and the
+   translate log, and every acknowledged write must read back (in each
+   of its time views, under its own keys), every Count equal the numpy
+   oracle, no mutex column sit in two rows, no key hold a column no
+   client sent for it, and the WAL be empty after the open.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
@@ -94,6 +110,7 @@ import os
 import resource
 import shutil
 import statistics
+import struct
 import subprocess
 import sys
 import threading
@@ -868,16 +885,19 @@ CRASH_VALUE_MAX = 1000
 # the hours of the crash phase's timestamped Sets
 CRASH_STAMPS = ("2019-03-15T06:00", "2019-12-31T23:00", "2020-02-29T12:00",
                 "2020-03-15T07:00")
+# the row keys of the keyed crash index that exist before the writers
+CRASH_ROW_KEYS = ("r0", "r1", "r2", "r3")
 
 
 def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
                   errors: list) -> None:
     """One client of the crash phase: Set, Clear, /import and import-value
     on columns of its own (col % CRASH_CLIENTS == k), timestamped Sets into
-    the YMDH field ``ts`` and Sets moving columns of its own between rows
-    of the mutex field ``mx``, each write's effect applied to ``oracle``
-    only once its 200 arrives; the write in flight is kept in
-    ``oracle["inflight"][k]``."""
+    the YMDH field ``ts``, Sets moving columns of its own between rows
+    of the mutex field ``mx`` and keyed Sets on index ``crashk`` (a new
+    column key each, an existing or a new row key), each write's effect
+    applied to ``oracle`` only once its 200 arrives; the write in flight
+    is kept in ``oracle["inflight"][k]``."""
     n_cols = CRASH_SHARDS * WORDS * 32
     mine = oracle["bits"], oracle["vals"]
     own_bits: list = []
@@ -889,7 +909,7 @@ def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
     mx_cols = np.unique(fresh(16)).tolist()  # moved between mutex rows
     j = 0
     while True:
-        op = j % 6
+        op = j % 7
         j += 1
         if op == 0:
             r, col = int(rng.integers(0, 4)), int(fresh(1)[0])
@@ -917,6 +937,13 @@ def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
             col = mx_cols[int(rng.integers(0, len(mx_cols)))]
             path, body = "/index/crash/query", f"Set({col}, mx={r})".encode()
             effect = [("mset", r, col)]
+        elif op == 6:
+            ck = f"w{k}-c{j}"
+            rk = (CRASH_ROW_KEYS[int(rng.integers(0, len(CRASH_ROW_KEYS)))]
+                  if rng.random() < 0.5 else f"w{k}-r{j}")
+            path = "/index/crashk/query"
+            body = f'Set("{ck}", kf="{rk}")'.encode()
+            effect = [("kset", rk, ck)]
         else:
             cols = np.unique(fresh(32))
             rows = rng.integers(0, 4, cols.size)
@@ -946,6 +973,8 @@ def _crash_writer(port: int, k: int, rng, oracle: dict, lock, acked,
                     oracle["tsets"].add((a[0], a[1], col))
                 elif kind == "mset":
                     oracle["mx"][col] = a
+                elif kind == "kset":
+                    oracle["keyed"].setdefault(a, set()).add(col)
                 else:
                     mine[1][col] = a
             oracle["inflight"][k] = []
@@ -989,7 +1018,11 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
                                             "timeQuantum": "YMDH"}}
                            ).encode()),
                            ("/index/crash/field/mx", json.dumps(
-                               {"options": {"type": "mutex"}}).encode())):
+                               {"options": {"type": "mutex"}}).encode()),
+                           ("/index/crashk", json.dumps(
+                               {"options": {"keys": True}}).encode()),
+                           ("/index/crashk/field/kf", json.dumps(
+                               {"options": {"keys": True}}).encode())):
             status, resp = c.post(path, body)
             if status != 200:
                 fail(f"crash phase: {path} answered {status} {resp!r}")
@@ -1002,8 +1035,12 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
             fail(f"crash phase: the first import answered {status} {resp!r}")
         oracle = {"bits": {r: set() for r in range(4)}, "vals": {},
                   "tsets": set(), "mx": {},
+                  "keyed": {rk: {"seed"} for rk in CRASH_ROW_KEYS},
                   "inflight": {k: [] for k in range(CRASH_CLIENTS)}}
         oracle["bits"][0].update(first.tolist())
+        c.index = "crashk"
+        c.query(" ".join(f'Set("seed", kf="{rk}")' for rk in CRASH_ROW_KEYS))
+        c.index = "crash"
         for pql in ("Count(Row(f=0))", "Count(Row(f=1))",
                     "Count(Intersect(Row(f=2), Row(f=3)))"):
             c.query(pql)
@@ -1058,8 +1095,8 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
                 got, there = vfld.value(col)
                 if there:
                     vals[col] = got
-            elif kind in ("tset", "mset"):
-                continue  # held against the time views and rows below
+            elif kind in ("tset", "mset", "kset"):
+                continue  # held against the time views, rows and keys below
             elif fld.view("standard").fragment(col >> 20) is not None and \
                     fld.view("standard").fragment(col >> 20).contains(
                         a, col & (WORDS * 32 - 1)):
@@ -1068,6 +1105,7 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
                 bits[a].discard(col)
         ex = Executor(holder)
         _check_crash_time_mutex(holder, ex, oracle, inflight)
+        stats.update(_check_crash_keys(holder, ex, oracle, inflight))
         stats["timestamped_sets"] = len(oracle["tsets"])
         stats["mutex_columns"] = len(oracle["mx"])
         for r in range(4):
@@ -1099,6 +1137,40 @@ def run_crash_phase(scratch: Path, seed: int, kernels) -> dict:
     finally:
         holder.close()
     return stats
+
+
+def _check_crash_keys(holder, ex, oracle: dict, inflight: list) -> dict:
+    """After the crash phase's replay: every acknowledged keyed Set reads
+    back under its own row key and column key, and no key holds a column
+    that no client sent for it (an in-flight Set may have landed): every
+    row with a bit has a key, every column of a row a key, and the row's
+    keys are the acknowledged ones, plus in-flight ones at most."""
+    from pilosa_tpu_torch.executor import result_to_json
+    from pilosa_tpu_torch.storage.translate import row_namespace
+
+    sent = {rk: set(cks) for rk, cks in oracle["keyed"].items()}
+    for kind, rk, ck in inflight:
+        if kind == "kset":
+            sent.setdefault(rk, set()).add(ck)
+    view = holder.index("crashk").field("kf").view("standard")
+    row_ids = sorted({r for frag in view.fragments.values()
+                      for r in frag.row_ids()})
+    row_keys = holder.translate.keys_of(row_namespace("crashk", "kf"),
+                                        row_ids)
+    if None in row_keys or not set(row_keys) <= set(sent):
+        fail(f"crash phase: keyed rows {row_ids[:5]} read back under keys "
+             f"{row_keys[:5]}, not ones a client sent")
+    for rk in sorted(set(row_keys) | set(oracle["keyed"])):
+        got = result_to_json(ex.execute("crashk", f'Row(kf="{rk}")'))[0]
+        n = ex.execute("crashk", f'Count(Row(kf="{rk}"))')[0]
+        have = set(got["keys"])
+        lost = oracle["keyed"].get(rk, set()) - have
+        if lost or not have <= sent[rk] or n != len(got["keys"]):
+            fail(f"crash phase: Row(kf=\"{rk}\") holds {sorted(have)[:5]} "
+                 f"({n} columns), lost acknowledged {sorted(lost)[:5]}")
+    return {"keyed_sets": sum(len(v) for v in oracle["keyed"].values())
+            - len(CRASH_ROW_KEYS),
+            "keyed_row_keys": len(row_keys)}
 
 
 def _holds(field, view: str, row: int, col: int) -> bool:
@@ -1161,12 +1233,12 @@ def _check_crash_time_mutex(holder, ex, oracle: dict, inflight: list
 
 
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
-                   taxi: dict, events: dict, rng, kernels,
+                   taxi: dict, events: dict, users: dict, rng, kernels,
                    verify_on_load: bool) -> dict:
     """Phase 4 through one server: the Star-Trace path, the rides path,
-    the taxi path and the time path, each with the launch counters zeroed
-    just before it and read just after. Returns {path: (numbers,
-    launches)}."""
+    the taxi path, the time path and the keys path, each with the launch
+    counters zeroed just before it and read just after. Returns {path:
+    (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
 
     # verify-on-load (the port's default) digests every bit id of the
@@ -1187,7 +1259,10 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                 ("Star-Trace", lambda: _serve_and_check(server, words, rng)),
                 ("rides", lambda: _serve_rides(server, rides, oracle)),
                 ("taxi", lambda: _serve_taxi(server, taxi)),
-                ("time", lambda: _serve_time(server, events))):
+                ("time", lambda: _serve_time(server, events)),
+                ("keys", lambda: _serve_keys(
+                    server, keys_truth(taxi["keys"], users), taxi["keys"],
+                    users))):
             kernels.reset_launches()
             stats = serve()
             out[path] = (stats, kernels.launches())
@@ -1658,6 +1733,9 @@ def taxi_oracle(rides: dict, taxi: dict, fare_sums: np.ndarray) -> dict:
     n_pc, n_yr, n_d = len(pcp), len(yrp), len(dp)
     groups = np.zeros(n_pc * n_yr * n_d, np.int64)
     pc_cab1 = np.zeros(n_pc, np.int64)
+    pay, n_pay = taxi["payment_type"], len(PAYMENT_TYPES)
+    pay_pc = np.zeros(n_pay * n_pc, np.int64)
+    pay_cab1 = np.zeros(n_pay, np.int64)
     cab = rides["cab"]
     step = 1 << 26
     for lo in range(0, pc.size, step):
@@ -1667,6 +1745,10 @@ def taxi_oracle(rides: dict, taxi: dict, fare_sums: np.ndarray) -> dict:
         c1 = np.unpackbits(cab[1][lo // 32:(lo + step) // 32].view(np.uint8),
                            bitorder="little").astype(bool)
         pc_cab1 += np.bincount(pc[lo:lo + step][c1], minlength=n_pc)
+        p = pay[lo:lo + step]
+        pay_pc += np.bincount(p.astype(np.int32) * n_pc + pc[lo:lo + step],
+                              minlength=pay_pc.size)
+        pay_cab1 += np.bincount(p[c1], minlength=n_pay)
     g3 = groups.reshape(n_pc, n_yr, n_d)
     by_pc, by_d = g3.sum(axis=(1, 2)), g3.sum(axis=(0, 1))
     q3 = g3.sum(axis=2).reshape(-1)
@@ -1726,7 +1808,14 @@ def taxi_oracle(rides: dict, taxi: dict, fare_sums: np.ndarray) -> dict:
           + set_row - d0] += 1
     by_d_after = by_d.copy()
     by_d_after[set_row - d0] += 1
-    return {"truth": truth, "q4": q4, "q17": q17,
+    # the keys path: a CRD ride of the middle shard moves to a new key
+    mid = (N_SHARDS // 2) * WORDS * 32
+    vod = mid + int(np.flatnonzero(pay[mid:mid + WORDS * 32] == 0)[0])
+    keys = {"pay_n": pay_pc.reshape(n_pay, n_pc).sum(axis=1),
+            "pay_pc": pay_pc, "pay_cab1": pay_cab1,
+            "crd_shard0": np.flatnonzero(pay[:WORDS * 32] == 0),
+            "vod_ride": vod, "vod_old": int(pay[vod])}
+    return {"truth": truth, "q4": q4, "q17": q17, "keys": keys,
             "q17_truth": _groups(names[:1] + names[1:2] * 16, q17_keys,
                                  q17_counts),
             "q4_truth": _groups(names, q4_keys, groups),
@@ -1810,18 +1899,23 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
                 n_clients: int, per_client: int, per_shape=None
                 ) -> tuple[list, float]:
     """``n_clients`` keep-alive clients, each sending ``per_client``
-    queries back to back over ``shapes``; every answer is held against
-    ``truth``. Returns (latencies in s, wall s); ``per_shape``, a dict,
-    also gets each shape's latencies."""
+    queries back to back over ``shapes`` (PQL on ``index``, or (index,
+    PQL) pairs); every answer is held against ``truth``. Returns
+    (latencies in s, wall s); ``per_shape``, a dict, also gets each
+    shape's latencies."""
     errors: list = []
     latencies: list = []
     lock = threading.Lock()
 
     def client(k: int) -> None:
-        cl = Client(port, index)
+        conns: dict = {}
         try:
             for j in range(per_client):
-                pql = shapes[(k + j) % len(shapes)]
+                shape = shapes[(k + j) % len(shapes)]
+                name, pql = shape if isinstance(shape, tuple) else (index,
+                                                                    shape)
+                cl = conns.get(name) or conns.setdefault(name,
+                                                         Client(port, name))
                 t = time.perf_counter()
                 got = cl.query(pql)[0]
                 dt = time.perf_counter() - t
@@ -1832,7 +1926,8 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
                     if got != truth[pql]:
                         errors.append((pql, got))
         finally:
-            cl.close()
+            for cl in conns.values():
+                cl.close()
 
     threads = [threading.Thread(target=client, args=(k,))
                for k in range(n_clients)]
@@ -2188,6 +2283,291 @@ def _serve_time(server, o: dict) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------- keys path
+
+# String keys (upstream pilosa's documented ``keys`` option: column keys on
+# an index, row keys on a field), in two parts. (1) ``payment_type`` on
+# ``rides``: the string payment_type column of the NYC TLC trip records
+# that Litwintschik's "1.1 Billion Taxi Rides" benchmark loads, as a mutex
+# field with row keys, every ride in one row with these shares (synthetic
+# skew, as the taxi path's), at the full 1024 shards. (2) ``users``: an
+# index with column keys, 2^USERS_LOG2 seeded 12-character keys (ids 0 …
+# 2^22 - 1, 4 shards; cut from 2^30 because a keyed column space of 1B
+# would put 1B strings in the translate store's dicts, in the reference
+# and the port alike, and its replay would not fit the run), and a set
+# field ``segment`` with 16 row keys, user in segment k with probability
+# 2^-(2 + 10k/15): 1/4 down to 1/4096, so the rarest row holds about
+# 1 000 users.
+PAYMENT_TYPES = (("CRD", 0.55), ("CSH", 0.42), ("NOC", 0.015),
+                 ("DIS", 0.01), ("UNK", 0.005))
+PAYMENT_JOB = "pickup_year"  # the data job that also writes payment_type
+USERS_JOB = "repository"     # the data job that also writes users
+USERS_LOG2 = 22
+USER_SEGMENTS = tuple(f"s{k:02d}" for k in range(16))
+COMMON, OTHER, RAREST = USER_SEGMENTS[0], USER_SEGMENTS[1], USER_SEGMENTS[-1]
+KEYS_SHAPES = [
+    ("rides", 'Count(Intersect(Row(payment_type="CRD"), Row(cab_type=1)))'),
+    ("rides", "TopN(payment_type, n=5)"),
+    ("rides", "GroupBy(Rows(payment_type), Rows(passenger_count), "
+              "limit=20)"),
+    ("users", f'Count(Intersect(Row(segment="{COMMON}"), '
+              f'Row(segment="{OTHER}")))'),
+    ("users", f'Row(segment="{RAREST}")'),
+]
+NEW_USERS = 1000  # keys created through /internal/translate/keys
+
+
+def make_payment(seed: int) -> np.ndarray:
+    """Per-ride payment category (index into PAYMENT_TYPES): uint8[2^30],
+    from a generator of its own."""
+    rng = np.random.default_rng([seed, 8])
+    lut = _category_lut([p for _, p in PAYMENT_TYPES])
+    n = N_SHARDS * WORDS * 32
+    step = 1 << 26
+    cat = np.empty(n, np.uint8)
+    for lo in range(0, n, step):
+        cat[lo:lo + step] = lut[rng.integers(0, 1 << 16, min(step, n - lo),
+                                             dtype=np.uint16)]
+    return cat
+
+
+def make_users(seed: int) -> dict:
+    """The users index: ``keys`` (2^USERS_LOG2 distinct 12-letter keys,
+    key i naming column i: 7 random letters, then i in base 26) and
+    ``segments`` ({row key: uint32 words})."""
+    rng = np.random.default_rng([seed, 9])
+    n = 1 << USERS_LOG2
+    raw = np.empty((n, 12), np.uint8)
+    raw[:, :7] = rng.integers(97, 123, (n, 7), dtype=np.uint8)
+    i = np.arange(n)
+    for d in range(5):
+        raw[:, 11 - d] = 97 + (i // 26 ** d) % 26
+    text = raw.tobytes().decode("ascii")
+    keys = [text[j:j + 12] for j in range(0, 12 * n, 12)]
+    segments = {name: np.packbits(rng.random(n) < 2.0 ** -(2 + 10 * k / 15),
+                                  bitorder="little").view("<u4")
+                for k, name in enumerate(USER_SEGMENTS)}
+    return {"keys": keys, "segments": segments}
+
+
+def _columns_of(words: np.ndarray) -> np.ndarray:
+    return np.flatnonzero(np.unpackbits(words.view(np.uint8),
+                                        bitorder="little"))
+
+
+def _translate_records(namespace: str, keys) -> bytes:
+    """The translate log's records for ``keys`` (the reference's format:
+    uint16 namespace length, uint32 key length, namespace, key)."""
+    ns = namespace.encode()
+    return b"".join(struct.pack("<HI", len(ns), len(k.encode())) + ns
+                    + k.encode() for k in keys)
+
+
+def users_truth(users: dict) -> dict:
+    """The users answers: per-segment counts, the served Intersect, the
+    rarest row's keys, a user in COMMON and the ids of the rarest's
+    first two users (their column attrs)."""
+    seg, keys = users["segments"], users["keys"]
+    rare = _columns_of(seg[RAREST])
+    common = _columns_of(seg[COMMON])
+    return {"n": {k: _popcount(w) for k, w in seg.items()},
+            "both": _popcount(seg[COMMON] & seg[OTHER]),
+            "rarest_keys": [keys[c] for c in rare.tolist()],
+            "rarest_ids": rare.tolist(), "in_common": keys[int(common[0])]}
+
+
+def keys_truth(o: dict, u: dict) -> dict:
+    """The five served shapes' answers from the taxi oracle's payment
+    counts (``o``) and the users truth (``u``)."""
+    names = [k for k, _ in PAYMENT_TYPES]
+    pc0, pcp = TAXI_FIELDS["passenger_count"]
+    n_pc = len(pcp)
+    top = sorted((-int(c), i) for i, c in enumerate(o["pay_n"]) if c)[:5]
+    groups = []
+    for i in sorted(range(len(names)), key=lambda i: names[i]):
+        for p in range(n_pc):
+            c = int(o["pay_pc"][i * n_pc + p])
+            if c:
+                groups.append({"group": [
+                    {"field": "payment_type", "rowKey": names[i]},
+                    {"field": "passenger_count", "rowID": pc0 + p}],
+                    "count": c})
+    return {
+        KEYS_SHAPES[0][1]: int(o["pay_cab1"][0]),
+        KEYS_SHAPES[1][1]: [{"id": i, "count": -c, "key": names[i]}
+                            for c, i in top],
+        KEYS_SHAPES[2][1]: groups[:20],
+        KEYS_SHAPES[3][1]: u["both"],
+        KEYS_SHAPES[4][1]: {"attrs": {}, "keys": u["rarest_keys"]},
+    }
+
+
+def _timed(stats: dict, name: str, c, pql: str, want, path=None):
+    """One check outside the loop: the answer against ``want``, its wall
+    time kept in ``stats["checks"]``."""
+    t0 = time.perf_counter()
+    if path is None:
+        got = c.query(pql)
+    else:
+        status, body = c.post(path, pql.encode())
+        if status != 200:
+            fail(f"{pql} on {path} answered {status}: {body[:300]!r}")
+        got = json.loads(body)["results"]
+    ms = 1e3 * (time.perf_counter() - t0)
+    if got != want:
+        fail(f"{name}: {pql} = {str(got)[:300]}, oracle {str(want)[:300]}")
+    stats.setdefault("checks", {})[name] = {"ms": ms,
+                                            "answer": str(got)[:80]}
+    return got
+
+
+def _serve_keys(server, truth: dict, o: dict, u: dict) -> dict:
+    """Phase 4e: string keys through the server: the five served shapes
+    (16 clients over both indexes), then the single checks (Rows by key,
+    row and column attrs, a keyed Set creating a row key and moving a
+    mutex column, a new column key in a new shard, keys created through
+    /internal/translate/keys and imported by id), each against the
+    oracle."""
+    from pilosa_tpu_torch import kernels
+
+    stats: dict = {}
+    rides, users = Client(server.port, "rides"), Client(server.port, "users")
+    clients = {"rides": rides, "users": users}
+    log0 = server.holder.translate.log_size()
+    t0 = time.perf_counter()
+    for index, pql in KEYS_SHAPES:  # first touch: leaves decoded
+        got = clients[index].query(pql)[0]
+        if got != truth[pql]:
+            fail(f"{pql} = {str(got)[:300]}, oracle {str(truth[pql])[:300]}")
+    stats["first_touch_s"] = time.perf_counter() - t0
+
+    n_clients, per_client = 16, 20
+    per_shape: dict = {}
+    latencies, wall = closed_loop(server.port, "rides", KEYS_SHAPES, truth,
+                                  n_clients, per_client, per_shape)
+    stats.update(_latency_stats(latencies, wall), clients=n_clients)
+    stats["p50_ms_by_shape"] = {
+        pql: 1e3 * sorted(lat)[len(lat) // 2] for pql, lat in per_shape.items()}
+    # the two Count shapes alone, as many clients: how much of their p50
+    # in the mix is waiting behind the TopN's and GroupBy's host work
+    per_count: dict = {}
+    latencies, wall = closed_loop(server.port, "rides",
+                                  [KEYS_SHAPES[0], KEYS_SHAPES[3]], truth,
+                                  n_clients, per_client // 2, per_count)
+    stats["counts_alone"] = {**_latency_stats(latencies, wall),
+                             "p50_ms_by_shape": {
+                                 pql: 1e3 * sorted(lat)[len(lat) // 2]
+                                 for pql, lat in per_count.items()}}
+
+    names = [k for k, _ in PAYMENT_TYPES]
+    _timed(stats, "rows", rides, "Rows(payment_type)", [names])
+    _timed(stats, "rows_like", rides, 'Rows(payment_type, like="C%")',
+           [[k for k in names if k.startswith("C")]])
+    # row attrs: the TopN filter and the Row result carry them
+    _timed(stats, "set_row_attrs", rides,
+           'SetRowAttrs(payment_type, "CRD", kind="card")', [None])
+    _timed(stats, "topn_attr", rides, 'TopN(payment_type, n=5, '
+           'attrName="kind", attrValue="card")',
+           [[{"id": 0, "count": int(o["pay_n"][0]), "key": "CRD"}]])
+    crd0 = o["crd_shard0"].tolist()
+    pql = 'Options(Row(payment_type="CRD"), shards=[0])'
+    _timed(stats, "row_attrs", rides, pql,
+           [{"attrs": {"kind": "card"}, "columns": crd0}])
+    _timed(stats, "exclude_row_attrs", rides, pql,
+           [{"attrs": {}, "columns": crd0}],
+           path="/index/rides/query?excludeRowAttrs=true")
+    # column attrs on two users of the rarest segment
+    ka, kb = u["rarest_keys"][:2]
+    _timed(stats, "set_column_attrs", users,
+           f'SetColumnAttrs("{ka}", plan="pro") '
+           f'SetColumnAttrs("{kb}", plan="pro")', [None, None])
+    _timed(stats, "column_attrs", users,
+           f'Options(Row(segment="{RAREST}"), columnAttrs=true)',
+           [{"attrs": {}, "keys": u["rarest_keys"], "columnAttrs": [
+               {"id": i, "attrs": {"plan": "pro"}}
+               for i in u["rarest_ids"][:2]]}])
+    _timed(stats, "includes_known", users,
+           f'IncludesColumn(Row(segment="{COMMON}"), '
+           f'column="{u["in_common"]}")', [True])
+    _timed(stats, "includes_unknown", users,
+           f'IncludesColumn(Row(segment="{COMMON}"), column="no-such-user")',
+           [False])
+
+    # a keyed Set creating row key VOD and moving the ride out of its row:
+    # one K3 launch (the ride's old row is resident)
+    ride, old = o["vod_ride"], names[o["vod_old"]]
+    before = _k3(kernels)
+    _timed(stats, "set_new_row_key", rides,
+           f'Set({ride}, payment_type="VOD")', [True])
+    stats["set_new_row_key_k3_launches"] = _k3(kernels) - before
+    if stats["set_new_row_key_k3_launches"] != 1:
+        fail(f"the keyed mutex Set made "
+             f"{stats['set_new_row_key_k3_launches']} K3 launches, not 1")
+    _timed(stats, "count_new_row_key", rides,
+           'Count(Row(payment_type="VOD")) '
+           f'Count(Row(payment_type="{old}"))',
+           [1, int(o["pay_n"][o["vod_old"]]) - 1])
+
+    # a new column key: id 2^22, the first column of a fifth shard; the
+    # users leaves' residency key holds their shard list, so the next
+    # queries decode leaves of the five-shard block afresh
+    n_users = 1 << USERS_LOG2
+    before = _k3(kernels)
+    _timed(stats, "set_new_column_key", users,
+           f'Set("new-user", segment="{COMMON}")', [True])
+    stats["new_shard_k3_launches"] = _k3(kernels) - before
+    _timed(stats, "count_over_five_shards", users,
+           f'Count(Row(segment="{COMMON}")) {KEYS_SHAPES[3][1]} '
+           f'IncludesColumn(Row(segment="{COMMON}"), column="new-user")',
+           [u["n"][COMMON] + 1, u["both"], True])
+    shards = sorted({k[-1][1] for k in list(server.holder.cache._rows)
+                     if k[0] == "stack" and k[2] == "users"}, key=len)
+    stats["users_leaf_shards"] = len(shards[-1]) if shards else 0
+    if stats["users_leaf_shards"] != n_users // (WORDS * 32) + 1:
+        fail(f"the users leaves span {stats['users_leaf_shards']} shards "
+             "after the new column key opened one")
+
+    # keys turned into ids by the translate route, then imported by id
+    new_keys = [f"import-{i:05d}" for i in range(NEW_USERS)]
+    t0 = time.perf_counter()
+    status, body = users.post("/internal/translate/keys", json.dumps(
+        {"namespace": "c/users", "keys": new_keys, "create": True}).encode())
+    ids = json.loads(body)["ids"] if status == 200 else None
+    stats["translate_keys_ms"] = 1e3 * (time.perf_counter() - t0)
+    if ids != list(range(n_users + 1, n_users + 1 + NEW_USERS)):
+        fail(f"/internal/translate/keys answered {status} {body[:200]!r}")
+    status, body = users.post("/internal/translate/keys", json.dumps(
+        {"namespace": "r/users/segment", "keys": [OTHER]}).encode())
+    (row,) = json.loads(body)["ids"]
+    before = _k3(kernels)
+    t0 = time.perf_counter()
+    status, body = users.post("/index/users/field/segment/import",
+                              json.dumps({"rows": [row] * NEW_USERS,
+                                          "columns": ids}).encode())
+    stats["import_by_id_ms"] = 1e3 * (time.perf_counter() - t0)
+    stats["import_by_id_k3_launches"] = _k3(kernels) - before
+    if status != 200 or json.loads(body)["changed"] != NEW_USERS:
+        fail(f"the import of the translated ids answered {status} {body!r}")
+    _timed(stats, "count_after_import", users,
+           f'Count(Row(segment="{OTHER}")) Count(Intersect(Row(segment='
+           f'"{OTHER}"), Row(segment="{COMMON}")))',
+           [u["n"][OTHER] + NEW_USERS, u["both"]])
+
+    # the translate log gained exactly the path's new keys, in order
+    tail = server.holder.translate.read_log(log0)
+    want = (_translate_records("r/rides/payment_type", ["VOD"])
+            + _translate_records("c/users", ["new-user"] + new_keys))
+    if tail != want:
+        fail(f"the translate log gained {len(tail)} bytes, not the "
+             f"{len(want)} of the path's new keys")
+    stats["translate_log_bytes"] = server.holder.translate.log_size()
+    stats["translate_log_bytes_added"] = len(tail)
+    stats["resident_bytes"] = server.holder.cache.bytes_used
+    rides.close()
+    users.close()
+    return stats
+
+
 # ------------------------------------------------------------ data dirs
 
 # Host data the data-dir builders read: set before they fork, so each
@@ -2232,9 +2612,21 @@ def _build_part(job: str, out_dir: str) -> float:
         load_existence, load_from_dense
 
     t0 = time.perf_counter()
-    words, rides, taxi, events = (_BUILD_DATA[k] for k in (
-        "words", "rides", "taxi", "events"))
+    words, rides, taxi, events, users = (_BUILD_DATA[k] for k in (
+        "words", "rides", "taxi", "events", "users"))
     holder = Holder(out_dir, device="cpu").open()
+    if job == USERS_JOB:
+        # the keyed index: its column keys, then its keyed rows, written
+        # to this part's translate log
+        load_from_dense(holder, {"segment": users["segments"]},
+                        options={"segment": FieldOptions(keys=True)},
+                        index="users", column_keys=users["keys"])
+    if job == PAYMENT_JOB:
+        rows = category_rows(taxi["payment_type"], len(PAYMENT_TYPES))
+        load_from_dense(holder, {"payment_type": {
+            PAYMENT_TYPES[k][0]: rows[k] for k in range(len(PAYMENT_TYPES))}},
+            options={"payment_type": FieldOptions(type="mutex", keys=True)},
+            index="rides", existence=False)
     if job == "repository":
         fields: dict = {}
         for (f, r), w in words.items():
@@ -2290,12 +2682,13 @@ def _build_part(job: str, out_dir: str) -> float:
 
 
 def start_data_dirs(scratch: Path, words: dict, rides: dict, taxi: dict,
-                    events: dict):
+                    events: dict, users: dict):
     """Fork one worker per DATA_JOBS entry to build the data dir in
     parallel: each field into its own part directory under ``scratch``,
     the existence rows into ``scratch / "data"``. Returns the executor
     with each job's future as ``.jobs``."""
-    _BUILD_DATA.update(words=words, rides=rides, taxi=taxi, events=events)
+    _BUILD_DATA.update(words=words, rides=rides, taxi=taxi, events=events,
+                       users=users)
     builders = ProcessPoolExecutor(len(DATA_JOBS),
                                    mp_context=multiprocessing.get_context(
                                        "fork"))
@@ -2308,7 +2701,10 @@ def start_data_dirs(scratch: Path, words: dict, rides: dict, taxi: dict,
 
 def finish_data_dirs(builders, scratch: Path, data_dir: Path) -> None:
     """Wait for every builder, then move each part's fields into the data
-    dir (renames within one file system)."""
+    dir (renames within one file system; an index only a part holds moves
+    whole) and append each part's translate log to the data dir's (the
+    parts translate disjoint namespaces, so the logs concatenate into
+    the union of their keys)."""
     for job, fut in builders.jobs.items():
         try:
             secs = fut.result()
@@ -2317,11 +2713,18 @@ def finish_data_dirs(builders, scratch: Path, data_dir: Path) -> None:
         print(f"data dir {job}: {secs:.1f}s", flush=True)
     builders.shutdown()
     _BUILD_DATA.clear()
+    log = open(data_dir / ".translate.log", "ab")
     for job in DATA_JOBS:
         part = scratch / f"part-{job}"
         if job == "existence":
             continue
+        log.write((part / ".translate.log").read_bytes())
         for index in os.listdir(part):
+            if index.startswith("."):
+                continue  # the WAL and the translate log
+            if not (data_dir / index).exists():
+                os.rename(part / index, data_dir / index)
+                continue
             for field in os.listdir(part / index):
                 src, dst = part / index / field, data_dir / index / field
                 if not src.is_dir() or field.startswith("_"):
@@ -2333,6 +2736,7 @@ def finish_data_dirs(builders, scratch: Path, data_dir: Path) -> None:
                 for view in os.listdir(src / "views"):
                     os.rename(src / "views" / view, dst / "views" / view)
         shutil.rmtree(part)
+    log.close()
 
 
 def main() -> int:
@@ -2405,16 +2809,23 @@ def main() -> int:
     events = make_events(args.seed)
     print(f"events: {len(EVENT_HOURS)} event-hours x 4 rows, kind and "
           f"active in {time.perf_counter() - t0:.1f}s", flush=True)
+    t0 = time.perf_counter()
+    taxi["payment_type"] = make_payment(args.seed)
+    users = make_users(args.seed)
+    print(f"keys: payment_type of {N_SHARDS} shards and "
+          f"{len(users['keys'])} user keys in {len(USER_SEGMENTS)} segments "
+          f"in {time.perf_counter() - t0:.1f}s", flush=True)
 
     scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
     data_dir = scratch / "data"
-    builders = start_data_dirs(scratch, words, rides, taxi, events)
+    builders = start_data_dirs(scratch, words, rides, taxi, events, users)
     # the oracles run in a thread beside phase 3 and the data-dir build:
     # numpy's bulk work releases the interpreter lock
     pool = ThreadPoolExecutor(1)
     oracles = pool.submit(build_oracles, rides, taxi)
     time_oracle = pool.submit(events_oracle, events)
+    user_oracle = pool.submit(users_truth, users)
     try:
         # phase 3: kernels against their plain versions on the card
         t3 = time.perf_counter()
@@ -2445,12 +2856,13 @@ def main() -> int:
         t0 = time.perf_counter()
         oracle, taxi_truth = oracles.result()
         ev_oracle = time_oracle.result()
-        del taxi, events
+        users_o = user_oracle.result()
+        del taxi, events, users
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
         paths = run_main_paths(str(data_dir), words, rides, oracle,
-                               taxi_truth, ev_oracle, path_rng, kernels,
-                               args.verify_on_load)
+                               taxi_truth, ev_oracle, users_o, path_rng,
+                               kernels, args.verify_on_load)
         kernels.reset_launches()
         crash = run_crash_phase(scratch, args.seed, kernels)
         paths["crash"] = (crash, kernels.launches())
@@ -2465,6 +2877,7 @@ def main() -> int:
         "taxi": ("count_rows", "groupby_level", "word_patch"),
         "time": ("tree_count", "tree_rows", "word_patch", "count_rows",
                  "groupby_level"),
+        "keys": ("tree_count", "count_rows", "groupby_level", "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
     }
     for path, names in expected.items():

@@ -7,7 +7,10 @@ with or without a filter, TopN, Rows, GroupBy (aggregate=Sum, having=),
 IncludesColumn, Options (shards=, excludeColumns=), time windows
 (``Row(f=r, from=, to=)`` ORs the quantum views that cover the window
 into one leaf), and the Set/Clear (timestamped, mutex and int fields
-included), ClearRow and Store writes. A call compiles to a structure
+included), ClearRow and Store writes, with string keys on keyed
+indexes (columns) and fields (rows) through the holder's translate log,
+and the attribute calls (SetRowAttrs, SetColumnAttrs, TopN(attrName=),
+Options(columnAttrs=)). A call compiles to a structure
 (``expr``) over stacked leaves and query-time scalars; shift and
 BSI-comparison nodes run first, each through its own kernel (K4, K5),
 then a Count runs K1 over the rest and a row call K2, and pipelined
@@ -17,8 +20,7 @@ over stacked candidate matrices, GroupBy runs K9 once per level (past 16
 dimensions the surviving prefix groups fold into one temporary matrix).
 A tree over the kernels' 16 operands or 16 stack slots runs part by
 part as K2 'tree' steps. Store takes its child's row through K2 and
-writes each shard's words. Keys and attributes raise ``PQLError("...
-not yet ported")``.
+writes each shard's words.
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from __future__ import annotations
 import collections
 import datetime as dt
 import math
+import re
 import threading
 import weakref
 
@@ -51,6 +54,7 @@ from pilosa_tpu_torch.shardwidth import (
 )
 from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_TIME
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD, Index
+from pilosa_tpu_torch.storage.translate import column_namespace, row_namespace
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, views_by_time_range
 
 # TopN phase-1 candidate overfetch per shard (the reference's value).
@@ -210,7 +214,7 @@ class Executor:
             # the child pipelines; the result options apply at result()
             inner = self._submit_one(idx, options_child(call),
                                      options_restrict_shards(call, shards))
-            return Deferred(lambda: apply_options_result(call,
+            return Deferred(lambda: apply_options_result(idx, call,
                                                          inner.result()))
         return Deferred(value=self._execute_call(idx, call, shards))
 
@@ -219,7 +223,7 @@ class Executor:
         if name == "Options":
             res = self._execute_call(idx, options_child(call),
                                      options_restrict_shards(call, shards))
-            return apply_options_result(call, res)
+            return apply_options_result(idx, call, res)
         if name == "Set":
             return self._execute_set(idx, call)
         if name == "Clear":
@@ -242,7 +246,39 @@ class Executor:
             return self._submit_groupby(idx, call, shards).result()
         if name == "IncludesColumn":
             return self._execute_includes_column(idx, call, shards)
-        raise PQLError(f"call {name!r} is not yet ported")
+        if name == "SetRowAttrs":
+            return self._execute_set_row_attrs(idx, call)
+        if name == "SetColumnAttrs":
+            return self._execute_set_column_attrs(idx, call)
+        raise PQLError(f"unsupported call {name!r}")
+
+    # ------------------------------------------------------ key translation
+
+    def _translate_col(self, idx: Index, col, create: bool = False):
+        """A column id as it is; a column key → its id (None when unknown
+        and not created)."""
+        if isinstance(col, int):
+            return col
+        if not idx.keys:
+            raise PQLError(f"column key {col!r} on index {idx.name!r} "
+                           "without keys=true")
+        return self.holder.translate.translate_one(
+            column_namespace(idx.name), str(col), create=create)
+
+    def _translate_row(self, idx: Index, field, row, create: bool = False):
+        """A row id as it is; a row key → its id (None when unknown and
+        not created)."""
+        if isinstance(row, int):
+            return row
+        if not field.options.keys:
+            raise PQLError(f"row key {row!r} on field {field.name!r} "
+                           "without keys=true")
+        return self.holder.translate.translate_one(
+            row_namespace(idx.name, field.name), str(row), create=create)
+
+    def _row_keys(self, idx: Index, field, rows) -> list:
+        return self.holder.translate.keys_of(
+            row_namespace(idx.name, field.name), [int(r) for r in rows])
 
     # --------------------------------------------------------------- shards
 
@@ -351,8 +387,11 @@ class Executor:
         [padded, words] readback happens at result()."""
         compiled = self._compile_cached(idx, call)
         shard_list = self._shards(idx, shards)
+        # a plain Row's attrs as they are at submit, like its bits
+        attrs = self._row_result_attrs(idx, call)
         if not shard_list:
-            return Deferred(value=RowResult({}))
+            return Deferred(value=self._with_keys(idx, RowResult(
+                {}, attrs=attrs)))
         block = self._shard_block(shard_list)
         stacked = self._run(idx, compiled, block, "row")
 
@@ -362,9 +401,32 @@ class Executor:
             for i, shard in enumerate(block.shards):
                 if host[i].any():
                     segments[shard] = host[i].copy()
-            return RowResult(segments)
+            return self._with_keys(idx, RowResult(segments, attrs=attrs))
 
         return Deferred(finish)
+
+    def _row_result_attrs(self, idx: Index, call: Call) -> dict:
+        """The row's attrs, for a plain Row call of a row that exists in
+        the translate log or by id; {} for any other call."""
+        if call.name == "Row" and call.condition_field()[0] is None:
+            try:
+                field_name, row = self._row_field_and_value(call)
+                field = idx.field(field_name)
+                if field is not None:
+                    row_id = self._translate_row(idx, field, row)
+                    if row_id is not None:
+                        return field.row_attrs.attrs(row_id)
+            except PQLError:
+                pass
+        return {}
+
+    def _with_keys(self, idx: Index, res: RowResult) -> RowResult:
+        """A keyed index's row result carries its columns' keys."""
+        if idx.keys:
+            res.keys = [k for k in self.holder.translate.keys_of(
+                column_namespace(idx.name), res.columns().tolist())
+                if k is not None]
+        return res
 
     def _submit_count(self, idx: Index, call: Call, shards=None,
                       pipeline: bool = False) -> Deferred:
@@ -480,9 +542,6 @@ class Executor:
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
-        if call.arg("attrName") is not None:
-            raise PQLError("TopN(attrName=) is not yet ported: row "
-                           "attributes are not")
         n = call.arg("n", 10)
         filt_call = call.children[0] if call.children else None
         shard_list = self._shards(idx, shards)
@@ -500,6 +559,7 @@ class Executor:
                 if frag is not None:
                     cand.update(r for r, _ in frag.top(overfetch))
             candidates = sorted(cand)
+        candidates = _filter_topn_candidates(field, call, candidates)
         if not candidates:
             return Deferred(value=[])
 
@@ -528,7 +588,12 @@ class Executor:
             order.sort()
             if n:
                 order = order[:n]
-            return [Pair(r, -negc) for negc, r in order]
+            pairs = [Pair(r, -negc) for negc, r in order]
+            if field.options.keys and pairs:
+                for p, k in zip(pairs, self._row_keys(
+                        idx, field, [p.id for p in pairs])):
+                    p.key = k
+            return pairs
 
         return Deferred(finish)
 
@@ -537,10 +602,19 @@ class Executor:
     def _execute_rows(self, idx: Index, call: Call, shards=None) -> list:
         field_name = call.arg("_field") or call.arg("field")
         field = idx.field(field_name) if field_name else None
-        if call.arg("like") is not None and (field is None
-                                             or not field.options.keys):
+        like = call.arg("like")
+        if like is not None and (field is None or not field.options.keys):
             raise PQLError("Rows(like=) requires a field with keys=true")
-        return self._rows_ids(idx, call, shards)
+        ids = self._rows_ids(idx, call, shards)
+        if field is None or not field.options.keys:
+            return ids
+        keys = [k for k in self._row_keys(idx, field, ids) if k is not None]
+        if like is not None:
+            # after limit= has cut the ids, as in the reference
+            pattern = re.compile("^" + ".*".join(
+                re.escape(p) for p in str(like).split("%")) + "$")
+            keys = [k for k in keys if pattern.match(k)]
+        return keys
 
     def _rows_ids(self, idx: Index, call: Call, shards=None) -> list[int]:
         """The sorted non-empty rows of a field's standard view (from row
@@ -552,8 +626,6 @@ class Executor:
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
-        if field.options.keys:
-            raise PQLError("field keys are not yet ported")
         limit = call.arg("limit", 0)
         previous = call.arg("previous")
         column = call.arg("column")
@@ -608,19 +680,35 @@ class Executor:
             dims.append((child.arg("_field") or child.arg("field"), row_ids))
         return limit, filt_call, agg_field, dims, having
 
-    @staticmethod
-    def _groupby_result(dims, counts: dict, sums: dict, agg_field, limit,
-                        having=None) -> list[GroupCount]:
-        """Groups with a count, after having=, ordered by their row ids,
-        cut to limit= (row keys are not ported)."""
+    def _groupby_result(self, idx: Index, dims, counts: dict, sums: dict,
+                        agg_field, limit, having=None) -> list[GroupCount]:
+        """Groups with a count, after having=, cut to limit=. A keyed
+        dimension names its rows by ``rowKey``; groups are ordered by
+        what they show: row ids first (numerically), then row keys."""
         if having is not None:
             counts = {k: c for k, c in counts.items()
                       if having(c, sums.get(k))}
-        out = [GroupCount([{"field": dims[i][0], "rowID": row}
-                           for i, row in enumerate(key)], c,
-                          sum=sums.get(key) if agg_field is not None
+        dim_keys: list[dict | None] = []
+        for fname, row_ids in dims:
+            field = idx.field(fname)
+            dim_keys.append(dict(zip(row_ids, self._row_keys(
+                idx, field, row_ids))) if field is not None
+                and field.options.keys else None)
+
+        def shown(i: int, row: int):
+            keys = dim_keys[i]
+            key = keys.get(row) if keys is not None else None
+            return (0, row) if key is None else (1, key)
+
+        def field_row(i: int, row: int) -> dict:
+            kind, v = shown(i, row)
+            return {"field": dims[i][0], ("rowKey" if kind else "rowID"): v}
+
+        out = [GroupCount([field_row(i, row) for i, row in enumerate(key)],
+                          c, sum=sums.get(key) if agg_field is not None
                           else None)
-               for key, c in sorted(counts.items())]
+               for key, c in sorted(counts.items(), key=lambda kv: tuple(
+                   shown(i, row) for i, row in enumerate(kv[0])))]
         if limit:
             out = out[:int(limit)]
         return out
@@ -673,8 +761,8 @@ class Executor:
                     sums[key] = sum(int(v) << b for b, v in
                                     enumerate(pc[:, j].tolist())) \
                         + base * int(n_g[j])
-            return self._groupby_result(dims, counts, sums, agg_field, limit,
-                                        having)
+            return self._groupby_result(idx, dims, counts, sums, agg_field,
+                                        limit, having)
 
         if len(dims) <= kernels.MAX_LEAVES and \
                 math.prod(sizes) <= GROUPBY_DENSE_MAX_GROUPS:
@@ -704,11 +792,9 @@ class Executor:
             raise PQLError("IncludesColumn requires column=")
         if len(call.children) != 1:
             raise PQLError("IncludesColumn requires one child call")
-        if not isinstance(col, int):
-            if not idx.keys:
-                raise PQLError(f"column key {col!r} on index {idx.name!r} "
-                               "without keys=true")
-            raise PQLError("column keys are not yet ported")
+        col = self._translate_col(idx, col)
+        if col is None:
+            return False  # an unknown column key is in no row
         shard = shard_of(col)
         if shards is not None and shard not in shards:
             return False  # Options(shards=) excludes the column's shard
@@ -795,7 +881,9 @@ class Executor:
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
-        row = _translate_row(field, row)
+        row = self._translate_row(idx, field, row)
+        if row is None:
+            return ("const0",)  # an unknown key reads as an empty row
         if row < 0:
             return ("const0",)  # negative rows cannot exist
         t_from, t_to = call.arg("from"), call.arg("to")
@@ -890,14 +978,16 @@ class Executor:
 
     # ---------------------------------------------------------------- writes
 
-    def _write_target(self, idx: Index, call: Call):
-        """(column, field, row or value) of a Set/Clear; an int field's
-        value is checked by the field itself."""
+    def _write_target(self, idx: Index, call: Call, create: bool):
+        """(column, field, row or value) of a Set (``create``: new keys
+        get ids) or a Clear (None when its column or row key is
+        unknown); an int field's value is checked by the field itself."""
         col = call.arg("_col")
         if col is None:
             raise PQLError(f"{call.name} requires a column")
-        if not isinstance(col, int):
-            raise PQLError("column keys are not yet ported")
+        col = self._translate_col(idx, col, create=create)
+        if col is None:
+            return None
         if col < 0:
             raise PQLError(f"column {col} is negative")
         field_name, row = self._row_field_and_value(call)
@@ -906,7 +996,9 @@ class Executor:
             raise PQLError(f"field {field_name!r} not found")
         if field.options.type == TYPE_INT:
             return col, field, row
-        row = _translate_row(field, row)
+        row = self._translate_row(idx, field, row, create=create)
+        if row is None:
+            return None
         _check_row(row)
         return col, field, row
 
@@ -914,7 +1006,7 @@ class Executor:
         """Set; the field's own ValueErrors (a bool row past 1, a
         timestamp on a field that is not a time field) and a timestamp
         that does not parse propagate bare, as in the reference."""
-        col, field, row = self._write_target(idx, call)
+        col, field, row = self._write_target(idx, call, create=True)
         if field.options.type == TYPE_INT:
             try:
                 changed = field.set_value(col, int(row))
@@ -929,7 +1021,10 @@ class Executor:
         return changed
 
     def _execute_clear(self, idx: Index, call: Call) -> bool:
-        col, field, row = self._write_target(idx, call)
+        target = self._write_target(idx, call, create=False)
+        if target is None:
+            return False  # an unknown key: nothing to clear
+        col, field, row = target
         if field.options.type == TYPE_INT:
             return field.clear_value(col)
         return field.clear_bit(row, col)
@@ -942,7 +1037,9 @@ class Executor:
         field = idx.field(field_name)
         if field is None:
             raise PQLError(f"field {field_name!r} not found")
-        row = _translate_row(field, row)
+        row = self._translate_row(idx, field, row)
+        if row is None:
+            return False  # an unknown row key: nothing to clear
         _check_row(row)
         view = field.view(VIEW_STANDARD)
         changed = False
@@ -966,7 +1063,7 @@ class Executor:
             _check_row(row)
             field = idx.create_field(field_name)
         else:
-            row = _translate_row(field, row)
+            row = self._translate_row(idx, field, row, create=True)
             _check_row(row)
         shard_list = self._shards(idx, shards)
         if not shard_list:
@@ -980,16 +1077,50 @@ class Executor:
             view.fragment(shard, create=True).write_row_words(row, host[i])
         return True
 
+    def _execute_set_row_attrs(self, idx: Index, call: Call) -> None:
+        """SetRowAttrs(field, row, name=value, ...): merged into the
+        row's attrs (a null value deletes its name); a new row key is
+        created."""
+        field_name = call.arg("_field")
+        if field_name is None:
+            raise PQLError("SetRowAttrs requires a field")
+        field = idx.field(field_name)
+        if field is None:
+            raise PQLError(f"field {field_name!r} not found")
+        row = call.arg("_col")
+        if row is None:
+            raise PQLError("SetRowAttrs requires a row id")
+        row = self._translate_row(idx, field, row, create=True)
+        field.row_attrs.set_attrs(int(row), _attr_args(call))
+        return None
 
-def _translate_row(field, row):
-    """A row id as it is; a row key is an error (keys are not ported, and
-    a field without keys refuses them with the reference's text)."""
-    if isinstance(row, int):
-        return row
-    if not field.options.keys:
-        raise PQLError(f"row key {row!r} on field {field.name!r} without "
-                       "keys=true")
-    raise PQLError("field keys are not yet ported")
+    def _execute_set_column_attrs(self, idx: Index, call: Call) -> None:
+        """SetColumnAttrs(column, name=value, ...); a new column key is
+        created."""
+        col = call.arg("_col")
+        if col is None:
+            raise PQLError("SetColumnAttrs requires a column id")
+        col = self._translate_col(idx, col, create=True)
+        idx.column_attrs.set_attrs(int(col), _attr_args(call))
+        return None
+
+
+def _filter_topn_candidates(field, call: Call, candidates: list) -> list:
+    """TopN(attrName=, attrValue=): the candidate rows whose attrs hold
+    that value, from one bulk read of the candidates' attrs."""
+    attr_name = call.arg("attrName")
+    if attr_name is None:
+        return candidates
+    attr_value = call.arg("attrValue")
+    attr_map = field.row_attrs.bulk(candidates) if candidates else {}
+    return [r for r in candidates
+            if attr_map.get(r, {}).get(attr_name) == attr_value]
+
+
+def _attr_args(call: Call) -> dict:
+    """The attribute arguments of an attrs call: its named arguments
+    that are not reserved."""
+    return {k: v for k, v in call.args.items() if k not in _RESERVED_ARGS}
 
 
 def _check_row(row) -> None:
@@ -1175,18 +1306,34 @@ def options_restrict_shards(call: Call, shards):
     return opt if shards is None else sorted(set(opt) & set(shards))
 
 
-def apply_options_result(call: Call, res):
-    """Options' result arguments on a row result: excludeColumns drops the
-    columns; columnAttrs is not ported (there are no attributes)."""
+def apply_options_result(idx: Index, call: Call, res):
+    """Options' result arguments on a row result: columnAttrs attaches the
+    columns' attrs, excludeColumns drops the columns."""
     if isinstance(res, RowResult):
         if call.arg("columnAttrs"):
-            raise PQLError("Options(columnAttrs=) is not yet ported")
+            res.column_attrs = column_attr_sets(idx, res)
         if call.arg("excludeColumns"):
-            out = RowResult({}, attrs=res.attrs,
-                            keys=[] if res.keys is not None else None)
-            out.column_attrs = res.column_attrs
-            return out
+            return strip_columns(res)
     return res
+
+
+def column_attr_sets(idx: Index, res: RowResult) -> list[dict]:
+    """The columnAttrs output: each result column that has attrs, with
+    them, from one bulk read (PQL Options() and the request's URL
+    parameter alike)."""
+    cols = res.columns().tolist()
+    attr_map = idx.column_attrs.bulk(cols) if cols else {}
+    return [{"id": c, "attrs": attr_map[c]} for c in cols if c in attr_map]
+
+
+def strip_columns(res: RowResult) -> RowResult:
+    """The excludeColumns output: the row without its columns (nor their
+    keys, which are the columns of a keyed index), its row attrs and
+    column attrs kept."""
+    out = RowResult({}, attrs=res.attrs,
+                    keys=[] if res.keys is not None else None)
+    out.column_attrs = res.column_attrs
+    return out
 
 
 # ------------------------------------------------------------------ having

@@ -10,17 +10,26 @@ once durable (``_ack_durable``): in ``group`` mode the request waits for
 the WAL group holding its records to be fsynced, in ``per-op`` mode every
 record was fsynced inline, and ``flush-only`` promises nothing. Before
 that, the request's patches of resident leaves launch together
-(``DeviceRowCache.batch_writes``: one K3 launch a request). Cluster, QoS,
-tracing, the cost plane, the result cache and multi-process serving are
-not ported yet.
+(``DeviceRowCache.batch_writes``: one K3 launch a request), and in the
+fsyncing modes the key translation log is fsynced before the WAL's
+barrier. A query may ask for the request-level result options
+``columnAttrs``, ``excludeColumns`` and ``excludeRowAttrs``. Cluster,
+QoS, tracing, the cost plane, the result cache and multi-process serving
+are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
-from pilosa_tpu_torch.executor.executor import Executor, PQLError, parse_time
-from pilosa_tpu_torch.executor.result import results_json_bytes
+from pilosa_tpu_torch.executor.executor import (
+    Executor,
+    PQLError,
+    column_attr_sets,
+    parse_time,
+    strip_columns,
+)
+from pilosa_tpu_torch.executor.result import RowResult, results_json_bytes
 from pilosa_tpu_torch.pql import ParseError, parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
 from pilosa_tpu_torch.storage.field import (
@@ -52,10 +61,18 @@ class API:
 
     # ----------------------------------------------------------------- query
 
-    def query_raw(self, index: str, pql: str) -> list:
-        """Execute and return the raw result objects. Reads submit every
-        call before resolving any, so concurrent requests share
-        micro-batched launches."""
+    def query_raw(self, index: str, pql: str, opts: dict | None = None
+                  ) -> list:
+        """Execute and return the raw result objects, with the request's
+        result options ``opts`` applied. Reads submit every call before
+        resolving any, so concurrent requests share micro-batched
+        launches."""
+        results = self._query_raw(index, pql)
+        if opts:
+            results = self._apply_request_opts(index, results, opts)
+        return results
+
+    def _query_raw(self, index: str, pql: str) -> list:
         try:
             query = parse(pql)
             writes = len(query.write_calls())
@@ -76,14 +93,36 @@ class API:
     def _ack_durable(self) -> None:
         """The ACK gate: a 200 on a write means its op records are
         fsynced (group mode waits for their group; per-op fsynced inline;
-        flush-only promises nothing)."""
+        flush-only promises nothing). The key translation log is fsynced
+        first: a keyed write's bit must not outlive its key→id record,
+        or it would come back under another key."""
         wal = self.holder.wal
         if wal.mode != MODE_FLUSH_ONLY:
+            self.holder.translate.sync()
             wal.barrier()
 
-    def query_json_bytes(self, index: str, pql: str) -> bytes:
+    def _apply_request_opts(self, index: str, results: list,
+                            opts: dict) -> list:
+        """The request-level result options on every row result:
+        ``columnAttrs`` attaches the columns' attrs, ``excludeRowAttrs``
+        drops the row's, ``excludeColumns`` the columns."""
+        idx = self.holder.index(index)
+        out = []
+        for res in results:
+            if isinstance(res, RowResult):
+                if opts.get("columnAttrs") and idx is not None:
+                    res.column_attrs = column_attr_sets(idx, res)
+                if opts.get("excludeRowAttrs"):
+                    res.attrs = {}
+                if opts.get("excludeColumns"):
+                    res = strip_columns(res)
+            out.append(res)
+        return out
+
+    def query_json_bytes(self, index: str, pql: str,
+                         opts: dict | None = None) -> bytes:
         """The whole ``{"results": [...]}`` response envelope as bytes."""
-        return results_json_bytes(self.query_raw(index, pql))
+        return results_json_bytes(self.query_raw(index, pql, opts))
 
     # ---------------------------------------------------------------- schema
 
@@ -133,10 +172,6 @@ class API:
         if (fld.options.type == TYPE_BOOL and rows_i.size
                 and rows_i.max() > 1):
             raise ApiError("bool field rows must be 0 (false) or 1 (true)")
-        try:
-            fld.options.check_ported()
-        except ValueError as e:
-            raise ApiError(str(e)) from e
         rows = rows_i.astype(np.uint64)
         columns = columns_i.astype(np.uint64)
         if rows.size == 0:

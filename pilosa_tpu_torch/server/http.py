@@ -6,15 +6,24 @@ Routes of this slice, with the reference's request and response bytes:
   ``type`` set, int, time with its ``timeQuantum``, mutex or bool);
 - ``POST /index/{i}/query``: raw PQL in, ``{"results": [...]}`` out:
   Count, row algebra, Range, time windows (``from=``/``to=``), Shift,
-  Not/All, Sum/Min/Max, TopN, Rows, GroupBy (``aggregate=Sum``,
-  ``having=``), IncludesColumn, Options (``shards=``,
-  ``excludeColumns=``), Set (``timestamp=``), Clear, ClearRow and Store;
+  Not/All, Sum/Min/Max, TopN (``attrName=``), Rows (``like=``), GroupBy
+  (``aggregate=Sum``, ``having=``), IncludesColumn, Options (``shards=``,
+  ``excludeColumns=``, ``columnAttrs=``), Set (``timestamp=``), Clear,
+  ClearRow, Store, SetRowAttrs and SetColumnAttrs, with string keys on
+  keyed indexes and fields; the URL parameters ``columnAttrs``,
+  ``excludeColumns`` and ``excludeRowAttrs`` (``=true``) apply to every
+  row result of the request;
 - ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns`` and
   optional ``timestamps``;
 - ``POST /index/{i}/field/{f}/import-value``: JSON ``columns``/``values``
   for int fields (a protobuf body is not yet ported);
 - ``POST /recalculate-caches``: every fragment's row-count cache
   recounted and saved, 204;
+- ``POST /internal/translate/keys``: JSON ``namespace``, ``keys`` and
+  ``create`` in, ``{"ids": [...]}`` out (a client turns keys into ids
+  this way before an ``/import``, which takes ids);
+- ``GET /internal/translate/data?offset=N``: the translate log's bytes
+  from ``offset``;
 - ``GET /status``.
 """
 
@@ -24,7 +33,7 @@ import json
 import re
 import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
-from urllib.parse import urlparse
+from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.server.api import API, ApiError
 
@@ -36,6 +45,8 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)$"), "post_field"),
     ("POST", re.compile(r"^/index/([^/]+)$"), "post_index"),
     ("POST", re.compile(r"^/recalculate-caches$"), "post_recalculate_caches"),
+    ("POST", re.compile(r"^/internal/translate/keys$"), "post_translate_keys"),
+    ("GET", re.compile(r"^/internal/translate/data$"), "get_translate_data"),
     ("GET", re.compile(r"^/status$"), "get_status"),
 ]
 
@@ -62,6 +73,7 @@ class HTTPHandler(BaseHTTPRequestHandler):
                        status=411, headers={"Connection": "close"})
             return
         parsed = urlparse(self.path)
+        self._query = parse_qs(parsed.query)
         for m, pattern, handler in _ROUTES:
             if m != method:
                 continue
@@ -124,9 +136,10 @@ class HTTPHandler(BaseHTTPRequestHandler):
         self._raw(json.dumps(obj).encode(), status=status, headers=headers)
 
     def _raw(self, data: bytes, status: int = 200,
-             headers: dict | None = None) -> None:
+             headers: dict | None = None,
+             content_type: str = "application/json") -> None:
         self.send_response(status)
-        self.send_header("Content-Type", "application/json")
+        self.send_header("Content-Type", content_type)
         self.send_header("Content-Length", str(len(data)))
         for k, v in (headers or {}).items():
             self.send_header(k, v)
@@ -140,7 +153,11 @@ class HTTPHandler(BaseHTTPRequestHandler):
             pql = self._body().decode()
         except UnicodeDecodeError as e:
             raise ApiError(f"query is not UTF-8: {e}") from e
-        self._raw(self.api.query_json_bytes(index, pql))
+        # request-level result options (reference handler query args)
+        opts = {k: True for k in ("columnAttrs", "excludeColumns",
+                                  "excludeRowAttrs")
+                if self._query.get(k, ["false"])[0] == "true"}
+        self._raw(self.api.query_json_bytes(index, pql, opts))
 
     def post_index(self, index):
         opts = self._json_body().get("options", {})
@@ -188,8 +205,27 @@ class HTTPHandler(BaseHTTPRequestHandler):
         self.send_response(204)  # no body, so no Content-Length
         self.end_headers()
 
+    def post_translate_keys(self):
+        body = self._json_body()
+        self._json({"ids": self.api.holder.translate.translate(
+            body.get("namespace", ""), body.get("keys", []),
+            create=bool(body.get("create", False)))})
+
+    def get_translate_data(self):
+        offset = _int_param((self._query.get("offset") or ["0"])[0],
+                            "offset")
+        self._raw(self.api.holder.translate.read_log(offset),
+                  content_type="application/octet-stream")
+
     def get_status(self):
         self._json(self.api.status())
+
+
+def _int_param(value: str, name: str) -> int:
+    try:
+        return int(value)
+    except ValueError as e:
+        raise ApiError(f"invalid {name} parameter {value!r}") from e
 
 
 class PilosaHTTPServer(ThreadingHTTPServer):

@@ -14,7 +14,8 @@ The port's copy of ``pilosa_tpu.storage.field``, with the reference's
   the field minimum so every stored magnitude is non-negative
   (aggregates add ``base·count`` back).
 
-Fields with keys are refused: key translation is not ported yet.
+A field with ``keys`` names its rows by string keys (the holder's
+translate log); every field keeps its row attributes in ``.rowattrs.db``.
 """
 
 from __future__ import annotations
@@ -33,6 +34,7 @@ from pilosa_tpu_torch.shardwidth import (
     shard_groups,
     shard_of,
 )
+from pilosa_tpu_torch.storage.attrs import AttrStore
 from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
 from pilosa_tpu_torch.storage.view import (
     VIEW_STANDARD,
@@ -111,11 +113,6 @@ class FieldOptions:
             keys=d.get("keys", False),
         )
 
-    def check_ported(self) -> None:
-        """Raise for the schema features the port cannot serve yet."""
-        if self.keys:
-            raise ValueError("field keys are not yet ported")
-
 
 class Field:
     def __init__(self, path: str, index: str, name: str,
@@ -131,6 +128,7 @@ class Field:
         self.wal = wal
         self.views: dict[str, View] = {}
         self._create_lock = threading.Lock()
+        self.row_attrs: AttrStore | None = None  # opened in open()
 
     def open(self) -> "Field":
         os.makedirs(self.path, exist_ok=True)
@@ -144,11 +142,15 @@ class Field:
         if os.path.isdir(views_dir):
             for name in sorted(os.listdir(views_dir)):
                 self.views[name] = self._new_view(name).open()
+        self.row_attrs = AttrStore(os.path.join(self.path,
+                                                ".rowattrs.db")).open()
         return self
 
     def close(self) -> None:
         for v in list(self.views.values()):
             v.close()
+        if self.row_attrs is not None:
+            self.row_attrs.close()
         if self.cache is not None:
             self.cache.invalidate_tag((self.scope, self.index, self.name))
 
@@ -196,7 +198,6 @@ class Field:
         the time quantum's views (after the standard view, so a
         timestamp on another type raises with the standard bit set, as
         in the reference)."""
-        self.options.check_ported()
         if self.options.type == TYPE_INT:
             raise ValueError("set_bit on int field; use set_value")
         if self.options.type == TYPE_BOOL and row not in (0, 1):
@@ -221,7 +222,6 @@ class Field:
     def clear_bit(self, row: int, column: int) -> bool:
         """Clear (row, column) in every view but the BSI planes: the
         standard view and each time view."""
-        self.options.check_ported()
         changed = False
         for v in list(self.views.values()):
             if v.name == self.bsi_view_name():

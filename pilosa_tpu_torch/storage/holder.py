@@ -7,7 +7,8 @@ through (``storage/wal.py``): ``durability_mode`` selects group commit
 (the default), per-op fsync or flush-only, and ``open()`` replays the
 segments a crash left behind, whichever package wrote them, before
 serving. It also owns the device residency cache that every fragment
-reports its writes to.
+reports its writes to, and the key translation log ``.translate.log``
+(``storage/translate.py``) of every keyed index and field.
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ from pilosa_tpu_torch.storage.residency import (
     DEFAULT_BUDGET_BYTES,
     DeviceRowCache,
 )
+from pilosa_tpu_torch.storage.translate import TranslateStore
 from pilosa_tpu_torch.storage.wal import (
     DEFAULT_GROUP_MAX_MS,
     DEFAULT_GROUP_MAX_OPS,
@@ -49,6 +51,7 @@ class Holder:
         self.cache = DeviceRowCache(budget_bytes, self.device)
         self.indexes: dict[str, Index] = {}
         self._create_lock = threading.Lock()
+        self.translate: TranslateStore | None = None  # opened in open()
 
     def _index(self, path: str, name: str, **kw) -> Index:
         return Index(path, name, cache=self.cache, wal=self.wal,
@@ -56,6 +59,8 @@ class Holder:
 
     def open(self) -> "Holder":
         os.makedirs(self.data_dir, exist_ok=True)
+        self.translate = TranslateStore(
+            os.path.join(self.data_dir, ".translate.log")).open()
         for entry in sorted(os.listdir(self.data_dir)):
             p = os.path.join(self.data_dir, entry)
             if entry.startswith(".trash-"):
@@ -72,6 +77,8 @@ class Holder:
     def close(self) -> None:
         for idx in list(self.indexes.values()):
             idx.close()  # group mode: dirty fragments snapshot here
+        if self.translate:
+            self.translate.close()
         # every fragment snapshotted: the WAL truncates to nothing (a
         # failed snapshot leaves its segment for the next recover())
         self.wal.close()
@@ -79,14 +86,12 @@ class Holder:
 
     def create_index(self, name: str, keys: bool = False,
                      track_existence: bool = True) -> Index:
-        if keys:
-            raise ValueError("index keys are not yet ported")
         with self._create_lock:
             if name in self.indexes:
                 raise ValueError(f"index {name!r} already exists")
             _validate_name(name)
             idx = self._index(os.path.join(self.data_dir, name), name,
-                              track_existence=track_existence)
+                              keys=keys, track_existence=track_existence)
             self.indexes[name] = idx
             return idx
 

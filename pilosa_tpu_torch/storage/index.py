@@ -1,8 +1,10 @@
 """Index: a named database of fields + existence tracking (reference index.go).
 
 The port's thin copy of ``pilosa_tpu.storage.index``: the same ``.meta``
-file and field layout, and the internal ``_exists`` field recording which
-columns exist (row 0 of its standard view).
+file and field layout, the internal ``_exists`` field recording which
+columns exist (row 0 of its standard view), the ``keys`` option (string
+column keys, through the holder's translate log) and the column
+attributes in ``.colattrs.db``.
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import threading
 import numpy as np
 
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
+from pilosa_tpu_torch.storage.attrs import AttrStore
 from pilosa_tpu_torch.storage.field import Field, FieldOptions, TYPE_SET
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
 from pilosa_tpu_torch.storage.wal import fsync_dir
@@ -40,6 +43,7 @@ class Index:
         # schema epoch: bumped on field create so cached plans revalidate
         self.plan_epoch = 0
         self._shards_memo: tuple[int, list[int]] | None = None
+        self.column_attrs: AttrStore | None = None  # opened in open()
 
     def open(self) -> "Index":
         os.makedirs(self.path, exist_ok=True)
@@ -60,11 +64,15 @@ class Index:
         if self.track_existence and EXISTENCE_FIELD not in self.fields:
             self.create_field(EXISTENCE_FIELD,
                               FieldOptions(type=TYPE_SET, cache_type="none"))
+        self.column_attrs = AttrStore(os.path.join(self.path,
+                                                   ".colattrs.db")).open()
         return self
 
     def close(self) -> None:
         for f in list(self.fields.values()):
             f.close()
+        if self.column_attrs is not None:
+            self.column_attrs.close()
 
     def _save_meta(self) -> None:
         meta = os.path.join(self.path, ".meta")
@@ -79,7 +87,6 @@ class Index:
     def create_field(self, name: str, options: FieldOptions | None = None
                      ) -> Field:
         options = options or FieldOptions()
-        options.check_ported()
         with self._create_lock:
             if name in self.fields:
                 raise ValueError(f"field {name!r} already exists")

@@ -7,7 +7,9 @@ Each fragment that gains a bit is rewritten as one fresh snapshot, in the
 container forms ``Container.from_lows`` would pick, so the files are the
 ones either package writes for the same bits. Rows may go into a named
 view (a time field's quantum views), and a mutex or bool field's rows
-are checked to hold each column once.
+are checked to hold each column once. A keyed field's rows and a keyed
+index's columns may be named by string keys: their translate records are
+written in id order, as a Set of each key in turn would write them.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from pilosa_tpu_torch.storage.field import (
     FieldOptions,
 )
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD
+from pilosa_tpu_torch.storage.translate import column_namespace, row_namespace
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
 
 CONTAINER_WORDS = 2048  # uint32 words per roaring container
@@ -162,11 +165,41 @@ def _check_planes(name: str, opts: FieldOptions, planes: np.ndarray) -> None:
                              f"max - min = {span}")
 
 
+def _translate_rows(holder, idx, fld, rows: dict) -> dict:
+    """``rows`` with each string key replaced by its row id (new keys
+    take the next ids, in the order given)."""
+    keys = [r for r in rows if isinstance(r, str)]
+    if not keys:
+        return rows
+    if not fld.options.keys:
+        raise ValueError(f"row key {keys[0]!r} on field {fld.name!r} "
+                         "without keys=true")
+    ids = dict(zip(keys, holder.translate.translate(
+        row_namespace(idx.name, fld.name), keys, create=True)))
+    return {ids.get(r, r) if isinstance(r, str) else r: w
+            for r, w in rows.items()}
+
+
+def _translate_columns(holder, idx, column_keys) -> None:
+    """Give column key i the column id i (keys new to the index, or
+    already holding those ids)."""
+    if not idx.keys:
+        raise ValueError(f"column keys on index {idx.name!r} without "
+                         "keys=true")
+    ids = holder.translate.translate(column_namespace(idx.name),
+                                     list(column_keys), create=True)
+    if not np.array_equal(np.asarray(ids, np.int64),
+                          np.arange(len(ids), dtype=np.int64)):
+        raise ValueError(f"column keys of index {idx.name!r} must take "
+                         "the ids 0 … n-1")
+
+
 def load_from_dense(holder, fields: dict, *, index: str,
                     int_fields: dict | None = None,
                     views: dict | None = None,
                     options: dict | None = None,
-                    existence: bool = True) -> int:
+                    existence: bool = True,
+                    column_keys=None) -> int:
     """Set the bits of dense words in ``index`` (created, with its fields,
     when missing).
 
@@ -184,9 +217,14 @@ def load_from_dense(holder, fields: dict, *, index: str,
     field's ``bsig`` view holds them. Columns that gain a bit (int
     fields: the exists bit) are marked existing, as an import marks them,
     unless ``existence`` is False (a caller building fields in parallel
-    marks them once with ``load_existence``). Returns the number of bits
-    set that were not set before."""
-    idx = holder.index(index) or holder.create_index(index)
+    marks them once with ``load_existence``). A keyed field's rows may
+    be string keys; ``column_keys`` (a sequence of strings) names column
+    ``i`` by ``column_keys[i]`` in a keyed index (created with keys when
+    missing). Returns the number of bits set that were not set before."""
+    idx = holder.index(index) or holder.create_index(
+        index, keys=column_keys is not None)
+    if column_keys is not None:
+        _translate_columns(holder, idx, column_keys)
     options = options or {}
     exists: dict[int, np.ndarray] = {}
     gained = 0
@@ -202,8 +240,9 @@ def load_from_dense(holder, fields: dict, *, index: str,
         layers.append((fname, None, dict(enumerate(planes)), opts))
     for fname, vname, rows, opts in layers:
         fld = idx.field(fname) or idx.create_field(fname, opts)
-        fld.options.check_ported()
         bsi = vname is None
+        if not bsi:
+            rows = _translate_rows(holder, idx, fld, rows)
         if (fld.options.type == TYPE_INT) != bsi:
             raise ValueError(f"field {fname!r} is a {fld.options.type} field")
         single_valued = fld.options.type in (TYPE_MUTEX, TYPE_BOOL)

@@ -661,3 +661,64 @@ def test_store_and_clear_row_on_the_card(dev, tmp_path):
         return out
 
     _on_both_devices(tmp_path, script)
+
+
+def test_keyed_count_topn_groupby_on_the_card(dev, tmp_path):
+    """A keyed index and keyed fields (row keys, column keys): Counts,
+    TopN with its keys and attr filter, GroupBy by rowKey, a keyed Row
+    and a keyed Set moving a mutex column (one K3 launch) answer on the
+    card as on the CPU, through K1, K8, K9 and K3."""
+    import json
+    import shutil
+
+    from pilosa_tpu_torch.executor import result_to_json
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.storage import FieldOptions, Holder, load_from_dense
+
+    rng = np.random.default_rng(130)
+    n = 4 * W * 32
+    pay = rng.integers(0, 4, n).astype(np.uint8)
+    h = Holder(str(tmp_path / "seed"), device="cpu").open()
+    load_from_dense(
+        h, {"pay": {k: np.packbits(pay == i, bitorder="little").view("<u4")
+                    for i, k in enumerate(("CRD", "CSH", "NOC", "DIS"))},
+            "cab": {1: rng.integers(0, 1 << 32, 4 * W, dtype=np.uint32)}},
+        options={"pay": FieldOptions(type="mutex", keys=True)},
+        index="rides")
+    seg = {f"s{k}": np.packbits(rng.random(W * 32) < 2.0 ** -k,
+                                bitorder="little").view("<u4")
+           for k in range(1, 5)}
+    load_from_dense(h, {"segment": seg},
+                    options={"segment": FieldOptions(keys=True)},
+                    index="users",
+                    column_keys=[f"u{i:07d}" for i in range(W * 32)])
+    h.close()
+    rides = ['Count(Intersect(Row(pay="CRD"), Row(cab=1)))',
+             "TopN(pay, n=5)", "GroupBy(Rows(pay), Rows(cab))",
+             'SetRowAttrs(pay, "CRD", kind="card") '
+             'TopN(pay, n=5, attrName="kind", attrValue="card")',
+             'Set(5, pay="VOD")', 'Count(Row(pay="VOD")) TopN(pay, n=5)']
+    users = ['Count(Intersect(Row(segment="s1"), Row(segment="s2")))',
+             'Row(segment="s4")', 'Set("new", segment="s1")',
+             'Count(Row(segment="s1")) IncludesColumn(Row(segment="s1"), '
+             'column="new")']
+    answers = {}
+    for device in ("cpu", "cuda"):
+        shutil.copytree(tmp_path / "seed", tmp_path / device)
+        hd = Holder(str(tmp_path / device), device=device).open()
+        try:
+            api = API(hd)
+            kernels.reset_launches()
+            out = [json.dumps(result_to_json(api.query_raw("rides", q)))
+                   for q in rides]
+            out += [json.dumps(result_to_json(api.query_raw("users", q)))
+                    for q in users]
+            answers[device] = out
+            if device == "cuda":
+                launched = kernels.launches()
+                for name in ("tree_count", "count_rows", "groupby_level",
+                             "word_patch"):
+                    assert launched[name] > 0, name
+        finally:
+            hd.close()
+    assert answers["cuda"] == answers["cpu"]

@@ -18,7 +18,7 @@ import pilosa_tpu.storage as jstorage
 from __graft_entry__ import DRYRUN_QUERY_SHAPES
 from pilosa_tpu.executor import Executor as JExecutor
 from pilosa_tpu.executor.result import result_to_json as j_result_to_json
-from pilosa_tpu_torch.executor import Executor, PQLError, expr, result_to_json
+from pilosa_tpu_torch.executor import Executor, expr, result_to_json
 from pilosa_tpu_torch.storage import Holder, load_from_dense
 
 torch.set_num_threads(1)
@@ -122,22 +122,18 @@ def test_micro_batch_coalesces_counts(pair):
 
 
 @pytest.mark.parametrize("pql", [
-    "Options(Row(f=1), columnAttrs=true)",
-    'TopN(f, n=2, attrName="x", attrValue=1)',
-])
-def test_unported_calls_raise(pair, pql):
-    with pytest.raises(PQLError, match="not yet ported"):
-        pair[1].execute("i", pql)
-
-
-@pytest.mark.parametrize("pql", [
     "Store(Row(f=1), f=5)", "ClearRow(f=1)",
     "Count(Row(f=1, from='2020-01-01', to='2021-01-01'))",
+    "Options(Row(f=1), columnAttrs=true)",
+    'TopN(f, n=2, attrName="x", attrValue=1)',
+    'SetRowAttrs(f, 1, x=1) TopN(f, n=2, attrName="x", attrValue=1) '
+    "Row(f=1)",
 ])
 def test_formerly_unported_calls_match_reference(pair, pql):
-    """Store, ClearRow and a time window (on a set field, which the
-    reference refuses) answer as the reference does, and the rows they
-    touch read the same afterwards."""
+    """Store, ClearRow, a time window (on a set field, which the
+    reference refuses), Options(columnAttrs=), TopN's attribute filter
+    and SetRowAttrs on a field without keys answer as the reference
+    does, and the rows they touch read the same afterwards."""
     jex, pex = pair
 
     def outcome(ex, to_json):

@@ -565,7 +565,9 @@ def test_open_holds_no_descriptors_and_close_keeps_clean_sidecars(tmp_path):
     fds = len(os.listdir("/proc/self/fd"))
     h = Holder(str(tmp_path / "d"), device="cpu").open()
     try:
-        assert len(os.listdir("/proc/self/fd")) <= fds + 4  # the WAL's
+        # the WAL's, the translate log and three attribute stores (the
+        # index's and its two fields'), which the reference holds too
+        assert len(os.listdir("/proc/self/fd")) <= fds + 4 + 1 + 3
         h.index("i").field("f").set_bit(3, 5)  # shard 0 changes
     finally:
         h.close()
@@ -579,3 +581,111 @@ def test_open_holds_no_descriptors_and_close_keeps_clean_sidecars(tmp_path):
         assert len(os.listdir("/proc/self/fd")) == fds + 1
     finally:
         p.close()
+
+
+# ------------------------------------------------------- keys and attrs
+
+
+_KEYED_SCRIPT = [
+    ("users", 'Set("alice", likes="pizza") Set("bob", likes="pizza") '
+              'Set("alice", likes="sushi") Set("carol", tier=2) '
+              f'Set({2 * W * 32 + 9}, likes="pizza")'),
+    ("users", 'SetRowAttrs(likes, "pizza", cuisine="italian") '
+              'SetColumnAttrs("bob", plan="pro") SetRowAttrs(tier, 2, x=1) '
+              'SetColumnAttrs(7, y=[1, 2])'),
+    ("repos", "Set(3, stars=1) Set(1048580, stars=2) "
+              'SetRowAttrs(stars, 1, name="a") SetColumnAttrs(3, o="b")'),
+]
+_KEYED_READS = [
+    ("users", 'Row(likes="pizza") Row(likes="sushi") TopN(likes) Rows(likes)'
+              ' GroupBy(Rows(likes), Rows(tier)) Row(tier=2)'),
+    ("users", 'Options(Row(likes="pizza"), columnAttrs=true) '
+              'IncludesColumn(Row(likes="sushi"), column="alice") '
+              'TopN(likes, attrName="cuisine", attrValue="italian")'),
+    ("repos", "Row(stars=1) Options(Row(stars=1), columnAttrs=true) "
+              "TopN(stars)"),
+]
+
+
+def _build_keyed(holder, executor, options_cls) -> None:
+    users = holder.create_index("users", keys=True)
+    users.create_field("likes", options_cls(keys=True))
+    users.create_field("tier")
+    holder.create_index("repos").create_field("stars")
+    for index, pql in _KEYED_SCRIPT:
+        executor.execute(index, pql)
+    holder.close()
+
+
+def _names(root) -> list:
+    """Every file and directory name under ``root``, by relative path."""
+    out = []
+    for dirpath, dirs, files in os.walk(root):
+        for name in dirs + files:
+            out.append(os.path.relpath(os.path.join(dirpath, name), root))
+    return sorted(out)
+
+
+def _answers(holder, executor, to_json) -> list:
+    return [json.dumps(to_json(executor.execute(index, pql)))
+            for index, pql in _KEYED_READS]
+
+
+def _attr_stores(holder) -> dict:
+    """Each attribute store's blocks and contents, through AttrStore."""
+    out = {}
+    for name, idx in sorted(holder.indexes.items()):
+        out[name] = (idx.column_attrs.blocks(),
+                     idx.column_attrs.bulk(range(3000)))
+        for fname, fld in sorted(idx.fields.items()):
+            out[f"{name}/{fname}"] = (fld.row_attrs.blocks(),
+                                      fld.row_attrs.bulk(range(3000)))
+    return out
+
+
+_PACKAGES = {
+    "reference": (lambda d: jstorage.Holder(d).open(), JExecutor,
+                  j_result_to_json, JFieldOptions),
+    "port": (lambda d: Holder(d, device="cpu").open(),
+             lambda h: Executor(h, device="cpu"), result_to_json,
+             FieldOptions),
+}
+
+
+@pytest.mark.parametrize("writer,reader", [("reference", "port"),
+                                           ("port", "reference")])
+def test_keyed_dir_with_attrs_opens_in_the_other_package(tmp_path, writer,
+                                                         reader):
+    """A data dir with keyed indexes and fields and row and column
+    attributes, written by one package, has the files the other writes
+    for the same calls (the .translate.log byte for byte, .colattrs.db and
+    .rowattrs.db at every level) and opens in the other with the same
+    answers and the same attribute stores, which it leaves as it found
+    them."""
+    w_open, w_exec, w_json, w_opts = _PACKAGES[writer]
+    r_open, r_exec, r_json, r_opts = _PACKAGES[reader]
+    wdir, odir = str(tmp_path / "w"), str(tmp_path / "o")
+    h = w_open(wdir)
+    _build_keyed(h, w_exec(h), w_opts)
+    h = r_open(odir)
+    _build_keyed(h, r_exec(h), r_opts)
+    names = _names(wdir)
+    assert names == _names(odir)
+    for want in (".translate.log", os.path.join("users", ".colattrs.db"),
+                 os.path.join("users", "likes", ".rowattrs.db"),
+                 os.path.join("repos", "stars", ".rowattrs.db")):
+        assert want in names
+    with open(os.path.join(wdir, ".translate.log"), "rb") as a, \
+            open(os.path.join(odir, ".translate.log"), "rb") as b:
+        assert a.read() == b.read()
+
+    h = w_open(wdir)
+    want, want_attrs = _answers(h, w_exec(h), w_json), _attr_stores(h)
+    h.close()
+    h = r_open(wdir)
+    try:
+        assert _answers(h, r_exec(h), r_json) == want
+        assert _attr_stores(h) == want_attrs
+    finally:
+        h.close()
+    assert _names(wdir) == names

@@ -461,8 +461,12 @@ def test_groupby_refusals_match_reference(pair):
         with pytest.raises(PQLError) as got:
             pex.execute("i", pql)
         assert str(got.value) == str(want.value), pql
-    with pytest.raises(PQLError, match="not yet ported"):
-        pex.execute("i", 'TopN(f, attrName="a", attrValue=1)')
+    # TopN's attribute filter answers (it was refused before row
+    # attributes were ported)
+    assert _json(result_to_json, pex.execute(
+        "i", 'TopN(f, attrName="a", attrValue=1)')) == \
+        _json(j_result_to_json, jex.execute(
+            "i", 'TopN(f, attrName="a", attrValue=1)'))
     # past K9's 16 dimensions the port answers (it refused before the
     # prefix fold existed)
     dims = ", ".join(["Rows(g, limit=2)"] + ["Rows(g, limit=1)"]
