@@ -6,8 +6,8 @@
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. print the card's name and power limit (nvidia-smi);
-2. build the nine CUDA kernels from ``pilosa_tpu_torch/csrc`` (one nvcc
-   per source, in parallel) and print the build time;
+2. build the eleven CUDA kernels from ``pilosa_tpu_torch/csrc`` (one
+   nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card,
    bit-exact, at the main paths' shapes (int32[1024, 32768] leaves, a
    4-query micro-batch, a K3 patch whose masks have bit 31 set and a
@@ -22,12 +22,15 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    registers and stack of every K1 and K7 instance; K3's whole call
    apart from its launch alone and the launch floor;
    K9 also beside its popcount floor, with the bytes it stages and its
-   plan variants).
+   plan variants), and K10 and K11 at a month leaf's shape (32 768
+   blocks, ~391 real ones padded to 512), on random blocks and on an
+   all-zero leaf, beside index_select and zeros + index_copy_.
    Meanwhile worker processes (one per field, three for the time
    field's views, one for the existence rows; the pickup_year worker
-   also writes payment_type, the repository worker the users index)
+   also writes payment_type, the repository worker the users index and
+   the 84 pickup_month rows)
    write the data directory from the same host words;
-4. drive five main paths through the port's HTTP server on 127.0.0.1 over
+4. drive six main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -82,6 +85,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       key that opens a fifth users shard, 1000 keys through
       /internal/translate/keys then /import by id, and the translate
       log's new bytes;
+   f. the tier path (the NYC TLC months as Litwintschik's benchmark
+      loads them): a set field ``pickup_month`` of 84 contiguous-range
+      rows on ``rides``; the budget lowered to 16 dense months beside
+      the cab_type leaves; 16 concurrent clients over a month x cab
+      Count, a quarter's Count and a month's TopN(cab_type) (K10
+      demotes, K11 promotes); a Count of every month, one tierer pass to
+      the host tier, 84 serial Counts that are host-tier hits, a Set
+      into a host-tier leaf (its copy invalidated) and into a dense one
+      (one K3 launch, the leaf then dropped, not compressed), every
+      answer against the oracle; the budget restored;
 5. the crash phase, on a 64-shard directory of its own: a port server
    process on the card takes Set, Clear, /import, /import-value,
    timestamped Sets into a YMDH field, Sets moving columns of a mutex
@@ -1233,12 +1246,12 @@ def _check_crash_time_mutex(holder, ex, oracle: dict, inflight: list
 
 
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
-                   taxi: dict, events: dict, users: dict, rng, kernels,
-                   verify_on_load: bool) -> dict:
+                   taxi: dict, events: dict, users: dict, months: dict, rng,
+                   kernels, verify_on_load: bool) -> dict:
     """Phase 4 through one server: the Star-Trace path, the rides path,
-    the taxi path, the time path and the keys path, each with the launch
-    counters zeroed just before it and read just after. Returns {path:
-    (numbers, launches)}."""
+    the taxi path, the time path, the keys path and the tier path, each
+    with the launch counters zeroed just before it and read just after.
+    Returns {path: (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
 
     # verify-on-load (the port's default) digests every bit id of the
@@ -1248,6 +1261,7 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
     t0 = time.perf_counter()
     server = Server(data_dir, bind="127.0.0.1", port=0,
                     budget_bytes=SERVER_BUDGET_BYTES,
+                    residency_host_tier_bytes=TIER_HOST_BYTES,
                     verify_on_load=verify_on_load).open()
     print(f"server open (verify-on-load {verify_on_load}): "
           f"{time.perf_counter() - t0:.1f}s", flush=True)
@@ -1262,7 +1276,8 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                 ("time", lambda: _serve_time(server, events)),
                 ("keys", lambda: _serve_keys(
                     server, keys_truth(taxi["keys"], users), taxi["keys"],
-                    users))):
+                    users)),
+                ("tier", lambda: _serve_tier(server, months, rng))):
             kernels.reset_launches()
             stats = serve()
             out[path] = (stats, kernels.launches())
@@ -1896,13 +1911,13 @@ def _latency_stats(latencies: list, wall: float) -> dict:
 
 
 def closed_loop(port: int, index: str, shapes: list, truth: dict,
-                n_clients: int, per_client: int, per_shape=None
-                ) -> tuple[list, float]:
+                n_clients: int, per_client: int, per_shape=None,
+                stride: int = 1) -> tuple[list, float]:
     """``n_clients`` keep-alive clients, each sending ``per_client``
     queries back to back over ``shapes`` (PQL on ``index``, or (index,
-    PQL) pairs); every answer is held against ``truth``. Returns
-    (latencies in s, wall s); ``per_shape``, a dict, also gets each
-    shape's latencies."""
+    PQL) pairs), client k from shape k x ``stride`` on; every answer is
+    held against ``truth``. Returns (latencies in s, wall s);
+    ``per_shape``, a dict, also gets each shape's latencies."""
     errors: list = []
     latencies: list = []
     lock = threading.Lock()
@@ -1911,7 +1926,7 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
         conns: dict = {}
         try:
             for j in range(per_client):
-                shape = shapes[(k + j) % len(shapes)]
+                shape = shapes[(k * stride + j) % len(shapes)]
                 name, pql = shape if isinstance(shape, tuple) else (index,
                                                                     shape)
                 cl = conns.get(name) or conns.setdefault(name,
@@ -2568,6 +2583,387 @@ def _serve_keys(server, truth: dict, o: dict, u: dict) -> dict:
     return stats
 
 
+# ---------------------------------------------------------------- tier path
+
+# The residency tiers on a deployment users run: the NYC TLC trip records
+# that Litwintschik's "1.1 Billion Taxi Rides" loads (2009-01 .. 2015-12,
+# tech.marksblogg.com/benchmarks.html) arrive month file after month
+# file, so column ids follow pickup time. ``rides`` gains a set field
+# ``pickup_month``, rows 0-83 (months from 2009-01), each month a
+# contiguous range of the 2^30 columns (boundaries floor(m 2^30 / 84),
+# inside shards and 4 KiB blocks): a 128 MiB leaf with about 391 of its
+# 32 768 blocks nonzero, 2 MiB compressed. Cuts: equal months, not the
+# TLC's monthly volumes; pickup_month independent of the synthetic
+# pickup_year; no column marked existing by it (the rides' existence row
+# stays as the other fields give it). Built in the repository worker.
+N_MONTHS = 84
+MONTH_JOB = "repository"
+TIER_CLIENTS = 16
+TIER_PER_CLIENT = 30
+TIER_DENSE_MONTHS = 16   # month leaves the lowered budget keeps dense
+TIER_MATRIX_ROWS = 4     # TopN(cab_type)'s candidate matrix: 3 rows + 1 pad
+TIER_SWEEP = 30          # months promoted after the writes
+TIER_HOST_BYTES = 4 << 30  # the server's host tier
+MONTH_A, MONTH_B = 10, 50  # the dense and the host-tier write targets
+
+
+def month_edges() -> np.ndarray:
+    """The 85 column boundaries of the 84 months."""
+    return np.arange(N_MONTHS + 1, dtype=np.int64) * (N_SHARDS * WORDS * 32) \
+        // N_MONTHS
+
+
+def range_words(lo: int, hi: int, out: np.ndarray) -> np.ndarray:
+    """``out`` (uint32 words) holding exactly the columns [lo, hi)."""
+    out[:] = 0
+    wlo, whi = lo >> 5, hi >> 5
+    head = (0xFFFFFFFF << (lo & 31)) & 0xFFFFFFFF
+    if wlo == whi:
+        out[wlo] = head & ((1 << (hi & 31)) - 1)
+        return out
+    out[wlo] = head
+    out[wlo + 1:whi] = 0xFFFFFFFF
+    if hi & 31:
+        out[whi] = (1 << (hi & 31)) - 1
+    return out
+
+
+def check_block_kernels(torch, kernels, dev) -> list:
+    """Phase 3, the residency tiers: K10 and K11 against their plain
+    versions, bit-exact, at the month leaf's shape (n_blocks 32 768, a
+    month's ~391 nonzero blocks padded to 512 by repeating the first), on
+    random blocks at random places (duplicates in the padding), and on an
+    all-zero leaf (no real block, one padding block); K11 gives back the
+    leaf it came from. Times beside index_select and zeros + index_copy_
+    and the launch floor."""
+    edges = month_edges()
+    n_blocks = N_SHARDS * WORDS // kernels.BLOCK_WORDS
+    host = np.zeros(N_SHARDS * WORDS, np.uint32)
+    rng = np.random.default_rng(11)
+    cases = {}
+    m = N_MONTHS // 2
+    cases["month"] = range_words(int(edges[m]), int(edges[m + 1]), host).copy()
+    rand = np.zeros_like(host)
+    pick = rng.choice(n_blocks, 390, replace=False)
+    for b in pick:
+        rand[b * 1024:(b + 1) * 1024] = rng.integers(0, 1 << 32, 1024,
+                                                     dtype=np.uint32)
+    cases["random"] = rand
+    cases["zero"] = np.zeros_like(host)
+    err = 0
+    timed = None
+    for name, words in cases.items():
+        block_idx = np.flatnonzero(words.reshape(-1, 1024).any(axis=1)
+                                   ).astype(np.int32)
+        nb = len(block_idx)
+        idx_host = np.full(max(1, 1 << max(nb - 1, 0).bit_length()),
+                           block_idx[0] if nb else 0, np.int32)
+        idx_host[:nb] = block_idx
+        flat = torch.from_numpy(words.view(np.int32)).to(dev)
+        idx = torch.from_numpy(idx_host).to(dev)
+        blocks = kernels.block_gather(flat, idx)
+        err = max(err, max_abs_err(torch, blocks,
+                                   kernels.block_gather_plain(flat, idx)))
+        back = kernels.block_scatter(blocks, idx, n_blocks, block_idx)
+        err = max(err, max_abs_err(torch, back, kernels.block_scatter_plain(
+            blocks, idx, n_blocks)), max_abs_err(torch, back, flat))
+        if name == "month":
+            timed = (flat, idx, blocks, block_idx, nb, idx_host.size)
+        print(f"kernel block_gather/block_scatter on the {name} leaf: "
+              f"{nb} nonzero blocks padded to {idx_host.size}", flush=True)
+    torch.cuda.synchronize()
+    if err != 0:
+        fail(f"block_gather/block_scatter disagree with their plain "
+             f"versions by {err}")
+    flat, idx, blocks, block_idx, nb, nbp = timed
+    floor = cuda_ms(torch, lambda: kernels.launch_floor(dev), launches=100)
+    gather_bytes = 2 * nbp * 4096 + nbp * 4
+    scatter_bytes = n_blocks * 4096 + nb * 4096 + nb * 4
+
+    def library_scatter():
+        out = torch.zeros((n_blocks, 1024), dtype=torch.int32, device=dev)
+        return out.index_copy_(0, idx.long(), blocks)
+
+    long_idx = idx.long()
+    return [{
+        "name": "block_gather", "route": "cuda",
+        "source": "pilosa_tpu_torch/csrc/block_gather.cu",
+        "replaces": "pilosa_tpu/storage/residency.py:80",
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: kernels.block_gather(flat, idx),
+                      launches=100),
+        "plain_ms": cuda_ms(torch, lambda: kernels.block_gather_plain(
+            flat, idx), launches=100),
+        "bound_ms": _bytes_ms(gather_bytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(torch, lambda: flat.view(-1, 1024).index_select(
+            0, long_idx), launches=100),
+        "launch_floor_ms": floor,
+        "shape": f"int32[{n_blocks} x 1024] -> int32[{nbp}, 1024] "
+                 f"({nb} real blocks)",
+    }, {
+        "name": "block_scatter", "route": "cuda",
+        "source": "pilosa_tpu_torch/csrc/block_scatter.cu",
+        "replaces": "pilosa_tpu/storage/residency.py:86",
+        "max_abs_err": err,
+        "ms": cuda_ms(torch, lambda: kernels.block_scatter(
+            blocks, idx, n_blocks, block_idx), launches=20),
+        "plain_ms": cuda_ms(torch, lambda: kernels.block_scatter_plain(
+            blocks, idx, n_blocks), launches=20),
+        "bound_ms": _bytes_ms(scatter_bytes), "bound_by": "bytes",
+        "library_ms": cuda_ms(torch, library_scatter, launches=20),
+        "launch_floor_ms": floor,
+        "shape": f"int32[{nbp}, 1024] ({nb} real blocks) -> "
+                 f"int32[{n_blocks} x 1024]",
+    }]
+
+
+def _build_months(holder) -> None:
+    """The pickup_month field, one month (one 128 MiB row) at a time."""
+    from pilosa_tpu_torch.storage import load_from_dense
+
+    edges = month_edges()
+    buf = np.zeros(N_SHARDS * WORDS, np.uint32)
+    for m in range(N_MONTHS):
+        range_words(int(edges[m]), int(edges[m + 1]), buf)
+        load_from_dense(holder, {"pickup_month": {m: buf}}, index="rides",
+                        existence=False)
+
+
+def _range_count(words: np.ndarray, lo: int, hi: int) -> int:
+    """Set bits of ``words`` among the columns [lo, hi)."""
+    wlo, whi = lo >> 5, hi >> 5
+    mask = np.zeros(whi - wlo + 1, np.uint32)
+    range_words(lo - (wlo << 5), hi - (wlo << 5), mask)
+    part = words[wlo:whi + 1] if whi < words.size else np.concatenate(
+        [words[wlo:], np.zeros(1, np.uint32)])
+    return int(np.bitwise_count(part & mask).sum(dtype=np.int64))
+
+
+def months_truth(rides: dict) -> dict:
+    """Each month's rides and its rides of each cab type."""
+    t0 = time.perf_counter()
+    edges = month_edges()
+    cab = [[_range_count(rides["cab"][c], int(edges[m]), int(edges[m + 1]))
+            for c in range(3)] for m in range(N_MONTHS)]
+    sizes = [int(edges[m + 1] - edges[m]) for m in range(N_MONTHS)]
+    print(f"months oracle: {time.perf_counter() - t0:.1f}s", flush=True)
+    return {"sizes": sizes, "cab": cab, "edges": edges}
+
+
+def _topn(counts) -> list:
+    pairs = [{"id": c, "count": int(n)} for c, n in enumerate(counts) if n]
+    return sorted(pairs, key=lambda p: (-p["count"], p["id"]))[:3]
+
+
+def tier_shapes(rng, mt: dict) -> tuple[list, dict]:
+    """TIER_CLIENTS x TIER_PER_CLIENT queries, a third of each shape:
+    the month x cab Count (m over 84, c over 3), the quarter's Count (m
+    over 0..81: the quarter's last month is 83 at most) and the month's
+    TopN(cab_type); with their answers."""
+    shapes, truth = [], {}
+    for i in range(TIER_CLIENTS * TIER_PER_CLIENT):
+        m, c = int(rng.integers(0, N_MONTHS)), int(rng.integers(0, 3))
+        if i % 3 == 0:
+            pql = (f"Count(Intersect(Row(pickup_month={m}), "
+                   f"Row(cab_type={c})))")
+            want = mt["cab"][m][c]
+        elif i % 3 == 1:
+            m = min(m, N_MONTHS - 3)
+            pql = (f"Count(Union(Row(pickup_month={m}), "
+                   f"Row(pickup_month={m + 1}), Row(pickup_month={m + 2})))")
+            want = sum(mt["sizes"][m:m + 3])
+        else:
+            pql = f"TopN(cab_type, Row(pickup_month={m}), n=3)"
+            want = _topn(mt["cab"][m])
+        shapes.append(pql)
+        truth[pql] = want
+    return shapes, truth
+
+
+def _month_key(m: int, store) -> tuple | None:
+    for k in list(store):
+        if k[0] == "stack" and k[3] == "pickup_month" and k[5] == m:
+            return k
+    return None
+
+
+def _tier_pass(cache, scope: str, stats: dict, name: str) -> None:
+    """One ResidencyTierer pass (no thread) with a demote_heat above
+    every field's heat: every stacked leaf of rides moves to host."""
+    from pilosa_tpu_torch.storage.heat import global_heat
+    from pilosa_tpu_torch.storage.tiering import ResidencyTierer
+
+    rows = global_heat().snapshot()["shards"]
+    month = max(r["access"] + r["writes"] for r in rows
+                if r.get("scope", "") == scope
+                and r["field"] == "pickup_month")
+    demote = max(r["access"] + r["writes"] for r in rows) + 1.0
+    tierer = ResidencyTierer(cache, demote_heat=demote,
+                             promote_heat=2 * demote, min_dwell_s=0)
+    t0 = time.perf_counter()
+    out = tierer.run_pass()
+    secs = time.perf_counter() - t0
+    _, per_stack = cache.tier_overlay()
+    months = per_stack.get((scope, "rides", "pickup_month"))
+    if months is None or months["dense"] or months["compressed"] \
+            or not months["host"] or not out["demoted"]:
+        fail(f"tier pass {name} left month stacks on the card: {months} "
+             f"{out}")
+    stats[name] = {"month_heat": month, "demote_heat": demote,
+                   "seconds": secs, "demoted": out["demoted"],
+                   "demoted_bytes": out["demotedBytes"],
+                   "month_host_bytes": months["host"]}
+    print(f"tier {name}: {out['demoted']} entries, {out['demotedBytes']} "
+          f"device bytes to host in {secs:.3f}s (month heat {month:.1f}, "
+          f"demote-heat {demote:.1f}); month stacks {months['host']} host "
+          f"bytes", flush=True)
+
+
+def _serve_tier(server, mt: dict, rng) -> dict:
+    """Phase 4f: the residency tiers on the 84-month path. The server's
+    budget is lowered so that at most TIER_DENSE_MONTHS month leaves stay
+    dense beside the cab_type leaves and TopN's matrix; 16 clients send
+    the three shapes (K10 demotes, K11 promotes); a Count of every month
+    puts each on the card, and the same traffic runs again without first
+    touches; one tierer pass moves the month stacks to host; 84 serial Counts are host-tier hits (an
+    upload and a K11 launch each); a Set into a host-tier month leaf
+    invalidates its copy and a Set into a dense one is one K3 launch,
+    after which that leaf is dropped rather than compressed; every
+    answer against the oracle. The budget is restored afterwards."""
+    from pilosa_tpu_torch import kernels
+
+    cache = server.holder.cache
+    scope = server.holder.index("rides").scope
+    leaf = N_SHARDS * WORDS * 4
+    # a month's compressed copy: its ~391 nonzero blocks padded to 512
+    per_month = N_SHARDS * WORDS // N_MONTHS // 1024 + 2
+    compressed = (1 << (per_month - 1).bit_length()) * (4096 + 4)
+    budget0 = cache.budget_bytes
+    cache.budget_bytes = (3 + TIER_MATRIX_ROWS + TIER_DENSE_MONTHS) * leaf \
+        + N_MONTHS * compressed
+    stats: dict = {"budget_bytes": cache.budget_bytes}
+    c = Client(server.port, "rides")
+    t_path = time.perf_counter()
+    try:
+        shapes, truth = tier_shapes(rng, mt)
+        m0 = cache.metrics()
+        lat, wall = closed_loop(server.port, "rides", shapes, truth,
+                                TIER_CLIENTS, TIER_PER_CLIENT,
+                                stride=TIER_PER_CLIENT)
+        stats.update(_latency_stats(lat, wall))
+        m1 = cache.metrics()
+        for k in ("compressions", "decompressions", "evictions"):
+            stats[k] = m1[f"residency_{k}"] - m0[f"residency_{k}"]
+        stats["compressed_bytes"] = cache.compressed_bytes
+        stats["loop_launches"] = {k: kernels.launches()[k] for k in
+                                  ("block_gather", "block_scatter")}
+        print(f"tier loop: {stats['qps']:.3f} QPS, p50 "
+              f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms; "
+              f"compressions {stats['compressions']}, decompressions "
+              f"{stats['decompressions']}, evictions {stats['evictions']}, "
+              f"compressed bytes {stats['compressed_bytes']}; launches "
+              f"{stats['loop_launches']}", flush=True)
+        if not stats["compressions"] or not stats["decompressions"]:
+            fail(f"the tier loop compressed {stats['compressions']} and "
+                 f"promoted {stats['decompressions']} leaves")
+
+        # every month on the card (dense or compressed) before the pass
+        for m in range(N_MONTHS):
+            if c.query(f"Count(Row(pickup_month={m}))") != [mt["sizes"][m]]:
+                fail(f"Count(Row(pickup_month={m})) = wrong before the pass")
+        # the same traffic again, every month on the card: the tiers'
+        # churn (K10 demotions, K11 promotions) without first touches
+        shapes, truth = tier_shapes(rng, mt)
+        m0 = cache.metrics()
+        lat, wall = closed_loop(server.port, "rides", shapes, truth,
+                                TIER_CLIENTS, TIER_PER_CLIENT,
+                                stride=TIER_PER_CLIENT)
+        m1 = cache.metrics()
+        warm = stats["warm"] = _latency_stats(lat, wall)
+        for k in ("compressions", "decompressions", "evictions", "misses"):
+            warm[k] = m1[f"residency_{k}"] - m0[f"residency_{k}"]
+        print(f"tier warm loop: {warm['qps']:.3f} QPS, p50 "
+              f"{warm['p50_ms']:.3f} ms, p99 {warm['p99_ms']:.3f} ms; "
+              f"compressions {warm['compressions']}, decompressions "
+              f"{warm['decompressions']}, evictions {warm['evictions']}, "
+              f"misses {warm['misses']}", flush=True)
+        _tier_pass(cache, scope, stats, "pass_1")
+        h0 = cache.host_hits
+        k11 = kernels.launches()["block_scatter"]
+        times = []
+        for m in range(N_MONTHS):
+            t0 = time.perf_counter()
+            got = c.query(f"Count(Row(pickup_month={m}))")[0]
+            times.append(time.perf_counter() - t0)
+            if got != mt["sizes"][m]:
+                fail(f"Count(Row(pickup_month={m})) = {got} after the tier "
+                     f"pass, oracle {mt['sizes'][m]}")
+        stats["host_hits"] = cache.host_hits - h0
+        stats["host_count_p50_ms"] = 1e3 * sorted(times)[len(times) // 2]
+        stats["host_count_k11"] = kernels.launches()["block_scatter"] - k11
+        print(f"tier host hits: {stats['host_hits']} of {N_MONTHS} serial "
+              f"Counts, p50 {stats['host_count_p50_ms']:.3f} ms, K11 "
+              f"{stats['host_count_k11']}", flush=True)
+        if stats["host_hits"] < N_MONTHS or stats["host_count_k11"] < N_MONTHS:
+            fail(f"only {stats['host_hits']} of the {N_MONTHS} Counts after "
+                 "the tier pass were host-tier hits")
+
+        # the writes: B in the host tier, A dense
+        _tier_pass(cache, scope, stats, "pass_2")
+        edges, sizes = mt["edges"], mt["sizes"]
+        if c.query(f"Count(Row(pickup_month={MONTH_A}))") != [sizes[MONTH_A]]:
+            fail(f"Count(Row(pickup_month={MONTH_A})) before the writes")
+        key_a = _month_key(MONTH_A, cache._rows)
+        key_b = _month_key(MONTH_B, cache._host)
+        if key_a is None or key_b is None:
+            fail("month A is not dense or month B not in the host tier")
+        before = _k3(kernels)
+        if c.query(f"Set({int(edges[MONTH_A]) + 12345}, "
+                   f"pickup_month={MONTH_B})") != [True]:
+            fail("the Set into the host-tier month leaf changed nothing")
+        stats["host_set_k3_launches"] = _k3(kernels) - before
+        if key_b in cache._host or stats["host_set_k3_launches"]:
+            fail("the Set into a host-tier leaf did not invalidate its copy")
+        before = _k3(kernels)
+        if c.query(f"Set({int(edges[MONTH_B]) + 777}, "
+                   f"pickup_month={MONTH_A})") != [True]:
+            fail("the Set into the dense month leaf changed nothing")
+        stats["dense_set_k3_launches"] = _k3(kernels) - before
+        if stats["dense_set_k3_launches"] != 1 or \
+                cache._block_idx.get(key_a, 0) is not None:
+            fail(f"the Set into a dense leaf made "
+                 f"{stats['dense_set_k3_launches']} K3 launches")
+        got = c.query(f"Count(Row(pickup_month={MONTH_A})) "
+                      f"Count(Row(pickup_month={MONTH_B}))")
+        if got != [sizes[MONTH_A] + 1, sizes[MONTH_B] + 1]:
+            fail(f"the month Counts after the writes: {got}")
+        ev0 = cache.evictions
+        sweep = [m for m in range(N_MONTHS)
+                 if m not in (MONTH_A, MONTH_B)][:TIER_SWEEP]
+        for m in sweep:
+            if c.query(f"Count(Row(pickup_month={m}))") != [sizes[m]]:
+                fail(f"Count(Row(pickup_month={m})) after the writes")
+        if key_a in cache._rows or key_a in cache._compressed:
+            fail("the patched month leaf was kept, not dropped")
+        stats["sweep_evictions"] = cache.evictions - ev0
+        got = c.query(f"Count(Row(pickup_month={MONTH_A})) "
+                      f"Count(Intersect(Row(pickup_month={MONTH_B}), "
+                      f"Row(pickup_month={MONTH_A})))")
+        if got != [sizes[MONTH_A] + 1, 2]:
+            fail(f"Count(Row(pickup_month={MONTH_A})) re-decoded: {got}")
+        stats["residency"] = cache.metrics()
+        stats["path_s"] = time.perf_counter() - t_path
+        print(f"tier writes: host-tier Set {stats['host_set_k3_launches']} "
+              f"K3, dense Set {stats['dense_set_k3_launches']} K3, the "
+              f"patched leaf dropped (sweep evictions "
+              f"{stats['sweep_evictions']}); the path {stats['path_s']:.1f}s",
+              flush=True)
+    finally:
+        c.close()
+        cache.budget_bytes = budget0
+    return stats
+
+
 # ------------------------------------------------------------ data dirs
 
 # Host data the data-dir builders read: set before they fork, so each
@@ -2632,6 +3028,8 @@ def _build_part(job: str, out_dir: str) -> float:
         for (f, r), w in words.items():
             fields.setdefault(f, {})[r] = w
         load_from_dense(holder, fields, index="repository", existence=False)
+    if job == MONTH_JOB:
+        _build_months(holder)
     elif job == "rides":
         load_from_dense(holder, {"cab_type": rides["cab"]}, index="rides",
                         int_fields={"fare": (0, FARE_MAX, rides["fare"])},
@@ -2826,6 +3224,7 @@ def main() -> int:
     oracles = pool.submit(build_oracles, rides, taxi)
     time_oracle = pool.submit(events_oracle, events)
     user_oracle = pool.submit(users_truth, users)
+    month_oracle = pool.submit(months_truth, rides)
     try:
         # phase 3: kernels against their plain versions on the card
         t3 = time.perf_counter()
@@ -2838,6 +3237,7 @@ def main() -> int:
                 1, 0, 2).contiguous()
         report += check_port_kernels(torch, kernels, batch, leaves, planes)
         report += check_taxi_kernels(torch, kernels, leaves, planes)
+        report += check_block_kernels(torch, kernels, dev)
         print(f"phase 3: {time.perf_counter() - t3:.1f}s", flush=True)
         del leaves, planes
         torch.cuda.synchronize()
@@ -2857,12 +3257,13 @@ def main() -> int:
         oracle, taxi_truth = oracles.result()
         ev_oracle = time_oracle.result()
         users_o = user_oracle.result()
+        months_o = month_oracle.result()
         del taxi, events, users
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
         paths = run_main_paths(str(data_dir), words, rides, oracle,
-                               taxi_truth, ev_oracle, users_o, path_rng,
-                               kernels, args.verify_on_load)
+                               taxi_truth, ev_oracle, users_o, months_o,
+                               path_rng, kernels, args.verify_on_load)
         kernels.reset_launches()
         crash = run_crash_phase(scratch, args.seed, kernels)
         paths["crash"] = (crash, kernels.launches())
@@ -2878,6 +3279,8 @@ def main() -> int:
         "time": ("tree_count", "tree_rows", "word_patch", "count_rows",
                  "groupby_level"),
         "keys": ("tree_count", "count_rows", "groupby_level", "word_patch"),
+        "tier": ("block_gather", "block_scatter", "tree_count", "count_rows",
+                 "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
     }
     for path, names in expected.items():
@@ -2894,7 +3297,8 @@ def main() -> int:
         print(f"launches {path}: {json.dumps(launched)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K3 also gives its device time and launch floor apart from its call
+    # K3 also gives its device time and launch floor apart from its call,
+    # K10 and K11 the launch floor
     extra = ("device_ms", "launch_floor_ms", "bytes_bound_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}

@@ -3,7 +3,10 @@
 Runs on the GPU (``--device cuda``, the default) unless ``--device cpu``
 is given; asking for cuda on a machine without one exits with an error.
 ``--durability-mode`` (group, per-op or flush-only), ``--group-commit-max-ms``
-and ``--group-commit-max-ops`` are the reference's durability knobs.
+and ``--group-commit-max-ops`` are the reference's durability knobs;
+``--residency-host-tier-bytes``, ``--residency-promote-interval``,
+``--residency-promote-heat`` and ``--residency-demote-heat`` its residency
+tiering knobs (an interval of 0, the default, runs no tierer).
 """
 
 from __future__ import annotations
@@ -22,7 +25,11 @@ def cmd_server(args) -> int:
                     budget_bytes=args.residency_budget_bytes,
                     durability_mode=args.durability_mode,
                     group_commit_max_ms=args.group_commit_max_ms,
-                    group_commit_max_ops=args.group_commit_max_ops).open()
+                    group_commit_max_ops=args.group_commit_max_ops,
+                    residency_host_tier_bytes=args.residency_host_tier_bytes,
+                    residency_promote_interval=args.residency_promote_interval,
+                    residency_promote_heat=args.residency_promote_heat,
+                    residency_demote_heat=args.residency_demote_heat).open()
     print(f"pilosa_tpu_torch serving {args.data_dir} on "
           f"http://{args.bind}:{server.port} ({server.holder.device})",
           flush=True)
@@ -37,7 +44,14 @@ def cmd_server(args) -> int:
 
 
 def main(argv=None) -> int:
-    from pilosa_tpu_torch.storage.residency import DEFAULT_BUDGET_BYTES
+    from pilosa_tpu_torch.storage.residency import (
+        DEFAULT_BUDGET_BYTES,
+        DEFAULT_HOST_BUDGET_BYTES,
+    )
+    from pilosa_tpu_torch.storage.tiering import (
+        DEFAULT_DEMOTE_HEAT,
+        DEFAULT_PROMOTE_HEAT,
+    )
     from pilosa_tpu_torch.storage.wal import (
         DEFAULT_GROUP_MAX_MS,
         DEFAULT_GROUP_MAX_OPS,
@@ -67,6 +81,18 @@ def main(argv=None) -> int:
     p.add_argument("--group-commit-max-ops", type=int,
                    default=DEFAULT_GROUP_MAX_OPS,
                    help="most op records fsynced in one group")
+    p.add_argument("--residency-host-tier-bytes", type=int,
+                   default=DEFAULT_HOST_BUDGET_BYTES,
+                   help="host RAM for the residency cache's host tier")
+    p.add_argument("--residency-promote-interval", type=float, default=0.0,
+                   help="seconds between heat-driven tiering passes (0: "
+                   "no tiering)")
+    p.add_argument("--residency-promote-heat", type=float,
+                   default=DEFAULT_PROMOTE_HEAT,
+                   help="heat at which a host-tier leaf is promoted")
+    p.add_argument("--residency-demote-heat", type=float,
+                   default=DEFAULT_DEMOTE_HEAT,
+                   help="heat below which a device leaf moves to host")
     p.set_defaults(fn=cmd_server)
     args = parser.parse_args(argv)
     return args.fn(args)

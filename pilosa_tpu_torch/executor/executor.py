@@ -52,6 +52,7 @@ from pilosa_tpu_torch.shardwidth import (
     position,
     shard_of,
 )
+from pilosa_tpu_torch.storage import heat
 from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_TIME
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.storage.translate import column_namespace, row_namespace
@@ -306,9 +307,23 @@ class Executor:
 
     def _eval_operands(self, idx: Index, compiled: _Compiled, block):
         """The stacked leaf of every compiled spec, resident on the card."""
+        self._note_operands(idx, compiled.specs, block)
         cache = self.holder.cache
         return [batch.stacked_leaf(idx, spec, block, cache)
                 for spec in compiled.specs]
+
+    @staticmethod
+    def _note_operands(idx: Index, specs, block) -> None:
+        """One operand assembly of a served query: the access heat of its
+        fields over the block's shards, one batched record (the
+        reference's ``_note_operands``; see ``storage/heat.py``)."""
+        if not heat.in_request():
+            return
+        fields = {spec.field for spec in specs
+                  if getattr(spec, "field", None) is not None}
+        if fields:
+            heat.global_heat().record_access_many(
+                idx.name, fields, block.shards, scope=idx.scope)
 
     def _zeros(self, idx: Index, block):
         """A resident all-zero [S, W] leaf for operand-free trees."""
@@ -516,14 +531,17 @@ class Executor:
         except ValueError as e:  # a malformed tree
             raise PQLError(f"malformed query tree: {e}") from e
 
-    def _filter_row(self, idx: Index, filt_call, block):
+    def _filter_row(self, idx: Index, filt_call, block, note: bool = False):
         """Compile a TopN / GroupBy filter call and launch its row (its
-        steps, then K2; a bare leaf as it is). None without a filter."""
+        steps, then K2; a bare leaf as it is). None without a filter.
+        ``note``: record its access heat (TopN's, as the reference)."""
         if filt_call is None:
             return None
         specs: list = []
         scalars: list = []
         node = self._compile_node(idx, filt_call, specs, scalars)
+        if note:
+            self._note_operands(idx, specs, block)
         plan = self._plan(node)
         leaves = [batch.stacked_leaf(idx, s, block, self.holder.cache)
                   for s in specs]
@@ -531,7 +549,7 @@ class Executor:
 
     def _submit_topn(self, idx: Index, call: Call, shards=None) -> Deferred:
         """TopN in two phases. Phase 1 takes each shard's candidates from
-        its exact row counts (``Fragment.top``, overfetched); phase 2
+        its row cache (``Fragment.top``, overfetched); phase 2
         recounts every candidate over all shards: stacked candidate
         matrices in power-of-two chunks padded with zero rows (the
         reference's shapes), one K8 launch per chunk at submit, read back
@@ -568,7 +586,7 @@ class Executor:
         rows = max(1, min(next_pow2(len(candidates)),
                           TOPN_MATRIX_BUDGET_BYTES // bytes_per_cand))
         rows = 1 << (rows.bit_length() - 1)  # down to a power of two
-        filt = self._filter_row(idx, filt_call, block)
+        filt = self._filter_row(idx, filt_call, block, note=True)
         reads = []
         for lo in range(0, len(candidates), rows):
             chunk = candidates[lo:lo + rows]

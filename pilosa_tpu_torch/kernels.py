@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Nine kernels carry the main paths (sources in ``csrc/``):
+Eleven kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
   up to 16 stacked leaves, one launch per micro-batch, in the program's
@@ -59,7 +59,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("tree_count", "tree_rows", "word_patch", "row_shift",
            "bsi_compare", "bsi_sum", "bsi_minmax", "count_rows",
-           "groupby_level")
+           "groupby_level", "block_gather", "block_scatter")
 
 # Opcodes of the postfix program (csrc/tree_program.cuh holds the same).
 OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT, OP_NOT = range(1, 9)
@@ -87,6 +87,7 @@ GROUPBY_WARPS = 16
 GROUPBY_TILE_WORDS = (1024, 512, 256)  # word tiles the plan picks from
 GROUPBY_SRC_FILT = MAX_LEAVES          # slot sources past the dimensions
 GROUPBY_SRC_PLANES = MAX_LEAVES + 1
+BLOCK_WORDS = 1024  # words of a residency block (K10, K11): 4 KiB
 
 # --------------------------------------------------------------- launches
 
@@ -199,6 +200,8 @@ def _bind(name: str, lib) -> None:
         "bsi_minmax": [p, p, ll, ll, i, i, i, p, p, p],
         "count_rows": [p, p, p, ll, i, ll, i, p],
         "groupby_level": [p, p, i, p, p, p, p, i, ll, ll, i, i, p, p],
+        "block_gather": [p, p, p, ll, ll, p],
+        "block_scatter": [p, p, i, p, ll, p],
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
@@ -910,6 +913,23 @@ def groupby_plan_plain(plan: GroupPlan, dims, filt=None, planes=None
     return out
 
 
+def block_gather_plain(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K10's plain version: the 4 KiB blocks ``idx`` of a flat leaf,
+    ``int32[len(idx), 1024]``."""
+    return flat.view(-1, BLOCK_WORDS).index_select(0, idx.long())
+
+
+def block_scatter_plain(blocks: torch.Tensor, idx: torch.Tensor,
+                        n_blocks: int) -> torch.Tensor:
+    """K11's plain version: a flat ``int32[n_blocks * 1024]`` leaf of
+    zeros with ``blocks[j]`` at block ``idx[j]``. Duplicate indices carry
+    identical blocks (the padding), so their order does not matter."""
+    out = torch.zeros((n_blocks, BLOCK_WORDS), dtype=torch.int32,
+                      device=blocks.device)
+    out.index_copy_(0, idx.long(), blocks)
+    return out.view(-1)
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -1405,6 +1425,66 @@ def groupby_level(dims, idxs, filt: torch.Tensor | None = None,
                                   _stream(out))
     _check("groupby_level", lib, rc)
     _count_launch("groupby_level")
+    return out
+
+
+def _check_blocks(idx: torch.Tensor, *tensors) -> None:
+    if idx.dtype != torch.int32 or idx.dim() != 1 or idx.numel() < 1:
+        raise ValueError("block index must be a non-empty int32 vector")
+    _check_words([idx, *tensors], idx.device)
+    if idx.device.type == "cuda" and not _aligned(tensors):
+        raise ValueError("block kernels take 16-byte aligned words")
+
+
+def block_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """K10: the 4 KiB blocks ``idx`` (int32, on the leaf's device) of the
+    flat int32 leaf ``flat``, compacted to ``int32[len(idx), 1024]``; an
+    index outside the leaf gives a zero block on the card. One launch."""
+    if flat.dim() != 1 or flat.numel() % BLOCK_WORDS:
+        raise ValueError(f"block_gather takes a flat leaf of whole "
+                         f"{BLOCK_WORDS}-word blocks")
+    _check_blocks(idx, flat)
+    if _on_cpu(flat):
+        return block_gather_plain(flat, idx)
+    lib = _lib("block_gather")
+    out = torch.empty((idx.numel(), BLOCK_WORDS), dtype=torch.int32,
+                      device=flat.device)
+    rc = lib.block_gather_launch(_ptr(flat), _ptr(idx), _ptr(out),
+                                 flat.numel() // BLOCK_WORDS, idx.numel(),
+                                 _stream(out))
+    _check("block_gather", lib, rc)
+    _count_launch("block_gather")
+    return out
+
+
+def block_scatter(blocks: torch.Tensor, idx: torch.Tensor, n_blocks: int,
+                  block_idx: np.ndarray) -> torch.Tensor:
+    """K11: the flat ``int32[n_blocks * 1024]`` leaf holding ``blocks[j]``
+    at block ``idx[j]`` and zeros elsewhere, one pass, one launch.
+    ``block_idx`` is the host copy of the real prefix of ``idx`` (the
+    rest repeats a real index with identical data); it must ascend
+    strictly, which is checked here, because the kernel searches it."""
+    if blocks.dim() != 2 or blocks.shape[1] != BLOCK_WORDS \
+            or blocks.shape[0] != idx.numel():
+        raise ValueError(f"block_scatter takes int32[len(idx), "
+                         f"{BLOCK_WORDS}] blocks")
+    _check_blocks(idx, blocks)
+    nb = len(block_idx)
+    if nb > idx.numel() or not 1 <= n_blocks < (1 << 31):
+        raise ValueError("block_scatter: bad block counts")
+    if nb and (np.any(np.diff(block_idx) <= 0) or block_idx[0] < 0
+               or block_idx[-1] >= n_blocks):
+        raise ValueError("block_scatter: the real block indices must "
+                         "ascend strictly within the leaf")
+    if _on_cpu(blocks):
+        return block_scatter_plain(blocks, idx, n_blocks)
+    lib = _lib("block_scatter")
+    out = torch.empty(n_blocks * BLOCK_WORDS, dtype=torch.int32,
+                      device=blocks.device)
+    rc = lib.block_scatter_launch(_ptr(blocks), _ptr(idx), nb, _ptr(out),
+                                  n_blocks, _stream(out))
+    _check("block_scatter", lib, rc)
+    _count_launch("block_scatter")
     return out
 
 

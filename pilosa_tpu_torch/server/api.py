@@ -13,7 +13,10 @@ that, the request's patches of resident leaves launch together
 (``DeviceRowCache.batch_writes``: one K3 launch a request), and in the
 fsyncing modes the key translation log is fsynced before the WAL's
 barrier. A query may ask for the request-level result options
-``columnAttrs``, ``excludeColumns`` and ``excludeRowAttrs``. Cluster,
+``columnAttrs``, ``excludeColumns`` and ``excludeRowAttrs``. A query
+runs as a served request (``storage/heat.py``: its operand assemblies
+and PQL writes record heat), and each import records the write heat of
+its shards. Cluster,
 QoS, tracing, the cost plane, the result cache and multi-process serving
 are not ported yet.
 """
@@ -31,7 +34,9 @@ from pilosa_tpu_torch.executor.executor import (
 )
 from pilosa_tpu_torch.executor.result import RowResult, results_json_bytes
 from pilosa_tpu_torch.pql import ParseError, parse
-from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, shard_groups
+from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP, \
+    shard_groups
+from pilosa_tpu_torch.storage import heat
 from pilosa_tpu_torch.storage.field import (
     TYPE_BOOL,
     TYPE_INT,
@@ -58,6 +63,7 @@ class API:
         self.holder = holder
         self.executor = Executor(holder, device=holder.device)
         self.max_writes_per_request = MAX_WRITES_PER_REQUEST
+        self.tierer = None  # the server's ResidencyTierer, when one runs
 
     # ----------------------------------------------------------------- query
 
@@ -81,12 +87,14 @@ class API:
                     f"too many writes in request: {writes} > "
                     f"max-writes-per-request {self.max_writes_per_request}"
                 )
-            if writes:
-                with self.holder.cache.batch_writes():
-                    results = self.executor.execute(index, query)
-                self._ack_durable()
-                return results
-            return [d.result() for d in self.executor.submit(index, query)]
+            with heat.serving():  # a served request: its heat records
+                if writes:
+                    with self.holder.cache.batch_writes():
+                        results = self.executor.execute(index, query)
+                    self._ack_durable()
+                    return results
+                return [d.result()
+                        for d in self.executor.submit(index, query)]
         except (ParseError, PQLError) as e:
             raise ApiError(str(e)) from e
 
@@ -203,6 +211,12 @@ class API:
                 if stamps is not None:
                     self._import_time_views(fld, shard, rows[lo:hi], pos,
                                             stamps[lo:hi])
+        # write heat: one record a shard group, weighted by its bits
+        record = heat.global_heat().record_write
+        for i in range(bounds.size - 1):
+            lo, hi = int(bounds[i]), int(bounds[i + 1])
+            record(index, field, int(shards_sorted[lo]), n=float(hi - lo),
+                   scope=idx.scope)
         self._ack_durable()
         return int(changed)
 
@@ -253,6 +267,12 @@ class API:
                     idx.mark_columns_exist(cols_i)
             except (ValueError, OverflowError) as e:
                 raise ApiError(str(e)) from e
+        # write heat: one record a shard, weighted by its columns
+        shards_u, counts_u = np.unique(cols_i >> SHARD_WIDTH_EXP,
+                                       return_counts=True)
+        for shard, n in zip(shards_u.tolist(), counts_u.tolist()):
+            heat.global_heat().record_write(index, field, int(shard),
+                                            n=float(n), scope=idx.scope)
         self._ack_durable()
         return int(changed)
 

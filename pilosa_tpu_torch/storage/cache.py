@@ -2,11 +2,13 @@
 
 The port's copy of ``pilosa_tpu.storage.cache`` (reference cache.go):
 three kinds, ``ranked`` (bounded, sorted by count, default size 50k),
-``lru`` and ``none``. The port's TopN ranks exact row counts
-(``Fragment.top``) and never reads this cache; every write path keeps it
-as the reference keeps it, and a clean close saves it as the ``.cache``
-sidecar, byte for byte the reference's, so a data directory the port
-wrote opens in the reference with its TopN candidates ranked.
+``lru`` and ``none``. TopN's phase 1 takes each fragment's candidates
+from it (``Fragment.top``); every write path keeps it as the reference
+keeps it, and a clean close saves it as the ``.cache`` sidecar, byte for
+byte the reference's, so a data directory the port wrote opens in the
+reference with its TopN candidates ranked. One fault of the reference is
+not copied: its ``LRUCache`` loses its ``OrderedDict`` at load, so an
+LRU field raises on its first write; the port's keeps it.
 """
 
 from __future__ import annotations
@@ -108,6 +110,11 @@ class LRUCache(RankCache):
 
     def _trim(self) -> None:
         pass
+
+    def load(self, path: str) -> bool:
+        ok = super().load(path)
+        self._counts = OrderedDict(self._counts)  # recency order: the file's
+        return ok
 
 
 class NoneCache(RankCache):

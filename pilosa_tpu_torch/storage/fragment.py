@@ -21,8 +21,11 @@ writes the ``.checksums`` block digests (``storage/integrity.py``), which
 an open with ``verify_on_load`` checks; every write path updates the
 row-count cache (``storage/cache.py``), which a clean close saves as
 ``.cache`` (when it changed since it was loaded or saved) and
-``recalculate_cache`` rebuilds. TopN's phase 1 still
-ranks exact counts (``top``).
+``recalculate_cache`` rebuilds. TopN's phase 1 takes its candidates from
+that cache (``top``), as the reference does. One deliberate difference:
+a fragment opened without a ``.cache`` sidecar fills its cache from the
+exact counts, where the reference's starts empty. Every point write
+served by the API records write heat (``storage/heat.py``).
 """
 
 from __future__ import annotations
@@ -41,6 +44,7 @@ from pilosa_tpu_torch.roaring.format import (
     serialize,
 )
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, keep_last_unique
+from pilosa_tpu_torch.storage import heat
 from pilosa_tpu_torch.storage.cache import (
     CACHE_TYPE_RANKED,
     DEFAULT_CACHE_SIZE,
@@ -84,6 +88,12 @@ def _group_by_row(rows: np.ndarray, positions: np.ndarray):
     bounds = np.append(starts, sorted_rows.size)
     for i, r in enumerate(uniq.tolist()):
         yield int(r), sorted_pos[bounds[i]:bounds[i + 1]]
+
+
+def _ranked(pairs) -> list[tuple[int, int]]:
+    """(row, count) pairs with a count, by count descending, then row."""
+    return sorted(((r, c) for r, c in pairs if c > 0),
+                  key=lambda rc: (-rc[1], rc[0]))
 
 
 class Fragment:
@@ -152,6 +162,13 @@ class Fragment:
                 os.fsync(f.fileno())
             fsync_dir(os.path.dirname(self.path))
         self._cache_saved = self.row_cache.load(self.path + ROW_CACHE_SUFFIX)
+        if not self._cache_saved:
+            # no sidecar (a crash before the first close, a deleted
+            # file): fill the cache from the exact counts, where the
+            # reference starts empty and ranks only rows written later
+            rows, counts = self.row_counts()
+            for r, c in zip(rows.tolist(), counts.tolist()):
+                self.row_cache.bulk_add(r, c)
         self._open = True
         if torn or self.op_n > self.snapshot_threshold:
             # a torn tail left by a crash mid-append must go before any
@@ -264,22 +281,27 @@ class Fragment:
                 out.append(key >> 4)
         return out
 
-    def top(self, n: int = 10) -> list[tuple[int, int]]:
+    def top(self, n: int = 10, row_ids=None) -> list[tuple[int, int]]:
         """TopN phase-1 candidates of this fragment: (row, count) pairs by
-        count descending, then row, the first ``n`` (all for n = 0). The
-        reference reads its ranked row cache here and falls back to these
-        exact counts when the cache is cold; the port always counts
-        exactly (its row cache is kept only for the sidecar). The ranking
-        is memoized as the counts are."""
+        count descending, then row, the first ``n`` (all for n = 0). As
+        in the reference, they come from the row cache (a ranked cache
+        keeps its ``cache_size`` highest rows, an LRU one its last
+        written), from the exact counts when the cache is empty, or from
+        the exact counts of ``row_ids`` when given. The ranking is
+        memoized on the mutation counter and the cache."""
+        if row_ids is not None:
+            ranked = _ranked((r, self.count_row(r)) for r in row_ids)
+            return ranked[:n] if n else ranked
         memo = self._top_memo
-        if memo is None or memo[0] != self.mutations:
+        cache = self.row_cache  # recalculate_cache swaps it
+        if memo is None or memo[0] != self.mutations or memo[1] is not cache:
             version = self.mutations
-            rows, counts = self.row_counts()
-            ranked = sorted(((r, c) for r, c in zip(rows.tolist(),
-                                                    counts.tolist()) if c > 0),
-                            key=lambda rc: (-rc[1], rc[0]))
-            memo = self._top_memo = (version, ranked)
-        return memo[1][:n] if n else list(memo[1])
+            pairs = cache.top()
+            if not pairs:
+                rows, counts = self.row_counts()
+                pairs = zip(rows.tolist(), counts.tolist())
+            memo = self._top_memo = (version, cache, _ranked(pairs))
+        return memo[2][:n] if n else list(memo[2])
 
     # ---------------------------------------------------------------- writes
 
@@ -290,6 +312,7 @@ class Fragment:
             if changed:
                 self._log_op(OP_ADD, [(row << 20) + pos])
                 self._after_row_write(row, [pos], added=True)
+                self._note_write(1)
             return changed
 
     def clear_bit(self, row: int, pos: int) -> bool:
@@ -299,6 +322,7 @@ class Fragment:
             if changed:
                 self._log_op(OP_REMOVE, [(row << 20) + pos])
                 self._after_row_write(row, [pos], added=False)
+                self._note_write(1)
             return changed
 
     def clear_row(self, row: int) -> int:
@@ -313,6 +337,7 @@ class Fragment:
             removed = self.bitmap.remove_ids(ids)
             self._log_op(OP_REMOVE, ids)
             self._after_row_write(row, cols, added=False)
+            self._note_write(1)
             return removed
 
     def write_row_words(self, row: int, words: np.ndarray) -> None:
@@ -330,6 +355,7 @@ class Fragment:
                 self.bitmap.add_ids(new)
                 self._log_op(OP_ADD, new)
             self._after_row_write(row, None, added=None)
+            self._note_write(1)
 
     def bulk_import(self, rows, positions) -> int:
         """Batched import of (row, position) pairs (reference
@@ -347,6 +373,7 @@ class Fragment:
                 self._log_op(OP_ADD, ids)
                 for row, p in _group_by_row(rows, positions):
                     self._after_row_write(row, p, added=True)
+                self._note_write(rows.size)
             return changed
 
     def import_mutex(self, rows, positions) -> int:
@@ -389,6 +416,7 @@ class Fragment:
                 self._after_row_write(r, p, added=True)
             for r, p in removed:
                 self._after_row_write(r, p, added=False)
+            self._note_batch_write(added, removed)
             return int(add_m.sum())
 
     def _has_bits(self, row: int, positions: np.ndarray) -> np.ndarray:
@@ -440,6 +468,7 @@ class Fragment:
                 self._after_row_write(r, p, added=True)
             for r, p in removed:
                 self._after_row_write(r, p, added=False)
+            self._note_batch_write(added, removed)
             return int(changed.sum())
 
     def replace_bitmap(self, bitmap: RoaringBitmap, rows) -> None:
@@ -553,6 +582,20 @@ class Fragment:
                 self.index, self.field, self.view, self.shard, row,
                 positions=positions, added=added, scope=self.scope,
             ))
+
+    def _note_write(self, n: int) -> None:
+        """Write heat of a PQL write served by the API (bulk imports
+        record at the API, one a shard group; see ``storage/heat.py``)."""
+        if heat.in_request():
+            heat.global_heat().record_write(self.index, self.field,
+                                            self.shard, n=float(n),
+                                            scope=self.scope)
+
+    def _note_batch_write(self, added, removed) -> None:
+        """One heat record for a batch of rows, weighted by its bits."""
+        if added or removed:
+            self._note_write(sum(len(p) for _, p in added)
+                             + sum(len(p) for _, p in removed))
 
     def _check_pos(self, pos: int) -> None:
         if not 0 <= pos < SHARD_WIDTH:

@@ -7,7 +7,8 @@ through (``storage/wal.py``): ``durability_mode`` selects group commit
 (the default), per-op fsync or flush-only, and ``open()`` replays the
 segments a crash left behind, whichever package wrote them, before
 serving. It also owns the device residency cache that every fragment
-reports its writes to, and the key translation log ``.translate.log``
+reports its writes to (``budget_bytes`` on the card, ``host_budget_bytes``
+for its host tier), and the key translation log ``.translate.log``
 (``storage/translate.py``) of every keyed index and field.
 """
 
@@ -21,6 +22,7 @@ from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.storage.index import Index, _validate_name
 from pilosa_tpu_torch.storage.residency import (
     DEFAULT_BUDGET_BYTES,
+    DEFAULT_HOST_BUDGET_BYTES,
     DeviceRowCache,
 )
 from pilosa_tpu_torch.storage.translate import TranslateStore
@@ -38,7 +40,8 @@ class Holder:
                  verify_on_load: bool = True,
                  durability_mode: str = MODE_GROUP,
                  group_commit_max_ms: float = DEFAULT_GROUP_MAX_MS,
-                 group_commit_max_ops: int = DEFAULT_GROUP_MAX_OPS):
+                 group_commit_max_ops: int = DEFAULT_GROUP_MAX_OPS,
+                 host_budget_bytes: int = DEFAULT_HOST_BUDGET_BYTES):
         self.data_dir = os.path.expanduser(data_dir)
         # every fragment's snapshot is checked against its .checksums
         # sidecar on open (the reference holder's default)
@@ -48,7 +51,8 @@ class Holder:
                                  group_max_ms=group_commit_max_ms,
                                  group_max_ops=group_commit_max_ops)
         self.device = device_mod.resolve(device)
-        self.cache = DeviceRowCache(budget_bytes, self.device)
+        self.cache = DeviceRowCache(budget_bytes, self.device,
+                                    host_budget_bytes=host_budget_bytes)
         self.indexes: dict[str, Index] = {}
         self._create_lock = threading.Lock()
         self.translate: TranslateStore | None = None  # opened in open()

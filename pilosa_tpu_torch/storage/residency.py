@@ -1,9 +1,25 @@
 """Device residency: which stacked leaves live in device memory.
 
-The port's copy of ``pilosa_tpu.storage.residency``, dense tier only: a
-byte-budgeted LRU of device tensors (bytes counted as the tensors'
-device bytes), keyed by the executor's leaf keys. The host roaring files
-stay the source of truth; a miss decodes on the host and uploads.
+The port's copy of ``pilosa_tpu.storage.residency``: a byte-budgeted LRU
+of device tensors (bytes counted as the tensors' device bytes), keyed by
+the executor's leaf keys. The host roaring files stay the source of
+truth; a miss decodes on the host and uploads.
+
+Three tiers, as in the reference. Dense entries are ready for the
+kernels. When the dense tier overflows the budget, a sparse entry (at
+most half of its 4 KiB blocks nonzero, judged from the host words at
+insert) is *demoted* instead of dropped: K10 ``block_gather`` compacts
+its nonzero blocks on the card into ``int32[nb_padded, 1024]``; a hit
+on it scatters them back into a dense tensor with K11 ``block_scatter``
+and promotes it. Other entries are dropped, then the least recently used
+compressed ones. The third tier, in host RAM with a budget of its own
+(``host_budget_bytes``), holds what heat-driven tiering
+(``storage/tiering.py``) demotes there: the compact blocks of a sparse
+entry (or the whole flat words), one upload and one K11 launch from a
+dense tensor again, on access or when the tierer's pass sees the heat
+come back. Byte accounting is the reference's (a compressed entry is
+its blocks plus its index), so one sequence of operations makes the
+same decisions in both packages.
 
 Derived entries (the executor's stacked query leaves) register an
 *updater*: a write to one fragment row becomes an in-place patch of the
@@ -19,8 +35,11 @@ closes and then go to the card in as few K3 launches as ordering allows
 (one, unless a row is patched both ways); outside a scope each write
 flushes at once. Any lookup flushes first, so a read sees every write
 collected before it, and collection keeps the order of the fragments'
-writes across threads, so the leaves end as the host rows are. The
-compressed and host tiers are not ported yet.
+writes across threads, so the leaves end as the host rows are. A patched
+leaf loses its block index, so it is later dropped rather than
+compressed (as in the reference); a write routed to a compressed or host
+copy invalidates that copy; and every demotion launches the collected
+patches first, so K10 reads the patched words.
 """
 
 from __future__ import annotations
@@ -35,9 +54,21 @@ import numpy as np
 import torch
 
 from pilosa_tpu_torch import kernels
+from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD, next_pow2
+
+ROW_BYTES = WORDS_PER_SHARD * 4  # 128 KiB per shard row
 
 # Default device budget for resident leaves: 16 GiB of an 80 GB card.
 DEFAULT_BUDGET_BYTES = 16 << 30
+
+# Default host-tier budget (the residency-host-tier-bytes knob).
+DEFAULT_HOST_BUDGET_BYTES = 1 << 30
+
+# Compression granularity: 4 KiB blocks (32 a shard row).
+COMPRESS_BLOCK_WORDS = kernels.BLOCK_WORDS
+
+# Demote as compressed only when it saves memory; denser entries drop.
+COMPRESS_MAX_OCCUPANCY = 0.5
 
 
 class WriteEvent:
@@ -117,22 +148,95 @@ def upload(host: np.ndarray, device) -> torch.Tensor:
         np.ascontiguousarray(host, np.uint32).view(np.int32)).to(device)
 
 
+def _upload_async(host: np.ndarray, device) -> torch.Tensor:
+    """A small host array on ``device`` without waiting for the stream:
+    through pinned memory on the card (the caching host allocator keeps
+    it until the copy has run), as it is on the CPU."""
+    t = torch.from_numpy(host)
+    if device.type == "cuda":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t
+
+
 def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+class _CompressedEntry:
+    """A sparse entry's nonzero blocks on the card (K10's output)."""
+
+    __slots__ = ("blocks", "idx", "shape", "n_blocks", "block_idx")
+
+    def __init__(self, blocks, idx, shape, n_blocks, block_idx):
+        self.blocks = blocks  # device int32[nb_padded, 1024]
+        self.idx = idx  # device int32[nb_padded]
+        self.shape = shape
+        self.n_blocks = n_blocks
+        self.block_idx = block_idx  # host copy of the real prefix
+
+    @property
+    def nbytes(self) -> int:
+        return _nbytes(self.blocks) + _nbytes(self.idx)
+
+
+class _HostEntry:
+    """A host-tier copy: the nonzero blocks in host RAM, or the whole
+    flat words when the entry is incompressible or all zero."""
+
+    __slots__ = ("blocks", "idx", "shape", "n_blocks", "block_idx")
+
+    def __init__(self, blocks, idx, shape, n_blocks, block_idx):
+        self.blocks = blocks  # np.uint32[nb_padded, bw], or flat words
+        self.idx = idx  # np.int32[nb_padded], or None = flat words
+        self.shape = shape
+        self.n_blocks = n_blocks
+        self.block_idx = block_idx  # nonzero-block index (or None)
+
+    @property
+    def nbytes(self) -> int:
+        n = int(self.blocks.nbytes)
+        if self.idx is not None:
+            n += int(self.idx.nbytes)
+        return n
+
+
+def _padded_index(block_idx: np.ndarray) -> np.ndarray:
+    """The real block indices padded to a power of two by repeating the
+    first (an all-zero entry pads with block 0, whose words are zero)."""
+    nb = len(block_idx)
+    idx = np.full(next_pow2(nb), block_idx[0] if nb else 0, np.int32)
+    idx[:nb] = block_idx
+    return idx
+
+
 class DeviceRowCache:
-    """Byte-budgeted LRU of device tensors with write-patched entries."""
+    """Byte-budgeted three-tier LRU of device tensors with write-patched
+    entries: dense, compressed on the card, compressed in host RAM."""
 
     def __init__(self, budget_bytes: int = DEFAULT_BUDGET_BYTES,
-                 device="cpu"):
+                 device="cpu",
+                 host_budget_bytes: int = DEFAULT_HOST_BUDGET_BYTES):
         self.budget_bytes = int(budget_bytes)
+        self.host_budget_bytes = int(host_budget_bytes)
         self.device = torch.device(device)
         self._rows: OrderedDict[tuple, torch.Tensor] = OrderedDict()
+        # nonzero-block index of each dense entry, from its host words at
+        # insert (np.int32, ascending), or None: incompressible or patched
+        self._block_idx: dict[tuple, np.ndarray | None] = {}
+        self._compressed: OrderedDict[tuple, _CompressedEntry] = \
+            OrderedDict()
+        self._host: OrderedDict[tuple, _HostEntry] = OrderedDict()
         self._bytes = 0
+        self._compressed_bytes = 0
+        self._host_bytes = 0
         self.hits = 0
         self.misses = 0
         self.evictions = 0
+        self.compressions = 0
+        self.decompressions = 0
+        self.host_hits = 0  # host-tier lookups served (inline promotes)
+        self.tier_promotions = 0  # host -> dense (lookup or pass)
+        self.tier_demotions = 0  # dense/compressed -> host
         self.updates = 0
         self.write_events = 0
         # derived-entry dependency registry: key -> (tag, probe); tag ->
@@ -153,14 +257,36 @@ class DeviceRowCache:
         self._patches: list = []
         self._scope = threading.local()
 
+    def __len__(self) -> int:
+        return len(self._rows) + len(self._compressed)
+
     @property
     def bytes_used(self) -> int:
-        return self._bytes
+        return self._bytes + self._compressed_bytes
+
+    @property
+    def compressed_bytes(self) -> int:
+        return self._compressed_bytes
+
+    @property
+    def host_bytes(self) -> int:
+        return self._host_bytes
+
+    def touch(self, keys) -> None:
+        """Refresh LRU positions without fetching."""
+        with self._lock:
+            for key in keys:
+                if key in self._rows:
+                    self._rows.move_to_end(key)
+                elif key in self._compressed:
+                    self._compressed.move_to_end(key)
 
     def add_patch_listener(self, fn) -> None:
         """Register a bound method called as ``fn(tensor)`` (under the
         cache lock) right before ``tensor`` is patched in place; held
-        weakly so registrants can be garbage-collected."""
+        weakly so registrants can be garbage-collected. A promoted entry
+        is a new tensor, so a listener never confuses it with the one a
+        demotion left to its holders."""
         with self._lock:
             self._patch_listeners.append(weakref.WeakMethod(fn))
 
@@ -195,9 +321,13 @@ class DeviceRowCache:
         for targets in merge_word_patches(patches):
             kernels.word_patch_batch(targets)
 
-    def _route_locked(self, arr: torch.Tensor, apply) -> None:
-        """Collect a K3 patch of ``arr``, or run a host row decode (after
-        the patches collected before it, to keep the writes' order)."""
+    def _route_locked(self, key: tuple, apply) -> None:
+        """Collect a K3 patch of the dense entry ``key``, or run a host
+        row decode (after the patches collected before it, to keep the
+        writes' order). The entry's occupancy may change: it is dropped,
+        not compressed, when it is evicted later."""
+        arr = self._rows[key]
+        self._block_idx[key] = None
         self._before_patch(arr)
         if isinstance(apply, WordPatch):
             self._patches.append((arr, apply))
@@ -207,18 +337,40 @@ class DeviceRowCache:
         self.updates += 1
 
     def _lookup_locked(self, key: tuple):
+        """Dense hit, or promotion from the compressed or host tier (one
+        K11 launch); None on a miss."""
         self._flush_patches_locked()  # a read sees every collected write
         arr = self._rows.get(key)
         if arr is not None:
             self.hits += 1
             self._rows.move_to_end(key)
-        return arr
+            return arr
+        centry = self._compressed.pop(key, None)
+        if centry is not None:
+            self.hits += 1
+            self.decompressions += 1
+            self._compressed_bytes -= centry.nbytes
+            arr = kernels.block_scatter(
+                centry.blocks, centry.idx, centry.n_blocks,
+                centry.block_idx).view(centry.shape)
+            self._insert_dense(key, arr, centry.block_idx)
+            return arr
+        hentry = self._host.pop(key, None)
+        if hentry is not None:
+            # the access is the heat: upload, scatter and promote inline;
+            # the updaters stayed registered across the demotion
+            self.hits += 1
+            self.host_hits += 1
+            self.tier_promotions += 1
+            self._host_bytes -= hentry.nbytes
+            arr = self._upload_host_entry(hentry)
+            self._insert_dense(key, arr, hentry.block_idx)
+            return arr
+        return None
 
     def _put_locked(self, key: tuple, host: np.ndarray) -> torch.Tensor:
         arr = upload(host, self.device)
-        self._rows[key] = arr
-        self._bytes += _nbytes(arr)
-        self._evict()
+        self._insert_dense(key, arr, self._host_block_index(host))
         return arr
 
     def get_row(self, key: tuple, decode: Callable[[], np.ndarray]
@@ -274,15 +426,46 @@ class DeviceRowCache:
                 for ev in buf:  # replay writes that landed mid-decode
                     apply = reg[1](ev)
                     if apply is not None and key in self._rows:
-                        self._route_locked(arr, apply)
+                        self._route_locked(key, apply)
                 self._flush_patches_locked()
                 return arr
             finally:
                 self._pending_builds.pop(key, None)
                 self._build_done.notify_all()
 
+    @staticmethod
+    def _host_block_index(host: np.ndarray):
+        """Nonzero-block indices from the host words at insert, so a
+        demotion needs no read back from the card. None: incompressible
+        (over half the blocks nonzero, or not whole uint32 blocks)."""
+        if host.dtype != np.uint32 or host.size % COMPRESS_BLOCK_WORDS:
+            return None
+        # a block's largest 64-bit word is not zero: the fastest exact
+        # test numpy has (about 7 ms for a 1024-shard leaf's 128 MiB)
+        mask = np.ascontiguousarray(host).view(np.uint64).reshape(
+            -1, COMPRESS_BLOCK_WORDS // 2).max(axis=1) != 0
+        if mask.mean() > COMPRESS_MAX_OCCUPANCY:
+            return None
+        return np.flatnonzero(mask).astype(np.int32)
+
+    def _insert_dense(self, key: tuple, arr: torch.Tensor,
+                      block_idx) -> None:
+        self._rows[key] = arr
+        self._block_idx[key] = block_idx
+        self._bytes += _nbytes(arr)
+        self._evict()
+
+    def register_updater(self, key: tuple, tag: tuple,
+                         probe: Callable) -> None:
+        """Attach a write-routing probe to a resident entry: ``probe(event)``
+        returns None when the write does not touch the entry, else its
+        patch (a ``WordPatch`` or an in-place ``apply(arr)``). A no-op for
+        a key in neither device tier."""
+        with self._lock:
+            self._register_locked(key, tag, lambda: probe)
+
     def _register_locked(self, key: tuple, tag: tuple, probe_factory) -> None:
-        if key in self._rows:
+        if key in self._rows or key in self._compressed:
             old = self._updaters.get(key)
             if old is not None and old[0] == tag:
                 return
@@ -292,16 +475,25 @@ class DeviceRowCache:
             self._tag_index.setdefault(tag, set()).add(key)
 
     def invalidate(self, key: tuple) -> None:
+        """Drop ``key`` from every tier (a write a copy cannot take)."""
         with self._lock:
             arr = self._rows.pop(key, None)
             if arr is not None:
                 self._bytes -= _nbytes(arr)
+            self._block_idx.pop(key, None)
+            centry = self._compressed.pop(key, None)
+            if centry is not None:
+                self._compressed_bytes -= centry.nbytes
+            hentry = self._host.pop(key, None)
+            if hentry is not None:
+                self._host_bytes -= hentry.nbytes
             self._drop_updater(key)
 
     def invalidate_fragment(self, frag_id: tuple) -> None:
         with self._lock:
-            for k in [k for k in self._rows if k[: len(frag_id)] == frag_id]:
-                self.invalidate(k)
+            for store in (self._rows, self._compressed, self._host):
+                for k in [k for k in store if k[: len(frag_id)] == frag_id]:
+                    self.invalidate(k)
 
     def invalidate_tag(self, tag: tuple) -> None:
         """Drop every derived entry registered under a (scope, index,
@@ -321,9 +513,10 @@ class DeviceRowCache:
 
     def apply_write(self, event: WriteEvent) -> None:
         """Route one fragment mutation to the derived entries that depend
-        on it: resident entries are patched in place, everything else is
-        untouched. Runs fully under the lock so concurrent writers can't
-        lose each other's read-modify-write of a shared leaf."""
+        on it: dense entries are patched in place, compressed and host
+        copies invalidated, everything else is untouched. Runs fully
+        under the lock so concurrent writers can't lose each other's
+        read-modify-write of a shared leaf."""
         tag = (event.scope, event.index, event.field)
         with self._lock:
             self.write_events += 1
@@ -341,22 +534,244 @@ class DeviceRowCache:
                 if key not in self._rows:
                     self.invalidate(key)
                     continue
-                self._route_locked(self._rows[key], apply)
+                self._route_locked(key, apply)
             if getattr(self._scope, "depth", 0) == 0:
                 self._flush_patches_locked()
+
+    # ------------------------------------------------ host tier (tiering)
+
+    def demote_fragment_to_host(self, scope: str, index: str, field: str,
+                                shard: int) -> tuple[int, int]:
+        """Move every per-fragment entry of one (scope, index, field,
+        shard) to the host tier (the tierer's cold verdict). Returns
+        (entries moved, device bytes freed). A reader between tiers
+        re-decodes from the roaring files (the miss path)."""
+        with self._lock:
+            return self._demote_matching_locked(
+                lambda k: self._frag_match(k, scope, index, field, shard))
+
+    def demote_field_stacks_to_host(self, scope: str, index: str,
+                                    field: str) -> tuple[int, int]:
+        """Move the executor's stacked leaves of one field to the host
+        tier (a leaf spans a whole shard block, so stacks tier at field
+        granularity). The updaters stay registered: a write routed to a
+        host-tier leaf invalidates it."""
+        with self._lock:
+            return self._demote_matching_locked(
+                lambda k: self._stack_match(k, scope, index, field))
+
+    @staticmethod
+    def _frag_match(key: tuple, scope, index, field, shard) -> bool:
+        # frag_id + (row,): (scope, index, field, view, shard, ...), never
+        # a stack key (those lead with a "stack*" tag)
+        return (len(key) >= 6 and key[0] == scope and key[1] == index
+                and key[2] == field and isinstance(key[4], int)
+                and key[4] == shard
+                and not (isinstance(key[0], str)
+                         and key[0].startswith("stack")))
+
+    @staticmethod
+    def _stack_match(key: tuple, scope, index, field) -> bool:
+        # ("stack"/"stackp", scope, index, field, ...); the row matrices
+        # ("stackm") and the shared zero leaf ("stackz") never tier
+        return (len(key) >= 4 and key[0] in ("stack", "stackp")
+                and key[1] == scope and key[2] == index
+                and key[3] == field)
+
+    def _demote_matching_locked(self, match) -> tuple[int, int]:
+        self._flush_patches_locked()  # the copies hold every write
+        moved = 0
+        freed = 0
+        for key in [k for k in self._rows if match(k)]:
+            arr = self._rows.pop(key)
+            block_idx = self._block_idx.pop(key, None)
+            self._bytes -= _nbytes(arr)
+            freed += _nbytes(arr)
+            # the read back to host RAM, under the lock as the reference's
+            host = arr.cpu().numpy().view(np.uint32).reshape(-1)
+            if block_idx is None:
+                # a patched entry lost its block index: recompute it
+                block_idx = self._host_block_index(host)
+            self._host_insert_locked(key, host, tuple(arr.shape), block_idx)
+            moved += 1
+        for key in [k for k in self._compressed if match(k)]:
+            centry = self._compressed.pop(key)
+            self._compressed_bytes -= centry.nbytes
+            freed += centry.nbytes
+            hentry = _HostEntry(
+                centry.blocks.cpu().numpy().view(np.uint32),
+                centry.idx.cpu().numpy(), centry.shape, centry.n_blocks,
+                centry.block_idx)
+            self._host[key] = hentry
+            self._host_bytes += hentry.nbytes
+            moved += 1
+        if moved:
+            self.tier_demotions += moved
+            self._evict_host_locked()
+        return moved, freed
+
+    def _host_insert_locked(self, key: tuple, flat_host: np.ndarray,
+                            shape, block_idx) -> None:
+        if block_idx is not None and len(block_idx):
+            idx_host = _padded_index(block_idx)
+            blocks = flat_host.reshape(-1, COMPRESS_BLOCK_WORDS)[idx_host]
+            hentry = _HostEntry(blocks, idx_host, shape,
+                                flat_host.size // COMPRESS_BLOCK_WORDS,
+                                block_idx)
+        else:
+            # incompressible or all zero: the whole flat words (host RAM
+            # is the cheap tier)
+            hentry = _HostEntry(flat_host.copy(), None, shape, 0, block_idx)
+        self._host[key] = hentry
+        self._host_bytes += hentry.nbytes
+
+    def _upload_host_entry(self, hentry: _HostEntry) -> torch.Tensor:
+        """Host -> device for one host-tier entry: the compact blocks go
+        up and one K11 launch scatters them to the dense shape (the whole
+        words go up as they are when there is no block index)."""
+        if hentry.idx is None:
+            return upload(hentry.blocks.reshape(hentry.shape), self.device)
+        blocks = _upload_async(hentry.blocks.view(np.int32), self.device)
+        idx = _upload_async(hentry.idx, self.device)
+        return kernels.block_scatter(blocks, idx, hentry.n_blocks,
+                                     hentry.block_idx).view(hentry.shape)
+
+    def promote_key(self, key: tuple) -> int:
+        """The tierer's promotion of one host-tier entry back to dense;
+        returns the host bytes freed, 0 when the key is no longer in the
+        host tier (a query's lookup promoted it first)."""
+        with self._lock:
+            hentry = self._host.pop(key, None)
+            if hentry is None:
+                return 0
+            self._host_bytes -= hentry.nbytes
+            self.tier_promotions += 1
+            arr = self._upload_host_entry(hentry)
+            self._insert_dense(key, arr, hentry.block_idx)
+            return int(hentry.nbytes)
+
+    def host_keys_of(self, scope: str, index: str, field: str,
+                     shard: int) -> list:
+        """(key, nbytes) of the host-tier entries of one fragment."""
+        with self._lock:
+            return [(k, e.nbytes) for k, e in self._host.items()
+                    if self._frag_match(k, scope, index, field, shard)]
+
+    def host_stack_keys_of(self, scope: str, index: str,
+                           field: str) -> list:
+        with self._lock:
+            return [(k, e.nbytes) for k, e in self._host.items()
+                    if self._stack_match(k, scope, index, field)]
+
+    def _evict_host_locked(self) -> None:
+        # LRU within the host tier's own budget
+        while self._host_bytes > self.host_budget_bytes and self._host:
+            key, hentry = self._host.popitem(last=False)
+            self._host_bytes -= hentry.nbytes
+            self.evictions += 1
+            self._drop_updater(key)
+
+    def tier_overlay(self) -> tuple[dict, dict]:
+        """The tierer's view: ``(per_fragment, per_field_stacks)``, bytes
+        by tier keyed (scope, index, field, shard) for per-fragment
+        entries and (scope, index, field) for the stacked leaves. Row
+        matrices and zero leaves are left out (never tiered)."""
+        with self._lock:
+            stores = (("dense", self._rows, _nbytes),
+                      ("compressed", self._compressed, lambda e: e.nbytes),
+                      ("host", self._host, lambda e: e.nbytes))
+            per_frag: dict[tuple, dict] = {}
+            per_stack: dict[tuple, dict] = {}
+            for tier, store, size in stores:
+                for key, entry in store.items():
+                    tag = key[0]
+                    if isinstance(tag, str) and tag.startswith("stack"):
+                        # first: a plane-stack key is len 6 with an int at
+                        # [4] and would pass for a fragment entry
+                        if tag not in ("stack", "stackp") or len(key) < 4:
+                            continue
+                        out, okey = per_stack, (key[1], key[2], key[3])
+                    elif len(key) >= 6 and isinstance(key[4], int):
+                        out, okey = per_frag, (key[0], key[1], key[2],
+                                               key[4])
+                    else:
+                        continue
+                    slot = out.get(okey)
+                    if slot is None:
+                        slot = out[okey] = {"dense": 0, "compressed": 0,
+                                            "host": 0}
+                    slot[tier] += int(size(entry))
+        return per_frag, per_stack
+
+    def metrics(self) -> dict:
+        """The reference's residency gauges and counters, by its names."""
+        with self._lock:
+            return {
+                "residency_entries": len(self._rows) + len(self._compressed),
+                "residency_entries_compressed": len(self._compressed),
+                "residency_bytes_used": self.bytes_used,
+                "residency_bytes_compressed": self._compressed_bytes,
+                "residency_budget_bytes": self.budget_bytes,
+                "residency_hits": self.hits,
+                "residency_misses": self.misses,
+                "residency_evictions": self.evictions,
+                "residency_compressions": self.compressions,
+                "residency_decompressions": self.decompressions,
+                "residency_updates": self.updates,
+                "residency_write_events": self.write_events,
+                "residency_entries_host": len(self._host),
+                "residency_bytes_host": self._host_bytes,
+                "residency_host_budget_bytes": self.host_budget_bytes,
+                "residency_host_hits": self.host_hits,
+                "residency_tier_promotions": self.tier_promotions,
+                "residency_tier_demotions": self.tier_demotions,
+            }
 
     def clear(self) -> None:
         with self._lock:
             self._patches.clear()
             self._rows.clear()
+            self._block_idx.clear()
+            self._compressed.clear()
+            self._host.clear()
             self._updaters.clear()
             self._tag_index.clear()
             self._bytes = 0
+            self._compressed_bytes = 0
+            self._host_bytes = 0
 
     def _evict(self) -> None:
-        # LRU within the byte budget; the newest entry always stays
-        while self._bytes > self.budget_bytes and len(self._rows) > 1:
+        # Demotion only under real pressure: the dense tier may use the
+        # whole budget while it fits. Over budget, LRU dense entries are
+        # demoted (compressible) or dropped, the newest always staying;
+        # then LRU compressed entries are dropped.
+        while self.bytes_used > self.budget_bytes and len(self._rows) > 1:
             key, arr = self._rows.popitem(last=False)
+            block_idx = self._block_idx.pop(key, None)
             self._bytes -= _nbytes(arr)
+            if block_idx is not None:
+                self._demote(key, arr, block_idx)  # stays, compressed
+            else:
+                self.evictions += 1
+                self._drop_updater(key)
+        while self.bytes_used > self.budget_bytes and self._compressed:
+            key, centry = self._compressed.popitem(last=False)
+            self._compressed_bytes -= centry.nbytes
             self.evictions += 1
             self._drop_updater(key)
+
+    def _demote(self, key: tuple, arr: torch.Tensor,
+                block_idx: np.ndarray) -> None:
+        """Dense -> compressed: one K10 launch gathers the nonzero blocks
+        (after the collected patches, so it reads the patched words). A
+        queued micro-batch holding ``arr`` keeps it alive; K10 only
+        reads it."""
+        self._flush_patches_locked()
+        idx = _upload_async(_padded_index(block_idx), self.device)
+        blocks = kernels.block_gather(arr.reshape(-1), idx)
+        centry = _CompressedEntry(blocks, idx, tuple(arr.shape),
+                                  arr.numel() // COMPRESS_BLOCK_WORDS,
+                                  block_idx)
+        self._compressed[key] = centry
+        self._compressed_bytes += centry.nbytes
+        self.compressions += 1

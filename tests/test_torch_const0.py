@@ -3,7 +3,8 @@ port's answers pinned to a numpy oracle.
 
 The reference gets these shapes wrong (it raises, or over-counts by the
 number of plane rows), because its ``const0`` takes the first leaf's
-shape, a plane stack or a candidate matrix. The port's are right, so
+shape, a plane stack or a candidate matrix; an unknown row key compiles
+to the same ``const0``. The port's are right, so
 they are held against numpy over the same seeded data, not against the
 reference. Tolerance 0 (integers).
 """
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 from pilosa_tpu_torch.executor import Executor, result_to_json
-from pilosa_tpu_torch.storage import Holder, load_from_dense
+from pilosa_tpu_torch.storage import FieldOptions, Holder, load_from_dense
 
 torch.set_num_threads(1)
 
@@ -30,8 +31,9 @@ def _pack(bits: np.ndarray) -> np.ndarray:
 
 @pytest.fixture(scope="module")
 def data(tmp_path_factory):
-    """(executor, oracle): rows f=1, f=2, g=2 and an int field fare on a
-    third of the columns, from one numpy seed."""
+    """(executor, oracle): rows f=1, f=2, g=2, an int field fare on a
+    third of the columns and a keyed field s without keys, from one numpy
+    seed."""
     rng = np.random.default_rng(99)
     rows = {("f", 1): rng.random(N) < 0.01, ("f", 2): rng.random(N) < 0.02,
             ("g", 2): rng.random(N) < 0.015}
@@ -46,6 +48,8 @@ def data(tmp_path_factory):
     load_from_dense(h, {"f": {1: _pack(rows["f", 1]), 2: _pack(rows["f", 2])},
                         "g": {2: _pack(rows["g", 2])}}, index="i",
                     int_fields={"fare": (FARE_MIN, FARE_MAX, planes)})
+    # a keyed field that knows no key: every key names the empty row
+    h.index("i").create_field("s", FieldOptions(keys=True))
     exists = has_fare | rows["f", 1] | rows["f", 2] | rows["g", 2]
     oracle = {"rows": rows, "fare": fare, "has_fare": has_fare,
               "exists": exists}
@@ -87,6 +91,15 @@ CASES = [
          [{"id": r, "count": int((o["rows"]["f", r] & o["rows"]["g", 2])
                                  .sum())} for r in (1, 2)],
          key=lambda p: (-p["count"], p["id"]))),
+    # an unknown row key (ROADMAP C3): the reference raises on the first
+    # three and over-counts the fourth
+    ('Sum(Row(s="r1"), field="fare")', lambda o: _agg(o, "Sum", _none(o))),
+    ('GroupBy(Rows(f), filter=Intersect(Row(s="r0")))', lambda o: []),
+    ('TopN(f, Row(s="r4"), n=2)', lambda o: []),
+    ('Min(Not(Xor(Difference(Row(g=2), Row(s="r0")), Row(f=1))), '
+     'field="fare")',
+     lambda o: _agg(o, "Min", o["exists"]
+                    & ~(o["rows"]["g", 2] ^ o["rows"]["f", 1]))),
 ]
 
 

@@ -722,3 +722,73 @@ def test_keyed_count_topn_groupby_on_the_card(dev, tmp_path):
         finally:
             hd.close()
     assert answers["cuda"] == answers["cpu"]
+
+
+# ------------------------------------------------ K10, K11 and the tiers
+
+
+def _sparse_blocks(rng, n_blocks: int, nb: int) -> np.ndarray:
+    words = np.zeros(n_blocks * 1024, np.uint32)
+    for b in rng.choice(n_blocks, nb, replace=False):
+        words[b * 1024:(b + 1) * 1024] = rng.integers(0, 1 << 32, 1024,
+                                                      dtype=np.uint32)
+    return words
+
+
+@pytest.mark.parametrize("n_blocks,nb", [(1, 0), (1, 1), (40, 33),
+                                         (4096, 391), (4096, 0), (257, 256)])
+def test_block_gather_and_scatter_match_plain(dev, n_blocks, nb):
+    """K10 and K11 bit-exact against their plain versions: padding that
+    repeats the first real index, an all-zero leaf, a full prefix past
+    32 entries (the 32-way search's several rounds)."""
+    rng = np.random.default_rng(n_blocks + nb)
+    words = _sparse_blocks(rng, n_blocks, nb)
+    block_idx = np.flatnonzero(words.reshape(-1, 1024).any(axis=1)).astype(
+        np.int32)
+    k = len(block_idx)
+    idx_host = np.full(max(1, 1 << max(k - 1, 0).bit_length()),
+                       block_idx[0] if k else 0, np.int32)
+    idx_host[:k] = block_idx
+    flat = torch.from_numpy(words.view(np.int32)).to(dev)
+    idx = torch.from_numpy(idx_host).to(dev)
+    blocks = kernels.block_gather(flat, idx)
+    assert torch.equal(blocks, kernels.block_gather_plain(flat, idx))
+    back = kernels.block_scatter(blocks, idx, n_blocks, block_idx)
+    torch.cuda.synchronize()
+    assert torch.equal(back, kernels.block_scatter_plain(blocks, idx,
+                                                         n_blocks))
+    assert torch.equal(back, flat)
+
+
+def test_residency_tiers_round_trip_on_the_card(dev):
+    """The cache on the card: a sparse leaf demoted by K10, promoted by
+    K11, moved to the host tier and served back, bit-exact; a K3 patch
+    makes a leaf drop instead of compress."""
+    from pilosa_tpu_torch.storage.residency import DeviceRowCache, WordPatch
+
+    rng = np.random.default_rng(3)
+    host = _sparse_blocks(rng, 64, 9).reshape(2, 32 * 1024)
+    cache = DeviceRowCache(budget_bytes=400 << 10, device=dev)
+    key = ("stack", "/d", "i", "f", ("standard",), 1, "blk")
+    cache.get_row(key, lambda: host.copy())
+    before = kernels.launches()
+    cache.get_row(("other",), lambda: _sparse_blocks(rng, 64, 3).reshape(
+        2, -1))  # key -> compressed
+    got = cache.get_row(key, lambda: 1 / 0)  # -> dense again
+    after = kernels.launches()
+    assert after["block_gather"] > before["block_gather"]
+    assert after["block_scatter"] > before["block_scatter"]
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+    cache.demote_field_stacks_to_host("/d", "i", "f")
+    got = cache.get_row(key, lambda: 1 / 0)
+    assert cache.host_hits == 1
+    assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+    cache.register_updater(key, ("/d", "i", "f"), lambda ev: WordPatch(
+        0, None, np.array([5], np.int32), np.array([1], np.uint32), False))
+    from pilosa_tpu_torch.storage.residency import WriteEvent
+
+    cache.apply_write(WriteEvent("i", "f", "standard", 0, 1, scope="/d"))
+    cache.get_row(("third",), lambda: _sparse_blocks(rng, 64, 3).reshape(
+        2, -1))
+    torch.cuda.synchronize()
+    assert key not in cache._rows and key not in cache._compressed

@@ -606,3 +606,134 @@ def test_topn_on_int_field_options_and_unknown_field(pair):
             _json(j_result_to_json, jex.execute("i", pql)), pql
     with pytest.raises(PQLError, match="not found"):
         pex.execute("i", "TopN(nope)")
+
+
+# ------------------------------------------------- the row cache (C4, C5)
+
+
+def _cached_pair(tmp_path, opts: dict):
+    """Both packages' holders and executors on empty dirs, index ``i``
+    with a field ``f`` of the given row-cache options and a filter
+    field ``g``."""
+    jh = jstorage.Holder(str(tmp_path / "jax")).open()
+    ph = Holder(str(tmp_path / "port"), device="cpu").open()
+    jidx, pidx = jh.create_index("i"), ph.create_index("i")
+    jidx.create_field("f", jstorage.FieldOptions(**opts))
+    pidx.create_field("f", FieldOptions(**opts))
+    jidx.create_field("g")
+    pidx.create_field("g")
+    return jh, ph, JExecutor(jh), Executor(ph, device="cpu")
+
+
+def _ladder_writes(counts: dict, shard: int = 0) -> str:
+    """Sets giving row r ``counts[r]`` bits in ``shard``, every row's
+    columns from the shard's start (so rows overlap), and g=1 on every
+    other of those columns."""
+    base = shard * W * 32
+    sets = [f"Set({base + c}, f={r})" for r, n in counts.items()
+            for c in range(n)]
+    sets += [f"Set({base + c}, g=1)" for c in range(0, max(counts.values()),
+                                                    2)]
+    return " ".join(sets)
+
+
+C4_CASES = [
+    ({"cache_type": "ranked", "cache_size": 1}, {1: 5, 2: 4, 3: 3, 4: 2},
+     "TopN(f, n=3)"),
+    ({"cache_type": "ranked", "cache_size": 2}, {1: 5, 2: 4, 3: 3, 4: 2},
+     "TopN(f) TopN(f, n=1) TopN(f, Row(g=1), n=2)"),
+    ({"cache_type": "ranked", "cache_size": 3},
+     {1: 2, 2: 7, 3: 7, 4: 1, 5: 9}, "TopN(f, n=4) TopN(f, threshold=3)"),
+    ({"cache_type": "none"}, {1: 5, 2: 4, 3: 3}, "TopN(f, n=2)"),
+]
+
+
+@pytest.mark.parametrize("i", range(len(C4_CASES)))
+def test_topn_candidates_come_from_the_row_cache(tmp_path, i):
+    """ROADMAP C4: phase 1 takes each fragment's candidates from its row
+    cache, as the reference does: at a small ranked ``cacheSize`` the
+    answer holds only the cached rows (the none cache falls back to
+    exact counts). Equal ``result_to_json`` bytes."""
+    opts, counts, pql = C4_CASES[i]
+    jh, ph, jex, pex = _cached_pair(tmp_path, opts)
+    try:
+        for ex in (jex, pex):
+            ex.execute("i", _ladder_writes(counts))
+        got = result_to_json(pex.execute("i", pql))
+        assert got == j_result_to_json(jex.execute("i", pql)), pql
+        if i == 0:
+            assert got == [[{"id": 1, "count": 5}]]
+        jfrag = jh.index("i").field("f").view("standard").fragment(0)
+        pfrag = ph.index("i").field("f").view("standard").fragment(0)
+        for n in (0, 2):
+            assert pfrag.top(n) == [tuple(p) for p in jfrag.top(n)]
+            ids = sorted(counts)[::-1] + [99]
+            assert pfrag.top(n, row_ids=ids) == [
+                tuple(p) for p in jfrag.top(n, row_ids=ids)]
+    finally:
+        jh.close()
+        ph.close()
+
+
+def test_fragment_without_cache_sidecar_ranks_exact_counts(tmp_path):
+    """ROADMAP C4's deliberate difference: a fragment opened without its
+    ``.cache`` sidecar fills its cache from the exact counts (the
+    reference's starts empty and, after one write, ranks only that row).
+    Pinned against a numpy oracle of the rows' bits."""
+    rng = np.random.default_rng(44)
+    words = {r: _sparse(rng, n) for r, n in ((1, 50), (2, 40), (3, 30),
+                                             (4, 20))}
+    path = tmp_path / "data"
+    h = Holder(str(path), device="cpu").open()
+    load_from_dense(h, {"f": words}, index="i")
+    h.close()
+    for cache in path.glob("i/f/views/standard/fragments/*.cache"):
+        cache.unlink()
+    h = Holder(str(path), device="cpu").open()
+    try:
+        ex = Executor(h, device="cpu")
+        col = 2 * W * 32 + 5  # shard 2
+        ex.execute("i", f"Set({col}, f=4)")
+        bits = {r: np.unpackbits(w.view(np.uint8), bitorder="little")
+                for r, w in words.items()}
+        bits[4][col] = 1
+        want = sorted(({"id": r, "count": int(b.sum())}
+                       for r, b in bits.items()),
+                      key=lambda p: (-p["count"], p["id"]))[:3]
+        assert result_to_json(ex.execute("i", "TopN(f, n=3)")) == [want]
+    finally:
+        h.close()
+
+
+def test_lru_field_takes_writes_and_ranks_its_last_rows(tmp_path):
+    """ROADMAP C5: an LRU field takes its first Set (the reference raises
+    there, so the answer is pinned to an oracle): each fragment's TopN
+    candidates are its ``cacheSize`` rows written last, each recounted
+    exactly over every shard."""
+    size = 3
+    h = Holder(str(tmp_path / "data"), device="cpu").open()
+    h.create_index("i").create_field(
+        "f", FieldOptions(cache_type="lru", cache_size=size))
+    h.close()
+    h = Holder(str(tmp_path / "data"), device="cpu").open()  # load()ed
+    rng = np.random.default_rng(45)
+    bits = np.zeros((8, 2 * W * 32), bool)
+    last: dict = {0: [], 1: []}  # each shard's rows, last written last
+    try:
+        ex = Executor(h, device="cpu")
+        for _ in range(40):
+            shard, row = int(rng.integers(0, 2)), int(rng.integers(0, 8))
+            col = shard * W * 32 + int(rng.integers(0, 64))
+            ex.execute("i", f"Set({col}, f={row})")
+            if not bits[row, col]:
+                bits[row, col] = True
+                if row in last[shard]:
+                    last[shard].remove(row)
+                last[shard].append(row)
+        cand = set(last[0][-size:]) | set(last[1][-size:])
+        want = sorted(({"id": r, "count": int(bits[r].sum())}
+                       for r in cand), key=lambda p: (-p["count"], p["id"]))
+        got = result_to_json(ex.execute("i", "TopN(f) TopN(f, n=2)"))
+        assert got == [want, want[:2]]
+    finally:
+        h.close()
