@@ -104,7 +104,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    translate log, and every acknowledged write must read back (in each
    of its time views, under its own keys), every Count equal the numpy
    oracle, no mutex column sit in two rows, no key hold a column no
-   client sent for it, and the WAL be empty after the open.
+   client sent for it, and the WAL be empty after the open;
+6. the integrity path, on a copy of rides' cab_type and pickup_year at
+   256 shards in a directory of its own: four payload bytes flipped (one
+   shard rotten in both fields), one fragment torn, one .checksums
+   deleted, then a port server opens it on the card verifying every
+   fragment (five quarantined, Count, TopN and Options(shards=) against
+   the oracle without those fragments); a byte flipped under a resident
+   cab_type leaf is healed by ``python -m pilosa_tpu_torch check --host``
+   (self_healed=1, no row-cache miss after); 16 Count clients for 5 s
+   without and during a scrub pass, whose MB/s is printed; an ENOSPC on
+   every fsync under the directory fails one Set, sheds the next and an
+   index create with 503 and Retry-After with no K3 launch while 16
+   clients read on, and once the rule goes the probe recovers (seconds
+   printed) and a Set makes one K3 launch; ``check -d`` offline (exit 1,
+   six QUARANTINED lines, every other fragment ok) and a reopen on the
+   card with every answer the oracle's.
 
 The second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
@@ -115,6 +130,7 @@ from __future__ import annotations
 import argparse
 import copy
 import datetime as dt
+import errno
 import http.client
 import itertools
 import json
@@ -2971,6 +2987,388 @@ def _serve_tier(server, mt: dict, rng) -> dict:
 _BUILD_DATA: dict = {}
 # one worker each, all at once; "existence" writes the indexes' _exists
 # rows straight into the data dir, the others a field each into a part
+# ------------------------------------------------------------ integrity path
+
+# The integrity path: rides' cab_type and pickup_year over the first
+# INTEG_SHARDS shards, copied into a directory of its own. A scrub pass is
+# serial host work (blake2b over 8 bytes a set bit): 507 fragments took
+# 18-21 s on the host of an NVIDIA H100 80GB HBM3 machine, so 256 shards
+# keep each of the path's two passes near 20 s where the full 1024 would
+# take ~80 s of the script's 1200.
+INTEG_SHARDS = 256
+INTEG_FIELDS = ("cab_type", "pickup_year")
+INTEG_CLIENTS = 16
+INTEG_WINDOW_S = 5.0
+INTEG_PAIRS = ((0, 2009), (1, 2012), (2, 2016), (0, 2015))
+
+
+def integrity_words(rides: dict, taxi: dict) -> dict:
+    """{(field, row): uint32 words} of cab_type and pickup_year over the
+    integrity path's shards: the host words the data dir was built from,
+    cut to those shards (copies: the path's writes update them)."""
+    n = INTEG_SHARDS * WORDS
+    out = {("cab_type", r): w[:n].copy() for r, w in rides["cab"].items()}
+    base, p = TAXI_FIELDS["pickup_year"]
+    rows = category_rows(taxi["pickup_year"][:n * 32], len(p))
+    out.update({("pickup_year", base + k): w for k, w in rows.items()})
+    return out
+
+
+def _integ_truth(words: dict, shards=None) -> dict:
+    """The path's query shapes and their answers from ``words``."""
+    def cut(w):
+        return w if shards is None else \
+            w.reshape(INTEG_SHARDS, WORDS)[list(shards)]
+
+    def count(w) -> int:
+        return int(np.bitwise_count(cut(w)).sum(dtype=np.int64))
+    truth = {f"Count(Intersect(Row(cab_type={a}), Row(pickup_year={b})))":
+             count(words[("cab_type", a)] & words[("pickup_year", b)])
+             for a, b in INTEG_PAIRS}
+    truth["TopN(cab_type)"] = _pairs(
+        [count(words[("cab_type", r)]) for r in range(3)], range(3))
+    return truth
+
+
+def _set_bit(words: np.ndarray, col: int) -> None:
+    words[col >> 5] |= np.uint32(1 << (col & 31))
+
+
+def _copy_integrity_dir(data_dir: Path, out: Path) -> None:
+    """rides' schema and the two fields' fragments of shards 0 to
+    INTEG_SHARDS - 1, with their .checksums and .cache sidecars."""
+    src = data_dir / "rides"
+    (out / "rides").mkdir(parents=True)
+    shutil.copy(src / ".meta", out / "rides" / ".meta")
+    for field in INTEG_FIELDS:
+        frags = out / "rides" / field / "views" / "standard" / "fragments"
+        frags.mkdir(parents=True)
+        shutil.copy(src / field / ".meta", out / "rides" / field / ".meta")
+        have = src / field / "views" / "standard" / "fragments"
+        for s in range(INTEG_SHARDS):
+            for suffix in ("", ".checksums", ".cache"):
+                if (have / f"{s}{suffix}").exists():
+                    shutil.copy(have / f"{s}{suffix}", frags / f"{s}{suffix}")
+
+
+def _flip_byte(path: Path, offset: int) -> None:
+    with open(path, "r+b") as f:
+        f.seek(offset)
+        b = f.read(1)
+        f.seek(offset)
+        f.write(bytes([b[0] ^ 0x10]))
+
+
+def _rot_integrity_dir(root: Path, rng) -> dict:
+    """Four payload flips (two a field, one shard rotten in both), one
+    fragment torn mid-container and one .checksums deleted (not rot),
+    on distinct shards drawn from ``rng``; returns what was done."""
+    q, c2, p2, torn, bare = (int(s) for s in rng.choice(INTEG_SHARDS, 5,
+                                                        replace=False))
+
+    def frag(field, s):
+        return (root / "rides" / field / "views" / "standard" / "fragments"
+                / str(s))
+    for field, s in (("cab_type", q), ("pickup_year", q), ("cab_type", c2),
+                     ("pickup_year", p2)):
+        _flip_byte(frag(field, s), frag(field, s).stat().st_size - 3)
+    with open(frag("cab_type", torn), "r+b") as f:
+        f.truncate(frag("cab_type", torn).stat().st_size // 2)
+    (root / "rides" / "pickup_year" / "views" / "standard" / "fragments"
+     / f"{bare}.checksums").unlink()
+    return {"both": q, "cab_type": [q, c2, torn], "pickup_year": [q, p2],
+            "bare": bare}
+
+
+def _drop_shards(words: dict, rot: dict) -> None:
+    """The quarantined fragments' bits out of the oracle words."""
+    for (field, _), w in words.items():
+        v = w.reshape(INTEG_SHARDS, WORDS)
+        for s in rot[field]:
+            v[s] = 0
+
+
+def timed_loop(port: int, index: str, shapes: list, truth: dict,
+               n_clients: int, seconds: float) -> list:
+    """``n_clients`` keep-alive clients sending ``shapes`` round robin for
+    ``seconds``, every answer held against ``truth``; the latencies."""
+    errors, latencies = [], []
+    lock = threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def client(k: int) -> None:
+        c = Client(port, index)
+        try:
+            j = k
+            while time.perf_counter() < stop:
+                pql = shapes[j % len(shapes)]
+                t = time.perf_counter()
+                got = c.query(pql)[0]
+                dt = time.perf_counter() - t
+                with lock:
+                    latencies.append(dt)
+                    if got != truth[pql]:
+                        errors.append((pql, got))
+                j += 1
+        finally:
+            c.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(n_clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail(f"a client on {index} hung")
+    if errors or not latencies:
+        fail(f"concurrent queries on {index} wrong or missing: {errors[:3]}")
+    return latencies
+
+
+def _http(port: int, method: str, path: str, body: bytes = b""):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request(method, path, body=body if method == "POST" else None)
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Retry-After"), resp.read()
+    finally:
+        conn.close()
+
+
+def _p50_ms(latencies: list) -> float:
+    return 1e3 * sorted(latencies)[len(latencies) // 2]
+
+
+def _check_integ(c, truth: dict, what: str) -> None:
+    for pql, want in truth.items():
+        got = c.query(pql)[0]
+        if got != want:
+            fail(f"integrity path ({what}): {pql} answered {got}, the "
+                 f"oracle {want}")
+
+
+def run_integrity_phase(data_dir: Path, scratch: Path, words: dict,
+                        seed: int, kernels) -> dict:
+    """The integrity path on the card over a copy of rides' cab_type and
+    pickup_year at INTEG_SHARDS shards: rot before the open (quarantined
+    at open, the answers the oracle without those fragments), rot under a
+    resident leaf (``check --host`` self-heals it, the leaf kept), an
+    injected ENOSPC on the WAL's fsync (writes shed with no K3 launch,
+    reads answering, the probe recovering, one K3 launch after), then
+    ``check -d`` offline and a reopen. Returns its numbers."""
+    from pilosa_tpu_torch.executor import Executor, result_to_json
+    from pilosa_tpu_torch.server import Server
+    from pilosa_tpu_torch.storage import Holder
+    from pilosa_tpu_torch.storage.integrity import (
+        global_integrity,
+        list_quarantined,
+    )
+    from pilosa_tpu_torch.testing import faults
+
+    repo = Path(__file__).resolve().parent
+    root = scratch / "integrity"
+    stats: dict = {}
+    t0 = time.perf_counter()
+    _copy_integrity_dir(data_dir, root)
+    stats["copy_s"] = time.perf_counter() - t0
+    rng = np.random.default_rng(seed + 12)
+    rot = _rot_integrity_dir(root, rng)
+    _drop_shards(words, rot)
+    stats["rot"] = rot
+
+    # 1. rot before the open: quarantined at open, never served
+    before = global_integrity().metrics()
+    t0 = time.perf_counter()
+    server = Server(str(root), bind="127.0.0.1", port=0).open()
+    stats["open_s"] = time.perf_counter() - t0
+    print(f"integrity: server open with verify-on-load over "
+          f"{2 * INTEG_SHARDS} fragments: {stats['open_s']:.2f}s", flush=True)
+    try:
+        after = global_integrity().metrics()
+        got = {k: after[f"integrity_{k}_total"]
+               - before[f"integrity_{k}_total"]
+               for k in ("quarantined", "verify_failures")}
+        quarantined = list_quarantined(str(root))
+        if got != {"quarantined": 5, "verify_failures": 5} or \
+                len(quarantined) != 5:
+            fail(f"integrity: the open quarantined {got}, {quarantined}")
+        c = Client(server.port, "rides")
+        truth = _integ_truth(words)
+        _check_integ(c, truth, "after the open")
+        q = rot["both"]
+        for shards in ([q], [rot["cab_type"][1], rot["bare"]],
+                       [rot["bare"]]):
+            opts = f"shards=[{', '.join(map(str, shards))}]"
+            sub = _integ_truth(words, shards)
+            for pql in list(sub)[:2] + ["TopN(cab_type)"]:
+                got = c.query(f"Options({pql}, {opts})")[0]
+                if got != sub[pql]:
+                    fail(f"integrity: Options({pql}, {opts}) answered "
+                         f"{got}, the oracle {sub[pql]}")
+
+        # 2. rot under a resident leaf: a live check heals it in place
+        healed = sorted(set(range(INTEG_SHARDS))
+                        - set(rot["cab_type"]) - {rot["bare"]})[0]
+        path = (root / "rides" / "cab_type" / "views" / "standard"
+                / "fragments" / str(healed))
+        misses = server.holder.cache.misses
+        _flip_byte(path, path.stat().st_size - 3)
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "pilosa_tpu_torch", "check", "--host",
+             f"http://127.0.0.1:{server.port}"], cwd=repo,
+            capture_output=True, text=True, timeout=600)
+        stats["check_host_s"] = time.perf_counter() - t0
+        if res.returncode != 0 or "self_healed=1" not in res.stdout:
+            fail(f"integrity: check --host exited {res.returncode}: "
+                 f"{res.stdout!r} {res.stderr[-2000:]!r}")
+        scrubber = server.api.scrubber
+        stats["heal_pass"] = {"line": res.stdout.strip(),
+                              "wall_s": scrubber.last_pass_s,
+                              "bytes": scrubber.bytes_scanned}
+        if not Path(f"{path}.quarantine-0").exists():
+            fail("integrity: the healed fragment left no .quarantine-0")
+        _check_integ(c, truth, "after the self-heal")
+        if server.holder.cache.misses != misses:
+            fail("integrity: the heal cost "
+                 f"{server.holder.cache.misses - misses} row-cache misses "
+                 "(the resident leaf was dropped)")
+        shapes = list(truth)
+        quiet = timed_loop(server.port, "rides", shapes, truth,
+                           INTEG_CLIENTS, INTEG_WINDOW_S)
+        box: dict = {}
+        scrub = threading.Thread(target=lambda: box.setdefault(
+            "r", _http(server.port, "POST", "/internal/scrub")))
+        scrub.start()
+        busy = timed_loop(server.port, "rides", shapes, truth,
+                          INTEG_CLIENTS, INTEG_WINDOW_S)
+        scrub.join(timeout=900)
+        status, _, body = box["r"]
+        rec = json.loads(body)
+        if status != 200 or rec["corrupt"] != 0:
+            fail(f"integrity: the second scrub answered {status} {rec}")
+        stats["scrub"] = {k: rec[k] for k in ("scanned", "bytes", "wall_s")}
+        stats["scrub"]["mb_per_s"] = rec["bytes"] / 1e6 / rec["wall_s"]
+        stats["heal_pass"]["mb_per_s"] = (stats["heal_pass"]["bytes"] / 1e6
+                                          / stats["heal_pass"]["wall_s"])
+        stats["count_p50_ms"] = {"without_pass": _p50_ms(quiet),
+                                 "during_pass": _p50_ms(busy)}
+        stats["count_queries"] = {"without_pass": len(quiet),
+                                  "during_pass": len(busy)}
+        print(f"integrity: scrub pass {stats['scrub']}; Count p50 "
+              f"{stats['count_p50_ms']}", flush=True)
+
+        # 3. degraded and back: ENOSPC on every fsync under the data dir
+        plane = faults.install_disk()
+        rule = plane.add("fsync", path=str(root), errno_=errno.ENOSPC)
+        lost_col = INTEG_SHARDS * WORDS * 32 - 11
+        acked_col = INTEG_SHARDS * WORDS * 32 - 23
+        status, _, body = _http(server.port, "POST", "/index/rides/query",
+                                f"Set({lost_col}, cab_type=1)".encode())
+        stats["lost_set_status"] = status
+        print(f"integrity: the Set whose fsync failed answered {status} "
+              f"{body[:200]!r}", flush=True)
+        if status == 200:
+            fail("integrity: a write whose fsync failed was acknowledged")
+        lost_seq = server.holder.wal.current_seq()
+        _set_bit(words[("cab_type", 1)], lost_col)  # served until restart
+        truth = _integ_truth(words)
+        st = json.loads(_http(server.port, "GET", "/status")[2])
+        if not st["storageDegraded"] or \
+                "No space left" not in st["storageDegradedReason"]:
+            fail(f"integrity: /status under ENOSPC: {st}")
+        patches = kernels.launches()["word_patch"]
+        for path_, body in (("/index/rides/query",
+                             f"Set({acked_col}, cab_type=2)".encode()),
+                            ("/index/j", b"{}")):
+            status, retry, resp = _http(server.port, "POST", path_, body)
+            if status != 503 or not retry:
+                fail(f"integrity: {path_} while degraded answered {status} "
+                     f"Retry-After {retry}: {resp[:200]!r}")
+        degraded = timed_loop(server.port, "rides", shapes, truth,
+                              INTEG_CLIENTS, 1.0)
+        if kernels.launches()["word_patch"] != patches:
+            fail("integrity: a refused write launched K3")
+        plane.remove(rule.id)
+        t0 = time.perf_counter()
+        while json.loads(_http(server.port, "GET", "/status")[2])[
+                "storageDegraded"]:
+            if time.perf_counter() - t0 > 10:
+                fail("integrity: the probe did not clear within 10 s")
+            time.sleep(0.01)
+        stats["recovery_s"] = time.perf_counter() - t0
+        status, _, body = _http(server.port, "POST", "/index/rides/query",
+                                f"Set({acked_col}, cab_type=2)".encode())
+        if (status, json.loads(body)["results"]) != (200, [True]):
+            fail(f"integrity: the Set after recovery answered {status} "
+                 f"{body!r}")
+        if kernels.launches()["word_patch"] != patches + 1:
+            fail("integrity: the Set after recovery made "
+                 f"{kernels.launches()['word_patch'] - patches} K3 launches")
+        _set_bit(words[("cab_type", 2)], acked_col)
+        truth = _integ_truth(words)
+        _check_integ(c, truth, "after the recovery")
+        m = server.api.integrity_metrics()
+        if (m["storage_degraded"], m["storage_degraded_total"],
+                m["storage_recoveries_total"]) != (0, 1, 1):
+            fail(f"integrity: metrics after the recovery {m}")
+        try:
+            server.holder.wal.barrier(lost_seq)
+        except OSError:
+            pass
+        else:
+            fail("integrity: the lost write's barrier returned")
+        stats["degraded_queries"] = len(degraded)
+        print(f"integrity: degraded Count p50 {_p50_ms(degraded):.3f} ms "
+              f"over {len(degraded)} queries; probe recovery "
+              f"{stats['recovery_s']:.3f}s", flush=True)
+        c.close()
+    finally:
+        faults.clear_disk()
+        server.close()
+
+    # 4. offline check, then a reopen on the card
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-m", "pilosa_tpu_torch", "check",
+                          "-d", str(root)], cwd=repo, capture_output=True,
+                         text=True, timeout=900)
+    stats["check_d_s"] = time.perf_counter() - t0
+    ok = [ln for ln in res.stdout.splitlines() if ln.startswith("ok: ")]
+    qlines = [ln for ln in res.stderr.splitlines()
+              if ln.startswith("QUARANTINED: ")]
+    frags = [p for p in root.glob("rides/*/views/*/fragments/*")
+             if p.name.isdigit()]
+    if res.returncode != 1 or len(qlines) != 6 or "CORRUPT:" in res.stderr \
+            or len(ok) != len(frags):
+        fail(f"integrity: check -d exited {res.returncode} with {len(ok)} "
+             f"ok of {len(frags)}, {len(qlines)} quarantined: "
+             f"{res.stderr[-2000:]!r}")
+    print(f"integrity: check -d {stats['check_d_s']:.2f}s, {len(ok)} ok, "
+          f"{len(qlines)} quarantined", flush=True)
+    t0 = time.perf_counter()
+    holder = Holder(str(root)).open()
+    stats["reopen_s"] = time.perf_counter() - t0
+    try:
+        ex = Executor(holder)
+        for pql, want in truth.items():
+            got = result_to_json(ex.execute("rides", pql))[0]
+            if got != want:
+                fail(f"integrity: after the reopen {pql} answered {got}, "
+                     f"the oracle {want}")
+        frag = holder.index("rides").field("cab_type").view(
+            "standard").fragment(INTEG_SHARDS - 1)
+        for col, row in ((lost_col, 1), (acked_col, 2)):
+            # the lost write too: applied in memory, the clean close
+            # snapshotted it, as the reference's does
+            if not frag.contains(row, col & (WORDS * 32 - 1)):
+                fail(f"integrity: Set({col}, cab_type={row}) is gone after "
+                     "the reopen")
+    finally:
+        holder.close()
+    return stats
+
+
 EVENT_JOBS = ("events-0", "events-1", "events-2")  # the time field's views
 DATA_JOBS = ("repository", "rides", *TAXI_FIELDS, *EVENT_JOBS, "events-kind",
              "existence")
@@ -3225,6 +3623,7 @@ def main() -> int:
     time_oracle = pool.submit(events_oracle, events)
     user_oracle = pool.submit(users_truth, users)
     month_oracle = pool.submit(months_truth, rides)
+    integ_words = pool.submit(integrity_words, rides, taxi)
     try:
         # phase 3: kernels against their plain versions on the card
         t3 = time.perf_counter()
@@ -3258,6 +3657,7 @@ def main() -> int:
         ev_oracle = time_oracle.result()
         users_o = user_oracle.result()
         months_o = month_oracle.result()
+        integ_o = integ_words.result()
         del taxi, events, users
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
@@ -3267,6 +3667,12 @@ def main() -> int:
         kernels.reset_launches()
         crash = run_crash_phase(scratch, args.seed, kernels)
         paths["crash"] = (crash, kernels.launches())
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        integ = run_integrity_phase(data_dir, scratch, integ_o, args.seed,
+                                    kernels)
+        integ["path_s"] = time.perf_counter() - t0
+        paths["integrity"] = (integ, kernels.launches())
     finally:
         builders.shutdown(cancel_futures=True)
         pool.shutdown()
@@ -3282,6 +3688,7 @@ def main() -> int:
         "tier": ("block_gather", "block_scatter", "tree_count", "count_rows",
                  "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
+        "integrity": ("tree_count", "count_rows", "word_patch"),
     }
     for path, names in expected.items():
         for name in names:

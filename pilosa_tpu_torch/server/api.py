@@ -16,9 +16,13 @@ barrier. A query may ask for the request-level result options
 ``columnAttrs``, ``excludeColumns`` and ``excludeRowAttrs``. A query
 runs as a served request (``storage/heat.py``: its operand assemblies
 and PQL writes record heat), and each import records the write heat of
-its shards. Cluster,
-QoS, tracing, the cost plane, the result cache and multi-process serving
-are not ported yet.
+its shards. While the holder's ``StorageHealth`` latch is tripped (a
+failed WAL fsync, snapshot or ``.meta`` write), every write is shed with a
+503 and ``retry_after`` before the executor sees it, so no patch reaches
+the card; reads go on, ``status()`` reports the latch, and
+``integrity_metrics()`` the integrity counters. ``scrub_now()`` runs one
+scrubber pass (``parallel/scrub.py``). Cluster, QoS, tracing, the cost
+plane, the result cache and multi-process serving are not ported yet.
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from pilosa_tpu_torch.executor.executor import (
     strip_columns,
 )
 from pilosa_tpu_torch.executor.result import RowResult, results_json_bytes
+from pilosa_tpu_torch.parallel.scrub import Scrubber
 from pilosa_tpu_torch.pql import ParseError, parse
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP, \
     shard_groups
@@ -44,6 +49,7 @@ from pilosa_tpu_torch.storage.field import (
     TYPE_TIME,
     FieldOptions,
 )
+from pilosa_tpu_torch.storage.integrity import global_integrity
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, views_for_time
 from pilosa_tpu_torch.storage.wal import MODE_FLUSH_ONLY
 
@@ -53,9 +59,14 @@ MAX_WRITES_PER_REQUEST = 5000
 
 
 class ApiError(Exception):
-    def __init__(self, message: str, status: int = 400):
+    """An error with its HTTP status; ``retry_after`` (seconds) becomes a
+    ``Retry-After`` header."""
+
+    def __init__(self, message: str, status: int = 400,
+                 retry_after: float | None = None):
         super().__init__(message)
         self.status = status
+        self.retry_after = retry_after
 
 
 class API:
@@ -64,6 +75,9 @@ class API:
         self.executor = Executor(holder, device=holder.device)
         self.max_writes_per_request = MAX_WRITES_PER_REQUEST
         self.tierer = None  # the server's ResidencyTierer, when one runs
+        # the integrity scrubber: the server's ticker, or the one that
+        # on-demand passes create
+        self.scrubber = None
 
     # ----------------------------------------------------------------- query
 
@@ -87,6 +101,8 @@ class API:
                     f"too many writes in request: {writes} > "
                     f"max-writes-per-request {self.max_writes_per_request}"
                 )
+            if writes:
+                self._check_not_storage_degraded()
             with heat.serving():  # a served request: its heat records
                 if writes:
                     with self.holder.cache.batch_writes():
@@ -97,6 +113,17 @@ class API:
                         for d in self.executor.submit(index, query)]
         except (ParseError, PQLError) as e:
             raise ApiError(str(e)) from e
+
+    def _check_not_storage_degraded(self) -> None:
+        """503 with Retry-After while the disk is sick (the holder's
+        StorageHealth latch); it clears when a probe write succeeds."""
+        health = self.holder.health
+        if not health.degraded:
+            return
+        raise ApiError(
+            f"storage degraded ({health.reason}): writes are shed on "
+            "this node until a probe write succeeds; reads still serve",
+            503, retry_after=5.0)
 
     def _ack_durable(self) -> None:
         """The ACK gate: a 200 on a write means its op records are
@@ -136,6 +163,7 @@ class API:
 
     def create_index(self, name: str, keys: bool = False,
                      track_existence: bool = True) -> dict:
+        self._check_not_storage_degraded()  # schema writes hit .meta
         try:
             idx = self.holder.create_index(name, keys=keys,
                                            track_existence=track_existence)
@@ -146,6 +174,7 @@ class API:
 
     def create_field(self, index: str, name: str,
                      options: dict | None = None) -> dict:
+        self._check_not_storage_degraded()  # schema writes hit .meta
         idx = self._index(index)
         try:
             field = idx.create_field(name, FieldOptions.from_dict(options or {}))
@@ -166,6 +195,7 @@ class API:
         view."""
         idx = self._index(index)
         fld = self._field(idx, field)
+        self._check_not_storage_degraded()
         try:
             rows_i = np.asarray(rows, dtype=np.int64)
             columns_i = np.asarray(columns, dtype=np.int64)
@@ -245,6 +275,7 @@ class API:
         marked existing. ``clear`` clears the columns' values instead."""
         idx = self._index(index)
         fld = self._field(idx, field)
+        self._check_not_storage_degraded()
         if fld.options.type != TYPE_INT:
             raise ApiError(f"field {field!r} is not an int field")
         if len(columns) != len(values):
@@ -288,6 +319,7 @@ class API:
     # ---------------------------------------------------------------- status
 
     def status(self) -> dict:
+        health = self.holder.health
         return {
             "state": "NORMAL",
             "nodes": [{"id": "local", "uri": "localhost",
@@ -296,9 +328,38 @@ class API:
             "maxWritesPerRequest": self.max_writes_per_request,
             "epoch": 0,
             "clusterDegraded": False,
-            "storageDegraded": False,
-            "storageDegradedReason": "",
+            "storageDegraded": bool(health.degraded),
+            "storageDegradedReason": health.reason,
         }
+
+    def integrity_metrics(self) -> dict:
+        """The storage-integrity series: the degraded latch, the
+        verified-load and quarantine counters and the scrubber's, every
+        key present from the first read."""
+        out = {
+            "scrub_passes_total": 0,
+            "scrub_fragments_scanned_total": 0,
+            "scrub_bytes_total": 0,
+            "scrub_corruptions_detected_total": 0,
+            "scrub_read_repairs_total": 0,
+            "scrub_self_heals_total": 0,
+            "scrub_unrepaired_total": 0,
+            "scrub_last_pass_seconds": 0.0,
+            "scrub_paced_sleep_seconds": 0.0,
+        }
+        out.update(global_integrity().metrics())
+        out.update(self.holder.health.metrics())
+        if self.scrubber is not None:
+            out.update(self.scrubber.metrics())
+        return out
+
+    def scrub_now(self) -> dict:
+        """One scrub pass (``POST /internal/scrub``, ``check --host``):
+        the server's scrubber when one runs (its pacing budget shared),
+        else an unpaced one kept so that passes add up in the counters."""
+        if self.scrubber is None:
+            self.scrubber = Scrubber(self.holder)
+        return self.scrubber.scrub_pass()
 
     def _index(self, name: str):
         idx = self.holder.index(name)

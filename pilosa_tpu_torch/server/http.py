@@ -24,7 +24,11 @@ Routes of this slice, with the reference's request and response bytes:
   this way before an ``/import``, which takes ids);
 - ``GET /internal/translate/data?offset=N``: the translate log's bytes
   from ``offset``;
+- ``POST /internal/scrub``: one integrity scrub pass, its record out;
 - ``GET /status``.
+
+An error with a ``retry_after`` (a write shed while the storage is
+degraded: 503) carries a ``Retry-After`` header.
 """
 
 from __future__ import annotations
@@ -47,6 +51,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/recalculate-caches$"), "post_recalculate_caches"),
     ("POST", re.compile(r"^/internal/translate/keys$"), "post_translate_keys"),
     ("GET", re.compile(r"^/internal/translate/data$"), "get_translate_data"),
+    ("POST", re.compile(r"^/internal/scrub$"), "post_scrub"),
     ("GET", re.compile(r"^/status$"), "get_status"),
 ]
 
@@ -82,8 +87,14 @@ class HTTPHandler(BaseHTTPRequestHandler):
                 try:
                     getattr(self, handler)(*match.groups())
                 except ApiError as e:
+                    headers = None
+                    if e.retry_after is not None:
+                        # a shed write: tell the client when to come back
+                        headers = {"Retry-After":
+                                   str(max(1, int(e.retry_after)))}
                     self._drain_body()
-                    self._json({"error": str(e)}, status=e.status)
+                    self._json({"error": str(e)}, status=e.status,
+                               headers=headers)
                 except Exception as e:  # internal error → 500, not a crash
                     self._drain_body()
                     self._json({"error": f"internal: {e}"}, status=500)
@@ -216,6 +227,12 @@ class HTTPHandler(BaseHTTPRequestHandler):
                             "offset")
         self._raw(self.api.holder.translate.read_log(offset),
                   content_type="application/octet-stream")
+
+    def post_scrub(self):
+        """One integrity scrub pass (``check --host``): verify every
+        fragment's disk bytes, quarantine and heal rot; the pass record."""
+        self._body()
+        self._json(self.api.scrub_now())
 
     def get_status(self):
         self._json(self.api.status())

@@ -44,6 +44,7 @@ from pilosa_tpu_torch.storage.view import (
     views_for_time,
 )
 from pilosa_tpu_torch.storage.wal import fsync_dir
+from pilosa_tpu_torch.testing import faults
 
 TYPE_SET = "set"
 TYPE_INT = "int"
@@ -163,10 +164,19 @@ class Field:
 
     def _save_meta(self) -> None:
         meta = os.path.join(self.path, ".meta")
-        with open(meta, "w") as f:
-            json.dump(self.options.to_dict(), f)
-            f.flush()
-            os.fsync(f.fileno())
+        try:
+            faults.disk_check("write", meta)
+            with open(meta, "w") as f:
+                json.dump(self.options.to_dict(), f)
+                f.flush()
+                faults.disk_check("fsync", meta)
+                os.fsync(f.fileno())
+        except OSError as e:
+            # a full disk on a schema write turns the node read-only
+            health = getattr(self.wal, "health", None)
+            if health is not None:
+                health.trip(f".meta write of {meta}: {e}")
+            raise
         fsync_dir(self.path)
         fsync_dir(os.path.dirname(self.path) or ".")
 

@@ -18,14 +18,19 @@ dependent resident leaves.
 
 The reference's sidecars are kept as it keeps them: every snapshot
 writes the ``.checksums`` block digests (``storage/integrity.py``), which
-an open with ``verify_on_load`` checks; every write path updates the
-row-count cache (``storage/cache.py``), which a clean close saves as
-``.cache`` (when it changed since it was loaded or saved) and
-``recalculate_cache`` rebuilds. TopN's phase 1 takes its candidates from
-that cache (``top``), as the reference does. One deliberate difference:
-a fragment opened without a ``.cache`` sidecar fills its cache from the
-exact counts, where the reference's starts empty. Every point write
-served by the API records write heat (``storage/heat.py``).
+an open with ``verify_on_load`` checks (a corrupt file raises
+``CorruptFragmentError``, which ``View.open`` turns into a quarantine);
+every write path updates the row-count cache (``storage/cache.py``),
+which a clean close saves as ``.cache`` (when it changed since it was
+loaded or saved) and ``recalculate_cache`` rebuilds. TopN's phase 1
+takes its candidates from that cache (``top``), as the reference does.
+One deliberate difference: a fragment opened without a ``.cache``
+sidecar fills its cache from the exact counts, where the reference's
+starts empty. Every point write served by the API records write heat
+(``storage/heat.py``). A failed per-op fsync, snapshot or sidecar write
+trips the holder's ``StorageHealth`` latch, and every file operation
+that can fail passes the disk fault plane's seams
+(``testing/faults.py``).
 """
 
 from __future__ import annotations
@@ -57,10 +62,12 @@ from pilosa_tpu_torch.storage.integrity import (
     CorruptFragmentError,
     block_digests,
     load_verified,
+    read_file,
     save_checksums,
 )
 from pilosa_tpu_torch.storage.residency import WriteEvent
 from pilosa_tpu_torch.storage.wal import MODE_PER_OP, fsync_dir, wal_fsync
+from pilosa_tpu_torch.testing import faults
 
 # Snapshot (compact) once this many op records have accumulated (the
 # reference's DEFAULT_SNAPSHOT_OP_THRESHOLD).
@@ -141,8 +148,7 @@ class Fragment:
         os.makedirs(os.path.dirname(self.path), exist_ok=True)
         torn = False
         if os.path.exists(self.path):
-            with open(self.path, "rb") as f:
-                buf = f.read()
+            buf = read_file(self.path)  # the disk-fault read seam
             if buf:
                 # the sidecar describes the snapshot alone: verify before
                 # the op log is replayed
@@ -520,7 +526,12 @@ class Fragment:
             self._file.write(record)
             self._file.flush()
             if wal is None or wal.mode == MODE_PER_OP:
-                wal_fsync(self._file.fileno())
+                try:
+                    faults.disk_check("fsync", self.path)
+                    wal_fsync(self._file.fileno())
+                except OSError as e:
+                    self._trip_health(f"per-op fsync of {self.path}: {e}")
+                    raise
         self.op_n += 1
         if self.op_n > self.snapshot_threshold:
             self._snapshot_locked()
@@ -554,17 +565,33 @@ class Fragment:
             self._file.close()
             self._file = None
         tmp = self.path + ".snapshotting"
-        with open(tmp, "wb") as f:
-            f.write(serialize(self.bitmap))
-            f.flush()
-            os.fsync(f.fileno())
-        # the old digests must go before the new snapshot is published
-        _unlink(self.path + CHECKSUM_SUFFIX)
-        os.replace(tmp, self.path)
+        try:
+            payload = faults.disk_filter_write(  # the torn-write seam
+                self.path, serialize(self.bitmap))
+            with open(tmp, "wb") as f:
+                f.write(payload)
+                f.flush()
+                faults.disk_check("fsync", self.path)
+                os.fsync(f.fileno())
+            # the old digests must go before the new snapshot is
+            # published: a crash between the two would pair the new
+            # bytes with stale digests and quarantine a healthy file
+            _unlink(self.path + CHECKSUM_SUFFIX)
+            os.replace(tmp, self.path)
+        except OSError as e:
+            # the old file is intact (tmp, then rename): reads go on, and
+            # the node turns read-only until the disk answers again
+            self._trip_health(f"snapshot of {self.path}: {e}")
+            raise
         fsync_dir(os.path.dirname(self.path))
-        # the digests of exactly these bytes, for verify-on-load
-        save_checksums(self.path + CHECKSUM_SUFFIX,
-                       block_digests(self.bitmap.iter_ids(), BLOCK_ROWS))
+        # the digests of exactly these bytes, for verify-on-load. A
+        # failed sidecar only makes the next open unverified: it never
+        # condemns the snapshot beside it
+        try:
+            save_checksums(self.path + CHECKSUM_SUFFIX,
+                           block_digests(self.bitmap.iter_ids(), BLOCK_ROWS))
+        except OSError as e:
+            self._trip_health(f"checksum sidecar of {self.path}: {e}")
         if self.wal is not None:
             # the lock is held: every op of this fragment appended so far
             # is in the snapshot and no longer pins a WAL segment
@@ -596,6 +623,14 @@ class Fragment:
         if added or removed:
             self._note_write(sum(len(p) for _, p in added)
                              + sum(len(p) for _, p in removed))
+
+    def _trip_health(self, reason: str) -> None:
+        """Route a disk fault to the holder's StorageHealth latch through
+        the WAL it threads down; a fragment built without one raises
+        only."""
+        health = getattr(self.wal, "health", None)
+        if health is not None:
+            health.trip(reason)
 
     def _check_pos(self, pos: int) -> None:
         if not 0 <= pos < SHARD_WIDTH:

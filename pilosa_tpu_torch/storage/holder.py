@@ -8,8 +8,9 @@ through (``storage/wal.py``): ``durability_mode`` selects group commit
 segments a crash left behind, whichever package wrote them, before
 serving. It also owns the device residency cache that every fragment
 reports its writes to (``budget_bytes`` on the card, ``host_budget_bytes``
-for its host tier), and the key translation log ``.translate.log``
-(``storage/translate.py``) of every keyed index and field.
+for its host tier), the key translation log ``.translate.log``
+(``storage/translate.py``) of every keyed index and field, and the
+``StorageHealth`` latch (``health``) that disk faults trip.
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ import threading
 
 from pilosa_tpu_torch import device as device_mod
 from pilosa_tpu_torch.storage.index import Index, _validate_name
+from pilosa_tpu_torch.storage.integrity import StorageHealth
 from pilosa_tpu_torch.storage.residency import (
     DEFAULT_BUDGET_BYTES,
     DEFAULT_HOST_BUDGET_BYTES,
@@ -46,10 +48,16 @@ class Holder:
         # every fragment's snapshot is checked against its .checksums
         # sidecar on open (the reference holder's default)
         self.verify_on_load = bool(verify_on_load)
+        # the disk-fault latch (storage/integrity.py): a failed WAL
+        # fsync, snapshot or .meta write makes the node read-only until
+        # a probe write into the data dir succeeds
+        self.health = StorageHealth(probe_dir=self.data_dir)
         self.wal = WriteAheadLog(os.path.join(self.data_dir, ".wal"),
                                  mode=durability_mode,
                                  group_max_ms=group_commit_max_ms,
                                  group_max_ops=group_commit_max_ops)
+        self.wal.health = self.health
+        self.health.on_clear(self.wal.clear_fault)
         self.device = device_mod.resolve(device)
         self.cache = DeviceRowCache(budget_bytes, self.device,
                                     host_budget_bytes=host_budget_bytes)
@@ -79,6 +87,9 @@ class Holder:
         return self
 
     def close(self) -> None:
+        # the probe first: its clear_fault must not open a WAL segment
+        # under the close
+        self.health.close()
         for idx in list(self.indexes.values()):
             idx.close()  # group mode: dirty fragments snapshot here
         if self.translate:

@@ -20,6 +20,7 @@ from pilosa_tpu_torch.storage.attrs import AttrStore
 from pilosa_tpu_torch.storage.field import Field, FieldOptions, TYPE_SET
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD
 from pilosa_tpu_torch.storage.wal import fsync_dir
+from pilosa_tpu_torch.testing import faults
 
 EXISTENCE_FIELD = "_exists"
 
@@ -76,11 +77,20 @@ class Index:
 
     def _save_meta(self) -> None:
         meta = os.path.join(self.path, ".meta")
-        with open(meta, "w") as f:
-            json.dump({"keys": self.keys,
-                       "trackExistence": self.track_existence}, f)
-            f.flush()
-            os.fsync(f.fileno())
+        try:
+            faults.disk_check("write", meta)
+            with open(meta, "w") as f:
+                json.dump({"keys": self.keys,
+                           "trackExistence": self.track_existence}, f)
+                f.flush()
+                faults.disk_check("fsync", meta)
+                os.fsync(f.fileno())
+        except OSError as e:
+            # a full disk on a schema write turns the node read-only
+            health = getattr(self.wal, "health", None)
+            if health is not None:
+                health.trip(f".meta write of {meta}: {e}")
+            raise
         fsync_dir(self.path)
         fsync_dir(os.path.dirname(self.path) or ".")
 

@@ -5,18 +5,29 @@ layout (``views/<name>/fragments/<shard>``). The ``standard`` view holds
 set rows, ``bsig_<field>`` an int field's bit planes, and a time field's
 quantum views ``standard_YYYY[MM[DD[HH]]]`` its timestamped bits.
 ``views_by_time_range`` covers a [from, to) window with the coarsest
-views the quantum provides, name for name as the reference does.
+views the quantum provides, name for name as the reference does. A
+fragment that fails its open's verification is quarantined
+(``storage/integrity.py``) and the view opens without it, as the
+reference's does.
 """
 
 from __future__ import annotations
 
 import datetime as dt
+import logging
 import os
 import threading
 from concurrent.futures import ThreadPoolExecutor
 
 from pilosa_tpu_torch.storage.cache import CACHE_TYPE_RANKED, DEFAULT_CACHE_SIZE
 from pilosa_tpu_torch.storage.fragment import Fragment
+from pilosa_tpu_torch.storage.integrity import (
+    CorruptFragmentError,
+    global_integrity,
+    quarantine_paths,
+)
+
+_LOG = logging.getLogger("pilosa_tpu_torch.storage.view")
 
 VIEW_STANDARD = "standard"
 _UNITS = "YMDH"
@@ -93,15 +104,22 @@ def views_by_time_range(base: str, quantum: str, t_from: dt.datetime,
     return out
 
 
-def _each(fn, frags: list) -> None:
-    """``fn`` on every fragment, in up to 8 threads."""
+def _each(fn, frags: list) -> list:
+    """``fn`` on every fragment, in up to 8 threads; the results in
+    order."""
     workers = min(8, os.cpu_count() or 1, len(frags))
     if workers > 1:
         with ThreadPoolExecutor(workers) as pool:
-            list(pool.map(fn, frags))
-    else:
-        for frag in frags:
-            fn(frag)
+            return list(pool.map(fn, frags))
+    return [fn(frag) for frag in frags]
+
+
+def _open_checked(frag: Fragment) -> CorruptFragmentError | None:
+    try:
+        frag.open()
+    except CorruptFragmentError as e:
+        return e
+    return None
 
 
 class View:
@@ -137,13 +155,20 @@ class View:
     def open(self) -> "View":
         """Open every fragment file, several at once: verifying a
         snapshot's digests is numpy and hashlib work that runs outside
-        the GIL."""
+        the GIL. A fragment whose bytes fail to decode or verify is
+        quarantined and left out: its rotten bytes are never served."""
         frag_dir = os.path.join(self.path, "fragments")
         os.makedirs(frag_dir, exist_ok=True)
         frags = [self._new_fragment(int(entry))
                  for entry in sorted(os.listdir(frag_dir)) if entry.isdigit()]
-        _each(Fragment.open, frags)
-        self.fragments.update((f.shard, f) for f in frags)
+        for frag, err in zip(frags, _each(_open_checked, frags)):
+            if err is not None:
+                global_integrity().count("verify_failures")
+                quarantine_paths(frag.path, reason=str(err))
+                _LOG.error("startup quarantine of %s/%s/%s/%d: %s",
+                           self.index, self.field, self.name, frag.shard, err)
+                continue
+            self.fragments[frag.shard] = frag
         return self
 
     def close(self) -> None:

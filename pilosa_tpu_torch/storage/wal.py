@@ -34,8 +34,14 @@ Segment record layout (little-endian):
   body bytes (for ops: one roaring/format.py encode_op record).
 A torn tail (crash mid-append) is dropped.
 
-Not ported yet: the CDC cursor registry and ``read_tail``, the disk-fault
-health latch (``clear_fault``) and the fault-injection hooks.
+Disk faults: a failed group fsync (the ``disk_check("fsync", segment)``
+seam of ``testing/faults.py`` sits before it) loses that group. Its
+sequence numbers are latched (``_failed_seq``) so their barriers raise
+forever, the holder's ``StorageHealth`` trips, and the commit loop parks
+until the health probe calls ``clear_fault``, which opens a fresh segment
+(the faulted one may end in a tear) before writes resume.
+
+Not ported yet: the CDC cursor registry and ``read_tail``.
 """
 
 from __future__ import annotations
@@ -51,6 +57,7 @@ import zlib
 import numpy as np
 
 from pilosa_tpu_torch.roaring.format import _OP_HEADER, OP_MAGIC
+from pilosa_tpu_torch.testing import faults
 
 _LOG = logging.getLogger("pilosa_tpu_torch.storage.wal")
 
@@ -183,7 +190,14 @@ class WriteAheadLog:
         self._group_open_t = 0.0
         self._last_group_size = 0
         self._error: BaseException | None = None
+        # highest seq whose group's fsync failed: those records are lost,
+        # so a barrier on them raises forever, even once newer groups
+        # commit past them
+        self._failed_seq = 0
         self._closing = False
+        # the holder's StorageHealth latch: a commit fault trips it, and
+        # its probe calls clear_fault() once the disk answers again
+        self.health = None
         self._thread: threading.Thread | None = None
         self._started = False
         # segment bookkeeping (commit/checkpoint threads + note_snapshot)
@@ -202,6 +216,7 @@ class WriteAheadLog:
         self.max_group_ops = 0
         self.checkpoints = 0
         self.recovered_ops = 0
+        self.commit_recoveries = 0
 
     # ------------------------------------------------------------ lifecycle
 
@@ -337,6 +352,11 @@ class WriteAheadLog:
             return
         with self._cond:
             target = self._seq if seq is None else seq
+            # before the durable check: a recovered WAL commits newer
+            # groups past a lost one, whose writes must never be acked
+            if 0 < target <= self._failed_seq:
+                raise OSError("wal commit failed: this write's group was "
+                              "lost to a storage fault")
             while self._durable_seq < target:
                 if self._error is not None:
                     raise OSError(f"wal commit failed: {self._error}")
@@ -349,6 +369,26 @@ class WriteAheadLog:
 
     def flush(self) -> None:
         self.barrier()
+
+    def clear_fault(self) -> bool:
+        """The disk answers again (the health probe's write succeeded):
+        resume committing into a fresh segment, opened before the fault
+        is cleared, since the faulted segment may end in a tear that
+        replay stops at. False keeps the node degraded (no segment could
+        be opened)."""
+        with self._cond:
+            if self._error is None:
+                return True
+        if self._started:
+            try:
+                self._open_segment()
+            except OSError:
+                return False
+        with self._cond:
+            self._error = None
+            self._cond.notify_all()
+        self.commit_recoveries += 1
+        return True
 
     # ---------------------------------------------------------- commit loop
 
@@ -398,12 +438,20 @@ class WriteAheadLog:
                     f, seg = self._file, self._active
                     f.write(data)
                     f.flush()
+                faults.disk_check("fsync", seg.path)
                 self._fsync(f.fileno())
             except (OSError, ValueError) as e:
-                # this group is lost (its bytes are a torn tail): fail
-                # every barrier from now on instead of acking it
+                # this group is lost (its bytes may be a torn tail): its
+                # barriers fail forever, the node turns read-only, and
+                # the loop parks until clear_fault(). The waiters wake
+                # only after the trip, so a write that learns of the
+                # loss finds the latch set
                 with self._cond:
                     self._error = e
+                    self._failed_seq = max(self._failed_seq, end_seq)
+                if self.health is not None:
+                    self.health.trip(f"wal commit fsync: {e}")
+                with self._cond:
                     self._cond.notify_all()
                 continue
             with self._seg_lock:
@@ -606,6 +654,7 @@ class WriteAheadLog:
             "group_max_ops": self.max_group_ops,
             "checkpoints_total": self.checkpoints,
             "recovered_ops_total": self.recovered_ops,
+            "commit_recoveries_total": self.commit_recoveries,
             "segments": segments,
             "retained_bytes": retained,
         }

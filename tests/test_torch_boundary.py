@@ -72,6 +72,19 @@ def test_sources_import_no_jax_or_reference(path):
     assert bad == []
 
 
+def test_boundary_covers_the_integrity_subpackages():
+    """The rules above walk every module, the subpackages of the
+    integrity plane (the scrubber and the disk fault plane) included."""
+    names = _module_names()
+    for name in ("pilosa_tpu_torch.parallel.scrub",
+                 "pilosa_tpu_torch.parallel.pacer",
+                 "pilosa_tpu_torch.testing.faults",
+                 "pilosa_tpu_torch.roaring.kernels"):
+        assert name in names
+    sources = {p.relative_to(PKG).parts[0] for p in PKG.rglob("*.py")}
+    assert {"parallel", "testing"} <= sources
+
+
 def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

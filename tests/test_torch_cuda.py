@@ -792,3 +792,72 @@ def test_residency_tiers_round_trip_on_the_card(dev):
         2, -1))
     torch.cuda.synchronize()
     assert key not in cache._rows and key not in cache._compressed
+
+
+def test_quarantine_and_self_heal_on_the_card(dev, tmp_path):
+    """A data dir with a rotten fragment opens on the card with it
+    quarantined; a byte flipped under a resident leaf is healed by a
+    scrub pass that keeps the leaf (no row-cache miss after); every
+    Count runs through K1 and equals a CPU server's answer."""
+    import os
+    import shutil
+
+    from pilosa_tpu_torch.parallel.scrub import Scrubber
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.storage import Holder
+
+    rng = np.random.default_rng(21)
+    h = Holder(str(tmp_path / "seed"), device="cpu").open()
+    idx = h.create_index("i")
+    for name, rows in (("f", (1, 2)), ("g", (7,))):
+        fld = idx.create_field(name)
+        for s in range(4):
+            for r in rows:
+                pos = np.unique(rng.integers(0, W * 32, 5000)).astype(
+                    np.uint64)
+                fld.view("standard", create=True).fragment(
+                    s, create=True).bulk_import(
+                        np.full(pos.size, r, np.uint64), pos)
+    h.close()
+
+    def frag_path(root, shard):
+        return os.path.join(root, "i", "f", "views", "standard",
+                            "fragments", str(shard))
+
+    p = frag_path(str(tmp_path / "seed"), 1)
+    with open(p, "r+b") as f:
+        f.seek(os.path.getsize(p) - 3)
+        b = f.read(1)
+        f.seek(os.path.getsize(p) - 3)
+        f.write(bytes([b[0] ^ 0x10]))
+    q = ["Count(Intersect(Row(f=1), Row(g=7)))", "Count(Row(f=2))",
+         "Options(Count(Row(f=1)), shards=[1])"]
+    answers = {}
+    for device in ("cpu", "cuda"):
+        root = str(tmp_path / device)
+        shutil.copytree(tmp_path / "seed", root)
+        h = Holder(root, device=device).open()
+        try:
+            assert sorted(h.index("i").field("f").view(
+                "standard").fragments) == [0, 2, 3]
+            api = API(h)
+            kernels.reset_launches()
+            out = [api.query_raw("i", pql)[0] for pql in q]
+            p = frag_path(root, 0)
+            with open(p, "r+b") as f:
+                f.seek(os.path.getsize(p) - 3)
+                b = f.read(1)
+                f.seek(os.path.getsize(p) - 3)
+                f.write(bytes([b[0] ^ 0x10]))
+            misses = h.cache.misses
+            rec = Scrubber(h).scrub_pass()
+            assert rec["self_healed"] == 1 and rec["corrupt"] == 1
+            out += [api.query_raw("i", pql)[0] for pql in q]
+            assert h.cache.misses == misses
+            if device == "cuda":
+                assert kernels.launches()["tree_count"] > 0
+            answers[device] = out
+        finally:
+            h.close()
+    assert answers["cuda"] == answers["cpu"]
+    assert answers["cpu"][2] == 0
