@@ -24,7 +24,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    K9 also beside its popcount floor, with the bytes it stages and its
    plan variants), and K10 and K11 at a month leaf's shape (32 768
    blocks, ~391 real ones padded to 512), on random blocks and on an
-   all-zero leaf, beside index_select and zeros + index_copy_.
+   all-zero leaf, beside index_select and zeros + index_copy_, K10 as
+   the cache calls it (into one compressed entry's storage), alone on a
+   device index, and batched over 16 month leaves in one launch, its
+   whole call apart from its device time (a CUDA graph of launches).
    Meanwhile worker processes (one per field, three for the time
    field's views, one for the existence rows; the pickup_year worker
    also writes payment_type, the repository worker the users index and
@@ -90,8 +93,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       rows on ``rides``; the budget lowered to 16 dense months beside
       the cab_type leaves; 16 concurrent clients over a month x cab
       Count, a quarter's Count and a month's TopN(cab_type) (K10
-      demotes, K11 promotes); a Count of every month, one tierer pass to
-      the host tier, 84 serial Counts that are host-tier hits, a Set
+      demotes each eviction's victims in one launch, K11 promotes); a
+      Count of every month, one tierer pass to the host tier (the dense
+      months gathered by one K10 launch before their compact blocks are
+      read back; the bytes read back printed), 84 serial Counts that are
+      host-tier hits, a Set
       into a host-tier leaf (its copy invalidated) and into a dense one
       (one K3 launch, the leaf then dropped, not compressed), every
       answer against the oracle; the budget restored;
@@ -2644,14 +2650,92 @@ def range_words(lo: int, hi: int, out: np.ndarray) -> np.ndarray:
     return out
 
 
+def graph_ms(torch, fn, launches: int = 100, reps: int = 5) -> float:
+    """The device time of ``fn``: ``launches`` calls captured in one CUDA
+    graph, replayed; median over ``reps`` of (event time of a replay) /
+    launches. The host's part of each call is not replayed."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        stop.record()
+        stop.synchronize()
+        per.append(start.elapsed_time(stop) / launches)
+    del graph
+    return statistics.median(per)
+
+
+def turns_ms(torch, fns: dict, launches: int, rounds: int = 4) -> dict:
+    """``cuda_ms`` of each of ``fns`` in turns (A, B, B, A, ...) over
+    ``rounds`` rounds; the median per name. Host-bound calls drift with
+    the host, so calls compared with each other are timed in turns."""
+    names = list(fns)
+    got: dict = {n: [] for n in names}
+    for r in range(rounds):
+        for n in names if r % 2 == 0 else names[::-1]:
+            got[n].append(cuda_ms(torch, fns[n], launches=launches))
+    return {n: statistics.median(v) for n, v in got.items()}
+
+
+def _padded_month_index(words: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """A leaf's nonzero-block index and its padded form (to a power of
+    two, repeating the first), as the residency cache pads it."""
+    block_idx = np.flatnonzero(words.reshape(-1, 1024).any(axis=1)
+                               ).astype(np.int32)
+    nb = len(block_idx)
+    idx_host = np.full(max(1, 1 << max(nb - 1, 0).bit_length()),
+                       block_idx[0] if nb else 0, np.int32)
+    idx_host[:nb] = block_idx
+    return block_idx, idx_host
+
+
+TIER_BATCH_MONTHS = 16  # the month leaves a tier pass finds dense
+
+
+def _staged_gather(torch, kernels, dev, flats, idxs, outs):
+    """K10's staged batch launch alone, on its table already on the card:
+    a function that launches it (no count), for the device time of the
+    wrapper's launch without its host work (the wrapper's staging pool
+    records an event, which a CUDA graph cannot hold)."""
+    blob, offset = kernels._gather_table(flats, idxs, outs, False)
+    staged = torch.from_numpy(blob).to(dev)
+    lib = kernels._lib("block_gather")
+    n_out = (blob.size - offset) // 4
+
+    def launch():
+        rc = lib.block_gather_batch_launch(
+            None, staged.data_ptr(), blob.size, offset, len(flats), n_out,
+            kernels._raw_stream(staged.get_device()))
+        if rc:
+            fail(f"block_gather_batch launch failed: cudaError {rc}")
+    return launch, blob.size
+
+
 def check_block_kernels(torch, kernels, dev) -> list:
     """Phase 3, the residency tiers: K10 and K11 against their plain
     versions, bit-exact, at the month leaf's shape (n_blocks 32 768, a
     month's ~391 nonzero blocks padded to 512 by repeating the first), on
     random blocks at random places (duplicates in the padding), and on an
     all-zero leaf (no real block, one padding block); K11 gives back the
-    leaf it came from. Times beside index_select and zeros + index_copy_
-    and the launch floor."""
+    leaf it came from, from K10's output and index copy. K10 as the
+    residency cache calls it (``block_gather_batch`` into one compressed
+    entry's own storage, the index passed in the launch's parameters and
+    copied to the card beside its blocks),
+    as the one-leaf ``block_gather`` on a device index, and batched over
+    TIER_BATCH_MONTHS month leaves (a tier pass's dense months, one
+    launch, one buffer). Times: K10's whole calls, timed in turns with
+    index_select, and their device times (a CUDA graph of launches),
+    beside the launch floor; K11 beside zeros + index_copy_."""
     edges = month_edges()
     n_blocks = N_SHARDS * WORDS // kernels.BLOCK_WORDS
     host = np.zeros(N_SHARDS * WORDS, np.uint32)
@@ -2669,53 +2753,139 @@ def check_block_kernels(torch, kernels, dev) -> list:
     err = 0
     timed = None
     for name, words in cases.items():
-        block_idx = np.flatnonzero(words.reshape(-1, 1024).any(axis=1)
-                                   ).astype(np.int32)
+        block_idx, idx_host = _padded_month_index(words)
         nb = len(block_idx)
-        idx_host = np.full(max(1, 1 << max(nb - 1, 0).bit_length()),
-                           block_idx[0] if nb else 0, np.int32)
-        idx_host[:nb] = block_idx
         flat = torch.from_numpy(words.view(np.int32)).to(dev)
         idx = torch.from_numpy(idx_host).to(dev)
-        blocks = kernels.block_gather(flat, idx)
-        err = max(err, max_abs_err(torch, blocks,
-                                   kernels.block_gather_plain(flat, idx)))
-        back = kernels.block_scatter(blocks, idx, n_blocks, block_idx)
+        want = kernels.block_gather_plain(flat, idx)
+        err = max(err, max_abs_err(torch, kernels.block_gather(flat, idx),
+                                   want))
+        entry = torch.empty(idx_host.size * 1025, dtype=torch.int32,
+                            device=dev)
+        kernels.block_gather_batch([flat], [idx_host], [entry],
+                                   with_index=True)
+        blocks = entry[:idx_host.size * 1024].view(-1, 1024)
+        idx_copy = entry[idx_host.size * 1024:]
+        err = max(err, max_abs_err(torch, blocks, want),
+                  max_abs_err(torch, idx_copy, idx))
+        back = kernels.block_scatter(blocks, idx_copy, n_blocks, block_idx)
         err = max(err, max_abs_err(torch, back, kernels.block_scatter_plain(
-            blocks, idx, n_blocks)), max_abs_err(torch, back, flat))
+            blocks, idx_copy, n_blocks)), max_abs_err(torch, back, flat))
         if name == "month":
-            timed = (flat, idx, blocks, block_idx, nb, idx_host.size)
+            timed = (flat, idx, idx_host, blocks, block_idx, nb)
         print(f"kernel block_gather/block_scatter on the {name} leaf: "
               f"{nb} nonzero blocks padded to {idx_host.size}", flush=True)
+    del cases, rand
+    # the batch: TIER_BATCH_MONTHS month leaves, one launch, one buffer
+    flats, idxs = [], []
+    for k in range(TIER_BATCH_MONTHS):
+        mk = (m + 1 + k) % N_MONTHS
+        words = range_words(int(edges[mk]), int(edges[mk + 1]), host)
+        flats.append(torch.from_numpy(words.view(np.int32)).to(dev))
+        idxs.append(_padded_month_index(words)[1])
+    dev_idxs = [torch.from_numpy(i).to(dev) for i in idxs]
+    want = kernels.block_gather_batch_plain(flats, dev_idxs)
+    n_rows = int(sum(i.size for i in idxs))
+    starts = np.cumsum([0] + [i.size * 1024 for i in idxs])
+
+    def tier_batch(buf=None):
+        # as the tier pass calls it: one buffer, a slice a leaf
+        if buf is None:
+            buf = torch.empty(n_rows * 1024, dtype=torch.int32, device=dev)
+        outs = [buf[starts[k]:starts[k + 1]] for k in range(len(idxs))]
+        kernels.block_gather_batch(flats, idxs, outs)
+        return buf, outs
+
+    out, outs = tier_batch(torch.full((n_rows * 1024,), -7,
+                                      dtype=torch.int32, device=dev))
+    err = max(err, max_abs_err(torch, out.view(-1, 1024), want))
     torch.cuda.synchronize()
     if err != 0:
         fail(f"block_gather/block_scatter disagree with their plain "
              f"versions by {err}")
-    flat, idx, blocks, block_idx, nb, nbp = timed
+    flat, idx, idx_host, blocks, block_idx, nb = timed
+    nbp = idx_host.size
     floor = cuda_ms(torch, lambda: kernels.launch_floor(dev), launches=100)
-    gather_bytes = 2 * nbp * 4096 + nbp * 4
+    long_idx = idx.long()
+
+    def entry_gather():
+        # as an eviction calls it for one victim
+        entry = flat.new_empty(nbp * 1025)
+        kernels.block_gather_batch([flat], [idx_host], [entry],
+                                   with_index=True)
+
+    def library():
+        return flat.view(-1, 1024).index_select(0, long_idx)
+
+    calls = turns_ms(torch, {
+        "entry": entry_gather,
+        "single": lambda: kernels.block_gather(flat, idx),
+        "index_select": library}, launches=100)
+    batch_launch, batch_table = _staged_gather(
+        torch, kernels, dev, flats, idxs, outs)
+    k10 = {"entry_ms": calls["entry"],
+           "entry_device_ms": graph_ms(torch, entry_gather),
+           "single_ms": calls["single"],
+           "single_device_ms": graph_ms(torch, lambda: kernels.block_gather(
+               flat, idx)),
+           "library_ms": calls["index_select"],
+           "library_device_ms": graph_ms(torch, library),
+           "batch_ms": cuda_ms(torch, tier_batch, launches=20),
+           "batch_device_ms": graph_ms(torch, batch_launch, launches=20)}
+    print(f"kernel block_gather at {nbp} of {n_blocks} blocks: "
+          f"block_gather_batch into an entry's storage {k10['entry_ms']} ms "
+          f"(device {k10['entry_device_ms']} ms), block_gather "
+          f"{k10['single_ms']} ms (device {k10['single_device_ms']} ms), "
+          f"index_select {k10['library_ms']} ms (device "
+          f"{k10['library_device_ms']} ms), launch floor {floor} ms",
+          flush=True)
+    print(f"kernel block_gather_batch over {len(flats)} month leaves "
+          f"({n_rows} blocks): whole call {k10['batch_ms']} ms, device "
+          f"{k10['batch_device_ms']} ms", flush=True)
+    # each input read once (the index, or the table with it, each
+    # distinct block), each output written once (the rows, the index
+    # copy)
+    gather_bytes = nbp * 4 + np.unique(idx_host).size * 4096 \
+        + nbp * (4096 + 4)
+    batch_bytes = batch_table + sum(
+        np.unique(i).size for i in idxs) * 4096 + n_rows * 4096
     scatter_bytes = n_blocks * 4096 + nb * 4096 + nb * 4
 
     def library_scatter():
         out = torch.zeros((n_blocks, 1024), dtype=torch.int32, device=dev)
-        return out.index_copy_(0, idx.long(), blocks)
+        return out.index_copy_(0, long_idx, blocks)
 
-    long_idx = idx.long()
     return [{
         "name": "block_gather", "route": "cuda",
         "source": "pilosa_tpu_torch/csrc/block_gather.cu",
         "replaces": "pilosa_tpu/storage/residency.py:80",
         "max_abs_err": err,
-        "ms": cuda_ms(torch, lambda: kernels.block_gather(flat, idx),
-                      launches=100),
+        # the wrapper the cache calls, into one entry's storage
+        "ms": k10["entry_ms"], "device_ms": k10["entry_device_ms"],
+        "single_ms": k10["single_ms"],
+        "single_device_ms": k10["single_device_ms"],
         "plain_ms": cuda_ms(torch, lambda: kernels.block_gather_plain(
             flat, idx), launches=100),
         "bound_ms": _bytes_ms(gather_bytes), "bound_by": "bytes",
-        "library_ms": cuda_ms(torch, lambda: flat.view(-1, 1024).index_select(
-            0, long_idx), launches=100),
+        "library_ms": k10["library_ms"],
+        "library_device_ms": k10["library_device_ms"],
         "launch_floor_ms": floor,
         "shape": f"int32[{n_blocks} x 1024] -> int32[{nbp}, 1024] "
-                 f"({nb} real blocks)",
+                 f"({nb} real blocks) and its index",
+    }, {
+        "name": "block_gather_batch", "route": "cuda",
+        "source": "pilosa_tpu_torch/csrc/block_gather.cu",
+        "replaces": "pilosa_tpu/storage/residency.py:80",
+        "max_abs_err": err,
+        "ms": k10["batch_ms"], "device_ms": k10["batch_device_ms"],
+        "plain_ms": cuda_ms(torch, lambda: kernels.block_gather_batch_plain(
+            flats, dev_idxs), launches=20),
+        "bound_ms": _bytes_ms(batch_bytes), "bound_by": "bytes",
+        # no one PyTorch call gathers from several tensors
+        "library_ms": None,
+        "launch_floor_ms": floor,
+        "shape": f"{len(flats)} x int32[{n_blocks} x 1024] -> "
+                 f"int32[{n_rows}, 1024]",
     }, {
         "name": "block_scatter", "route": "cuda",
         "source": "pilosa_tpu_torch/csrc/block_scatter.cu",
@@ -2816,9 +2986,11 @@ def _tier_pass(cache, scope: str, stats: dict, name: str) -> None:
     demote = max(r["access"] + r["writes"] for r in rows) + 1.0
     tierer = ResidencyTierer(cache, demote_heat=demote,
                              promote_heat=2 * demote, min_dwell_s=0)
+    read0 = cache.readback_bytes
     t0 = time.perf_counter()
     out = tierer.run_pass()
     secs = time.perf_counter() - t0
+    readback = cache.readback_bytes - read0
     _, per_stack = cache.tier_overlay()
     months = per_stack.get((scope, "rides", "pickup_month"))
     if months is None or months["dense"] or months["compressed"] \
@@ -2828,11 +3000,12 @@ def _tier_pass(cache, scope: str, stats: dict, name: str) -> None:
     stats[name] = {"month_heat": month, "demote_heat": demote,
                    "seconds": secs, "demoted": out["demoted"],
                    "demoted_bytes": out["demotedBytes"],
+                   "readback_bytes": readback,
                    "month_host_bytes": months["host"]}
     print(f"tier {name}: {out['demoted']} entries, {out['demotedBytes']} "
-          f"device bytes to host in {secs:.3f}s (month heat {month:.1f}, "
-          f"demote-heat {demote:.1f}); month stacks {months['host']} host "
-          f"bytes", flush=True)
+          f"device bytes to host in {secs:.3f}s, {readback} bytes read "
+          f"back (month heat {month:.1f}, demote-heat {demote:.1f}); "
+          f"month stacks {months['host']} host bytes", flush=True)
 
 
 def _serve_tier(server, mt: dict, rng) -> dict:
@@ -2872,7 +3045,8 @@ def _serve_tier(server, mt: dict, rng) -> dict:
             stats[k] = m1[f"residency_{k}"] - m0[f"residency_{k}"]
         stats["compressed_bytes"] = cache.compressed_bytes
         stats["loop_launches"] = {k: kernels.launches()[k] for k in
-                                  ("block_gather", "block_scatter")}
+                                  ("block_gather", "block_gather_batch",
+                                   "block_scatter")}
         print(f"tier loop: {stats['qps']:.3f} QPS, p50 "
               f"{stats['p50_ms']:.3f} ms, p99 {stats['p99_ms']:.3f} ms; "
               f"compressions {stats['compressions']}, decompressions "
@@ -3685,8 +3859,8 @@ def main() -> int:
         "time": ("tree_count", "tree_rows", "word_patch", "count_rows",
                  "groupby_level"),
         "keys": ("tree_count", "count_rows", "groupby_level", "word_patch"),
-        "tier": ("block_gather", "block_scatter", "tree_count", "count_rows",
-                 "word_patch"),
+        "tier": ("block_gather", "block_gather_batch", "block_scatter",
+                 "tree_count", "count_rows", "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
         "integrity": ("tree_count", "count_rows", "word_patch"),
     }
@@ -3704,9 +3878,11 @@ def main() -> int:
         print(f"launches {path}: {json.dumps(launched)}", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    # K3 also gives its device time and launch floor apart from its call,
-    # K10 and K11 the launch floor
-    extra = ("device_ms", "launch_floor_ms", "bytes_bound_ms")
+    # K3 and K10 also give their device time apart from their call (K10
+    # its one-leaf block_gather's and index_select's too), K3, K10 and
+    # K11 the launch floor
+    extra = ("device_ms", "single_ms", "single_device_ms",
+             "library_device_ms", "launch_floor_ms", "bytes_bound_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report]}), flush=True)

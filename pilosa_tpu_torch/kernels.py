@@ -26,7 +26,12 @@ Eleven kernels carry the main paths (sources in ``csrc/``):
   TopN's phase 2);
 - K9 ``groupby_level``: per shard and candidate group, the popcount of
   the AND of one row of each dimension matrix and a filter, with the
-  aggregate's plane counts (replaces ``batch.groupby_level_body``).
+  aggregate's plane counts (replaces ``batch.groupby_level_body``);
+- K10 ``block_gather``: the listed 4 KiB blocks of one flat leaf, or of
+  a batch of leaves in one launch, compacted (replaces
+  ``residency._gather_blocks``);
+- K11 ``block_scatter``: the dense leaf from its compacted blocks
+  (replaces ``residency._scatter_blocks``).
 
 Each source builds with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and is
@@ -92,7 +97,8 @@ BLOCK_WORDS = 1024  # words of a residency block (K10, K11): 4 KiB
 # --------------------------------------------------------------- launches
 
 _launch_lock = threading.Lock()
-LAUNCHES = {name: 0 for name in SOURCES}
+# one count a kernel, and K10's launches over more than one leaf apart
+LAUNCHES = {name: 0 for name in (*SOURCES, "block_gather_batch")}
 
 
 def _count_launch(name: str) -> None:
@@ -200,11 +206,16 @@ def _bind(name: str, lib) -> None:
         "bsi_minmax": [p, p, ll, ll, i, i, i, p, p, p],
         "count_rows": [p, p, p, ll, i, ll, i, p],
         "groupby_level": [p, p, i, p, p, p, p, i, ll, ll, i, i, p, p],
-        "block_gather": [p, p, p, ll, ll, p],
+        "block_gather": [p, p, p, ll, i, p],
         "block_scatter": [p, p, i, p, ll, p],
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
+    if name == "block_gather":
+        lib.block_gather_batch_launch.argtypes = [p, p, i, i, i, i, p]
+        lib.block_gather_batch_launch.restype = i
+        lib.block_gather_inline_launch.argtypes = [p, ll, p, i, p, p, p]
+        lib.block_gather_inline_launch.restype = i
     if name == "word_patch":
         lib.word_patch_staged_launch.argtypes = [p, p, i, i, i, p]
         lib.word_patch_staged_launch.restype = i
@@ -919,6 +930,12 @@ def block_gather_plain(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     return flat.view(-1, BLOCK_WORDS).index_select(0, idx.long())
 
 
+def block_gather_batch_plain(flats, idxs) -> torch.Tensor:
+    """K10's batched plain version: each leaf's blocks ``idxs[k]`` (int32
+    tensors on the leaves' device), concatenated."""
+    return torch.cat([block_gather_plain(f, i) for f, i in zip(flats, idxs)])
+
+
 def block_scatter_plain(blocks: torch.Tensor, idx: torch.Tensor,
                         n_blocks: int) -> torch.Tensor:
     """K11's plain version: a flat ``int32[n_blocks * 1024]`` leaf of
@@ -1436,25 +1453,158 @@ def _check_blocks(idx: torch.Tensor, *tensors) -> None:
         raise ValueError("block kernels take 16-byte aligned words")
 
 
+def _raw_stream(card: int) -> int:
+    """The current stream of card ``card`` as an int, without building a
+    ``torch.cuda.Stream`` (K10's single call is host-bound)."""
+    return torch._C._cuda_getCurrentRawStream(card)
+
+
 def block_gather(flat: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """K10: the 4 KiB blocks ``idx`` (int32, on the leaf's device) of the
     flat int32 leaf ``flat``, compacted to ``int32[len(idx), 1024]``; an
-    index outside the leaf gives a zero block on the card. One launch."""
-    if flat.dim() != 1 or flat.numel() % BLOCK_WORDS:
-        raise ValueError(f"block_gather takes a flat leaf of whole "
-                         f"{BLOCK_WORDS}-word blocks")
-    _check_blocks(idx, flat)
-    if _on_cpu(flat):
+    index outside the leaf gives a zero block on the card. One launch,
+    the one-leaf case of ``block_gather_batch``'s kernel."""
+    # the checks inline, in the cheapest calls (the call is host-bound):
+    # one leaf of whole blocks and one non-empty index, int32,
+    # contiguous, on one device
+    n_out = idx.numel()
+    card = flat.get_device()
+    if flat.dim() != 1 or flat.numel() % BLOCK_WORDS or idx.dim() != 1 \
+            or not 0 < n_out < 1 << 31 or flat.dtype is not torch.int32 \
+            or idx.dtype is not torch.int32 or not flat.is_contiguous() \
+            or not idx.is_contiguous() or card != idx.get_device() \
+            or flat.is_cuda != idx.is_cuda:
+        raise ValueError(f"block_gather takes a flat int32 leaf of whole "
+                         f"{BLOCK_WORDS}-word blocks and a non-empty int32 "
+                         f"index on its device")
+    if not flat.is_cuda:
+        _on_cpu(flat)  # raises for a device that is neither
         return block_gather_plain(flat, idx)
+    if (flat.data_ptr() | idx.data_ptr()) & 15:
+        raise ValueError("block kernels take 16-byte aligned words")
     lib = _lib("block_gather")
-    out = torch.empty((idx.numel(), BLOCK_WORDS), dtype=torch.int32,
-                      device=flat.device)
-    rc = lib.block_gather_launch(_ptr(flat), _ptr(idx), _ptr(out),
-                                 flat.numel() // BLOCK_WORDS, idx.numel(),
-                                 _stream(out))
-    _check("block_gather", lib, rc)
+    out = flat.new_empty((n_out, BLOCK_WORDS))
+    rc = lib.block_gather_launch(
+        flat.data_ptr(), idx.data_ptr(), out.data_ptr(),
+        flat.numel() // BLOCK_WORDS, n_out, _raw_stream(card))
+    if rc:
+        _check("block_gather", lib, rc)
     _count_launch("block_gather")
     return out
+
+
+_GATHER_LEAF_BYTES = 32  # a leaf's entry in K10's batch table
+_GATHER_INLINE_ROWS = 960  # an index K10 takes in its launch parameters
+
+
+def _gather_operand(t: torch.Tensor, shape: tuple, device) -> int:
+    """The address of one of K10's batch operands, checked: int32,
+    contiguous, ``shape``, on ``device``, 16-byte aligned on the card."""
+    if t.dtype is not torch.int32 or t.shape != shape \
+            or not t.is_contiguous() or t.device != device:
+        raise ValueError(f"block_gather_batch takes contiguous int32 "
+                         f"{list(shape)} tensors on {device}, got "
+                         f"{t.dtype} {list(t.shape)} on {t.device}")
+    ptr = t.data_ptr()
+    if ptr & 15 and t.is_cuda:
+        raise ValueError("block kernels take 16-byte aligned words")
+    return ptr
+
+
+def _gather_leaf(f: torch.Tensor, i: np.ndarray, out: torch.Tensor,
+                 with_index: bool, device) -> tuple:
+    """One leaf of a K10 batch, checked: its address, 4 KiB blocks,
+    output and index copy (0: none)."""
+    if type(i) is not np.ndarray or i.dtype.char != "i" or i.ndim != 1 \
+            or not i.size or not i.flags.c_contiguous:
+        raise ValueError("block indices must be non-empty int32 host "
+                         "vectors")
+    words = f.numel()
+    if f.dim() != 1 or not words or words % BLOCK_WORDS:
+        raise ValueError(f"block_gather_batch takes flat leaves of whole "
+                         f"{BLOCK_WORDS}-word blocks")
+    m = i.size
+    dst = _gather_operand(out, (m * (BLOCK_WORDS + with_index),), device)
+    return (_gather_operand(f, (words,), device), words // BLOCK_WORDS, dst,
+            dst + 4 * BLOCK_WORDS * m if with_index else 0)
+
+
+def _gather_table(flats, idxs, outs, with_index: bool
+                  ) -> tuple[np.ndarray, int]:
+    """The checked table of a K10 batch (csrc/block_gather.cu's layout)
+    and the byte offset of its indices: each leaf's address, block
+    count, output and index copy (0: none), the row starts, then the
+    concatenated padded indices."""
+    n = len(flats)
+    device = flats[0].device
+    leaves, start = [], [0]
+    for f, i, out in zip(flats, idxs, outs):
+        leaves += _gather_leaf(f, i, out, with_index, device)
+        start.append(start[-1] + i.size)
+    if start[-1] >= 1 << 31:
+        raise ValueError("block_gather_batch: over 2^31 output blocks")
+    head = _GATHER_LEAF_BYTES * n
+    offset = (head + 4 * (n + 1) + 15) // 16 * 16
+    blob = np.zeros(offset + 4 * start[-1], np.uint8)
+    blob[:head].view(np.int64)[:] = leaves
+    blob[head:head + 4 * (n + 1)].view(np.int32)[:] = start
+    np.concatenate(idxs, out=blob[offset:].view(np.int32))
+    return blob, offset
+
+
+def block_gather_batch(flats, idxs, outs, *, with_index: bool = False
+                       ) -> None:
+    """K10 over a batch, one launch: the blocks ``idxs[k]`` (a non-empty
+    host int32 vector of m entries) of each flat int32 leaf ``flats[k]``
+    of whole 4 KiB blocks, written to the flat int32 ``outs[k]``: its
+    ``m * 1024`` words, then, ``with_index``, ``idxs[k]`` itself (the
+    device index K11 later reads; ``outs[k]`` then has ``m * 1025``
+    words), all on one device. One leaf with at most 960 indices (a
+    month leaf's 512) passes them in the launch's parameters; a larger
+    batch's table and indices travel through a pinned staging buffer
+    (never waiting for one), copied and launched by one C call."""
+    n = len(flats)
+    if not n or len(idxs) != n or len(outs) != n:
+        raise ValueError("block_gather_batch takes one index and one "
+                         "output a leaf")
+    first = flats[0]
+    if n == 1 and first.is_cuda and idxs[0].size <= _GATHER_INLINE_ROWS:
+        # the cache's one victim: its index in the launch's parameters
+        idx = idxs[0]
+        flat, n_blocks, out, copy = _gather_leaf(first, idx, outs[0],
+                                                 with_index, first.device)
+        lib = _lib("block_gather")
+        rc = lib.block_gather_inline_launch(
+            flat, n_blocks, idx.ctypes.data, idx.size, out, copy,
+            _raw_stream(first.get_device()))
+        if rc:
+            _check("block_gather", lib, rc)
+        _count_launch("block_gather")
+        return
+    blob, offset = _gather_table(flats, idxs, outs, with_index)
+    if _on_cpu(first):
+        for f, i, out in zip(flats, idxs, outs):
+            m = i.size * BLOCK_WORDS
+            out[:m].copy_(block_gather_plain(f, torch.from_numpy(i))
+                          .view(-1))
+            if with_index:
+                out[m:].copy_(torch.from_numpy(i))
+        return
+    lib = _lib("block_gather")
+    device = first.device
+    stream = torch.cuda.current_stream(device)
+    pool = _pool(device)
+    with pool.lock:
+        _, host, staged, event = pool.take(blob.size)
+        host[:blob.size] = blob
+        rc = lib.block_gather_batch_launch(
+            host.ctypes.data, staged.data_ptr(), blob.size, offset, n,
+            (blob.size - offset) // 4, stream.cuda_stream)
+        event.record(stream)
+    _check("block_gather", lib, rc)
+    _count_launch("block_gather")
+    if n > 1:
+        _count_launch("block_gather_batch")
 
 
 def block_scatter(blocks: torch.Tensor, idx: torch.Tensor, n_blocks: int,

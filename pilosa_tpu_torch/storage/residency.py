@@ -9,15 +9,18 @@ Three tiers, as in the reference. Dense entries are ready for the
 kernels. When the dense tier overflows the budget, a sparse entry (at
 most half of its 4 KiB blocks nonzero, judged from the host words at
 insert) is *demoted* instead of dropped: K10 ``block_gather`` compacts
-its nonzero blocks on the card into ``int32[nb_padded, 1024]``; a hit
-on it scatters them back into a dense tensor with K11 ``block_scatter``
-and promotes it. Other entries are dropped, then the least recently used
-compressed ones. The third tier, in host RAM with a budget of its own
+its nonzero blocks on the card into ``int32[nb_padded, 1024]``, one
+launch for every entry one eviction demotes; a hit on it scatters them
+back into a dense tensor with K11 ``block_scatter`` and promotes it.
+Other entries are dropped, then the least recently used compressed
+ones. The third tier, in host RAM with a budget of its own
 (``host_budget_bytes``), holds what heat-driven tiering
 (``storage/tiering.py``) demotes there: the compact blocks of a sparse
-entry (or the whole flat words), one upload and one K11 launch from a
-dense tensor again, on access or when the tierer's pass sees the heat
-come back. Byte accounting is the reference's (a compressed entry is
+entry, gathered on the card by one K10 launch for the step's entries
+before only they are read back (or the whole flat words, for an entry
+without a block index), one upload and one K11 launch from a dense
+tensor again, on access or when the tierer's pass sees the heat come
+back. Byte accounting is the reference's (a compressed entry is
 its blocks plus its index), so one sequence of operations makes the
 same decisions in both packages.
 
@@ -162,21 +165,39 @@ def _nbytes(t: torch.Tensor) -> int:
     return t.numel() * t.element_size()
 
 
+def _compressed_nbytes(block_idx: np.ndarray) -> int:
+    """A compressed entry's bytes, known from its block index before K10
+    has run: the padded blocks and the padded index."""
+    return next_pow2(len(block_idx)) * (COMPRESS_BLOCK_WORDS + 1) * 4
+
+
 class _CompressedEntry:
-    """A sparse entry's nonzero blocks on the card (K10's output)."""
+    """A sparse entry's nonzero blocks on the card (K10's output): one
+    flat int32 tensor of exactly its accounted bytes, the nb_padded
+    blocks, then their padded index."""
 
-    __slots__ = ("blocks", "idx", "shape", "n_blocks", "block_idx")
+    __slots__ = ("words", "shape", "n_blocks", "block_idx")
 
-    def __init__(self, blocks, idx, shape, n_blocks, block_idx):
-        self.blocks = blocks  # device int32[nb_padded, 1024]
-        self.idx = idx  # device int32[nb_padded]
+    def __init__(self, words, shape, n_blocks, block_idx):
+        self.words = words  # device int32[nb_padded * 1025]
         self.shape = shape
         self.n_blocks = n_blocks
         self.block_idx = block_idx  # host copy of the real prefix
 
     @property
+    def blocks(self) -> torch.Tensor:  # int32[nb_padded, 1024]
+        n = next_pow2(len(self.block_idx))
+        return self.words[:n * COMPRESS_BLOCK_WORDS].view(
+            n, COMPRESS_BLOCK_WORDS)
+
+    @property
+    def idx(self) -> torch.Tensor:  # int32[nb_padded]
+        return self.words[next_pow2(len(self.block_idx))
+                          * COMPRESS_BLOCK_WORDS:]
+
+    @property
     def nbytes(self) -> int:
-        return _nbytes(self.blocks) + _nbytes(self.idx)
+        return _compressed_nbytes(self.block_idx)
 
 
 class _HostEntry:
@@ -239,6 +260,9 @@ class DeviceRowCache:
         self.tier_demotions = 0  # dense/compressed -> host
         self.updates = 0
         self.write_events = 0
+        # device-to-host bytes of the demotions to the host tier (not one
+        # of the reference's metrics)
+        self.readback_bytes = 0
         # derived-entry dependency registry: key -> (tag, probe); tag ->
         # keys. apply_write routes each fragment mutation to exactly the
         # entries registered under its (scope, index, field) tag.
@@ -582,26 +606,45 @@ class DeviceRowCache:
         self._flush_patches_locked()  # the copies hold every write
         moved = 0
         freed = 0
-        for key in [k for k in self._rows if match(k)]:
-            arr = self._rows.pop(key)
-            block_idx = self._block_idx.pop(key, None)
+        dense = [(k, self._rows[k], self._block_idx.get(k))
+                 for k in self._rows if match(k)]
+        compact = self._gather_to_host_locked(
+            [(k, arr, bi) for k, arr, bi in dense
+             if bi is not None and len(bi)])
+        for key, arr, block_idx in dense:
+            del self._rows[key]
+            self._block_idx.pop(key, None)
             self._bytes -= _nbytes(arr)
             freed += _nbytes(arr)
+            moved += 1
+            shape = tuple(arr.shape)
+            if key in compact:
+                blocks, idx_host = compact[key]
+                hentry = _HostEntry(blocks, idx_host, shape,
+                                    arr.numel() // COMPRESS_BLOCK_WORDS,
+                                    block_idx)
+                self._host[key] = hentry
+                self._host_bytes += hentry.nbytes
+                continue
             # the read back to host RAM, under the lock as the reference's
             host = arr.cpu().numpy().view(np.uint32).reshape(-1)
+            self.readback_bytes += host.nbytes
             if block_idx is None:
                 # a patched entry lost its block index: recompute it
                 block_idx = self._host_block_index(host)
-            self._host_insert_locked(key, host, tuple(arr.shape), block_idx)
-            moved += 1
+            self._host_insert_locked(key, host, shape, block_idx)
         for key in [k for k in self._compressed if match(k)]:
             centry = self._compressed.pop(key)
             self._compressed_bytes -= centry.nbytes
             freed += centry.nbytes
+            words = centry.words.cpu().numpy()
+            n = words.size // (COMPRESS_BLOCK_WORDS + 1)
             hentry = _HostEntry(
-                centry.blocks.cpu().numpy().view(np.uint32),
-                centry.idx.cpu().numpy(), centry.shape, centry.n_blocks,
-                centry.block_idx)
+                words[:n * COMPRESS_BLOCK_WORDS].view(np.uint32).reshape(
+                    n, COMPRESS_BLOCK_WORDS),
+                words[n * COMPRESS_BLOCK_WORDS:], centry.shape,
+                centry.n_blocks, centry.block_idx)
+            self.readback_bytes += hentry.nbytes
             self._host[key] = hentry
             self._host_bytes += hentry.nbytes
             moved += 1
@@ -609,6 +652,33 @@ class DeviceRowCache:
             self.tier_demotions += moved
             self._evict_host_locked()
         return moved, freed
+
+    def _gather_to_host_locked(self, entries) -> dict:
+        """The compact blocks of ``(key, dense tensor, block index)``
+        entries on the host: one K10 launch gathers them all into one
+        buffer on the card, read back once, so only their blocks cross
+        to the host. Returns ``{key: (uint32 blocks, padded index)}``,
+        each array its own."""
+        if not entries:
+            return {}
+        idxs = [_padded_index(bi) for _, _, bi in entries]
+        bw = COMPRESS_BLOCK_WORDS
+        buf = torch.empty(sum(i.size for i in idxs) * bw, dtype=torch.int32,
+                          device=self.device)
+        outs, at = [], 0
+        for i in idxs:
+            outs.append(buf[at:at + i.size * bw])
+            at += i.size * bw
+        kernels.block_gather_batch([arr.reshape(-1) for _, arr, _ in entries],
+                                   idxs, outs)
+        host = buf.cpu().numpy().view(np.uint32)
+        self.readback_bytes += host.nbytes
+        compact, at = {}, 0
+        for (key, _, _), i in zip(entries, idxs):
+            compact[key] = (host[at:at + i.size * bw].reshape(i.size, bw)
+                            .copy(), i)
+            at += i.size * bw
+        return compact
 
     def _host_insert_locked(self, key: tuple, flat_host: np.ndarray,
                             shape, block_idx) -> None:
@@ -744,34 +814,53 @@ class DeviceRowCache:
         # Demotion only under real pressure: the dense tier may use the
         # whole budget while it fits. Over budget, LRU dense entries are
         # demoted (compressible) or dropped, the newest always staying;
-        # then LRU compressed entries are dropped.
-        while self.bytes_used > self.budget_bytes and len(self._rows) > 1:
+        # then LRU compressed entries are dropped, the new ones after
+        # the old. A compressed copy's bytes are known from its block
+        # index, so every decision is made first, as the reference makes
+        # it; the survivors are gathered in one K10 launch, then go in.
+        demoted: OrderedDict = OrderedDict()  # key -> (dense, block index)
+        pending = 0  # their compressed bytes
+        while self.bytes_used + pending > self.budget_bytes \
+                and len(self._rows) > 1:
             key, arr = self._rows.popitem(last=False)
             block_idx = self._block_idx.pop(key, None)
             self._bytes -= _nbytes(arr)
-            if block_idx is not None:
-                self._demote(key, arr, block_idx)  # stays, compressed
+            if block_idx is not None:  # stays, compressed
+                demoted[key] = (arr, block_idx)
+                pending += _compressed_nbytes(block_idx)
+                self.compressions += 1
             else:
                 self.evictions += 1
                 self._drop_updater(key)
-        while self.bytes_used > self.budget_bytes and self._compressed:
-            key, centry = self._compressed.popitem(last=False)
-            self._compressed_bytes -= centry.nbytes
+        while self.bytes_used + pending > self.budget_bytes \
+                and (self._compressed or demoted):
+            if self._compressed:
+                key, centry = self._compressed.popitem(last=False)
+                self._compressed_bytes -= centry.nbytes
+            else:
+                key, (_, block_idx) = demoted.popitem(last=False)
+                pending -= _compressed_nbytes(block_idx)
             self.evictions += 1
             self._drop_updater(key)
+        if demoted:
+            self._compress_locked(demoted)
 
-    def _demote(self, key: tuple, arr: torch.Tensor,
-                block_idx: np.ndarray) -> None:
-        """Dense -> compressed: one K10 launch gathers the nonzero blocks
-        (after the collected patches, so it reads the patched words). A
-        queued micro-batch holding ``arr`` keeps it alive; K10 only
-        reads it."""
+    def _compress_locked(self, demoted: OrderedDict) -> None:
+        """Dense -> compressed for ``{key: (dense tensor, block index)}``:
+        one K10 launch gathers every entry's nonzero blocks (after the
+        collected patches, so it reads the patched words) and its index
+        into a tensor of its own; then the entries go in, in order. A
+        queued micro-batch holding a dense tensor keeps it alive; K10
+        only reads it."""
         self._flush_patches_locked()
-        idx = _upload_async(_padded_index(block_idx), self.device)
-        blocks = kernels.block_gather(arr.reshape(-1), idx)
-        centry = _CompressedEntry(blocks, idx, tuple(arr.shape),
-                                  arr.numel() // COMPRESS_BLOCK_WORDS,
-                                  block_idx)
-        self._compressed[key] = centry
-        self._compressed_bytes += centry.nbytes
-        self.compressions += 1
+        idxs = [_padded_index(bi) for _, bi in demoted.values()]
+        flats = [arr.reshape(-1) for arr, _ in demoted.values()]
+        stores = [f.new_empty(i.size * (COMPRESS_BLOCK_WORDS + 1))
+                  for f, i in zip(flats, idxs)]
+        kernels.block_gather_batch(flats, idxs, stores, with_index=True)
+        for (key, (arr, block_idx)), words in zip(demoted.items(), stores):
+            centry = _CompressedEntry(words, tuple(arr.shape),
+                                      arr.numel() // COMPRESS_BLOCK_WORDS,
+                                      block_idx)
+            self._compressed[key] = centry
+            self._compressed_bytes += centry.nbytes

@@ -760,6 +760,149 @@ def test_block_gather_and_scatter_match_plain(dev, n_blocks, nb):
     assert torch.equal(back, flat)
 
 
+@pytest.mark.parametrize("n_leaves", [1, 2, 5, 16])
+def test_block_gather_batch_matches_plain(dev, n_leaves):
+    """The batched K10 bit-exact against its plain version: leaves of
+    mixed sizes (an all-zero one among them), duplicate padding, each
+    leaf's rows and index copy in outputs of its own (one without a
+    copy); the one-leaf call equal to the batch's rows."""
+    rng = np.random.default_rng(40 + n_leaves)
+    flats, idxs = [], []
+    for k in range(n_leaves):
+        n_blocks = int(rng.integers(1, 300))
+        nb = 0 if k == 1 else int(rng.integers(1, n_blocks + 1) // 2 + 1)
+        words = _sparse_blocks(rng, n_blocks, min(nb, n_blocks))
+        block_idx = np.flatnonzero(words.reshape(-1, 1024).any(axis=1)
+                                   ).astype(np.int32)
+        m = len(block_idx)
+        idx = np.full(max(1, 1 << max(m - 1, 0).bit_length()),
+                      block_idx[0] if m else 0, np.int32)
+        idx[:m] = block_idx
+        flats.append(torch.from_numpy(words.view(np.int32)).to(dev))
+        idxs.append(idx)
+    outs = [torch.full((i.size * 1025,), -7, dtype=torch.int32, device=dev)
+            for i in idxs]
+    before = kernels.launches()
+    kernels.block_gather_batch(flats, idxs, outs, with_index=True)
+    after = kernels.launches()
+    want = kernels.block_gather_batch_plain(
+        flats, [torch.from_numpy(i).to(dev) for i in idxs])
+    torch.cuda.synchronize()
+    assert torch.equal(torch.cat([o[:i.size * 1024].view(-1, 1024)
+                                  for o, i in zip(outs, idxs)]), want)
+    assert np.array_equal(torch.cat([o[i.size * 1024:] for o, i in zip(
+        outs, idxs)]).cpu().numpy(), np.concatenate(idxs))
+    assert after["block_gather"] == before["block_gather"] + 1
+    assert after["block_gather_batch"] == before["block_gather_batch"] + (
+        n_leaves > 1)
+    bare = [torch.full((i.size * 1024,), -7, dtype=torch.int32, device=dev)
+            for i in idxs]
+    kernels.block_gather_batch(flats, idxs, bare)
+    for f, i, o, b in zip(flats, idxs, outs, bare):
+        one = kernels.block_gather(f, torch.from_numpy(i).to(dev))
+        assert torch.equal(one.view(-1), o[:i.size * 1024])
+        assert torch.equal(b, o[:i.size * 1024])
+
+
+@pytest.mark.parametrize("nb", [1, 512, 960, 961, 2048])
+def test_block_gather_one_leaf_either_transport(dev, nb):
+    """One leaf through the batch wrapper: an index of at most 960
+    entries in the launch's parameters, a longer one through the staged
+    table; blocks and index copy bit-exact either way."""
+    rng = np.random.default_rng(47 + nb)
+    n_blocks = 4096
+    words = _sparse_blocks(rng, n_blocks, min(nb, 2048))
+    idx = np.sort(rng.choice(n_blocks, nb, replace=False)).astype(np.int32)
+    flat = torch.from_numpy(words.view(np.int32)).to(dev)
+    out = torch.full((nb * 1025,), -7, dtype=torch.int32, device=dev)
+    kernels.block_gather_batch([flat], [idx], [out], with_index=True)
+    want = kernels.block_gather_plain(flat, torch.from_numpy(idx).to(dev))
+    torch.cuda.synchronize()
+    assert torch.equal(out[:nb * 1024].view(nb, 1024), want)
+    assert np.array_equal(out[nb * 1024:].cpu().numpy(), idx)
+
+
+def test_block_gather_out_of_range_gives_zero_blocks(dev):
+    """An index outside its own leaf yields a zero block, in the batch
+    (a neighbour's block number past this leaf's end) and alone."""
+    rng = np.random.default_rng(44)
+    a = torch.from_numpy(_sparse_blocks(rng, 8, 8).view(np.int32)).to(dev)
+    b = torch.from_numpy(_sparse_blocks(rng, 3, 3).view(np.int32)).to(dev)
+    ia, ib = np.array([7, -1, 2, 0], np.int32), np.array([5, 2], np.int32)
+    oa = torch.full((4 * 1024,), -7, dtype=torch.int32, device=dev)
+    ob = torch.full((2 * 1024,), -7, dtype=torch.int32, device=dev)
+    kernels.block_gather_batch([a, b], [ia, ib], [oa, ob])
+    oa, ob = oa.view(4, 1024), ob.view(2, 1024)
+    torch.cuda.synchronize()
+    blocks_a, blocks_b = a.view(-1, 1024), b.view(-1, 1024)
+    assert torch.equal(oa[0], blocks_a[7]) and torch.equal(oa[2],
+                                                           blocks_a[2])
+    assert not oa[1].any() and not ob[0].any()
+    assert torch.equal(ob[1], blocks_b[2])
+    one = kernels.block_gather(b, torch.tensor([3, 1], dtype=torch.int32,
+                                               device=dev))
+    assert not one[0].any() and torch.equal(one[1], blocks_b[1])
+
+
+def test_tier_pass_gathers_on_the_card(dev):
+    """One host-tier demotion of several block-indexed stacks is one K10
+    launch; only their compact blocks are read back, the host entries
+    hold the plain gather's blocks and every leaf comes back bit-exact."""
+    from pilosa_tpu_torch.storage.residency import DeviceRowCache
+
+    rng = np.random.default_rng(45)
+    cache = DeviceRowCache(budget_bytes=64 << 20, device=dev)
+    hosts = {}
+    for n in range(6):
+        hosts[n] = _sparse_blocks(rng, 64, 2 + 3 * n).reshape(2, 32 * 1024)
+        cache.get_row(("stack", "/d", "i", "f", n), lambda h=hosts[n]:
+                      h.copy())
+    before = kernels.launches()
+    moved, freed = cache.demote_field_stacks_to_host("/d", "i", "f")
+    after = kernels.launches()
+    assert moved == 6 and freed == 6 * 2 * 32 * 1024 * 4
+    assert after["block_gather_batch"] == before["block_gather_batch"] + 1
+    assert after["block_gather"] == before["block_gather"] + 1
+    compact = 0
+    for n, host in hosts.items():
+        entry = cache._host[("stack", "/d", "i", "f", n)]
+        assert np.array_equal(entry.blocks,
+                              host.reshape(-1, 1024)[entry.idx])
+        compact += entry.blocks.nbytes
+        got = cache.get_row(("stack", "/d", "i", "f", n), lambda: 1 / 0)
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+    assert cache.readback_bytes == compact
+
+
+def test_eviction_compresses_several_victims_in_one_launch(dev):
+    """An eviction that demotes several victims gathers them in one K10
+    launch, each compressed copy in a tensor of its own (blocks and the
+    index K11 reads, exactly its accounted bytes); every one promotes
+    back bit-exact through K11."""
+    from pilosa_tpu_torch.storage.residency import DeviceRowCache
+
+    rng = np.random.default_rng(46)
+    leaf = 2 * 32 * 1024 * 4
+    cache = DeviceRowCache(budget_bytes=3 * leaf, device=dev)
+    hosts = {n: _sparse_blocks(rng, 64, 1 + 2 * n).reshape(2, 32 * 1024)
+             for n in range(4)}
+    for n, host in hosts.items():
+        cache.get_row((n,), lambda h=host: h.copy())
+    before = kernels.launches()
+    wide = rng.integers(1, 1 << 32, (5, 32 * 1024), dtype=np.uint32)
+    cache.get_row(("wide",), lambda: wide.copy())
+    after = kernels.launches()
+    assert cache.compressions == 4
+    assert after["block_gather"] == before["block_gather"] + 1
+    assert after["block_gather_batch"] == before["block_gather_batch"] + 1
+    for n in hosts:
+        centry = cache._compressed[(n,)]
+        assert centry.words.untyped_storage().nbytes() == centry.nbytes
+    for n, host in hosts.items():
+        got = cache.get_row((n,), lambda: 1 / 0)
+        assert np.array_equal(got.cpu().numpy().view(np.uint32), host)
+
+
 def test_residency_tiers_round_trip_on_the_card(dev):
     """The cache on the card: a sparse leaf demoted by K10, promoted by
     K11, moved to the host tier and served back, bit-exact; a K3 patch

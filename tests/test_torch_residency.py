@@ -135,6 +135,117 @@ def test_block_kernels_check_their_arguments():
         kernels.block_scatter(blocks[:1], idx, 4, np.array([1], np.int32))
 
 
+def _batch_case(case: str) -> list:
+    """Flat leaves of one K10 batch: mixed sizes (an [S, W] leaf, one row,
+    an [R, S, W] matrix), an all-zero leaf among them, or a batch of
+    one."""
+    if case == "one":
+        return [_leaf(0).reshape(-1)]
+    if case == "zero":
+        return [_leaf(1).reshape(-1), _leaf(0).reshape(-1)]
+    rng = np.random.default_rng(64)
+    return [_leaf(0).reshape(-1), sparse_row(rng, 5), _leaf(2).reshape(-1),
+            sparse_row(rng, 1)]
+
+
+def _block_index(flat: np.ndarray) -> np.ndarray:
+    return np.flatnonzero(flat.reshape(-1, BW).any(axis=1)).astype(np.int32)
+
+
+def _gather_outs(idxs, with_index: bool = True) -> list:
+    """Per-leaf flat K10 outputs, the blocks then (``with_index``) the
+    index copy, poisoned, so every word checked was written."""
+    return [torch.full((i.size * (BW + with_index),), -7, dtype=torch.int32)
+            for i in idxs]
+
+
+@pytest.mark.parametrize("case", ["mixed", "zero", "one"])
+def test_block_gather_batch_plain_matches_reference(case):
+    """The batched K10's plain version, and the wrapper on CPU tensors,
+    against ``_gather_blocks`` leaf by leaf: each leaf's padded index
+    (duplicates past the real prefix), the plain rows concatenated in
+    leaf order, the wrapper's in each leaf's own output with its index
+    copy beside them."""
+    flats = _batch_case(case)
+    idxs = [_padded(_block_index(f)) for f in flats]
+    want = [np.asarray(jres._gather_blocks(f, i, BW))
+            for f, i in zip(flats, idxs)]
+    plain = kernels.block_gather_batch_plain(
+        [_t(f) for f in flats], [torch.from_numpy(i) for i in idxs])
+    assert plain.dtype == torch.int32 and plain.shape == (
+        sum(i.size for i in idxs), BW)
+    outs = _gather_outs(idxs)
+    kernels.block_gather_batch([_t(f) for f in flats], idxs, outs,
+                               with_index=True)
+    bare = _gather_outs(idxs, with_index=False)
+    kernels.block_gather_batch([_t(f) for f in flats], idxs, bare)
+    rows = 0
+    for w, i, out, b in zip(want, idxs, outs, bare):
+        assert np.array_equal(_u(plain[rows:rows + i.size]), w)
+        assert np.array_equal(_u(out[:i.size * BW]).reshape(-1, BW), w)
+        assert np.array_equal(out[i.size * BW:].numpy(), i)
+        assert np.array_equal(_u(b).reshape(-1, BW), w)
+        rows += i.size
+
+
+@pytest.mark.parametrize("case", ["mixed", "zero", "one"])
+def test_block_gather_table_layout(case):
+    """The table the batched kernel reads (csrc/block_gather.cu): each
+    leaf's address, block count, output and index copy (0 without one),
+    the row starts, zero padding to a 16-byte offset, then the
+    concatenated indices."""
+    flats = [_t(f) for f in _batch_case(case)]
+    idxs = [_padded(_block_index(_u(f))) for f in flats]
+    n = len(flats)
+    for with_index in (True, False):
+        outs = _gather_outs(idxs, with_index)
+        blob, offset = kernels._gather_table(flats, idxs, outs, with_index)
+        assert offset % 16 == 0 and offset >= 36 * n + 4
+        assert blob.size == offset + 4 * sum(i.size for i in idxs)
+        leaves = blob[:32 * n].view(np.int64).reshape(n, 4)
+        assert leaves.tolist() == [
+            [f.data_ptr(), f.numel() // BW, o.data_ptr(),
+             o[i.size * BW:].data_ptr() if with_index else 0]
+            for f, o, i in zip(flats, outs, idxs)]
+        assert list(blob[32 * n:36 * n + 4].view(np.int32)) == list(
+            np.cumsum([0] + [i.size for i in idxs]))
+        assert not blob[36 * n + 4:offset].any()
+        assert np.array_equal(blob[offset:].view(np.int32),
+                              np.concatenate(idxs))
+
+
+def test_block_gather_batch_checks_its_arguments():
+    flat = torch.zeros(4 * BW, dtype=torch.int32)
+    idx = np.array([1, 3], np.int32)
+    out = torch.zeros(2 * BW, dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([], [], [])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [idx, idx], [out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [idx], [out, out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat[:BW + 1]], [idx], [out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [idx.astype(np.int64)], [out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [np.zeros(0, np.int32)], [out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [np.array([[1, 3]], np.int32)],
+                                   [out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat.long()], [idx], [out])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [idx], [out[:BW]])
+    with pytest.raises(ValueError):  # no room for the index copy
+        kernels.block_gather_batch([flat], [idx], [out], with_index=True)
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch([flat], [idx], [out.view(2, BW)])
+    with pytest.raises(ValueError):
+        kernels.block_gather_batch(
+            [flat], [idx], [torch.zeros(4 * BW, dtype=torch.int32)[::2]])
+
+
 # -------------------------------------------------------- cache twins
 
 
@@ -690,6 +801,137 @@ def test_pacer_shapes_promotions():
 
     rec = _tiering_twins(scenario)
     assert len(rec[1]) == 3
+
+
+class GatherSpy:
+    """Counts the port cache's K10 calls: batches and the leaves in each."""
+
+    def __init__(self, monkeypatch):
+        self.batches = []
+        real = kernels.block_gather_batch
+
+        def spy(flats, idxs, outs, **kw):
+            self.batches.append(len(flats))
+            return real(flats, idxs, outs, **kw)
+
+        monkeypatch.setattr(kernels, "block_gather_batch", spy)
+
+
+def _stack(field: str, n) -> tuple:
+    return ("stack", "/d", "i", field, ("standard",), n, "blk")
+
+
+def _patch_both(c: Twin, key, slot: int, words: np.ndarray,
+                masks: np.ndarray) -> None:
+    """One write routed to ``key`` in both caches: the reference's
+    functional OR, the port's K3 ``WordPatch``."""
+    import jax.numpy as jnp
+
+    delta = np.zeros((2, W), np.uint32)
+    delta[slot, words] = masks
+    c.ref.register_updater(key, ("/d", "i", "f"),
+                           lambda ev: (lambda arr: arr | jnp.asarray(delta))
+                           if ev.row == 9 else None)
+    c.port.register_updater(key, ("/d", "i", "f"),
+                            lambda ev: pres.WordPatch(slot, None, words,
+                                                      masks, False)
+                            if ev.row == 9 else None)
+    c.both(lambda cache: cache.apply_write(
+        (jres if cache is c.ref else pres).WriteEvent(
+            "i", "f", "standard", 0, 9, scope="/d")))
+
+
+def _host_entries_equal(c: Twin) -> None:
+    assert list(c.port._host) == list(c.ref._host)
+    for key, want in c.ref._host.items():
+        got = c.port._host[key]
+        assert np.array_equal(got.blocks, np.asarray(want.blocks)), key
+        assert got.blocks.dtype == np.asarray(want.blocks).dtype
+        if want.idx is None:
+            assert got.idx is None
+        else:
+            assert np.array_equal(got.idx, np.asarray(want.idx))
+        assert tuple(got.shape) == tuple(want.shape)
+        assert got.n_blocks == want.n_blocks
+        if want.block_idx is None:
+            assert got.block_idx is None
+        else:
+            assert np.array_equal(got.block_idx, want.block_idx)
+
+
+def test_demotion_sequence_matches_reference(monkeypatch):
+    """Writes, evictions and one host-tier demotion through both caches:
+    an eviction that demotes several victims decides as the reference
+    does in one K10 launch; the demotion of a field's stacks (sparse
+    dense entries, a K3-patched one, an incompressible one, an all-zero
+    one and compressed copies) gathers every block-indexed entry in one
+    launch and leaves equal host entries, metrics and tier overlays;
+    every entry comes back equal to its words."""
+    spy = GatherSpy(monkeypatch)
+    rng = np.random.default_rng(71)
+    c = Twin(budget_bytes=16 * ROW_BYTES, host_budget_bytes=64 << 20)
+    hosts = {n: np.stack([sparse_row(rng, int(rng.integers(1, 6)))
+                          for _ in range(2)]) for n in range(5)}
+    hosts["full"] = rng.integers(1, 1 << 32, (2, W), dtype=np.uint32)
+    hosts["zero"] = np.zeros((2, W), np.uint32)
+    for n, host in hosts.items():
+        c.get(_stack("f", n), host)
+    assert c.port.compressions == 0 and not spy.batches
+    # a K3 patch of entry 3: it keeps its words on the card, loses its
+    # block index
+    words = np.array([7, 4000, 30000], np.int32)
+    masks = np.array([1, 0x80000000, 0xFFFF], np.uint32)
+    _patch_both(c, _stack("f", 3), 1, words, masks)
+    hosts[3] = hosts[3].copy()
+    hosts[3][1, words] |= masks
+    assert c.port.updates == 1
+    # a wide leaf over budget: the LRU victims 0, 1 and 2 are demoted
+    # together (one launch) until it fits
+    wide = np.stack([sparse_row(rng, 3) for _ in range(6)])
+    c.get(_stack("g", 0), wide)
+    assert c.port.compressions == 3 and spy.batches == [3]
+    for n in (0, 1, 2):
+        # each copy owns exactly its accounted bytes
+        centry = c.port._compressed[_stack("f", n)]
+        assert centry.words.untyped_storage().nbytes() == centry.nbytes
+        assert centry.idx.untyped_storage().data_ptr() == \
+            centry.blocks.untyped_storage().data_ptr()
+    # one step of the tierer: the field's stacks to host
+    want = c.ref.demote_field_stacks_to_host("/d", "i", "f")
+    assert c.port.demote_field_stacks_to_host("/d", "i", "f") == want
+    c.check()
+    assert want[0] == 7
+    assert spy.batches == [3, 1]  # entry 4 alone is dense and indexed
+    _host_entries_equal(c)
+    # read back: the whole words of the patched, full and zero entries,
+    # the compressed copies' blocks and indices, entry 4's blocks alone
+    host = c.port._host
+    assert c.port.readback_bytes == 3 * 2 * ROW_BYTES + sum(
+        host[_stack("f", n)].nbytes for n in (0, 1, 2)) + \
+        host[_stack("f", 4)].blocks.nbytes
+    for n, host in hosts.items():
+        assert np.array_equal(c.get(_stack("f", n), host), host), n
+    assert all(c.decodes(_stack("f", n)) == 1 for n in hosts)
+
+
+def test_demotion_eviction_of_gathered_victims_matches_reference(
+        monkeypatch):
+    """An eviction whose own second loop drops compressed copies it has
+    just made: the same entries end compressed, dropped and evicted as
+    in the reference, and only the survivors are gathered."""
+    spy = GatherSpy(monkeypatch)
+    rng = np.random.default_rng(72)
+    c = Twin(budget_bytes=3 * ROW_BYTES + (100 << 10))
+    rows = {n: sparse_row(rng, 16) for n in range(3)}
+    for n, row in rows.items():
+        c.get((n,), row)
+    big = rng.integers(1, 1 << 32, (3, W), dtype=np.uint32)
+    c.get(("big",), big)  # 0, 1, 2 compressed; 0 and 1 dropped again
+    assert c.port.compressions == 3 and c.port.evictions == 2
+    assert list(c.port._compressed) == [(2,)] and spy.batches == [1]
+    for n, row in rows.items():
+        assert np.array_equal(c.get((n,), row), row)
+    assert [c.decodes((n,)) for n in rows] == [2, 2, 1]
 
 
 # --------------------------------------------------------------- heat
