@@ -33,7 +33,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    also writes payment_type, the repository worker the users index and
    the 84 pickup_month rows)
    write the data directory from the same host words;
-4. drive six main paths through the port's HTTP server on 127.0.0.1 over
+4. drive seven main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -88,7 +88,24 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       key that opens a fifth users shard, 1000 keys through
       /internal/translate/keys then /import by id, and the translate
       log's new bytes;
-   f. the tier path (the NYC TLC months as Litwintschik's benchmark
+   f. the wire path (the NYC TLC trip records' store_and_fwd_flag, 1% of
+      the rides, as Litwintschik's benchmark loads it): /schema, GET
+      /index/rides, /internal/shards/max, /version and /info; a set
+      field ``store_and_fwd_flag`` whose row 1 is made resident, then
+      loaded through import-roaring by 16 clients, one shard's bits a
+      request in bodies under /status's maxWritesPerRequest (odd shards
+      in upstream pilosa's roaring layout), one K3 launch a request, and
+      one body over the limit (413); 16 closed-loop protobuf clients
+      (QueryRequest in, QueryResponse out, decoded by the port's
+      decode_results_json) for 20 s and the same five shapes as JSON
+      for 10 s (an Intersect Count, a filtered TopN, a Sum, a filtered
+      GroupBy and a Row over two shards); a protobuf ImportRequest and
+      ImportValueRequest of 4096 bits and values (one K3 launch each);
+      the /export CSV (about 10.7 M lines) against the oracle's SHA-256;
+      /metrics parsed; the field deleted (its leaves leave the card, its
+      directory the disk, a query of it gets the reference's 400),
+      re-created empty on the card and deleted again;
+   g. the tier path (the NYC TLC months as Litwintschik's benchmark
       loads them): a set field ``pickup_month`` of 84 contiguous-range
       rows on ``rides``; the budget lowered to 16 dense months beside
       the cab_type leaves; 16 concurrent clients over a month x cab
@@ -137,6 +154,7 @@ import argparse
 import copy
 import datetime as dt
 import errno
+import hashlib
 import http.client
 import itertools
 import json
@@ -1268,12 +1286,13 @@ def _check_crash_time_mutex(holder, ex, oracle: dict, inflight: list
 
 
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
-                   taxi: dict, events: dict, users: dict, months: dict, rng,
-                   kernels, verify_on_load: bool) -> dict:
+                   taxi: dict, events: dict, users: dict, wire: dict,
+                   months: dict, rng, kernels, verify_on_load: bool) -> dict:
     """Phase 4 through one server: the Star-Trace path, the rides path,
-    the taxi path, the time path, the keys path and the tier path, each
-    with the launch counters zeroed just before it and read just after.
-    Returns {path: (numbers, launches)}."""
+    the taxi path, the time path, the keys path, the wire path and the
+    tier path (last: it lowers the residency budget), each with the
+    launch counters zeroed just before it and read just after. Returns
+    {path: (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
 
     # verify-on-load (the port's default) digests every bit id of the
@@ -1299,6 +1318,7 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                 ("keys", lambda: _serve_keys(
                     server, keys_truth(taxi["keys"], users), taxi["keys"],
                     users)),
+                ("wire", lambda: _serve_wire(server, wire, kernels)),
                 ("tier", lambda: _serve_tier(server, months, rng))):
             kernels.reset_launches()
             stats = serve()
@@ -2023,11 +2043,10 @@ TIME_SINGLES = [
 ]
 
 
-def _bernoulli_words(rng, log2: int) -> np.ndarray:
-    """uint32 words of the 2^30 columns, each column set with probability
-    2^-log2 on its own: the gaps between set columns are geometric."""
+def _bernoulli_columns(rng, p: float) -> np.ndarray:
+    """The sorted columns of the 2^30, each in with probability ``p`` on
+    its own: the gaps between them are geometric."""
     n_cols = N_SHARDS * WORDS * 32
-    p = 1.0 / (1 << log2)
     parts, end = [], -1
     while end < n_cols:
         n = int((n_cols - end) * p * 1.01) + 4096
@@ -2035,13 +2054,23 @@ def _bernoulli_words(rng, log2: int) -> np.ndarray:
         parts.append(steps)
         end = int(steps[-1])
     pos = np.concatenate(parts)
-    pos = pos[pos < n_cols]
+    return pos[pos < n_cols]
+
+
+def _words_of(pos: np.ndarray) -> np.ndarray:
+    """uint32 words of the 2^30 columns with the sorted ``pos`` set."""
     word = pos >> 5
     bits = np.uint32(1) << (pos & 31).astype(np.uint32)
     starts = np.flatnonzero(np.diff(word, prepend=-1))
     out = np.zeros(N_SHARDS * WORDS, np.uint32)
     out[word[starts]] = np.bitwise_or.reduceat(bits, starts)
     return out
+
+
+def _bernoulli_words(rng, log2: int) -> np.ndarray:
+    """uint32 words of the 2^30 columns, each column set with probability
+    2^-log2 on its own."""
+    return _words_of(_bernoulli_columns(rng, 1.0 / (1 << log2)))
 
 
 def _share_rows(seed: int, tag: int, shares) -> dict:
@@ -2602,6 +2631,420 @@ def _serve_keys(server, truth: dict, o: dict, u: dict) -> dict:
     stats["resident_bytes"] = server.holder.cache.bytes_used
     rides.close()
     users.close()
+    return stats
+
+
+# ---------------------------------------------------------------- wire path
+
+# The wire path: the NYC TLC trip records' store_and_fwd_flag column (row
+# 1, "Y": the trip was held in the vehicle before it reached the vendor),
+# as Litwintschik's "1.1 Billion Taxi Rides" loads it, on the 2^30 rides:
+# each ride Y with probability 1%, about 10 486 a shard. A bulk loader
+# sends it as upstream pilosa's loaders do, one shard's bits a request to
+# import-roaring (odd shards in upstream pilosa's roaring layout, even
+# ones in the port's), in bodies under /status's maxWritesPerRequest as
+# the reference's CLI splits them; then protobuf clients send
+# QueryRequest bodies and read QueryResponse answers as go-pilosa and
+# python-pilosa do, and the same shapes as JSON beside them.
+SFF = "store_and_fwd_flag"
+SFF_P = 0.01
+WIRE_CLIENTS = 16
+WIRE_PROTO_S = 20.0   # the protobuf clients' closed loop
+WIRE_JSON_S = 10.0    # the same shapes as JSON
+WIRE_WRITES = 4096    # bits of the protobuf ImportRequest, values of the
+WIRE_SHARDS = (0, 1)  # ImportValueRequest; the Row shape's shards
+WIRE_SERIAL = 16      # import-roaring requests sent one at a time
+WIRE_SHAPES = [
+    f"Count(Intersect(Row({SFF}=1), Row(cab_type=0)))",
+    f"TopN(cab_type, Row({SFF}=1), n=3)",
+    f'Sum(Row({SFF}=1), field="fare")',
+    f"GroupBy(Rows(cab_type), filter=Row({SFF}=1))",
+    f"Row({SFF}=1)",  # over WIRE_SHARDS alone
+]
+LEAF_BYTES = N_SHARDS * WORDS * 4  # one row across the 1024 shards
+
+
+def wire_truth(rides: dict, seed: int) -> dict:
+    """The store_and_fwd_flag columns (row 1) from ``seed``, every wire
+    answer from them and the rides' host words, the protobuf writes' rows
+    and values (on rides with no tip), and the tip Sum after them."""
+    rng = np.random.default_rng([seed, 14])
+    pos = _bernoulli_columns(rng, SFF_P)
+    words = _words_of(pos)
+    counts = [_popcount(words & rides["cab"][r]) for r in range(3)]
+    word, bit = pos >> 5, (pos & 31).astype(np.uint32)
+    planes = rides["fare"]
+    has = ((planes[0, word] >> bit) & 1) == 1
+    fare = np.zeros(pos.size, np.int64)
+    for i in range(FARE_DEPTH):
+        fare |= (((planes[2 + i, word] >> bit) & 1).astype(np.int64) << i)
+    truth = dict(zip(WIRE_SHAPES, [
+        counts[0],
+        _pairs(counts, range(3), 3),
+        {"value": int(fare[has].sum()), "count": int(has.sum())},
+        _groups(["cab_type"], [(r,) for r in range(3)], counts),
+        {"attrs": {}, "columns": pos[pos < len(WIRE_SHARDS) * WORDS * 32]
+         .tolist()},
+    ]))
+    n_cols = N_SHARDS * WORDS * 32
+    row2 = np.sort(rng.choice(n_cols, WIRE_WRITES, replace=False))
+    cand = rng.choice(n_cols, 2 * WIRE_WRITES, replace=False)
+    tip_cols = np.sort(cand[~np.isin(cand, rides["tip_cols"])][:WIRE_WRITES])
+    tip_vals = rng.integers(0, TIP_MAX + 1, tip_cols.size)
+    tips = np.concatenate([rides["tip_vals"], tip_vals])
+    csv = _export_oracle(pos, row2)
+    return {"truth": truth, "pos": pos, "row2": row2, "tip_cols": tip_cols,
+            "export_sha256": hashlib.sha256(csv).digest(),
+            "export_bytes": len(csv),
+            "tip_vals": tip_vals,
+            "tip_sum": {"value": int(rides["tip_vals"].sum()),
+                        "count": int(rides["tip_vals"].size)},
+            "tip_sum_after": {"value": int(tips.sum()),
+                              "count": int(tips.size)}}
+
+
+def _export_oracle(pos: np.ndarray, row2: np.ndarray) -> bytes:
+    """The export's CSV from the host columns, in shard, row and column
+    order (formatted by Python's int-to-string, not the server's numpy
+    path)."""
+    rows = np.concatenate([np.ones(pos.size, np.int64),
+                           np.full(row2.size, 2, np.int64)])
+    cols = np.concatenate([pos, row2]).astype(np.int64)
+    order = np.lexsort((cols, rows, cols >> 20))
+    lines = map("{},{}\n".format, rows[order].tolist(),
+                cols[order].tolist())
+    return "".join(lines).encode()
+
+
+def _get_json(port: int, path: str):
+    status, _, body = _http(port, "GET", path)
+    if status != 200:
+        fail(f"GET {path} answered {status}: {body[:300]!r}")
+    return json.loads(body)
+
+
+def _metric_families(text: str) -> dict:
+    """name -> value of a Prometheus page; every family must lead with its
+    HELP and TYPE lines."""
+    meta: dict = {}
+    values: dict = {}
+    for line in text.splitlines():
+        if line.startswith("# "):
+            kind, name = line.split(" ")[1:3]
+            meta.setdefault(name, set()).add(kind)
+            continue
+        name, value = line.split(" ")
+        if meta.get(name) != {"HELP", "TYPE"}:
+            fail(f"/metrics: {name} has no HELP and TYPE lines")
+        values[name] = float(value)
+    return values
+
+
+def _wire_loop(port: int, requests: list, truth: list, seconds: float,
+               decode) -> tuple[list, dict]:
+    """WIRE_CLIENTS keep-alive clients sending ``requests`` ((path, body,
+    headers) each) round robin for ``seconds``, each answer decoded by
+    ``decode`` and held against ``truth``; (latencies, {shape index:
+    latencies})."""
+    errors, latencies, per_shape = [], [], {}
+    lock = threading.Lock()
+    stop = time.perf_counter() + seconds
+
+    def client(k: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            j = k
+            while time.perf_counter() < stop:
+                i = j % len(requests)
+                path, body, headers = requests[i]
+                t = time.perf_counter()
+                conn.request("POST", path, body=body, headers=headers)
+                resp = conn.getresponse()
+                raw = resp.read()
+                dt = time.perf_counter() - t
+                got = (decode(raw)["results"][0] if resp.status == 200
+                       else (resp.status, raw[:200]))
+                with lock:
+                    latencies.append(dt)
+                    per_shape.setdefault(i, []).append(dt)
+                    if got != truth[i]:
+                        errors.append((i, str(got)[:200]))
+                j += 1
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(WIRE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            fail("a wire client hung")
+    if errors or not latencies:
+        fail(f"wire answers wrong or missing: {errors[:3]}")
+    return latencies, per_shape
+
+
+def _k3_of(kernels) -> int:
+    return kernels.launches()["word_patch"]
+
+
+def _serve_wire(server, wt: dict, kernels) -> dict:
+    """Phase 4, the wire path on ``rides``: the schema surface, a bulk
+    import-roaring load of store_and_fwd_flag (one K3 launch a request),
+    protobuf and JSON clients, protobuf writes, the export, /metrics and
+    the field's delete; returns its numbers."""
+    import torch
+
+    from pilosa_tpu_torch import __version__
+    from pilosa_tpu_torch.roaring import RoaringBitmap
+    from pilosa_tpu_torch.roaring.format import serialize, serialize_pilosa
+    from pilosa_tpu_torch.wire import pb2
+    from pilosa_tpu_torch.wire.serializer import (
+        decode_results_json,
+        encode_import_request,
+        encode_import_value_request,
+    )
+
+    t_path = time.perf_counter()
+    stats: dict = {}
+    port = server.port
+    rides_dir = Path(server.holder.data_dir) / "rides"
+    c = Client(port, "rides")
+
+    # 1. the schema surface
+    schema = _get_json(port, "/schema")
+    rides = [i for i in schema["indexes"] if i["name"] == "rides"][0]
+    on_disk = sorted(p.name for p in rides_dir.iterdir()
+                     if p.is_dir() and not p.name.startswith((".", "_")))
+    if sorted(f["name"] for f in rides["fields"]) != on_disk:
+        fail(f"/schema lists {[f['name'] for f in rides['fields']]}, the "
+             f"data dir holds {on_disk}")
+    if _get_json(port, "/index/rides") != rides:
+        fail("GET /index/rides differs from its /schema entry")
+    if _get_json(port, "/internal/shards/max")["standard"]["rides"] != \
+            N_SHARDS - 1:
+        fail("/internal/shards/max does not give rides its last shard")
+    if _get_json(port, "/version") != {"version": __version__}:
+        fail("/version is not the package's")
+    devices = _get_json(port, "/info")["devices"]
+    if devices != [{"id": 0, "platform": "gpu",
+                    "kind": torch.cuda.get_device_name(0)}]:
+        fail(f"/info lists the devices {devices}")
+    stats["fields_listed"] = len(on_disk)
+
+    # 2. the bulk roaring load into a resident (empty) row
+    status, resp = c.post(f"/index/rides/field/{SFF}", b"{}")
+    if status != 200:
+        fail(f"creating {SFF} answered {status} {resp!r}")
+    if c.query(f"Count(Row({SFF}=1))") != [0]:
+        fail(f"the new {SFF} is not empty")
+    limit = _get_json(port, "/status")["maxWritesPerRequest"]
+    pos = wt["pos"]
+    t0 = time.perf_counter()
+    bounds = np.searchsorted(pos, np.arange(N_SHARDS + 1) * WORDS * 32)
+    bodies = []
+    for s in range(N_SHARDS):
+        local = pos[bounds[s]:bounds[s + 1]] - s * WORDS * 32
+        for part in np.array_split(local, -(-local.size // limit)):
+            b = RoaringBitmap()
+            b.add_ids((np.uint64(1) << np.uint64(20)) + part.astype(np.uint64))
+            blob = serialize_pilosa(b) if s % 2 else serialize(b)
+            bodies.append((s, int(part.size), blob))
+    stats["load_encode_s"] = time.perf_counter() - t0
+    ops_before = _metric_families(_http(port, "GET", "/metrics")[2].decode())
+    errors: list = []
+    lock = threading.Lock()
+    next_body = itertools.count()
+
+    def loader(stop: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            while (i := next(next_body)) < stop:
+                shard, n, blob = bodies[i]
+                conn.request("POST", f"/index/rides/field/{SFF}/"
+                             f"import-roaring/{shard}", body=blob,
+                             headers={"Content-Type":
+                                      "application/octet-stream"})
+                resp = conn.getresponse()
+                raw = resp.read()
+                if resp.status != 200 or json.loads(raw)["changed"] != n:
+                    with lock:
+                        errors.append((shard, resp.status, raw[:200]))
+        finally:
+            conn.close()
+
+    # the first WIRE_SERIAL requests one at a time: each is one K3 launch;
+    # then the rest from WIRE_CLIENTS clients, where a request's flush
+    # also launches the patches other requests collected before it
+    k3_before = _k3_of(kernels)
+    loader(WIRE_SERIAL)
+    k3_serial = _k3_of(kernels) - k3_before
+    if errors or k3_serial != WIRE_SERIAL:
+        fail(f"{WIRE_SERIAL} serial import-roaring requests made "
+             f"{k3_serial} K3 launches: {errors[:3]}")
+    next_body = itertools.count(WIRE_SERIAL)
+    k3_before = _k3_of(kernels)
+    t0 = time.perf_counter()
+    threads = [threading.Thread(target=loader, args=(len(bodies),))
+               for _ in range(WIRE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=900)
+        if t.is_alive():
+            fail("an import-roaring client hung")
+    load_s = time.perf_counter() - t0
+    if errors:
+        fail(f"import-roaring failed: {errors[:3]}")
+    k3 = _k3_of(kernels) - k3_before
+    n_conc = len(bodies) - WIRE_SERIAL
+    bits = int(bounds[N_SHARDS] - bounds[0]) - sum(
+        n for _, n, _ in bodies[:WIRE_SERIAL])
+    stats.update(load_s=load_s, load_requests=len(bodies),
+                 load_concurrent_requests=n_conc, load_bits=int(pos.size),
+                 load_bits_per_s=bits / load_s,
+                 k3_launches_per_serial_request=k3_serial / WIRE_SERIAL,
+                 k3_launches_per_concurrent_request=k3 / n_conc)
+    print(f"import-roaring: {pos.size} bits in {len(bodies)} requests "
+          f"(encode {stats['load_encode_s']:.1f}s); {WIRE_SERIAL} serial "
+          f"requests, K3 launches a request {k3_serial / WIRE_SERIAL}; "
+          f"{n_conc} requests over {WIRE_CLIENTS} clients in {load_s:.3f}s "
+          f"({bits / load_s:.0f} bits/s), K3 launches a request "
+          f"{k3 / n_conc}", flush=True)
+    if not 0 < k3 <= n_conc:
+        fail(f"the load made {k3} K3 launches in {n_conc} requests")
+    over = RoaringBitmap()
+    over.add_ids((np.uint64(1) << np.uint64(20))
+                 + np.arange(limit + 1, dtype=np.uint64))
+    status, resp = c.post(f"/index/rides/field/{SFF}/import-roaring/0",
+                          serialize(over))
+    want = {"error": f"import-roaring body of {limit + 1} bits exceeds "
+                     f"max-writes-per-request {limit}; split the bitmap"}
+    if (status, json.loads(resp)) != (413, want):
+        fail(f"an over-limit body answered {status} {resp[:200]!r}")
+    if c.query(f"Count(Row({SFF}=1))") != [int(pos.size)]:
+        fail(f"Count(Row({SFF}=1)) after the load differs from the oracle")
+
+    # 3. protobuf clients, then the same shapes as JSON
+    p = pb2()
+    proto_h = {"Content-Type": "application/x-protobuf",
+               "Accept": "application/x-protobuf"}
+    truth = [wt["truth"][q] for q in WIRE_SHAPES]
+    proto = [("/index/rides/query", p.QueryRequest(
+        query=q, shards=list(WIRE_SHARDS) if q == WIRE_SHAPES[-1] else []
+    ).SerializeToString(), proto_h) for q in WIRE_SHAPES]
+    as_json = [("/index/rides/query" + (
+        "?shards=" + ",".join(map(str, WIRE_SHARDS))
+        if q == WIRE_SHAPES[-1] else ""), q.encode(), {})
+        for q in WIRE_SHAPES]
+    for name, reqs, seconds, decode in (
+            ("protobuf", proto, WIRE_PROTO_S, decode_results_json),
+            ("json", as_json, WIRE_JSON_S, json.loads)):
+        t0 = time.perf_counter()
+        lat, per_shape = _wire_loop(port, reqs, truth, seconds, decode)
+        wall = time.perf_counter() - t0
+        stats[name] = {**_latency_stats(lat, wall),
+                       "p50_ms_by_shape": {
+                           WIRE_SHAPES[i]: _p50_ms(v)
+                           for i, v in sorted(per_shape.items())}}
+        print(f"wire {name}: {json.dumps(stats[name])}", flush=True)
+
+    # 4. protobuf writes into resident leaves: one K3 launch each
+    if c.query(f"Count(Row({SFF}=2))") != [0]:
+        fail(f"row 2 of {SFF} is not empty")
+    if c.query('Sum(field="tip")') != [wt["tip_sum"]]:
+        fail("Sum(field=tip) before the protobuf import-value differs")
+    for what, path, body, check, want in (
+            ("import", f"/index/rides/field/{SFF}/import",
+             encode_import_request("rides", SFF, [2] * WIRE_WRITES,
+                                   wt["row2"]),
+             f"Count(Row({SFF}=2))", WIRE_WRITES),
+            ("import-value", "/index/rides/field/tip/import-value",
+             encode_import_value_request("rides", "tip", wt["tip_cols"],
+                                         wt["tip_vals"]),
+             'Sum(field="tip")', wt["tip_sum_after"])):
+        before = _k3_of(kernels)
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        t0 = time.perf_counter()
+        conn.request("POST", path, body=body,
+                     headers={"Content-Type": "application/x-protobuf"})
+        resp = conn.getresponse()
+        raw = resp.read()
+        conn.close()
+        stats[f"protobuf_{what}_ms"] = 1e3 * (time.perf_counter() - t0)
+        launched = _k3_of(kernels) - before
+        stats[f"protobuf_{what}_k3_launches"] = launched
+        if resp.status != 200 or launched != 1:
+            fail(f"protobuf {what}: {resp.status} {raw[:200]!r}, "
+                 f"{launched} K3 launches")
+        if c.query(check) != [want]:
+            fail(f"{check} after the protobuf {what} differs from the "
+                 "oracle")
+
+    # 5. the export, against the CSV of the oracle's columns
+    t0 = time.perf_counter()
+    status, _, body = _http(port, "GET", f"/export?index=rides&field={SFF}")
+    export_s = time.perf_counter() - t0
+    if status != 200 or hashlib.sha256(body).digest() != \
+            wt["export_sha256"]:
+        fail(f"/export answered {status} with {len(body)} bytes, not the "
+             f"oracle's {wt['export_bytes']}")
+    stats.update(export_s=export_s, export_bytes=len(body),
+                 export_mb_per_s=len(body) / 1e6 / export_s,
+                 export_lines=body.count(b"\n"))
+    print(f"export: {stats['export_lines']} lines, {len(body)} bytes in "
+          f"{export_s:.3f}s ({stats['export_mb_per_s']:.1f} MB/s), sha256 "
+          "equal to the oracle's", flush=True)
+    del body
+
+    # 6. /metrics
+    families = _metric_families(_http(port, "GET", "/metrics")[2].decode())
+    for name in ("pilosa_tpu_residency_hits_total",
+                 "pilosa_tpu_residency_bytes_used",
+                 "pilosa_tpu_residency_tier_passes_total",
+                 "pilosa_tpu_wal_appended_ops_total",
+                 "pilosa_tpu_wal_commit_recoveries_total",
+                 "pilosa_tpu_storage_degraded",
+                 "pilosa_tpu_scrub_passes_total"):
+        if name not in families:
+            fail(f"/metrics has no {name}")
+    grown = (families["pilosa_tpu_wal_appended_ops_total"]
+             - ops_before["pilosa_tpu_wal_appended_ops_total"])
+    if grown < len(bodies):
+        fail(f"the WAL's ops grew by {grown} over {len(bodies)} requests")
+    stats.update(metrics_families=len(families), wal_ops_grown=int(grown))
+
+    # 7. the delete: the leaves leave the card, the files the disk
+    resident = server.holder.cache.bytes_used
+    status, _, resp = _http(port, "DELETE", f"/index/rides/field/{SFF}")
+    if (status, resp) != (200, b"{}"):
+        fail(f"DELETE of {SFF} answered {status} {resp[:200]!r}")
+    freed = resident - server.holder.cache.bytes_used
+    stats["delete_freed_bytes"] = freed
+    if freed < LEAF_BYTES:
+        fail(f"the delete freed {freed} resident bytes, not a leaf's "
+             f"{LEAF_BYTES}")
+    if (rides_dir / SFF).exists():
+        fail(f"{rides_dir / SFF} is still on disk")
+    status, resp = c.post("/index/rides/query",
+                          f"Count(Row({SFF}=1))".encode())
+    if (status, json.loads(resp)) != (
+            400, {"error": f"field '{SFF}' not found"}):
+        fail(f"a query of the deleted field answered {status} {resp!r}")
+    status, resp = c.post(f"/index/rides/field/{SFF}", b"{}")
+    counts = kernels.launches()["tree_count"]
+    if status != 200 or c.query(f"Count(Row({SFF}=1))") != [0]:
+        fail(f"the re-created {SFF} is not empty")
+    if kernels.launches()["tree_count"] <= counts:
+        fail("the re-created field's Count did not run on the card")
+    status, _, resp = _http(port, "DELETE", f"/index/rides/field/{SFF}")
+    if status != 200:
+        fail(f"the second DELETE of {SFF} answered {status}")
+    stats["resident_bytes"] = server.holder.cache.bytes_used
+    stats["path_s"] = time.perf_counter() - t_path
+    c.close()
     return stats
 
 
@@ -3797,6 +4240,7 @@ def main() -> int:
     time_oracle = pool.submit(events_oracle, events)
     user_oracle = pool.submit(users_truth, users)
     month_oracle = pool.submit(months_truth, rides)
+    wire_oracle = pool.submit(wire_truth, rides, args.seed)
     integ_words = pool.submit(integrity_words, rides, taxi)
     try:
         # phase 3: kernels against their plain versions on the card
@@ -3831,13 +4275,15 @@ def main() -> int:
         ev_oracle = time_oracle.result()
         users_o = user_oracle.result()
         months_o = month_oracle.result()
+        wire_o = wire_oracle.result()
         integ_o = integ_words.result()
         del taxi, events, users
         print(f"oracles waited for: {time.perf_counter() - t0:.1f}s",
               flush=True)
         paths = run_main_paths(str(data_dir), words, rides, oracle,
-                               taxi_truth, ev_oracle, users_o, months_o,
-                               path_rng, kernels, args.verify_on_load)
+                               taxi_truth, ev_oracle, users_o, wire_o,
+                               months_o, path_rng, kernels,
+                               args.verify_on_load)
         kernels.reset_launches()
         crash = run_crash_phase(scratch, args.seed, kernels)
         paths["crash"] = (crash, kernels.launches())
@@ -3859,6 +4305,8 @@ def main() -> int:
         "time": ("tree_count", "tree_rows", "word_patch", "count_rows",
                  "groupby_level"),
         "keys": ("tree_count", "count_rows", "groupby_level", "word_patch"),
+        "wire": ("tree_count", "tree_rows", "word_patch", "count_rows",
+                 "groupby_level", "bsi_sum"),
         "tier": ("block_gather", "block_gather_batch", "block_scatter",
                  "tree_count", "count_rows", "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),

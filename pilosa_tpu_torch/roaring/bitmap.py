@@ -160,6 +160,14 @@ class RoaringBitmap:
                 yield (keys[pos >> np.uint64(16)] << np.uint64(16)) | (
                     pos & np.uint64(0xFFFF))
 
+    def to_ids(self) -> np.ndarray:
+        """Every set value, sorted, as one uint64 array (the reference's:
+        one flatten, one batched decode; a corrupt key's ids wrap past
+        2^64 as there)."""
+        from pilosa_tpu_torch.roaring import kernels
+
+        return kernels.fragment_ids(kernels.flatten(self))
+
     def count_range(self, start: int, stop: int) -> int:
         if stop <= start:
             return 0

@@ -2,7 +2,8 @@
 
 The port's copy of ``pilosa_tpu.roaring.format`` (snapshot + op log), byte
 for byte the same layout, so each package opens the other's fragment
-files. The upstream-pilosa import layout is not ported yet.
+files, and the upstream-pilosa layout that ``import-roaring`` also takes
+(``load_any`` sniffs the cookie).
 
 Layout (little-endian):
   header:  magic uint32 = 0x50C4B175, version uint16, flags uint16,
@@ -127,3 +128,170 @@ def replay_ops(bitmap: RoaringBitmap, buf: bytes | memoryview,
         n_ops += 1
         pos = body_end
     return n_ops, pos
+
+
+# --------------------------------------------------------- upstream layout
+#
+# The reader/writer of upstream pilosa's roaring file layout (roaring.go,
+# 64-bit variant), as pilosa_tpu reads and writes it:
+#   cookie  uint32 = 12348 | storage_version<<16
+#   keyN    uint32
+#   descrs  keyN × (key uint64, container_type uint16 (1=array 2=bitmap
+#           3=run), cardinality-1 uint16)
+#   offsets keyN × uint32 (absolute file offset of container data)
+#   data    array: n×uint16 | bitmap: 1024×uint64 |
+#           run: run_count uint16, then run_count×(start,last) uint16
+#   ops     records: type uint8 (0=add 1=remove), value uint64,
+#           fnv1a32(first 9 bytes) uint32   (upstream uses fnv.New32a,
+#           NOT CRC-32)
+# import-roaring sniffs this cookie and falls back to our own layout.
+
+PILOSA_MAGIC = 12348
+_P_HEADER = struct.Struct("<II")
+_P_DESCR = struct.Struct("<QHH")
+_P_OFFSET = struct.Struct("<I")
+_P_OP = struct.Struct("<BQI")
+
+
+def serialize_pilosa(bitmap: RoaringBitmap) -> bytes:
+    """Write the upstream layout."""
+    n = len(bitmap.keys)
+    header_len = _P_HEADER.size + n * (_P_DESCR.size + _P_OFFSET.size)
+    descrs, offsets, payloads = [], [], []
+    pos = header_len
+    for key in bitmap.keys:
+        c = bitmap.container(key)
+        if c.kind == RUN:
+            body = struct.pack("<H", len(c.data)) + np.ascontiguousarray(
+                c.data
+            ).astype("<u2", copy=False).tobytes()
+        else:
+            dtype = "<u2" if c.kind == ARRAY else "<u8"
+            body = np.ascontiguousarray(c.data).astype(dtype, copy=False).tobytes()
+        descrs.append(_P_DESCR.pack(key, c.kind, c.n - 1))
+        offsets.append(_P_OFFSET.pack(pos))
+        payloads.append(body)
+        pos += len(body)
+    return (_P_HEADER.pack(PILOSA_MAGIC, n) + b"".join(descrs)
+            + b"".join(offsets) + b"".join(payloads))
+
+
+def deserialize_pilosa(buf: bytes | memoryview) -> tuple[RoaringBitmap, int]:
+    """Parse the upstream layout; returns (bitmap, offset-where-ops-begin).
+    Truncated/malformed input raises ValueError (never struct.error)."""
+    try:
+        return _deserialize_pilosa(memoryview(buf))
+    except struct.error as e:
+        raise ValueError(f"roaring: truncated pilosa layout: {e}") from None
+
+
+def _deserialize_pilosa(buf: memoryview) -> tuple[RoaringBitmap, int]:
+    cookie, n = _P_HEADER.unpack_from(buf, 0)
+    if cookie & 0xFFFF != PILOSA_MAGIC:
+        raise ValueError(f"roaring: bad pilosa cookie 0x{cookie:08X}")
+    pos = _P_HEADER.size
+    descrs = []
+    for _ in range(n):
+        descrs.append(_P_DESCR.unpack_from(buf, pos))
+        pos += _P_DESCR.size
+    offsets = []
+    for _ in range(n):
+        offsets.append(_P_OFFSET.unpack_from(buf, pos)[0])
+        pos += _P_OFFSET.size
+    b = RoaringBitmap()
+    end = pos
+    for (key, kind, n_minus_1), off in zip(descrs, offsets):
+        card = n_minus_1 + 1
+        if kind == ARRAY:
+            data = np.frombuffer(buf, dtype="<u2", count=card, offset=off).copy()
+            end = max(end, off + 2 * card)
+        elif kind == BITMAP:
+            data = np.frombuffer(buf, dtype="<u8", count=1024, offset=off).copy()
+            end = max(end, off + 8192)
+        elif kind == RUN:
+            (run_count,) = struct.unpack_from("<H", buf, off)
+            data = np.frombuffer(
+                buf, dtype="<u2", count=2 * run_count, offset=off + 2
+            ).copy().reshape(-1, 2)
+            end = max(end, off + 2 + 4 * run_count)
+        else:
+            raise ValueError(f"roaring: unknown pilosa container kind {kind}")
+        b._containers[int(key)] = Container(int(kind), data, card)
+    b.keys = sorted(b._containers)
+    return b, end
+
+
+def fnv1a32(data: bytes) -> int:
+    """FNV-1a 32-bit — the hash upstream pilosa uses for op-log record
+    checksums (fnv.New32a over the 9 type+value bytes), NOT CRC-32."""
+    h = 0x811C9DC5
+    for byte in data:
+        h = ((h ^ byte) * 0x01000193) & 0xFFFFFFFF
+    return h
+
+
+def replay_pilosa_ops(bitmap: RoaringBitmap, buf: bytes | memoryview,
+                      offset: int, *, strict: bool = False) -> int:
+    """Single-value add/remove op records (upstream op log; FNV-1a-checked,
+    torn tail tolerated).
+
+    With strict=True (the import path, as opposed to crash recovery) a
+    checksum mismatch that leaves a full well-formed record's worth of
+    bytes unread raises instead of being treated as a clean torn tail —
+    silently importing only the snapshot would be silent data loss.
+    """
+    buf = memoryview(buf)
+    pos, n_ops = offset, 0
+    pending_typ, pending = None, []
+
+    def flush():
+        if pending:
+            ids = np.asarray(pending, np.uint64)
+            (bitmap.add_ids if pending_typ == 0 else bitmap.remove_ids)(ids)
+            pending.clear()
+
+    while pos + _P_OP.size <= len(buf):
+        typ, value, crc = _P_OP.unpack_from(buf, pos)
+        if typ > 1 or fnv1a32(bytes(buf[pos:pos + 9])) != crc:
+            if strict:
+                reason = (f"unsupported op type {typ}" if typ > 1
+                          else "checksum mismatch")
+                raise ValueError(
+                    f"roaring: pilosa op log {reason} at byte {pos} with "
+                    f"{len(buf) - pos} bytes remaining; refusing to "
+                    "silently drop unsnapshotted ops on import"
+                )
+            break
+        if typ != pending_typ:  # batch consecutive same-type records
+            flush()
+            pending_typ = typ
+        pending.append(value)
+        n_ops += 1
+        pos += _P_OP.size
+    flush()
+    return n_ops
+
+
+def load_any(buf: bytes | memoryview, *, strict_ops: bool = True
+             ) -> tuple[RoaringBitmap, int]:
+    """Sniff our layout vs the upstream layout; returns (bitmap, op count).
+
+    strict_ops applies to the upstream op log only: load_any's callers are
+    import paths (import-roaring, fragment merge), where dropping
+    unsnapshotted upstream ops must be an error, not a quiet torn tail.
+    """
+    buf = memoryview(buf)
+    if len(buf) >= 4:
+        (magic,) = struct.unpack_from("<I", buf, 0)
+        if magic & 0xFFFF == PILOSA_MAGIC and magic != MAGIC:
+            bitmap, ops_at = deserialize_pilosa(buf)
+            return bitmap, replay_pilosa_ops(bitmap, buf, ops_at,
+                                             strict=strict_ops)
+    return load(buf)
+
+
+def load(buf: bytes | memoryview) -> tuple[RoaringBitmap, int]:
+    """Snapshot + op replay in one call; returns (bitmap, op_count)."""
+    bitmap, ops_at = deserialize(buf)
+    n_ops, _ = replay_ops(bitmap, buf, ops_at)
+    return bitmap, n_ops

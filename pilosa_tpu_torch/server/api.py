@@ -21,14 +21,21 @@ failed WAL fsync, snapshot or ``.meta`` write), every write is shed with a
 503 and ``retry_after`` before the executor sees it, so no patch reaches
 the card; reads go on, ``status()`` reports the latch, and
 ``integrity_metrics()`` the integrity counters. ``scrub_now()`` runs one
-scrubber pass (``parallel/scrub.py``). Cluster, QoS, tracing, the cost
-plane, the result cache and multi-process serving are not ported yet.
+scrubber pass (``parallel/scrub.py``). ``import_roaring`` unions one
+shard's roaring bitmap (either layout) in one locked pass; the deletes
+purge the residency cache and the heat map of what they remove;
+``schema``, ``info``, ``version``, ``max_shards`` and ``export_csv``
+answer the read routes, and ``tiering_metrics`` and
+``durability_metrics`` feed ``/metrics`` beside the cache's and the
+integrity plane's blocks. Cluster, QoS, tracing, the cost plane, the
+result cache and multi-process serving are not ported yet.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from pilosa_tpu_torch import __version__
 from pilosa_tpu_torch.executor.executor import (
     Executor,
     PQLError,
@@ -39,6 +46,7 @@ from pilosa_tpu_torch.executor.executor import (
 from pilosa_tpu_torch.executor.result import RowResult, results_json_bytes
 from pilosa_tpu_torch.parallel.scrub import Scrubber
 from pilosa_tpu_torch.pql import ParseError, parse
+from pilosa_tpu_torch.roaring.format import load_any
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP, \
     shard_groups
 from pilosa_tpu_torch.storage import heat
@@ -56,6 +64,39 @@ from pilosa_tpu_torch.storage.wal import MODE_FLUSH_ONLY
 # The reference's max-writes-per-request default: the most Set/Clear
 # calls in one query, and the most bits in one import body.
 MAX_WRITES_PER_REQUEST = 5000
+
+
+def _ascii_digits(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
+    """(uint8[n, width] ASCII digits of each value, left-aligned, its
+    digit count); past a value's digits the row holds filler."""
+    values = values.astype(np.uint64)
+    width = len(str(int(values.max())))
+    n_dig = np.ones(values.size, np.int64)
+    for k in range(1, width):
+        n_dig += values >= np.uint64(10 ** k)
+    digits = np.empty((values.size, width), np.uint8)
+    rest = values.copy()
+    for k in range(width - 1, -1, -1):  # right-aligned, leading zeros
+        digits[:, k] = rest % np.uint64(10)
+        rest //= np.uint64(10)
+    lead = (width - n_dig)[:, None]
+    at = np.minimum(np.arange(width)[None, :] + lead, width - 1)
+    return np.take_along_axis(digits, at, 1) + ord("0"), n_dig
+
+
+def csv_lines(rows: np.ndarray, cols: np.ndarray) -> bytes:
+    """A ``row,col`` line for each pair, each ended by a newline: one byte
+    matrix a line (the row's digits, a comma, the column's digits, the
+    newline), with each line's filler masked out."""
+    rd, rn = _ascii_digits(rows)
+    cd, cn = _ascii_digits(cols)
+    n, wr, wc = rd.shape[0], rd.shape[1], cd.shape[1]
+    line = np.concatenate([rd, np.full((n, 1), ord(","), np.uint8), cd,
+                           np.full((n, 1), ord("\n"), np.uint8)], axis=1)
+    j = np.arange(line.shape[1])[None, :]
+    keep = ((j < rn[:, None]) | (j == wr)
+            | ((j > wr) & (j <= wr + cn[:, None])) | (j == wr + 1 + wc))
+    return line[keep].tobytes()
 
 
 class ApiError(Exception):
@@ -81,18 +122,22 @@ class API:
 
     # ----------------------------------------------------------------- query
 
-    def query_raw(self, index: str, pql: str, opts: dict | None = None
-                  ) -> list:
+    def query_raw(self, index: str, pql: str, shards=None,
+                  remote: bool = False, opts: dict | None = None) -> list:
         """Execute and return the raw result objects, with the request's
-        result options ``opts`` applied. Reads submit every call before
-        resolving any, so concurrent requests share micro-batched
-        launches."""
-        results = self._query_raw(index, pql)
+        result options ``opts`` applied; ``shards`` restricts the calls
+        to those shards (``?shards=``, ``QueryRequest.shards``). Reads
+        submit every call before resolving any, so concurrent requests
+        share micro-batched launches. ``remote`` marks a peer's
+        sub-query: on one node it only skips the storage-degraded shed of
+        writes, as the reference's does."""
+        results = self._query_raw(index, pql, shards, remote)
         if opts:
             results = self._apply_request_opts(index, results, opts)
         return results
 
-    def _query_raw(self, index: str, pql: str) -> list:
+    def _query_raw(self, index: str, pql: str, shards, remote: bool
+                   ) -> list:
         try:
             query = parse(pql)
             writes = len(query.write_calls())
@@ -101,16 +146,17 @@ class API:
                     f"too many writes in request: {writes} > "
                     f"max-writes-per-request {self.max_writes_per_request}"
                 )
-            if writes:
+            if writes and not remote:
                 self._check_not_storage_degraded()
             with heat.serving():  # a served request: its heat records
                 if writes:
                     with self.holder.cache.batch_writes():
-                        results = self.executor.execute(index, query)
+                        results = self.executor.execute(index, query,
+                                                        shards=shards)
                     self._ack_durable()
                     return results
-                return [d.result()
-                        for d in self.executor.submit(index, query)]
+                return [d.result() for d in self.executor.submit(
+                    index, query, shards=shards)]
         except (ParseError, PQLError) as e:
             raise ApiError(str(e)) from e
 
@@ -154,10 +200,12 @@ class API:
             out.append(res)
         return out
 
-    def query_json_bytes(self, index: str, pql: str,
+    def query_json_bytes(self, index: str, pql: str, shards=None,
+                         remote: bool = False,
                          opts: dict | None = None) -> bytes:
         """The whole ``{"results": [...]}`` response envelope as bytes."""
-        return results_json_bytes(self.query_raw(index, pql, opts))
+        return results_json_bytes(self.query_raw(index, pql, shards=shards,
+                                                 remote=remote, opts=opts))
 
     # ---------------------------------------------------------------- schema
 
@@ -183,19 +231,43 @@ class API:
             raise ApiError(str(e), status) from e
         return {"name": field.name, "options": field.options.to_dict()}
 
+    def delete_index(self, name: str) -> None:
+        """Delete an index: its files, its WAL ops (a durable tombstone)
+        and every residency entry and heat record of it."""
+        idx = self.holder.index(name)
+        try:
+            self.holder.delete_index(name)
+        except KeyError as e:
+            raise ApiError(str(e), 404) from e
+        heat.global_heat().forget(idx.scope, name)
+
+    def delete_field(self, index: str, name: str) -> None:
+        idx = self._index(index)
+        try:
+            idx.delete_field(name)
+        except KeyError as e:
+            raise ApiError(str(e), 404) from e
+        heat.global_heat().forget(idx.scope, index, name)
+
+    def schema(self) -> dict:
+        return {"indexes": self.holder.schema()}
+
     # ---------------------------------------------------------------- import
 
     def import_bits(self, index: str, field: str, rows, columns,
-                    timestamps=None, clear: bool = False) -> int:
+                    timestamps=None, clear: bool = False,
+                    remote: bool = False) -> int:
         """Bulk bit import (reference api.Import / fragment.bulkImport),
         grouped by shard and written fragment-wise: a mutex or bool field
         clears each column's previous row in the same pass, and a time
         field's timestamped bits also go into each quantum view, one bulk
         import a view and shard. Returns the bits changed in the standard
-        view."""
+        view. ``remote`` (a peer's slice) skips the storage-degraded
+        shed."""
         idx = self._index(index)
         fld = self._field(idx, field)
-        self._check_not_storage_degraded()
+        if not remote:
+            self._check_not_storage_degraded()
         try:
             rows_i = np.asarray(rows, dtype=np.int64)
             columns_i = np.asarray(columns, dtype=np.int64)
@@ -269,13 +341,14 @@ class API:
                 shard, create=True).bulk_import(rows[sel], pos[sel])
 
     def import_values(self, index: str, field: str, columns, values,
-                      clear: bool = False) -> int:
+                      clear: bool = False, remote: bool = False) -> int:
         """Batched BSI value import (reference api.ImportValue), single
         node: duplicate columns keep the last value; imported columns are
         marked existing. ``clear`` clears the columns' values instead."""
         idx = self._index(index)
         fld = self._field(idx, field)
-        self._check_not_storage_degraded()
+        if not remote:
+            self._check_not_storage_degraded()
         if fld.options.type != TYPE_INT:
             raise ApiError(f"field {field!r} is not an int field")
         if len(columns) != len(values):
@@ -307,6 +380,68 @@ class API:
         self._ack_durable()
         return int(changed)
 
+    def import_roaring(self, index: str, field: str, shard: int,
+                       data: bytes, remote: bool = False) -> int:
+        """One shard's bits as a roaring bitmap of ``row << 20 | position``
+        ids, in the port's layout or upstream pilosa's (``load_any``
+        sniffs the cookie), unioned into the standard view's fragment in
+        one locked pass: one op record, and one K3 launch for every
+        resident leaf the rows touch. A malformed body is a 400, more
+        bits than max-writes-per-request a 413 (``remote``, a peer's
+        slice, skips that limit and the storage-degraded shed). Returns
+        the bits changed."""
+        idx = self._index(index)
+        fld = self._field(idx, field)
+        if not remote:
+            self._check_not_storage_degraded()
+        frag = fld.view(VIEW_STANDARD, create=True).fragment(shard,
+                                                             create=True)
+        try:
+            bitmap, _ = load_any(data)
+            ids = bitmap.to_ids()
+        except ValueError as e:
+            raise ApiError(str(e)) from e
+        limit = self.max_writes_per_request
+        if not remote and 0 < limit < int(ids.size):
+            raise ApiError(
+                f"import-roaring body of {int(ids.size)} bits exceeds "
+                f"max-writes-per-request {limit}; split the bitmap", 413)
+        positions = np.unique(ids & np.uint64(SHARD_WIDTH - 1))
+        with self.holder.cache.batch_writes():
+            try:
+                changed = frag.add_ids(ids)
+            except ValueError as e:
+                raise ApiError(str(e)) from e
+            idx.mark_columns_exist(
+                (shard << SHARD_WIDTH_EXP) + positions.astype(np.int64))
+        heat.global_heat().record_write(index, field, shard,
+                                        n=float(ids.size), scope=idx.scope)
+        self._ack_durable()
+        return changed
+
+    # ---------------------------------------------------------------- export
+
+    def export_csv_bytes(self, index: str, field: str) -> bytes:
+        """``row,column`` lines of the standard view in shard, row and
+        column order, a newline after each (reference api.ExportCSV),
+        formatted by numpy from each fragment's sorted bit ids."""
+        idx = self._index(index)
+        fld = self._field(idx, field)
+        view = fld.view(VIEW_STANDARD)
+        rows, cols = [], []
+        if view is not None:
+            for shard in sorted(view.fragments):
+                ids = view.fragment(shard).bitmap.to_ids()
+                rows.append(ids >> np.uint64(SHARD_WIDTH_EXP))
+                cols.append((ids & np.uint64(SHARD_WIDTH - 1))
+                            + np.uint64(shard << SHARD_WIDTH_EXP))
+        if not rows:
+            return b""
+        return csv_lines(np.concatenate(rows), np.concatenate(cols))
+
+    def export_csv(self, index: str, field: str) -> str:
+        return self.export_csv_bytes(index, field).decode()
+
     def recalculate_caches(self) -> None:
         """Recount and save every fragment's row-count cache (reference
         ``POST /recalculate-caches``), before returning."""
@@ -331,6 +466,52 @@ class API:
             "storageDegraded": bool(health.degraded),
             "storageDegradedReason": health.reason,
         }
+
+    def info(self) -> dict:
+        """The reference's ``/info``, but for ``devices``: the port lists
+        its torch device, ``{"id": 0, "platform": "gpu", "kind": <the
+        card's name>}`` on a GPU and platform "cpu" under
+        ``device="cpu"``, where the reference lists its JAX devices."""
+        dev = self.holder.device
+        if dev.type == "cuda":
+            import torch
+
+            index = dev.index if dev.index is not None else 0
+            devices = [{"id": index, "platform": "gpu",
+                        "kind": torch.cuda.get_device_name(index)}]
+        else:
+            devices = [{"id": 0, "platform": "cpu", "kind": "cpu"}]
+        return {"shardWidth": SHARD_WIDTH, "cpuPhysicalCores": 0,
+                "version": __version__, "devices": devices}
+
+    def version(self) -> dict:
+        return {"version": __version__}
+
+    def max_shards(self) -> dict:
+        return {"standard": {name: (idx.available_shards() or [0])[-1]
+                             for name, idx in self.holder.indexes.items()}}
+
+    def tiering_metrics(self) -> dict:
+        """The tierer's ``residency_tier_*`` pass counters, zeros with no
+        tierer."""
+        if self.tierer is not None:
+            return self.tierer.metrics()
+        return {
+            "residency_tier_passes_total": 0,
+            "residency_tier_pass_promotions_total": 0,
+            "residency_tier_pass_demotions_total": 0,
+            "residency_tier_promoted_bytes_total": 0,
+            "residency_tier_demoted_bytes_total": 0,
+            "residency_tier_paced_sleep_seconds_total": 0.0,
+            "residency_tier_last_pass_seconds": 0.0,
+        }
+
+    def durability_metrics(self) -> dict:
+        """The WAL's series of the reference's ``wal`` block (its CDC
+        series come with the CDC plane)."""
+        out = self.holder.wal.metrics()
+        del out["retained_bytes"]  # the reference's cdc_retained_bytes
+        return out
 
     def integrity_metrics(self) -> dict:
         """The storage-integrity series: the degraded latch, the

@@ -1,31 +1,41 @@
-"""HTTP transport (reference http/handler.go), the port's thin copy.
+"""HTTP transport (reference http/handler.go), the port's copy.
 
-Routes of this slice, with the reference's request and response bytes:
+Routes, with the reference's request and response bytes:
 
 - ``POST /index/{i}`` and ``POST /index/{i}/field/{f}``: schema (field
   ``type`` set, int, time with its ``timeQuantum``, mutex or bool);
-- ``POST /index/{i}/query``: raw PQL in, ``{"results": [...]}`` out:
-  Count, row algebra, Range, time windows (``from=``/``to=``), Shift,
-  Not/All, Sum/Min/Max, TopN (``attrName=``), Rows (``like=``), GroupBy
+  ``GET /index/{i}`` its schema; ``DELETE /index/{i}`` and ``DELETE
+  /index/{i}/field/{f}`` (404 on an unknown name);
+- ``POST /index/{i}/query``: PQL in, ``{"results": [...]}`` out: Count,
+  row algebra, Range, time windows (``from=``/``to=``), Shift, Not/All,
+  Sum/Min/Max, TopN (``attrName=``), Rows (``like=``), GroupBy
   (``aggregate=Sum``, ``having=``), IncludesColumn, Options (``shards=``,
   ``excludeColumns=``, ``columnAttrs=``), Set (``timestamp=``), Clear,
   ClearRow, Store, SetRowAttrs and SetColumnAttrs, with string keys on
-  keyed indexes and fields; the URL parameters ``columnAttrs``,
-  ``excludeColumns`` and ``excludeRowAttrs`` (``=true``) apply to every
-  row result of the request;
-- ``POST /index/{i}/field/{f}/import``: JSON ``rows``/``columns`` and
-  optional ``timestamps``;
-- ``POST /index/{i}/field/{f}/import-value``: JSON ``columns``/``values``
-  for int fields (a protobuf body is not yet ported);
+  keyed indexes and fields; the URL parameters ``shards=0,1`` (the calls
+  run over those shards), ``remote`` and ``columnAttrs``,
+  ``excludeColumns`` and ``excludeRowAttrs`` (``=true``, on every row
+  result of the request);
+- ``POST /index/{i}/field/{f}/import``: ``rows``/``columns`` and optional
+  ``timestamps``; ``.../import-value``: ``columns``/``values`` for int
+  fields; ``.../import-roaring/{shard}``: one shard's bits as a roaring
+  bitmap, in the port's layout or upstream pilosa's (each body at most
+  max-writes-per-request bits: 413 over it, 400 if malformed);
+- protobuf (``application/x-protobuf``): a ``QueryRequest`` body and a
+  ``QueryResponse`` answer (``Accept``), errors then encoded as a
+  ``QueryResponse.err``; ``ImportRequest`` and ``ImportValueRequest``
+  bodies. Without the ``google.protobuf`` runtime these answer 406;
+- ``GET /export?index=&field=``: the standard view as ``row,column`` CSV;
+- ``GET /schema`` and ``/internal/schema``, ``/status``, ``/info`` (the
+  reference's, with the torch device under ``devices``), ``/version``,
+  ``/internal/shards/max`` and ``/metrics`` (Prometheus text: the row
+  cache, the tierer, the WAL and the integrity plane);
 - ``POST /recalculate-caches``: every fragment's row-count cache
   recounted and saved, 204;
-- ``POST /internal/translate/keys``: JSON ``namespace``, ``keys`` and
-  ``create`` in, ``{"ids": [...]}`` out (a client turns keys into ids
-  this way before an ``/import``, which takes ids);
-- ``GET /internal/translate/data?offset=N``: the translate log's bytes
-  from ``offset``;
-- ``POST /internal/scrub``: one integrity scrub pass, its record out;
-- ``GET /status``.
+- ``POST /internal/translate/keys`` (``namespace``, ``keys``, ``create``
+  in, ``{"ids": [...]}`` out) and ``GET /internal/translate/data?offset=N``
+  (the translate log's bytes from ``offset``);
+- ``POST /internal/scrub``: one integrity scrub pass, its record out.
 
 An error with a ``retry_after`` (a write shed while the storage is
 degraded: 503) carries a ``Retry-After`` header.
@@ -40,20 +50,38 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.server.api import API, ApiError
+from pilosa_tpu_torch.utils.stats import prometheus_block
 
 _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/index/([^/]+)/query$"), "post_query"),
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)/import$"), "post_import"),
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)/import-value$"),
      "post_import_value"),
+    ("POST", re.compile(
+        r"^/index/([^/]+)/field/([^/]+)/import-roaring/(\d+)$"),
+     "post_import_roaring"),
     ("POST", re.compile(r"^/index/([^/]+)/field/([^/]+)$"), "post_field"),
+    ("DELETE", re.compile(r"^/index/([^/]+)/field/([^/]+)$"), "delete_field"),
     ("POST", re.compile(r"^/index/([^/]+)$"), "post_index"),
+    ("GET", re.compile(r"^/index/([^/]+)$"), "get_index"),
+    ("DELETE", re.compile(r"^/index/([^/]+)$"), "delete_index"),
+    ("GET", re.compile(r"^/schema$"), "get_schema"),
+    ("GET", re.compile(r"^/status$"), "get_status"),
+    ("GET", re.compile(r"^/info$"), "get_info"),
+    ("GET", re.compile(r"^/version$"), "get_version"),
+    ("GET", re.compile(r"^/export$"), "get_export"),
+    ("GET", re.compile(r"^/metrics$"), "get_metrics"),
     ("POST", re.compile(r"^/recalculate-caches$"), "post_recalculate_caches"),
+    ("GET", re.compile(r"^/internal/shards/max$"), "get_shards_max"),
+    ("POST", re.compile(r"^/internal/scrub$"), "post_scrub"),
     ("POST", re.compile(r"^/internal/translate/keys$"), "post_translate_keys"),
     ("GET", re.compile(r"^/internal/translate/data$"), "get_translate_data"),
-    ("POST", re.compile(r"^/internal/scrub$"), "post_scrub"),
-    ("GET", re.compile(r"^/status$"), "get_status"),
+    ("GET", re.compile(r"^/internal/schema$"), "get_schema"),
 ]
+
+# the exposition prefix of /metrics, the reference's
+METRICS_PREFIX = "pilosa_tpu"
+PROTOBUF = "application/x-protobuf"
 
 
 class HTTPHandler(BaseHTTPRequestHandler):
@@ -110,6 +138,9 @@ class HTTPHandler(BaseHTTPRequestHandler):
     def do_POST(self):
         self._dispatch("POST")
 
+    def do_DELETE(self):
+        self._dispatch("DELETE")
+
     # -------------------------------------------------------------- helpers
 
     def _body(self) -> bytes:
@@ -159,16 +190,64 @@ class HTTPHandler(BaseHTTPRequestHandler):
 
     # --------------------------------------------------------------- routes
 
+    def _flag(self, name: str) -> bool:
+        return self._query.get(name, ["false"])[0] == "true"
+
+    @staticmethod
+    def _need_wire() -> None:
+        from pilosa_tpu_torch import wire
+
+        if not wire.available():
+            raise ApiError("protobuf wire format unavailable", 406)
+
     def post_query(self, index):
-        try:
-            pql = self._body().decode()
-        except UnicodeDecodeError as e:
-            raise ApiError(f"query is not UTF-8: {e}") from e
+        raw = self._body()
+        proto_in = PROTOBUF in self.headers.get("Content-Type", "")
+        proto_out = PROTOBUF in self.headers.get("Accept", "")
+        if self._flag("profile") and proto_out:
+            raise ApiError(
+                "profile=true requires a JSON response (drop the "
+                "application/x-protobuf Accept header)")
+        if proto_in or proto_out:
+            self._need_wire()
+        if proto_in:
+            from pilosa_tpu_torch.wire.serializer import decode_query_request
+
+            pql, shards, remote, opts = decode_query_request(raw)
+        else:
+            try:
+                pql = raw.decode()
+            except UnicodeDecodeError as e:
+                raise ApiError(f"query is not UTF-8: {e}") from e
+            shards = None
+            if "shards" in self._query:
+                shards = [_int_param(s, "shards")
+                          for s in self._query["shards"][0].split(",")]
+            remote = self._flag("remote")
+            opts = {}
         # request-level result options (reference handler query args)
-        opts = {k: True for k in ("columnAttrs", "excludeColumns",
-                                  "excludeRowAttrs")
-                if self._query.get(k, ["false"])[0] == "true"}
-        self._raw(self.api.query_json_bytes(index, pql, opts))
+        opts.update({k: True for k in ("columnAttrs", "excludeColumns",
+                                       "excludeRowAttrs") if self._flag(k)})
+        if not proto_out:
+            self._raw(self.api.query_json_bytes(
+                index, pql, shards=shards, remote=remote, opts=opts))
+            return
+        from pilosa_tpu_torch.wire.serializer import (
+            encode_error,
+            encode_results,
+        )
+
+        headers = None
+        try:
+            payload = encode_results(self.api.query_raw(
+                index, pql, shards=shards, remote=remote, opts=opts))
+            status = 200
+        except ApiError as e:
+            payload, status = encode_error(str(e)), e.status
+            if e.retry_after is not None:
+                headers = {"Retry-After": str(max(1, int(e.retry_after)))}
+        self._raw(payload, status=status, headers=headers,
+                  content_type=PROTOBUF)
 
     def post_index(self, index):
         opts = self._json_body().get("options", {})
@@ -176,39 +255,109 @@ class HTTPHandler(BaseHTTPRequestHandler):
             index, keys=opts.get("keys", False),
             track_existence=opts.get("trackExistence", True)))
 
+    def get_index(self, index):
+        self._json(self.api._index(index).schema())
+
+    def delete_index(self, index):
+        self.api.delete_index(index)
+        self._json({})
+
     def post_field(self, index, field):
         body = self._json_body()
         self._json(self.api.create_field(index, field,
                                          body.get("options", {})))
 
-    def _check_import_size(self, n: int) -> None:
+    def delete_field(self, index, field):
+        self.api.delete_field(index, field)
+        self._json({})
+
+    def _check_import_size(self, n: int, remote: bool) -> None:
+        """max-writes-per-request on an import body; a peer's slice
+        (``remote``) is exempt."""
         limit = self.api.max_writes_per_request
-        if 0 < limit < n:
+        if not remote and 0 < limit < n:
             raise ApiError(
                 f"import batch of {n} rows exceeds max-writes-per-request "
                 f"{limit}; split the batch (the CLI clamps --batch-size to "
                 "this server's limit automatically)", 413)
 
     def post_import(self, index, field):
-        body = self._json_body()
-        rows, columns = body.get("rows", []), body.get("columns", [])
-        self._check_import_size(len(columns))
+        remote = self._flag("remote")
+        if PROTOBUF in self.headers.get("Content-Type", ""):
+            self._need_wire()
+            from pilosa_tpu_torch.wire.serializer import decode_import_request
+
+            rows, columns, timestamps, clear = decode_import_request(
+                self._body())
+        else:
+            body = self._json_body()
+            rows, columns = body.get("rows", []), body.get("columns", [])
+            timestamps = body.get("timestamps")
+            clear = bool(body.get("clear", False))
+        self._check_import_size(len(columns), remote)
         changed = self.api.import_bits(
-            index, field, rows, columns, timestamps=body.get("timestamps"),
-            clear=bool(body.get("clear", False)))
+            index, field, rows, columns, timestamps=timestamps, clear=clear,
+            remote=remote)
         self._json({"changed": changed})
 
     def post_import_value(self, index, field):
-        if "application/x-protobuf" in self.headers.get("Content-Type", ""):
-            raise ApiError("protobuf import-value bodies are not yet "
-                           "ported; send JSON", 415)
-        body = self._json_body()
-        columns, values = body.get("columns", []), body.get("values", [])
-        self._check_import_size(len(columns))
-        changed = self.api.import_values(
-            index, field, columns, values,
-            clear=bool(body.get("clear", False)))
+        remote = self._flag("remote")
+        if PROTOBUF in self.headers.get("Content-Type", ""):
+            self._need_wire()
+            from pilosa_tpu_torch.wire.serializer import (
+                decode_import_value_request,
+            )
+
+            columns, values, clear = decode_import_value_request(
+                self._body())
+        else:
+            body = self._json_body()
+            columns, values = body.get("columns", []), body.get("values", [])
+            clear = bool(body.get("clear", False))
+        self._check_import_size(len(columns), remote)
+        changed = self.api.import_values(index, field, columns, values,
+                                         clear=clear, remote=remote)
         self._json({"changed": changed})
+
+    def post_import_roaring(self, index, field, shard):
+        self._json({"changed": self.api.import_roaring(
+            index, field, int(shard), self._body(),
+            remote=self._flag("remote"))})
+
+    def get_schema(self):
+        self._json(self.api.schema())
+
+    def get_info(self):
+        self._json(self.api.info())
+
+    def get_version(self):
+        self._json(self.api.version())
+
+    def get_export(self):
+        index = (self._query.get("index") or [""])[0]
+        field = (self._query.get("field") or [""])[0]
+        if not index or not field:
+            raise ApiError("export requires index= and field=")
+        self._raw(self.api.export_csv_bytes(index, field),
+                  content_type="text/csv")
+
+    def get_shards_max(self):
+        self._json(self.api.max_shards())
+
+    def get_metrics(self):
+        """The reference's blocks for the planes the port has, in its
+        order: the row cache, the tierer, the WAL, the integrity plane."""
+        seen: set = set()  # a family's HELP and TYPE once a page
+        api = self.api
+        text = api.holder.cache.prometheus_lines(METRICS_PREFIX, seen=seen)
+        text += prometheus_block(api.tiering_metrics(), METRICS_PREFIX,
+                                 seen=seen)
+        text += prometheus_block(api.durability_metrics(), METRICS_PREFIX,
+                                 "wal", seen=seen)
+        text += prometheus_block(api.integrity_metrics(), METRICS_PREFIX,
+                                 seen=seen)
+        self._raw(text.encode(),
+                  content_type="text/plain; version=0.0.4")
 
     def post_recalculate_caches(self):
         self._body()

@@ -147,13 +147,20 @@ class Field:
                                                 ".rowattrs.db")).open()
         return self
 
-    def close(self) -> None:
+    def close(self, discard: bool = False) -> None:
         for v in list(self.views.values()):
-            v.close()
+            v.close(discard=discard)
         if self.row_attrs is not None:
             self.row_attrs.close()
         if self.cache is not None:
-            self.cache.invalidate_tag((self.scope, self.index, self.name))
+            if discard:
+                # a delete: a field re-created under this name must find
+                # no entry of the old one in any tier
+                self.cache.invalidate_field(self.scope, self.index,
+                                            self.name)
+            else:
+                self.cache.invalidate_tag((self.scope, self.index,
+                                           self.name))
 
     def _new_view(self, name: str) -> View:
         return View(os.path.join(self.path, "views", name), self.index,

@@ -382,6 +382,34 @@ class Fragment:
                 self._note_write(rows.size)
             return changed
 
+    def add_ids(self, ids) -> int:
+        """Union raw bit ids (``row << 20 | position``) under the fragment
+        lock (``import-roaring``). Returns #bits changed."""
+        ids = np.asarray(ids, np.uint64)
+        with self.lock:
+            changed = self.bitmap.add_ids(ids)
+            if changed:
+                self._log_op(OP_ADD, ids)
+                self._after_rows_added(ids >> np.uint64(20),
+                                       ids & np.uint64(SHARD_WIDTH - 1))
+            return changed
+
+    def _after_rows_added(self, rows: np.ndarray,
+                          positions: np.ndarray) -> None:
+        """The write bookkeeping of a bulk add: positions grouped by row
+        with one sort, and past a few rows one ``row_counts()`` pass for
+        the row cache instead of a count a row."""
+        groups = list(_group_by_row(rows, positions))
+        counts = None
+        if len(groups) > 8:
+            r_ids, r_counts = self.row_counts()
+            counts = dict(zip(r_ids.tolist(), r_counts.tolist()))
+        for row, p in groups:
+            self._after_row_write(
+                row, p, added=True,
+                row_count=None if counts is None else counts.get(row, 0))
+        self._note_write(rows.size)
+
     def import_mutex(self, rows, positions) -> int:
         """Mutex-aware batched import (reference
         fragment.bulkImportMutex): each column's previous row clears in

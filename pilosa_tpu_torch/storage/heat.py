@@ -224,6 +224,17 @@ class HeatMap:
                 "half_life_seconds": self.half_life_s,
             }
 
+    def forget(self, scope: str, index: str,
+               field: str | None = None) -> None:
+        """Drop the heat of a deleted field (``field`` None: of a whole
+        index), so a re-creation under the name starts cold."""
+        with self._lock:
+            self._fold_locked()
+            for key in [k for k in self._h if k[0] == scope
+                        and k[1] == index
+                        and (field is None or k[2] == field)]:
+                del self._h[key]
+
     def clear(self) -> None:
         with self._lock:
             self._pending.clear()

@@ -20,7 +20,11 @@ import shutil
 import threading
 
 from pilosa_tpu_torch import device as device_mod
-from pilosa_tpu_torch.storage.index import Index, _validate_name
+from pilosa_tpu_torch.storage.index import (
+    Index,
+    _rename_to_trash,
+    _validate_name,
+)
 from pilosa_tpu_torch.storage.integrity import StorageHealth
 from pilosa_tpu_torch.storage.residency import (
     DEFAULT_BUDGET_BYTES,
@@ -112,3 +116,21 @@ class Holder:
 
     def index(self, name: str) -> Index | None:
         return self.indexes.get(name)
+
+    def delete_index(self, name: str) -> None:
+        """Rename-then-tombstone (``Index.delete_field``'s order): the
+        index leaves the tree in one rename, the durable tombstone of its
+        prefix keeps replay from resurrecting its ops, then the files go
+        and every residency entry of the index leaves the cache."""
+        idx = self.indexes.pop(name, None)
+        if idx is None:
+            raise KeyError(f"index {name!r} not found")
+        trash = _rename_to_trash(idx.path, self.data_dir, name)
+        self.wal.tombstone(f"{name}/")
+        self.wal.barrier()
+        idx.close(discard=True)
+        if trash is not None:
+            shutil.rmtree(trash, ignore_errors=True)
+
+    def schema(self) -> list[dict]:
+        return [idx.schema() for _, idx in sorted(self.indexes.items())]

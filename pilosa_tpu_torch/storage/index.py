@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import threading
 
 import numpy as np
@@ -58,7 +59,10 @@ class Index:
             self._save_meta()
         for entry in sorted(os.listdir(self.path)):
             p = os.path.join(self.path, entry)
-            if os.path.isdir(p) and not entry.startswith("."):
+            if entry.startswith(".trash-"):
+                # a delete_field crashed between rename and rmtree
+                shutil.rmtree(p, ignore_errors=True)
+            elif os.path.isdir(p) and not entry.startswith("."):
                 self.fields[entry] = Field(
                     p, self.name, entry, scope=self.scope, cache=self.cache,
                     verify_on_load=self.verify_on_load, wal=self.wal).open()
@@ -69,9 +73,9 @@ class Index:
                                                    ".colattrs.db")).open()
         return self
 
-    def close(self) -> None:
+    def close(self, discard: bool = False) -> None:
         for f in list(self.fields.values()):
-            f.close()
+            f.close(discard=discard)
         if self.column_attrs is not None:
             self.column_attrs.close()
 
@@ -111,6 +115,26 @@ class Index:
 
     def field(self, name: str) -> Field | None:
         return self.fields.get(name)
+
+    def delete_field(self, name: str) -> None:
+        """Rename-then-tombstone, as the reference deletes: the rename
+        takes the field out of the tree in one step (a crash leaves the
+        whole field or none), the durable tombstone keeps replay from
+        resurrecting its ops into a re-creation under the same name, and
+        only then do the files go. ``open()`` sweeps a ``.trash-*`` that
+        a crash leaves."""
+        field = self.fields.pop(name, None)
+        if field is None:
+            raise KeyError(f"field {name!r} not found")
+        trash = _rename_to_trash(field.path, self.path, name)
+        if self.wal is not None:
+            self.wal.tombstone(f"{self.name}/{name}/")
+            self.wal.barrier()
+        field.close(discard=True)
+        if trash is not None:
+            shutil.rmtree(trash, ignore_errors=True)
+        self.plan_epoch += 1
+        self._shards_memo = None  # a delete can shrink the shard set
 
     def public_fields(self) -> list[Field]:
         return [f for n, f in sorted(self.fields.items())
@@ -159,6 +183,21 @@ class Index:
             "fields": [{"name": f.name, "options": f.options.to_dict()}
                        for f in self.public_fields()],
         }
+
+
+def _rename_to_trash(path: str, parent: str, name: str) -> str | None:
+    """Move ``path`` to ``parent/.trash-{name}`` and fsync ``parent``:
+    the rename must be on disk before the delete is acknowledged, or a
+    power cut would bring the snapshot files back. None when ``path`` is
+    already gone."""
+    trash = os.path.join(parent, f".trash-{name}")
+    shutil.rmtree(trash, ignore_errors=True)
+    try:
+        os.rename(path, trash)
+    except OSError:
+        return None
+    fsync_dir(parent)
+    return trash
 
 
 def _validate_name(name: str, allow_internal: bool = False) -> None:

@@ -58,6 +58,7 @@ import torch
 
 from pilosa_tpu_torch import kernels
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD, next_pow2
+from pilosa_tpu_torch.utils.stats import prometheus_block
 
 ROW_BYTES = WORDS_PER_SHARD * 4  # 128 KiB per shard row
 
@@ -526,6 +527,23 @@ class DeviceRowCache:
             for key in list(self._tag_index.get(tag, ())):
                 self.invalidate(key)
 
+    def invalidate_field(self, scope: str, index: str, field: str) -> None:
+        """Drop every entry of a deleted field from every tier, and every
+        updater registered for one: its per-fragment rows, the executor's
+        stacked leaves and row matrices. A field re-created under the
+        name starts cold."""
+        def match(key: tuple) -> bool:
+            if key and isinstance(key[0], str) and key[0].startswith(
+                    "stack"):
+                key = key[1:]
+            return key[:3] == (scope, index, field)
+
+        with self._lock:
+            for store in (self._rows, self._compressed, self._host,
+                          self._updaters):
+                for key in [k for k in store if match(k)]:
+                    self.invalidate(key)
+
     def _drop_updater(self, key: tuple) -> None:
         reg = self._updaters.pop(key, None)
         if reg is not None:
@@ -796,6 +814,25 @@ class DeviceRowCache:
                 "residency_tier_promotions": self.tier_promotions,
                 "residency_tier_demotions": self.tier_demotions,
             }
+
+    # the counters among metrics(): ``/metrics`` gives them ``_total``
+    _MONOTONIC_METRICS = frozenset({
+        "residency_hits", "residency_misses", "residency_evictions",
+        "residency_compressions", "residency_decompressions",
+        "residency_updates", "residency_write_events",
+        "residency_host_hits", "residency_tier_promotions",
+        "residency_tier_demotions",
+    })
+
+    def prometheus_lines(self, prefix: str = "pilosa_tpu",
+                         seen: set | None = None) -> str:
+        """metrics() as the reference's ``/metrics`` block: counters with
+        the ``_total`` suffix, ints exact, each family with its ``# HELP``
+        and ``# TYPE``."""
+        return prometheus_block(
+            {(f"{name}_total" if name in self._MONOTONIC_METRICS
+              else name): v for name, v in self.metrics().items()},
+            prefix, seen=seen)
 
     def clear(self) -> None:
         with self._lock:

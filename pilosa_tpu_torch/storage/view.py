@@ -171,10 +171,12 @@ class View:
             self.fragments[frag.shard] = frag
         return self
 
-    def close(self) -> None:
+    def close(self, discard: bool = False) -> None:
         """Close every fragment, several at once: in group mode each dirty
-        one snapshots and digests its bit ids."""
-        _each(Fragment.close, list(self.fragments.values()))
+        one snapshots and digests its bit ids. ``discard``: the files are
+        about to go (a delete), so nothing is written."""
+        _each(lambda frag: frag.close(discard=discard),
+              list(self.fragments.values()))
 
     def fragment(self, shard: int, create: bool = False) -> Fragment | None:
         frag = self.fragments.get(shard)

@@ -451,6 +451,18 @@ def test_http_int_field_bodies_match_reference(servers):
         want = _request(jbase, path, body)
         got = _request(pbase, path, body)
         assert got == want, (path, body)
-    status, body = _request(pbase, "/index/i/field/tip/import-value",
-                            b"\x0a\x01", ctype="application/x-protobuf")
-    assert status == 415 and b"not yet ported" in body
+    # protobuf import-value bodies: the reference's answer, a truncated
+    # message's too, and the values land as the reference's do
+    from pilosa_tpu_torch.wire.serializer import encode_import_value_request
+
+    for body in (b"\x0a\x01",
+                 encode_import_value_request("i", "tip", [6, 1048579],
+                                             [55, 66]),
+                 encode_import_value_request("i", "tip", [7], [100001])):
+        want = _request(jbase, "/index/i/field/tip/import-value", body,
+                        ctype="application/x-protobuf")
+        got = _request(pbase, "/index/i/field/tip/import-value", body,
+                       ctype="application/x-protobuf")
+        assert got == want, body
+    assert _request(pbase, "/index/i/query", b'Sum(field="tip")') == \
+        _request(jbase, "/index/i/query", b'Sum(field="tip")')

@@ -95,3 +95,64 @@ def test_http_bodies_match_reference(servers):
         want = _request(jbase, method, path, body)
         got = _request(pbase, method, path, body)
         assert got == want, (method, path, body)
+
+
+SURFACE_REQUESTS = [
+    ("GET", "/index/repository", None),
+    ("GET", "/schema", None),
+    ("GET", "/internal/schema", None),
+    ("GET", "/version", None),
+    ("GET", "/internal/shards/max", None),
+    ("GET", "/export?index=repository&field=language", None),
+    ("POST", "/index/repository/field/stars", b"{}"),
+    ("POST", "/index/repository/field/stars/import",
+     b'{"rows": [3, 4], "columns": [1, 1048577]}'),
+    ("GET", "/export?index=repository&field=stars", None),
+    ("POST", "/index/repository/query?shards=1",
+     b"Row(stars=4) Count(Row(stargazer=1))"),
+    ("DELETE", "/index/repository/field/stars", None),
+    ("DELETE", "/index/repository/field/stars", None),   # 404
+    ("GET", "/export?index=repository&field=stars", None),  # 404
+    ("POST", "/index/repository/query", b"Row(stars=4)"),  # 400
+    ("POST", "/index/other", b"{}"),
+    ("DELETE", "/index/other", None),
+    ("GET", "/index/other", None),                        # 404
+    ("DELETE", "/nope", None),                            # 404
+    ("GET", "/schema", None),
+]
+
+
+def test_surface_routes_match_reference(servers):
+    jbase, pbase = servers
+    for method, path, body in SURFACE_REQUESTS:
+        want = _request(jbase, method, path, body)
+        got = _request(pbase, method, path, body)
+        assert got == want, (method, path, body)
+
+
+def test_keep_alive_survives_deletes_and_protobuf_errors(servers):
+    """One connection: a DELETE with a stray body, a protobuf error
+    answer and a good query stay aligned, as on the reference."""
+    import http.client
+
+    for base in servers:
+        host, port = base.rsplit(":", 1)
+        conn = http.client.HTTPConnection(host[len("http://"):], int(port),
+                                          timeout=60)
+        try:
+            out = []
+            for method, path, body, headers in (
+                    ("DELETE", "/index/repository/field/nope", b"junk", {}),
+                    ("POST", "/index/repository/query", b"Row(nope=1)",
+                     {"Accept": "application/x-protobuf"}),
+                    ("POST", "/index/repository/query",
+                     b"Count(Row(stargazer=1))", {})):
+                conn.request(method, path, body=body, headers=headers)
+                resp = conn.getresponse()
+                out.append((resp.status, resp.read()))
+        finally:
+            conn.close()
+        assert [s for s, _ in out] == [404, 400, 200]
+        if base == servers[0]:
+            want = out
+    assert out == want

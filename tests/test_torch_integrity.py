@@ -851,6 +851,10 @@ def test_failed_group_never_acks_in_either_package(tmp_path):
                 h.wal.barrier(lost)
             with pytest.raises(OSError, match="wal commit failed"):
                 frag.set_bit(1, 3)  # the loop is parked: refused
+            # the reference's commit loop wakes the waiters before it
+            # trips the latch: wait for the trip, or the wait for the
+            # clear below could return before the fault was ever latched
+            _wait_healthy([h], True)
             plane.remove(rule.id)
             _wait_healthy([h], False)
             frag.set_bit(1, 4)

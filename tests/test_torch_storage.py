@@ -689,3 +689,150 @@ def test_keyed_dir_with_attrs_opens_in_the_other_package(tmp_path, writer,
     finally:
         h.close()
     assert _names(wdir) == names
+
+
+# ------------------------------------------ import-roaring and the deletes
+
+
+def test_add_ids_writes_the_reference_bytes_and_patches_once(eight_shards,
+                                                             tmp_path):
+    """``Fragment.add_ids`` (import-roaring's write) logs the reference's
+    op record and leaves the reference's fragment and sidecars; into the
+    resident row it is one K3 batch; both roaring layouts decode to the
+    reference's bitmap."""
+    import pilosa_tpu.roaring.format as jformat
+    from pilosa_tpu.roaring.bitmap import RoaringBitmap as JRoaringBitmap
+    from pilosa_tpu_torch.roaring import RoaringBitmap
+    from pilosa_tpu_torch.roaring import format as pformat
+
+    api, rows, calls = eight_shards
+    rng = np.random.default_rng(4)
+    ids = np.concatenate([
+        (np.uint64(1) << np.uint64(20)) + rng.integers(0, W * 32, 900,
+                                                       dtype=np.uint64),
+        (np.uint64(9) << np.uint64(20)) + rng.integers(0, W * 32, 40,
+                                                       dtype=np.uint64)])
+    b, jb = RoaringBitmap(), JRoaringBitmap()
+    b.add_ids(ids)
+    jb.add_ids(ids)
+    for ser, jser in ((pformat.serialize, jformat.serialize),
+                      (pformat.serialize_pilosa, jformat.serialize_pilosa)):
+        blob = ser(b)
+        assert blob == jser(jb)
+        got, jgot = pformat.load_any(blob), jformat.load_any(blob)
+        assert got[1] == jgot[1]
+        assert np.array_equal(got[0].to_ids(), jgot[0].to_ids())
+    for bad in (b"\x3c\x30\x00\x00\x01\x00\x00\x00", b"\x3c\x30",
+                pformat.serialize_pilosa(b)[:-7]):
+        with pytest.raises(ValueError) as e:
+            pformat.load_any(bad)
+        with pytest.raises(ValueError) as je:
+            jformat.load_any(bad)
+        assert str(e.value) == str(je.value)
+    # the write, beside the reference's on a copy of the same files
+    h = api.holder
+    h.wal.barrier()
+    frag = h.index("i").field("f").view("standard").fragment(3)
+    frag.snapshot()
+    shutil.copytree(h.data_dir, tmp_path / "ref")
+    jh = jstorage.Holder(str(tmp_path / "ref"),
+                         durability_mode="per-op").open()
+    try:
+        jfrag = jh.index("i").field("f").view("standard").fragment(3)
+        before = len(calls)
+        assert frag.add_ids(ids) == jfrag.add_ids(ids)
+        assert len(calls) == before + 1  # row 1 resident; row 9 is not
+        assert frag.add_ids(ids) == jfrag.add_ids(ids) == 0
+        assert frag.row_counts()[0].tolist() == \
+            [int(r) for r in jfrag.row_ids()]
+        # the row cache holds each written row's exact count
+        counts = dict(zip(*(a.tolist() for a in frag.row_counts())))
+        assert all(counts[r] == c for r, c in frag.row_cache.top())
+        frag.snapshot()
+        jfrag.snapshot()
+        for suffix in ("", ".checksums"):
+            with open(frag.path + suffix, "rb") as a, \
+                    open(jfrag.path + suffix, "rb") as b_:
+                assert a.read() == b_.read(), suffix
+    finally:
+        jh.close()
+    assert np.array_equal(_resident_leaf(h, "f", 1).numpy().view(np.uint32),
+                          _rebuilt(h, "f", 1, range(8)))
+
+
+def _delete_and_crash_copy(pkg, tmp_path) -> str:
+    """A group-mode holder of ``pkg`` writes f and g through the WAL,
+    deletes field f and index u, and is copied live after the barrier
+    (no close, no snapshot)."""
+    if pkg == "port":
+        h = Holder(str(tmp_path / "live"), device="cpu").open()
+        opts = FieldOptions
+    else:
+        h = jstorage.Holder(str(tmp_path / "live")).open()
+        opts = JFieldOptions
+    try:
+        idx = h.create_index("i")
+        f, g = idx.create_field("f"), idx.create_field("g", opts())
+        for col in (1, 5, W * 32 + 7, 2 * W * 32 + 9):
+            f.set_bit(1, col)
+            g.set_bit(2, col)
+        h.create_index("u").create_field("x").set_bit(3, 4)
+        h.wal.barrier()
+        idx.delete_field("f")
+        h.delete_index("u")
+        dst = tmp_path / f"copy-{pkg}"
+        h.wal.barrier()
+        shutil.copytree(h.data_dir, dst)
+        return str(dst)
+    finally:
+        h.close()
+
+
+@pytest.mark.parametrize("writer", ["reference", "port"])
+def test_deletes_survive_a_crash_in_either_package(tmp_path, writer):
+    """Delete a field and an index, copy the live dir (their ops still in
+    the WAL): each package's reopen of the copy has neither, a same-name
+    re-creation holds no old bit, and g's writes replay."""
+    copy = _delete_and_crash_copy("port" if writer == "port" else "jax",
+                                  tmp_path)
+    for reader in ("reference", "port"):
+        d = tmp_path / f"{writer}-read-by-{reader}"
+        shutil.copytree(copy, d)
+        if reader == "port":
+            h = Holder(str(d), device="cpu").open()
+            ex = Executor(h, device="cpu")
+            opts, to_json = FieldOptions, result_to_json
+        else:
+            h = jstorage.Holder(str(d)).open()
+            ex = JExecutor(h)
+            opts, to_json = JFieldOptions, j_result_to_json
+        try:
+            assert sorted(h.indexes) == ["i"]
+            assert "f" not in h.index("i").fields
+            assert not any(n.startswith(".trash-") for n in os.listdir(d))
+            h.index("i").create_field("f", opts())
+            h.create_index("u").create_field("x", opts())
+            got = [to_json(r) for r in ex.execute(
+                "i", "Count(Row(f=1)) Count(Row(g=2))")]
+            got += [to_json(r) for r in ex.execute("u", "Count(Row(x=3))")]
+            assert got == [0, 4, 0]
+        finally:
+            h.close()
+
+
+def test_deleted_field_recreated_serves_no_resident_bits(eight_shards):
+    """Row 1 of f is resident; the field deleted and re-created under its
+    name answers from the new (empty) field, on the card's path too."""
+    api, rows, calls = eight_shards
+    h = api.holder
+    assert api.query_raw("i", "Count(Row(f=1))")[0] > 0
+    scope = h.index("i").scope
+    assert any(k[0] == "stack" and k[3] == "f" for k in h.cache._rows)
+    api.delete_field("i", "f")
+    assert not any(scope in k[:2] and "f" in k[2:4]
+                   for store in (h.cache._rows, h.cache._compressed,
+                                 h.cache._host) for k in store)
+    api.create_field("i", "f", {})
+    assert api.query_raw("i", "Count(Row(f=1)) Count(Row(f=2))") == [0, 0]
+    api.import_bits("i", "f", [1], [3])
+    assert api.query_raw("i", "Count(Row(f=1))") == [1]
