@@ -33,7 +33,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    also writes payment_type, the repository worker the users index and
    the 84 pickup_month rows)
    write the data directory from the same host words;
-4. drive seven main paths through the port's HTTP server on 127.0.0.1 over
+4. drive eight main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -97,8 +97,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       in upstream pilosa's roaring layout), one K3 launch a request, and
       one body over the limit (413); 16 closed-loop protobuf clients
       (QueryRequest in, QueryResponse out, decoded by the port's
-      decode_results_json) for 20 s and the same five shapes as JSON
-      for 10 s (an Intersect Count, a filtered TopN, a Sum, a filtered
+      decode_results_json) for 3 s and the same five shapes as JSON
+      for 3 s (an Intersect Count, a filtered TopN, a Sum, a filtered
       GroupBy and a Row over two shards); a protobuf ImportRequest and
       ImportValueRequest of 4096 bits and values (one K3 launch each);
       the /export CSV (about 10.7 M lines) against the oracle's SHA-256;
@@ -108,8 +108,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    g. the tier path (the NYC TLC months as Litwintschik's benchmark
       loads them): a set field ``pickup_month`` of 84 contiguous-range
       rows on ``rides``; the budget lowered to 16 dense months beside
-      the cab_type leaves; 16 concurrent clients over a month x cab
-      Count, a quarter's Count and a month's TopN(cab_type) (K10
+      the cab_type leaves; 16 concurrent clients (10 queries each) over
+      a month x cab Count, a quarter's Count and a month's TopN(cab_type) (K10
       demotes each eviction's victims in one launch, K11 promotes); a
       Count of every month, one tierer pass to the host tier (the dense
       months gathered by one K10 launch before their compact blocks are
@@ -118,6 +118,22 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       into a host-tier leaf (its copy invalidated) and into a dense one
       (one K3 launch, the leaf then dropped, not compressed), every
       answer against the oracle; the budget restored;
+   h. the serving envelope (on ``repository``, after the taxi path):
+      16 closed-loop clients over the five Star-Trace Count shapes for
+      5 s through the pipeline wave, then 5 s with
+      ``api.serve_pipelined = False``, each with QPS, p50, p99, waves,
+      coalesced and deduped requests, K1 launches a query and the mean
+      micro-batch; ``?profile=true`` trees of a Count and of a Row; the
+      result cache on: repeated Counts served as hits, then a Set, an
+      /import and an import-roaring each land in a counted row and the
+      next Count answers the new oracle value; two tenants under a
+      per-tenant gate of 2 in flight (429 with Retry-After, every 200
+      against the oracle); an ``X-Pilosa-Deadline-Ms: 1`` GroupBy (taxi
+      query 4) queued in a wave behind a Count of a cold leaf is a
+      504; ``POST /debug/trace-device?secs=1`` under load (the trace's
+      K1 kernel events counted); ``/debug/traces``, ``/debug/slo``,
+      ``/debug/vars``, ``/debug/queries`` and ``/metrics`` with the
+      serving planes' families;
 5. the crash phase, on a 64-shard directory of its own: a port server
    process on the card takes Set, Clear, /import, /import-value,
    timestamped Sets into a YMDH field, Sets moving columns of a mutex
@@ -129,13 +145,13 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    oracle, no mutex column sit in two rows, no key hold a column no
    client sent for it, and the WAL be empty after the open;
 6. the integrity path, on a copy of rides' cab_type and pickup_year at
-   256 shards in a directory of its own: four payload bytes flipped (one
+   128 shards in a directory of its own: four payload bytes flipped (one
    shard rotten in both fields), one fragment torn, one .checksums
    deleted, then a port server opens it on the card verifying every
    fragment (five quarantined, Count, TopN and Options(shards=) against
    the oracle without those fragments); a byte flipped under a resident
    cab_type leaf is healed by ``python -m pilosa_tpu_torch check --host``
-   (self_healed=1, no row-cache miss after); 16 Count clients for 5 s
+   (self_healed=1, no row-cache miss after); 16 Count clients for 2 s
    without and during a scrub pass, whose MB/s is printed; an ENOSPC on
    every fsync under the directory fails one Set, sheds the next and an
    index create with 503 and Retry-After with no K3 launch while 16
@@ -1289,8 +1305,9 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                    taxi: dict, events: dict, users: dict, wire: dict,
                    months: dict, rng, kernels, verify_on_load: bool) -> dict:
     """Phase 4 through one server: the Star-Trace path, the rides path,
-    the taxi path, the time path, the keys path, the wire path and the
-    tier path (last: it lowers the residency budget), each with the
+    the taxi path, the serving-envelope path, the time path, the keys
+    path, the wire path and the tier path (last: it lowers the residency
+    budget), each with the
     launch counters zeroed just before it and read just after. Returns
     {path: (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
@@ -1314,6 +1331,8 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                 ("Star-Trace", lambda: _serve_and_check(server, words, rng)),
                 ("rides", lambda: _serve_rides(server, rides, oracle)),
                 ("taxi", lambda: _serve_taxi(server, taxi)),
+                ("serving", lambda: _serve_envelope(server, words, taxi,
+                                                    events, kernels)),
                 ("time", lambda: _serve_time(server, events)),
                 ("keys", lambda: _serve_keys(
                     server, keys_truth(taxi["keys"], users), taxi["keys"],
@@ -1321,9 +1340,11 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                 ("wire", lambda: _serve_wire(server, wire, kernels)),
                 ("tier", lambda: _serve_tier(server, months, rng))):
             kernels.reset_launches()
+            t0 = time.perf_counter()
             stats = serve()
             out[path] = (stats, kernels.launches())
             stats["wal"] = server.holder.wal.metrics()
+            print(f"path {path}: {time.perf_counter() - t0:.1f}s", flush=True)
         return out
     finally:
         t0 = time.perf_counter()
@@ -1498,12 +1519,7 @@ def _serve_and_check(server, words: dict, rng) -> dict:
     # one bit into each of the 1024 shards of the resident row: one /import,
     # one K3 launch for every resident leaf it touches
     sg0 = sg0.reshape(N_SHARDS, WORDS)
-    pick = np.argmax(sg0 != np.uint32(0xFFFFFFFF), axis=1)
-    free = sg0[np.arange(N_SHARDS), pick]
-    low = np.array([int(np.flatnonzero(~np.unpackbits(np.array(
-        [w], np.uint32).view(np.uint8), bitorder="little").astype(bool))[0])
-        for w in free.tolist()])
-    cols = (np.arange(N_SHARDS) * WORDS + pick) * 32 + low
+    cols, pick, low = _one_bit_a_shard(sg0)
     body = json.dumps({"rows": [0] * N_SHARDS,
                        "columns": cols.tolist()}).encode()
     before = kernels.launches()["word_patch"]
@@ -1529,6 +1545,18 @@ def _serve_and_check(server, words: dict, rng) -> dict:
     stats["resident_bytes"] = server.holder.cache.bytes_used
     c.close()
     return stats
+
+
+def _one_bit_a_shard(sg0: np.ndarray):
+    """The Star-Trace path's 1024-shard import: in each shard of
+    ``sg0`` [S, W] the lowest clear bit of its first word not all set.
+    Returns (columns, word index, bit) a shard."""
+    pick = np.argmax(sg0 != np.uint32(0xFFFFFFFF), axis=1)
+    free = sg0[np.arange(N_SHARDS), pick]
+    low = np.array([int(np.flatnonzero(~np.unpackbits(np.array(
+        [w], np.uint32).view(np.uint8), bitorder="little").astype(bool))[0])
+        for w in free.tolist()])
+    return (np.arange(N_SHARDS) * WORDS + pick) * 32 + low, pick, low
 
 
 def make_rides(rng) -> dict:
@@ -1999,6 +2027,423 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
     if errors or len(latencies) != n_clients * per_client:
         fail(f"concurrent queries on {index} wrong or missing: {errors[:3]}")
     return latencies, wall
+
+
+# ------------------------------------------------------ serving envelope
+
+ENVELOPE_CLIENTS = 16
+# cut from 10 s, 3 s and 3 s to hold the run under 1 100 s
+ENVELOPE_LOOP_S = 5.0     # each of the pipeline and the direct loops
+TENANT_LOOP_S = 2.0       # two tenants against the per-tenant gate
+TRACE_LOAD_S = 2.0        # the load around a 1 s trace-device capture
+TRACE_ATTEMPTS = 3        # captures asked for until one records kernels
+TENANT_INFLIGHT = 2       # qos-tenant-inflight of that loop
+ENVELOPE_ROW = 20         # a stargazer row of known bits for PROFILE
+ENVELOPE_ROW_BITS = 4096
+ENVELOPE_FAMILIES = (
+    "pilosa_tpu_serving_waves_total",
+    "pilosa_tpu_serving_deduped_requests_total",
+    "pilosa_tpu_qos_admitted_total", "pilosa_tpu_qos_shed_total",
+    "pilosa_tpu_qos_deadline_expired_total",
+    "pilosa_tpu_result_cache_hits_total",
+    "pilosa_tpu_result_cache_invalidations_total",
+    "pilosa_tpu_tenant_queries_total", "pilosa_tpu_slo_burn_rate",
+    "pilosa_tpu_tracing_sampled_traces_total", "pilosa_tpu_heat_shard",
+    "pilosa_tpu_slow_queries_total", "pilosa_tpu_query_seconds")
+
+
+def star_trace_after(words: dict) -> dict:
+    """The Star-Trace rows as the Star-Trace path leaves them: its one
+    /import set a bit in each shard of stargazer row 0 (its Set was
+    cleared again; its sparse rows are not counted here)."""
+    out = dict(words)
+    sg0 = words[("stargazer", 0)].reshape(N_SHARDS, WORDS).copy()
+    cols, _, _ = _one_bit_a_shard(sg0)
+    _set_bits(sg0.reshape(-1), cols)
+    out[("stargazer", 0)] = sg0.reshape(-1)
+    return out
+
+
+def _envelope_shapes(words: dict) -> tuple[list, dict]:
+    shapes = [
+        ("Count(Intersect(Row(stargazer=0), Row(language=1)))", "and",
+         [("stargazer", 0), ("language", 1)]),
+        ("Count(Union(Row(stargazer=1), Row(language=2)))", "or",
+         [("stargazer", 1), ("language", 2)]),
+        ("Count(Xor(Row(stargazer=2), Row(language=3)))", "xor",
+         [("stargazer", 2), ("language", 3)]),
+        ("Count(Difference(Row(stargazer=3), Row(language=0)))", "diff",
+         [("stargazer", 3), ("language", 0)]),
+        ("Count(Intersect(Row(stargazer=0), Row(stargazer=1), "
+         "Row(language=2)))", "and",
+         [("stargazer", 0), ("stargazer", 1), ("language", 2)]),
+    ]
+    return ([pql for pql, _, _ in shapes],
+            {pql: _count_oracle(words, op, leaves)
+             for pql, op, leaves in shapes})
+
+
+def _wave_loop(server, shapes: list, truth: dict, kernels) -> dict:
+    """The closed loop of ``ENVELOPE_CLIENTS`` for ``ENVELOPE_LOOP_S``
+    with its wave counters and K1 launches."""
+    before = server.api.pipeline_metrics()
+    k1 = kernels.launches()["tree_count"]
+    latencies = timed_loop(server.port, "repository", shapes, truth,
+                           ENVELOPE_CLIENTS, ENVELOPE_LOOP_S)
+    after = server.api.pipeline_metrics()
+    out = _latency_stats(latencies, ENVELOPE_LOOP_S)
+    out.update({k: after[k] - before[k] for k in after})
+    launches = kernels.launches()["tree_count"] - k1
+    if not launches:
+        fail(f"{out['queries']} served Counts made no K1 launch")
+    out["k1_launches"] = launches
+    out["k1_launches_per_query"] = launches / out["queries"]
+    # the Counts that reached the executor (deduped wavemates did not)
+    out["mean_batch"] = (out["queries"] - out["deduped"]) / max(launches, 1)
+    return out
+
+
+def _query_json(port: int, pql: str, path: str = "/index/repository/query",
+                headers: dict | None = None):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+    try:
+        conn.request("POST", path, body=pql.encode(), headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.getheader("Retry-After"), resp.read()
+    finally:
+        conn.close()
+
+
+def _tenant_loop(port: int, shapes: list, truth: dict) -> dict:
+    """Half the clients as tenant alpha, half as beta, closed loop for
+    ``TENANT_LOOP_S``: every 200 against the oracle, every 429 with a
+    Retry-After."""
+    errors, lock = [], threading.Lock()
+    counts = {"ok": 0, "shed": 0}
+    stop = time.perf_counter() + TENANT_LOOP_S
+
+    def client(k: int) -> None:
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        headers = {"X-Pilosa-Tenant": "alpha" if k % 2 else "beta"}
+        try:
+            j = k
+            while time.perf_counter() < stop:
+                pql = shapes[j % len(shapes)]
+                conn.request("POST", "/index/repository/query",
+                             body=pql.encode(), headers=headers)
+                resp = conn.getresponse()
+                body = resp.read()
+                with lock:
+                    if resp.status == 200:
+                        counts["ok"] += 1
+                        if json.loads(body)["results"][0] != truth[pql]:
+                            errors.append((pql, body[:100]))
+                    elif (resp.status == 429
+                          and resp.getheader("Retry-After") == "1"):
+                        counts["shed"] += 1
+                    else:
+                        errors.append((pql, resp.status, body[:200]))
+                j += 1
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(ENVELOPE_CLIENTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+        if t.is_alive():
+            fail("a tenant client hung")
+    if errors or not counts["ok"] or not counts["shed"]:
+        fail(f"tenant loop: {counts}, errors {errors[:3]}")
+    return counts
+
+
+def _deadline_504(server, q4: str, want, events: dict) -> dict:
+    """A 1 ms budget on taxi query 4 (a pruned GroupBy) queued in the
+    wave behind a Count whose leaf is cold on ``events`` (the time path
+    runs later): that Count's submit decodes and uploads the leaf of
+    1024 shards on the dispatcher, so the GroupBy's budget runs out
+    before its dispatch and the executor refuses it, 504. The Count
+    answers the oracle; then query 4 without a budget answers it."""
+    port = server.port
+    for attempt, row in enumerate((0, 1, 2, 3), 1):
+        pql = f"Count(Row(kind={row}))"
+        first: list = []
+        t = threading.Thread(target=lambda: first.append(_query_json(
+            port, pql, "/index/events/query")))
+        t.start()
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < 60 and not any(
+                q["pql"] == pql and q["stage"] == "pipeline.wave"
+                for q in _get_json(port, "/debug/queries")["queries"]):
+            time.sleep(0.001)
+        status, _, body = _query_json(port, q4, "/index/rides/query",
+                                      {"X-Pilosa-Deadline-Ms": "1"})
+        t.join(timeout=600)
+        if (not first or first[0][0] != 200 or json.loads(first[0][2])[
+                "results"][0] != _popcount(events["kind"][row])):
+            fail(f"{pql} on events differs from the oracle")
+        if status == 504:
+            status2, _, body2 = _query_json(port, q4, "/index/rides/query")
+            if status2 != 200 or json.loads(body2)["results"][0] != want:
+                fail(f"{q4} after the 504 differs from the oracle")
+            return {"deadline_status": 504, "deadline_attempts": attempt,
+                    "deadline_body": json.loads(body)["error"]}
+    fail(f"a 1 ms deadline on {q4} answered {status}, not 504")
+
+
+def _trace_under_load(server, shapes: list, truth: dict) -> dict:
+    """``POST /debug/trace-device?secs=1`` while 16 clients load the
+    server; the Chrome trace's kernel events counted by name. A capture
+    that recorded no kernel answers 500 and writes no file (some
+    ``torch.profiler`` sessions on the H100 record the CPU side only:
+    ``scripts/trace_probe.py``); it is counted and the capture asked
+    again, ``TRACE_ATTEMPTS`` times at most."""
+    for attempt in range(1, TRACE_ATTEMPTS + 1):
+        box: dict = {}
+        load = threading.Thread(target=lambda: box.update(lat=timed_loop(
+            server.port, "repository", shapes, truth, ENVELOPE_CLIENTS,
+            TRACE_LOAD_S)))
+        load.start()
+        time.sleep(0.5)
+        status, _, body = _query_json(server.port, "",
+                                      "/debug/trace-device?secs=1")
+        load.join(timeout=600)
+        if status == 200:
+            break
+        if (status != 500 or b"no CUDA kernel event" not in body
+                or attempt == TRACE_ATTEMPTS):
+            fail(f"trace-device answered {status} at attempt {attempt}: "
+                 f"{body[:300]!r}")
+    out = json.loads(body)
+    files = sorted(Path(out["logDir"]).glob("*.json"))
+    if len(files) != 1:
+        fail(f"trace-device wrote {len(files)} files to {out['logDir']}")
+    size = files[0].stat().st_size
+    events = json.loads(files[0].read_text())["traceEvents"]
+    files[0].unlink()
+    kernels_seen: dict = {}
+    cats: dict = {}
+    for e in events:
+        cats[e.get("cat")] = cats.get(e.get("cat"), 0) + 1
+        if e.get("cat") == "kernel":
+            # "void (anonymous namespace)::tree_count_form_kernel<...>(...)"
+            name = e.get("name", "").removeprefix("void ").replace(
+                "(anonymous namespace)::", "").split("<")[0].split("(")[0]
+            kernels_seen[name] = kernels_seen.get(name, 0) + 1
+    k1 = sum(n for name, n in kernels_seen.items() if "tree_count" in name)
+    if not k1:
+        fail(f"the device trace holds no tree_count kernel: "
+             f"{sorted(kernels_seen)[:8]}; events by category {cats}")
+    return {"trace_attempts": attempt,
+            "trace_seconds": out["seconds"], "trace_bytes": size,
+            "trace_events": len(events), "trace_kernel_events": kernels_seen,
+            "trace_load_queries": len(box.get("lat", []))}
+
+
+def _serve_envelope(server, words: dict, taxi: dict, events: dict,
+                    kernels) -> dict:
+    """Phase 4h: the serving envelope on ``repository`` (see the module
+    docstring); returns its numbers."""
+    from pilosa_tpu_torch.qos import ServingQos, SLOEngine
+    from pilosa_tpu_torch.serving.rescache import global_result_cache
+    from pilosa_tpu_torch.utils.stats import global_stats
+    from pilosa_tpu_torch.utils.tracing import global_tracer
+
+    api = server.api
+    api.slo = SLOEngine.from_config(
+        ["reads:latency:100ms:0.99", "avail:errors:0.999"], ["10s", "60s"])
+    st = star_trace_after(words)
+    shapes, truth = _envelope_shapes(st)
+    stats: dict = {}
+
+    steps = stats["step_s"] = {}
+    t_step = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 3)
+        t_step[0] = now
+
+    # (a) the pipeline wave against each request on its own thread
+    stats["pipeline"] = _wave_loop(server, shapes, truth, kernels)
+    api.serve_pipelined = False
+    try:
+        stats["direct"] = _wave_loop(server, shapes, truth, kernels)
+    finally:
+        api.serve_pipelined = True
+    step("loops")
+
+    # (c) PROFILE trees of a Count and of a Row of known bits
+    c = Client(server.port)
+    rng = np.random.default_rng(ENVELOPE_ROW)
+    # in the first 16 shards: one /import of few fragments (the Row's
+    # block still spans all 1024)
+    row_cols = np.sort(rng.choice(min(16, N_SHARDS) * WORDS * 32,
+                                  ENVELOPE_ROW_BITS, replace=False))
+    body = json.dumps({"rows": [ENVELOPE_ROW] * row_cols.size,
+                       "columns": row_cols.tolist()}).encode()
+    if c.post("/index/repository/field/stargazer/import", body)[0] != 200:
+        fail("the PROFILE row's import failed")
+    count_pql = shapes[0]
+    status, body = c.post("/index/repository/query?profile=true",
+                          count_pql.encode())
+    prof = json.loads(body)
+    call = prof["profile"]["calls"][0]
+    if (status != 200 or prof["results"][0] != truth[count_pql]
+            or call["dispatches"] < 1 or call["shards"] != N_SHARDS
+            or prof["profile"]["totals"]["shards"] != N_SHARDS
+            or {leaf["field"] for leaf in call.get("leaves", ())}
+            != {"stargazer", "language"}):
+        fail(f"PROFILE of {count_pql}: {str(prof)[:400]}")
+    status, body = c.post("/index/repository/query?profile=true",
+                          f"Row(stargazer={ENVELOPE_ROW})".encode())
+    rprof = json.loads(body)
+    rcall = rprof["profile"]["calls"][0]
+    if (status != 200 or rprof["results"][0]["columns"] != row_cols.tolist()
+            or rcall["rowsMaterialized"] != ENVELOPE_ROW_BITS
+            or rcall["shards"] != N_SHARDS or rcall["dispatches"] < 1):
+        fail(f"PROFILE of Row(stargazer={ENVELOPE_ROW}): "
+             f"{str(rprof['profile'])[:400]}")
+    stats["profile_count"] = {k: call[k] for k in (
+        "wallMs", "deviceMs", "dispatches", "maxDispatchBatch", "shards",
+        "rowCacheHits", "rowCacheMisses", "bytesMoved")}
+    stats["profile_row"] = {k: rcall[k] for k in (
+        "wallMs", "deviceMs", "dispatches", "shards", "rowsMaterialized",
+        "bytesMoved")}
+
+    step("profile")
+
+    # (b) the result cache: hits, then three writes into a counted row
+    cache = global_result_cache()
+    cache.configure(64 << 20)
+    try:
+        counted = shapes[0]  # stargazer 0 AND language 1
+        want = truth[counted]
+        sg0 = st[("stargazer", 0)].reshape(N_SHARDS, WORDS)
+        lang1 = words[("language", 1)].reshape(N_SHARDS, WORDS)
+        free = lang1 & ~sg0
+        picks = []
+        for shard in (5, N_SHARDS // 2, N_SHARDS - 7):
+            w = int(np.flatnonzero(free[shard])[0])
+            bit = int(np.flatnonzero(np.unpackbits(np.array(
+                [free[shard, w]], np.uint32).view(np.uint8),
+                bitorder="little"))[0])
+            picks.append((shard, w * 32 + bit))
+        for _ in range(3):
+            if c.query(counted)[0] != want:
+                fail("a cached Count differs from the oracle")
+        hits0 = cache.metrics()["result_cache_hits_total"]
+        if hits0 < 2:
+            fail(f"repeated Counts made {hits0} result-cache hits")
+        from pilosa_tpu_torch.roaring import RoaringBitmap
+        from pilosa_tpu_torch.roaring.format import serialize
+
+        bm = RoaringBitmap()
+        bm.add_ids(np.array([picks[2][1]], np.uint64))  # row 0: id = pos
+        writes = [
+            ("set", lambda: c.query(
+                f"Set({picks[0][0] * WORDS * 32 + picks[0][1]}, "
+                "stargazer=0)") == [True]),
+            ("import", lambda: c.post(
+                "/index/repository/field/stargazer/import", json.dumps(
+                    {"rows": [0], "columns": [picks[1][0] * WORDS * 32
+                                              + picks[1][1]]}).encode())[0]
+                == 200),
+            ("import_roaring", lambda: c.post(
+                "/index/repository/field/stargazer/import-roaring/"
+                f"{picks[2][0]}", serialize(bm))[0] == 200),
+        ]
+        k3_before = kernels.launches()["word_patch"]
+        for name, write in writes:
+            if not write():
+                fail(f"the result-cache {name} write failed")
+            want += 1
+            for _ in range(2):  # the write's answer, then a hit of it
+                got = c.query(counted)[0]
+                if got != want:
+                    fail(f"after the {name}: {counted} answered {got}, the "
+                         f"oracle {want} (a stale result-cache hit)")
+        m = cache.metrics()
+        stats["rescache"] = {k: m[k] for k in (
+            "result_cache_hits_total", "result_cache_misses_total",
+            "result_cache_fills_total", "result_cache_invalidations_total",
+            "result_cache_fill_races_total", "result_cache_entries")}
+        stats["rescache"]["k3_launches"] = \
+            kernels.launches()["word_patch"] - k3_before
+        if stats["rescache"]["k3_launches"] < len(writes):
+            fail(f"the result cache's {len(writes)} writes made "
+                 f"{stats['rescache']['k3_launches']} K3 launches")
+    finally:
+        cache.configure(0)
+    for shard, col in picks:  # the oracle of the loops below
+        _set_bits(st[("stargazer", 0)], [shard * WORDS * 32 + col])
+    shapes, truth = _envelope_shapes(st)
+    step("rescache")
+
+    # (d) two tenants against the per-tenant gate, then the deadline
+    api.qos = ServingQos(tenant_max=TENANT_INFLIGHT, stats=global_stats())
+    try:
+        stats["tenants"] = _tenant_loop(server.port, shapes, truth)
+        stats["tenants"]["qos"] = api.qos.metrics()
+    finally:
+        api.qos = ServingQos(stats=global_stats())
+    stats.update(_deadline_504(server, taxi["q4"], taxi["q4_after"],
+                               events))
+    if api.qos.metrics()["deadline_expired_total"] != 1:
+        fail("the 504 did not count a deadline expiry")
+    step("tenants_deadline")
+
+    # (e) a torch.profiler capture with the card's kernels under load
+    stats.update(_trace_under_load(server, shapes, truth))
+    step("trace")
+
+    # (f) the debug routes and the serving planes' families (a fresh
+    # connection: the server closes one idle for 120 s)
+    c.close()
+    c = Client(server.port)
+    global_tracer().sample_rate = 1.0
+    try:
+        for pql in shapes[:2]:
+            if c.query(pql)[0] != truth[pql]:
+                fail(f"{pql} under tracing differs from the oracle")
+        traces = _get_json(server.port, "/debug/traces")["traces"]
+    finally:
+        global_tracer().sample_rate = 0.0
+    names = set()
+
+    def walk(t):
+        names.add(t["name"])
+        for ch in t["children"]:
+            walk(ch)
+
+    for t in traces:
+        walk(t)
+    if not {"http.query", "pipeline.wave", "executor.Execute",
+            "device.dispatch"} <= names:
+        fail(f"/debug/traces spans: {sorted(names)}")
+    slo = _get_json(server.port, "/debug/slo")
+    vars_ = _get_json(server.port, "/debug/vars")
+    live = _get_json(server.port, "/debug/queries")
+    for block in ("serving_pipeline", "qos", "result_cache", "tenants",
+                  "heat", "slo", "observability"):
+        if block not in vars_:
+            fail(f"/debug/vars has no {block} block")
+    status, _, body = _http(server.port, "GET", "/metrics")
+    fams = _metric_families(body.decode())
+    missing = [f for f in ENVELOPE_FAMILIES if f not in fams]
+    if status != 200 or missing:
+        fail(f"/metrics lacks {missing}")
+    stats["slo"] = [{"name": o["name"], "windows": o["windows"],
+                     "breach": o["breach"]} for o in slo["objectives"]]
+    stats["trace_spans"] = sorted(names)
+    stats["queries_tracked"] = live["trackedTotal"]
+    stats["metrics_families"] = len(fams)
+    c.close()
+    step("debug_routes")
+    return stats
 
 
 # ---------------------------------------------------------------- time path
@@ -2649,8 +3094,9 @@ def _serve_keys(server, truth: dict, o: dict, u: dict) -> dict:
 SFF = "store_and_fwd_flag"
 SFF_P = 0.01
 WIRE_CLIENTS = 16
-WIRE_PROTO_S = 20.0   # the protobuf clients' closed loop
-WIRE_JSON_S = 10.0    # the same shapes as JSON
+# cut from 20 s and 10 s, then 5 s each, for the serving-envelope path
+WIRE_PROTO_S = 3.0    # the protobuf clients' closed loop
+WIRE_JSON_S = 3.0     # the same shapes as JSON
 WIRE_WRITES = 4096    # bits of the protobuf ImportRequest, values of the
 WIRE_SHARDS = (0, 1)  # ImportValueRequest; the Row shape's shards
 WIRE_SERIAL = 16      # import-roaring requests sent one at a time
@@ -2724,19 +3170,30 @@ def _get_json(port: int, path: str):
 
 
 def _metric_families(text: str) -> dict:
-    """name -> value of a Prometheus page; every family must lead with its
-    HELP and TYPE lines."""
+    """family -> its untagged sample's value (None with only tagged
+    samples) of a Prometheus page; every sample's family (a summary's or
+    histogram's ``_bucket``/``_sum``/``_count`` series included) must
+    lead with its HELP and TYPE lines."""
     meta: dict = {}
     values: dict = {}
     for line in text.splitlines():
         if line.startswith("# "):
             kind, name = line.split(" ")[1:3]
             meta.setdefault(name, set()).add(kind)
+            values.setdefault(name, None)
             continue
-        name, value = line.split(" ")
-        if meta.get(name) != {"HELP", "TYPE"}:
-            fail(f"/metrics: {name} has no HELP and TYPE lines")
-        values[name] = float(value)
+        name, value = line.rsplit(" ", 1)
+        family = name.split("{", 1)[0]
+        if meta.get(family) != {"HELP", "TYPE"}:
+            family = next((family[:-len(sfx)] for sfx in
+                           ("_bucket", "_sum", "_count")
+                           if family.endswith(sfx) and meta.get(
+                               family[:-len(sfx)]) == {"HELP", "TYPE"}),
+                          None)
+            if family is None:
+                fail(f"/metrics: {name} has no HELP and TYPE lines")
+        if "{" not in name:
+            values[name] = float(value)
     return values
 
 
@@ -3064,7 +3521,7 @@ def _serve_wire(server, wt: dict, kernels) -> dict:
 N_MONTHS = 84
 MONTH_JOB = "repository"
 TIER_CLIENTS = 16
-TIER_PER_CLIENT = 30
+TIER_PER_CLIENT = 10      # 30, then 18, before the run passed 1 100 s
 TIER_DENSE_MONTHS = 16   # month leaves the lowered budget keeps dense
 TIER_MATRIX_ROWS = 4     # TopN(cab_type)'s candidate matrix: 3 rows + 1 pad
 TIER_SWEEP = 30          # months promoted after the writes
@@ -3609,13 +4066,14 @@ _BUILD_DATA: dict = {}
 # The integrity path: rides' cab_type and pickup_year over the first
 # INTEG_SHARDS shards, copied into a directory of its own. A scrub pass is
 # serial host work (blake2b over 8 bytes a set bit): 507 fragments took
-# 18-21 s on the host of an NVIDIA H100 80GB HBM3 machine, so 256 shards
-# keep each of the path's two passes near 20 s where the full 1024 would
-# take ~80 s of the script's 1200.
-INTEG_SHARDS = 256
+# 18-25 s on the host of an NVIDIA H100 80GB HBM3 machine, so 128 shards
+# keep each of the path's two passes near 10 s where the full 1024 would
+# take ~80 s of the script's 1200 (256 shards until the run passed 1 100
+# s).
+INTEG_SHARDS = 128
 INTEG_FIELDS = ("cab_type", "pickup_year")
 INTEG_CLIENTS = 16
-INTEG_WINDOW_S = 5.0
+INTEG_WINDOW_S = 2.0      # 5.0, then 3.0, before the run passed 1 100 s
 INTEG_PAIRS = ((0, 2009), (1, 2012), (2, 2016), (0, 2015))
 
 
@@ -4159,6 +4617,7 @@ def main() -> int:
                     help="open the server as the port does by default, "
                     "verifying every fragment's .checksums, and time it")
     args = ap.parse_args()
+    t_run = time.perf_counter()
 
     if not (Path(__file__).resolve().parent / "pilosa_tpu_torch").is_dir():
         print("chip_smoke: pilosa_tpu_torch is not beside this script",
@@ -4302,6 +4761,7 @@ def main() -> int:
         "rides": ("tree_count", "word_patch", "bsi_compare", "bsi_sum",
                   "bsi_minmax"),
         "taxi": ("count_rows", "groupby_level", "word_patch"),
+        "serving": ("tree_count", "tree_rows", "word_patch", "groupby_level"),
         "time": ("tree_count", "tree_rows", "word_patch", "count_rows",
                  "groupby_level"),
         "keys": ("tree_count", "count_rows", "groupby_level", "word_patch"),
@@ -4324,6 +4784,7 @@ def main() -> int:
     for path, (stats, launched) in paths.items():
         print(f"main path {path}: " + json.dumps(stats), flush=True)
         print(f"launches {path}: {json.dumps(launched)}", flush=True)
+    print(f"run: {time.perf_counter() - t_run:.1f}s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     # K3 and K10 also give their device time apart from their call (K10

@@ -237,6 +237,7 @@ def _load_config(path: str | None) -> dict:
 
 def cmd_server(args) -> int:
     from pilosa_tpu_torch.server import Server
+    from pilosa_tpu_torch.server.server import SERVING_KNOBS
     from pilosa_tpu_torch.utils.logger import new_standard_logger
 
     if args.unported:
@@ -258,8 +259,10 @@ def cmd_server(args) -> int:
                     residency_demote_heat=args.residency_demote_heat,
                     scrub_interval=args.scrub_interval,
                     scrub_max_bytes_per_sec=args.scrub_max_bytes_per_sec,
-                    max_writes_per_request=args.max_writes_per_request
-                    ).open()
+                    max_writes_per_request=args.max_writes_per_request,
+                    # the serving envelope's knobs: config file and env
+                    **{k.replace("-", "_"): getattr(args, k.replace("-", "_"))
+                       for k in SERVING_KNOBS}).open()
     print(f"pilosa_tpu_torch serving {args.data_dir} on "
           f"http://{args.bind}:{server.port} ({server.holder.device})",
           flush=True)

@@ -72,7 +72,7 @@ __device__ __forceinline__ void block_add(int v, int* dst) {
 
 template <int OP, bool HEAD_DIFF, int N, int R>
 __global__ void __launch_bounds__(THREADS)
-form_kernel(const __grid_constant__ CountParams p, int* __restrict__ partials) {
+tree_count_form_kernel(const __grid_constant__ CountParams p, int* __restrict__ partials) {
   const int q = blockIdx.y;
   const long long row = blockIdx.x / p.tiles_per_row;
   const long long tile = blockIdx.x % p.tiles_per_row;
@@ -102,7 +102,7 @@ form_kernel(const __grid_constant__ CountParams p, int* __restrict__ partials) {
 
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(THREADS)
-general_kernel(const __grid_constant__ CountParams p,
+tree_count_general_kernel(const __grid_constant__ CountParams p,
                int* __restrict__ partials) {
   const int q = blockIdx.y;
   const long long row = blockIdx.x / p.tiles_per_row;
@@ -141,12 +141,12 @@ int launch(K kernel, CountParams& p, int n_batch, int per_thread,
 template <int OP, bool HD>
 int launch_form(CountParams& p, int n_batch, int* out, cudaStream_t st) {
   if (p.n_leaves <= 2)
-    return launch(form_kernel<OP, HD, 2, 4>, p, n_batch, 4, out, st);
+    return launch(tree_count_form_kernel<OP, HD, 2, 4>, p, n_batch, 4, out, st);
   if (p.n_leaves <= 4)
-    return launch(form_kernel<OP, HD, 4, 4>, p, n_batch, 4, out, st);
+    return launch(tree_count_form_kernel<OP, HD, 4, 4>, p, n_batch, 4, out, st);
   if (p.n_leaves <= 8)
-    return launch(form_kernel<OP, HD, 8, 2>, p, n_batch, 2, out, st);
-  return launch(form_kernel<OP, HD, 16, 1>, p, n_batch, 1, out, st);
+    return launch(tree_count_form_kernel<OP, HD, 8, 2>, p, n_batch, 2, out, st);
+  return launch(tree_count_form_kernel<OP, HD, 16, 1>, p, n_batch, 1, out, st);
 }
 
 template <bool HD>
@@ -169,14 +169,14 @@ int launch_general(int depth, int vec, CountParams& p, int n_batch, int* out,
   if (depth > 8 || !vec) {
     if (vec) p.row_elems *= 4;  // back to words
     if (depth <= 4)
-      return launch(general_kernel<uint32_t, 4, 2>, p, n_batch, 2, out, st);
+      return launch(tree_count_general_kernel<uint32_t, 4, 2>, p, n_batch, 2, out, st);
     if (depth <= 8)
-      return launch(general_kernel<uint32_t, 8, 2>, p, n_batch, 2, out, st);
-    return launch(general_kernel<uint32_t, 16, 2>, p, n_batch, 2, out, st);
+      return launch(tree_count_general_kernel<uint32_t, 8, 2>, p, n_batch, 2, out, st);
+    return launch(tree_count_general_kernel<uint32_t, 16, 2>, p, n_batch, 2, out, st);
   }
   if (depth <= 4)
-    return launch(general_kernel<uint4, 4, 2>, p, n_batch, 2, out, st);
-  return launch(general_kernel<uint4, 8, 2>, p, n_batch, 2, out, st);
+    return launch(tree_count_general_kernel<uint4, 4, 2>, p, n_batch, 2, out, st);
+  return launch(tree_count_general_kernel<uint4, 8, 2>, p, n_batch, 2, out, st);
 }
 
 }  // namespace

@@ -57,7 +57,7 @@ __device__ __forceinline__ void store_cs(uint32_t* p, long long w, uint4 v) {
 // R the groups a thread takes per step.
 template <int OP, bool HEAD_DIFF, int N, int R>
 __global__ void __launch_bounds__(THREADS)
-form_kernel(const __grid_constant__ RowsParams p, uint32_t* __restrict__ out) {
+tree_rows_form_kernel(const __grid_constant__ RowsParams p, uint32_t* __restrict__ out) {
   const long long n4 = p.n_words / 4;
   const long long step = static_cast<long long>(gridDim.x) * THREADS * R;
   const uint4 mask = pilosa::splat(p.xor_mask, uint4());
@@ -78,7 +78,7 @@ form_kernel(const __grid_constant__ RowsParams p, uint32_t* __restrict__ out) {
 // The general form over elements of T (one word or a 16-byte group).
 template <typename T, int D, int R>
 __global__ void __launch_bounds__(THREADS)
-general_kernel(const __grid_constant__ RowsParams p,
+tree_rows_general_kernel(const __grid_constant__ RowsParams p,
                uint32_t* __restrict__ out) {
   constexpr int KW = pilosa::kWords<T>;
   const long long n = p.n_words / KW;
@@ -114,12 +114,12 @@ template <int OP, bool HD>
 int launch_form(const RowsParams& p, uint32_t* out, cudaStream_t st) {
   const long long n4 = p.n_words / 4;
   if (p.n_leaves <= 2)
-    return launch(form_kernel<OP, HD, 2, 4>, p, n4, 4, out, st);
+    return launch(tree_rows_form_kernel<OP, HD, 2, 4>, p, n4, 4, out, st);
   if (p.n_leaves <= 4)
-    return launch(form_kernel<OP, HD, 4, 4>, p, n4, 4, out, st);
+    return launch(tree_rows_form_kernel<OP, HD, 4, 4>, p, n4, 4, out, st);
   if (p.n_leaves <= 8)
-    return launch(form_kernel<OP, HD, 8, 2>, p, n4, 2, out, st);
-  return launch(form_kernel<OP, HD, 16, 1>, p, n4, 1, out, st);
+    return launch(tree_rows_form_kernel<OP, HD, 8, 2>, p, n4, 2, out, st);
+  return launch(tree_rows_form_kernel<OP, HD, 16, 1>, p, n4, 1, out, st);
 }
 
 template <bool HD>
@@ -135,14 +135,14 @@ template <typename T>
 int launch_general(int depth, const RowsParams& p, uint32_t* out,
                    cudaStream_t st) {
   const long long n = p.n_words / pilosa::kWords<T>;
-  if (depth <= 4) return launch(general_kernel<T, 4, 2>, p, n, 2, out, st);
-  return launch(general_kernel<T, 8, 2>, p, n, 2, out, st);
+  if (depth <= 4) return launch(tree_rows_general_kernel<T, 4, 2>, p, n, 2, out, st);
+  return launch(tree_rows_general_kernel<T, 8, 2>, p, n, 2, out, st);
 }
 
 // Programs deeper than 8 run one word a lane: 16 slots of 16-byte groups
 // would not stay in registers (ptxas spilled them).
 int launch_deep(const RowsParams& p, uint32_t* out, cudaStream_t st) {
-  return launch(general_kernel<uint32_t, 16, 2>, p, p.n_words, 2, out, st);
+  return launch(tree_rows_general_kernel<uint32_t, 16, 2>, p, p.n_words, 2, out, st);
 }
 
 }  // namespace

@@ -21,6 +21,13 @@ dimensions the surviving prefix groups fold into one temporary matrix).
 A tree over the kernels' 16 operands or 16 stack slots runs part by
 part as K2 'tree' steps. Store takes its child's row through K2 and
 writes each shard's words.
+
+The serving hooks are the reference's: ``execute`` and ``submit`` take
+a ``deadline`` checked before any launch, ``instrument_calls`` wraps a
+query's calls in their spans, stats and PROFILE nodes, every launch
+runs in ``dispatch`` (a ``device.dispatch`` span and the cost context's
+``note_dispatch``, enqueue time only), and ``pipeline_coalescable``
+says which queries the serving pipeline takes.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import datetime as dt
 import math
 import re
 import threading
+import time
 import weakref
 
 import numpy as np
@@ -57,6 +65,9 @@ from pilosa_tpu_torch.storage.field import BSI_EXISTS_ROW, TYPE_INT, TYPE_TIME
 from pilosa_tpu_torch.storage.index import EXISTENCE_FIELD, Index
 from pilosa_tpu_torch.storage.translate import column_namespace, row_namespace
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, views_by_time_range
+from pilosa_tpu_torch.utils.cost import current_cost, use_node
+from pilosa_tpu_torch.utils.stats import global_stats
+from pilosa_tpu_torch.utils.tracing import global_tracer
 
 # TopN phase-1 candidate overfetch per shard (the reference's value).
 TOPN_CANDIDATE_FACTOR = 4
@@ -137,10 +148,74 @@ def _node_has_const0(node) -> bool:
     return any(_node_has_const0(c) for c in node[1:])
 
 
+def dispatch(reduce_kind: str, launch, batch_n: int | None = None):
+    """``launch()`` (one query's kernels, or a micro-batch's one launch of
+    ``batch_n`` queries) in a ``device.dispatch`` span, its enqueue time
+    noted on the request's cost context. No site waits for the card: a
+    launch returns once its kernels are queued on the stream, and the
+    readback stays in ``Deferred.result()``."""
+    tags = {"reduce": reduce_kind}
+    if batch_n is not None:
+        tags["batch"] = batch_n
+    cost = current_cost()
+    with global_tracer().span("device.dispatch", **tags):
+        if cost is None:
+            return launch()
+        t0 = time.perf_counter()
+        out = launch()
+        cost.note_dispatch(time.perf_counter() - t0, batch=batch_n or 1)
+    return out
+
+
+def instrument_calls(index_name: str, calls, run_one) -> list:
+    """The stats, trace and cost envelope around a query's calls (the
+    reference's): one ``executor.Execute`` span a query, one
+    ``execute<Name>`` span and ``query``/``queries`` stats a call. Shared
+    by ``execute`` and the serving pipeline's resolve loop, so span and
+    stat names cannot drift between them. Under a PROFILE each call runs
+    under its profile node: its wall time and result cardinality land
+    there."""
+    stats = global_stats()
+    tracer = global_tracer()
+    cost = current_cost()
+    profile = cost.profile if cost is not None else None
+    out = []
+    with tracer.root_span("executor.Execute", index=index_name):
+        for i, call in enumerate(calls):
+            if profile is None:
+                with tracer.span(f"execute{call.name}"), \
+                        stats.timer("query", {"call": call.name}):
+                    out.append(run_one(call))
+                stats.count("queries", 1, {"call": call.name})
+                continue
+            node = profile.node_for(i, call)
+            t0 = time.perf_counter()
+            with use_node(cost, node):
+                with tracer.span(f"execute{call.name}"), \
+                        stats.timer("query", {"call": call.name}):
+                    res = run_one(call)
+                node.wall_s += time.perf_counter() - t0
+                cost.note_rows(_result_cardinality(res))
+            out.append(res)
+            stats.count("queries", 1, {"call": call.name})
+    return out
+
+
+def _result_cardinality(res) -> int:
+    """Rows materialized by one call's result (PROFILE only): a row
+    result's bit count, a list's length."""
+    if isinstance(res, RowResult):
+        return int(res.count())
+    if isinstance(res, list):
+        return len(res)
+    return 0
+
+
 class Deferred:
     """Handle for a pipelined query result (Executor.submit): the kernel
     is launched (or queued in a micro-batch) at submit; ``result()``
-    does the readback."""
+    does the readback. Not safe to resolve from two threads at once: the
+    pipeline wraps a shared one in ``_SharedDeferred``."""
 
     __slots__ = ("_finalize", "_value")
 
@@ -188,16 +263,36 @@ class Executor:
             query = Query([query])
         return idx, query
 
-    def execute(self, index_name: str, query, shards=None) -> list:
+    def execute(self, index_name: str, query, shards=None,
+                deadline=None) -> list:
+        """Run every call to its result. ``deadline`` (qos.Deadline) is
+        checked first: an expired request launches nothing."""
+        if deadline is not None:
+            deadline.check("local execute")
         idx, query = self._parse(index_name, query)
-        return [self._execute_call(idx, call, shards) for call in query.calls]
+        return instrument_calls(
+            index_name, query.calls,
+            lambda call: self._execute_call(idx, call, shards))
 
-    def submit(self, index_name: str, query, shards=None) -> list:
+    def submit(self, index_name: str, query, shards=None,
+               deadline=None) -> list:
         """Pipelined execution: parse, compile and launch (or queue) each
         call's kernel without waiting for the readback; one ``Deferred``
         per call. Counts of one shape coalesce into one launch per
-        micro-batch; writes run at submit."""
+        micro-batch; writes run at submit. ``deadline`` is enforced at
+        this dispatch boundary: an expired request raises before any
+        kernel is launched for it. Under a PROFILE each call's submit
+        work lands on the same profile node as its resolve."""
+        if deadline is not None:
+            deadline.check("local submit")
         idx, query = self._parse(index_name, query)
+        cost = current_cost()
+        if cost is not None and cost.profile is not None:
+            out = []
+            for i, call in enumerate(query.calls):
+                with use_node(cost, cost.profile.node_for(i, call)):
+                    out.append(self._submit_one(idx, call, shards))
+            return out
         return [self._submit_one(idx, call, shards) for call in query.calls]
 
     def _submit_one(self, idx: Index, call: Call, shards=None) -> Deferred:
@@ -306,19 +401,51 @@ class Executor:
     # ------------------------------------------------------ batched mapping
 
     def _eval_operands(self, idx: Index, compiled: _Compiled, block):
-        """The stacked leaf of every compiled spec, resident on the card."""
-        self._note_operands(idx, compiled.specs, block)
+        """The stacked leaf of every compiled spec, resident on the card.
+        Under a PROFILE each leaf adds a record to the active node: its
+        field and row, whether the cache hit, the containers decoded by
+        type and the bytes uploaded (the request's deltas around it). The
+        port keeps no operand memo, so ``operandMemoHit`` stays false and
+        a repeated query records its leaves again."""
+        cost = current_cost()
+        self._note_operands(idx, compiled.specs, block, cost)
         cache = self.holder.cache
-        return [batch.stacked_leaf(idx, spec, block, cache)
-                for spec in compiled.specs]
+        node = (cost.current if cost is not None
+                and cost.profile is not None else None)
+        if node is None:
+            return [batch.stacked_leaf(idx, spec, block, cache)
+                    for spec in compiled.specs]
+        leaves = []
+        for spec in compiled.specs:
+            snap = (cost.row_cache_hits, cost.c_array, cost.c_bitmap,
+                    cost.c_run, cost.device_bytes)
+            leaves.append(batch.stacked_leaf(idx, spec, block, cache))
+            rec = {
+                "field": getattr(spec, "field", None),
+                "cacheHit": cost.row_cache_hits > snap[0],
+                "containers": {"array": cost.c_array - snap[1],
+                               "bitmap": cost.c_bitmap - snap[2],
+                               "run": cost.c_run - snap[3]},
+                "bytesMoved": cost.device_bytes - snap[4],
+            }
+            row = getattr(spec, "row", None)
+            if row is not None:
+                rec["row"] = int(row)
+            node.leaves.append(rec)
+        return leaves
 
     @staticmethod
-    def _note_operands(idx: Index, specs, block) -> None:
-        """One operand assembly of a served query: the access heat of its
-        fields over the block's shards, one batched record (the
-        reference's ``_note_operands``; see ``storage/heat.py``)."""
-        if not heat.in_request():
-            return
+    def _note_operands(idx: Index, specs, block, cost=None) -> None:
+        """One operand assembly of a served query (the reference's
+        ``_note_operands``): the shards it touches, and the access heat
+        of its fields over them, one batched record. Recorded only under
+        a request's cost context, so direct executor calls and
+        background work record nothing."""
+        if cost is None:
+            cost = current_cost()
+            if cost is None:
+                return
+        cost.note_shards(len(block.shards))
         fields = {spec.field for spec in specs
                   if getattr(spec, "field", None) is not None}
         if fields:
@@ -332,9 +459,10 @@ class Executor:
 
     def _run(self, idx: Index, compiled: _Compiled, block, reduce_kind):
         """One query's kernels, launched now (``batch.run_plan``)."""
-        return batch.run_plan(compiled.plan, reduce_kind,
-                              self._eval_operands(idx, compiled, block),
-                              compiled.scalars, self._zeros(idx, block))
+        leaves = self._eval_operands(idx, compiled, block)
+        return dispatch(reduce_kind, lambda: batch.run_plan(
+            compiled.plan, reduce_kind, leaves, compiled.scalars,
+            self._zeros(idx, block)))
 
     # ------------------------------------------------- query micro-batching
     #
@@ -381,7 +509,13 @@ class Executor:
         fn = batch.local_fn_batched(node, reduce_kind,
                                     tuple(len(s) - 1 for s in shapes),
                                     len(rows))
-        group["out"] = fn(*[leaf for leaves in rows for leaf in leaves])
+        # the span lands in the trace of whichever request flushed the
+        # group: that request paid the launch, its batchmates ride along
+        # (tagged with the shared size), and the cost plane says the same
+        group["out"] = dispatch(
+            reduce_kind,
+            lambda: fn(*[leaf for leaves in rows for leaf in leaves]),
+            batch_n=len(rows))
         self.largest_batch = max(self.largest_batch, len(rows))
         if self._pending.get(key) is group:
             del self._pending[key]
@@ -459,9 +593,14 @@ class Executor:
         # the plan's steps launch now; the elementwise rest joins a
         # micro-batch of its shape
         zeros = self._zeros(idx, block)
-        resolve = batch.materialize(compiled.plan,
-                                    self._eval_operands(idx, compiled, block),
-                                    compiled.scalars, zeros)
+        leaves = self._eval_operands(idx, compiled, block)
+        if compiled.plan.steps:
+            # shift, BSI-comparison and 'tree' steps launch now
+            resolve = dispatch("steps", lambda: batch.materialize(
+                compiled.plan, leaves, compiled.scalars, zeros))
+        else:
+            resolve = batch.materialize(compiled.plan, leaves,
+                                        compiled.scalars, zeros)
         node, operands = compiled.plan.root
         read = self._microbatch_enqueue(node, "count",
                                         resolve(operands) or [zeros()])
@@ -545,7 +684,8 @@ class Executor:
         plan = self._plan(node)
         leaves = [batch.stacked_leaf(idx, s, block, self.holder.cache)
                   for s in specs]
-        return batch.filter_row(plan, leaves, scalars, self._zeros(idx, block))
+        return dispatch("row", lambda: batch.filter_row(
+            plan, leaves, scalars, self._zeros(idx, block)))
 
     def _submit_topn(self, idx: Index, call: Call, shards=None) -> Deferred:
         """TopN in two phases. Phase 1 takes each shard's candidates from
@@ -593,7 +733,8 @@ class Executor:
             matrix = batch.stacked_matrix(idx, field_name, view, chunk, block,
                                           self.holder.cache,
                                           pad_rows=rows - len(chunk))
-            reads.append((chunk, batch.count_rows_packed(matrix, filt)))
+            reads.append((chunk, dispatch(
+                "countrows", lambda: batch.count_rows_packed(matrix, filt))))
 
         def finish() -> list[Pair]:
             # threshold=: the least total a row needs, after the recount
@@ -736,7 +877,7 @@ class Executor:
         """GroupBy as K9 levels. A cross-product of at most
         GROUPBY_DENSE_MAX_GROUPS groups over at most 16 dimensions is one
         level, launched at submit and read back at result(); any other
-        runs the pruned levels (``_groupby_pruned``). The matrices are
+        runs the pruned levels (``_groupby_pruned``) at result(). The matrices are
         patched in place by writes, so a write landing between two levels
         is seen by the later levels only."""
         limit, filt_call, agg_field, dims, having = self._groupby_prelude(
@@ -795,7 +936,10 @@ class Executor:
                     packed.cpu().numpy(), layout, planes is not None, depth))
 
             return Deferred(finish)
-        return Deferred(value=collect(*_groupby_pruned(
+        # the pruned levels read back after each level to choose the next
+        # level's candidates: all of it runs at result(), on the thread
+        # that resolves (never on the serving pipeline's dispatcher)
+        return Deferred(lambda: collect(*_groupby_pruned(
             block, [], np.zeros((1, 0), np.int32), mats, sizes, filt, planes,
             depth)))
 
@@ -834,11 +978,16 @@ class Executor:
         cached."""
         key = (idx.name, id(call), wrap)
         entry = self._plan_cache.get(key)
+        cost = current_cost()
         if entry is not None:
             call_ref, idx_ref, epoch, compiled = entry
             if (call_ref is call and idx_ref() is idx
                     and epoch == idx.plan_epoch):
+                if cost is not None:
+                    cost.note_plan(True)
                 return compiled
+        if cost is not None:
+            cost.note_plan(False)
         epoch = idx.plan_epoch
         if build is not None:
             compiled = build()
@@ -1171,8 +1320,8 @@ def _groupby_level_enqueue(block, mats: list, cand: np.ndarray, filt, planes,
     packs, layout = [], []
     for lo in range(0, cand.shape[0], chunk):
         part = cand[lo:lo + chunk]
-        packs.append(batch.groupby_level_packed(
-            mats, [part[:, d] for d in range(part.shape[1])], filt, planes))
+        packs.append(dispatch("groupby", lambda: batch.groupby_level_packed(
+            mats, [part[:, d] for d in range(part.shape[1])], filt, planes)))
         layout.append(part.shape[0])
     packed = packs[0] if len(packs) == 1 else torch.cat(packs)
     return packed, layout
@@ -1261,7 +1410,8 @@ def _groupby_prefix_matrix(mats: list, cand: np.ndarray) -> torch.Tensor:
         rows = [m[:, torch.as_tensor(part[:, d].astype(np.int64),
                                      device=m.device)]
                 for d, m in enumerate(mats)]
-        out[:, lo:lo + part.shape[0]] = kernels.tree_rows(program, rows)
+        out[:, lo:lo + part.shape[0]] = dispatch(
+            "row", lambda: kernels.tree_rows(program, rows))
     return out
 
 
@@ -1406,3 +1556,24 @@ def having_predicate(call: Call, has_agg: bool):
                               else int(sum_ or 0))
 
     return pred
+
+
+# Calls whose submit() launches kernels and defers the readback (or
+# coalesces into micro-batches): the only ones the serving pipeline
+# coalesces. Every other call (Rows, IncludesColumn, writes) evaluates
+# fully inside submit(), so routing it through the one dispatcher thread
+# would serialize work the request threads otherwise overlap.
+_PIPELINED_CALLS = {"Count", "Sum", "Min", "Max", "TopN",
+                    "GroupBy"} | _BITMAP_CALLS
+
+
+def pipeline_coalescable(query) -> bool:
+    """True when every call of the query pipelines under submit()
+    (Options counts as its child)."""
+    def one(call) -> bool:
+        if call.name == "Options":
+            return bool(call.children) and one(call.children[0])
+        return call.name in _PIPELINED_CALLS
+
+    calls = getattr(query, "calls", None)
+    return calls is not None and all(one(c) for c in calls)

@@ -1,37 +1,60 @@
 """The API layer between HTTP and the holder/executor (reference api.go).
 
-The port's thin copy of ``pilosa_tpu.server.api``: schema writes, PQL
+The port's copy of ``pilosa_tpu.server.api``: schema writes, PQL
 queries answered as pre-serialized JSON bytes, bulk bit imports (a mutex
 or bool field's through ``Fragment.import_mutex``, a time field's
-timestamped bits also into each quantum view, one bulk import a view)
-and int fields' value imports, with the reference's validation and
-error texts so both packages answer the same bytes. A write is acknowledged only
-once durable (``_ack_durable``): in ``group`` mode the request waits for
-the WAL group holding its records to be fsynced, in ``per-op`` mode every
-record was fsynced inline, and ``flush-only`` promises nothing. Before
-that, the request's patches of resident leaves launch together
-(``DeviceRowCache.batch_writes``: one K3 launch a request), and in the
-fsyncing modes the key translation log is fsynced before the WAL's
-barrier. A query may ask for the request-level result options
-``columnAttrs``, ``excludeColumns`` and ``excludeRowAttrs``. A query
-runs as a served request (``storage/heat.py``: its operand assemblies
-and PQL writes record heat), and each import records the write heat of
-its shards. While the holder's ``StorageHealth`` latch is tripped (a
-failed WAL fsync, snapshot or ``.meta`` write), every write is shed with a
-503 and ``retry_after`` before the executor sees it, so no patch reaches
-the card; reads go on, ``status()`` reports the latch, and
-``integrity_metrics()`` the integrity counters. ``scrub_now()`` runs one
-scrubber pass (``parallel/scrub.py``). ``import_roaring`` unions one
-shard's roaring bitmap (either layout) in one locked pass; the deletes
-purge the residency cache and the heat map of what they remove;
-``schema``, ``info``, ``version``, ``max_shards`` and ``export_csv``
-answer the read routes, and ``tiering_metrics`` and
-``durability_metrics`` feed ``/metrics`` beside the cache's and the
-integrity plane's blocks. Cluster, QoS, tracing, the cost plane, the
-result cache and multi-process serving are not ported yet.
+timestamped bits also into each quantum view, one bulk import a view;
+an import's shard groups on the ``ingest-workers`` pool) and int fields'
+value imports, with the reference's validation and error texts so both
+packages answer the same bytes.
+
+The request envelope of a query (``query_raw``), the reference's:
+
+- the in-flight tracker (``GET /debug/queries``), a cost context for
+  the tenant ledger, the SLO engine and an optional PROFILE tree
+  (``profile_out``), and the ``qos.admit`` span;
+- the admission gate (edge requests only): a shed request is a 429 with
+  ``retry_after``;
+- reads that pipeline (``executor.pipeline_coalescable``) go through the
+  ``QueryPipeline`` wave (``serve_pipelined``, on by default), with
+  identical plain reads of one wave submitted once; other reads and
+  writes run on ``execute``;
+- a ``deadline`` (qos.Deadline) rides to the executor's dispatch
+  boundary; expiry is a 504;
+- a query at or over ``long_query_time`` lands in the slow-query ring,
+  with its span tree when sampled.
+
+``query_json_bytes`` puts the write-invalidated result cache
+(``serving/rescache.py``) in front: a plain read is answered from cached
+bytes (``_serve_result_cache_hit``: admission, tracking and accounting
+still run), a miss fills after its run unless a write raced it.
+
+A write is acknowledged only once durable (``_ack_durable``): in
+``group`` mode the request waits for the WAL group holding its records
+to be fsynced, in ``per-op`` mode every record was fsynced inline, and
+``flush-only`` promises nothing. Before that, the request's patches of
+resident leaves launch together (``DeviceRowCache.batch_writes``: one K3
+launch a request), and every result-cache entry the write touches has
+been invalidated at its fragments. A query may ask for the request-level
+result options ``columnAttrs``, ``excludeColumns`` and
+``excludeRowAttrs``. While the holder's ``StorageHealth`` latch is
+tripped, every write is shed with a 503 and ``retry_after`` before the
+executor sees it. ``scrub_now()`` runs one scrubber pass;
+``import_roaring`` unions one shard's roaring bitmap (either layout) in
+one locked pass; the deletes purge the residency cache and the heat map
+of what they remove. The ``*_metrics`` methods and the ``*_json``
+inspectors feed ``/metrics`` and the ``/debug`` routes;
+``start_device_trace`` captures a ``torch.profiler`` trace. Cluster,
+CDC and multi-process serving are not ported yet.
 """
 
 from __future__ import annotations
+
+import collections
+import datetime as dt
+import os
+import threading
+import time
 
 import numpy as np
 
@@ -40,13 +63,27 @@ from pilosa_tpu_torch.executor.executor import (
     Executor,
     PQLError,
     column_attr_sets,
+    instrument_calls,
     parse_time,
+    pipeline_coalescable,
     strip_columns,
 )
 from pilosa_tpu_torch.executor.result import RowResult, results_json_bytes
 from pilosa_tpu_torch.parallel.scrub import Scrubber
 from pilosa_tpu_torch.pql import ParseError, parse
+from pilosa_tpu_torch.qos import (
+    AdmissionError,
+    DeadlineExceeded,
+    ServingQos,
+    SLOEngine,
+)
 from pilosa_tpu_torch.roaring.format import load_any
+from pilosa_tpu_torch.serving.rescache import (
+    global_result_cache,
+    invalidate_index_wide,
+    query_field_deps,
+)
+from pilosa_tpu_torch.server.pipeline import QueryPipeline
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, SHARD_WIDTH_EXP, \
     shard_groups
 from pilosa_tpu_torch.storage import heat
@@ -60,10 +97,33 @@ from pilosa_tpu_torch.storage.field import (
 from pilosa_tpu_torch.storage.integrity import global_integrity
 from pilosa_tpu_torch.storage.view import VIEW_STANDARD, views_for_time
 from pilosa_tpu_torch.storage.wal import MODE_FLUSH_ONLY
+from pilosa_tpu_torch.utils.cost import (
+    CostLedger,
+    QueryProfile,
+    activate_cost,
+    cost_enabled,
+    deactivate_cost,
+    new_cost_context,
+)
+from pilosa_tpu_torch.utils.pool import concurrent_map
+from pilosa_tpu_torch.utils.stats import global_stats
+from pilosa_tpu_torch.utils.tracing import (
+    current_span,
+    global_query_tracker,
+    capture_device_trace,
+    global_tracer,
+)
 
 # The reference's max-writes-per-request default: the most Set/Clear
 # calls in one query, and the most bits in one import body.
 MAX_WRITES_PER_REQUEST = 5000
+
+# The reference's ingest-workers default: an import's shard groups apply
+# one after another unless the knob raises it.
+INGEST_WORKERS_DEFAULT = 1
+
+# Capacity of the slow-query ring (the slow-query-ring knob's default).
+SLOW_QUERY_RING_DEFAULT = 100
 
 
 def _ascii_digits(values: np.ndarray) -> tuple[np.ndarray, np.ndarray]:
@@ -119,26 +179,110 @@ class API:
         # the integrity scrubber: the server's ticker, or the one that
         # on-demand passes create
         self.scrubber = None
+        # queries at or over this many seconds land in the slow-query
+        # ring (0: off); deque(maxlen) appends are atomic and bounded
+        self.long_query_time: float = 0.0
+        self.long_queries: collections.deque = collections.deque(
+            maxlen=SLOW_QUERY_RING_DEFAULT)
+        self.slow_queries_total = 0
+        self._slow_lock = threading.Lock()
+        # POST /debug/trace-device: one capture at a time into this dir
+        # ("" = <data-dir>/jax-traces, the reference's default)
+        self.trace_log_dir: str = ""
+        self._device_trace_lock = threading.Lock()
+        self.logger = None
+        self.ingest_workers: int = INGEST_WORKERS_DEFAULT
+        # reads that pipeline ride the wave dispatcher (False: every
+        # request runs on its own thread, the reference's switch)
+        self.serve_pipelined: bool = True
+        self._pipeline = None  # created at the first pipelined read
+        self._pipeline_lock = threading.Lock()
+        # admission gate (off: 0 = unlimited), hedge policy and breakers;
+        # Server.open swaps in the configured bundle
+        self.qos = ServingQos()
+        # the server's default request deadline in seconds (0: none); a
+        # request's header wins
+        self.default_deadline_s: float = 0.0
+        self.cost = CostLedger()
+        self.slo = SLOEngine()
+
+    def node_id(self) -> str:
+        return "local"
 
     # ----------------------------------------------------------------- query
 
     def query_raw(self, index: str, pql: str, shards=None,
-                  remote: bool = False, opts: dict | None = None) -> list:
+                  remote: bool = False, opts: dict | None = None,
+                  tenant: str = "default", deadline=None,
+                  profile_out: list | None = None) -> list:
         """Execute and return the raw result objects, with the request's
         result options ``opts`` applied; ``shards`` restricts the calls
-        to those shards (``?shards=``, ``QueryRequest.shards``). Reads
-        submit every call before resolving any, so concurrent requests
-        share micro-batched launches. ``remote`` marks a peer's
-        sub-query: on one node it only skips the storage-degraded shed of
-        writes, as the reference's does."""
-        results = self._query_raw(index, pql, shards, remote)
-        if opts:
-            results = self._apply_request_opts(index, results, opts)
-        return results
-
-    def _query_raw(self, index: str, pql: str, shards, remote: bool
-                   ) -> list:
+        to those shards. ``remote`` marks a peer's sub-query: it passes
+        no admission gate and records no ledger or SLO event, and its
+        writes skip the storage-degraded shed, as the reference's do.
+        ``profile_out`` (a list) receives the PROFILE tree."""
+        tracer = global_tracer()
+        tracker = global_query_tracker()
+        inflight = tracker.start(index, pql, tenant=tenant, remote=remote)
+        inflight_token = (tracker.activate(inflight)
+                          if inflight is not None else None)
+        prof = (QueryProfile(index, pql, self.node_id())
+                if profile_out is not None else None)
+        ctx = new_cost_context(tenant, index, prof)
+        if ctx is None:
+            prof = None  # the cost plane is off: no all-zero tree
+        cost_token = activate_cost(ctx)
+        t_start = time.perf_counter()
+        err_status = None
+        slot = None
         try:
+            if not remote:
+                if inflight is not None:
+                    inflight.stage = "admission"
+                try:
+                    with tracer.span("qos.admit", tenant=tenant):
+                        slot = self.qos.admission.admit(tenant)
+                except AdmissionError as e:
+                    raise ApiError(str(e), 429,
+                                   retry_after=e.retry_after) from e
+            return self._query_raw_admitted(index, pql, shards, remote, opts,
+                                            deadline, slot, inflight,
+                                            tracer)
+        except ApiError as e:
+            err_status = e.status
+            raise
+        except Exception:
+            err_status = 500
+            raise
+        finally:
+            deactivate_cost(cost_token)
+            elapsed = time.perf_counter() - t_start
+            if not remote and ctx is not None:
+                error = err_status is not None and err_status >= 500
+                self.cost.record_query(tenant, index, ctx, elapsed,
+                                       error=error)
+                if err_status != 429:  # a shed is policy, not failure
+                    self.slo.record(elapsed, error=error)
+            if profile_out is not None and err_status is None:
+                profile_out.append(
+                    prof.to_json(ctx) if prof is not None
+                    else {"disabled": True,
+                          "reason": "cost plane is disabled on this node"})
+            tracker.finish(inflight, inflight_token)
+
+    def _pipeline_for(self) -> QueryPipeline:
+        if self._pipeline is None:
+            with self._pipeline_lock:
+                if self._pipeline is None:
+                    self._pipeline = QueryPipeline(self)
+        return self._pipeline
+
+    def _query_raw_admitted(self, index, pql, shards, remote, opts,
+                            deadline, slot, inflight, tracer) -> list:
+        t0 = time.perf_counter()
+        try:
+            if inflight is not None:
+                inflight.stage = "parse"
             query = parse(pql)
             writes = len(query.write_calls())
             if 0 < self.max_writes_per_request < writes:
@@ -148,17 +292,82 @@ class API:
                 )
             if writes and not remote:
                 self._check_not_storage_degraded()
-            with heat.serving():  # a served request: its heat records
-                if writes:
-                    with self.holder.cache.batch_writes():
-                        results = self.executor.execute(index, query,
-                                                        shards=shards)
-                    self._ack_durable()
-                    return results
-                return [d.result() for d in self.executor.submit(
-                    index, query, shards=shards)]
+            kwargs = {"shards": shards}
+            if deadline is not None:
+                kwargs["deadline"] = deadline
+            if (writes == 0 and self.serve_pipelined
+                    and pipeline_coalescable(query)):
+                # plain edge reads are dedupe-eligible: identical PQL in
+                # one wave submits once and shares the leader's results
+                key = None
+                if (shards is None and deadline is None and not remote
+                        and not opts):
+                    key = (index, pql)
+                if inflight is not None:
+                    inflight.stage = "pipeline.wave"
+                deferreds = self._pipeline_for().run(index, query, kwargs,
+                                                     key=key)
+                if inflight is not None:
+                    inflight.stage = "executor.resolve"
+                handles = iter(deferreds)
+                results = instrument_calls(
+                    index, query.calls, lambda call: next(handles).result())
+            elif writes:
+                if inflight is not None:
+                    inflight.stage = "executor.execute"
+                with self.holder.cache.batch_writes():
+                    results = self.executor.execute(index, query, **kwargs)
+            else:
+                if inflight is not None:
+                    inflight.stage = "executor.execute"
+                results = self.executor.execute(index, query, **kwargs)
+            if opts:
+                results = self._apply_request_opts(index, results, opts)
+            if writes:
+                # attr writes change results (Row answers carry attrs)
+                # without a fragment write: fence the index's cached
+                # results; bit writes invalidated at their fragments
+                if any(c.name in ("SetRowAttrs", "SetColumnAttrs")
+                       for c in query.write_calls()):
+                    idx = self.holder.index(index)
+                    if idx is not None:
+                        invalidate_index_wide(idx.scope, index)
+                if inflight is not None:
+                    inflight.stage = "wal.barrier"
+                self._ack_durable()
+            return results
+        except DeadlineExceeded as e:
+            self.qos.note_deadline_expired()
+            raise ApiError(str(e), 504) from e
         except (ParseError, PQLError) as e:
             raise ApiError(str(e)) from e
+        finally:
+            if slot is not None:
+                slot.release()
+            elapsed = time.perf_counter() - t0
+            if self.long_query_time > 0 and elapsed >= self.long_query_time:
+                self._note_slow(index, pql, elapsed)
+
+    def _note_slow(self, index: str, pql, elapsed: float) -> None:
+        """One slow query into the ring: its PQL, seconds and time, and
+        when it was sampled its trace id and whole span tree as of now."""
+        entry = {
+            "index": index,
+            "pql": (pql if isinstance(pql, str) else str(pql))[:1024],
+            "seconds": round(elapsed, 4),
+            "at": dt.datetime.now(dt.timezone.utc).isoformat(),
+        }
+        cur = current_span()
+        if cur is not None:
+            entry["traceId"] = cur.trace_id
+            entry["trace"] = cur.root().to_json()
+        with self._slow_lock:
+            self.slow_queries_total += 1
+        self.long_queries.append(entry)
+        if self.logger is not None:
+            self.logger.warning(
+                "long query (%.3fs > %.3fs) on %s: %s",
+                elapsed, self.long_query_time, index, entry["pql"])
 
     def _check_not_storage_degraded(self) -> None:
         """503 with Retry-After while the disk is sick (the holder's
@@ -179,8 +388,9 @@ class API:
         or it would come back under another key."""
         wal = self.holder.wal
         if wal.mode != MODE_FLUSH_ONLY:
-            self.holder.translate.sync()
-            wal.barrier()
+            with global_tracer().span("wal.barrier"):
+                self.holder.translate.sync()
+                wal.barrier()
 
     def _apply_request_opts(self, index: str, results: list,
                             opts: dict) -> list:
@@ -201,11 +411,114 @@ class API:
         return out
 
     def query_json_bytes(self, index: str, pql: str, shards=None,
-                         remote: bool = False,
-                         opts: dict | None = None) -> bytes:
-        """The whole ``{"results": [...]}`` response envelope as bytes."""
-        return results_json_bytes(self.query_raw(index, pql, shards=shards,
-                                                 remote=remote, opts=opts))
+                         remote: bool = False, opts: dict | None = None,
+                         tenant: str = "default", deadline=None,
+                         profile_out: list | None = None,
+                         cache_hit_out: list | None = None) -> bytes:
+        """The whole ``{"results": [...]}`` response envelope as bytes,
+        with the result cache in front: a cache-eligible request (a plain
+        edge read, as the pipeline's dedupe) is answered from cached
+        bytes (``cache_hit_out`` receives True); a miss snapshots the
+        write version before it runs and fills after, and the fill is
+        refused if a write landed in between."""
+        scope = None
+        snap = None
+        cache = global_result_cache()
+        if (cache.enabled and not remote and shards is None
+                and deadline is None and not opts):
+            idx = self.holder.index(index)
+            if idx is not None:
+                scope = idx.scope
+                payload = cache.peek(scope, index, pql)
+                if payload is not None:
+                    return self._serve_result_cache_hit(
+                        cache, scope, index, pql, payload, tenant,
+                        profile_out, cache_hit_out)
+                if self._result_cacheable(pql):
+                    # a miss only for fillable queries
+                    cache.record_miss()
+                    snap = cache.version()  # the fill-race cutoff
+                else:
+                    scope = None
+        payload = results_json_bytes(self.query_raw(
+            index, pql, shards=shards, remote=remote, opts=opts,
+            tenant=tenant, deadline=deadline, profile_out=profile_out))
+        if snap is not None:
+            cache.insert(scope, index, pql, payload,
+                         query_field_deps(parse(pql)), snap)
+        return payload
+
+    @staticmethod
+    def _result_cacheable(pql: str) -> bool:
+        """Read-only and pipeline-coalescable; a parse error is left to
+        ``query_raw``."""
+        try:
+            query = parse(pql)
+        except Exception:
+            return False
+        return not query.write_calls() and pipeline_coalescable(query)
+
+    def _serve_result_cache_hit(self, cache, scope, index, pql, payload,
+                                tenant, profile_out, cache_hit_out) -> bytes:
+        """A cache hit's request envelope: admission, in-flight tracking,
+        a ``rescache.hit`` span, and ledger and SLO accounting (a hit is
+        billed as a query with no launch). No heat: residency follows
+        the traffic that runs."""
+        tracer = global_tracer()
+        tracker = global_query_tracker()
+        inflight = tracker.start(index, pql, tenant=tenant, remote=False)
+        inflight_token = (tracker.activate(inflight)
+                          if inflight is not None else None)
+        ctx = new_cost_context(tenant, index, None)
+        t_start = time.perf_counter()
+        err_status = None
+        slot = None
+        try:
+            if inflight is not None:
+                inflight.stage = "admission"
+            try:
+                with tracer.span("qos.admit", tenant=tenant):
+                    slot = self.qos.admission.admit(tenant)
+            except AdmissionError as e:
+                raise ApiError(str(e), 429, retry_after=e.retry_after) from e
+            if inflight is not None:
+                inflight.stage = "rescache"
+            with tracer.span("rescache.hit", index=index):
+                cache.record_hit(scope, index, pql)
+            if cache_hit_out is not None:
+                cache_hit_out.append(True)
+            if profile_out is not None:
+                if ctx is not None:
+                    profile_out.append({
+                        "node": self.node_id(), "index": index,
+                        "pql": pql[:1024], "wave": 1,
+                        "dedupeHit": False, "resultCacheHit": True,
+                        "calls": [], "remote": [],
+                        "totals": ctx.totals(),
+                    })
+                else:
+                    profile_out.append(
+                        {"disabled": True,
+                         "reason": "cost plane is disabled on this node"})
+            return payload
+        except ApiError as e:
+            err_status = e.status
+            raise
+        except Exception:
+            err_status = 500
+            raise
+        finally:
+            if slot is not None:
+                slot.release()
+            elapsed = time.perf_counter() - t_start
+            if ctx is not None:
+                error = err_status is not None and err_status >= 500
+                self.cost.record_query(
+                    tenant, index, ctx, elapsed, error=error,
+                    result_cache_hit=err_status is None)
+                if err_status != 429:
+                    self.slo.record(elapsed, error=error)
+            tracker.finish(inflight, inflight_token)
 
     # ---------------------------------------------------------------- schema
 
@@ -292,35 +605,63 @@ class API:
                   if timestamps is not None and fld.options.type == TYPE_TIME
                   else None)
         mutex = fld.options.type in (TYPE_MUTEX, TYPE_BOOL)
-        changed = 0
-        with self.holder.cache.batch_writes():
-            for i in range(bounds.size - 1):
-                lo, hi = int(bounds[i]), int(bounds[i + 1])
-                if clear:
-                    for r, c in zip(rows[lo:hi].tolist(),
-                                    columns[lo:hi].tolist()):
-                        changed += fld.clear_bit(int(r), int(c))
-                    continue
-                shard = int(shards_sorted[lo])
-                pos = columns[lo:hi] & np.uint64(SHARD_WIDTH - 1)
-                idx.mark_columns_exist(columns[lo:hi])
-                frag = fld.view(VIEW_STANDARD, create=True).fragment(
-                    shard, create=True)
-                if mutex:
-                    changed += frag.import_mutex(rows[lo:hi], pos)
-                else:
-                    changed += frag.bulk_import(rows[lo:hi], pos)
-                if stamps is not None:
-                    self._import_time_views(fld, shard, rows[lo:hi], pos,
-                                            stamps[lo:hi])
-        # write heat: one record a shard group, weighted by its bits
-        record = heat.global_heat().record_write
-        for i in range(bounds.size - 1):
+        t0 = time.perf_counter()
+        # the view once, before the groups fan out
+        view = None if clear else fld.view(VIEW_STANDARD, create=True)
+
+        def apply_group(i: int) -> int:
             lo, hi = int(bounds[i]), int(bounds[i + 1])
-            record(index, field, int(shards_sorted[lo]), n=float(hi - lo),
-                   scope=idx.scope)
+            if clear:
+                return sum(fld.clear_bit(int(r), int(c)) for r, c in zip(
+                    rows[lo:hi].tolist(), columns[lo:hi].tolist()))
+            shard = int(shards_sorted[lo])
+            pos = columns[lo:hi] & np.uint64(SHARD_WIDTH - 1)
+            idx.mark_columns_exist(columns[lo:hi])
+            frag = view.fragment(shard, create=True)
+            if mutex:
+                changed = frag.import_mutex(rows[lo:hi], pos)
+            else:
+                changed = frag.bulk_import(rows[lo:hi], pos)
+            if stamps is not None:
+                self._import_time_views(fld, shard, rows[lo:hi], pos,
+                                        stamps[lo:hi])
+            return changed
+
+        n_groups = bounds.size - 1
+        with self.holder.cache.batch_writes():
+            if n_groups > 1 and self.ingest_workers > 1:
+                # shard groups touch disjoint fragments, each under its
+                # own lock; their K3 patches collect in the request's
+                # batch and launch when it closes
+                changed = sum(concurrent_map(
+                    apply_group, range(n_groups),
+                    max_workers=self.ingest_workers))
+            else:
+                changed = sum(apply_group(i) for i in range(n_groups))
+        elapsed = time.perf_counter() - t0
+        if cost_enabled():
+            # write heat: one record a shard group, weighted by its bits
+            record = heat.global_heat().record_write
+            for i in range(n_groups):
+                lo, hi = int(bounds[i]), int(bounds[i + 1])
+                record(index, field, int(shards_sorted[lo]),
+                       n=float(hi - lo), scope=idx.scope)
+        self._ingest_stats("bits", rows.size, elapsed)
         self._ack_durable()
         return int(changed)
+
+    @staticmethod
+    def _ingest_stats(kind: str, n: int, elapsed: float | None) -> None:
+        """The reference's ingest series of one import."""
+        stats = global_stats()
+        tags = {"kind": kind}
+        stats.count("ingest_rows", n, tags=tags)
+        stats.observe("ingest_batch_size", n, tags=tags)
+        if elapsed is None:
+            return
+        stats.timing("ingest_apply", elapsed, tags=tags)
+        if elapsed > 0:
+            stats.gauge("ingest_rows_per_sec", n / elapsed, tags=tags)
 
     @staticmethod
     def _import_time_views(fld, shard: int, rows, pos, stamps) -> None:
@@ -360,6 +701,7 @@ class API:
         if cols_i.size and cols_i.min() < 0:
             raise ApiError(f"column {int(cols_i.min())} is negative")
         changed = 0
+        t0 = time.perf_counter()
         with self.holder.cache.batch_writes():
             try:
                 if clear:
@@ -371,17 +713,21 @@ class API:
                     idx.mark_columns_exist(cols_i)
             except (ValueError, OverflowError) as e:
                 raise ApiError(str(e)) from e
-        # write heat: one record a shard, weighted by its columns
-        shards_u, counts_u = np.unique(cols_i >> SHARD_WIDTH_EXP,
-                                       return_counts=True)
-        for shard, n in zip(shards_u.tolist(), counts_u.tolist()):
-            heat.global_heat().record_write(index, field, int(shard),
-                                            n=float(n), scope=idx.scope)
+        elapsed = time.perf_counter() - t0
+        if cost_enabled():
+            # write heat: one record a shard, weighted by its columns
+            shards_u, counts_u = np.unique(cols_i >> SHARD_WIDTH_EXP,
+                                           return_counts=True)
+            for shard, n in zip(shards_u.tolist(), counts_u.tolist()):
+                heat.global_heat().record_write(index, field, int(shard),
+                                                n=float(n), scope=idx.scope)
+        self._ingest_stats("values", cols_i.size, elapsed)
         self._ack_durable()
         return int(changed)
 
     def import_roaring(self, index: str, field: str, shard: int,
-                       data: bytes, remote: bool = False) -> int:
+                       data: bytes, remote: bool = False,
+                       submitted_out: list | None = None) -> int:
         """One shard's bits as a roaring bitmap of ``row << 20 | position``
         ids, in the port's layout or upstream pilosa's (``load_any``
         sniffs the cookie), unioned into the standard view's fragment in
@@ -389,7 +735,8 @@ class API:
         resident leaf the rows touch. A malformed body is a 400, more
         bits than max-writes-per-request a 413 (``remote``, a peer's
         slice, skips that limit and the storage-degraded shed). Returns
-        the bits changed."""
+        the bits changed; ``submitted_out`` (a list) receives the bits
+        the body held, which the tenant ledger bills."""
         idx = self._index(index)
         fld = self._field(idx, field)
         if not remote:
@@ -401,6 +748,8 @@ class API:
             ids = bitmap.to_ids()
         except ValueError as e:
             raise ApiError(str(e)) from e
+        if submitted_out is not None:
+            submitted_out.append(int(ids.size))
         limit = self.max_writes_per_request
         if not remote and 0 < limit < int(ids.size):
             raise ApiError(
@@ -414,8 +763,11 @@ class API:
                 raise ApiError(str(e)) from e
             idx.mark_columns_exist(
                 (shard << SHARD_WIDTH_EXP) + positions.astype(np.int64))
-        heat.global_heat().record_write(index, field, shard,
-                                        n=float(ids.size), scope=idx.scope)
+        self._ingest_stats("roaring", int(ids.size), None)
+        if cost_enabled():
+            heat.global_heat().record_write(index, field, shard,
+                                            n=float(ids.size),
+                                            scope=idx.scope)
         self._ack_durable()
         return changed
 
@@ -444,12 +796,15 @@ class API:
 
     def recalculate_caches(self) -> None:
         """Recount and save every fragment's row-count cache (reference
-        ``POST /recalculate-caches``), before returning."""
+        ``POST /recalculate-caches``), before returning. A recount can
+        change TopN answers with no write: each index's cached results
+        are fenced."""
         for idx in list(self.holder.indexes.values()):
             for field in list(idx.fields.values()):
                 for view in list(field.views.values()):
                     for frag in list(view.fragments.values()):
                         frag.recalculate_cache()
+            invalidate_index_wide(idx.scope, idx.name)
 
     # ---------------------------------------------------------------- status
 
@@ -541,6 +896,85 @@ class API:
         if self.scrubber is None:
             self.scrubber = Scrubber(self.holder)
         return self.scrubber.scrub_pass()
+
+    def observability_metrics(self) -> dict:
+        """Tracing, in-flight and slow-query series, every key present
+        from the first scrape."""
+        out = {"slow_queries_total": self.slow_queries_total}
+        out.update(global_tracer().metrics())
+        out.update(global_query_tracker().metrics())
+        return out
+
+    def tenants_json(self, k: int = 10, by: str = "device_ms") -> dict:
+        """``GET /debug/tenants``: the per-(tenant, index) cost table and
+        its top-K by one column."""
+        return {
+            "tenants": self.cost.snapshot(),
+            "top": self.cost.top(k, by=by),
+            "by": by,
+            "totals": self.cost.metrics(),
+        }
+
+    def start_device_trace(self, seconds: float) -> dict:
+        """Capture a ``torch.profiler`` trace around ``seconds`` of live
+        traffic (``POST /debug/trace-device``) into the trace log dir:
+        CPU ops and, on a CUDA server, every kernel the process
+        launches, as one Chrome trace file. One capture at a time (409
+        for a second); on a CUDA server whose torch cannot trace the
+        card, or whose capture recorded no kernel, the route fails (500)
+        rather than write a CPU-only trace."""
+        seconds = float(seconds)
+        if not 0 < seconds <= 60:
+            raise ApiError("secs must be in (0, 60]")
+        log_dir = os.path.expanduser(
+            self.trace_log_dir
+            or os.path.join(self.holder.data_dir, "jax-traces"))
+        if not self._device_trace_lock.acquire(blocking=False):
+            raise ApiError("a device trace capture is already running", 409)
+        try:
+            os.makedirs(log_dir, exist_ok=True)
+            t0 = time.perf_counter()
+            capture_device_trace(log_dir, self.holder.device, seconds)
+            return {"logDir": log_dir,
+                    "seconds": round(time.perf_counter() - t0, 3)}
+        finally:
+            self._device_trace_lock.release()
+
+    def pipeline_metrics(self) -> dict:
+        """The wave counters, zeros until the first pipelined read."""
+        pipe = self._pipeline
+        if pipe is None:
+            return {"waves": 0, "coalesced": 0, "deduped": 0}
+        return {"waves": pipe.waves, "coalesced": pipe.coalesced,
+                "deduped": pipe.deduped}
+
+    def fastlane_metrics(self) -> dict:
+        """The reference's fast-lane series: its connection pool and
+        remote wave batcher are cluster planes, zeros on one node (the
+        HTTP server adds its connection and request counts)."""
+        return {
+            "pool_connections_created_total": 0,
+            "pool_connections_reused_total": 0,
+            "pool_connections_discarded_total": 0,
+            "pool_requests_total": 0,
+            "pool_idle_connections": 0,
+            "remote_batches_total": 0,
+            "remote_batched_queries_total": 0,
+            "remote_batch_solo_total": 0,
+            "remote_batch_fallbacks_total": 0,
+        }
+
+    def rescache_metrics(self) -> dict:
+        """The ``result_cache_*`` series, zeros while the cache is off."""
+        return global_result_cache().metrics()
+
+    def rescache_json(self, k: int = 100) -> dict:
+        """``GET /debug/rescache``: the entries hottest first, with the
+        totals and the configuration."""
+        cache = global_result_cache()
+        out = cache.inspect(k=k)
+        out["enabled"] = cache.enabled
+        return out
 
     def _index(self, name: str):
         idx = self.holder.index(name)

@@ -35,10 +35,24 @@ Routes, with the reference's request and response bytes:
 - ``POST /internal/translate/keys`` (``namespace``, ``keys``, ``create``
   in, ``{"ids": [...]}`` out) and ``GET /internal/translate/data?offset=N``
   (the translate log's bytes from ``offset``);
-- ``POST /internal/scrub``: one integrity scrub pass, its record out.
+- ``POST /internal/scrub``: one integrity scrub pass, its record out;
+- the serving envelope's inspectors: ``GET /debug/traces``,
+  ``/debug/tenants`` (``?k=&by=``), ``/debug/heatmap`` (``?k=``,
+  ``?tier=true``), ``/debug/rescache`` (``?k=``), ``/debug/slo``,
+  ``/debug/queries``, ``/debug/queries/slow`` (and its old name
+  ``/debug/long-queries``), ``/debug/vars``, ``/debug/pprof`` (thread
+  stacks) and ``POST /debug/trace-device?secs=N`` (a ``torch.profiler``
+  capture).
 
-An error with a ``retry_after`` (a write shed while the storage is
-degraded: 503) carries a ``Retry-After`` header.
+A query's QoS envelope comes from its headers: ``X-Pilosa-Tenant`` and
+``X-Pilosa-Deadline-Ms`` (a positive integer of milliseconds, else a
+400; without it the server default applies to edge requests).
+``?profile=true`` splices the PROFILE tree into the JSON answer. An edge
+request roots a sampled ``http.query`` trace; a ``remote=true`` request
+with ``X-Pilosa-Trace: <trace>:<span>`` joins that trace and returns
+its finished span tree in the answer. An error with a ``retry_after``
+(a shed: 429 at admission, 503 while the storage is degraded) carries a
+``Retry-After`` header.
 """
 
 from __future__ import annotations
@@ -49,8 +63,16 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from pilosa_tpu_torch.qos import DEADLINE_HEADER, TENANT_HEADER, Deadline
 from pilosa_tpu_torch.server.api import API, ApiError
-from pilosa_tpu_torch.utils.stats import prometheus_block
+from pilosa_tpu_torch.storage.heat import global_heat
+from pilosa_tpu_torch.utils.cost import cost_enabled
+from pilosa_tpu_torch.utils.stats import global_stats, prometheus_block
+from pilosa_tpu_torch.utils.tracing import (
+    TRACE_HEADER,
+    global_query_tracker,
+    global_tracer,
+)
 
 _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/index/([^/]+)/query$"), "post_query"),
@@ -77,6 +99,17 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("POST", re.compile(r"^/internal/translate/keys$"), "post_translate_keys"),
     ("GET", re.compile(r"^/internal/translate/data$"), "get_translate_data"),
     ("GET", re.compile(r"^/internal/schema$"), "get_schema"),
+    ("GET", re.compile(r"^/debug/traces$"), "get_traces"),
+    ("GET", re.compile(r"^/debug/tenants$"), "get_tenants"),
+    ("GET", re.compile(r"^/debug/heatmap$"), "get_heatmap"),
+    ("GET", re.compile(r"^/debug/rescache$"), "get_rescache"),
+    ("GET", re.compile(r"^/debug/slo$"), "get_slo"),
+    ("GET", re.compile(r"^/debug/queries$"), "get_inflight_queries"),
+    ("GET", re.compile(r"^/debug/queries/slow$"), "get_long_queries"),
+    ("GET", re.compile(r"^/debug/long-queries$"), "get_long_queries"),
+    ("POST", re.compile(r"^/debug/trace-device$"), "post_trace_device"),
+    ("GET", re.compile(r"^/debug/vars$"), "get_debug_vars"),
+    ("GET", re.compile(r"^/debug/pprof/?$"), "get_pprof"),
 ]
 
 # the exposition prefix of /metrics, the reference's
@@ -95,8 +128,22 @@ class HTTPHandler(BaseHTTPRequestHandler):
     def log_message(self, fmt, *args):
         pass
 
+    def setup(self):
+        super().setup()
+        # connections against requests: keep-alive reuse on /metrics
+        with self.server.metrics_lock:
+            self.server.connections_opened += 1
+            self.server.open_connections.add(self.connection)
+
+    def finish(self):
+        with self.server.metrics_lock:
+            self.server.open_connections.discard(self.connection)
+        super().finish()
+
     def _dispatch(self, method: str):
         self._body_read = False
+        with self.server.metrics_lock:
+            self.server.requests_served += 1
         if "chunked" in (self.headers.get("Transfer-Encoding") or "").lower():
             # chunk framing left in rfile would be parsed as the next
             # request line: reject and close
@@ -188,6 +235,40 @@ class HTTPHandler(BaseHTTPRequestHandler):
         self.end_headers()
         self.wfile.write(data)
 
+    def _qos_envelope(self, remote: bool = False):
+        """(tenant, deadline) from the request's headers. Without a
+        deadline header the server default applies to edge requests
+        only: a peer's sub-query carries its root's budget."""
+        tenant = (self.headers.get(TENANT_HEADER) or "default").strip()
+        raw = self.headers.get(DEADLINE_HEADER)
+        if raw is not None:
+            try:
+                millis = int(raw)
+                if millis <= 0:
+                    raise ValueError
+            except ValueError:
+                raise ApiError(
+                    f"invalid {DEADLINE_HEADER} header {raw!r}: must be a "
+                    "positive integer of milliseconds"
+                ) from None
+            return tenant, Deadline.from_millis(millis)
+        if not remote and self.api.default_deadline_s > 0:
+            return tenant, Deadline.after(self.api.default_deadline_s)
+        return tenant, None
+
+    def _note_egress(self, tenant: str, index: str, nbytes: int,
+                     remote: bool) -> None:
+        """An edge query answer's bytes into the tenant ledger."""
+        if not remote and cost_enabled():
+            self.api.cost.add_egress(tenant, index, nbytes)
+
+    def _note_ingest(self, index: str, rows: int, remote: bool) -> None:
+        """An edge import's rows into the tenant ledger, under the
+        tenant header."""
+        if not remote and cost_enabled():
+            tenant = (self.headers.get(TENANT_HEADER) or "default").strip()
+            self.api.cost.add_ingest(tenant, index, rows)
+
     # --------------------------------------------------------------- routes
 
     def _flag(self, name: str) -> bool:
@@ -228,26 +309,64 @@ class HTTPHandler(BaseHTTPRequestHandler):
         # request-level result options (reference handler query args)
         opts.update({k: True for k in ("columnAttrs", "excludeColumns",
                                        "excludeRowAttrs") if self._flag(k)})
-        if not proto_out:
-            self._raw(self.api.query_json_bytes(
-                index, pql, shards=shards, remote=remote, opts=opts))
-            return
-        from pilosa_tpu_torch.wire.serializer import (
-            encode_error,
-            encode_results,
-        )
+        tenant, deadline = self._qos_envelope(remote=remote)
+        profile_out = [] if self._flag("profile") else None
+        # an edge request samples its trace here (one tree, or none for
+        # the whole request); a peer's sub-query with X-Pilosa-Trace
+        # joins its caller's trace and returns its subtree
+        tracer = global_tracer()
+        trace_hdr = self.headers.get(TRACE_HEADER) if remote else None
+        if remote:
+            root_cm = tracer.remote_root(trace_hdr, "rpc.query",
+                                         node=self.api.node_id(),
+                                         index=index)
+        else:
+            root_cm = tracer.request_root("http.query", index=index,
+                                          tenant=tenant)
+        with root_cm as root:
+            if not proto_out:
+                payload = self.api.query_json_bytes(
+                    index, pql, shards=shards, remote=remote, opts=opts,
+                    tenant=tenant, deadline=deadline,
+                    profile_out=profile_out)
+                if root is not None and trace_hdr:
+                    # spliced into the closing brace of the envelope
+                    root.finish()
+                    payload = (payload[:-1] + b',"trace":' + json.dumps(
+                        root.to_json(), separators=(",", ":")).encode()
+                        + b"}")
+                if profile_out:
+                    payload = (payload[:-1] + b',"profile":' + json.dumps(
+                        profile_out[0], separators=(",", ":")).encode()
+                        + b"}")
+                self._note_egress(tenant, index, len(payload), remote)
+                self._raw(payload)
+                return
+            from pilosa_tpu_torch.wire.serializer import (
+                encode_error,
+                encode_results,
+            )
 
-        headers = None
-        try:
-            payload = encode_results(self.api.query_raw(
-                index, pql, shards=shards, remote=remote, opts=opts))
-            status = 200
-        except ApiError as e:
-            payload, status = encode_error(str(e)), e.status
-            if e.retry_after is not None:
-                headers = {"Retry-After": str(max(1, int(e.retry_after)))}
-        self._raw(payload, status=status, headers=headers,
-                  content_type=PROTOBUF)
+            headers = None
+            try:
+                results = self.api.query_raw(
+                    index, pql, shards=shards, remote=remote, opts=opts,
+                    tenant=tenant, deadline=deadline,
+                    profile_out=profile_out)
+                trace_json = None
+                if root is not None and trace_hdr:
+                    root.finish()
+                    trace_json = root.to_json()
+                payload = encode_results(results, trace=trace_json)
+                status = 200
+            except ApiError as e:
+                payload, status = encode_error(str(e)), e.status
+                if e.retry_after is not None:
+                    headers = {"Retry-After":
+                               str(max(1, int(e.retry_after)))}
+            self._note_egress(tenant, index, len(payload), remote)
+            self._raw(payload, status=status, headers=headers,
+                      content_type=PROTOBUF)
 
     def post_index(self, index):
         opts = self._json_body().get("options", {})
@@ -298,6 +417,7 @@ class HTTPHandler(BaseHTTPRequestHandler):
         changed = self.api.import_bits(
             index, field, rows, columns, timestamps=timestamps, clear=clear,
             remote=remote)
+        self._note_ingest(index, len(columns), remote)
         self._json({"changed": changed})
 
     def post_import_value(self, index, field):
@@ -317,12 +437,19 @@ class HTTPHandler(BaseHTTPRequestHandler):
         self._check_import_size(len(columns), remote)
         changed = self.api.import_values(index, field, columns, values,
                                          clear=clear, remote=remote)
+        self._note_ingest(index, len(columns), remote)
         self._json({"changed": changed})
 
     def post_import_roaring(self, index, field, shard):
-        self._json({"changed": self.api.import_roaring(
-            index, field, int(shard), self._body(),
-            remote=self._flag("remote"))})
+        remote = self._flag("remote")
+        submitted: list = []
+        changed = self.api.import_roaring(index, field, int(shard),
+                                          self._body(), remote=remote,
+                                          submitted_out=submitted)
+        # billed by the bits submitted, as the other import routes
+        self._note_ingest(index, submitted[0] if submitted else changed,
+                          remote)
+        self._json({"changed": changed})
 
     def get_schema(self):
         self._json(self.api.schema())
@@ -344,18 +471,45 @@ class HTTPHandler(BaseHTTPRequestHandler):
     def get_shards_max(self):
         self._json(self.api.max_shards())
 
+    def _fastlane_metrics(self) -> dict:
+        out = self.api.fastlane_metrics()
+        with self.server.metrics_lock:
+            out["http_connections_total"] = self.server.connections_opened
+            out["http_requests_total"] = self.server.requests_served
+        return out
+
     def get_metrics(self):
         """The reference's blocks for the planes the port has, in its
-        order: the row cache, the tierer, the WAL, the integrity plane."""
+        order: the stats registry, the row cache, the serving waves and
+        fast lane, the result cache, the tierer, the WAL, the integrity
+        plane, QoS, observability, then the tenant ledger, heat and the
+        SLO engine."""
         seen: set = set()  # a family's HELP and TYPE once a page
         api = self.api
-        text = api.holder.cache.prometheus_lines(METRICS_PREFIX, seen=seen)
-        text += prometheus_block(api.tiering_metrics(), METRICS_PREFIX,
+        stats = global_stats()
+        prefix = stats.prefix
+        text = stats.prometheus_text(seen)
+        text += api.holder.cache.prometheus_lines(prefix, seen=seen)
+        pm = api.pipeline_metrics()
+        text += prometheus_block(
+            {"waves_total": pm["waves"],
+             "coalesced_requests_total": pm["coalesced"],
+             "deduped_requests_total": pm["deduped"]},
+            prefix, "serving", seen=seen)
+        text += prometheus_block(self._fastlane_metrics(), prefix,
+                                 "serving", seen=seen)
+        text += prometheus_block(api.rescache_metrics(), prefix, seen=seen)
+        text += prometheus_block(api.tiering_metrics(), prefix, seen=seen)
+        text += prometheus_block(api.durability_metrics(), prefix, "wal",
                                  seen=seen)
-        text += prometheus_block(api.durability_metrics(), METRICS_PREFIX,
-                                 "wal", seen=seen)
-        text += prometheus_block(api.integrity_metrics(), METRICS_PREFIX,
+        text += prometheus_block(api.integrity_metrics(), prefix, seen=seen)
+        text += prometheus_block(api.qos.metrics(), prefix, "qos",
                                  seen=seen)
+        text += prometheus_block(api.observability_metrics(), prefix,
+                                 seen=seen)
+        text += api.cost.prometheus_lines(prefix, seen=seen)
+        text += global_heat().prometheus_lines(prefix, seen=seen)
+        text += api.slo.prometheus_lines(prefix, seen=seen)
         self._raw(text.encode(),
                   content_type="text/plain; version=0.0.4")
 
@@ -386,6 +540,134 @@ class HTTPHandler(BaseHTTPRequestHandler):
     def get_status(self):
         self._json(self.api.status())
 
+    # ---------------------------------------------------------------- debug
+
+    def _k_param(self, default: str) -> int:
+        return _int_param((self._query.get("k") or [default])[0], "k")
+
+    def get_traces(self):
+        tracer = global_tracer()
+        self._json({"enabled": tracer.enabled,
+                    "sampleRate": tracer.sample_rate,
+                    "traces": tracer.recent()})
+
+    def get_tenants(self):
+        """The per-(tenant, index) cost table and its top-K
+        (``?k=10&by=device_ms``)."""
+        k = self._k_param("10")
+        if k <= 0:
+            raise ApiError(f"k must be positive, got {k}")
+        by = (self._query.get("by") or ["device_ms"])[0]
+        try:
+            self._json(self.api.tenants_json(k=k, by=by))
+        except ValueError as e:
+            raise ApiError(str(e)) from e
+
+    def get_heatmap(self):
+        """Decayed per-(index, field, shard) heat with the device-bytes
+        overlay (``?k=100``; ``k=0`` the whole table); ``?tier=true``
+        adds each row's tier (resident, compressed, host or cold), its
+        bytes by tier and the tierer's last decision."""
+        k = self._k_param("100")
+        if k < 0:
+            raise ApiError(f"k must be non-negative, got {k}")
+        cache = self.api.holder.cache
+        snap = global_heat().snapshot(k=k, cache=cache)
+        if self._flag("tier"):
+            per_frag, per_stack = cache.tier_overlay()
+            tierer = self.api.tierer
+            decisions = (tierer.last_decisions()
+                         if tierer is not None else {})
+
+            def label(tiers):
+                if tiers["dense"] + tiers["compressed"] > 0:
+                    return "resident" if tiers["dense"] else "compressed"
+                return "host"
+
+            for r in snap["shards"]:
+                fkey = (r.get("scope", ""), r["index"], r["field"],
+                        r["shard"])
+                tiers = per_frag.get(fkey)
+                stiers = per_stack.get(fkey[:3])
+                if tiers is not None:
+                    r["tier"] = label(tiers)
+                    r["tierBytes"] = tiers
+                elif stiers is not None:
+                    # a stacked leaf tiers a whole field: every shard of
+                    # it shows the leaf's tier
+                    r["tier"] = label(stiers)
+                    r["stackTierBytes"] = stiers
+                else:
+                    r["tier"] = "cold"
+                d = decisions.get(fkey, decisions.get(fkey[:3]))
+                if d is not None:
+                    r["tierDecision"] = d
+            snap["tiering"] = (tierer.to_json() if tierer is not None
+                               else {"enabled": False})
+        self._json(snap)
+
+    def get_rescache(self):
+        k = self._k_param("100")
+        if k <= 0:
+            raise ApiError(f"k must be positive, got {k}")
+        self._json(self.api.rescache_json(k=k))
+
+    def get_slo(self):
+        self._json(self.api.slo.to_json())
+
+    def get_inflight_queries(self):
+        tracker = global_query_tracker()
+        self._json({"queries": tracker.snapshot(),
+                    "trackedTotal": tracker.started_total})
+
+    def get_long_queries(self):
+        self._json({"threshold": self.api.long_query_time,
+                    "total": self.api.slow_queries_total,
+                    "queries": list(self.api.long_queries)})
+
+    def post_trace_device(self):
+        """A ``torch.profiler`` capture around live traffic into the
+        trace log dir (``?secs=N``, default 1)."""
+        self._body()
+        raw = (self._query.get("secs") or ["1"])[0]
+        try:
+            secs = float(raw)
+        except ValueError as e:
+            raise ApiError(f"invalid secs parameter {raw!r}") from e
+        self._json(self.api.start_device_trace(secs))
+
+    def get_debug_vars(self):
+        """The reference's ``/debug/vars`` blocks for the planes the port
+        has."""
+        api = self.api
+        snap = global_stats().snapshot()
+        snap["residency"] = api.holder.cache.metrics()
+        snap["serving_pipeline"] = api.pipeline_metrics()
+        snap["qos"] = api.qos.metrics()
+        snap["serving_fastlane"] = self._fastlane_metrics()
+        snap["result_cache"] = api.rescache_metrics()
+        snap["residency_tiering"] = api.tiering_metrics()
+        snap["durability"] = api.durability_metrics()
+        snap["integrity"] = api.integrity_metrics()
+        snap["observability"] = api.observability_metrics()
+        snap["tenants"] = api.cost.metrics()
+        snap["heat"] = global_heat().metrics()
+        snap["slo"] = api.slo.metrics()
+        self._json(snap)
+
+    def get_pprof(self):
+        """Every thread's stack, as text."""
+        import sys
+        import traceback
+
+        names = {t.ident: t.name for t in threading.enumerate()}
+        out = []
+        for ident, frame in sys._current_frames().items():
+            out.append(f"--- thread {names.get(ident, ident)} ---")
+            out.extend(line.rstrip()
+                       for line in traceback.format_stack(frame))
+        self._raw("\n".join(out).encode(), content_type="text/plain")
+
 
 def _int_param(value: str, name: str) -> int:
     try:
@@ -399,6 +681,33 @@ class PilosaHTTPServer(ThreadingHTTPServer):
     # listen backlog of 5
     request_queue_size = 128
     disable_nagle_algorithm = True
+
+    def __init__(self, *args, **kwargs):
+        # before bind: a failed bind calls server_close
+        self.metrics_lock = threading.Lock()
+        self.connections_opened = 0
+        self.requests_served = 0
+        self.open_connections = set()
+        super().__init__(*args, **kwargs)
+
+    def server_close(self):
+        """Close the listener and every open keep-alive connection, so
+        no handler thread outlives the server."""
+        import socket
+
+        super().server_close()
+        with self.metrics_lock:
+            conns = list(self.open_connections)
+            self.open_connections.clear()
+        for sock in conns:
+            try:
+                sock.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+            try:
+                sock.close()
+            except OSError:
+                pass
 
 
 def make_http_server(api: API, bind: str = "localhost", port: int = 10101):

@@ -1,0 +1,278 @@
+"""The coalescing query pipeline of the serving path (the port's copy of
+``pilosa_tpu.server.pipeline``).
+
+Request threads enqueue and block on a Future; one dispatcher thread
+drains the queue in waves and pushes every waiting request through
+``executor.submit`` before any result is resolved, so same-shape Counts
+across the wave join one micro-batch (one K1 launch for up to 16
+queries) instead of one launch each. The dispatcher hands back each
+call's ``Deferred``; each request thread resolves its own, so readbacks
+run concurrently across requests. Identical plain reads in one wave
+(same index, same PQL, no shards, no deadline, no result options)
+submit once and share the leader's Deferreds through
+``_SharedDeferred``.
+
+On the card the dispatcher thread launches kernels for requests whose
+threads read the results back: every thread uses the device's one
+default stream (``kernels`` launches on ``torch.cuda.current_stream``),
+so a request thread's readback is ordered after the launch the
+dispatcher made. A launch error raised in the dispatcher reaches the
+request through its Future.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import queue
+import threading
+import time
+from concurrent.futures import Future
+
+from pilosa_tpu_torch.executor.executor import Executor
+from pilosa_tpu_torch.utils.cost import current_cost
+from pilosa_tpu_torch.utils.tracing import global_tracer
+
+
+class _SharedDeferred:
+    """Deferred handle shared by deduped wavemates: the first resolver
+    computes (executor Deferreds are not safe to resolve concurrently),
+    everyone else gets the memoized value — or the memoized exception,
+    re-raised per request so error semantics match a solo submit."""
+
+    __slots__ = ("_deferred", "_lock", "_done", "_value", "_error")
+
+    def __init__(self, deferred):
+        self._deferred = deferred
+        self._lock = threading.Lock()
+        self._done = False
+        self._value = None
+        self._error = None
+
+    def result(self):
+        with self._lock:
+            if not self._done:
+                try:
+                    self._value = self._deferred.result()
+                except BaseException as e:
+                    self._error = e
+                self._done = True
+                self._deferred = None
+        if self._error is not None:
+            # per-caller copies: concurrent raises of ONE instance would
+            # mutate its __traceback__/__context__ across threads (the
+            # wave batcher clones for the same reason — _clone_error)
+            import copy
+
+            try:
+                err = copy.copy(self._error)
+            except Exception:
+                err = self._error  # uncopyable custom exception: degrade
+            raise err
+        return self._value
+
+
+class QueryPipeline:
+    """Wave-coalescing front end over ``executor.submit``.
+
+    Created lazily by the API; reads ``api.executor`` at dispatch time.
+    """
+
+    # Adaptive gather (see _loop): once the inter-arrival gap drops
+    # under PRESSURE_GAP_S the dispatcher holds a forming wave open for
+    # up to GATHER_WINDOW_S (or until GATHER_CAP requests) so closed-
+    # loop clients arriving a millisecond apart share a dispatch. Under
+    # pressure the added latency is bounded by the window; with sparse
+    # traffic the gap check keeps the zero-wait fast path.
+    GATHER_WINDOW_S = 0.002
+    # the reference's gate: the window opens only while requests arrive
+    # less than 4 ms apart
+    PRESSURE_GAP_S = 0.004
+    # one micro-batch of unique submissions (K1's MAX_BATCH)
+    GATHER_CAP = Executor.MICROBATCH_MAX
+
+    def __init__(self, api):
+        self._api = api
+        self._q: queue.SimpleQueue = queue.SimpleQueue()
+        self._lock = threading.Lock()
+        self._thread: threading.Thread | None = None
+        self._last_arrival = 0.0
+        self._recent_gap = float("inf")  # gap between the last 2 arrivals
+        self._last_wave_size = 0  # latch breaker: did the window pay off?
+        self.waves = 0          # dispatch waves formed (observability)
+        self.coalesced = 0      # requests that shared a wave with others
+        self.deduped = 0        # requests served off an identical wavemate
+
+    # ------------------------------------------------------------- frontend
+
+    def run(self, index: str, query, kwargs: dict, key=None) -> list:
+        """Queue one request; returns its per-call Deferreds once the
+        whole wave containing it has been submitted. The caller resolves
+        them (concurrently across request threads).
+
+        ``key`` (optional) marks the request dedupe-eligible: wavemates
+        carrying the SAME key are submitted once and share the resulting
+        Deferreds (behind a memoizing wrapper, so concurrent resolves are
+        race-free). The API façade only passes a key for plain edge reads
+        — no explicit shards, no deadline, no result options — where
+        identical PQL strings are guaranteed identical requests."""
+        self._ensure_thread()
+        now = time.monotonic()
+        # benign races: both fields are plain floats read heuristically
+        self._recent_gap = now - self._last_arrival
+        self._last_arrival = now
+        fut: Future = Future()
+        # the dispatcher thread submits on this request's behalf: hand it
+        # a COPY of this context so spans started during submit (device
+        # dispatch, remote fan-out departure) join this request's trace
+        # instead of being orphaned on the pipeline thread
+        ctx = contextvars.copy_context()
+        self._q.put((index, query, kwargs, fut, key, ctx))
+        with global_tracer().span("pipeline.wave") as span:
+            defs = fut.result()
+            if span is not None:
+                span.tags["wave"] = getattr(fut, "wave_size", 1)
+                if getattr(fut, "dedupe_hit", False):
+                    span.tags["deduped"] = True
+        cost = current_cost()
+        if cost is not None and cost.profile is not None:
+            # PROFILE wave facts: how many requests shared this wave and
+            # whether this one rode an identical wavemate (a dedupe hit
+            # explains near-zero device counters in the tree)
+            cost.profile.wave_size = getattr(fut, "wave_size", 1)
+            cost.profile.dedupe_hit = bool(getattr(fut, "dedupe_hit",
+                                                   False))
+        return defs
+
+    # ----------------------------------------------------------- dispatcher
+
+    def _ensure_thread(self):
+        t = self._thread
+        if t is not None and t.is_alive():
+            return
+        with self._lock:
+            if self._thread is None or not self._thread.is_alive():
+                self._thread = threading.Thread(
+                    target=self._loop, daemon=True, name="query-pipeline"
+                )
+                self._thread.start()
+
+    def _loop(self):
+        while True:
+            item = self._q.get()
+            wave = [item]
+            self._gather(wave)
+            executor = self._api.executor
+            self.waves += 1
+            if len(wave) > 1:
+                self.coalesced += len(wave)
+            # Submit the ENTIRE wave before completing any future: the
+            # executor's micro-batcher flushes a pending group on its
+            # first result(), so a request thread resuming early would
+            # split the wave's shared dispatch.
+            done = []
+            # identical dedupe-eligible wavemates submit ONCE and share
+            # the leader's Deferreds; the shared handles memoize their
+            # resolution so the N-1 followers pay neither the dispatch
+            # nor the readback (and the followers' responses reuse the
+            # leader's pre-serialized result bytes — executor/result.py)
+            leaders: dict = {}
+            wave_size = len(wave)
+            for index, q, kwargs, fut, key, ctx in wave:
+                fut.wave_size = wave_size  # read by the request's span
+                shared = leaders.get(key) if key is not None else None
+                if shared is not None:
+                    self.deduped += 1
+                    fut.dedupe_hit = True
+                    done.append((fut, shared))
+                    continue
+                try:
+                    # submit under the REQUEST's captured context: spans
+                    # and inspector updates started inside land in that
+                    # request's trace, not on the dispatcher thread
+                    defs = ctx.run(executor.submit, index, q, **kwargs)
+                except BaseException as e:
+                    fut.set_exception(e)
+                    continue
+                if key is not None:
+                    # wrapped only when shareable: followers' resolves
+                    # must be race-free against the leader's
+                    defs = [_SharedDeferred(d) for d in defs]
+                    leaders[key] = defs
+                done.append((fut, defs))
+            for fut, defs in done:
+                fut.set_result(defs)
+
+    def _gather(self, wave: list) -> None:
+        """Grow a forming wave: greedy drain, then — only while arrivals
+        are close together (concurrent load) — hold the wave open up to
+        GATHER_WINDOW_S for stragglers.
+
+        Under saturation a drain-only dispatcher outruns the arrival
+        rate, so waves degenerate to one request each and every query
+        pays its own launch; holding the wave open for about an
+        inter-arrival gap turns concurrency into batch size instead. The
+        pressure gate keeps sparse traffic on the zero-wait path."""
+        while True:
+            # unbounded: already-queued requests are free to take, and a
+            # mixed-shape backlog needs the whole wave in one submit to
+            # fill per-shape micro-batch groups (capping here would
+            # split shapes across waves and flush partial groups)
+            try:
+                wave.append(self._q.get_nowait())
+            except queue.Empty:
+                break
+        if self._recent_gap >= self.PRESSURE_GAP_S:
+            self._last_wave_size = len(wave)
+            return
+        # Latch breaker: a single fast closed-loop client
+        # keeps _recent_gap ≈ window + service < PRESSURE_GAP_S, so the
+        # gap signal alone holds the window open forever while every
+        # wave dispatches at size 1 — the window buys nothing and costs
+        # 2 ms per query. Require evidence of actual concurrency: either
+        # this wave already drained >1 requests, or the previous wave
+        # did. A real burst re-opens the window within one wave (the
+        # backlog makes the greedy drain multi-request).
+        if len(wave) == 1 and self._last_wave_size <= 1:
+            self._last_wave_size = len(wave)
+            return
+        # WAITING past one full micro-batch buys nothing, so the window
+        # phase caps at the executor's batch limit. The cap counts
+        # UNIQUE submissions, not wave members: dedupe-eligible
+        # wavemates carrying a key already in the wave share the
+        # leader's submission and consume no micro-batch slot, so a
+        # hot-query burst may ride one wave far past the batch limit.
+
+        def item_key(item):
+            # run() enqueues (index, query, kwargs, fut, key, ctx);
+            # gather-window unit tests enqueue bare sentinels — treat
+            # anything else as keyless (always unique)
+            return item[4] if isinstance(item, tuple) and len(item) >= 5 \
+                else None
+
+        seen_keys: set = set()
+        unique = 0
+
+        def note(item) -> None:
+            nonlocal unique
+            key = item_key(item)
+            if key is None or key not in seen_keys:
+                unique += 1
+                if key is not None:
+                    seen_keys.add(key)
+
+        for item in wave:
+            note(item)
+        deadline = time.monotonic() + self.GATHER_WINDOW_S
+        try:
+            while unique < self.GATHER_CAP:
+                left = deadline - time.monotonic()
+                if left <= 0:
+                    return
+                try:
+                    item = self._q.get(timeout=left)
+                except queue.Empty:
+                    return
+                wave.append(item)
+                note(item)
+        finally:
+            self._last_wave_size = len(wave)

@@ -13,7 +13,16 @@ the interval is above 0 and stops at its close. So do the integrity
 knobs: ``scrub_interval`` (seconds between scrubber passes; 0, the
 default, runs no scrubber) and ``scrub_max_bytes_per_sec`` (the
 scrubber's read budget; 0 unpaced). A scrubber starts at open when the
-interval is above 0 and is the first thing closed.
+interval is above 0 and is the first thing closed. The serving
+envelope's knobs are the reference's too: the admission gate and the
+default deadline (``qos_max_inflight``, ``qos_tenant_inflight``,
+``qos_default_deadline``), the hedge and breaker knobs (built and
+reported; nothing fans out on one node), ``slo_objectives`` and
+``slo_windows``, ``tracing`` and ``trace_sample_rate`` (the global
+tracer's rate), ``trace_log_dir`` (``POST /debug/trace-device``),
+``long_query_time`` and ``slow_query_ring`` (the slow-query ring),
+``result_cache_bytes`` (the process's result cache; 0 turns it off and
+empties it) and ``ingest_workers`` (the import pool).
 
 ``ServerConfig`` is the reference's whole configuration (its names,
 defaults, parsing and validation; durations as Go strings such as
@@ -26,7 +35,10 @@ them under the same names.
 
 from __future__ import annotations
 
+import collections
+
 from pilosa_tpu_torch.parallel.scrub import Scrubber
+from pilosa_tpu_torch.qos import ServingQos, SLOEngine
 from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.server.http import serve_in_thread
 from pilosa_tpu_torch.storage import Holder
@@ -46,7 +58,13 @@ from pilosa_tpu_torch.storage.wal import (
     DURABILITY_MODES,
     MODE_GROUP,
 )
+from pilosa_tpu_torch.serving.rescache import global_result_cache
 from pilosa_tpu_torch.utils.durations import parse_duration
+from pilosa_tpu_torch.utils.stats import global_stats
+from pilosa_tpu_torch.utils.tracing import (
+    global_tracer,
+    prepare_device_tracing,
+)
 
 
 def _parse_bool(value) -> bool:
@@ -64,6 +82,15 @@ def _parse_list(value) -> list[str]:
 
 MAX_WORKERS = 64  # the reference's ceiling on serving-workers
 
+# The serving envelope's knobs, under their config names.
+SERVING_KNOBS = (
+    "qos-max-inflight", "qos-tenant-inflight", "qos-default-deadline",
+    "qos-hedge-delay", "qos-hedge-budget", "qos-breaker-threshold",
+    "qos-breaker-cooldown", "slo-objectives", "slo-windows", "tracing",
+    "trace-sample-rate", "trace-log-dir", "long-query-time",
+    "slow-query-ring", "result-cache-bytes", "ingest-workers",
+)
+
 
 class ServerConfig:
     """The reference's server configuration: every knob under its config
@@ -71,8 +98,7 @@ class ServerConfig:
     errors, so ``config`` prints the reference's resolved config for the
     same file. The port serves the knobs in ``PORTED``; ``unported()``
     names each other knob set to anything but its default, and the
-    ``server`` verb refuses those. (The SLO specs are not validated: the
-    SLO engine comes with the serving planes.)"""
+    ``server`` verb refuses those."""
 
     # the knobs whose planes the port has
     PORTED = frozenset((
@@ -82,7 +108,7 @@ class ServerConfig:
         "scrub-max-bytes-per-sec", "residency-promote-interval",
         "residency-promote-heat", "residency-demote-heat",
         "residency-host-tier-bytes",
-    ))
+    ) + SERVING_KNOBS)
 
     def __init__(
         self,
@@ -351,6 +377,8 @@ class ServerConfig:
                 f"invalid cdc-staleness-budget {cdc_staleness_budget!r} "
                 "(want >= 0; 0 = unbounded)"
             )
+        # built once to validate; Server.open builds the live engine
+        SLOEngine.from_config(self.slo_objectives, self.slo_windows)
 
     @property
     def tls_enabled(self) -> bool:
@@ -644,7 +672,7 @@ _KNOBS = ("verify-on-load", "durability-mode", "group-commit-max-ms",
           "group-commit-max-ops", "residency-host-tier-bytes",
           "residency-promote-interval", "residency-promote-heat",
           "residency-demote-heat", "scrub-interval",
-          "scrub-max-bytes-per-sec")
+          "scrub-max-bytes-per-sec") + SERVING_KNOBS
 
 
 def config_from_dict(d: dict) -> dict:
@@ -679,7 +707,41 @@ class Server:
                  residency_demote_heat: float = DEFAULT_DEMOTE_HEAT,
                  scrub_interval: float = 0.0,
                  scrub_max_bytes_per_sec: int = 0,
-                 max_writes_per_request: int = 5000):
+                 max_writes_per_request: int = 5000,
+                 qos_max_inflight: int = 0,
+                 qos_tenant_inflight: int = 0,
+                 qos_default_deadline: float = 0.0,
+                 qos_hedge_delay: float = 0.25,
+                 qos_hedge_budget: float = 0.05,
+                 qos_breaker_threshold: int = 5,
+                 qos_breaker_cooldown: float = 5.0,
+                 slo_objectives: list[str] | None = None,
+                 slo_windows: list[str] | None = None,
+                 tracing: bool = False,
+                 trace_sample_rate: float = 0.0,
+                 trace_log_dir: str = "",
+                 long_query_time: float = 0.0,
+                 slow_query_ring: int = 100,
+                 result_cache_bytes: int = 0,
+                 ingest_workers: int = 1):
+        # the serving envelope's knobs, validated as ServerConfig does
+        cfg = ServerConfig(
+            qos_max_inflight=qos_max_inflight,
+            qos_tenant_inflight=qos_tenant_inflight,
+            qos_default_deadline=qos_default_deadline,
+            qos_hedge_delay=qos_hedge_delay,
+            qos_hedge_budget=qos_hedge_budget,
+            qos_breaker_threshold=qos_breaker_threshold,
+            qos_breaker_cooldown=qos_breaker_cooldown,
+            slo_objectives=slo_objectives, slo_windows=slo_windows,
+            tracing=tracing, trace_sample_rate=trace_sample_rate,
+            trace_log_dir=trace_log_dir, long_query_time=long_query_time,
+            slow_query_ring=slow_query_ring,
+            result_cache_bytes=result_cache_bytes,
+            ingest_workers=ingest_workers)
+        for name in SERVING_KNOBS:
+            attr = name.replace("-", "_")
+            setattr(self, attr, getattr(cfg, attr))
         self.scrub_interval = float(scrub_interval)
         if self.scrub_interval < 0:
             raise ValueError(
@@ -743,9 +805,33 @@ class Server:
                 for name in _KNOBS}
 
     def open(self) -> "Server":
+        # the process's result cache, sized here (0 turns it off and
+        # drops what an earlier server in this process left)
+        global_result_cache().configure(self.result_cache_bytes)
         self.holder.open()
         self.api = API(self.holder)
-        self.api.max_writes_per_request = self.max_writes_per_request
+        api = self.api
+        api.max_writes_per_request = self.max_writes_per_request
+        api.long_query_time = self.long_query_time
+        api.long_queries = collections.deque(maxlen=self.slow_query_ring)
+        api.slo = SLOEngine.from_config(self.slo_objectives,
+                                        self.slo_windows)
+        api.ingest_workers = max(1, self.ingest_workers)
+        api.qos = ServingQos(
+            max_inflight=self.qos_max_inflight,
+            tenant_max=self.qos_tenant_inflight,
+            hedge_delay=self.qos_hedge_delay,
+            hedge_budget=self.qos_hedge_budget,
+            breaker_threshold=self.qos_breaker_threshold,
+            breaker_cooldown=self.qos_breaker_cooldown,
+            stats=global_stats())
+        api.default_deadline_s = self.qos_default_deadline
+        api.trace_log_dir = self.trace_log_dir
+        rate = self.trace_sample_rate
+        if rate <= 0 and self.tracing:
+            rate = 1.0  # `tracing = true`: every request
+        global_tracer().sample_rate = rate
+        prepare_device_tracing(self.holder.device)
         if self.residency_promote_interval > 0:
             # no pacer: the cluster's repair pacer is not ported yet
             self.api.tierer = ResidencyTierer(

@@ -27,6 +27,7 @@ import threading
 
 import numpy as np
 
+from pilosa_tpu_torch.serving import rescache
 from pilosa_tpu_torch.shardwidth import (
     SHARD_WIDTH,
     keep_last_unique,
@@ -161,6 +162,9 @@ class Field:
             else:
                 self.cache.invalidate_tag((self.scope, self.index,
                                            self.name))
+        # a field closing (a delete, or the holder shutting down) fences
+        # every cached result of the index
+        rescache.invalidate_index_wide(self.scope, self.index)
 
     def _new_view(self, name: str) -> View:
         return View(os.path.join(self.path, "views", name), self.index,

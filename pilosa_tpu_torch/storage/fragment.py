@@ -26,8 +26,12 @@ loaded or saved) and ``recalculate_cache`` rebuilds. TopN's phase 1
 takes its candidates from that cache (``top``), as the reference does.
 One deliberate difference: a fragment opened without a ``.cache``
 sidecar fills its cache from the exact counts, where the reference's
-starts empty. Every point write served by the API records write heat
-(``storage/heat.py``). A failed per-op fsync, snapshot or sidecar write
+starts empty. Every write is a write point (``_note_write``): the
+result cache's entries of this (index, field, shard) are invalidated
+there, before the write's ACK (``serving/rescache.py``), and a point
+write served by the API records write heat (``storage/heat.py``). Under
+a request's cost context ``row_words`` tallies the containers it
+decodes. A failed per-op fsync, snapshot or sidecar write
 trips the holder's ``StorageHealth`` latch, and every file operation
 that can fail passes the disk fault plane's seams
 (``testing/faults.py``).
@@ -41,7 +45,8 @@ import threading
 import numpy as np
 
 from pilosa_tpu_torch.ops.packing import unpack_bits
-from pilosa_tpu_torch.roaring import OP_ADD, OP_REMOVE, RoaringBitmap, \
+from pilosa_tpu_torch.roaring import ARRAY, BITMAP, OP_ADD, OP_REMOVE, RUN, \
+    RoaringBitmap, \
     merge_kernels
 from pilosa_tpu_torch.roaring.format import (
     encode_op,
@@ -49,6 +54,7 @@ from pilosa_tpu_torch.roaring.format import (
     serialize,
 )
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH, keep_last_unique
+from pilosa_tpu_torch.serving import rescache
 from pilosa_tpu_torch.storage import heat
 from pilosa_tpu_torch.storage.cache import (
     CACHE_TYPE_RANKED,
@@ -68,6 +74,8 @@ from pilosa_tpu_torch.storage.integrity import (
 from pilosa_tpu_torch.storage.residency import WriteEvent
 from pilosa_tpu_torch.storage.wal import MODE_PER_OP, fsync_dir, wal_fsync
 from pilosa_tpu_torch.testing import faults
+from pilosa_tpu_torch.utils.cost import current_cost
+from pilosa_tpu_torch.utils.stats import global_stats
 
 # Snapshot (compact) once this many op records have accumulated (the
 # reference's DEFAULT_SNAPSHOT_OP_THRESHOLD).
@@ -219,13 +227,24 @@ class Fragment:
                 self._file = None
             if self.cache is not None:
                 self.cache.invalidate_fragment(self.frag_id)
+            # a delete or a swap changes what this fragment answers next
+            rescache.invalidate_write(self.scope, self.index, self.field,
+                                      self.shard)
             self._open = False
 
     # ----------------------------------------------------------------- reads
 
     def row_words(self, row: int) -> np.ndarray:
-        """Dense uint32[32768] for one row (host side)."""
+        """Dense uint32[32768] for one row (host side). Under a request's
+        cost context the row's containers are tallied by type (only
+        residency misses decode)."""
         base = row << 20
+        cost = current_cost()
+        if cost is not None:
+            kinds = [c.kind for k in range(base >> 16, (base >> 16) + 16)
+                     if (c := self.bitmap.container(k)) is not None]
+            cost.note_containers(kinds.count(ARRAY), kinds.count(BITMAP),
+                                 kinds.count(RUN))
         return self.bitmap.dense_range_words32(base, base + SHARD_WIDTH)
 
     def count_row(self, row: int) -> int:
@@ -377,9 +396,10 @@ class Fragment:
             changed = self.bitmap.add_ids(ids)
             if changed:
                 self._log_op(OP_ADD, ids)
-                for row, p in _group_by_row(rows, positions):
+                groups = list(_group_by_row(rows, positions))
+                for row, p in groups:
                     self._after_row_write(row, p, added=True)
-                self._note_write(rows.size)
+                self._note_write(rows.size, len(groups))
             return changed
 
     def add_ids(self, ids) -> int:
@@ -408,7 +428,7 @@ class Fragment:
             self._after_row_write(
                 row, p, added=True,
                 row_count=None if counts is None else counts.get(row, 0))
-        self._note_write(rows.size)
+        self._note_write(rows.size, len(groups))
 
     def import_mutex(self, rows, positions) -> int:
         """Mutex-aware batched import (reference
@@ -517,6 +537,8 @@ class Fragment:
             for row in sorted(int(r) for r in rows):
                 self._after_row_write(row, None, added=None,
                                       row_count=counts.get(row, 0))
+            rescache.invalidate_write(self.scope, self.index, self.field,
+                                      self.shard)
 
     def recalculate_cache(self) -> None:
         """Rebuild the row cache from exact container cardinalities and
@@ -582,6 +604,8 @@ class Fragment:
                 self.cache.apply_write(WriteEvent(
                     self.index, self.field, self.view, self.shard, row,
                     scope=self.scope))
+        rescache.invalidate_write(self.scope, self.index, self.field,
+                                  self.shard)
 
     def snapshot(self) -> None:
         """Compact: rewrite the file as a clean snapshot, dropping the log."""
@@ -638,19 +662,28 @@ class Fragment:
                 positions=positions, added=added, scope=self.scope,
             ))
 
-    def _note_write(self, n: int) -> None:
-        """Write heat of a PQL write served by the API (bulk imports
-        record at the API, one a shard group; see ``storage/heat.py``)."""
-        if heat.in_request():
+    def _note_write(self, n: int, rows: int = 1) -> None:
+        """The write point of one change of ``n`` bits over ``rows`` rows
+        (the reference's): the result cache's entries that depend on
+        this (index, field, shard) die here, before the write's ACK
+        barrier releases its 200, whether or not the cost plane is on;
+        one ``fragment_row_writes`` count a row; and under a request's
+        cost context, the write heat of a PQL write (bulk imports record
+        theirs at the API; see ``storage/heat.py``)."""
+        rescache.invalidate_write(self.scope, self.index, self.field,
+                                  self.shard)
+        global_stats().count("fragment_row_writes", rows)
+        if current_cost() is not None:
             heat.global_heat().record_write(self.index, self.field,
                                             self.shard, n=float(n),
                                             scope=self.scope)
 
     def _note_batch_write(self, added, removed) -> None:
-        """One heat record for a batch of rows, weighted by its bits."""
+        """One write point for a batch of rows, weighted by its bits."""
         if added or removed:
             self._note_write(sum(len(p) for _, p in added)
-                             + sum(len(p) for _, p in removed))
+                             + sum(len(p) for _, p in removed),
+                             len(added) + len(removed))
 
     def _trip_health(self, reason: str) -> None:
         """Route a disk fault to the holder's StorageHealth latch through

@@ -8,52 +8,29 @@ and is applied lazily at read and update time from the stored (value,
 last-touch) pair, with no sweeper thread. ``merge_shard_heat`` folds
 several nodes' tables into per-(index, shard) heat.
 
-Which records fire. The reference records only inside a served
-request's cost context (``utils/cost.py``, on by default), which the
-port has not ported; it takes that default for a served HTTP request:
+Which records fire: the reference's. Heat records fire only under a
+served request's cost context (``utils/cost.py``, on by default):
 
-- ``record_access_many``: once per operand assembly of a PQL query
-  served by the API (``Executor._eval_operands`` and TopN's filter
-  assembly; GroupBy records nothing, as in the reference);
+- ``record_access_many``: once per operand assembly of a query served by
+  the API (``Executor._note_operands`` and TopN's filter assembly;
+  GroupBy records nothing, as in the reference);
 - ``record_write`` for a PQL write served by the API: one a point write
   (Set, Clear, ClearRow, Store: ``n=1``), one a fragment's batch weighted
   by its bits (a mutex Set's move, a BSI value);
 - ``record_write`` for ``/import`` (one a shard group, weighted by its
-  bits) and ``/import-value`` (one a shard, weighted by its columns),
-  whatever the context, as the reference's API does.
+  bits), ``/import-value`` (one a shard, weighted by its columns) and
+  ``/import-roaring`` (one a body), at the API, whenever the cost plane
+  is on.
 
-``serving()`` marks the served request (the API's query path);
-``in_request()`` is what the executor and the fragments test. Direct
-calls of the executor or the fragments record nothing, as in the
-reference outside a request. The Prometheus rendering and the snapshot's
-device-bytes overlay are not ported (the port has no ``/metrics`` or
-``/debug/heatmap`` route yet).
+Direct calls of the executor or the fragments record nothing, as in the
+reference outside a request. ``prometheus_lines`` renders the
+``heat_*`` block of ``/metrics``.
 """
 
 from __future__ import annotations
 
-import contextlib
-import contextvars
 import threading
 import time
-
-_serving: contextvars.ContextVar = contextvars.ContextVar(
-    "pilosa_tpu_torch_serving", default=False)
-
-
-@contextlib.contextmanager
-def serving():
-    """Mark the current context as a served request (heat records fire)."""
-    token = _serving.set(True)
-    try:
-        yield
-    finally:
-        _serving.reset(token)
-
-
-def in_request() -> bool:
-    return _serving.get()
-
 
 DEFAULT_HALF_LIFE_S = 300.0
 
@@ -188,10 +165,12 @@ class HeatMap:
 
     # --------------------------------------------------------------- views
 
-    def snapshot(self, k: int = 0) -> dict:
-        """Heat table sorted hottest-first (access + write heat). The
-        reference also overlays each row with its device bytes for
-        ``/debug/heatmap``, which the port does not serve yet."""
+    def snapshot(self, k: int = 0, cache=None) -> dict:
+        """Heat table sorted hottest-first (access + write heat). With a
+        residency ``cache`` (``/debug/heatmap``) each row is overlaid
+        with its device bytes: exact bytes for per-fragment entries, and
+        the (index, field) bytes of the stacked leaves, which span a
+        whole shard block and cannot be given to one shard."""
         now = time.monotonic()
         with self._lock:
             self._fold_locked()
@@ -209,7 +188,22 @@ class HeatMap:
         rows.sort(key=lambda r: r["access"] + r["writes"], reverse=True)
         if k:
             rows = rows[:k]
-        return {"halfLifeS": self.half_life_s, "shards": rows}
+        out = {"halfLifeS": self.half_life_s, "shards": rows}
+        if cache is not None:
+            per_frag, per_field = cache.residency_overlay()
+            for r in rows:
+                key = (r.get("scope", ""), r["index"], r["field"],
+                       r["shard"])
+                nbytes = per_frag.get(key, 0)
+                r["residentBytes"] = nbytes
+                r["resident"] = bool(nbytes or per_field.get(
+                    (r.get("scope", ""), r["index"], r["field"])))
+            out["stackedBytesByField"] = [
+                {"index": i, "field": f, "bytes": b,
+                 **({"scope": sc} if sc else {})}
+                for (sc, i, f), b in sorted(per_field.items())
+            ]
+        return out
 
     def hottest(self, k: int = 10) -> list[dict]:
         return self.snapshot(k=k)["shards"]
@@ -223,6 +217,36 @@ class HeatMap:
                 "writes_total": self.writes_total,
                 "half_life_seconds": self.half_life_s,
             }
+
+    def prometheus_lines(self, prefix: str, seen: set | None = None,
+                         max_series: int = 32) -> str:
+        """The untagged summary block and the ``max_series`` hottest
+        shards as tagged gauges (the whole table is ``/debug/heatmap``)."""
+        from pilosa_tpu_torch.utils.stats import (
+            _meta_lines,
+            escape_label,
+            prometheus_block,
+        )
+
+        seen = seen if seen is not None else set()
+        text = prometheus_block(self.metrics(), prefix, "heat", seen=seen)
+        lines: list[str] = []
+        family = f"{prefix}_heat_shard"
+        lines.extend(_meta_lines(
+            family, "gauge", "decayed per-shard access+write heat "
+            "(hottest shards only; full table at /debug/heatmap)", seen,
+        ))
+        for r in self.hottest(max_series):
+            # scope always labelled: two holders in one process share
+            # the map
+            lines.append(
+                f'{family}{{scope="{escape_label(r.get("scope", ""))}",'
+                f'index="{escape_label(r["index"])}",'
+                f'field="{escape_label(r["field"])}",'
+                f'shard="{r["shard"]}"}} '
+                f'{r["access"] + r["writes"]:g}'
+            )
+        return text + "\n".join(lines) + ("\n" if lines else "")
 
     def forget(self, scope: str, index: str,
                field: str | None = None) -> None:

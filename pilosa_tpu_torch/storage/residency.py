@@ -58,6 +58,7 @@ import torch
 
 from pilosa_tpu_torch import kernels
 from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD, next_pow2
+from pilosa_tpu_torch.utils.cost import current_cost
 from pilosa_tpu_torch.utils.stats import prometheus_block
 
 ROW_BYTES = WORDS_PER_SHARD * 4  # 128 KiB per shard row
@@ -396,16 +397,24 @@ class DeviceRowCache:
     def _put_locked(self, key: tuple, host: np.ndarray) -> torch.Tensor:
         arr = upload(host, self.device)
         self._insert_dense(key, arr, self._host_block_index(host))
+        cost = current_cost()
+        if cost is not None:  # host-to-device bytes of the request
+            cost.note_upload(_nbytes(arr))
         return arr
 
     def get_row(self, key: tuple, decode: Callable[[], np.ndarray]
                 ) -> torch.Tensor:
         """The device tensor for ``key``, decoding+uploading on a miss."""
+        cost = current_cost()
         with self._lock:
             arr = self._lookup_locked(key)
             if arr is not None:
+                if cost is not None:
+                    cost.note_cache(True)
                 return arr
             self.misses += 1
+            if cost is not None:
+                cost.note_cache(False)
             return self._put_locked(key, decode())
 
     def get_or_build(self, key: tuple, tag: tuple, probe: Callable,
@@ -418,15 +427,20 @@ class DeviceRowCache:
         patches after the upload; concurrent builders of one key wait for
         the first. Delta patches are idempotent, so an event the decode
         already saw replays harmlessly."""
+        cost = current_cost()
         with self._lock:
             while True:
                 arr = self._lookup_locked(key)
                 if arr is not None:
                     self._register_locked(key, tag, probe)
+                    if cost is not None:
+                        cost.note_cache(True)
                     return arr
                 if key not in self._pending_builds:
                     break
                 self._build_done.wait()
+            if cost is not None:
+                cost.note_cache(False)
             buf: list = []
             self._pending_builds[key] = buf
             self._updaters[key] = (tag, probe())
@@ -716,9 +730,17 @@ class DeviceRowCache:
     def _upload_host_entry(self, hentry: _HostEntry) -> torch.Tensor:
         """Host -> device for one host-tier entry: the compact blocks go
         up and one K11 launch scatters them to the dense shape (the whole
-        words go up as they are when there is no block index)."""
+        words go up as they are when there is no block index). The
+        request's cost context is given the bytes that cross, the blocks
+        and their index, where the reference notes the dense size."""
+        cost = current_cost()
         if hentry.idx is None:
-            return upload(hentry.blocks.reshape(hentry.shape), self.device)
+            arr = upload(hentry.blocks.reshape(hentry.shape), self.device)
+            if cost is not None:
+                cost.note_upload(_nbytes(arr))
+            return arr
+        if cost is not None:
+            cost.note_upload(int(hentry.blocks.nbytes + hentry.idx.nbytes))
         blocks = _upload_async(hentry.blocks.view(np.int32), self.device)
         idx = _upload_async(hentry.idx, self.device)
         return kernels.block_scatter(blocks, idx, hentry.n_blocks,
@@ -758,6 +780,30 @@ class DeviceRowCache:
             self._host_bytes -= hentry.nbytes
             self.evictions += 1
             self._drop_updater(key)
+
+    def residency_overlay(self) -> tuple[dict, dict]:
+        """Device bytes for the heat map (``/debug/heatmap``):
+        ``(per_fragment, per_field)``, exact bytes per (scope, index,
+        field, shard) for per-fragment entries and (scope, index, field)
+        totals for the stacked leaves (one spans a whole shard block).
+        Dense and compressed entries count; the host tier is not on the
+        card."""
+        with self._lock:
+            items = [(k, _nbytes(a)) for k, a in self._rows.items()]
+            items += [(k, e.nbytes) for k, e in self._compressed.items()]
+        per_frag: dict[tuple, int] = {}
+        per_field: dict[tuple, int] = {}
+        for key, nbytes in items:
+            tag = key[0]
+            if isinstance(tag, str) and tag.startswith("stack"):
+                if len(key) >= 4 and tag != "stackz":
+                    fkey = (key[1], key[2], key[3])
+                    per_field[fkey] = per_field.get(fkey, 0) + int(nbytes)
+                continue
+            if len(key) >= 6 and isinstance(key[4], int):
+                fkey = (key[0], key[1], key[2], key[4])
+                per_frag[fkey] = per_frag.get(fkey, 0) + int(nbytes)
+        return per_frag, per_field
 
     def tier_overlay(self) -> tuple[dict, dict]:
         """The tierer's view: ``(per_fragment, per_field_stacks)``, bytes

@@ -1,0 +1,531 @@
+"""Query cost plane: the per-request cost context, PQL PROFILE trees and
+the per-tenant CostLedger (the port's copy of ``pilosa_tpu.utils.cost``).
+
+- ``CostContext``: one per edge request, on a contextvar that rides every
+  cross-thread handoff the tracer rides. Instrumented sites (kernel
+  launches, residency lookups and uploads, container decodes) do one
+  contextvar read and a few attribute adds; ``set_cost_enabled(False)``
+  turns every site into one predicate.
+- ``QueryProfile``: built only for ``?profile=true``: a tree per AST
+  call (wall and launch ms, launches, shards, containers by type, rows
+  materialized, row-cache hits, bytes moved to the device).
+- ``CostLedger``: always-on per-(tenant, index) accounting behind ``GET
+  /debug/tenants`` and the ``tenant_*`` metrics.
+
+A launch's time is its enqueue time on the host, as the span around it:
+no site waits for the card.
+"""
+
+from __future__ import annotations
+
+import contextvars
+import threading
+
+from pilosa_tpu_torch.utils.stats import (
+    _meta_lines,
+    escape_label,
+    prometheus_block,
+)
+
+# Global kill switch (bench baselines): current_cost() returns None and
+# new_cost_context() refuses, so every instrumented site degrades to one
+# predicate. Shipping default is ON — the ledger and heat map are the
+# always-on accounting surfaces.
+_enabled = True
+
+
+def set_cost_enabled(value: bool) -> None:
+    global _enabled
+    _enabled = bool(value)
+
+
+def cost_enabled() -> bool:
+    return _enabled
+
+
+_cost_ctx: contextvars.ContextVar = contextvars.ContextVar(
+    "pilosa_tpu_torch_cost_ctx", default=None
+)
+
+
+def current_cost() -> "CostContext | None":
+    """The active request's cost context (None when the plane is off or
+    outside a request). One contextvar read — the instrumented sites'
+    whole fast-path cost."""
+    return _cost_ctx.get() if _enabled else None
+
+
+class ProfileNode:
+    """One AST node's execution profile. Structure mirrors the parsed
+    Call tree; measured counters land on the node ACTIVE while the work
+    ran (the executing call for fused kernels — leaf-level detail rides
+    the ``leaves`` list, one record per resolved device operand)."""
+
+    __slots__ = ("name", "pql", "wall_s", "device_s", "dispatches",
+                 "max_batch", "shards", "c_array", "c_bitmap", "c_run",
+                 "row_cache_hits", "row_cache_misses", "plan_cache_hit",
+                 "operand_memo_hit", "rows_materialized", "device_bytes",
+                 "children", "leaves")
+
+    def __init__(self, name: str, pql: str = ""):
+        self.name = name
+        self.pql = pql
+        self.wall_s = 0.0
+        self.device_s = 0.0
+        self.dispatches = 0
+        self.max_batch = 0
+        self.shards = 0
+        self.c_array = 0
+        self.c_bitmap = 0
+        self.c_run = 0
+        self.row_cache_hits = 0
+        self.row_cache_misses = 0
+        self.plan_cache_hit = False
+        self.operand_memo_hit = False
+        self.rows_materialized = 0
+        self.device_bytes = 0
+        # static AST skeleton (ready-to-emit dicts, shared via the
+        # skeleton memo — never mutated)
+        self.children: list[dict] = []
+        self.leaves: list[dict] = []
+
+    def to_json(self) -> dict:
+        out = {
+            "name": self.name,
+            "pql": self.pql,
+            "wallMs": round(self.wall_s * 1e3, 3),
+            "deviceMs": round(self.device_s * 1e3, 3),
+            "dispatches": self.dispatches,
+            "maxDispatchBatch": self.max_batch,
+            "shards": self.shards,
+            "containers": {"array": self.c_array, "bitmap": self.c_bitmap,
+                           "run": self.c_run},
+            "rowsMaterialized": self.rows_materialized,
+            "rowCacheHits": self.row_cache_hits,
+            "rowCacheMisses": self.row_cache_misses,
+            "planCacheHit": self.plan_cache_hit,
+            "operandMemoHit": self.operand_memo_hit,
+            "bytesMoved": self.device_bytes,
+        }
+        if self.leaves:
+            out["leaves"] = self.leaves
+        if self.children:
+            out["children"] = self.children
+        return out
+
+
+def _call_pql(call) -> str:
+    try:
+        return call.to_pql()[:512]
+    except Exception:
+        return str(getattr(call, "name", call))[:512]
+
+
+def _ast_children_json(call) -> list[dict]:
+    """Static child skeleton of a Call tree, as ready-to-emit dicts: the
+    compiler fuses children into one kernel, so child nodes carry
+    structure (name + PQL fragment) while measured counters land on the
+    executing ancestor."""
+    return [
+        {"name": child.name, "pql": _call_pql(child),
+         "children": _ast_children_json(child)}
+        for child in getattr(call, "children", ()) or ()
+    ]
+
+
+# parse() memoizes query text to one immutable Call tree, so the static
+# skeleton (children dicts + top-level PQL render) keys by identity —
+# repeat profiled queries skip the to_pql walk. Cleared wholesale at the
+# bound (same policy as the executor's plan cache); entries carry the
+# Call so id() reuse after GC cannot alias.
+_SKELETON_MEMO: dict[int, tuple] = {}
+_SKELETON_MEMO_MAX = 1024
+
+
+def _call_skeleton(call) -> tuple[str, list]:
+    key = id(call)
+    hit = _SKELETON_MEMO.get(key)
+    if hit is not None and hit[0] is call:
+        return hit[1], hit[2]
+    pql = _call_pql(call)
+    children = _ast_children_json(call)
+    if len(_SKELETON_MEMO) >= _SKELETON_MEMO_MAX:
+        _SKELETON_MEMO.clear()
+    _SKELETON_MEMO[key] = (call, pql, children)
+    return pql, children
+
+
+class QueryProfile:
+    """Per-request PROFILE assembly: one ProfileNode per top-level call
+    (created lazily by position so the submit phase on the pipeline
+    dispatcher and the resolve phase on the request thread address the
+    SAME node). ``remote`` stays empty on one node: the reference
+    grafts each cluster leg's profile there."""
+
+    def __init__(self, index: str, pql: str, node_id: str = "local"):
+        self.index = index
+        self.pql = pql if isinstance(pql, str) else str(pql)
+        self.node_id = node_id
+        self._lock = threading.Lock()
+        self._calls: dict[int, ProfileNode] = {}
+        # serving-wave facts (set by server/pipeline.py): a dedupe hit
+        # means this request rode an identical wavemate's execution —
+        # the honest explanation for a near-zero tree. result_cache_hit
+        # is its cross-wave sibling (serving/rescache.py): the request
+        # was answered from pre-serialized cached bytes, no execution
+        # at all (the API emits a stub tree with the flag set).
+        self.wave_size = 1
+        self.dedupe_hit = False
+        self.result_cache_hit = False
+
+    def node_for(self, i: int, call) -> ProfileNode:
+        with self._lock:
+            node = self._calls.get(i)
+            if node is None:
+                pql, children = _call_skeleton(call)
+                node = ProfileNode(getattr(call, "name", "call"), pql)
+                node.children = children
+                self._calls[i] = node
+            return node
+
+    def to_json(self, ctx: "CostContext | None" = None) -> dict:
+        with self._lock:
+            calls = [self._calls[i].to_json()
+                     for i in sorted(self._calls)]
+        out = {
+            "node": self.node_id,
+            "index": self.index,
+            "pql": self.pql[:1024],
+            "wave": self.wave_size,
+            "dedupeHit": self.dedupe_hit,
+            "resultCacheHit": self.result_cache_hit,
+            "calls": calls,
+            "remote": [],
+        }
+        if ctx is not None:
+            out["totals"] = ctx.totals()
+        return out
+
+
+class CostContext:
+    """Per-request cost accumulator. Writers are the request's own
+    threads (the pipeline ships the request's context to the dispatcher
+    and back, so submit/resolve phases are sequential for one request);
+    plain attribute adds, no lock — this feeds an accounting ledger and
+    a debugging profile, not a correctness invariant."""
+
+    __slots__ = ("tenant", "index", "device_s", "dispatches", "shards",
+                 "c_array", "c_bitmap", "c_run", "row_cache_hits",
+                 "row_cache_misses", "plan_cache_hits", "plan_cache_misses",
+                 "rows_materialized", "device_bytes", "profile",
+                 "current")
+
+    def __init__(self, tenant: str = "default", index: str = "",
+                 profile: QueryProfile | None = None):
+        self.tenant = tenant
+        self.index = index
+        self.device_s = 0.0
+        self.dispatches = 0
+        self.shards = 0
+        self.c_array = 0
+        self.c_bitmap = 0
+        self.c_run = 0
+        self.row_cache_hits = 0
+        self.row_cache_misses = 0
+        self.plan_cache_hits = 0
+        self.plan_cache_misses = 0
+        self.rows_materialized = 0
+        self.device_bytes = 0
+        self.profile = profile
+        self.current: ProfileNode | None = None
+
+    # ------------------------------------------------------- site helpers
+
+    def note_dispatch(self, seconds: float, batch: int = 1) -> None:
+        self.device_s += seconds
+        self.dispatches += 1
+        node = self.current
+        if node is not None:
+            node.device_s += seconds
+            node.dispatches += 1
+            if batch > node.max_batch:
+                # mirrors the span's batch= tag: a flushed micro-batch's
+                # inflated deviceMs is explained by the shared size
+                node.max_batch = batch
+
+    def note_shards(self, n: int) -> None:
+        self.shards += n
+        node = self.current
+        if node is not None:
+            node.shards += n
+
+    def note_containers(self, array: int, bitmap: int, run: int) -> None:
+        self.c_array += array
+        self.c_bitmap += bitmap
+        self.c_run += run
+        node = self.current
+        if node is not None:
+            node.c_array += array
+            node.c_bitmap += bitmap
+            node.c_run += run
+
+    def note_cache(self, hit: bool) -> None:
+        if hit:
+            self.row_cache_hits += 1
+        else:
+            self.row_cache_misses += 1
+        node = self.current
+        if node is not None:
+            if hit:
+                node.row_cache_hits += 1
+            else:
+                node.row_cache_misses += 1
+
+    def note_upload(self, nbytes: int) -> None:
+        self.device_bytes += nbytes
+        node = self.current
+        if node is not None:
+            node.device_bytes += nbytes
+
+    def note_rows(self, n: int) -> None:
+        self.rows_materialized += n
+        node = self.current
+        if node is not None:
+            node.rows_materialized += n
+
+    def note_plan(self, hit: bool) -> None:
+        if hit:
+            self.plan_cache_hits += 1
+        else:
+            self.plan_cache_misses += 1
+        node = self.current
+        if node is not None:
+            node.plan_cache_hit = hit
+
+    def container_scans(self) -> int:
+        return self.c_array + self.c_bitmap + self.c_run
+
+    def totals(self) -> dict:
+        out = {
+            "deviceMs": round(self.device_s * 1e3, 3),
+            "dispatches": self.dispatches,
+            "shards": self.shards,
+            "containers": {"array": self.c_array, "bitmap": self.c_bitmap,
+                           "run": self.c_run},
+            "rowCacheHits": self.row_cache_hits,
+            "rowCacheMisses": self.row_cache_misses,
+            "planCacheHits": self.plan_cache_hits,
+            "planCacheMisses": self.plan_cache_misses,
+            "rowsMaterialized": self.rows_materialized,
+            "bytesMoved": self.device_bytes,
+        }
+        return out
+
+
+class _NodeScope:
+    """Activate one profile node as the context's attribution target for
+    a block (per-call submit/resolve phases)."""
+
+    __slots__ = ("_ctx", "_node", "_prev")
+
+    def __init__(self, ctx: CostContext, node: ProfileNode | None):
+        self._ctx = ctx
+        self._node = node
+
+    def __enter__(self):
+        self._prev = self._ctx.current
+        self._ctx.current = self._node
+        return self._node
+
+    def __exit__(self, *exc):
+        self._ctx.current = self._prev
+        return False
+
+
+def use_node(ctx: CostContext | None, node: ProfileNode | None):
+    if ctx is None:
+        return _NOP_SCOPE
+    return _NodeScope(ctx, node)
+
+
+class _NopScope:
+    __slots__ = ()
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NOP_SCOPE = _NopScope()
+
+
+def new_cost_context(tenant: str, index: str,
+                     profile: QueryProfile | None = None
+                     ) -> CostContext | None:
+    if not _enabled:
+        return None
+    return CostContext(tenant, index, profile)
+
+
+def activate_cost(ctx: CostContext | None):
+    """Bind ``ctx`` on the contextvar; returns a reset token (None when
+    ctx is None — finish_cost handles both)."""
+    if ctx is None:
+        return None
+    return _cost_ctx.set(ctx)
+
+
+def deactivate_cost(token) -> None:
+    if token is not None:
+        _cost_ctx.reset(token)
+
+
+# ---------------------------------------------------------------- ledger
+
+
+# Ledger counter names, in snapshot/export order. New columns append
+# (the fold indexes below are positional).
+_LEDGER_KEYS = ("queries", "errors", "wall_ms", "device_ms",
+                "container_scans", "row_cache_misses", "rows_materialized",
+                "ingest_rows", "egress_bytes", "result_cache_hits")
+
+# Bounded tenant-pair cardinality: a tenant-id flood must not grow the
+# ledger (or the /metrics page) without bound; overflow lands in one
+# aggregate bucket so the totals stay exact.
+LEDGER_MAX_PAIRS = 512
+_OVERFLOW = ("__other__", "__other__")
+
+
+class CostLedger:
+    """Per-(tenant, index) usage accounting — the quota/capacity view.
+
+    Low overhead by construction: one lock round trip per REQUEST (not
+    per sample) — the request's CostContext accumulated everything
+    lock-free, and ``record_query`` folds it in with one dict update."""
+
+    def __init__(self, max_pairs: int = LEDGER_MAX_PAIRS):
+        self._lock = threading.Lock()
+        self._t: dict[tuple[str, str], list] = {}
+        self.max_pairs = max_pairs
+
+    def _entry(self, tenant: str, index: str) -> list:
+        key = (tenant, index)
+        e = self._t.get(key)
+        if e is None:
+            if len(self._t) >= self.max_pairs:
+                key = _OVERFLOW
+                e = self._t.get(key)
+                if e is not None:
+                    return e
+            e = self._t[key] = [0] * len(_LEDGER_KEYS)
+        return e
+
+    def record_query(self, tenant: str, index: str,
+                     ctx: CostContext | None, elapsed_s: float,
+                     error: bool = False,
+                     result_cache_hit: bool = False) -> None:
+        """``result_cache_hit`` bills a serving-fast-lane cache hit as a
+        query with near-zero device-ms (its ctx carries no dispatches)
+        instead of letting it vanish from the ledger — /debug/tenants
+        stays the truth about who the node serves, not just who it
+        executes for."""
+        with self._lock:
+            e = self._entry(tenant, index)
+            e[0] += 1
+            if error:
+                e[1] += 1
+            e[2] += elapsed_s * 1e3
+            if result_cache_hit:
+                e[9] += 1
+            if ctx is not None:
+                e[3] += ctx.device_s * 1e3
+                e[4] += ctx.container_scans()
+                e[5] += ctx.row_cache_misses
+                e[6] += ctx.rows_materialized
+
+    def add_ingest(self, tenant: str, index: str, rows: int) -> None:
+        with self._lock:
+            self._entry(tenant, index)[7] += int(rows)
+
+    def add_egress(self, tenant: str, index: str, nbytes: int) -> None:
+        with self._lock:
+            self._entry(tenant, index)[8] += int(nbytes)
+
+    # ------------------------------------------------------------- views
+
+    def snapshot(self) -> list[dict]:
+        with self._lock:
+            items = [(k, list(v)) for k, v in self._t.items()]
+        return [
+            {"tenant": t, "index": i,
+             **{name: (round(v, 3) if isinstance(v, float) else v)
+                for name, v in zip(_LEDGER_KEYS, vals)}}
+            for (t, i), vals in sorted(items)
+        ]
+
+    def top(self, k: int = 10, by: str = "device_ms") -> list[dict]:
+        """Top-K offender view: the (tenant, index) pairs spending the
+        most of one resource."""
+        if by not in _LEDGER_KEYS:
+            raise ValueError(
+                f"unknown cost column {by!r} (want one of "
+                f"{', '.join(_LEDGER_KEYS)})"
+            )
+        rows = self.snapshot()
+        rows.sort(key=lambda r: r[by], reverse=True)
+        return rows[:k]
+
+    def metrics(self) -> dict:
+        """Untagged aggregate block (always exported, zeros from scrape
+        one); the tagged per-tenant series ride prometheus_lines."""
+        with self._lock:
+            agg = [0] * len(_LEDGER_KEYS)
+            for vals in self._t.values():
+                for i, v in enumerate(vals):
+                    agg[i] += v
+            pairs = len(self._t)
+        out = {f"{name}_total": (round(v, 3) if isinstance(v, float) else v)
+               for name, v in zip(_LEDGER_KEYS, agg)}
+        out["tracked_pairs"] = pairs
+        return out
+
+    def prometheus_lines(self, prefix: str, seen: set | None = None,
+                         max_series: int = 64) -> str:
+        """Tagged per-(tenant, index) series under the ``tenant_``
+        subsystem, capped to the ``max_series`` busiest pairs by
+        device-ms (the page must not scale with tenant cardinality —
+        the full table lives at /debug/tenants). A sum() over a family
+        is the cluster aggregate; the cardinality gauge is untagged."""
+        seen = seen if seen is not None else set()
+        text = prometheus_block(
+            {"tracked_pairs": len(self._t)}, prefix, "tenant", seen=seen,
+        )
+        full = self.snapshot()
+        lines: list[str] = []
+        for name in _LEDGER_KEYS:
+            family = f"{prefix}_tenant_{name}_total"
+            lines.extend(_meta_lines(
+                family, "counter", f"per-tenant {name.replace('_', ' ')}",
+                seen,
+            ))
+            # rank PER FAMILY: the top ingest tenant may have near-zero
+            # device-ms, and a device_ms-only ranking would hide it from
+            # its own series once the pair count exceeds the cap
+            rows = sorted(full, key=lambda r: r[name],
+                          reverse=True)[:max_series]
+            for r in rows:
+                v = r[name]
+                rendered = v if isinstance(v, int) else f"{v:g}"
+                # escape: tenant is the CLIENT-controlled header — an
+                # unescaped quote would corrupt the whole /metrics page
+                lines.append(
+                    f'{family}{{tenant="{escape_label(r["tenant"])}",'
+                    f'index="{escape_label(r["index"])}"}} {rendered}'
+                )
+        return text + "\n".join(lines) + ("\n" if lines else "")
+
+    def clear(self) -> None:
+        with self._lock:
+            self._t.clear()

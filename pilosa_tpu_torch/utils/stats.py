@@ -1,19 +1,45 @@
-"""Prometheus text rendering for ``GET /metrics`` (the port's copy of the
-renderer half of ``pilosa_tpu.utils.stats``; the stats registry comes
-with the serving planes).
+"""The stats registry and the Prometheus renderer (the port's copy of
+``pilosa_tpu.utils.stats``).
 
-Every block renders through ``prometheus_block``: each family leads with
-``# HELP`` and ``# TYPE`` (names ending in ``_total`` are counters, the
-rest gauges), ints print exactly, and ``seen`` dedupes family metadata
-across the blocks of one page.
+``StatsClient`` keeps counters, gauges, timings and unit-free
+observations with tags, thread-safe, and renders them for ``GET
+/metrics``: a timing exports a windowed summary (p50/p95 over the last
+``SAMPLE_WINDOW`` samples) and a cumulative histogram under the
+``<name>_hist_seconds`` family. ``prometheus_block`` renders every other
+block of the page: each family leads with ``# HELP`` and ``# TYPE``
+(names ending in ``_total`` are counters, the rest gauges), ints print
+exactly, and ``seen`` dedupes family metadata across the blocks of one
+page. The statsd sink is not ported (its knob stays refused).
 """
 
 from __future__ import annotations
 
+import threading
+import time
+from collections import defaultdict, deque
+
+# Bounded per-series sample window backing the exported p50/p95 lines —
+# a sliding window, not a decaying histogram: ingest fan-out and batch
+# sizes change regime abruptly (bulk load starts/stops), and a window
+# forgets the old regime after SAMPLE_WINDOW observations.
+SAMPLE_WINDOW = 256
+
+# Cumulative histogram buckets (seconds) for every timing series: the
+# windowed p50/p95 summary lines stay (human-readable, regime-fresh), and
+# each timer ALSO exports stock-Prometheus `_bucket`/`_sum`/`_count`
+# series under the `<name>_hist_seconds` family so a scrape can compute
+# quantiles server-side (histogram_quantile) over any window. Log-spaced
+# 1 ms → 10 s: the serving path lives in single-digit ms, repair/sync
+# passes in seconds.
+HISTOGRAM_BUCKETS_S = (0.001, 0.0025, 0.005, 0.01, 0.025, 0.05, 0.1,
+                       0.25, 0.5, 1.0, 2.5, 5.0, 10.0)
+
 
 def escape_label(value) -> str:
-    """Prometheus label-value escaping: backslash, double quote and
-    newline."""
+    """Prometheus label-value escaping (exposition format §label
+    values): backslash, double-quote, and newline must be escaped —
+    client-controlled values (tenant headers, index names) interpolated
+    unescaped would corrupt the whole /metrics page for every scraper."""
     return (str(value).replace("\\", "\\\\").replace('"', '\\"')
             .replace("\n", "\\n"))
 
@@ -21,14 +47,31 @@ def escape_label(value) -> str:
 def _fmt_tags(tags: dict | None) -> str:
     if not tags:
         return ""
+    # escape values: tag values include CLIENT-controlled strings (the
+    # qos_shed tenant tag comes straight from X-Pilosa-Tenant), and one
+    # embedded quote would corrupt the whole exposition page
     inner = ",".join(f'{k}="{escape_label(v)}"'
                      for k, v in sorted(tags.items()))
     return "{" + inner + "}"
 
 
+def _with_tag(tags_str: str, extra: str) -> str:
+    """Splice one more label into an already-rendered tag block."""
+    if not tags_str:
+        return "{" + extra + "}"
+    return tags_str[:-1] + "," + extra + "}"
+
+
+def _quantile(samples, q: float) -> float:
+    s = sorted(samples)
+    return s[min(len(s) - 1, int(round(q * (len(s) - 1))))]
+
+
 def _meta_lines(family: str, mtype: str, help_text: str | None,
                 seen: set) -> list[str]:
-    """``# HELP`` and ``# TYPE`` of one family, once a page."""
+    """`# HELP` + `# TYPE` for one metric family, emitted once per
+    exposition (Prometheus text format §comments). ``seen`` dedupes
+    families that appear with several tag sets."""
     if family in seen:
         return []
     seen.add(family)
@@ -41,7 +84,14 @@ def _meta_lines(family: str, mtype: str, help_text: str | None,
 def prometheus_block(pairs: dict, prefix: str, subsystem: str = "",
                      help_map: dict | None = None,
                      seen: set | None = None) -> str:
-    """A name -> value dict as Prometheus lines with their metadata."""
+    """Render a name→value dict as Prometheus lines WITH `# HELP`/`# TYPE`
+    metadata: names ending in ``_total`` type as counters, everything
+    else as gauges. Shared by every /metrics block the HTTP handler
+    appends after the stats registry (serving, qos, wal, tracing), so
+    exposition-format compliance lives in one place. ``seen`` dedupes
+    family metadata ACROSS blocks: a family the registry already
+    declared (e.g. the tagged ``qos_shed_total`` beside the block's
+    untagged total) must not get a second TYPE line on the page."""
     seen = seen if seen is not None else set()
     lines: list[str] = []
     middle = f"{subsystem}_" if subsystem else ""
@@ -51,7 +101,193 @@ def prometheus_block(pairs: dict, prefix: str, subsystem: str = "",
         lines.extend(_meta_lines(
             family, mtype, (help_map or {}).get(name), seen
         ))
-        # ints exactly: %g would round large counters to 6 digits
+        # ints emit exactly — %g would quantize large counters (byte
+        # totals, request counts) to 6 significant digits and make
+        # rate() stair-step (the residency exporter documented this
+        # hazard first)
         rendered = value if isinstance(value, int) else f"{value:g}"
         lines.append(f"{family} {rendered}")
     return "\n".join(lines) + ("\n" if lines else "")
+
+
+class StatsClient:
+    """In-memory stats registry; thread-safe."""
+
+    def __init__(self, prefix: str = "pilosa_tpu"):
+        self.prefix = prefix
+        self._lock = threading.Lock()
+        self._counters: dict[tuple, float] = defaultdict(float)
+        self._gauges: dict[tuple, float] = {}
+        # [count, sum, sample window, cumulative bucket counts] — the
+        # window feeds the summary-quantile export, the buckets feed the
+        # stock histogram export (one slot per HISTOGRAM_BUCKETS_S bound;
+        # +Inf is implicit — it equals the count)
+        self._timings: dict[tuple, list] = defaultdict(
+            lambda: [0, 0.0, deque(maxlen=SAMPLE_WINDOW),
+                     [0] * len(HISTOGRAM_BUCKETS_S)]
+        )
+        # unit-free distributions (batch sizes, fan-out widths): same
+        # shape as _timings but rendered without the _seconds unit suffix
+        self._observations: dict[tuple, list] = defaultdict(
+            lambda: [0, 0.0, deque(maxlen=SAMPLE_WINDOW)]
+        )
+
+    def count(self, name: str, value: float = 1, tags: dict | None = None) -> None:
+        with self._lock:
+            self._counters[(name, _fmt_tags(tags))] += value
+
+    def gauge(self, name: str, value: float, tags: dict | None = None) -> None:
+        with self._lock:
+            self._gauges[(name, _fmt_tags(tags))] = value
+
+    def timing(self, name: str, seconds: float, tags: dict | None = None) -> None:
+        with self._lock:
+            entry = self._timings[(name, _fmt_tags(tags))]
+            entry[0] += 1
+            entry[1] += seconds
+            entry[2].append(seconds)
+            buckets = entry[3]
+            for i, bound in enumerate(HISTOGRAM_BUCKETS_S):
+                if seconds <= bound:
+                    buckets[i] += 1
+                    break
+
+    def timer(self, name: str, tags: dict | None = None):
+        return _Timer(self, name, tags)
+
+    def histogram(self, name: str, value: float, tags: dict | None = None) -> None:
+        self.timing(name, value, tags)
+
+    def observe(self, name: str, value: float, tags: dict | None = None) -> None:
+        """Record one sample of a unit-free distribution (batch size,
+        fan-out width). Exported as count/sum/quantile lines without the
+        _seconds suffix that timing() series carry."""
+        with self._lock:
+            entry = self._observations[(name, _fmt_tags(tags))]
+            entry[0] += 1
+            entry[1] += value
+            entry[2].append(value)
+
+    def quantile(self, name: str, q: float, tags: dict | None = None) -> float | None:
+        """Windowed quantile of a timing or observation series (None if
+        the series has no samples yet)."""
+        key = (name, _fmt_tags(tags))
+        with self._lock:
+            entry = self._timings.get(key) or self._observations.get(key)
+            samples = list(entry[2]) if entry else []
+        return _quantile(samples, q) if samples else None
+
+    def prometheus_text(self, seen: set | None = None) -> str:
+        """Exposition-format render: every family leads with `# HELP` +
+        `# TYPE` (counter/gauge/summary/histogram). Timers export BOTH
+        the windowed summary (`X_seconds{quantile=}` + count/sum, regime-
+        fresh p50/p95) and a cumulative stock histogram under the sibling
+        `X_hist_seconds` family — same observations, two consumers: a
+        human tailing /metrics and a Prometheus computing
+        histogram_quantile over arbitrary windows. ``seen`` (shared with
+        the page's other blocks) dedupes family metadata page-wide."""
+        lines: list[str] = []
+        seen = seen if seen is not None else set()
+        with self._lock:
+            for (name, tags), v in sorted(self._counters.items()):
+                family = f"{self.prefix}_{name}_total"
+                lines.extend(_meta_lines(family, "counter", None, seen))
+                lines.append(f"{family}{tags} {v:g}")
+            for (name, tags), v in sorted(self._gauges.items()):
+                family = f"{self.prefix}_{name}"
+                lines.extend(_meta_lines(family, "gauge", None, seen))
+                lines.append(f"{family}{tags} {v:g}")
+            for (name, tags), entry in sorted(self._timings.items()):
+                n, total, samples, buckets = entry
+                family = f"{self.prefix}_{name}_seconds"
+                lines.extend(_meta_lines(
+                    family, "summary",
+                    f"{name} latency (windowed p50/p95 over the last "
+                    f"{SAMPLE_WINDOW} samples)", seen,
+                ))
+                lines.append(f"{family}_count{tags} {n:g}")
+                lines.append(f"{family}_sum{tags} {total:g}")
+                for q in (0.5, 0.95):
+                    if samples:
+                        qt = _with_tag(tags, f'quantile="{q}"')
+                        lines.append(
+                            f"{family}{qt} {_quantile(samples, q):g}"
+                        )
+                hist = f"{self.prefix}_{name}_hist_seconds"
+                lines.extend(_meta_lines(
+                    hist, "histogram",
+                    f"{name} latency (cumulative histogram)", seen,
+                ))
+                acc = 0
+                for bound, count in zip(HISTOGRAM_BUCKETS_S, buckets):
+                    acc += count
+                    bt = _with_tag(tags, f'le="{bound:g}"')
+                    lines.append(f"{hist}_bucket{bt} {acc:g}")
+                bt = _with_tag(tags, 'le="+Inf"')
+                lines.append(f"{hist}_bucket{bt} {n:g}")
+                lines.append(f"{hist}_sum{tags} {total:g}")
+                lines.append(f"{hist}_count{tags} {n:g}")
+            for (name, tags), (n, total, samples) in sorted(
+                self._observations.items()
+            ):
+                family = f"{self.prefix}_{name}"
+                lines.extend(_meta_lines(
+                    family, "summary",
+                    f"{name} distribution (windowed p50/p95)", seen,
+                ))
+                lines.append(f"{family}_count{tags} {n:g}")
+                lines.append(f"{family}_sum{tags} {total:g}")
+                for q in (0.5, 0.95):
+                    if samples:
+                        qt = _with_tag(tags, f'quantile="{q}"')
+                        lines.append(
+                            f"{family}{qt} {_quantile(samples, q):g}"
+                        )
+        return "\n".join(lines) + ("\n" if lines else "")
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            dists = {}
+            for source in (self._timings, self._observations):
+                for (n, t), entry in source.items():
+                    count, total, samples = entry[0], entry[1], entry[2]
+                    dists[f"{n}{t}"] = {
+                        "count": count, "sum": total,
+                        "p50": _quantile(samples, 0.5) if samples else None,
+                        "p95": _quantile(samples, 0.95) if samples else None,
+                    }
+            return {
+                "counters": {f"{n}{t}": v for (n, t), v in self._counters.items()},
+                "gauges": {f"{n}{t}": v for (n, t), v in self._gauges.items()},
+                "distributions": dists,
+            }
+
+
+class _Timer:
+    def __init__(self, client: StatsClient, name: str, tags):
+        self.client = client
+        self.name = name
+        self.tags = tags
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        self.client.timing(self.name, time.perf_counter() - self._t0, self.tags)
+        return False
+
+
+_global: StatsClient | None = None
+
+
+def global_stats() -> StatsClient:
+    global _global
+    if _global is None:
+        _global = StatsClient()
+    return _global
+
+
+def set_global_stats(client: StatsClient) -> None:
+    global _global
+    _global = client

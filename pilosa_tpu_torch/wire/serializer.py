@@ -10,6 +10,8 @@ application/x-protobuf, byte for byte as the reference does.
 
 from __future__ import annotations
 
+import json
+
 import numpy as np
 
 from pilosa_tpu_torch.executor.result import (
@@ -55,12 +57,16 @@ def attrs_from_proto(attrs) -> dict:
     return out
 
 
-def encode_results(results) -> bytes:
+def encode_results(results, trace: dict | None = None) -> bytes:
+    """``trace``: the finished span subtree of a traced sub-query
+    (``X-Pilosa-Trace``), carried back as ``QueryResponse.trace_json``."""
     p = pb2()
     resp = p.QueryResponse()
     for res in results:
         qr = resp.results.add()
         _encode_result(qr, res)
+    if trace is not None:
+        resp.trace_json = json.dumps(trace, separators=(",", ":"))
     return resp.SerializeToString()
 
 

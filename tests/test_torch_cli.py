@@ -4,10 +4,14 @@ codes. ``import`` in-process (``-d``) and over HTTP (``--host``, batches
 clamped to the server's limit, ``--concurrency``, ``--values``,
 ``--clear``, ``--create``), ``export`` both ways, ``inspect``,
 ``config``, ``generate-config`` and ``version``; ``server`` refuses a set
-knob of a plane the port does not have.
+knob of a plane the port does not have (multi-process serving, cluster,
+CDC, autopilot, mesh, TLS) and takes the serving envelope's knobs.
 """
 
+import logging
 import os
+import signal
+import threading
 
 import numpy as np
 import pytest
@@ -159,18 +163,126 @@ def test_http_import_and_export(capsys, two_servers, csvs):
     assert (rc, out) == (1, "")
 
 
+# The serving envelope's knobs, each set away from its default, as a
+# config file writes them.
+SERVING_TOML = (
+    'qos-max-inflight = 8\nqos-tenant-inflight = 2\n'
+    'qos-default-deadline = "250ms"\nqos-hedge-delay = "100ms"\n'
+    'qos-hedge-budget = 0.1\nqos-breaker-threshold = 3\n'
+    'qos-breaker-cooldown = "2s"\n'
+    'slo-objectives = ["reads:latency:100ms:0.99", "avail:errors:0.999"]\n'
+    'slo-windows = ["30s", "5m"]\ntracing = true\n'
+    'trace-sample-rate = 0.5\ntrace-log-dir = "/tmp/traces"\n'
+    'long-query-time = "20ms"\nslow-query-ring = 7\n'
+    'result-cache-bytes = 1048576\ningest-workers = 4\n')
+
+# The refused planes' knobs: multi-process serving, the cluster, CDC,
+# the autopilot, the mesh and TLS.
+REFUSED_TOML = (
+    'serving-workers = 2\nring-slots = 64\nring-slot-bytes = 4096\n'
+    'seeds = ["http://a:1"]\nreplica-n = 2\ncdc-enabled = true\n'
+    'autopilot-enabled = true\nuse-mesh = true\nmesh-groups = 2\n'
+    'tls-certificate = "c.crt"\ntls-key = "c.key"\n')
+
+
 def test_server_refuses_a_knob_of_an_unported_plane(capsys, tmp_path,
                                                     monkeypatch):
     toml = tmp_path / "node.toml"
-    toml.write_text('seeds = ["http://a:1"]\nqos-max-inflight = 8\n'
-                    'scrub-interval = "1m"\n')
+    toml.write_text(REFUSED_TOML + SERVING_TOML + 'scrub-interval = "1m"\n')
     rc = pcli.main(["server", "-d", str(tmp_path / "d"), "-c", str(toml),
                     "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 1
-    assert "seeds" in err and "qos-max-inflight" in err
-    assert "scrub-interval" not in err
+    for knob in ("serving-workers", "ring-slots", "ring-slot-bytes", "seeds",
+                 "replica-n", "cdc-enabled", "autopilot-enabled", "use-mesh",
+                 "mesh-groups", "tls-certificate", "tls-key"):
+        assert knob in err, knob
+    for line in SERVING_TOML.splitlines() + ['scrub-interval = "1m"']:
+        knob = line.split(" = ")[0]
+        assert knob not in err, knob
     monkeypatch.setenv("PILOSA_TPU_CDC_ENABLED", "true")
     rc = pcli.main(["server", "-d", str(tmp_path / "d"), "--device", "cpu"])
     assert rc == 1 and "cdc-enabled" in capsys.readouterr().err
     assert not (tmp_path / "d").exists()  # refused before opening
+
+
+def test_server_takes_the_serving_knobs(capsys, tmp_path, monkeypatch):
+    """Each serving-envelope knob of a config file (or its environment
+    variable) reaches the Server as the reference's ServerConfig parses
+    it, and the reference's ``config`` output for that file is the
+    port's."""
+    from pilosa_tpu.server import ServerConfig as JConfig
+    from pilosa_tpu_torch.server import server as pserver
+
+    for k in [k for k in os.environ if k.startswith("PILOSA_TPU_")]:
+        monkeypatch.delenv(k)
+    toml = tmp_path / "node.toml"
+    toml.write_text(SERVING_TOML)
+    assert _same(capsys, ["config", "-c", str(toml)])[0] == 0
+    seen = {}
+
+    class Opened:
+        port = 0
+        holder = type("H", (), {"device": "cpu"})()
+
+        def close(self):
+            seen["closed"] = True
+
+    class FakeServer:
+        def __init__(self, data_dir, **kwargs):
+            seen.update(kwargs)
+
+        def open(self):
+            # the verb serves until SIGTERM: send it once it waits
+            threading.Timer(0.2, os.kill,
+                            (os.getpid(), signal.SIGTERM)).start()
+            return Opened()
+
+    monkeypatch.setattr("pilosa_tpu_torch.server.Server", FakeServer)
+    monkeypatch.setenv("PILOSA_TPU_INGEST_WORKERS", "3")
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                  signal.SIGTERM)}
+    # the verb gives the package's logger a handler on this test's
+    # captured stderr: a later test's log line must not reach it
+    log = logging.getLogger("pilosa_tpu_torch")
+    log_handlers, log_level = list(log.handlers), log.level
+    try:
+        rc = pcli.main(["server", "-d", str(tmp_path / "d"), "-c",
+                        str(toml), "--device", "cpu"])
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        log.handlers[:] = log_handlers
+        log.setLevel(log_level)
+    assert rc == 0 and seen.pop("closed")
+    import tomllib
+
+    raw = tomllib.loads(SERVING_TOML)
+    raw["ingest-workers"] = "3"
+    want = JConfig.from_dict(raw).to_dict()
+    for name in pserver.SERVING_KNOBS:
+        assert seen[name.replace("-", "_")] == want[name], name
+    # and the Server applies them at open
+    srv = Server(str(tmp_path / "s"), port=0, device="cpu", **{
+        name.replace("-", "_"): want[name]
+        for name in pserver.SERVING_KNOBS}).open()
+    try:
+        api = srv.api
+        assert (api.qos.admission.max_inflight,
+                api.qos.admission.tenant_max) == (8, 2)
+        assert api.default_deadline_s == 0.25
+        assert api.qos.hedge.initial_delay == 0.1
+        assert api.qos.breaker("x").threshold == 3
+        assert [o.name for o in api.slo.objectives] == ["reads", "avail"]
+        assert api.slo.windows_s == (30.0, 300.0)
+        assert (api.long_query_time, api.long_queries.maxlen) == (0.02, 7)
+        assert (api.ingest_workers, api.trace_log_dir) == (3, "/tmp/traces")
+        from pilosa_tpu_torch.serving.rescache import global_result_cache
+        from pilosa_tpu_torch.utils.tracing import global_tracer
+
+        assert global_result_cache().budget_bytes == 1 << 20
+        assert global_tracer().sample_rate == 0.5
+    finally:
+        srv.close()
+        global_result_cache().configure(0)
+        global_tracer().sample_rate = 0.0

@@ -1004,3 +1004,159 @@ def test_quarantine_and_self_heal_on_the_card(dev, tmp_path):
             h.close()
     assert answers["cuda"] == answers["cpu"]
     assert answers["cpu"][2] == 0
+
+
+# ------------------------------------------------- the serving envelope
+
+
+def _serving_dir(path) -> None:
+    """4 shards: fields f (rows 1-3) and g (row 7), written on the CPU."""
+    from pilosa_tpu_torch.storage import Holder, load_from_dense
+
+    rng = np.random.default_rng(150)
+    h = Holder(str(path), device="cpu").open()
+    load_from_dense(h, {
+        "f": {r: rng.integers(0, 1 << 32, 4 * W, dtype=np.uint32)
+              & rng.integers(0, 1 << 32, 4 * W, dtype=np.uint32)
+              for r in (1, 2, 3)},
+        "g": {7: rng.integers(0, 1 << 32, 4 * W, dtype=np.uint32)}},
+        index="i")
+    h.close()
+
+
+def _post(port, path, body=b"", headers=None):
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=120)
+    try:
+        conn.request("POST", path, body=body, headers=headers or {})
+        resp = conn.getresponse()
+        return resp.status, resp.read()
+    finally:
+        conn.close()
+
+
+def test_wave_launched_by_the_dispatcher_reads_back_on_request_threads(
+        dev, tmp_path):
+    """One wave of 12 reads, queued behind a held dispatcher: the
+    dispatcher thread launches K1 (one micro-batch for the same-shape
+    Counts) and K2 for requests whose own threads read the results back;
+    every answer equals a CPU server's (the plain versions)."""
+    import shutil
+    import threading
+
+    from pilosa_tpu_torch.server import Server
+
+    _serving_dir(tmp_path / "seed")
+    queries = ([f"Count(Intersect(Row(f={r}), Row(g=7)))" for r in (1, 2, 3)]
+               * 3 + ["Row(f=1)", "Count(Union(Row(f=1), Row(f=3)))",
+                      "Union(Row(f=2), Row(g=7))"])
+    answers = {}
+    for device in ("cpu", "cuda"):
+        shutil.copytree(tmp_path / "seed", tmp_path / device)
+        server = Server(str(tmp_path / device), port=0,
+                        device=device).open()
+        try:
+            _post(server.port, "/index/i/query", b"Count(Row(g=7))")
+            api = server.api
+            real = api.executor
+            entered, release = threading.Event(), threading.Event()
+
+            class Held:
+                def __getattr__(self, name):
+                    return getattr(real, name)
+
+                def submit(self, index, query, **kwargs):
+                    if not entered.is_set():
+                        entered.set()
+                        assert release.wait(60)
+                    return real.submit(index, query, **kwargs)
+
+            api.executor = Held()
+            out = [None] * len(queries)
+            threads = [threading.Thread(target=lambda: _post(
+                server.port, "/index/i/query", b"Count(Row(f=1))"))]
+            threads += [threading.Thread(
+                target=lambda k=k: out.__setitem__(k, _post(
+                    server.port, "/index/i/query", queries[k].encode())))
+                for k in range(len(queries))]
+            try:
+                threads[0].start()
+                assert entered.wait(60)
+                for t in threads[1:]:
+                    t.start()
+                pipe = api._pipeline
+                for _ in range(60000):
+                    if pipe._q.qsize() >= len(queries):
+                        break
+                    threading.Event().wait(0.001)
+                kernels.reset_launches()
+                release.set()
+            finally:
+                release.set()
+                for t in threads:
+                    t.join(120)
+                api.executor = real
+            answers[device] = out
+            if device == "cuda":
+                counts = sum(q.startswith("Count") for q in queries)
+                launched = kernels.launches()
+                # the wave's 9 same-shape Counts share one K1 launch
+                assert 0 < launched["tree_count"] < counts
+                assert launched["tree_rows"] >= 2
+                assert api.pipeline_metrics()["coalesced"] >= len(queries)
+        finally:
+            server.close()
+    assert all(s == 200 for s, _ in answers["cuda"])
+    assert answers["cuda"] == answers["cpu"]
+
+
+def test_trace_device_records_cuda_kernels(dev, tmp_path):
+    """``POST /debug/trace-device`` on a CUDA server under load: the
+    Chrome trace holds the card's kernel events, K1's among them
+    (``tree_count_*``), not a CPU-only trace. A capture that recorded no
+    kernel (some profiler sessions on the H100 do) answers 500 and
+    leaves no file; the capture is asked again, three times at most."""
+    import json
+    import os
+    import threading
+
+    from pilosa_tpu_torch.server import Server
+
+    _serving_dir(tmp_path / "d")
+    server = Server(str(tmp_path / "d"), port=0, device="cuda").open()
+    stop = threading.Event()
+
+    def load():
+        while not stop.is_set():
+            assert _post(server.port, "/index/i/query",
+                         b"Count(Intersect(Row(f=1), Row(g=7)))")[0] == 200
+
+    clients = [threading.Thread(target=load) for _ in range(4)]
+    try:
+        for t in clients:
+            t.start()
+        log_dir = tmp_path / "d" / "jax-traces"
+        for _ in range(3):
+            status, body = _post(server.port,
+                                 "/debug/trace-device?secs=0.5")
+            if status == 200:
+                break
+            assert status == 500 and b"no CUDA kernel event" in body, body
+            assert not list(log_dir.glob("*.json"))
+        assert status == 200, body
+        out = json.loads(body)
+        assert out["logDir"] == str(log_dir)
+        assert sorted(out) == ["logDir", "seconds"]
+    finally:
+        stop.set()
+        for t in clients:
+            t.join(60)
+        server.close()
+    (name,) = os.listdir(out["logDir"])
+    with open(os.path.join(out["logDir"], name)) as f:
+        events = json.load(f)["traceEvents"]
+    kernel_names = {e.get("name", "") for e in events
+                    if e.get("cat") == "kernel"}
+    assert any("tree_count" in n for n in kernel_names), sorted(
+        kernel_names)[:10]

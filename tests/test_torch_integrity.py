@@ -713,6 +713,28 @@ def _wait_healthy(holders, degraded: bool) -> None:
         time.sleep(PROBE_S / 2)
 
 
+def _hold_wal_fault_until_barrier_waits(plane, wal):
+    """Make a WAL group's fsync fault fire only once a write's ACK
+    barrier waits on the WAL's condition. A barrier that arrives after
+    its group already failed answers "this write's group was lost"; one
+    that waits answers the fsync's own error. Which one a write meets
+    depends on thread timing (in the reference the commit loop wakes
+    the waiters before it trips the latch), so under load the two
+    packages could answer different 500 bodies. Returns the undo."""
+    real = plane.check
+
+    def check(op, path):
+        if op == "fsync" and f"{os.sep}.wal{os.sep}" in path:
+            deadline = time.monotonic() + 30
+            while not wal._cond._waiters:
+                assert time.monotonic() < deadline, "no barrier waited"
+                time.sleep(0.001)
+        return real(op, path)
+
+    plane.check = check
+    return lambda: vars(plane).pop("check", None)
+
+
 def test_enospc_on_the_wal_over_http_matches_reference(seed_dir, tmp_path):
     """C7 and C8: an fsync ENOSPC on the WAL fails the write whose group
     it hit (500, the reference's body), trips the latch (/status says so,
@@ -728,12 +750,20 @@ def test_enospc_on_the_wal_over_http_matches_reference(seed_dir, tmp_path):
             rules[pkg] = (mod.install_disk(), None)
             rules[pkg] = (rules[pkg][0], rules[pkg][0].add(
                 "fsync", path=pair.roots[pkg], errno_=errno.ENOSPC))
-        lost = {}
-        status, _, body = pair.both("POST", "/index/i/query",
-                                    b"Set(2, f=9)")
+        # the first op after Set(1) opens the group the fault hits (a
+        # request's ops may span two groups, the later one committed
+        # after the recovery)
+        lost = {pkg: h.wal.current_seq() + 1
+                for pkg, h in pair.holders.items()}
+        undo = [_hold_wal_fault_until_barrier_waits(
+            rules[pkg][0], pair.holders[pkg].wal) for pkg in rules]
+        try:
+            status, _, body = pair.both("POST", "/index/i/query",
+                                        b"Set(2, f=9)")
+        finally:
+            for fn in undo:
+                fn()
         assert status == 500 and "No space left" in body
-        for pkg, h in pair.holders.items():
-            lost[pkg] = h.wal.current_seq()
         _wait_healthy(pair.holders.values(), True)
         st = json.loads(pair.both("GET", "/status")[2])
         assert st["storageDegraded"] is True

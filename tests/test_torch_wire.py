@@ -34,6 +34,7 @@ import pilosa_tpu.storage.residency as jres
 import pilosa_tpu.wire as jwire
 import pilosa_tpu.wire.serializer as jser
 import pilosa_tpu.utils.stats as jstats
+import pilosa_tpu.utils.tracing as jtracing
 from __graft_entry__ import DRYRUN_QUERY_SHAPES
 from pilosa_tpu.server.api import API as JAPI
 from pilosa_tpu.server.http import serve_in_thread as j_serve_in_thread
@@ -45,6 +46,7 @@ from pilosa_tpu_torch.server.api import API
 from pilosa_tpu_torch.storage import FieldOptions, Holder
 from pilosa_tpu_torch.storage import heat as pheat
 from pilosa_tpu_torch.utils import stats as pstats
+from pilosa_tpu_torch.utils import tracing as ptracing
 from pilosa_tpu_torch.wire import serializer as pser
 
 torch.set_num_threads(1)
@@ -106,15 +108,25 @@ def seed(tmp_path_factory):
 @pytest.fixture
 def servers(seed, tmp_path):
     """(reference base URL, port base URL, port Server, probe column);
-    the reference's row cache and both heat maps fresh for the test."""
+    the reference's row cache, and both heat maps, stats registries and
+    query trackers fresh for the test."""
     root, probe = seed
     shutil.copytree(root, tmp_path / "jax")
     shutil.copytree(root, tmp_path / "port")
     old_cache = jres.global_row_cache()
     old_heats = (jheat.global_heat(), pheat.global_heat())
+    old_stats = (jstats.global_stats(), pstats.global_stats())
     jres.set_global_row_cache(jres.DeviceRowCache(BUDGET))
     jheat.set_global_heat(jheat.HeatMap())
     pheat.set_global_heat(pheat.HeatMap())
+    # both stats registries and query trackers count this test's traffic
+    # alone
+    jstats.set_global_stats(jstats.StatsClient())
+    pstats.set_global_stats(pstats.StatsClient())
+    old_trackers = (jtracing._global_query_tracker,
+                    ptracing._global_query_tracker)
+    jtracing._global_query_tracker = jtracing.QueryTracker()
+    ptracing._global_query_tracker = ptracing.QueryTracker()
     jh = jstorage.Holder(str(tmp_path / "jax")).open()
     jserver, jport, _ = j_serve_in_thread(JAPI(jh))
     port = Server(str(tmp_path / "port"), port=0, device="cpu",
@@ -130,6 +142,10 @@ def servers(seed, tmp_path):
         jres.set_global_row_cache(old_cache)
         jheat.set_global_heat(old_heats[0])
         pheat.set_global_heat(old_heats[1])
+        jstats.set_global_stats(old_stats[0])
+        pstats.set_global_stats(old_stats[1])
+        (jtracing._global_query_tracker,
+         ptracing._global_query_tracker) = old_trackers
 
 
 def _req(base: str, method: str, path: str, body: bytes | None = None,
