@@ -5,7 +5,10 @@
 
 Phases, each of which ends the run with a non-zero exit when it fails:
 
-1. print the card's name and power limit (nvidia-smi);
+1. print the card's name and power limit (nvidia-smi); build the
+   fastbits host library (``pilosa_tpu_torch/native``, g++) and fail if
+   it is not active: row decodes, small write merges and bit packing
+   must run natively, not through their numpy fallbacks;
 2. build the eleven CUDA kernels from ``pilosa_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card,
@@ -108,12 +111,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    g. the tier path (the NYC TLC months as Litwintschik's benchmark
       loads them): a set field ``pickup_month`` of 84 contiguous-range
       rows on ``rides``; the budget lowered to 16 dense months beside
-      the cab_type leaves; 16 concurrent clients (10 queries each) over
+      the cab_type leaves; 16 concurrent clients (6 queries each) over
       a month x cab Count, a quarter's Count and a month's TopN(cab_type) (K10
       demotes each eviction's victims in one launch, K11 promotes); a
       Count of every month, one tierer pass to the host tier (the dense
       months gathered by one K10 launch before their compact blocks are
-      read back; the bytes read back printed), 84 serial Counts that are
+      read back; the bytes read back printed; the operand memo empty
+      after it and the demoted bytes freed on the card, by
+      ``torch.cuda.memory_allocated``), 84 serial Counts that are
       host-tier hits, a Set
       into a host-tier leaf (its copy invalidated) and into a dense one
       (one K3 launch, the leaf then dropped, not compressed), every
@@ -123,10 +128,14 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       5 s through the pipeline wave, then 5 s with
       ``api.serve_pipelined = False``, each with QPS, p50, p99, waves,
       coalesced and deduped requests, K1 launches a query and the mean
-      micro-batch; ``?profile=true`` trees of a Count and of a Row; the
-      result cache on: repeated Counts served as hits, then a Set, an
-      /import and an import-roaring each land in a counted row and the
-      next Count answers the new oracle value; two tenants under a
+      micro-batch, and the operand memo's hits and misses a served
+      Count (the direct loop must make hits); ``?profile=true`` trees of
+      a Count and of a Row; the result cache on: repeated Counts served
+      as hits, then a Set, an /import and an import-roaring each land in
+      a counted row and the next Count answers the new oracle value;
+      with the result cache off again, Counts answered from the operand
+      memo (the leaves K3 patched in place) against the same value; two
+      tenants under a
       per-tenant gate of 2 in flight (429 with Retry-After, every 200
       against the oracle); an ``X-Pilosa-Deadline-Ms: 1`` GroupBy (taxi
       query 4) queued in a wave behind a Count of a cold leaf is a
@@ -145,7 +154,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    oracle, no mutex column sit in two rows, no key hold a column no
    client sent for it, and the WAL be empty after the open;
 6. the integrity path, on a copy of rides' cab_type and pickup_year at
-   128 shards in a directory of its own: four payload bytes flipped (one
+   64 shards in a directory of its own: four payload bytes flipped (one
    shard rotten in both fields), one fragment torn, one .checksums
    deleted, then a port server opens it on the card verifying every
    fragment (five quarantined, Count, TopN and Options(shards=) against
@@ -160,7 +169,10 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    six QUARANTINED lines, every other fragment ok) and a reopen on the
    card with every answer the oracle's.
 
-The second-to-last line is the kernels JSON; the last line is
+Before the kernels JSON a line gives the set-up seconds (the data dirs
+waited for, the server's open and close, each path's first touch)
+beside an earlier run's on the same card (R6 in PERF.md). The
+second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
 """
 
@@ -256,6 +268,11 @@ TAXI_FIELDS = {
 # Device bytes the server may keep resident: the rides path's 7.2 GB
 # beside the taxi path's 10.25 GiB of dimension rows and TopN chunks
 SERVER_BUDGET_BYTES = 64 << 30
+# R6's set-up (an earlier run of this script on an NVIDIA H100 80GB HBM3
+# at 700 W, PERF.md section 5), printed beside this run's; R6 did not
+# print its paths' first touches
+R6_SETUP_S = {"data_dirs": 325.9, "open": 206.0, "close": 78.5}
+SETUP_S: dict = {}  # this run's set-up seconds, filled as they pass
 
 
 def fail(msg: str) -> None:
@@ -1321,8 +1338,9 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                     budget_bytes=SERVER_BUDGET_BYTES,
                     residency_host_tier_bytes=TIER_HOST_BYTES,
                     verify_on_load=verify_on_load).open()
+    SETUP_S["open"] = time.perf_counter() - t0
     print(f"server open (verify-on-load {verify_on_load}): "
-          f"{time.perf_counter() - t0:.1f}s", flush=True)
+          f"{SETUP_S['open']:.1f}s", flush=True)
     if not verify_on_load:
         _time_verify_sample(server.holder)
     try:
@@ -1344,13 +1362,16 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
             stats = serve()
             out[path] = (stats, kernels.launches())
             stats["wal"] = server.holder.wal.metrics()
+            if "first_touch_s" in stats:
+                SETUP_S[f"first_touch {path}"] = stats["first_touch_s"]
             print(f"path {path}: {time.perf_counter() - t0:.1f}s", flush=True)
         return out
     finally:
         t0 = time.perf_counter()
         server.close()
+        SETUP_S["close"] = time.perf_counter() - t0
         print(f"server close (group mode snapshots every dirty fragment): "
-              f"{time.perf_counter() - t0:.1f}s", flush=True)
+              f"{SETUP_S['close']:.1f}s", flush=True)
 
 
 def _time_verify_sample(holder, n: int = 64) -> None:
@@ -2086,13 +2107,21 @@ def _envelope_shapes(words: dict) -> tuple[list, dict]:
 def _wave_loop(server, shapes: list, truth: dict, kernels) -> dict:
     """The closed loop of ``ENVELOPE_CLIENTS`` for ``ENVELOPE_LOOP_S``
     with its wave counters and K1 launches."""
+    ex = server.api.executor
     before = server.api.pipeline_metrics()
     k1 = kernels.launches()["tree_count"]
+    memo0 = (ex.memo_hits, ex.memo_misses)
     latencies = timed_loop(server.port, "repository", shapes, truth,
                            ENVELOPE_CLIENTS, ENVELOPE_LOOP_S)
     after = server.api.pipeline_metrics()
     out = _latency_stats(latencies, ENVELOPE_LOOP_S)
     out.update({k: after[k] - before[k] for k in after})
+    # the operand memo's answers among the Counts that reached the
+    # executor (deduped wavemates did not)
+    out["memo_hits"] = ex.memo_hits - memo0[0]
+    out["memo_misses"] = ex.memo_misses - memo0[1]
+    out["memo_hits_per_query"] = out["memo_hits"] / out["queries"]
+    out["memo_misses_per_query"] = out["memo_misses"] / out["queries"]
     launches = kernels.launches()["tree_count"] - k1
     if not launches:
         fail(f"{out['queries']} served Counts made no K1 launch")
@@ -2274,6 +2303,16 @@ def _serve_envelope(server, words: dict, taxi: dict, events: dict,
         stats["direct"] = _wave_loop(server, shapes, truth, kernels)
     finally:
         api.serve_pipelined = True
+    for name in ("pipeline", "direct"):
+        loop = stats[name]
+        print(f"serving {name}: {loop['qps']:.3f} QPS, p50 "
+              f"{loop['p50_ms']:.3f} ms; a served Count: "
+              f"{loop['memo_hits_per_query']:.3f} operand-memo hits, "
+              f"{loop['memo_misses_per_query']:.3f} misses, "
+              f"{loop['k1_launches_per_query']:.3f} K1 launches", flush=True)
+    if not stats["direct"]["memo_hits"]:
+        fail(f"the direct loop's {stats['direct']['queries']} Counts made "
+             "no operand-memo hit")
     step("loops")
 
     # (c) PROFILE trees of a Count and of a Row of known bits
@@ -2378,6 +2417,18 @@ def _serve_envelope(server, words: dict, taxi: dict, events: dict,
                  f"{stats['rescache']['k3_launches']} K3 launches")
     finally:
         cache.configure(0)
+    # the result cache off, the Count is answered from the operand memo:
+    # its leaves are the tensors K3 patched in place for the three writes
+    ex = api.executor
+    memo0 = ex.memo_hits
+    for _ in range(3):
+        got = c.query(counted)[0]
+        if got != want:
+            fail(f"{counted} from the operand memo after the writes: "
+                 f"{got}, the oracle {want}")
+    stats["memo_after_writes_hits"] = ex.memo_hits - memo0
+    if not stats["memo_after_writes_hits"]:
+        fail("no Count after the writes was served from the operand memo")
     for shard, col in picks:  # the oracle of the loops below
         _set_bits(st[("stargazer", 0)], [shard * WORDS * 32 + col])
     shapes, truth = _envelope_shapes(st)
@@ -3521,7 +3572,7 @@ def _serve_wire(server, wt: dict, kernels) -> dict:
 N_MONTHS = 84
 MONTH_JOB = "repository"
 TIER_CLIENTS = 16
-TIER_PER_CLIENT = 10      # 30, then 18, before the run passed 1 100 s
+TIER_PER_CLIENT = 6       # 30, 18, then 10 before runs passed 1 100 s
 TIER_DENSE_MONTHS = 16   # month leaves the lowered budget keeps dense
 TIER_MATRIX_ROWS = 4     # TopN(cab_type)'s candidate matrix: 3 rows + 1 pad
 TIER_SWEEP = 30          # months promoted after the writes
@@ -3873,9 +3924,23 @@ def _month_key(m: int, store) -> tuple | None:
     return None
 
 
-def _tier_pass(cache, scope: str, stats: dict, name: str) -> None:
+def _memo_a_month(c, mt: dict) -> None:
+    """Month 0's Count twice: the second assembly is stored in the
+    operand memo, which then holds a dense month leaf into the pass."""
+    for _ in range(2):
+        if c.query("Count(Row(pickup_month=0))") != [mt["sizes"][0]]:
+            fail("Count(Row(pickup_month=0)) before a tier pass")
+
+
+def _tier_pass(cache, executor, scope: str, stats: dict, name: str) -> None:
     """One ResidencyTierer pass (no thread) with a demote_heat above
-    every field's heat: every stacked leaf of rides moves to host."""
+    every field's heat: every stacked leaf of rides moves to host, and
+    the device memory of each leaf it demotes is freed (the executor's
+    operand memo, cleared at each demotion, holds none of them)."""
+    import gc
+
+    import torch
+
     from pilosa_tpu_torch.storage.heat import global_heat
     from pilosa_tpu_torch.storage.tiering import ResidencyTierer
 
@@ -3887,10 +3952,27 @@ def _tier_pass(cache, scope: str, stats: dict, name: str) -> None:
     tierer = ResidencyTierer(cache, demote_heat=demote,
                              promote_heat=2 * demote, min_dwell_s=0)
     read0 = cache.readback_bytes
+    on_card = cache.device.type == "cuda"
+    memo_before = len(executor._operand_memo)
+    if not memo_before:
+        fail(f"tier pass {name}: the operand memo held no leaf before it")
+    gc.collect()  # what only a reference cycle keeps is not the memo's
+    alloc0 = torch.cuda.memory_allocated() if on_card else 0
     t0 = time.perf_counter()
     out = tierer.run_pass()
     secs = time.perf_counter() - t0
     readback = cache.readback_bytes - read0
+    # the generation bump at each demotion cleared the executor's operand
+    # memo: the demoted leaves' device memory is free, none held by it
+    if executor._operand_memo:
+        fail(f"tier pass {name}: the operand memo kept "
+             f"{len(executor._operand_memo)} entries")
+    gc.collect()
+    freed = (alloc0 - torch.cuda.memory_allocated()) if on_card else 0
+    held = out["demotedBytes"] - freed
+    if on_card and held >= N_SHARDS * WORDS * 2:  # half a month leaf
+        fail(f"tier pass {name}: {out['demotedBytes']} bytes demoted, "
+             f"{freed} freed on the card (memory_allocated)")
     _, per_stack = cache.tier_overlay()
     months = per_stack.get((scope, "rides", "pickup_month"))
     if months is None or months["dense"] or months["compressed"] \
@@ -3900,12 +3982,15 @@ def _tier_pass(cache, scope: str, stats: dict, name: str) -> None:
     stats[name] = {"month_heat": month, "demote_heat": demote,
                    "seconds": secs, "demoted": out["demoted"],
                    "demoted_bytes": out["demotedBytes"],
+                   "freed_bytes": freed, "memo_entries_before": memo_before,
                    "readback_bytes": readback,
                    "month_host_bytes": months["host"]}
     print(f"tier {name}: {out['demoted']} entries, {out['demotedBytes']} "
           f"device bytes to host in {secs:.3f}s, {readback} bytes read "
           f"back (month heat {month:.1f}, demote-heat {demote:.1f}); "
-          f"month stacks {months['host']} host bytes", flush=True)
+          f"month stacks {months['host']} host bytes; {freed} bytes freed "
+          f"on the card, {memo_before} operand-memo entries before it, "
+          "none after", flush=True)
 
 
 def _serve_tier(server, mt: dict, rng) -> dict:
@@ -3977,7 +4062,8 @@ def _serve_tier(server, mt: dict, rng) -> dict:
               f"compressions {warm['compressions']}, decompressions "
               f"{warm['decompressions']}, evictions {warm['evictions']}, "
               f"misses {warm['misses']}", flush=True)
-        _tier_pass(cache, scope, stats, "pass_1")
+        _memo_a_month(c, mt)
+        _tier_pass(cache, server.api.executor, scope, stats, "pass_1")
         h0 = cache.host_hits
         k11 = kernels.launches()["block_scatter"]
         times = []
@@ -3999,7 +4085,8 @@ def _serve_tier(server, mt: dict, rng) -> dict:
                  "the tier pass were host-tier hits")
 
         # the writes: B in the host tier, A dense
-        _tier_pass(cache, scope, stats, "pass_2")
+        _memo_a_month(c, mt)
+        _tier_pass(cache, server.api.executor, scope, stats, "pass_2")
         edges, sizes = mt["edges"], mt["sizes"]
         if c.query(f"Count(Row(pickup_month={MONTH_A}))") != [sizes[MONTH_A]]:
             fail(f"Count(Row(pickup_month={MONTH_A})) before the writes")
@@ -4066,11 +4153,11 @@ _BUILD_DATA: dict = {}
 # The integrity path: rides' cab_type and pickup_year over the first
 # INTEG_SHARDS shards, copied into a directory of its own. A scrub pass is
 # serial host work (blake2b over 8 bytes a set bit): 507 fragments took
-# 18-25 s on the host of an NVIDIA H100 80GB HBM3 machine, so 128 shards
-# keep each of the path's two passes near 10 s where the full 1024 would
-# take ~80 s of the script's 1200 (256 shards until the run passed 1 100
-# s).
-INTEG_SHARDS = 128
+# 18-25 s on the host of an NVIDIA H100 80GB HBM3 machine, so 64 shards
+# keep each of the path's two passes near 5 s where the full 1024 would
+# take ~80 s of the script's 1200 (256 shards until a run passed 1 100 s,
+# then 128 until one on a slow host passed 1 200 s).
+INTEG_SHARDS = 64
 INTEG_FIELDS = ("cab_type", "pickup_year")
 INTEG_CLIENTS = 16
 INTEG_WINDOW_S = 2.0      # 5.0, then 3.0, before the run passed 1 100 s
@@ -4107,6 +4194,12 @@ def _integ_truth(words: dict, shards=None) -> dict:
 
 def _set_bit(words: np.ndarray, col: int) -> None:
     words[col >> 5] |= np.uint32(1 << (col & 31))
+
+
+def _last_clear(words: np.ndarray) -> int:
+    """The highest column whose bit is clear in ``words``."""
+    i = int(np.flatnonzero(words != np.uint32(0xFFFFFFFF))[-1])
+    return i * 32 + ((~int(words[i])) & 0xFFFFFFFF).bit_length() - 1
 
 
 def _copy_integrity_dir(data_dir: Path, out: Path) -> None:
@@ -4337,8 +4430,9 @@ def run_integrity_phase(data_dir: Path, scratch: Path, words: dict,
         # 3. degraded and back: ENOSPC on every fsync under the data dir
         plane = faults.install_disk()
         rule = plane.add("fsync", path=str(root), errno_=errno.ENOSPC)
-        lost_col = INTEG_SHARDS * WORDS * 32 - 11
-        acked_col = INTEG_SHARDS * WORDS * 32 - 23
+        # the last clear bits of rows 1 and 2: each Set changes a bit
+        lost_col = _last_clear(words[("cab_type", 1)])
+        acked_col = _last_clear(words[("cab_type", 2)])
         status, _, body = _http(server.port, "POST", "/index/rides/query",
                                 f"Set({lost_col}, cab_type=1)".encode())
         stats["lost_set_status"] = status
@@ -4635,8 +4729,18 @@ def main() -> int:
         hard = 1 << 20
     resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
     print(f"open files: soft limit {soft} raised to {hard}", flush=True)
-    from pilosa_tpu_torch import kernels
+    from pilosa_tpu_torch import kernels, native
     from pilosa_tpu_torch.executor import batch
+    from pilosa_tpu_torch.native import build as native_build
+
+    # the host helpers (row decodes, small write merges, packing) must run
+    # natively here: the numpy fallback is not what a card run measures
+    t0 = time.perf_counter()
+    if not native.available():
+        fail("the fastbits host library did not build or load (g++ is "
+             "needed beside nvcc); its numpy fallback is not measured")
+    print(f"native: fastbits active, {native_build.lib_path().name} in "
+          f"{time.perf_counter() - t0:.1f}s", flush=True)
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4727,7 +4831,8 @@ def main() -> int:
         # phase 4: the main paths
         t0 = time.perf_counter()
         finish_data_dirs(builders, scratch, data_dir)
-        print(f"data dirs waited for: {time.perf_counter() - t0:.1f}s",
+        SETUP_S["data_dirs"] = time.perf_counter() - t0
+        print(f"data dirs waited for: {SETUP_S['data_dirs']:.1f}s",
               flush=True)
         t0 = time.perf_counter()
         oracle, taxi_truth = oracles.result()
@@ -4784,6 +4889,9 @@ def main() -> int:
     for path, (stats, launched) in paths.items():
         print(f"main path {path}: " + json.dumps(stats), flush=True)
         print(f"launches {path}: {json.dumps(launched)}", flush=True)
+    print("set-up s, this run against R6 (None: R6 did not print it): "
+          + json.dumps({k: [round(v, 3), R6_SETUP_S.get(k)]
+                        for k, v in SETUP_S.items()}), flush=True)
     print(f"run: {time.perf_counter() - t_run:.1f}s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
             "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -131,13 +131,18 @@ class _ZeroSpec:
 
 class _Compiled:
     """A call compiled to (structure, leaf specs, scalars) and its plan
-    for the card (``expr.plan``)."""
+    for the card (``expr.plan``). ``memoizable`` is set by
+    ``_compile_cached`` exactly when the plan went into the plan cache:
+    only those objects keep their identity across repeated queries, so
+    only their operand assemblies are memoized (a per-call plan would
+    fill the operand memo with entries never served)."""
 
     def __init__(self, node, specs, scalars):
         self.node = node
         self.specs = specs
         self.scalars = scalars
         self.plan = None
+        self.memoizable = False
 
 
 def _node_has_const0(node) -> bool:
@@ -234,6 +239,8 @@ class Executor:
     # Queries per micro-batched launch (kernels.MAX_BATCH).
     MICROBATCH_MAX = 16
     PLAN_CACHE_MAX = 4096
+    # Operand-memo bound; cleared wholesale when full (the reference's).
+    OPERAND_MEMO_MAX = 512
 
     def __init__(self, holder, device=None):
         self.holder = holder
@@ -250,6 +257,23 @@ class Executor:
         # in-place write patches must not reach a leaf that a queued
         # micro-batch captured at submit: the cache calls this first
         holder.cache.add_patch_listener(self._flush_pending_holding)
+        # (plan identity, block identity) -> assembled leaves, valid for
+        # one residency generation (see _eval_operands); the cache's
+        # generation listener drops every entry, and with it every
+        # tensor reference, on each bump, so an evicted or demoted leaf
+        # frees its memory at once
+        self._operand_memo: dict = {}
+        self._operand_memo_gen = -1
+        holder.cache.add_generation_listener(self._clear_operand_memo)
+        # memoizable assemblies served from the memo and resolved (plain
+        # int adds: a dashboard figure, not one of the reference's)
+        self.memo_hits = 0
+        self.memo_misses = 0
+
+    def _clear_operand_memo(self) -> None:
+        """Generation listener (called under the residency lock): stays
+        lock-free and cheap."""
+        self._operand_memo.clear()
 
     # ------------------------------------------------------------ top level
 
@@ -400,15 +424,62 @@ class Executor:
 
     # ------------------------------------------------------ batched mapping
 
-    def _eval_operands(self, idx: Index, compiled: _Compiled, block):
+    def _eval_operands(self, idx: Index, compiled: _Compiled, block,
+                       memoize: bool = True):
         """The stacked leaf of every compiled spec, resident on the card.
-        Under a PROFILE each leaf adds a record to the active node: its
-        field and row, whether the cache hit, the containers decoded by
-        type and the bytes uploaded (the request's deltas around it). The
-        port keeps no operand memo, so ``operandMemoHit`` stays false and
-        a repeated query records its leaves again."""
+
+        A repeated (plan, block) assembly is served from the operand memo
+        for one residency generation: resolving each leaf through the
+        row cache's lock and LRU is a slice of a served Count's host
+        time. Every write patch, invalidation, eviction and demotion
+        bumps the generation (``storage/residency.py``), whose listener
+        clears the memo. Correctness does not rest on the clears: an
+        entry carries the generation read before its assembly and is
+        served only at the current one, so an entry stored by a thread
+        that raced a write is never served. The dispatcher thread and
+        the request threads share the memo with plain dict operations,
+        each atomic, and take no lock of their own (the listener runs
+        under the cache's lock). Identity checks guard against ``id()``
+        reuse once a plan or block has gone; only plan-cache plans
+        (``compiled.memoizable``) are memoized. A hit re-touches its
+        leaves' LRU positions, so a leaf served on every query never
+        looks cold to eviction. A hit adds no leaf records to PROFILE
+        and sets ``operandMemoHit``.
+
+        Under a PROFILE each leaf resolved adds a record to the active
+        node: its field and row, whether the cache hit, the containers
+        decoded by type and the bytes uploaded (the request's deltas
+        around it)."""
+        cache = self.holder.cache
+        memoize = memoize and compiled.memoizable
+        if memoize:
+            gen = cache.generation
+            if gen != self._operand_memo_gen:
+                self._operand_memo.clear()
+                self._operand_memo_gen = gen
+            mkey = (id(compiled), id(block))
+            hit = self._operand_memo.get(mkey)
+            if (hit is not None and hit[0] is compiled
+                    and hit[1] is block and hit[3] == gen):
+                cache.touch(hit[4])
+                self.memo_hits += 1
+                self._note_operands(idx, compiled.specs, block,
+                                    memo_hit=True)
+                return hit[2]
+            self.memo_misses += 1
+        leaves = self._resolve_leaves(idx, compiled, block)
+        if memoize:
+            if len(self._operand_memo) >= self.OPERAND_MEMO_MAX:
+                self._operand_memo.clear()
+            self._operand_memo[mkey] = (
+                compiled, block, leaves, gen,
+                tuple(batch.leaf_key(idx, spec, block)
+                      for spec in compiled.specs))
+        return leaves
+
+    def _resolve_leaves(self, idx: Index, compiled: _Compiled, block):
         cost = current_cost()
-        self._note_operands(idx, compiled.specs, block, cost)
+        self._note_operands(idx, compiled.specs, block, cost=cost)
         cache = self.holder.cache
         node = (cost.current if cost is not None
                 and cost.profile is not None else None)
@@ -435,17 +506,21 @@ class Executor:
         return leaves
 
     @staticmethod
-    def _note_operands(idx: Index, specs, block, cost=None) -> None:
+    def _note_operands(idx: Index, specs, block, memo_hit: bool = False,
+                       cost=None) -> None:
         """One operand assembly of a served query (the reference's
-        ``_note_operands``): the shards it touches, and the access heat
-        of its fields over them, one batched record. Recorded only under
-        a request's cost context, so direct executor calls and
-        background work record nothing."""
+        ``_note_operands``): the shards it touches, whether the operand
+        memo answered, and the access heat of its fields over the
+        shards, one batched record. Recorded only under a request's cost
+        context, so direct executor calls and background work record
+        nothing."""
         if cost is None:
             cost = current_cost()
             if cost is None:
                 return
         cost.note_shards(len(block.shards))
+        if memo_hit and cost.current is not None:
+            cost.current.operand_memo_hit = True
         fields = {spec.field for spec in specs
                   if getattr(spec, "field", None) is not None}
         if fields:
@@ -457,9 +532,10 @@ class Executor:
         return lambda: batch.stacked_leaf(idx, _ZeroSpec(), block,
                                           self.holder.cache)
 
-    def _run(self, idx: Index, compiled: _Compiled, block, reduce_kind):
+    def _run(self, idx: Index, compiled: _Compiled, block, reduce_kind,
+             memoize: bool = True):
         """One query's kernels, launched now (``batch.run_plan``)."""
-        leaves = self._eval_operands(idx, compiled, block)
+        leaves = self._eval_operands(idx, compiled, block, memoize)
         return dispatch(reduce_kind, lambda: batch.run_plan(
             compiled.plan, reduce_kind, leaves, compiled.scalars,
             self._zeros(idx, block)))
@@ -962,7 +1038,9 @@ class Executor:
             return False  # Options(shards=) excludes the column's shard
         pos = position(col)
         compiled = self._compile_cached(idx, call.children[0])
-        words = self._run(idx, compiled, batch.ShardBlock([shard]), "row")
+        # a one-shard block of its own: nothing to memoize
+        words = self._run(idx, compiled, batch.ShardBlock([shard]), "row",
+                          memoize=False)
         word = int(words[0, pos // 32].item()) & 0xFFFFFFFF
         return bool((word >> (pos % 32)) & 1)
 
@@ -1003,6 +1081,7 @@ class Executor:
             if len(self._plan_cache) >= self.PLAN_CACHE_MAX:
                 self._plan_cache.clear()
             self._plan_cache[key] = (call, weakref.ref(idx), epoch, compiled)
+            compiled.memoizable = True
         return compiled
 
     def _compile_node(self, idx: Index, call: Call, specs, scalars):

@@ -1,0 +1,147 @@
+"""ctypes bindings of the fastbits host library, with numpy fallbacks.
+
+The library (``fastbits.cpp``) is built with g++ at first use into
+``build/native/`` (``native/build.py``); importing the package needs no
+compiler. Each entry point returns None when the library is not there
+(no compiler, a failed build, or ``PILOSA_TPU_NO_NATIVE=1``), and its
+callers then take their numpy path, which gives the same bytes.
+``available()`` says which path is active.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import os
+
+import numpy as np
+
+_lib = None  # None: not tried yet; False: unavailable (cached); else CDLL
+
+
+def _load():
+    global _lib
+    if _lib is not None:
+        return _lib or None
+    if os.environ.get("PILOSA_TPU_NO_NATIVE") == "1":
+        return None
+    from pilosa_tpu_torch.native.build import build
+
+    try:
+        path = build()
+        if path is None:
+            _lib = False  # cache the miss: callers sit in per-container
+            return None   # loops, a PATH scan a call would show
+        lib = ctypes.CDLL(path)
+        u64p = ctypes.POINTER(ctypes.c_uint64)
+        u32p = ctypes.POINTER(ctypes.c_uint32)
+        u16p = ctypes.POINTER(ctypes.c_uint16)
+        lib.pack_positions.argtypes = [u64p, ctypes.c_int64, u32p,
+                                       ctypes.c_int64]
+        lib.pack_positions.restype = None
+        lib.unpack_positions.argtypes = [
+            u32p, ctypes.c_int64, ctypes.c_uint64, u64p, ctypes.c_int64,
+        ]
+        lib.unpack_positions.restype = ctypes.c_int64
+        lib.popcount_words.argtypes = [u32p, ctypes.c_int64]
+        lib.popcount_words.restype = ctypes.c_uint64
+        lib.runs_to_words.argtypes = [u16p, ctypes.c_int64, u32p]
+        lib.runs_to_words.restype = None
+        lib.union_sorted_u16.argtypes = [u16p, ctypes.c_int64, u16p,
+                                         ctypes.c_int64, u16p]
+        lib.union_sorted_u16.restype = ctypes.c_int64
+        lib.diff_sorted_u16.argtypes = [u16p, ctypes.c_int64, u16p,
+                                        ctypes.c_int64, u16p]
+        lib.diff_sorted_u16.restype = ctypes.c_int64
+    except (OSError, AttributeError):
+        _lib = False  # an unusable library: numpy from now on
+        return None
+    _lib = lib
+    return _lib
+
+
+def available() -> bool:
+    return _load() is not None
+
+
+def _ptr(arr: np.ndarray, ctype):
+    return arr.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def pack_positions(positions: np.ndarray, n_words: int) -> np.ndarray | None:
+    """uint32[n_words] with the bits at ``positions`` set (positions past
+    the words are ignored)."""
+    lib = _load()
+    if lib is None:
+        return None
+    positions = np.ascontiguousarray(positions, np.uint64)
+    out = np.zeros(n_words, np.uint32)
+    lib.pack_positions(
+        _ptr(positions, ctypes.c_uint64), positions.size,
+        _ptr(out, ctypes.c_uint32), n_words,
+    )
+    return out
+
+
+def unpack_positions(words: np.ndarray, offset: int = 0) -> np.ndarray | None:
+    """Sorted set bit positions of uint32 words, plus ``offset``."""
+    lib = _load()
+    if lib is None:
+        return None
+    words = np.ascontiguousarray(words, np.uint32)
+    cap = int(lib.popcount_words(_ptr(words, ctypes.c_uint32), words.size))
+    out = np.empty(cap, np.uint64)
+    n = lib.unpack_positions(
+        _ptr(words, ctypes.c_uint32), words.size, offset,
+        _ptr(out, ctypes.c_uint64), cap,
+    )
+    return out[:n]
+
+
+def popcount_words(words: np.ndarray) -> int | None:
+    lib = _load()
+    if lib is None:
+        return None
+    words = np.ascontiguousarray(words, np.uint32)
+    return int(lib.popcount_words(_ptr(words, ctypes.c_uint32), words.size))
+
+
+def runs_to_words(runs: np.ndarray) -> np.ndarray | None:
+    """[n, 2] inclusive uint16 run intervals as a 2048-word block."""
+    lib = _load()
+    if lib is None:
+        return None
+    runs = np.ascontiguousarray(runs, np.uint16)
+    out = np.zeros(2048, np.uint32)
+    lib.runs_to_words(_ptr(runs, ctypes.c_uint16), runs.shape[0],
+                      _ptr(out, ctypes.c_uint32))
+    return out
+
+
+def union_sorted_u16(a: np.ndarray, b: np.ndarray) -> np.ndarray | None:
+    """Union of two sorted unique uint16 arrays (two-pointer merge)."""
+    lib = _load()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, np.uint16)
+    b = np.ascontiguousarray(b, np.uint16)
+    out = np.empty(a.size + b.size, np.uint16)
+    n = lib.union_sorted_u16(_ptr(a, ctypes.c_uint16), a.size,
+                             _ptr(b, ctypes.c_uint16), b.size,
+                             _ptr(out, ctypes.c_uint16))
+    # a copy: a view would pin the oversized buffer for the life of the
+    # container that keeps the result
+    return out[:n].copy()
+
+
+def diff_sorted_u16(a: np.ndarray, b: np.ndarray) -> np.ndarray | None:
+    """a \\ b for sorted unique uint16 arrays."""
+    lib = _load()
+    if lib is None:
+        return None
+    a = np.ascontiguousarray(a, np.uint16)
+    b = np.ascontiguousarray(b, np.uint16)
+    out = np.empty(a.size, np.uint16)
+    n = lib.diff_sorted_u16(_ptr(a, ctypes.c_uint16), a.size,
+                            _ptr(b, ctypes.c_uint16), b.size,
+                            _ptr(out, ctypes.c_uint16))
+    return out[:n].copy()

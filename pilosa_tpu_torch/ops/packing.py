@@ -1,15 +1,17 @@
 """Host-side bit packing between column-id sets and dense uint32 words.
 
-The port's copy of ``pilosa_tpu.ops.packing`` (numpy branches). Bit b of
-the vector lives at ``words[b // 32] >> (b % 32) & 1`` (little bit
-order, matching the little-endian byte layout so numpy
-packbits/unpackbits round-trip).
+The port's copy of ``pilosa_tpu.ops.packing``. Bit b of the vector lives
+at ``words[b // 32] >> (b % 32) & 1`` (little bit order, matching the
+little-endian byte layout so numpy packbits/unpackbits round-trip). Each
+function takes the fastbits library (``pilosa_tpu_torch.native``) when
+it is active and numpy otherwise, with the same result.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from pilosa_tpu_torch import native
 from pilosa_tpu_torch.shardwidth import SHARD_WIDTH
 
 
@@ -23,6 +25,9 @@ def pack_bits(bit_positions, n_bits: int = SHARD_WIDTH) -> np.ndarray:
         raise ValueError(
             f"bit position {bit_positions.max()} out of range for {n_bits} bits"
         )
+    fast = native.pack_positions(bit_positions, n_words)
+    if fast is not None:
+        return fast
     bytes_ = np.zeros(n_words * 4, dtype=np.uint8)
     byte_idx = (bit_positions >> np.uint64(3)).astype(np.int64)
     bit_in_byte = (bit_positions & np.uint64(7)).astype(np.uint8)
@@ -33,6 +38,9 @@ def pack_bits(bit_positions, n_bits: int = SHARD_WIDTH) -> np.ndarray:
 def unpack_bits(words: np.ndarray, offset: int = 0) -> np.ndarray:
     """Expand a uint32 word vector to sorted absolute bit positions;
     ``offset`` shifts positions into absolute column space."""
+    fast = native.unpack_positions(np.asarray(words), offset)
+    if fast is not None:
+        return fast
     words = np.ascontiguousarray(words, dtype=np.uint32)
     bits = np.unpackbits(words.view(np.uint8), bitorder="little")
     return np.nonzero(bits)[0].astype(np.uint64) + np.uint64(offset)
@@ -45,5 +53,8 @@ def pack_shard_row(column_positions) -> np.ndarray:
 
 def popcount_words(words: np.ndarray) -> int:
     """Host popcount."""
+    fast = native.popcount_words(np.asarray(words))
+    if fast is not None:
+        return fast
     words = np.ascontiguousarray(words, dtype=np.uint32)
     return int(np.bitwise_count(words).sum(dtype=np.int64))

@@ -5,9 +5,15 @@ values are uint64, containers are keyed by ``value >> 16`` and hold the
 low 16 bits as a sorted uint16 **array**, a 1024×uint64 **bitmap** or a
 **run** list of inclusive [start, last] intervals. Container choice is
 part of the on-disk bytes, so it follows ``Container.from_lows`` exactly
-and each package opens the other's data directory. Plain numpy stands in
-for the reference's native helpers and batch merge kernels, which build
-byte-identical containers.
+and each package opens the other's data directory.
+
+Whole-bitmap reads go through the batched kernels of ``kernels.py``
+(``to_ids``, ``range_ids``); a container's decode and the small-batch
+write loop use the fastbits library (``pilosa_tpu_torch.native``) when
+it is active; a write batch of ``merge_kernels.KERNEL_MIN_IDS`` ids or
+more merges through ``merge_kernels.merge_ids`` in one pass over every
+container it touches. Each path builds the same bytes as the plain
+per-container loop (``_merge_loop``).
 """
 
 from __future__ import annotations
@@ -15,6 +21,8 @@ from __future__ import annotations
 import bisect
 
 import numpy as np
+
+from pilosa_tpu_torch import native
 
 ARRAY = 1
 BITMAP = 2
@@ -110,16 +118,21 @@ class Container:
         return (i >= 0) & (lows <= self.data[np.maximum(i, 0), 1])
 
     def dense_words32(self) -> np.ndarray:
-        """Container as 2048 uint32 words (65536 bits)."""
+        """Container as 2048 uint32 words (65536 bits), through fastbits
+        when it is active."""
         if self.kind == BITMAP:
             return np.ascontiguousarray(self.data).view("<u4").copy()
-        bits = np.zeros(1 << 16, bool)
-        if self.kind == ARRAY:
-            bits[self.data] = True
+        if self.kind == RUN:
+            fast = native.runs_to_words(self.data)
         else:
-            for start, end in self.data.tolist():
-                bits[start:end + 1] = True
-        return np.packbits(bits, bitorder="little").view("<u4")
+            fast = native.pack_positions(self.data.astype(np.uint64), 2048)
+        if fast is not None:
+            return fast
+        words = np.zeros(2048 * 4, np.uint8)
+        lows = self.lows()
+        if lows.size:
+            _scatter_bits(words, lows)
+        return words.view("<u4").copy()
 
 
 class RoaringBitmap:
@@ -189,17 +202,24 @@ class RoaringBitmap:
     def dense_range_words32(self, start: int, stop: int) -> np.ndarray:
         """Materialize [start, stop) as packed uint32 words (both
         65536-aligned): a fragment row (2^20 bits, 16 containers) becomes
-        uint32[32768]."""
+        uint32[32768]. One windowed flatten and one batched decode."""
         if start % 65536 or stop % 65536 or stop <= start:
             raise ValueError("dense range must be 65536-aligned and non-empty")
-        n_containers = (stop - start) >> 16
-        out = np.zeros((n_containers, 2048), np.uint32)
-        base_key = start >> 16
-        for i in range(n_containers):
-            c = self._containers.get(base_key + i)
-            if c is not None:
-                out[i] = c.dense_words32()
-        return out.reshape(-1)
+        from pilosa_tpu_torch.roaring import kernels
+
+        base_key, n_containers = start >> 16, (stop - start) >> 16
+        flat = kernels.flatten(self, base_key, base_key + n_containers - 1)
+        return kernels.dense_words32(flat, base_key, n_containers)
+
+    def range_ids(self, start: int, stop: int) -> np.ndarray:
+        """Sorted ids in [start, stop): only the containers that overlap
+        the range are flattened."""
+        if stop <= start or not self.keys:
+            return np.empty(0, np.uint64)
+        from pilosa_tpu_torch.roaring import kernels
+
+        flat = kernels.flatten(self, start >> 16, (stop - 1) >> 16)
+        return kernels.range_ids(flat, start, stop)
 
     # --- mutation (op-log replay + write path) ---
 
@@ -211,6 +231,23 @@ class RoaringBitmap:
         return self._merge(ids, remove=True)
 
     def _merge(self, ids, remove: bool) -> int:
+        """A write batch: the whole-batch merge kernel from
+        ``merge_kernels.KERNEL_MIN_IDS`` ids, the per-container loop below
+        (a point write must not pay the batch's bookkeeping). Both build
+        the same bytes."""
+        ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
+        if ids.size == 0:
+            return 0
+        from pilosa_tpu_torch.roaring import merge_kernels
+
+        if ids.size >= merge_kernels.KERNEL_MIN_IDS:
+            return merge_kernels.merge_ids(self, ids, remove)
+        merge_kernels.global_merge_stats().loop_fallbacks += 1
+        return self._merge_loop(ids, remove)
+
+    def _merge_loop(self, ids, remove: bool) -> int:
+        """The per-container merge: the small-batch path, and the bytes
+        ``merge_kernels.merge_ids`` must build."""
         ids = np.atleast_1d(np.asarray(ids, dtype=np.uint64))
         if ids.size == 0:
             return 0
@@ -250,10 +287,16 @@ class RoaringBitmap:
                     delta = 0
             if delta is None:
                 existing = c.lows() if c is not None else np.empty(0, np.uint16)
+                # both sides sorted and unique: fastbits' two-pointer
+                # merge, or numpy's set operations
                 if remove:
-                    new = np.setdiff1d(existing, batch, assume_unique=True)
+                    new = native.diff_sorted_u16(existing, batch)
+                    if new is None:
+                        new = np.setdiff1d(existing, batch, assume_unique=True)
                 else:
-                    new = np.union1d(existing, batch)
+                    new = native.union_sorted_u16(existing, batch)
+                    if new is None:
+                        new = np.union1d(existing, batch)
                 delta = abs(int(new.size) - int(existing.size))
                 if delta and new.size == 0:
                     self._containers.pop(key, None)

@@ -1,22 +1,34 @@
-"""Whole-fragment roaring kernels on the host: the snapshot-bytes parser.
+"""Whole-fragment roaring kernels on the host (numpy), the port's copy of
+``pilosa_tpu.roaring.kernels``.
 
-The port's copy of the part of ``pilosa_tpu.roaring.kernels`` that the
-scrubber's fast path runs (``integrity.verify_fragment_file(...,
-build_bitmap=False)``): ``snapshot_ids`` parses a fragment snapshot's
-bytes straight into flat per-kind arrays (``flat_from_snapshot``: no
-Container objects, the same structural checks and error texts as
-``format.deserialize``) and materializes its sorted bit ids in one pass
-per container kind (``fragment_ids``), byte-identical to decoding the
-snapshot and listing its ids. Irregular but accepted snapshots (a bitmap
-payload not of 1024 words, duplicate keys) take the decoder and
-``flatten`` instead, as does the digest check of a decoded snapshot whose
-ids wrap past 2^64 (a corrupt key).
-The set operations, ``dense_words32`` and the digest diffs are not
-ported.
+A fragment's containers are concatenated once into flat per-kind arrays
+(``flatten``, optionally over a window of container keys; the one
+per-container loop), and every other kernel works on those arrays in a
+fixed number of numpy calls a fragment, not a container:
+
+- ``fragment_ids`` / ``range_ids``: the sorted bit ids;
+- ``dense_words32``: a window of containers as packed uint32 words, the
+  decode of a row before its upload to the card (``Fragment.row_words``);
+- ``popcount``: the population from the payloads;
+- ``fragment_and`` / ``_or`` / ``_xor`` / ``_andnot`` and ``diff_ids``:
+  set operations, bitmap against bitmap in word space, the rest over
+  sorted ids (a galloping probe when the sides are lopsided);
+- ``block_slices`` / ``diff_digests``: the checksum blocks of an id array
+  and the blocks two digest lists disagree on;
+- ``snapshot_ids``: a snapshot's bytes parsed straight into flat arrays
+  (``flat_from_snapshot``: no Container objects, the same checks and
+  error texts as ``format.deserialize``); irregular but accepted
+  snapshots (a bitmap payload not of 1024 words, duplicate keys) take
+  the decoder and ``flatten`` instead.
+
+Every kernel is byte-identical to the per-container walk it replaces.
+``KernelStats`` counts their calls (the ``hostpath_*`` series of
+``/metrics``).
 """
 
 from __future__ import annotations
 
+import bisect
 import struct
 
 import numpy as np
@@ -71,6 +83,19 @@ class FlatFragment:
                  "bmp_sel", "bmp_words",
                  "run_sel", "run_data", "run_off")
 
+    @property
+    def n_containers(self) -> int:
+        return int(self.keys.size)
+
+    def total(self) -> int:
+        return int(self.cards.sum()) if self.cards.size else 0
+
+    def kind_counts(self) -> tuple[int, int, int]:
+        """(array, bitmap, run) container counts: the PROFILE tally of
+        one decode."""
+        c = np.bincount(self.kinds, minlength=4)
+        return int(c[ARRAY]), int(c[BITMAP]), int(c[RUN])
+
 
 def _build_flat(pairs) -> FlatFragment:
     """A FlatFragment from (key, Container) pairs in ascending key order:
@@ -118,14 +143,53 @@ def _build_flat(pairs) -> FlatFragment:
     return f
 
 
-def flatten(bitmap) -> FlatFragment:
-    """A RoaringBitmap's non-empty containers, flattened."""
+def flatten(bitmap, lo_key: int | None = None,
+            hi_key: int | None = None) -> FlatFragment:
+    """A RoaringBitmap's non-empty containers with keys in [lo_key,
+    hi_key] (inclusive; None: unbounded), flattened. Lock-free against
+    writers: a container removed meanwhile is skipped, and containers
+    are swapped whole, never changed in place."""
+    keys = bitmap.keys
+    lo_i = 0 if lo_key is None else bisect.bisect_left(keys, lo_key)
+    hi_i = len(keys) if hi_key is None else bisect.bisect_right(keys, hi_key)
     pairs = []
-    for key in bitmap.keys:
+    for key in keys[lo_i:hi_i]:
         c = bitmap.container(key)
         if c is not None and c.n:
             pairs.append((key, c))
     return _build_flat(pairs)
+
+
+def _take(f: FlatFragment, idx: np.ndarray) -> FlatFragment:
+    """The containers at positions ``idx`` (ascending) as a new
+    FlatFragment: array gathers only."""
+    arr_pick = idx[f.kinds[idx] == ARRAY]
+    bmp_pick = idx[f.kinds[idx] == BITMAP]
+    run_pick = idx[f.kinds[idx] == RUN]
+    out = FlatFragment()
+    out.keys = f.keys[idx]
+    out.kinds = f.kinds[idx]
+    out.cards = f.cards[idx]
+    kind_row = np.empty(idx.size, np.int64)
+    kind_row[f.kinds[idx] == ARRAY] = np.arange(arr_pick.size)
+    kind_row[f.kinds[idx] == BITMAP] = np.arange(bmp_pick.size)
+    kind_row[f.kinds[idx] == RUN] = np.arange(run_pick.size)
+    out.kind_row = kind_row
+    rows = f.kind_row[arr_pick]
+    starts, stops = f.arr_off[rows], f.arr_off[rows + 1]
+    out.arr_sel = np.nonzero(out.kinds == ARRAY)[0]
+    out.arr_data = _gather_ranges(f.arr_data, starts, stops)
+    out.arr_off = np.concatenate(
+        ([0], np.cumsum(stops - starts))).astype(np.int64)
+    out.bmp_sel = np.nonzero(out.kinds == BITMAP)[0]
+    out.bmp_words = f.bmp_words[f.kind_row[bmp_pick]]
+    rrows = f.kind_row[run_pick]
+    rstarts, rstops = f.run_off[rrows], f.run_off[rrows + 1]
+    out.run_sel = np.nonzero(out.kinds == RUN)[0]
+    out.run_data = _gather_ranges(f.run_data, rstarts, rstops)
+    out.run_off = np.concatenate(
+        ([0], np.cumsum(rstops - rstarts))).astype(np.int64)
+    return out
 
 
 def _gather_ranges(data: np.ndarray, starts: np.ndarray,
@@ -237,6 +301,246 @@ def fragment_ids(f: FlatFragment) -> np.ndarray:
         else:
             parts.append(run_ids[run_off[r0]:run_off[r1]])
     return np.concatenate(parts)
+
+
+def range_ids(f: FlatFragment, start: int, stop: int) -> np.ndarray:
+    """Sorted ids in [start, stop) of a key-bounded flat view (the edge
+    containers trimmed by one mask)."""
+    ids = fragment_ids(f)
+    if ids.size == 0:
+        return ids
+    return ids[(ids >= np.uint64(start)) & (ids < np.uint64(stop))]
+
+
+# ------------------------------------------------------------ dense decode
+
+
+def _or_runs_into(words: np.ndarray, starts: np.ndarray,
+                  ends: np.ndarray) -> None:
+    """OR the inclusive bit ranges [starts[i], ends[i]] into flat uint64
+    words in O(runs + words): the partial head and tail words through
+    masked ``bitwise_or.at``, the whole words between through a cumsum
+    of coverage."""
+    ok = ends >= starts
+    if not ok.all():
+        starts, ends = starts[ok], ends[ok]
+    if starts.size == 0:
+        return
+    ones = np.uint64(0xFFFFFFFFFFFFFFFF)
+    ws, we = starts >> 6, ends >> 6
+    head = ones << (starts & 63).astype(np.uint64)
+    tail = ones >> (np.uint64(63) - (ends & 63).astype(np.uint64))
+    same = ws == we
+    np.bitwise_or.at(words, ws, np.where(same, head & tail, head))
+    cross = ~same
+    if cross.any():
+        np.bitwise_or.at(words, we[cross], tail[cross])
+        delta = np.zeros(words.size + 1, np.int64)
+        np.add.at(delta, ws[cross] + 1, 1)
+        np.add.at(delta, we[cross], -1)
+        words[np.cumsum(delta[:-1]) > 0] = ones
+
+
+def dense_words32(f: FlatFragment, base_key: int,
+                  n_containers: int) -> np.ndarray:
+    """``n_containers`` consecutive containers from ``base_key`` as
+    packed uint32 words, byte-identical to each container's
+    ``dense_words32``. Bitmap words copy across (an all-bitmap window
+    is the flat view's own buffer), runs fill whole words without
+    expanding to bits, array bits scatter while sparse and go through
+    one bool write and ``np.packbits`` past 1/128 of the window."""
+    _STATS.kernel_calls += 1
+    _STATS.dense_decodes += 1
+    slots = f.keys - base_key
+    n_scatter = int(f.arr_data.size)
+    if (n_scatter == 0 and f.run_data.shape[0] == 0
+            and f.bmp_sel.size == n_containers):
+        w = f.bmp_words
+        if w.flags.owndata and w.flags.writeable and w.flags.c_contiguous:
+            return w.reshape(-1).view("<u4")
+        return np.ascontiguousarray(w).reshape(-1).view("<u4").copy()
+    run_gs = run_ge = None
+    if f.run_data.shape[0]:
+        runs_per_cont = f.run_off[1:] - f.run_off[:-1]
+        rbase = np.repeat(slots[f.run_sel] << 16, runs_per_cont)
+        run_gs = rbase + f.run_data[:, 0]
+        run_ge = rbase + f.run_data[:, 1]
+    if n_scatter >= n_containers << 9:  # window bits / 128
+        bits = np.zeros(n_containers << 16, bool)
+        arr_counts = f.arr_off[1:] - f.arr_off[:-1]
+        gpos = (np.repeat(slots[f.arr_sel] << 16, arr_counts)
+                + f.arr_data.astype(np.int64))
+        bits[gpos] = True
+        out8 = np.packbits(bits, bitorder="little")
+        out64 = out8.view("<u8").reshape(n_containers, BITMAP_N_WORDS)
+        if f.bmp_words.shape[0]:
+            out64[slots[f.bmp_sel]] = f.bmp_words
+        if run_gs is not None:
+            _or_runs_into(out64.reshape(-1), run_gs, run_ge)
+        return out8.view("<u4").copy()
+    out64 = np.zeros((n_containers, BITMAP_N_WORDS), np.uint64)
+    if f.bmp_words.shape[0]:
+        out64[slots[f.bmp_sel]] = f.bmp_words
+    if n_scatter:
+        arr_counts = f.arr_off[1:] - f.arr_off[:-1]
+        gpos = (np.repeat(slots[f.arr_sel] << 16, arr_counts)
+                + f.arr_data.astype(np.int64))
+        np.bitwise_or.at(out64.reshape(-1), gpos >> 6,
+                         np.uint64(1) << (gpos & 63).astype(np.uint64))
+    if run_gs is not None:
+        _or_runs_into(out64.reshape(-1), run_gs, run_ge)
+    return out64.reshape(-1).view("<u4")
+
+
+def popcount(f: FlatFragment) -> int:
+    """The population from the payloads (array sizes, bitmap popcounts,
+    run lengths), never the cached cardinalities."""
+    _STATS.kernel_calls += 1
+    total = int(f.arr_data.size)
+    if f.bmp_words.shape[0]:
+        total += int(np.bitwise_count(f.bmp_words).sum(dtype=np.int64))
+    if f.run_data.shape[0]:
+        total += int((f.run_data[:, 1] - f.run_data[:, 0] + 1).sum())
+    return total
+
+
+# ----------------------------------------------------------------- set ops
+
+
+def intersect_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Sorted-unique uint64 intersection: the small side probed into the
+    big one with one ``searchsorted`` when they are lopsided, a linear
+    merge otherwise."""
+    if a.size == 0 or b.size == 0:
+        return _EMPTY_IDS
+    small, big = (a, b) if a.size <= b.size else (b, a)
+    if small.size << 5 < big.size:
+        i = np.searchsorted(big, small)
+        i_c = np.minimum(i, big.size - 1)
+        return small[(i < big.size) & (big[i_c] == small)]
+    return np.intersect1d(a, b, assume_unique=True)
+
+
+def setdiff_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """Sorted-unique a \\ b, probing when b dwarfs a."""
+    if a.size == 0:
+        return _EMPTY_IDS
+    if b.size == 0:
+        return a
+    if a.size << 5 < b.size:
+        i = np.searchsorted(b, a)
+        i_c = np.minimum(i, b.size - 1)
+        return a[~((i < b.size) & (b[i_c] == a))]
+    return np.setdiff1d(a, b, assume_unique=True)
+
+
+def _ids_from_word_rows(keys: np.ndarray, words: np.ndarray) -> np.ndarray:
+    """Ids of (key, 1024-word row) pairs: one unpack, one nonzero, each
+    row's container base added."""
+    nb = words.shape[0]
+    if nb == 0:
+        return _EMPTY_IDS
+    bits = np.unpackbits(
+        np.ascontiguousarray(words).view(np.uint8), bitorder="little")
+    pos = np.flatnonzero(bits.view(bool))
+    if pos.size == 0:
+        return _EMPTY_IDS
+    edges = np.searchsorted(pos, np.arange(nb + 1, dtype=np.int64) << 16)
+    adj = (keys.astype(np.int64) - np.arange(nb)) << np.int64(16)
+    return (pos + np.repeat(adj, np.diff(edges))).view(np.uint64)
+
+
+def _as_flat(x) -> FlatFragment:
+    return x if isinstance(x, FlatFragment) else flatten(x)
+
+
+def _setop(a, b, word_op, id_op, keep_a_only: bool,
+           keep_b_only: bool) -> np.ndarray:
+    fa, fb = _as_flat(a), _as_flat(b)
+    _STATS.kernel_calls += 1
+    _STATS.set_ops += 1
+    common, ia, ib = np.intersect1d(fa.keys, fb.keys, return_indices=True)
+    parts = []
+    if common.size:
+        bb = (fa.kinds[ia] == BITMAP) & (fb.kinds[ib] == BITMAP)
+        if bb.any():  # bitmap against bitmap stays in word space
+            wa = fa.bmp_words[fa.kind_row[ia[bb]]]
+            wb = fb.bmp_words[fb.kind_row[ib[bb]]]
+            parts.append(_ids_from_word_rows(common[bb], word_op(wa, wb)))
+        if (~bb).any():
+            ids_a = fragment_ids(_take(fa, ia[~bb]))
+            ids_b = fragment_ids(_take(fb, ib[~bb]))
+            parts.append(id_op(ids_a, ids_b))
+    if keep_a_only:
+        only = np.setdiff1d(np.arange(fa.keys.size), ia)
+        if only.size:
+            parts.append(fragment_ids(_take(fa, only)))
+    if keep_b_only:
+        only = np.setdiff1d(np.arange(fb.keys.size), ib)
+        if only.size:
+            parts.append(fragment_ids(_take(fb, only)))
+    parts = [p for p in parts if p.size]
+    if not parts:
+        return _EMPTY_IDS
+    if len(parts) == 1:
+        return parts[0]
+    return np.sort(np.concatenate(parts))
+
+
+def fragment_and(a, b) -> np.ndarray:
+    """Sorted ids of a ∩ b (bitmaps or flat views)."""
+    return _setop(a, b, np.bitwise_and, intersect_sorted, False, False)
+
+
+def fragment_or(a, b) -> np.ndarray:
+    """Sorted ids of a ∪ b."""
+    return _setop(a, b, np.bitwise_or,
+                  lambda x, y: np.union1d(x, y), True, True)
+
+
+def fragment_xor(a, b) -> np.ndarray:
+    """Sorted ids of a △ b."""
+    return _setop(a, b, np.bitwise_xor,
+                  lambda x, y: np.setxor1d(x, y, assume_unique=True),
+                  True, True)
+
+
+def fragment_andnot(a, b) -> np.ndarray:
+    """Sorted ids of a \\ b."""
+    return _setop(a, b, lambda x, y: x & ~y, setdiff_sorted, True, False)
+
+
+def diff_ids(a, b) -> tuple[np.ndarray, np.ndarray]:
+    """(only in a, only in b) as sorted id arrays: the content diff of
+    two copies of a block."""
+    ids_a = fragment_ids(_as_flat(a))
+    ids_b = fragment_ids(_as_flat(b))
+    return setdiff_sorted(ids_a, ids_b), setdiff_sorted(ids_b, ids_a)
+
+
+# -------------------------------------------------------- digests / diffs
+
+
+def block_slices(ids: np.ndarray, blocks, block_rows: int = 100) -> dict:
+    """``{block: ids}``: a sorted id array sliced into the requested
+    checksum blocks with one ``searchsorted`` over their edges."""
+    _STATS.kernel_calls += 1
+    wanted = np.asarray(sorted(set(int(b) for b in blocks)), np.int64)
+    if wanted.size == 0:
+        return {}
+    width = np.uint64(block_rows) << np.uint64(20)
+    los = wanted.astype(np.uint64) * width
+    edges = np.searchsorted(ids, np.concatenate((los, los + width)))
+    n = wanted.size
+    return {int(wanted[i]): ids[edges[i]:edges[n + i]] for i in range(n)}
+
+
+def diff_digests(local, peer) -> list[int]:
+    """The blocks to fetch from a peer: every block it has that the
+    local side lacks or disagrees on, sorted."""
+    local = dict(local)
+    return sorted(int(b) for b, checksum in dict(peer).items()
+                  if local.get(b) != checksum)
 
 
 _HEADER = struct.Struct("<IHHIQ")

@@ -64,6 +64,8 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from pilosa_tpu_torch.qos import DEADLINE_HEADER, TENANT_HEADER, Deadline
+from pilosa_tpu_torch.roaring.kernels import global_kernel_stats
+from pilosa_tpu_torch.roaring.merge_kernels import global_merge_stats
 from pilosa_tpu_torch.server.api import API, ApiError
 from pilosa_tpu_torch.storage.heat import global_heat
 from pilosa_tpu_torch.utils.cost import cost_enabled
@@ -482,8 +484,9 @@ class HTTPHandler(BaseHTTPRequestHandler):
         """The reference's blocks for the planes the port has, in its
         order: the stats registry, the row cache, the serving waves and
         fast lane, the result cache, the tierer, the WAL, the integrity
-        plane, QoS, observability, then the tenant ledger, heat and the
-        SLO engine."""
+        plane, the host roaring kernels and the merge kernels, QoS,
+        observability, then the tenant ledger, heat and the SLO
+        engine."""
         seen: set = set()  # a family's HELP and TYPE once a page
         api = self.api
         stats = global_stats()
@@ -503,6 +506,10 @@ class HTTPHandler(BaseHTTPRequestHandler):
         text += prometheus_block(api.durability_metrics(), prefix, "wal",
                                  seen=seen)
         text += prometheus_block(api.integrity_metrics(), prefix, seen=seen)
+        text += prometheus_block(global_kernel_stats().metrics(), prefix,
+                                 seen=seen)
+        text += prometheus_block(global_merge_stats().metrics(), prefix,
+                                 seen=seen)
         text += prometheus_block(api.qos.metrics(), prefix, "qos",
                                  seen=seen)
         text += prometheus_block(api.observability_metrics(), prefix,

@@ -22,7 +22,8 @@ reported; nothing fans out on one node), ``slo_objectives`` and
 tracer's rate), ``trace_log_dir`` (``POST /debug/trace-device``),
 ``long_query_time`` and ``slow_query_ring`` (the slow-query ring),
 ``result_cache_bytes`` (the process's result cache; 0 turns it off and
-empties it) and ``ingest_workers`` (the import pool).
+empties it), ``ingest_workers`` (the import pool) and ``heat_half_life``
+(the decay half-life of the heat map and of the result cache's scores).
 
 ``ServerConfig`` is the reference's whole configuration (its names,
 defaults, parsing and validation; durations as Go strings such as
@@ -89,6 +90,7 @@ SERVING_KNOBS = (
     "qos-breaker-cooldown", "slo-objectives", "slo-windows", "tracing",
     "trace-sample-rate", "trace-log-dir", "long-query-time",
     "slow-query-ring", "result-cache-bytes", "ingest-workers",
+    "heat-half-life",
 )
 
 
@@ -723,7 +725,8 @@ class Server:
                  long_query_time: float = 0.0,
                  slow_query_ring: int = 100,
                  result_cache_bytes: int = 0,
-                 ingest_workers: int = 1):
+                 ingest_workers: int = 1,
+                 heat_half_life: float = 300.0):
         # the serving envelope's knobs, validated as ServerConfig does
         cfg = ServerConfig(
             qos_max_inflight=qos_max_inflight,
@@ -738,7 +741,7 @@ class Server:
             trace_log_dir=trace_log_dir, long_query_time=long_query_time,
             slow_query_ring=slow_query_ring,
             result_cache_bytes=result_cache_bytes,
-            ingest_workers=ingest_workers)
+            ingest_workers=ingest_workers, heat_half_life=heat_half_life)
         for name in SERVING_KNOBS:
             attr = name.replace("-", "_")
             setattr(self, attr, getattr(cfg, attr))
@@ -806,8 +809,11 @@ class Server:
 
     def open(self) -> "Server":
         # the process's result cache, sized here (0 turns it off and
-        # drops what an earlier server in this process left)
-        global_result_cache().configure(self.result_cache_bytes)
+        # drops what an earlier server in this process left), and the
+        # heat half-life of its entries' scores and of the heat map
+        global_result_cache().configure(self.result_cache_bytes,
+                                        half_life_s=self.heat_half_life)
+        global_heat().half_life_s = self.heat_half_life
         self.holder.open()
         self.api = API(self.holder)
         api = self.api

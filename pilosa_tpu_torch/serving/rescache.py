@@ -98,11 +98,15 @@ class ResultCache:
 
     # ------------------------------------------------------------ config
 
-    def configure(self, budget_bytes: int) -> "ResultCache":
-        """Re-point the budget (Server.open). Shrinking evicts down to
-        the new bound; a zero budget disables lookups and clears."""
+    def configure(self, budget_bytes: int, half_life_s: float | None = None
+                  ) -> "ResultCache":
+        """Re-point the budget (Server.open) and, when given, the score
+        half-life (``heat-half-life``). Shrinking evicts down to the new
+        bound; a zero budget disables lookups and clears."""
         with self._lock:
             self.budget_bytes = int(budget_bytes)
+            if half_life_s:
+                self.half_life_s = float(half_life_s)
             if self.budget_bytes <= 0:
                 self._clear_locked()
             else:

@@ -31,7 +31,10 @@ result cache's entries of this (index, field, shard) are invalidated
 there, before the write's ACK (``serving/rescache.py``), and a point
 write served by the API records write heat (``storage/heat.py``). Under
 a request's cost context ``row_words`` tallies the containers it
-decodes. A failed per-op fsync, snapshot or sidecar write
+decodes (one batched decode of the row's window,
+``roaring/kernels.dense_words32``); the mutex and BSI imports probe the
+bits they replace in one batched pass (``roaring/merge_kernels``). A
+failed per-op fsync, snapshot or sidecar write
 trips the holder's ``StorageHealth`` latch, and every file operation
 that can fail passes the disk fault plane's seams
 (``testing/faults.py``).
@@ -45,9 +48,8 @@ import threading
 import numpy as np
 
 from pilosa_tpu_torch.ops.packing import unpack_bits
-from pilosa_tpu_torch.roaring import ARRAY, BITMAP, OP_ADD, OP_REMOVE, RUN, \
-    RoaringBitmap, \
-    merge_kernels
+from pilosa_tpu_torch.roaring import OP_ADD, OP_REMOVE, RoaringBitmap, \
+    kernels, merge_kernels
 from pilosa_tpu_torch.roaring.format import (
     encode_op,
     replay_ops,
@@ -235,17 +237,16 @@ class Fragment:
     # ----------------------------------------------------------------- reads
 
     def row_words(self, row: int) -> np.ndarray:
-        """Dense uint32[32768] for one row (host side). Under a request's
-        cost context the row's containers are tallied by type (only
-        residency misses decode)."""
-        base = row << 20
+        """Dense uint32[32768] for one row (host side): one flatten of the
+        row's 16-container window and one batched decode. Under a
+        request's cost context the window's containers are tallied by
+        type, once a decode (only residency misses decode)."""
+        base_key = (row << 20) >> 16
+        flat = kernels.flatten(self.bitmap, base_key, base_key + 15)
         cost = current_cost()
         if cost is not None:
-            kinds = [c.kind for k in range(base >> 16, (base >> 16) + 16)
-                     if (c := self.bitmap.container(k)) is not None]
-            cost.note_containers(kinds.count(ARRAY), kinds.count(BITMAP),
-                                 kinds.count(RUN))
-        return self.bitmap.dense_range_words32(base, base + SHARD_WIDTH)
+            cost.note_containers(*flat.kind_counts())
+        return kernels.dense_words32(flat, base_key, 16)
 
     def count_row(self, row: int) -> int:
         base = row << 20
@@ -275,16 +276,13 @@ class Fragment:
         if memo is not None and memo[0] == self.mutations:
             return memo[1]
         version = self.mutations
-        bm = self.bitmap
-        pairs = [(k, c.n) for k in list(bm.keys)
-                 if (c := bm.container(k)) is not None]
-        if not pairs:
+        flat = kernels.flatten(self.bitmap)  # metadata of every container
+        if flat.n_containers == 0:
             out = (np.empty(0, np.int64), np.empty(0, np.int64))
         else:
-            keys, cards = np.array(pairs, np.int64).T
-            rows, inv = np.unique(keys >> 4, return_inverse=True)
+            rows, inv = np.unique(flat.keys >> 4, return_inverse=True)
             counts = np.zeros(rows.size, np.int64)
-            np.add.at(counts, inv, cards)
+            np.add.at(counts, inv, flat.cards)
             out = (rows, counts)
         for a in out:
             a.setflags(write=False)
@@ -473,12 +471,6 @@ class Fragment:
             self._note_batch_write(added, removed)
             return int(add_m.sum())
 
-    def _has_bits(self, row: int, positions: np.ndarray) -> np.ndarray:
-        """Membership of each in-shard position in ``row`` (bool)."""
-        words = self.row_words(row)
-        return ((words[positions >> np.uint64(5)]
-                 >> (positions & np.uint64(31)).astype(np.uint32)) & 1) == 1
-
     def import_bsi(self, positions, stored, bit_depth: int,
                    exists_row: int = 0, offset_row: int = 2) -> int:
         """Batched BSI write (reference fragment.importValue): one lock,
@@ -494,13 +486,19 @@ class Fragment:
         with self.lock:
             added: list = []
             removed: list = []
-            exists_new = ~self._has_bits(exists_row, positions)
+            # the exists row and every bit plane probed in one batched
+            # pass
+            member = merge_kernels.member_matrix(
+                self.bitmap,
+                [exists_row] + [offset_row + i for i in range(bit_depth)],
+                positions)
+            exists_new = ~member[0]
             changed = exists_new.copy()
             if exists_new.any():
                 added.append((exists_row, positions[exists_new]))
             for i in range(bit_depth):
                 want = ((stored >> np.uint64(i)) & np.uint64(1)) == 1
-                cur = self._has_bits(offset_row + i, positions)
+                cur = member[1 + i]
                 add_m, rem_m = want & ~cur, ~want & cur
                 if add_m.any():
                     added.append((offset_row + i, positions[add_m]))

@@ -43,6 +43,15 @@ leaf loses its block index, so it is later dropped rather than
 compressed (as in the reference); a write routed to a compressed or host
 copy invalidates that copy; and every demotion launches the collected
 patches first, so K10 reads the patched words.
+
+A ``generation`` counter moves wherever the reference's does: a write
+routed to a dense entry, an invalidation, each entry an eviction or a
+demotion takes off the card, and ``clear``. The executor's operand memo
+serves its assembled leaves only while it stands, and its listener
+drops them at each move, so an evicted or demoted leaf's memory is
+freed at once. A patch collected for later launch moves it too, so a
+read after a write never takes the memo's shortcut past the lookup
+that launches the collected patches.
 """
 
 from __future__ import annotations
@@ -271,6 +280,15 @@ class DeviceRowCache:
         self._updaters: dict[tuple, tuple[tuple, Callable]] = {}
         self._tag_index: dict[tuple, set[tuple]] = {}
         self._patch_listeners: list = []
+        # Snapshot validity counter: bumped wherever the reference bumps
+        # its own (an entry removed or a dense entry written: write patch,
+        # invalidate, evict, demote, clear), never on an addition. Holders
+        # of (key -> tensor) snapshots taken outside the cache (the
+        # executor's operand memo) serve them only while it is unchanged;
+        # listeners, weakly held zero-argument callables, run on every
+        # bump so an evicted or demoted leaf's memory is freed at once.
+        self.generation = 0
+        self._gen_listeners: list = []
         # One lock for all bookkeeping; writers patch under it. Host
         # decodes run outside it (get_or_build).
         self._lock = threading.RLock()
@@ -306,6 +324,35 @@ class DeviceRowCache:
                     self._rows.move_to_end(key)
                 elif key in self._compressed:
                     self._compressed.move_to_end(key)
+
+    def add_generation_listener(self, fn) -> None:
+        """Register a bound method called (under the cache lock) on every
+        generation bump; held weakly. Listeners must be lock-free and
+        cheap (the executor's clears a dict)."""
+        with self._lock:
+            self._gen_listeners.append(weakref.WeakMethod(fn))
+
+    def remove_generation_listener(self, fn) -> None:
+        """Unregister ``fn`` (and drop dead references)."""
+        with self._lock:
+            live = []
+            for ref in self._gen_listeners:
+                cb = ref()  # bind once: a second ref() could race GC
+                if cb is not None and cb != fn:
+                    live.append(ref)
+            self._gen_listeners = live
+
+    def _bump_generation(self) -> None:
+        """Caller holds the lock: bump, and notify snapshot holders."""
+        self.generation += 1
+        if self._gen_listeners:
+            live = []
+            for ref in self._gen_listeners:
+                cb = ref()
+                if cb is not None:
+                    cb()
+                    live.append(ref)
+            self._gen_listeners = live
 
     def add_patch_listener(self, fn) -> None:
         """Register a bound method called as ``fn(tensor)`` (under the
@@ -526,6 +573,8 @@ class DeviceRowCache:
             hentry = self._host.pop(key, None)
             if hentry is not None:
                 self._host_bytes -= hentry.nbytes
+            if arr is not None or centry is not None or hentry is not None:
+                self._bump_generation()
             self._drop_updater(key)
 
     def invalidate_fragment(self, frag_id: tuple) -> None:
@@ -591,6 +640,7 @@ class DeviceRowCache:
                     self.invalidate(key)
                     continue
                 self._route_locked(key, apply)
+                self._bump_generation()
             if getattr(self._scope, "depth", 0) == 0:
                 self._flush_patches_locked()
 
@@ -649,6 +699,7 @@ class DeviceRowCache:
             self._bytes -= _nbytes(arr)
             freed += _nbytes(arr)
             moved += 1
+            self._bump_generation()
             shape = tuple(arr.shape)
             if key in compact:
                 blocks, idx_host = compact[key]
@@ -669,6 +720,7 @@ class DeviceRowCache:
             centry = self._compressed.pop(key)
             self._compressed_bytes -= centry.nbytes
             freed += centry.nbytes
+            self._bump_generation()
             words = centry.words.cpu().numpy()
             n = words.size // (COMPRESS_BLOCK_WORDS + 1)
             hentry = _HostEntry(
@@ -882,6 +934,7 @@ class DeviceRowCache:
 
     def clear(self) -> None:
         with self._lock:
+            self._bump_generation()
             self._patches.clear()
             self._rows.clear()
             self._block_idx.clear()
@@ -908,6 +961,7 @@ class DeviceRowCache:
             key, arr = self._rows.popitem(last=False)
             block_idx = self._block_idx.pop(key, None)
             self._bytes -= _nbytes(arr)
+            self._bump_generation()
             if block_idx is not None:  # stays, compressed
                 demoted[key] = (arr, block_idx)
                 pending += _compressed_nbytes(block_idx)
@@ -923,6 +977,7 @@ class DeviceRowCache:
             else:
                 key, (_, block_idx) = demoted.popitem(last=False)
                 pending -= _compressed_nbytes(block_idx)
+            self._bump_generation()
             self.evictions += 1
             self._drop_updater(key)
         if demoted:

@@ -174,7 +174,8 @@ SERVING_TOML = (
     'slo-windows = ["30s", "5m"]\ntracing = true\n'
     'trace-sample-rate = 0.5\ntrace-log-dir = "/tmp/traces"\n'
     'long-query-time = "20ms"\nslow-query-ring = 7\n'
-    'result-cache-bytes = 1048576\ningest-workers = 4\n')
+    'result-cache-bytes = 1048576\ningest-workers = 4\n'
+    'heat-half-life = "90s"\n')
 
 # The refused planes' knobs: multi-process serving, the cluster, CDC,
 # the autopilot, the mesh and TLS.
@@ -263,6 +264,11 @@ def test_server_takes_the_serving_knobs(capsys, tmp_path, monkeypatch):
     for name in pserver.SERVING_KNOBS:
         assert seen[name.replace("-", "_")] == want[name], name
     # and the Server applies them at open
+    from pilosa_tpu_torch.serving.rescache import global_result_cache
+    from pilosa_tpu_torch.storage.heat import global_heat
+
+    half_lives = (global_result_cache().half_life_s,
+                  global_heat().half_life_s)
     srv = Server(str(tmp_path / "s"), port=0, device="cpu", **{
         name.replace("-", "_"): want[name]
         for name in pserver.SERVING_KNOBS}).open()
@@ -277,12 +283,70 @@ def test_server_takes_the_serving_knobs(capsys, tmp_path, monkeypatch):
         assert api.slo.windows_s == (30.0, 300.0)
         assert (api.long_query_time, api.long_queries.maxlen) == (0.02, 7)
         assert (api.ingest_workers, api.trace_log_dir) == (3, "/tmp/traces")
-        from pilosa_tpu_torch.serving.rescache import global_result_cache
         from pilosa_tpu_torch.utils.tracing import global_tracer
 
         assert global_result_cache().budget_bytes == 1 << 20
+        assert global_result_cache().half_life_s == 90.0
+        assert global_heat().half_life_s == 90.0
         assert global_tracer().sample_rate == 0.5
     finally:
         srv.close()
-        global_result_cache().configure(0)
+        global_result_cache().configure(0, half_life_s=half_lives[0])
+        global_heat().half_life_s = half_lives[1]
         global_tracer().sample_rate = 0.0
+
+
+def test_heat_half_life_reaches_both_planes_as_the_reference(tmp_path,
+                                                            monkeypatch):
+    """``heat-half-life``, the same config file for a reference Server and
+    a port Server: ``/debug/rescache`` reports the same ``halfLifeS``,
+    and the heat maps decay alike (one fake clock for both)."""
+    import json
+    import tomllib
+    import urllib.request
+
+    import pilosa_tpu.storage.heat as jheat
+    import pilosa_tpu_torch.storage.heat as pheat
+    from pilosa_tpu.server import Server as JServer
+    from pilosa_tpu.server import ServerConfig as JConfig
+    from pilosa_tpu_torch.server.server import config_from_toml
+    from torch_serving_helpers import fresh_planes
+
+    for k in [k for k in os.environ if k.startswith("PILOSA_TPU_")]:
+        monkeypatch.delenv(k)
+    now = [1000.0]
+
+    class FakeTime:
+        @staticmethod
+        def monotonic():
+            return now[0]
+
+    monkeypatch.setattr(jheat, "time", FakeTime)
+    monkeypatch.setattr(pheat, "time", FakeTime)
+    toml = tmp_path / "node.toml"
+    toml.write_text('heat-half-life = "90s"\nresult-cache-bytes = 1048576\n')
+    raw = tomllib.loads(toml.read_text())
+    with fresh_planes():
+        jsrv = JServer(JConfig.from_dict({
+            **raw, "data-dir": str(tmp_path / "j"), "bind": "localhost",
+            "port": 0})).open()
+        psrv = Server(str(tmp_path / "p"), port=0, device="cpu",
+                      **config_from_toml(str(toml))).open()
+        try:
+            pages = []
+            for port in (jsrv.port, psrv.port):
+                with urllib.request.urlopen(
+                        f"http://localhost:{port}/debug/rescache",
+                        timeout=30) as r:
+                    pages.append(json.loads(r.read()))
+            assert pages[1]["halfLifeS"] == pages[0]["halfLifeS"] == 90.0
+            heats = (jheat.global_heat(), pheat.global_heat())
+            assert heats[1].half_life_s == heats[0].half_life_s == 90.0
+            for h in heats:
+                h.record_access("i", "f", [0], n=8.0)
+            now[0] += 180.0  # two half-lives
+            rows = [h.hottest(1) for h in heats]
+            assert rows[1] == rows[0] and rows[1][0]["access"] == 2.0
+        finally:
+            psrv.close()
+            jsrv.close()

@@ -9,10 +9,11 @@ but ``wall_ms`` and ``device_ms`` (times); ``/debug/heatmap`` rows; the
 slow-query ring's size and total; the 400s of ``/debug/tenants``; the
 kill switch. Named differences, each asserted: a plan with shift or
 BSI-comparison steps launches them before its Count (one more
-``dispatches`` than the reference's one fused program); the port keeps
-no operand memo; a host-tier hit moves the compact blocks and their
-index to the card (the bytes that cross), where the reference notes the
-dense size.
+``dispatches`` than the reference's one fused program); a host-tier hit
+moves the compact blocks and their index to the card (the bytes that
+cross), where the reference notes the dense size. The operand memo
+answers a repeated query in both packages alike: ``operandMemoHit`` and
+the whole tree are equal.
 """
 
 import json
@@ -97,12 +98,12 @@ def test_profile_trees_match_reference(pair):
         is True
     assert p["totals"]["containers"] == j["totals"]["containers"] == {
         "array": 0, "bitmap": 0, "run": 0}
-    # the reference's operand memo answers (no leaf records); the port
-    # has none: its leaves hit the residency cache, each recorded
-    assert j["calls"][0]["operandMemoHit"] is True
-    assert p["calls"][0]["operandMemoHit"] is False
-    assert [leaf["cacheHit"] for leaf in p["calls"][0]["leaves"]] == [True]
-    assert p["totals"]["rowCacheHits"] == 1
+    # the operand memo answers in both packages: no leaf records, no
+    # residency lookups
+    assert p == j
+    assert p["calls"][0]["operandMemoHit"] is True
+    assert "leaves" not in p["calls"][0]
+    assert p["totals"]["rowCacheHits"] == 0
 
 
 def test_profile_rows_and_refusals_match_reference(pair):

@@ -937,6 +937,107 @@ def test_residency_tiers_round_trip_on_the_card(dev):
     assert key not in cache._rows and key not in cache._compressed
 
 
+def _memo_dir(path, rows: int) -> dict:
+    """Rows 0..rows-1 of a set field f over 2 shards, ~1/4 of the bits
+    set, written on the CPU; returns the host words of each row."""
+    from pilosa_tpu_torch.storage import Holder, load_from_dense
+
+    rng = np.random.default_rng(120)
+    words = {r: rng.integers(0, 1 << 32, 2 * W, dtype=np.uint32)
+             & rng.integers(0, 1 << 32, 2 * W, dtype=np.uint32)
+             for r in range(rows)}
+    h = Holder(str(path), device="cpu").open()
+    load_from_dense(h, {"f": words}, index="i")
+    h.close()
+    return words
+
+
+def test_memo_hit_after_a_k3_patch_reads_the_patched_words(dev, tmp_path):
+    """The operand memo on the card: a Count served from the memo after a
+    Set and an import reads the words K3 patched in place, the same
+    tensor the memo and the cache hold, equal to the CPU's answer."""
+    from pilosa_tpu_torch.server.api import API
+    from pilosa_tpu_torch.storage import Holder
+
+    import shutil
+
+    words = _memo_dir(tmp_path / "d", 2)
+    free = np.flatnonzero(np.unpackbits(
+        (~words[0] & words[1]).view(np.uint8), bitorder="little"))
+    q = "Count(Intersect(Row(f=0), Row(f=1)))"
+    answers = {}
+    for device in ("cpu", "cuda"):
+        # each device writes into a copy of its own
+        shutil.copytree(tmp_path / "d", tmp_path / device)
+        h = Holder(str(tmp_path / device), device=device).open()
+        try:
+            api = API(h)
+            ex = api.executor
+            got = [api.query_raw("i", q)[0] for _ in range(2)]
+            assert ex.memo_hits >= 1
+            leaf = next(iter(ex._operand_memo.values()))[2][0]
+            k3 = kernels.launches()["word_patch"]
+            assert api.query_raw("i", f"Set({int(free[0])}, f=0)") == [True]
+            api.import_bits("i", "f", [0], [int(free[1])])
+            if device == "cuda":
+                assert kernels.launches()["word_patch"] == k3 + 2
+            hits = ex.memo_hits
+            got += [api.query_raw("i", q)[0] for _ in range(3)]
+            assert ex.memo_hits >= hits + 2
+            # the leaf was patched in place, not replaced
+            assert next(iter(ex._operand_memo.values()))[2][0] is leaf
+            answers[device] = got
+        finally:
+            h.close()
+    assert answers["cuda"] == answers["cpu"]
+    assert answers["cuda"][2] == answers["cuda"][0] + 2
+
+
+def test_eviction_frees_a_leaf_the_memo_held(dev, tmp_path):
+    """An eviction bumps the cache's generation, whose listener clears
+    the executor's operand memo: the evicted leaf's device memory is
+    freed at once, though the memo held it a query earlier."""
+    import gc
+    import weakref
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.storage import Holder
+
+    _memo_dir(tmp_path / "d", 3)
+    leaf = 2 * W * 4
+    # one dense leaf: its bits are dense, so it is dropped, not compressed
+    h = Holder(str(tmp_path / "d"), device="cuda",
+               budget_bytes=leaf + leaf // 2).open()
+    try:
+        ex = Executor(h, device="cuda")
+        for _ in range(2):
+            ex.execute("i", "Count(Row(f=0))")
+        assert ex.memo_hits == 1 and ex._operand_memo
+        held = next(iter(ex._operand_memo.values()))[2][0]
+        ref = weakref.ref(held)
+        del held
+        gc.collect()
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        gen = h.cache.generation
+        ex.execute("i", "Count(Row(f=1))")  # evicts row 0's leaf
+        gc.collect()
+        torch.cuda.synchronize()
+        assert h.cache.generation > gen and h.cache.evictions == 1
+        assert ref() is None  # nothing holds the evicted leaf
+        # row 1's leaf went up and row 0's came down: no net growth
+        assert torch.cuda.memory_allocated() - before < leaf // 2
+        got = ex.execute("i", "Count(Row(f=0))")[0]
+    finally:
+        h.close()
+    hc = Holder(str(tmp_path / "d"), device="cpu").open()
+    try:
+        assert got == Executor(hc, device="cpu").execute(
+            "i", "Count(Row(f=0))")[0]
+    finally:
+        hc.close()
+
+
 def test_quarantine_and_self_heal_on_the_card(dev, tmp_path):
     """A data dir with a rotten fragment opens on the card with it
     quarantined; a byte flipped under a resident leaf is healed by a

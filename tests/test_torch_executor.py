@@ -97,12 +97,16 @@ def test_writes_then_reads_match_reference(pair):
 def test_submit_then_set_reads_the_pre_write_count(pair):
     """A queued micro-batch keeps the leaves it captured at submit: the
     reference patches functionally; the port patches in place after
-    launching the pending group."""
+    launching the pending group, whose leaves came from the operand
+    memo."""
     pql = "Count(Intersect(Row(f=1), Row(g=7)))"
     for ex in pair:
         before = ex.execute("i", pql)[0]  # leaves resident
         col = 3 * W * 32 - 1
+        hits = getattr(ex, "memo_hits", None)
         pending = ex.submit("i", pql) + ex.submit("i", "Count(Row(f=1))")
+        if hits is not None:  # the port: the submit's leaves are memoized
+            assert ex.memo_hits == hits + 1
         assert ex.execute("i", f"Set({col}, f=1) Set({col}, g=7)") == \
             [True, True]
         assert pending[0].result() == before

@@ -838,8 +838,16 @@ def test_refused_write_patches_nothing_on_the_device(seed_dir, tmp_path,
         key = next(k for k in h.cache._rows if k[0] == "stack")
         plane = faults.install_disk()
         rule = plane.add("fsync", path=str(pdir), errno_=errno.ENOSPC)
-        with pytest.raises(OSError, match="No space left"):
-            api.query_raw("i", "Set(3, f=1)")
+        # the fault fires once Set(3)'s barrier waits, so the write meets
+        # the fsync's own error, not "this write's group was lost"
+        undo = _hold_wal_fault_until_barrier_waits(plane, h.wal)
+        try:
+            with pytest.raises(OSError, match="No space left"):
+                api.query_raw("i", "Set(3, f=1)")
+        finally:
+            undo()
+        # the waiters wake before the latch trips: wait for the trip
+        _wait_healthy([h], True)
         assert calls == [1] and h.health.degraded
         words = h.cache._rows[key].clone()
         for write in (lambda: api.query_raw("i", "Set(4, f=1)"),

@@ -392,11 +392,24 @@ TIMING = ("pilosa_tpu_wal_groups_total", "pilosa_tpu_wal_fsyncs_total",
           "pilosa_tpu_wal_checkpoints_total")
 
 
+# the host-path kernel and merge-kernel counters: one set a process,
+# moved by every test's bitmaps, so compared by their movement over the
+# test's requests
+PROCESS_WIDE = ("pilosa_tpu_hostpath_", "pilosa_tpu_ingest_merge_")
+
+
 def test_metrics_families_match_reference(servers):
+    before = [_families(_req(s, "GET", "/metrics")[1].decode())
+              for s in servers[:2]]
     for path, body in (("/index/i/query", b"Count(Row(f=1)) Row(g=7)"),
                        ("/index/i/query", b"Set(9, f=1) Count(Row(f=1))"),
                        ("/index/i/field/f/import",
                         b'{"rows": [2, 3], "columns": [4, 5]}'),
+                       ("/index/i/field/f/import",
+                        json.dumps({"rows": [4] * 200, "columns": list(
+                            range(0, 2000, 10))}).encode()),
+                       ("/index/i/field/fare/import-value",
+                        b'{"columns": [1, 3, 70000], "values": [9, 1, 4]}'),
                        ("/index/i/query", b"TopN(f) Count(Row(f=2))")):
         _same(servers, "POST", path, body)
     jstatus, jpage = _req(servers[0], "GET", "/metrics")
@@ -408,15 +421,33 @@ def test_metrics_families_match_reference(servers):
                  "pilosa_tpu_wal_appended_ops_total",
                  "pilosa_tpu_wal_commit_recoveries_total",
                  "pilosa_tpu_storage_degraded",
-                 "pilosa_tpu_scrub_passes_total"):
+                 "pilosa_tpu_scrub_passes_total",
+                 "pilosa_tpu_hostpath_kernel_calls_total",
+                 "pilosa_tpu_hostpath_dense_decodes_total",
+                 "pilosa_tpu_ingest_merge_kernel_calls_total",
+                 "pilosa_tpu_ingest_merge_loop_fallbacks_total",
+                 "pilosa_tpu_ingest_merge_probe_calls_total"):
         assert name in pf, name
+    # the two blocks in the reference's order
+    assert [n for n in pf if n.startswith(PROCESS_WIDE)] == \
+        [n for n in jf if n.startswith(PROCESS_WIDE)]
     for name, (help_, type_, value) in pf.items():
         assert name in jf, name
         assert (help_, type_) == tuple(jf[name][:2]), name
         if name in TIMING or name.startswith("pilosa_tpu_integrity_"):
             continue
+        if name.startswith(PROCESS_WIDE):
+            assert value - before[1][name][2] == \
+                jf[name][2] - before[0][name][2], name
+            continue
         assert value == jf[name][2], name
     assert pf["pilosa_tpu_wal_appended_ops_total"][2] > 0
+    moved = {n: pf[n][2] - before[1][n][2] for n in pf
+             if n.startswith(PROCESS_WIDE)}
+    assert moved["pilosa_tpu_hostpath_dense_decodes_total"] > 0
+    assert moved["pilosa_tpu_ingest_merge_kernel_calls_total"] > 0
+    assert moved["pilosa_tpu_ingest_merge_loop_fallbacks_total"] > 0
+    assert moved["pilosa_tpu_ingest_merge_probe_calls_total"] > 0
 
 
 def test_deletes_match_reference(servers):
