@@ -9,7 +9,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    fastbits host library (``pilosa_tpu_torch/native``, g++) and fail if
    it is not active: row decodes, small write merges and bit packing
    must run natively, not through their numpy fallbacks;
-2. build the eleven CUDA kernels from ``pilosa_tpu_torch/csrc`` (one
+2. build the fifteen CUDA kernels from ``pilosa_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card,
    bit-exact, at the main paths' shapes (int32[1024, 32768] leaves, a
@@ -30,13 +30,16 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    all-zero leaf, beside index_select and zeros + index_copy_, K10 as
    the cache calls it (into one compressed entry's storage), alone on a
    device index, and batched over 16 month leaves in one launch, its
-   whole call apart from its device time (a CUDA graph of launches).
+   whole call apart from its device time (a CUDA graph of launches),
+   and the mesh lanes K12-K15 at the mesh path's shapes (8 members of
+   128 slots: a Count's one lane, the taxi candidates) and K14/K15 also
+   over 65 536 candidates in 4 groups, K13 beside torch.sum.
    Meanwhile worker processes (one per field, three for the time
    field's views, one for the existence rows; the pickup_year worker
    also writes payment_type, the repository worker the users index and
    the 84 pickup_month rows)
    write the data directory from the same host words;
-4. drive eight main paths through the port's HTTP server on 127.0.0.1 over
+4. drive nine main paths through the port's HTTP server on 127.0.0.1 over
    that 1B-column (1024-shard) data directory, written through the port's
    Holder, every answer checked against a numpy oracle over the same
    host words, the kernels' launch counters zeroed just before each path
@@ -100,14 +103,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       in upstream pilosa's roaring layout), one K3 launch a request, and
       one body over the limit (413); 16 closed-loop protobuf clients
       (QueryRequest in, QueryResponse out, decoded by the port's
-      decode_results_json) for 3 s and the same five shapes as JSON
-      for 3 s (an Intersect Count, a filtered TopN, a Sum, a filtered
+      decode_results_json) for 2 s and the same five shapes as JSON
+      for 2 s (an Intersect Count, a filtered TopN, a Sum, a filtered
       GroupBy and a Row over two shards); a protobuf ImportRequest and
       ImportValueRequest of 4096 bits and values (one K3 launch each);
       the /export CSV (about 10.7 M lines) against the oracle's SHA-256;
       /metrics parsed; the field deleted (its leaves leave the card, its
       directory the disk, a query of it gets the reference's 400),
       re-created empty on the card and deleted again;
+   i. the mesh path (after the wire path; its letter follows the
+      serving path's): ``DistExecutor`` over ``make_mesh(8,
+      devices=[cuda:0], groups=g)`` on the server's holder at 1024
+      shards, the flat 1 x 8 mesh, then 2 x 4 and 4 x 2 with the 8-bit
+      ranking lane (one pass verifying it against the lossless
+      ranking): the five Star-Trace Counts through ``execute`` and
+      pipelined through ``submit`` (micro-batched), a Row gather
+      (roaring frames on the 2-D meshes), the tip's Sum, Min, Max and a
+      Range count, taxi queries 1-4 (Q4 also with its dimensions
+      reversed: a quantized pruning level of 512 candidates) and a Set
+      and its Clear through HTTP between mesh reads of the leaf they
+      patch; every answer the oracle's and the single-device
+      executor's; K12-K15's launches per query kind, the reduction's
+      dense and actual bytes, the quantized windows and ms per query
+      printed;
    g. the tier path (the NYC TLC months as Litwintschik's benchmark
       loads them): a set field ``pickup_month`` of 84 contiguous-range
       rows on ``rides``; the budget lowered to 16 dense months beside
@@ -139,8 +157,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       per-tenant gate of 2 in flight (429 with Retry-After, every 200
       against the oracle); an ``X-Pilosa-Deadline-Ms: 1`` GroupBy (taxi
       query 4) queued in a wave behind a Count of a cold leaf is a
-      504; ``POST /debug/trace-device?secs=1`` under load (the trace's
-      K1 kernel events counted); ``/debug/traces``, ``/debug/slo``,
+      504; ``POST /debug/trace-device?secs=1`` under load, asked once,
+      the load running until it answers (the trace's K1 kernel events
+      counted); ``/debug/traces``, ``/debug/slo``,
       ``/debug/vars``, ``/debug/queries`` and ``/metrics`` with the
       serving planes' families;
 5. the crash phase, on a 64-shard directory of its own: a port server
@@ -171,7 +190,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 Before the kernels JSON a line gives the set-up seconds (the data dirs
 waited for, the server's open and close, each path's first touch)
-beside an earlier run's on the same card (R6 in PERF.md). The
+beside an earlier run's on the same card (H5 in PERF.md). The
 second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
 """
@@ -211,7 +230,7 @@ SPARSE_ROW = 10
 FARE_MAX = (1 << 20) - 1   # cents; bit depth 20
 FARE_DEPTH = 20           # even: the oracle reads the planes in pairs
 TIP_MAX = 100_000
-N_TIPS = 100_000
+N_TIPS = 50_000            # 100 000 until the mesh path came
 IMPORT_BATCH = 5000        # the server's max-writes-per-request
 FARE_THRESHOLDS = (100_000, 524_287, 1_000_000)
 FARE_BETWEEN = (250_000, 750_000)
@@ -268,10 +287,12 @@ TAXI_FIELDS = {
 # Device bytes the server may keep resident: the rides path's 7.2 GB
 # beside the taxi path's 10.25 GiB of dimension rows and TopN chunks
 SERVER_BUDGET_BYTES = 64 << 30
-# R6's set-up (an earlier run of this script on an NVIDIA H100 80GB HBM3
-# at 700 W, PERF.md section 5), printed beside this run's; R6 did not
-# print its paths' first touches
-R6_SETUP_S = {"data_dirs": 325.9, "open": 206.0, "close": 78.5}
+# H5's set-up (an earlier run of this script on an NVIDIA H100 80GB HBM3
+# at 700 W, before the mesh path), printed beside this run's
+H5_SETUP_S = {"data_dirs": 345.8, "open": 208.5, "close": 72.8,
+              "first_touch Star-Trace": 1.851, "first_touch rides": 9.006,
+              "first_touch taxi": 19.018, "first_touch time": 4.534,
+              "first_touch keys": 4.550}
 SETUP_S: dict = {}  # this run's set-up seconds, filled as they pass
 
 
@@ -1320,11 +1341,12 @@ def _check_crash_time_mutex(holder, ex, oracle: dict, inflight: list
 
 def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                    taxi: dict, events: dict, users: dict, wire: dict,
-                   months: dict, rng, kernels, verify_on_load: bool) -> dict:
+                   months: dict, mesh: dict, rng, kernels,
+                   verify_on_load: bool) -> dict:
     """Phase 4 through one server: the Star-Trace path, the rides path,
     the taxi path, the serving-envelope path, the time path, the keys
-    path, the wire path and the tier path (last: it lowers the residency
-    budget), each with the
+    path, the wire path, the mesh path and the tier path (last: it lowers
+    the residency budget), each with the
     launch counters zeroed just before it and read just after. Returns
     {path: (numbers, launches)}."""
     from pilosa_tpu_torch.server import Server
@@ -1356,6 +1378,7 @@ def run_main_paths(data_dir: str, words: dict, rides: dict, oracle: dict,
                     server, keys_truth(taxi["keys"], users), taxi["keys"],
                     users)),
                 ("wire", lambda: _serve_wire(server, wire, kernels)),
+                ("mesh", lambda: _serve_mesh(server, mesh, words, kernels)),
                 ("tier", lambda: _serve_tier(server, months, rng))):
             kernels.reset_launches()
             t0 = time.perf_counter()
@@ -1711,7 +1734,8 @@ def _serve_rides(server, rides: dict, oracle: dict) -> dict:
     stats["tip_import_s"] = time.perf_counter() - t0
     print(f"tip import ({N_TIPS} values through /import-value, durability "
           f"{server.holder.wal.mode}): {stats['tip_import_s']:.3f}s; with "
-          "per-op fsyncs it took 89.249 s on an H100 80GB HBM3 at 700 W",
+          "per-op fsyncs 100 000 of them took 89.249 s on an H100 80GB "
+          "HBM3 at 700 W",
           flush=True)
     if changed != N_TIPS:
         fail(f"import-value changed {changed} columns, not {N_TIPS}")
@@ -2056,8 +2080,7 @@ ENVELOPE_CLIENTS = 16
 # cut from 10 s, 3 s and 3 s to hold the run under 1 100 s
 ENVELOPE_LOOP_S = 5.0     # each of the pipeline and the direct loops
 TENANT_LOOP_S = 2.0       # two tenants against the per-tenant gate
-TRACE_LOAD_S = 2.0        # the load around a 1 s trace-device capture
-TRACE_ATTEMPTS = 3        # captures asked for until one records kernels
+TRACE_LEAD_S = 0.5        # the load's start before a trace-device capture
 TENANT_INFLIGHT = 2       # qos-tenant-inflight of that loop
 ENVELOPE_ROW = 20         # a stargazer row of known bits for PROFILE
 ENVELOPE_ROW_BITS = 4096
@@ -2225,27 +2248,27 @@ def _deadline_504(server, q4: str, want, events: dict) -> dict:
 
 def _trace_under_load(server, shapes: list, truth: dict) -> dict:
     """``POST /debug/trace-device?secs=1`` while 16 clients load the
-    server; the Chrome trace's kernel events counted by name. A capture
-    that recorded no kernel answers 500 and writes no file (some
-    ``torch.profiler`` sessions on the H100 record the CPU side only:
-    ``scripts/trace_probe.py``); it is counted and the capture asked
-    again, ``TRACE_ATTEMPTS`` times at most."""
-    for attempt in range(1, TRACE_ATTEMPTS + 1):
-        box: dict = {}
-        load = threading.Thread(target=lambda: box.update(lat=timed_loop(
-            server.port, "repository", shapes, truth, ENVELOPE_CLIENTS,
-            TRACE_LOAD_S)))
-        load.start()
-        time.sleep(0.5)
+    server, asked once; the Chrome trace's kernel events counted by name.
+    The clients start TRACE_LEAD_S before the request and stop once it
+    has answered, so the whole of the capture's window sees launches
+    however long the profiler takes to start recording (a fixed-length
+    load could end before a slow start, and the capture then recorded no
+    kernel: ``scripts/trace_probe.py --window``)."""
+    box: dict = {}
+    done = threading.Event()
+    load = threading.Thread(target=lambda: box.update(lat=timed_loop(
+        server.port, "repository", shapes, truth, ENVELOPE_CLIENTS, 600.0,
+        until=done)))
+    load.start()
+    time.sleep(TRACE_LEAD_S)
+    try:
         status, _, body = _query_json(server.port, "",
                                       "/debug/trace-device?secs=1")
+    finally:
+        done.set()
         load.join(timeout=600)
-        if status == 200:
-            break
-        if (status != 500 or b"no CUDA kernel event" not in body
-                or attempt == TRACE_ATTEMPTS):
-            fail(f"trace-device answered {status} at attempt {attempt}: "
-                 f"{body[:300]!r}")
+    if status != 200:
+        fail(f"trace-device answered {status}: {body[:300]!r}")
     out = json.loads(body)
     files = sorted(Path(out["logDir"]).glob("*.json"))
     if len(files) != 1:
@@ -2266,8 +2289,7 @@ def _trace_under_load(server, shapes: list, truth: dict) -> dict:
     if not k1:
         fail(f"the device trace holds no tree_count kernel: "
              f"{sorted(kernels_seen)[:8]}; events by category {cats}")
-    return {"trace_attempts": attempt,
-            "trace_seconds": out["seconds"], "trace_bytes": size,
+    return {"trace_seconds": out["seconds"], "trace_bytes": size,
             "trace_events": len(events), "trace_kernel_events": kernels_seen,
             "trace_load_queries": len(box.get("lat", []))}
 
@@ -2405,6 +2427,17 @@ def _serve_envelope(server, words: dict, taxi: dict, events: dict,
                 if got != want:
                     fail(f"after the {name}: {counted} answered {got}, the "
                          f"oracle {want} (a stale result-cache hit)")
+        # the mesh path reads these rows after this path's writes
+        st_after = dict(st)
+        sg0_after = st[("stargazer", 0)].copy()
+        _set_bits(sg0_after, np.array([shard * WORDS * 32 + pos
+                                       for shard, pos in picks]))
+        st_after[("stargazer", 0)] = sg0_after
+        _, MESH_TRUTH["star"] = _envelope_shapes(st_after)
+        if MESH_TRUTH["star"][counted] != want:
+            fail("the Star-Trace truth after the serving writes is off")
+        MESH_TRUTH["row"] = (f"Row(stargazer={ENVELOPE_ROW})",
+                             row_cols.tolist())
         m = cache.metrics()
         stats["rescache"] = {k: m[k] for k in (
             "result_cache_hits_total", "result_cache_misses_total",
@@ -3146,8 +3179,8 @@ SFF = "store_and_fwd_flag"
 SFF_P = 0.01
 WIRE_CLIENTS = 16
 # cut from 20 s and 10 s, then 5 s each, for the serving-envelope path
-WIRE_PROTO_S = 3.0    # the protobuf clients' closed loop
-WIRE_JSON_S = 3.0     # the same shapes as JSON
+WIRE_PROTO_S = 2.0    # the protobuf clients' closed loop (3.0 until the
+WIRE_JSON_S = 2.0     # mesh path came); the same shapes as JSON
 WIRE_WRITES = 4096    # bits of the protobuf ImportRequest, values of the
 WIRE_SHARDS = (0, 1)  # ImportValueRequest; the Row shape's shards
 WIRE_SERIAL = 16      # import-roaring requests sent one at a time
@@ -3854,6 +3887,313 @@ def check_block_kernels(torch, kernels, dev) -> list:
     }]
 
 
+# ---------------------------------------------------------------- mesh path
+
+MESH_MEMBERS = 8  # members of one card, as the reference's 8 forced devices
+# (groups, quantized ranking) of the mesh path's three meshes: the flat
+# 1 x 8, then 2 x 4 and 4 x 2 with the 8-bit ranking lane
+MESH_CONFIGS = ((1, False), (2, True), (4, True))
+MESH_ROUNDS = 4    # each Star-Trace Count shape submitted this often a round
+MESH_TIP_RANGE = 50_000
+# the mesh path's oracle inputs the serving path leaves behind: the
+# Star-Trace Counts after its writes, and its PROFILE row's columns
+MESH_TRUTH: dict = {}
+
+
+def _lane_case(torch, dev, members: int, n: int, seed: int):
+    """Split-channel partials int32[members, 2, n] as the mesh's members
+    give them at 1024 shards (each member's sums of 128 slots)."""
+    rng = np.random.default_rng(seed)
+    lo = rng.integers(0, 128 * 32767 + 1, (members, n))
+    hi = rng.integers(0, 128 * 32 + 1, (members, n))
+    return torch.from_numpy(np.stack([lo, hi], 1).astype(np.int32)).to(dev)
+
+
+def check_mesh_kernels(torch, kernels, dev) -> list:
+    """Phase 3, the mesh lanes: K12-K15 against their plain versions,
+    bit-exact (values and lane dtypes), at the mesh path's shapes (8
+    members of 128 slots: a Count's N = 1, the taxi candidates 4, 80 and
+    512) and K14/K15 also at R = 65 536 over 4 groups. Times: the whole
+    wrapper call (host-bound at these sizes) and the plain version, the
+    byte bound beside the launch floor; K13 beside torch.sum over the
+    members' int32 partials, the one PyTorch call that computes the flat
+    fold."""
+    from pilosa_tpu_torch.parallel import reduction
+
+    floor = cuda_ms(torch, lambda: kernels.launch_floor(dev), launches=100)
+    err = 0
+    for n, groups in ((1, 2), (1, 4), (4, 2), (80, 4), (512, 2)):
+        parts = _lane_case(torch, dev, MESH_MEMBERS, n, n + groups)
+        slots = N_SHARDS // groups
+        widths = tuple(reduction.lane_dtype_bytes(b) for b in
+                       reduction.split_channel_bounds(slots))
+        got = kernels.lane_pack(parts, groups, widths)
+        want = kernels.lane_pack_plain(parts, groups, widths)
+        for g, w in zip(got, want):
+            if g.dtype != w.dtype or not torch.equal(g, w):
+                fail(f"lane_pack differs from its plain version at n={n}, "
+                     f"groups={groups}")
+        folded = kernels.lane_fold(got)
+        if not torch.equal(folded, kernels.lane_fold_plain(want)):
+            fail(f"lane_fold differs from its plain version at n={n}")
+        flat = kernels.lane_fold((parts[:, 0], parts[:, 1]))
+        if not torch.equal(flat, parts.sum(0, dtype=torch.int32)):
+            fail(f"lane_fold's flat sum differs at n={n}")
+        err = max(err, max_abs_err(torch, folded, flat))
+        best = parts[:, 0].to(torch.int64) - (1 << 40)
+        for mode in ("max", "min"):
+            lanes = kernels.lane_pack(best, groups, 8, mode)
+            if not torch.equal(lanes, kernels.lane_pack_plain(
+                    best, groups, 8, mode)) or not torch.equal(
+                    kernels.lane_fold(lanes, mode),
+                    kernels.lane_fold_plain(lanes, mode)):
+                fail(f"the {mode} lanes differ from their plain versions")
+    for rows, groups in ((4, 2), (80, 4), (512, 2), (1 << 16, 4)):
+        parts = _lane_case(torch, dev, MESH_MEMBERS, rows, rows)
+        parts[:, :, :256] %= 2  # an all-small block: scale 1
+        q, s = kernels.quant_pack(parts, groups)
+        qp, sp = kernels.quant_pack_plain(parts, groups)
+        if not (torch.equal(q, qp) and torch.equal(s, sp)):
+            fail(f"quant_pack differs from its plain version at R={rows}")
+        out = kernels.quant_fold(q, s, rows)
+        if not torch.equal(out, kernels.quant_fold_plain(qp, sp, rows)):
+            fail(f"quant_fold differs from its plain version at R={rows}")
+    # the Count's lanes (N = 1, 2 x 4) for K12/K13, R = 65 536 over 4
+    # groups for K14/K15
+    parts = _lane_case(torch, dev, MESH_MEMBERS, 1, 3)
+    widths = tuple(reduction.lane_dtype_bytes(b) for b in
+                   reduction.split_channel_bounds(N_SHARDS // 2))
+    lanes = kernels.lane_pack(parts, 2, widths)
+    rows = 1 << 16
+    qparts = _lane_case(torch, dev, MESH_MEMBERS, rows, rows)
+    q, s = kernels.quant_pack(qparts, 4)
+    nb = s.shape[1]
+    lane_bytes = 2 * (widths[0] + widths[1])
+    common = {"route": "cuda", "max_abs_err": err, "bound_by": "bytes",
+              "launch_floor_ms": floor}
+    return [{
+        **common, "name": "lane_pack",
+        "source": "pilosa_tpu_torch/csrc/lane_pack.cu",
+        "replaces": "pilosa_tpu/parallel/reduction.py:211",
+        "ms": cuda_ms(torch, lambda: kernels.lane_pack(parts, 2, widths),
+                      launches=100),
+        "plain_ms": cuda_ms(torch, lambda: kernels.lane_pack_plain(
+            parts, 2, widths), launches=100),
+        "bound_ms": _bytes_ms(MESH_MEMBERS * 2 * 4 + lane_bytes),
+        "library_ms": None,
+        "shape": f"int32[{MESH_MEMBERS}, 2, 1] -> lanes [2, 1] of "
+                 f"{widths} bytes",
+    }, {
+        **common, "name": "lane_fold",
+        "source": "pilosa_tpu_torch/csrc/lane_fold.cu",
+        "replaces": "pilosa_tpu/parallel/reduction.py:221",
+        "ms": cuda_ms(torch, lambda: kernels.lane_fold(lanes), launches=100),
+        "plain_ms": cuda_ms(torch, lambda: kernels.lane_fold_plain(lanes),
+                            launches=100),
+        "bound_ms": _bytes_ms(lane_bytes + 2 * 4),
+        "library_ms": cuda_ms(torch, lambda: torch.sum(
+            parts, 0, dtype=torch.int32), launches=100),
+        "flat_ms": cuda_ms(torch, lambda: kernels.lane_fold(
+            (parts[:, 0], parts[:, 1])), launches=100),
+        "shape": f"lanes [2, 1] of {widths} bytes -> int32[2, 1] (flat: "
+                 f"int32[{MESH_MEMBERS}, 2, 1])",
+    }, {
+        **common, "name": "quant_pack",
+        "source": "pilosa_tpu_torch/csrc/quant_pack.cu",
+        "replaces": "pilosa_tpu/parallel/reduction.py:132",
+        "ms": cuda_ms(torch, lambda: kernels.quant_pack(qparts, 4),
+                      launches=50),
+        "plain_ms": cuda_ms(torch, lambda: kernels.quant_pack_plain(
+            qparts, 4), launches=20),
+        "bound_ms": _bytes_ms(MESH_MEMBERS * 2 * rows * 4
+                              + 4 * nb * (256 + 4)),
+        "library_ms": None,
+        "shape": f"int32[{MESH_MEMBERS}, 2, {rows}] -> uint8[4, {nb}, 256] "
+                 f"+ int32[4, {nb}]",
+    }, {
+        **common, "name": "quant_fold",
+        "source": "pilosa_tpu_torch/csrc/quant_fold.cu",
+        "replaces": "pilosa_tpu/parallel/reduction.py:169",
+        "ms": cuda_ms(torch, lambda: kernels.quant_fold(q, s, rows),
+                      launches=50),
+        "plain_ms": cuda_ms(torch, lambda: kernels.quant_fold_plain(
+            q, s, rows), launches=20),
+        "bound_ms": _bytes_ms(4 * nb * (256 + 4) + 2 * (rows + nb) * 4),
+        "library_ms": None,
+        "shape": f"uint8[4, {nb}, 256] + int32[4, {nb}] -> "
+                 f"int32[2, {rows + nb}]",
+    }]
+
+
+def _q4_by_distance(q4: str, groups: list) -> tuple[str, list]:
+    """Q4 with its dimensions reversed (trip_distance first, so its second,
+    quantized pruning level holds 64 x 8 = 512 candidates: two scale
+    blocks) and its oracle's groups in that order."""
+    names = q4[len("GroupBy("):-1].split(", ")
+    pql = "GroupBy(" + ", ".join(reversed(names)) + ")"
+    out = [{"group": g["group"][::-1], "count": g["count"]} for g in groups]
+    out.sort(key=lambda g: tuple(d["rowID"] for d in g["group"]))
+    return pql, out
+
+
+def mesh_truth(taxi_truth: dict, rides: dict, wire: dict) -> dict:
+    """The mesh path's answers from the oracles: the tips as the rides and
+    wire paths leave them, the taxi queries 1-4 (Q4 after the taxi path's
+    Set, and reversed) and Q1 cut to n=1; the Star-Trace Counts and the
+    Row come from the serving path (MESH_TRUTH)."""
+    tips = np.concatenate([rides["tip_vals"], wire["tip_vals"]])
+    lo, hi = int(tips.min()), int(tips.max())
+    truth = {
+        'Sum(field="tip")': wire["tip_sum_after"],
+        'Min(field="tip")': {"value": lo, "count": int((tips == lo).sum())},
+        'Max(field="tip")': {"value": hi, "count": int((tips == hi).sum())},
+        f"Count(Range(tip > {MESH_TIP_RANGE}))":
+            int((tips > MESH_TIP_RANGE).sum()),
+    }
+    t = taxi_truth["truth"]
+    for pql in ("TopN(cab_type)",
+                'GroupBy(Rows(passenger_count), aggregate=Sum(field="fare"))',
+                "GroupBy(Rows(passenger_count), Rows(pickup_year))"):
+        truth[pql] = t[pql]
+    truth["TopN(cab_type, n=1)"] = t["TopN(cab_type)"][:1]
+    truth[taxi_truth["q4"]] = taxi_truth["q4_after"]
+    q4r, groups = _q4_by_distance(taxi_truth["q4"], taxi_truth["q4_after"])
+    truth[q4r] = groups
+    return truth
+
+
+def _mesh_json(results) -> list:
+    """An executor's results as the HTTP answer shows them."""
+    from pilosa_tpu_torch.executor import result_to_json
+
+    return json.loads(json.dumps(result_to_json(results)))
+
+
+def _free_bit(words: np.ndarray, other: np.ndarray, shard: int) -> int:
+    """A column of ``shard`` set in ``other`` and clear in ``words``."""
+    free = (other & ~words).reshape(N_SHARDS, WORDS)[shard]
+    w = int(np.flatnonzero(free)[0])
+    bit = int(np.flatnonzero(np.unpackbits(np.array([free[w]], np.uint32)
+                                           .view(np.uint8),
+                                           bitorder="little"))[0])
+    return shard * WORDS * 32 + w * 32 + bit
+
+
+def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
+    """The mesh path: ``DistExecutor(server.holder, make_mesh(8,
+    devices=[cuda:0], groups=g))`` for g = 1 (flat), 2 and 4 (the 8-bit
+    ranking lane on), each driven through ``execute`` and ``submit`` over
+    the Star-Trace Counts (pipelined, so they micro-batch), a Row gather,
+    the tip's Sum, Min, Max and a Range count, taxi queries 1-4 (Q4 also
+    reversed) and TopN(cab_type, n=1) (a window to rank, on Q1's
+    matrix), and a Set through HTTP between two mesh reads of the leaf it
+    patches (then its Clear). Every answer equals the oracle's and the
+    server's single-device executor's; with the ranking lane on, TopN and
+    GroupBy are the lossless answers (one pass with verify_quantized).
+    Prints, per mesh, K12-K15's launches per query kind, the reduction's
+    dense and actual bytes, the quantized windows and ms per query."""
+    from pilosa_tpu_torch.parallel import DistExecutor, make_mesh
+    from pilosa_tpu_torch.parallel.reduction import global_reduce_stats
+
+    dev = server.holder.device
+    single = server.executor
+    star = MESH_TRUTH["star"]
+    row_pql, row_cols = MESH_TRUTH["row"]
+    lanes = ("lane_pack", "lane_fold", "quant_pack", "quant_fold")
+    kinds = {
+        "count": [(pql, "repository", want) for pql, want in star.items()],
+        "row": [(row_pql, "repository", {"attrs": {}, "columns": row_cols})],
+        "bsi": [(pql, "rides", truth[pql]) for pql in (
+            'Sum(field="tip")', 'Min(field="tip")', 'Max(field="tip")',
+            f"Count(Range(tip > {MESH_TIP_RANGE}))")],
+        "topn": [(pql, "rides", truth[pql]) for pql in (
+            "TopN(cab_type)", "TopN(cab_type, n=1)")],
+        "groupby": [(pql, "rides", want) for pql, want in truth.items()
+                    if pql.startswith("GroupBy")],
+    }
+    stats: dict = {"members": MESH_MEMBERS, "configs": {}}
+    t_path = time.perf_counter()
+    for groups, quantized in MESH_CONFIGS:
+        t_cfg = time.perf_counter()
+        mesh = make_mesh(MESH_MEMBERS, devices=[dev], groups=groups)
+        ex = DistExecutor(server.holder, mesh, quantized_ranking=quantized,
+                          verify_quantized=quantized and groups == 2)
+        global_reduce_stats().reset()
+        cfg: dict = {"launches": {}, "ms": {}}
+        for kind, queries in kinds.items():
+            before = kernels.launches()
+            t0 = time.perf_counter()
+            for pql, index, want in queries:
+                got = _mesh_json(ex.execute(index, pql))[0]
+                if got != want:
+                    fail(f"mesh g={groups}: {pql} = {str(got)[:300]}, "
+                         f"oracle {str(want)[:300]}")
+                if _mesh_json(single.execute(index, pql))[0] != got:
+                    fail(f"mesh g={groups}: {pql} differs from the "
+                         "single-device executor")
+            cfg["ms"][kind] = 1e3 * (time.perf_counter() - t0) / len(queries)
+            after = kernels.launches()
+            cfg["launches"][kind] = {k: after[k] - before[k] for k in lanes}
+        # the Counts pipelined: MESH_ROUNDS of each shape, one micro-batch
+        # a shape
+        before = kernels.launches()
+        t0 = time.perf_counter()
+        pending = [(pql, d) for _ in range(MESH_ROUNDS)
+                   for pql in star
+                   for d in ex.submit("repository", pql)]
+        for pql, d in pending:
+            if d.result() != star[pql]:
+                fail(f"mesh g={groups}: submitted {pql} differs")
+        cfg["ms"]["count_submit"] = 1e3 * (time.perf_counter() - t0) / len(
+            pending)
+        after = kernels.launches()
+        cfg["launches"]["count_submit"] = {k: after[k] - before[k]
+                                           for k in (*lanes, "tree_count")}
+        # a micro-batch is one K1 launch a member
+        if cfg["launches"]["count_submit"]["tree_count"] >= \
+                len(pending) * MESH_MEMBERS:
+            fail(f"mesh g={groups}: the submitted Counts did not "
+                 "micro-batch")
+        # a Set through HTTP between two mesh reads of the leaf it patches
+        pql = next(iter(star))  # stargazer 0 AND language 1
+        col = _free_bit(star_trace_after(words)[("stargazer", 0)],
+                        words[("language", 1)], (100 + groups) % N_SHARDS)
+        c = Client(server.port)
+        for write, delta in ((f"Set({col}, stargazer=0)", 1),
+                             (f"Clear({col}, stargazer=0)", 0)):
+            if c.query(write) != [True]:
+                fail(f"mesh g={groups}: {write} changed nothing")
+            got = _mesh_json(ex.execute("repository", pql))[0]
+            if got != star[pql] + delta:
+                fail(f"mesh g={groups}: {pql} after {write} = {got}, "
+                     f"oracle {star[pql] + delta}")
+        c.close()
+        snap = global_reduce_stats().snapshot()
+        cfg["reduce"] = {k: snap[k] for k in (
+            "dispatches", "hier_dispatches", "dense_bytes", "actual_bytes",
+            "intra_bytes", "row_gathers", "row_dense_bytes",
+            "row_actual_bytes", "quantized_dispatches",
+            "quantized_actual_bytes", "quantized_lossless_bytes",
+            "quantized_window_rows", "quantized_candidate_rows")}
+        if quantized and not (snap["quantized_dispatches"]
+                              and snap["quantized_window_rows"]):
+            fail(f"mesh g={groups}: the 8-bit lane was not used")
+        cfg["s"] = time.perf_counter() - t_cfg
+        stats["configs"][f"{groups}x{MESH_MEMBERS // groups}"] = cfg
+        print(f"mesh g={groups} quantized={quantized}: {cfg['s']:.1f}s, "
+              f"K12-K15 launches by kind {json.dumps(cfg['launches'])}, "
+              f"reduce bytes dense {snap['dense_bytes']} actual "
+              f"{snap['actual_bytes']} (rows {snap['row_dense_bytes']} -> "
+              f"{snap['row_actual_bytes']}), window "
+              f"{snap['quantized_window_rows']} of "
+              f"{snap['quantized_candidate_rows']} candidates, ms a query "
+              f"{json.dumps({k: round(v, 3) for k, v in cfg['ms'].items()})}",
+              flush=True)
+        del ex
+    stats["path_s"] = time.perf_counter() - t_path
+    return stats
+
+
 def _build_months(holder) -> None:
     """The pickup_month field, one month (one 128 MiB row) at a time."""
     from pilosa_tpu_torch.storage import load_from_dense
@@ -4257,9 +4597,10 @@ def _drop_shards(words: dict, rot: dict) -> None:
 
 
 def timed_loop(port: int, index: str, shapes: list, truth: dict,
-               n_clients: int, seconds: float) -> list:
+               n_clients: int, seconds: float, until=None) -> list:
     """``n_clients`` keep-alive clients sending ``shapes`` round robin for
-    ``seconds``, every answer held against ``truth``; the latencies."""
+    ``seconds`` (or until the event ``until`` is set, if sooner), every
+    answer held against ``truth``; the latencies."""
     errors, latencies = [], []
     lock = threading.Lock()
     stop = time.perf_counter() + seconds
@@ -4268,7 +4609,8 @@ def timed_loop(port: int, index: str, shapes: list, truth: dict,
         c = Client(port, index)
         try:
             j = k
-            while time.perf_counter() < stop:
+            while time.perf_counter() < stop and not (
+                    until is not None and until.is_set()):
                 pql = shapes[j % len(shapes)]
                 t = time.perf_counter()
                 got = c.query(pql)[0]
@@ -4818,6 +5160,7 @@ def main() -> int:
         report += check_port_kernels(torch, kernels, batch, leaves, planes)
         report += check_taxi_kernels(torch, kernels, leaves, planes)
         report += check_block_kernels(torch, kernels, dev)
+        report += check_mesh_kernels(torch, kernels, dev)
         print(f"phase 3: {time.perf_counter() - t3:.1f}s", flush=True)
         del leaves, planes
         torch.cuda.synchronize()
@@ -4846,8 +5189,8 @@ def main() -> int:
               flush=True)
         paths = run_main_paths(str(data_dir), words, rides, oracle,
                                taxi_truth, ev_oracle, users_o, wire_o,
-                               months_o, path_rng, kernels,
-                               args.verify_on_load)
+                               months_o, mesh_truth(taxi_truth, rides, wire_o),
+                               path_rng, kernels, args.verify_on_load)
         kernels.reset_launches()
         crash = run_crash_phase(scratch, args.seed, kernels)
         paths["crash"] = (crash, kernels.launches())
@@ -4872,6 +5215,9 @@ def main() -> int:
         "keys": ("tree_count", "count_rows", "groupby_level", "word_patch"),
         "wire": ("tree_count", "tree_rows", "word_patch", "count_rows",
                  "groupby_level", "bsi_sum"),
+        "mesh": ("tree_count", "tree_rows", "word_patch", "bsi_compare",
+                 "bsi_sum", "bsi_minmax", "count_rows", "groupby_level",
+                 "lane_pack", "lane_fold", "quant_pack", "quant_fold"),
         "tier": ("block_gather", "block_gather_batch", "block_scatter",
                  "tree_count", "count_rows", "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
@@ -4889,8 +5235,8 @@ def main() -> int:
     for path, (stats, launched) in paths.items():
         print(f"main path {path}: " + json.dumps(stats), flush=True)
         print(f"launches {path}: {json.dumps(launched)}", flush=True)
-    print("set-up s, this run against R6 (None: R6 did not print it): "
-          + json.dumps({k: [round(v, 3), R6_SETUP_S.get(k)]
+    print("set-up s, this run against H5: "
+          + json.dumps({k: [round(v, 3), H5_SETUP_S.get(k)]
                         for k, v in SETUP_S.items()}), flush=True)
     print(f"run: {time.perf_counter() - t_run:.1f}s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -4899,7 +5245,8 @@ def main() -> int:
     # its one-leaf block_gather's and index_select's too), K3, K10 and
     # K11 the launch floor
     extra = ("device_ms", "single_ms", "single_device_ms",
-             "library_device_ms", "launch_floor_ms", "bytes_bound_ms")
+             "library_device_ms", "launch_floor_ms", "bytes_bound_ms",
+             "flat_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report]}), flush=True)

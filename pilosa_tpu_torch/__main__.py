@@ -237,7 +237,7 @@ def _load_config(path: str | None) -> dict:
 
 def cmd_server(args) -> int:
     from pilosa_tpu_torch.server import Server
-    from pilosa_tpu_torch.server.server import SERVING_KNOBS
+    from pilosa_tpu_torch.server.server import MESH_KNOBS, SERVING_KNOBS
     from pilosa_tpu_torch.utils.logger import new_standard_logger
 
     if args.unported:
@@ -260,9 +260,10 @@ def cmd_server(args) -> int:
                     scrub_interval=args.scrub_interval,
                     scrub_max_bytes_per_sec=args.scrub_max_bytes_per_sec,
                     max_writes_per_request=args.max_writes_per_request,
-                    # the serving envelope's knobs: config file and env
+                    # the serving envelope's and the mesh's knobs: config
+                    # file and env
                     **{k.replace("-", "_"): getattr(args, k.replace("-", "_"))
-                       for k in SERVING_KNOBS}).open()
+                       for k in SERVING_KNOBS + MESH_KNOBS}).open()
     print(f"pilosa_tpu_torch serving {args.data_dir} on "
           f"http://{args.bind}:{server.port} ({server.holder.device})",
           flush=True)

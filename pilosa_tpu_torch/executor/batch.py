@@ -71,14 +71,25 @@ def merge_split(packed: np.ndarray) -> np.ndarray:
 
 class ShardBlock:
     """Orders a query's shard list as the leading axis of stacked leaves;
-    the slot count pads to the next power of two."""
+    the slot count pads to the next power of two. The mesh form
+    (``parallel.mesh.ShardAssignment``) pads to a multiple of its member
+    count instead; ``n_devices`` and ``local_slots`` enter the key, so a
+    mesh block keys its leaves apart from a single-device block of the
+    same shards. ``patchable``: writes patch the leaf in place (always,
+    in one process)."""
 
     def __init__(self, shards: list[int]):
         self.shards = sorted(shards)
         self.padded = next_pow2(max(len(self.shards), 1))
-        self._key = ("blk", tuple(self.shards), self.padded)
+        self.n_devices = 1
+        self.local_slots = (0, self.padded)
+        self.patchable = True
+        self._key = None
 
     def key(self) -> tuple:
+        if self._key is None:
+            self._key = ("blk", tuple(self.shards), self.padded,
+                         self.n_devices, self.local_slots)
         return self._key
 
     def stack(self, per_shard_fn, inner: tuple) -> np.ndarray:
@@ -340,7 +351,7 @@ def count_flat(program, leaves) -> torch.Tensor:
     return count_flat_batched(program, [leaves])[0]
 
 
-def _check_kind(structure, reduce_kind: str, leaf_ranks: tuple) -> tuple:
+def check_kind(structure, reduce_kind: str, leaf_ranks: tuple) -> tuple:
     if reduce_kind == "count":
         if count_elementwise_sub(structure, leaf_ranks) is None:
             raise ValueError(f"count of {structure!r} is not ported yet")
@@ -359,7 +370,7 @@ def local_fn_batched(structure, reduce_kind: str, leaf_ranks: tuple,
     returns int32[n_queries, 2]."""
     if reduce_kind != "count":
         raise ValueError("only count queries are micro-batched")
-    program = _check_kind(structure, reduce_kind, leaf_ranks)
+    program = check_kind(structure, reduce_kind, leaf_ranks)
     n_leaves = len(leaf_ranks)
 
     def fn(*args):
@@ -474,7 +485,7 @@ def run_plan(plan: expr.Plan, reduce_kind: str, leaves: list, scalars,
         resolve = materialize(plan, leaves, scalars, zeros)
         node, operands = plan.root
         tensors = resolve(operands) or [zeros()]
-        program = _check_kind(node, reduce_kind, tuple(t.dim() - 1
+        program = check_kind(node, reduce_kind, tuple(t.dim() - 1
                                                        for t in tensors))
         if reduce_kind == "count":
             return count_flat(program, tensors)
@@ -484,14 +495,24 @@ def run_plan(plan: expr.Plan, reduce_kind: str, leaves: list, scalars,
     if want.get(reduce_kind) != plan.kind:
         raise ValueError(f"reduce kind {reduce_kind!r} does not fit a "
                          f"{plan.kind} plan")
+    if reduce_kind in ("min", "max"):
+        values, counts = minmax_parts(plan, leaves, scalars, zeros,
+                                      reduce_kind == "max")
+        return minmax_merge(values, counts, reduce_kind == "max")
     planes = leaves[plan.planes]
     filt = filter_row(plan, leaves, scalars, zeros)
     if reduce_kind == "countrows":
         return count_rows_packed(planes, filt)
-    if reduce_kind == "bsisum":
-        return bsi_sum_packed(planes, filt)
-    values, counts = kernels.bsi_minmax(planes, filt, reduce_kind == "max")
-    return minmax_merge(values, counts, reduce_kind == "max")
+    return bsi_sum_packed(planes, filt)
+
+
+def minmax_parts(plan: expr.Plan, leaves: list, scalars, zeros,
+                 want_max: bool):
+    """A Min / Max plan's per-shard (values int64[S], counts int32[S]):
+    its filter's steps and row, then K7."""
+    return kernels.bsi_minmax(leaves[plan.planes],
+                              filter_row(plan, leaves, scalars, zeros),
+                              want_max)
 
 
 def local_fn(structure, reduce_kind: str, leaf_ranks: tuple,
@@ -524,8 +545,15 @@ def groupby_level_packed(dims: list, idxs, filt, planes) -> torch.Tensor:
     device into the reference's packed layout: counts [2·C], then with
     planes n_g [2·C] and plane counts [2·depth·C] (each a [2, ...] split
     sum, raveled)."""
-    out = split_sum(kernels.groupby_level(dims, idxs, filt, planes), dim=0)
-    if planes is None:
+    return pack_groupby_level(split_sum(
+        kernels.groupby_level(dims, idxs, filt, planes), dim=0),
+        planes is not None)
+
+
+def pack_groupby_level(out: torch.Tensor, has_planes: bool) -> torch.Tensor:
+    """A level's split sums int32[2, K, C] in the packed layout of
+    ``groupby_level_packed``."""
+    if not has_planes:
         return out[:, 0].reshape(-1)
     return torch.cat([out[:, 0].reshape(-1), out[:, 1].reshape(-1),
                       out[:, 2:].reshape(-1)])

@@ -28,6 +28,12 @@ query's calls in their spans, stats and PROFILE nodes, every launch
 runs in ``dispatch`` (a ``device.dispatch`` span and the cost context's
 ``note_dispatch``, enqueue time only), and ``pipeline_coalescable``
 says which queries the serving pipeline takes.
+
+The reference's mesh hooks (``_make_block``, the ``_launch_*`` methods,
+``_note_reduce``, ``_row_host``, ``_quant_ranking_active``) are the
+single-device forms here; ``parallel.dist.DistExecutor`` runs them over
+a mesh's members, and turns on TopN's quantized ranking pass and
+GroupBy's quantized pruning levels.
 """
 
 from __future__ import annotations
@@ -269,6 +275,9 @@ class Executor:
         # int adds: a dashboard figure, not one of the reference's)
         self.memo_hits = 0
         self.memo_misses = 0
+        # divisor of the per-device bytes of a stacked leaf: a mesh's
+        # members each hold 1/size of the slots (DistExecutor sets it)
+        self.arg_shard_factor = 1
 
     def _clear_operand_memo(self) -> None:
         """Generation listener (called under the residency lock): stays
@@ -416,11 +425,64 @@ class Executor:
             if entry is not None and entry[0] is shard_list:
                 self._block_memo.move_to_end(key)
                 return entry[1]
-            block = batch.ShardBlock(shard_list)
+            block = self._make_block(shard_list)
             if len(self._block_memo) >= 64:
                 self._block_memo.popitem(last=False)
             self._block_memo[key] = (shard_list, block)
             return block
+
+    # ---------------------------------------------------------- mesh hooks
+    #
+    # The reference's placement and reduction hooks. On this executor
+    # they are the single-device forms; DistExecutor (parallel/dist.py)
+    # runs each launch over its mesh's members and reduces their
+    # partials through the mesh lanes.
+
+    def _make_block(self, shard_list: list[int]):
+        return batch.ShardBlock(shard_list)
+
+    def _note_reduce(self, reduce_kind: str, out_shape: tuple,
+                     padded: int) -> None:
+        """Reduction-lane accounting, once a launch of a reduction with
+        its packed result's shape (the reference's) and the block's
+        padded slot count. A single device has no reduction wire."""
+
+    def _row_host(self, stacked: torch.Tensor, block) -> np.ndarray:
+        """Row-gather readback: device [padded, words] → host array."""
+        return stacked.cpu().numpy()
+
+    # The quantized candidate-ranking lane: inert here (no inter-group
+    # wire to shrink); DistExecutor turns it on behind the
+    # topn-quantized-ranking knob.
+    verify_quantized = False
+
+    def _quant_ranking_active(self) -> bool:
+        return False
+
+    def _launch_plan(self, plan: expr.Plan, reduce_kind: str, leaves: list,
+                     scalars, zeros, block) -> torch.Tensor:
+        """One query's kernels (``batch.run_plan``)."""
+        return batch.run_plan(plan, reduce_kind, leaves, scalars, zeros)
+
+    def _launch_batched(self, node, reduce_kind: str, leaf_ranks: tuple,
+                        rows: list) -> torch.Tensor:
+        """One micro-batch of same-shape counts (``rows``: each query's
+        leaves) as one K1 launch → int32[B, 2]."""
+        fn = batch.local_fn_batched(node, reduce_kind, leaf_ranks, len(rows))
+        return fn(*[leaf for leaves in rows for leaf in leaves])
+
+    def _launch_countrows(self, matrix: torch.Tensor, filt, block,
+                          quantized: bool = False) -> torch.Tensor:
+        """TopN's recount of one candidate chunk (K8) → int32[2, R]."""
+        return batch.count_rows_packed(matrix, filt)
+
+    def _launch_groupby_level(self, block, mats: list, idxs, filt, planes,
+                              quantized: bool = False,
+                              padded: int = 0) -> torch.Tensor:
+        """One GroupBy level chunk (K9), packed as the reference packs it;
+        ``padded``: the chunk's power-of-two size, the reference's
+        packed shape for the reduction accounting."""
+        return batch.groupby_level_packed(mats, idxs, filt, planes)
 
     # ------------------------------------------------------ batched mapping
 
@@ -536,9 +598,9 @@ class Executor:
              memoize: bool = True):
         """One query's kernels, launched now (``batch.run_plan``)."""
         leaves = self._eval_operands(idx, compiled, block, memoize)
-        return dispatch(reduce_kind, lambda: batch.run_plan(
+        return dispatch(reduce_kind, lambda: self._launch_plan(
             compiled.plan, reduce_kind, leaves, compiled.scalars,
-            self._zeros(idx, block)))
+            self._zeros(idx, block), block))
 
     # ------------------------------------------------- query micro-batching
     #
@@ -582,15 +644,13 @@ class Executor:
             return
         node, reduce_kind, shapes = key
         rows = group["rows"]
-        fn = batch.local_fn_batched(node, reduce_kind,
-                                    tuple(len(s) - 1 for s in shapes),
-                                    len(rows))
         # the span lands in the trace of whichever request flushed the
         # group: that request paid the launch, its batchmates ride along
         # (tagged with the shared size), and the cost plane says the same
         group["out"] = dispatch(
             reduce_kind,
-            lambda: fn(*[leaf for leaves in rows for leaf in leaves]),
+            lambda: self._launch_batched(
+                node, reduce_kind, tuple(len(s) - 1 for s in shapes), rows),
             batch_n=len(rows))
         self.largest_batch = max(self.largest_batch, len(rows))
         if self._pending.get(key) is group:
@@ -621,7 +681,7 @@ class Executor:
         stacked = self._run(idx, compiled, block, "row")
 
         def finish() -> RowResult:
-            host = stacked.cpu().numpy().view(np.uint32)
+            host = self._row_host(stacked, block).view(np.uint32)
             segments = {}
             for i, shard in enumerate(block.shards):
                 if host[i].any():
@@ -797,32 +857,48 @@ class Executor:
         if not candidates:
             return Deferred(value=[])
 
+        n_real = len(candidates)
         block = self._shard_block(shard_list)
-        bytes_per_cand = block.padded * WORDS_PER_SHARD * 4
-        rows = max(1, min(next_pow2(len(candidates)),
+        bytes_per_cand = (block.padded * WORDS_PER_SHARD * 4
+                          // self.arg_shard_factor)
+        rows = max(1, min(next_pow2(n_real),
                           TOPN_MATRIX_BUDGET_BYTES // bytes_per_cand))
         rows = 1 << (rows.bit_length() - 1)  # down to a power of two
         filt = self._filter_row(idx, filt_call, block, note=True)
-        reads = []
-        for lo in range(0, len(candidates), rows):
-            chunk = candidates[lo:lo + rows]
-            matrix = batch.stacked_matrix(idx, field_name, view, chunk, block,
-                                          self.holder.cache,
-                                          pad_rows=rows - len(chunk))
-            reads.append((chunk, dispatch(
-                "countrows", lambda: batch.count_rows_packed(matrix, filt))))
+        cache = self.holder.cache
 
-        def finish() -> list[Pair]:
+        def dispatch_chunks(cand_list, kind: str, chunk_rows: int = rows):
+            """K8 over each chunk of ``cand_list`` (padded with zero rows
+            to ``chunk_rows``), launched now: 'countrows' exact split
+            sums, 'countrows_q' the quantized ranking lane."""
+            reads = []
+            for lo in range(0, len(cand_list), chunk_rows):
+                chunk = cand_list[lo:lo + chunk_rows]
+                matrix = batch.stacked_matrix(
+                    idx, field_name, view, chunk, block, cache,
+                    pad_rows=chunk_rows - len(chunk))
+                reads.append((chunk, dispatch(
+                    kind, lambda: self._launch_countrows(
+                        matrix, filt, block, kind == "countrows_q"))))
+            return reads
+
+        def exact_totals(cand_list, reads=None, chunk_rows: int = rows):
+            if reads is None:
+                reads = dispatch_chunks(cand_list, "countrows", chunk_rows)
+            totals: list[int] = []
+            for chunk, packed in reads:
+                totals += batch.merge_split(
+                    packed.cpu().numpy())[:len(chunk)].tolist()
+            return totals
+
+        def order_pairs(cand_list, totals) -> list:
             # threshold=: the least total a row needs, after the recount
             floor = max(1, int(call.arg("threshold", 0) or 0))
-            order = []
-            for chunk, packed in reads:
-                totals = batch.merge_split(packed.cpu().numpy())[:len(chunk)]
-                order += [(-c, r) for r, c in zip(chunk, totals.tolist())
-                          if c >= floor]
-            order.sort()
-            if n:
-                order = order[:n]
+            order = sorted((-c, r) for r, c in zip(cand_list, totals)
+                           if c >= floor)
+            return order[:n] if n else order
+
+        def pairs_of(order) -> list[Pair]:
             pairs = [Pair(r, -negc) for negc, r in order]
             if field.options.keys and pairs:
                 for p, k in zip(pairs, self._row_keys(
@@ -830,7 +906,49 @@ class Executor:
                     p.key = k
             return pairs
 
-        return Deferred(finish)
+        # the quantized candidate ranking (topn-quantized-ranking, on a
+        # mesh): every candidate ranked over the 8-bit lane, the top-n
+        # window widened by the transmitted error bound, then only the
+        # window recounted exactly; pairs come from exact counts, so they
+        # are the lossless path's. ids= is a recount already, and with
+        # nothing to cut the window is the whole set.
+        if (self._quant_ranking_active() and explicit_ids is None and n
+                and n_real > n):
+            q_reads = dispatch_chunks(candidates, "countrows_q")
+
+            def finish_quantized() -> list[Pair]:
+                from pilosa_tpu_torch.parallel import reduction
+
+                approx = np.zeros(n_real, np.int64)
+                err = np.zeros(n_real, np.int64)
+                pos = 0
+                for chunk, packed in q_reads:
+                    a, e = reduction.split_quantized(
+                        batch.merge_split(packed.cpu().numpy()), rows)
+                    approx[pos:pos + len(chunk)] = a[:len(chunk)]
+                    err[pos:pos + len(chunk)] = e[:len(chunk)]
+                    pos += len(chunk)
+                widx = reduction.quant_topn_window(approx, err, n)
+                reduction.global_reduce_stats().note_quant_window(
+                    len(widx), n_real)
+                window = [candidates[i] for i in widx]
+                # the recount's chunks sized to the window, not the whole
+                # candidate set
+                wrows = min(rows, 1 << max(0, len(window) - 1).bit_length())
+                order = order_pairs(window, exact_totals(
+                    window, chunk_rows=max(1, wrows)))
+                if self.verify_quantized:
+                    ref = order_pairs(candidates, exact_totals(candidates))
+                    if order != ref:
+                        raise AssertionError(
+                            "quantized TopN diverged from lossless: "
+                            f"{order} != {ref}")
+                return pairs_of(order)
+
+            return Deferred(finish_quantized)
+        reads = dispatch_chunks(candidates, "countrows")
+        return Deferred(lambda: pairs_of(order_pairs(
+            candidates, exact_totals(candidates, reads))))
 
     # ----------------------------------------------------------------- Rows
 
@@ -1004,8 +1122,8 @@ class Executor:
             cand = np.zeros((1, 0), np.int32)
             for n in sizes:
                 cand = _index_cross(cand, n)
-            packed, layout = _groupby_level_enqueue(block, mats, cand, filt,
-                                                    planes, depth)
+            packed, layout = _groupby_level_enqueue(self, block, mats, cand,
+                                                    filt, planes, depth)
 
             def finish() -> list[GroupCount]:
                 return collect(cand, *_groupby_level_unpack(
@@ -1014,10 +1132,15 @@ class Executor:
             return Deferred(finish)
         # the pruned levels read back after each level to choose the next
         # level's candidates: all of it runs at result(), on the thread
-        # that resolves (never on the serving pipeline's dispatcher)
+        # that resolves (never on the serving pipeline's dispatcher). With
+        # quantized ranking on, every level but the last counts over the
+        # 8-bit lane and keeps each candidate whose count plus bound could
+        # be nonzero (zero quantizes to zero); the last stays lossless, so
+        # the reported counts are exact.
+        quant = self._quant_ranking_active()
         return Deferred(lambda: collect(*_groupby_pruned(
-            block, [], np.zeros((1, 0), np.int32), mats, sizes, filt, planes,
-            depth)))
+            self, block, [], np.zeros((1, 0), np.int32), mats, sizes, filt,
+            planes, depth, quant)))
 
     # ------------------------------------------------------- IncludesColumn
 
@@ -1388,46 +1511,58 @@ def parse_time(value) -> dt.datetime:
 # ------------------------------------------------------------ GroupBy level
 
 
-def _groupby_level_enqueue(block, mats: list, cand: np.ndarray, filt, planes,
-                           depth: int):
+def _groupby_level_enqueue(ex, block, mats: list, cand: np.ndarray, filt,
+                           planes, depth: int, quantized: bool = False):
     """Launch one level's K9 chunks over the candidates ``cand`` [C, k]
-    (indices into each matrix's rows), each chunk sized so K9's output
-    stays under GROUPBY_OUT_BUDGET_BYTES, the packed chunks concatenated
-    on the device. Returns (packed, chunk sizes); no readback."""
+    (indices into each matrix's rows) through ``ex``'s level hook, each
+    chunk sized so K9's output stays under GROUPBY_OUT_BUDGET_BYTES, the
+    packed chunks concatenated on the device. ``quantized`` levels pack
+    the 8-bit ranking lane (no aggregate). Returns (packed, chunk
+    sizes); no readback."""
     per_cand = block.padded * 4 * (1 if planes is None else 2 + depth)
     chunk = max(1, GROUPBY_OUT_BUDGET_BYTES // per_cand)
     packs, layout = [], []
     for lo in range(0, cand.shape[0], chunk):
         part = cand[lo:lo + chunk]
-        packs.append(dispatch("groupby", lambda: batch.groupby_level_packed(
-            mats, [part[:, d] for d in range(part.shape[1])], filt, planes)))
+        padded = min(chunk, next_pow2(part.shape[0]))
+        packs.append(dispatch(
+            "groupby_q" if quantized else "groupby",
+            lambda: ex._launch_groupby_level(
+                block, mats, [part[:, d] for d in range(part.shape[1])],
+                filt, planes, quantized, padded)))
         layout.append(part.shape[0])
     packed = packs[0] if len(packs) == 1 else torch.cat(packs)
     return packed, layout
 
 
-def _groupby_pruned(block, level_mats: list, cand: np.ndarray, mats: list,
-                    sizes: list, filt, planes, depth: int):
+def _groupby_pruned(ex, block, level_mats: list, cand: np.ndarray,
+                    mats: list, sizes: list, filt, planes, depth: int,
+                    quant: bool = False):
     """The pruned levels: extend the prefix candidates ``cand`` [P, k]
     (indices into the rows of ``level_mats``) one dimension of ``mats``
     a level, dropping the empty groups after each level's readback (an
-    AND only shrinks a group). A level that would need a 17th matrix
-    goes on in ``_groupby_folded``. Returns (candidates [G, k +
-    len(mats)], counts [G], and with ``planes`` on the last level (n,
-    plane counts)) of the non-empty groups."""
+    AND only shrinks a group). ``quant``: every level but the last counts
+    over the quantized lane, whose upper bounds only gate survival. A
+    level that would need a 17th matrix goes on in ``_groupby_folded``.
+    Returns (candidates [G, k + len(mats)], counts [G], and with
+    ``planes`` on the last level (n, plane counts)) of the non-empty
+    groups."""
     width = cand.shape[1] + len(sizes)
     counts_arr = agg_arrs = None
     for k, n in enumerate(sizes):
         if len(level_mats) == kernels.MAX_LEAVES:
-            return _groupby_folded(block, level_mats, cand, mats[k:],
-                                   sizes[k:], filt, planes, depth)
+            return _groupby_folded(ex, block, level_mats, cand, mats[k:],
+                                   sizes[k:], filt, planes, depth, quant)
         level_mats = level_mats + [mats[k]]
         cand = _index_cross(cand, n)
         last = k == len(sizes) - 1
+        quantized = quant and not last
         packed, layout = _groupby_level_enqueue(
-            block, level_mats, cand, filt, planes if last else None, depth)
+            ex, block, level_mats, cand, filt, planes if last else None,
+            depth, quantized)
         counts_arr, agg_arrs = _groupby_level_unpack(
-            packed.cpu().numpy(), layout, last and planes is not None, depth)
+            packed.cpu().numpy(), layout, last and planes is not None, depth,
+            quantized)
         keep = counts_arr > 0
         cand, counts_arr = cand[keep], counts_arr[keep]
         if agg_arrs is not None:
@@ -1437,8 +1572,9 @@ def _groupby_pruned(block, level_mats: list, cand: np.ndarray, mats: list,
     return cand, counts_arr, agg_arrs
 
 
-def _groupby_folded(block, level_mats: list, cand: np.ndarray, mats: list,
-                    sizes: list, filt, planes, depth: int):
+def _groupby_folded(ex, block, level_mats: list, cand: np.ndarray,
+                    mats: list, sizes: list, filt, planes, depth: int,
+                    quant: bool = False):
     """``_groupby_pruned`` past K9's 16 matrices: per chunk of the prefix
     groups ``cand``, each group's AND over ``level_mats`` becomes one row
     of a temporary int32[S, chunk, W] matrix (``_groupby_prefix_matrix``,
@@ -1453,8 +1589,9 @@ def _groupby_folded(block, level_mats: list, cand: np.ndarray, mats: list,
         prefix = cand[lo:lo + chunk]
         folded = _groupby_prefix_matrix(level_mats, prefix)
         sub, counts_arr, agg_arrs = _groupby_pruned(
-            block, [folded], np.arange(prefix.shape[0], dtype=np.int32)[:, None],
-            mats, sizes, filt, planes, depth)
+            ex, block, [folded],
+            np.arange(prefix.shape[0], dtype=np.int32)[:, None], mats, sizes,
+            filt, planes, depth, quant)
         del folded
         if sub.shape[0]:
             parts.append((np.concatenate([prefix[sub[:, 0]], sub[:, 1:]], 1),
@@ -1502,10 +1639,25 @@ def _and_chain(n: int):
 
 
 def _groupby_level_unpack(host: np.ndarray, layout: list, has_agg: bool,
-                          depth: int):
+                          depth: int, quantized: bool = False):
     """A level's packed chunks on the host: per-candidate counts, and with
-    an aggregate (n, plane counts [depth, C])."""
+    an aggregate (n, plane counts [depth, C]). A ``quantized`` level's
+    chunks are [2·(C + blocks)] ranking-lane packs, and its counts are
+    approx + error bound: an upper bound that only gates survival."""
     total = sum(layout)
+    if quantized:
+        from pilosa_tpu_torch.parallel import reduction
+
+        counts = np.zeros(total, np.int64)
+        off = out = 0
+        for c in layout:
+            width = reduction.quant_total_elems(c)
+            approx, err = reduction.split_quantized(batch.merge_split(
+                host[off:off + 2 * width].reshape(2, width)), c)
+            counts[out:out + c] = approx + err
+            off += 2 * width
+            out += c
+        return counts, None
     counts = np.zeros(total, np.int64)
     n_g = np.zeros(total, np.int64) if has_agg else None
     pc = np.zeros((depth, total), np.int64) if has_agg else None

@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Eleven kernels carry the main paths (sources in ``csrc/``):
+Fifteen kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
   up to 16 stacked leaves, one launch per micro-batch, in the program's
@@ -31,7 +31,19 @@ Eleven kernels carry the main paths (sources in ``csrc/``):
   a batch of leaves in one launch, compacted (replaces
   ``residency._gather_blocks``);
 - K11 ``block_scatter``: the dense leaf from its compacted blocks
-  (replaces ``residency._scatter_blocks``).
+  (replaces ``residency._scatter_blocks``);
+- K12 ``lane_pack``: a mesh's intra-group sum (or best) of its members'
+  partials, cast to the narrow inter-group lane, every group in one
+  launch (replaces the encode of ``reduction.hier_split_channels`` and
+  ``gather_extreme`` with the psum/pmax before them);
+- K13 ``lane_fold``: the gathered lanes widened and summed (or folded by
+  max / min) on the receiver, and the flat mesh's sum over its members
+  (replaces those functions' folds and the flat psum);
+- K14 ``quant_pack``: the 8-bit candidate-ranking lane's encode, per
+  256-candidate block an integer scale and the rounded mantissas
+  (replaces ``reduction.hier_quantized_counts`` up to its all_gather);
+- K15 ``quant_fold``: its decode, approximate counts and per-block error
+  bounds in split form (the rest of ``hier_quantized_counts``).
 
 Each source builds with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and is
@@ -64,7 +76,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 SOURCES = ("tree_count", "tree_rows", "word_patch", "row_shift",
            "bsi_compare", "bsi_sum", "bsi_minmax", "count_rows",
-           "groupby_level", "block_gather", "block_scatter")
+           "groupby_level", "block_gather", "block_scatter",
+           "lane_pack", "lane_fold", "quant_pack", "quant_fold")
 
 # Opcodes of the postfix program (csrc/tree_program.cuh holds the same).
 OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT, OP_NOT = range(1, 9)
@@ -93,6 +106,16 @@ GROUPBY_TILE_WORDS = (1024, 512, 256)  # word tiles the plan picks from
 GROUPBY_SRC_FILT = MAX_LEAVES          # slot sources past the dimensions
 GROUPBY_SRC_PLANES = MAX_LEAVES + 1
 BLOCK_WORDS = 1024  # words of a residency block (K10, K11): 4 KiB
+# Candidates a scale block of the 8-bit ranking lane covers (K14, K15;
+# csrc/quant_pack.cu holds the same) and the split-sum shift.
+QUANT_BLOCK = 256
+SPLIT_SHIFT = 15
+SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
+# The mesh lanes' element types by width in bytes (K12, K13): the
+# narrow lanes unsigned, the exact ones signed.
+LANE_DTYPES = {1: torch.uint8, 2: torch.uint16, 4: torch.int32,
+               8: torch.int64}
+_LANE_MODES = {"sum": 0, "max": 1, "min": 2}
 
 # --------------------------------------------------------------- launches
 
@@ -208,6 +231,10 @@ def _bind(name: str, lib) -> None:
         "groupby_level": [p, p, i, p, p, p, p, i, ll, ll, i, i, p, p],
         "block_gather": [p, p, p, ll, i, p],
         "block_scatter": [p, p, i, p, ll, p],
+        "lane_pack": [p, i, p, i, p, i, i, i, i, ll, p],
+        "lane_fold": [p, i, ll, p, i, ll, i, i, ll, p, p],
+        "quant_pack": [p, i, i, ll, p, p, p],
+        "quant_fold": [p, p, i, ll, ll, p, p],
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
@@ -947,6 +974,79 @@ def block_scatter_plain(blocks: torch.Tensor, idx: torch.Tensor,
     return out.view(-1)
 
 
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken modulo 2^32 as int32 (an int32 add's result)."""
+    return (((x + (1 << 31)) & 0xFFFFFFFF) - (1 << 31)).to(torch.int32)
+
+
+def lane_pack_plain(parts: torch.Tensor, groups: int, lane_bytes,
+                    mode: str = "sum"):
+    """K12's plain version. ``mode`` "sum": parts int32[M, 2, N] → (lo,
+    hi) lanes [G, N] of ``lane_bytes`` = (lo bytes, hi bytes), each the
+    int32 sum over the group's members cast to its lane type; "max" /
+    "min": parts [M, N] → the group's best [G, N] cast to ``lane_bytes``
+    bytes."""
+    m = parts.shape[0]
+    if mode == "sum":
+        n = parts.shape[2]
+        sums = _wrap32(parts.reshape(groups, m // groups, 2, n).to(
+            torch.int64).sum(1))
+        lo_b, hi_b = lane_bytes
+        return (sums[:, 0].to(LANE_DTYPES[lo_b]).contiguous(),
+                sums[:, 1].to(LANE_DTYPES[hi_b]).contiguous())
+    v = parts.reshape(groups, m // groups, parts.shape[1])
+    best = v.amax(1) if mode == "max" else v.amin(1)
+    return best.to(LANE_DTYPES[lane_bytes]).contiguous()
+
+
+def _widen(lane: torch.Tensor) -> torch.Tensor:
+    return lane.to(torch.int64 if lane.dtype == torch.int64 else torch.int32)
+
+
+def lane_fold_plain(lanes, mode: str = "sum") -> torch.Tensor:
+    """K13's plain version. "sum": ``lanes`` = (lo [G, N], hi [G, N])
+    widened to int32 and summed over G → int32[2, N]; "max" / "min":
+    ``lanes`` [G, N] widened (int64 lanes stay int64) and folded → [N]."""
+    if mode == "sum":
+        lo, hi = lanes
+        return torch.stack([_wrap32(lo.to(torch.int64).sum(0)),
+                            _wrap32(hi.to(torch.int64).sum(0))])
+    wide = _widen(lanes)
+    return wide.amax(0) if mode == "max" else wide.amin(0)
+
+
+def quant_pack_plain(parts: torch.Tensor, groups: int):
+    """K14's plain version: parts int32[M, 2, R] → (q uint8[G, nb, 256],
+    scales int32[G, nb]), the reference's jnp arithmetic in torch."""
+    m, _, rows = parts.shape
+    tot = parts.reshape(groups, m // groups, 2, rows).to(torch.int64).sum(1)
+    flat = _wrap32(tot[:, 0] + (tot[:, 1] << SPLIT_SHIFT))
+    nb = max(1, -(-rows // QUANT_BLOCK))
+    blocks = torch.zeros((groups, nb * QUANT_BLOCK), dtype=torch.int32,
+                         device=parts.device)
+    blocks[:, :rows] = flat
+    blocks = blocks.reshape(groups, nb, QUANT_BLOCK)
+    mx = blocks.amax(2)
+    s = torch.clamp(torch.div(_wrap32(mx.to(torch.int64) + 254), 255,
+                              rounding_mode="floor"), min=1)
+    num = _wrap32(blocks.to(torch.int64) + (s >> 1)[..., None])
+    q = torch.div(num, s[..., None], rounding_mode="floor")
+    return q.to(torch.uint8), s.to(torch.int32)
+
+
+def quant_fold_plain(q: torch.Tensor, scales: torch.Tensor, rows: int
+                     ) -> torch.Tensor:
+    """K15's plain version: q uint8[G, nb, 256] and scales int32[G, nb] →
+    the split-form int32[2, rows + nb] of approx counts then per-block
+    error bounds."""
+    groups, nb, _ = q.shape
+    approx = (q.to(torch.int64) * scales.to(torch.int64)[..., None]).sum(0)
+    s = scales.to(torch.int64)
+    err = torch.where(s > 1, (s + 1) >> 1, 0).sum(0)
+    out = _wrap32(torch.cat([approx.reshape(-1)[:rows], err]))
+    return torch.stack([out & SPLIT_MASK, out >> SPLIT_SHIFT])
+
+
 # ----------------------------------------------------------------- wrappers
 
 
@@ -1647,3 +1747,157 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor, salt: int = 0
         raise ValueError("intersect_count takes two equal [R, W] tensors")
     program = (OP_LEAF, OP_LEAF | (1 << 8), OP_SALT, OP_AND)
     return tree_count(program, [[a, b]], [salt], a.shape[1])[0]
+
+
+# ----------------------------------------------------------- mesh lanes
+
+
+def _lane_width(t: torch.Tensor) -> int:
+    w = t.element_size()
+    if LANE_DTYPES.get(w) != t.dtype:
+        raise TypeError(f"a lane is uint8, uint16, int32 or int64, not "
+                        f"{t.dtype}")
+    return w
+
+
+def lane_pack(parts: torch.Tensor, groups: int, lane_bytes,
+              mode: str = "sum"):
+    """K12: the intra-group reduce of a mesh's member partials and the
+    cast to the inter-group lane, every group in one launch. ``mode``
+    "sum": ``parts`` int32[M, 2, N] (each member's split channels) →
+    (lo, hi) lanes [G, N] of ``lane_bytes`` = (lo bytes, hi bytes) in
+    (1, 2, 4); "max" / "min": ``parts`` int32 or int64 [M, N] → the
+    groups' best [G, N] of ``lane_bytes`` in (1, 2, 4, 8). M is a
+    multiple of ``groups``; group g is members g·M/G .. (g+1)·M/G - 1.
+    The lanes are new tensors: on one card the gather buffer."""
+    if mode not in _LANE_MODES:
+        raise ValueError(f"bad lane mode {mode!r}")
+    want = 3 if mode == "sum" else 2
+    if parts.dim() != want or (mode == "sum" and parts.shape[1] != 2):
+        raise ValueError("lane_pack takes [members, 2, n] split channels "
+                         "or [members, n] extrema")
+    m, n = parts.shape[0], parts.shape[-1]
+    if groups < 1 or m % groups or n < 1:
+        raise ValueError(f"{groups} groups over {m} members")
+    ok = (torch.int32,) if mode == "sum" else (torch.int32, torch.int64)
+    if parts.dtype not in ok or not parts.is_contiguous():
+        raise TypeError("lane_pack takes contiguous int32 partials (int64 "
+                        "too for extrema)")
+    widths = tuple(lane_bytes) if mode == "sum" else (lane_bytes,)
+    if any(w not in LANE_DTYPES for w in widths) or \
+            (mode == "sum" and 8 in widths):
+        raise ValueError(f"bad lane widths {lane_bytes!r}")
+    if _on_cpu(parts):
+        return lane_pack_plain(parts, groups, lane_bytes, mode)
+    lib = _lib("lane_pack")
+    lo = torch.empty((groups, n), dtype=LANE_DTYPES[widths[0]],
+                     device=parts.device)
+    hi = (torch.empty((groups, n), dtype=LANE_DTYPES[widths[1]],
+                      device=parts.device) if mode == "sum" else None)
+    rc = lib.lane_pack_launch(
+        _ptr(parts), parts.element_size(), _ptr(lo), widths[0], _ptr(hi),
+        widths[1] if hi is not None else 0, _LANE_MODES[mode], m, groups, n,
+        _stream(parts))
+    _check("lane_pack", lib, rc)
+    _count_launch("lane_pack")
+    return (lo, hi) if mode == "sum" else lo
+
+
+def _lane_rows(t: torch.Tensor, n: int) -> int:
+    """Row stride in elements of a [G, N] lane (unit stride inside a
+    row)."""
+    if t.dim() != 2 or t.shape[1] != n or t.shape[0] < 1:
+        raise ValueError("a lane is [groups, n]")
+    if (n > 1 and t.stride(1) != 1) or (t.shape[0] > 1 and t.stride(0) < n):
+        raise ValueError("lane rows must be unit-stride and not overlap")
+    return t.stride(0) if t.shape[0] > 1 else n
+
+
+def lane_fold(lanes, mode: str = "sum") -> torch.Tensor:
+    """K13: the receiver's fold of the gathered lanes. "sum": ``lanes`` =
+    (lo, hi), each [G, N] of uint8, uint16 or int32 (rows may be strided,
+    as the columns of a flat mesh's int32[M, 2, N] partials are), widened
+    and summed → int32[2, N]; "max" / "min": ``lanes`` [G, N] of uint8,
+    uint16, int32 or int64 → [N], int32 (int64 for int64 lanes)."""
+    if mode not in _LANE_MODES:
+        raise ValueError(f"bad lane mode {mode!r}")
+    lo, hi = lanes if mode == "sum" else (lanes, None)
+    n = lo.shape[-1]
+    lo_stride = _lane_rows(lo, n)
+    widths = [_lane_width(lo)]
+    hi_stride = 0
+    if hi is not None:
+        hi_stride = _lane_rows(hi, n)
+        widths.append(_lane_width(hi))
+        if hi.shape[0] != lo.shape[0] or hi.device != lo.device:
+            raise ValueError("lo and hi lanes differ in groups or device")
+        if 8 in widths:
+            raise ValueError("split-channel lanes are at most int32")
+    if _on_cpu(lo):
+        return lane_fold_plain(lanes, mode)
+    lib = _lib("lane_fold")
+    if mode == "sum":
+        out = torch.empty((2, n), dtype=torch.int32, device=lo.device)
+    else:
+        out = torch.empty(n, dtype=torch.int64 if widths[0] == 8
+                          else torch.int32, device=lo.device)
+    rc = lib.lane_fold_launch(
+        _ptr(lo), widths[0], lo_stride, _ptr(hi),
+        widths[1] if hi is not None else 0, hi_stride, _LANE_MODES[mode],
+        lo.shape[0], n, _ptr(out), _stream(out))
+    _check("lane_fold", lib, rc)
+    _count_launch("lane_fold")
+    return out
+
+
+def quant_pack(parts: torch.Tensor, groups: int):
+    """K14: per group (the int32 sum of its members' split channels,
+    ``parts`` int32[M, 2, R]) and per QUANT_BLOCK of candidates, the
+    int32 scale and the uint8 mantissas of the 8-bit ranking lane →
+    (q uint8[G, nb, 256], scales int32[G, nb]), one launch."""
+    if parts.dim() != 3 or parts.shape[1] != 2 or parts.shape[2] < 1:
+        raise ValueError("quant_pack takes [members, 2, rows] split channels")
+    m, _, rows = parts.shape
+    if groups < 1 or m % groups:
+        raise ValueError(f"{groups} groups over {m} members")
+    if parts.dtype != torch.int32 or not parts.is_contiguous():
+        raise TypeError("quant_pack takes contiguous int32 partials")
+    if _on_cpu(parts):
+        return quant_pack_plain(parts, groups)
+    lib = _lib("quant_pack")
+    nb = -(-rows // QUANT_BLOCK)
+    q = torch.empty((groups, nb, QUANT_BLOCK), dtype=torch.uint8,
+                    device=parts.device)
+    scales = torch.empty((groups, nb), dtype=torch.int32, device=parts.device)
+    rc = lib.quant_pack_launch(_ptr(parts), m, groups, rows, _ptr(q),
+                               _ptr(scales), _stream(parts))
+    _check("quant_pack", lib, rc)
+    _count_launch("quant_pack")
+    return q, scales
+
+
+def quant_fold(q: torch.Tensor, scales: torch.Tensor, rows: int
+               ) -> torch.Tensor:
+    """K15: the gathered 8-bit lanes decoded, q uint8[G, nb, 256] and
+    scales int32[G, nb] → split-form int32[2, rows + nb]: approx counts of
+    the ``rows`` candidates, then each block's error bound."""
+    if q.dim() != 3 or q.shape[2] != QUANT_BLOCK or q.dtype != torch.uint8:
+        raise ValueError("quant_fold takes uint8[groups, blocks, 256] "
+                         "mantissas")
+    groups, nb, _ = q.shape
+    if scales.shape != (groups, nb) or scales.dtype != torch.int32:
+        raise ValueError("quant_fold takes int32[groups, blocks] scales")
+    if not 1 <= rows or nb != -(-rows // QUANT_BLOCK):
+        raise ValueError(f"{rows} rows do not fill {nb} blocks")
+    if not (q.is_contiguous() and scales.is_contiguous()) or \
+            q.device != scales.device:
+        raise ValueError("quant_fold takes contiguous lanes on one device")
+    if _on_cpu(q):
+        return quant_fold_plain(q, scales, rows)
+    lib = _lib("quant_fold")
+    out = torch.empty((2, rows + nb), dtype=torch.int32, device=q.device)
+    rc = lib.quant_fold_launch(_ptr(q), _ptr(scales), groups, rows, nb,
+                               _ptr(out), _stream(out))
+    _check("quant_fold", lib, rc)
+    _count_launch("quant_fold")
+    return out

@@ -171,9 +171,12 @@ class ApiError(Exception):
 
 
 class API:
-    def __init__(self, holder):
+    def __init__(self, holder, executor=None):
         self.holder = holder
-        self.executor = Executor(holder, device=holder.device)
+        # the server's executor: the plain one, or a DistExecutor over a
+        # mesh (use-mesh)
+        self.executor = (executor if executor is not None
+                         else Executor(holder, device=holder.device))
         self.max_writes_per_request = MAX_WRITES_PER_REQUEST
         self.tierer = None  # the server's ResidencyTierer, when one runs
         # the integrity scrubber: the server's ticker, or the one that

@@ -63,6 +63,7 @@ import threading
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
+from pilosa_tpu_torch.parallel.reduction import global_reduce_stats
 from pilosa_tpu_torch.qos import DEADLINE_HEADER, TENANT_HEADER, Deadline
 from pilosa_tpu_torch.roaring.kernels import global_kernel_stats
 from pilosa_tpu_torch.roaring.merge_kernels import global_merge_stats
@@ -484,9 +485,9 @@ class HTTPHandler(BaseHTTPRequestHandler):
         """The reference's blocks for the planes the port has, in its
         order: the stats registry, the row cache, the serving waves and
         fast lane, the result cache, the tierer, the WAL, the integrity
-        plane, the host roaring kernels and the merge kernels, QoS,
-        observability, then the tenant ledger, heat and the SLO
-        engine."""
+        plane, the host roaring kernels and the merge kernels, the
+        mesh's reduction lanes, QoS, observability, then the tenant
+        ledger, heat and the SLO engine."""
         seen: set = set()  # a family's HELP and TYPE once a page
         api = self.api
         stats = global_stats()
@@ -510,6 +511,10 @@ class HTTPHandler(BaseHTTPRequestHandler):
                                  seen=seen)
         text += prometheus_block(global_merge_stats().metrics(), prefix,
                                  seen=seen)
+        # the mesh's reduction lanes: dense-equivalent against actual
+        # bytes and the row gathers, zeros until a mesh reduces
+        text += prometheus_block(global_reduce_stats().snapshot(), prefix,
+                                 "dist_reduce", seen=seen)
         text += prometheus_block(api.qos.metrics(), prefix, "qos",
                                  seen=seen)
         text += prometheus_block(api.observability_metrics(), prefix,
@@ -657,6 +662,7 @@ class HTTPHandler(BaseHTTPRequestHandler):
         snap["durability"] = api.durability_metrics()
         snap["integrity"] = api.integrity_metrics()
         snap["observability"] = api.observability_metrics()
+        snap["dist_reduce"] = global_reduce_stats().snapshot()
         snap["tenants"] = api.cost.metrics()
         snap["heat"] = global_heat().metrics()
         snap["slo"] = api.slo.metrics()

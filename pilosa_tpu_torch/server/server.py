@@ -29,6 +29,13 @@ empties it), ``ingest_workers`` (the import pool) and ``heat_half_life``
 defaults, parsing and validation; durations as Go strings such as
 "90s"): ``server_kwargs()`` gives a Server its ported knobs, and
 ``unported()`` names the knobs of planes the port lacks that are set.
+``use_mesh``, ``mesh_groups`` and ``topn_quantized_ranking`` choose the
+executor: a ``DistExecutor`` over the visible CUDA devices (the holder's
+device on the CPU), factored into ``mesh_groups`` groups, ranking TopN
+and gating GroupBy pruning over the 8-bit lane, when ``use_mesh`` is
+set, or when it is unset and more than one CUDA device is visible; the
+plain ``Executor`` otherwise, so one card serves as before.
+
 ``config_from_dict`` reads the knobs above (snake case too),
 ``config_from_toml`` from a TOML file, and ``Server.config()`` dumps
 them under the same names.
@@ -38,6 +45,10 @@ from __future__ import annotations
 
 import collections
 
+import torch
+
+from pilosa_tpu_torch.executor import Executor
+from pilosa_tpu_torch.parallel import DistExecutor
 from pilosa_tpu_torch.parallel.scrub import Scrubber
 from pilosa_tpu_torch.qos import ServingQos, SLOEngine
 from pilosa_tpu_torch.server.api import API
@@ -93,6 +104,9 @@ SERVING_KNOBS = (
     "heat-half-life",
 )
 
+# The device mesh's knobs (the executor the server builds).
+MESH_KNOBS = ("use-mesh", "mesh-groups", "topn-quantized-ranking")
+
 
 class ServerConfig:
     """The reference's server configuration: every knob under its config
@@ -110,7 +124,7 @@ class ServerConfig:
         "scrub-max-bytes-per-sec", "residency-promote-interval",
         "residency-promote-heat", "residency-demote-heat",
         "residency-host-tier-bytes",
-    ) + SERVING_KNOBS)
+    ) + SERVING_KNOBS + MESH_KNOBS)
 
     def __init__(
         self,
@@ -674,7 +688,7 @@ _KNOBS = ("verify-on-load", "durability-mode", "group-commit-max-ms",
           "group-commit-max-ops", "residency-host-tier-bytes",
           "residency-promote-interval", "residency-promote-heat",
           "residency-demote-heat", "scrub-interval",
-          "scrub-max-bytes-per-sec") + SERVING_KNOBS
+          "scrub-max-bytes-per-sec") + SERVING_KNOBS + MESH_KNOBS
 
 
 def config_from_dict(d: dict) -> dict:
@@ -726,7 +740,10 @@ class Server:
                  slow_query_ring: int = 100,
                  result_cache_bytes: int = 0,
                  ingest_workers: int = 1,
-                 heat_half_life: float = 300.0):
+                 heat_half_life: float = 300.0,
+                 use_mesh: bool | None = None,
+                 mesh_groups: int = 0,
+                 topn_quantized_ranking: bool = False):
         # the serving envelope's knobs, validated as ServerConfig does
         cfg = ServerConfig(
             qos_max_inflight=qos_max_inflight,
@@ -741,7 +758,12 @@ class Server:
             trace_log_dir=trace_log_dir, long_query_time=long_query_time,
             slow_query_ring=slow_query_ring,
             result_cache_bytes=result_cache_bytes,
-            ingest_workers=ingest_workers, heat_half_life=heat_half_life)
+            ingest_workers=ingest_workers, heat_half_life=heat_half_life,
+            use_mesh=use_mesh, mesh_groups=mesh_groups,
+            topn_quantized_ranking=topn_quantized_ranking)
+        self.use_mesh = cfg.use_mesh
+        self.mesh_groups = cfg.mesh_groups
+        self.topn_quantized_ranking = cfg.topn_quantized_ranking
         for name in SERVING_KNOBS:
             attr = name.replace("-", "_")
             setattr(self, attr, getattr(cfg, attr))
@@ -815,7 +837,12 @@ class Server:
                                         half_life_s=self.heat_half_life)
         global_heat().half_life_s = self.heat_half_life
         self.holder.open()
-        self.api = API(self.holder)
+        try:
+            executor = self._executor()
+        except BaseException:
+            self.holder.close()
+            raise
+        self.api = API(self.holder, executor)
         api = self.api
         api.max_writes_per_request = self.max_writes_per_request
         api.long_query_time = self.long_query_time
@@ -853,6 +880,19 @@ class Server:
         self._http, _, self._thread = serve_in_thread(self.api, self.bind,
                                                       self._port)
         return self
+
+    def _executor(self):
+        """The reference's choice: a mesh when use-mesh is set, or when it
+        is unset and more than one CUDA device is visible."""
+        use_mesh = self.use_mesh
+        if use_mesh is None:
+            use_mesh = (self.holder.device.type == "cuda"
+                        and torch.cuda.device_count() > 1)
+        if use_mesh:
+            return DistExecutor(
+                self.holder, groups=self.mesh_groups or None,
+                quantized_ranking=self.topn_quantized_ranking)
+        return Executor(self.holder, device=self.holder.device)
 
     def close(self) -> None:
         if self.api is not None and self.api.scrubber is not None:

@@ -65,7 +65,8 @@ class ProfileNode:
                  "max_batch", "shards", "c_array", "c_bitmap", "c_run",
                  "row_cache_hits", "row_cache_misses", "plan_cache_hit",
                  "operand_memo_hit", "rows_materialized", "device_bytes",
-                 "children", "leaves")
+                 "reduce_dense_bytes", "reduce_actual_bytes",
+                 "reduce_quant_bytes", "children", "leaves")
 
     def __init__(self, name: str, pql: str = ""):
         self.name = name
@@ -84,6 +85,9 @@ class ProfileNode:
         self.operand_memo_hit = False
         self.rows_materialized = 0
         self.device_bytes = 0
+        self.reduce_dense_bytes = 0
+        self.reduce_actual_bytes = 0
+        self.reduce_quant_bytes = 0
         # static AST skeleton (ready-to-emit dicts, shared via the
         # skeleton memo — never mutated)
         self.children: list[dict] = []
@@ -107,6 +111,15 @@ class ProfileNode:
             "operandMemoHit": self.operand_memo_hit,
             "bytesMoved": self.device_bytes,
         }
+        if self.reduce_dense_bytes:
+            # the mesh's reduction lanes (parallel/reduction.py): what the
+            # flat dense path would have moved against what the encoded
+            # inter-group lane did; ``quantized`` the part that crossed
+            # on the 8-bit ranking lane
+            out["reduceBytes"] = {"denseEquiv": self.reduce_dense_bytes,
+                                  "actual": self.reduce_actual_bytes}
+            if self.reduce_quant_bytes:
+                out["reduceBytes"]["quantized"] = self.reduce_quant_bytes
         if self.leaves:
             out["leaves"] = self.leaves
         if self.children:
@@ -217,7 +230,8 @@ class CostContext:
     __slots__ = ("tenant", "index", "device_s", "dispatches", "shards",
                  "c_array", "c_bitmap", "c_run", "row_cache_hits",
                  "row_cache_misses", "plan_cache_hits", "plan_cache_misses",
-                 "rows_materialized", "device_bytes", "profile",
+                 "rows_materialized", "device_bytes", "reduce_dense_bytes",
+                 "reduce_actual_bytes", "reduce_quant_bytes", "profile",
                  "current")
 
     def __init__(self, tenant: str = "default", index: str = "",
@@ -236,6 +250,9 @@ class CostContext:
         self.plan_cache_misses = 0
         self.rows_materialized = 0
         self.device_bytes = 0
+        self.reduce_dense_bytes = 0
+        self.reduce_actual_bytes = 0
+        self.reduce_quant_bytes = 0
         self.profile = profile
         self.current: ProfileNode | None = None
 
@@ -287,6 +304,21 @@ class CostContext:
         if node is not None:
             node.device_bytes += nbytes
 
+    def note_reduce(self, dense: int, actual: int,
+                    quantized: int = 0) -> None:
+        """One reduction-lane crossing on the mesh (parallel/dist.py):
+        the flat dense-equivalent bytes against the encoded bytes of the
+        inter-group lane; ``quantized`` the part of ``actual`` that
+        crossed on the 8-bit ranking lane."""
+        self.reduce_dense_bytes += dense
+        self.reduce_actual_bytes += actual
+        self.reduce_quant_bytes += quantized
+        node = self.current
+        if node is not None:
+            node.reduce_dense_bytes += dense
+            node.reduce_actual_bytes += actual
+            node.reduce_quant_bytes += quantized
+
     def note_rows(self, n: int) -> None:
         self.rows_materialized += n
         node = self.current
@@ -319,6 +351,11 @@ class CostContext:
             "rowsMaterialized": self.rows_materialized,
             "bytesMoved": self.device_bytes,
         }
+        if self.reduce_dense_bytes:
+            out["reduceBytes"] = {"denseEquiv": self.reduce_dense_bytes,
+                                  "actual": self.reduce_actual_bytes}
+            if self.reduce_quant_bytes:
+                out["reduceBytes"]["quantized"] = self.reduce_quant_bytes
         return out
 
 

@@ -477,10 +477,15 @@ def capture_device_trace(log_dir: str, device, seconds: float) -> str:
     import json
     import os
 
-    from torch.profiler import profile
+    import torch
+    from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=device_trace_activities(device)) as prof:
+    activities = device_trace_activities(device)
+    with profile(activities=activities) as prof:
         time.sleep(seconds)
+        if ProfilerActivity.CUDA in activities:
+            # the kernels launched in the window finish inside the session
+            torch.cuda.synchronize(device)
     path = os.path.join(
         log_dir, f"trace-{os.getpid()}-{time.time_ns()}.pt.trace.json")
     prof.export_chrome_trace(path)

@@ -5,7 +5,8 @@ clamped to the server's limit, ``--concurrency``, ``--values``,
 ``--clear``, ``--create``), ``export`` both ways, ``inspect``,
 ``config``, ``generate-config`` and ``version``; ``server`` refuses a set
 knob of a plane the port does not have (multi-process serving, cluster,
-CDC, autopilot, mesh, TLS) and takes the serving envelope's knobs.
+CDC, autopilot, TLS) and takes the serving envelope's and the mesh's
+knobs.
 """
 
 import logging
@@ -178,27 +179,33 @@ SERVING_TOML = (
     'heat-half-life = "90s"\n')
 
 # The refused planes' knobs: multi-process serving, the cluster, CDC,
-# the autopilot, the mesh and TLS.
+# the autopilot and TLS.
 REFUSED_TOML = (
     'serving-workers = 2\nring-slots = 64\nring-slot-bytes = 4096\n'
     'seeds = ["http://a:1"]\nreplica-n = 2\ncdc-enabled = true\n'
-    'autopilot-enabled = true\nuse-mesh = true\nmesh-groups = 2\n'
+    'autopilot-enabled = true\n'
     'tls-certificate = "c.crt"\ntls-key = "c.key"\n')
+
+# The mesh's knobs, served since the single-process mesh.
+MESH_TOML = ('use-mesh = true\nmesh-groups = 2\n'
+             'topn-quantized-ranking = true\n')
 
 
 def test_server_refuses_a_knob_of_an_unported_plane(capsys, tmp_path,
                                                     monkeypatch):
     toml = tmp_path / "node.toml"
-    toml.write_text(REFUSED_TOML + SERVING_TOML + 'scrub-interval = "1m"\n')
+    toml.write_text(REFUSED_TOML + SERVING_TOML + MESH_TOML
+                    + 'scrub-interval = "1m"\n')
     rc = pcli.main(["server", "-d", str(tmp_path / "d"), "-c", str(toml),
                     "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 1
     for knob in ("serving-workers", "ring-slots", "ring-slot-bytes", "seeds",
-                 "replica-n", "cdc-enabled", "autopilot-enabled", "use-mesh",
-                 "mesh-groups", "tls-certificate", "tls-key"):
+                 "replica-n", "cdc-enabled", "autopilot-enabled",
+                 "tls-certificate", "tls-key"):
         assert knob in err, knob
-    for line in SERVING_TOML.splitlines() + ['scrub-interval = "1m"']:
+    for line in (SERVING_TOML.splitlines() + MESH_TOML.splitlines()
+                 + ['scrub-interval = "1m"']):
         knob = line.split(" = ")[0]
         assert knob not in err, knob
     monkeypatch.setenv("PILOSA_TPU_CDC_ENABLED", "true")
@@ -294,6 +301,74 @@ def test_server_takes_the_serving_knobs(capsys, tmp_path, monkeypatch):
         global_result_cache().configure(0, half_life_s=half_lives[0])
         global_heat().half_life_s = half_lives[1]
         global_tracer().sample_rate = 0.0
+
+
+def test_server_takes_the_mesh_knobs(capsys, tmp_path, monkeypatch):
+    """``use-mesh``, ``mesh-groups`` and ``topn-quantized-ranking`` in a
+    config file (and ``PILOSA_TPU_MESH_GROUPS``) reach the Server as the
+    reference's ServerConfig parses them, ``config`` prints them as the
+    reference's does, and the Server builds its DistExecutor from them
+    (a CPU server: one member, so one group)."""
+    from pilosa_tpu.server import ServerConfig as JConfig
+    from pilosa_tpu_torch.parallel import DistExecutor, mesh_groups
+
+    for k in [k for k in os.environ if k.startswith("PILOSA_TPU_")]:
+        monkeypatch.delenv(k)
+    toml = tmp_path / "node.toml"
+    toml.write_text(MESH_TOML)
+    assert _same(capsys, ["config", "-c", str(toml)])[0] == 0
+    monkeypatch.setenv("PILOSA_TPU_MESH_GROUPS", "1")
+    assert _same(capsys, ["config", "-c", str(toml)])[0] == 0
+    seen = {}
+
+    class Opened:
+        port = 0
+        holder = type("H", (), {"device": "cpu"})()
+
+        def close(self):
+            seen["closed"] = True
+
+    class FakeServer:
+        def __init__(self, data_dir, **kwargs):
+            seen.update(kwargs)
+
+        def open(self):
+            threading.Timer(0.2, os.kill,
+                            (os.getpid(), signal.SIGTERM)).start()
+            return Opened()
+
+    monkeypatch.setattr("pilosa_tpu_torch.server.Server", FakeServer)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                  signal.SIGTERM)}
+    log = logging.getLogger("pilosa_tpu_torch")
+    log_handlers, log_level = list(log.handlers), log.level
+    try:
+        rc = pcli.main(["server", "-d", str(tmp_path / "d"), "-c",
+                        str(toml), "--device", "cpu"])
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        log.handlers[:] = log_handlers
+        log.setLevel(log_level)
+    assert rc == 0 and seen.pop("closed")
+    import tomllib
+
+    raw = tomllib.loads(MESH_TOML)
+    raw["mesh-groups"] = "1"
+    want = JConfig.from_dict(raw).to_dict()
+    for name in ("use-mesh", "mesh-groups", "topn-quantized-ranking"):
+        assert seen[name.replace("-", "_")] == want[name], name
+    srv = Server(str(tmp_path / "s"), port=0, device="cpu", **{
+        name.replace("-", "_"): want[name]
+        for name in ("use-mesh", "mesh-groups", "topn-quantized-ranking")
+    }).open()
+    try:
+        ex = srv.executor
+        assert type(ex) is DistExecutor and ex.quantized_ranking
+        assert ex.mesh.size == 1 and mesh_groups(ex.mesh) is None
+        assert srv.config()["use-mesh"] is True
+    finally:
+        srv.close()
 
 
 def test_heat_half_life_reaches_both_planes_as_the_reference(tmp_path,

@@ -1213,11 +1213,12 @@ def test_wave_launched_by_the_dispatcher_reads_back_on_request_threads(
 
 
 def test_trace_device_records_cuda_kernels(dev, tmp_path):
-    """``POST /debug/trace-device`` on a CUDA server under load: the
-    Chrome trace holds the card's kernel events, K1's among them
-    (``tree_count_*``), not a CPU-only trace. A capture that recorded no
-    kernel (some profiler sessions on the H100 do) answers 500 and
-    leaves no file; the capture is asked again, three times at most."""
+    """``POST /debug/trace-device`` on a CUDA server under load, asked
+    once: the Chrome trace holds the card's kernel events, K1's among
+    them (``tree_count_*``), not a CPU-only trace. The capture is asked
+    once every client has had an answer (K1 built, loaded and launched)
+    and the load runs until it has answered, so its whole window sees
+    launches."""
     import json
     import os
     import threading
@@ -1227,24 +1228,24 @@ def test_trace_device_records_cuda_kernels(dev, tmp_path):
     _serving_dir(tmp_path / "d")
     server = Server(str(tmp_path / "d"), port=0, device="cuda").open()
     stop = threading.Event()
+    answered = threading.Barrier(5)
 
     def load():
-        while not stop.is_set():
+        first = True
+        while first or not stop.is_set():
             assert _post(server.port, "/index/i/query",
                          b"Count(Intersect(Row(f=1), Row(g=7)))")[0] == 200
+            if first:
+                answered.wait(600)
+                first = False
 
     clients = [threading.Thread(target=load) for _ in range(4)]
     try:
         for t in clients:
             t.start()
+        answered.wait(600)
         log_dir = tmp_path / "d" / "jax-traces"
-        for _ in range(3):
-            status, body = _post(server.port,
-                                 "/debug/trace-device?secs=0.5")
-            if status == 200:
-                break
-            assert status == 500 and b"no CUDA kernel event" in body, body
-            assert not list(log_dir.glob("*.json"))
+        status, body = _post(server.port, "/debug/trace-device?secs=0.5")
         assert status == 200, body
         out = json.loads(body)
         assert out["logDir"] == str(log_dir)
@@ -1261,3 +1262,143 @@ def test_trace_device_records_cuda_kernels(dev, tmp_path):
                     if e.get("cat") == "kernel"}
     assert any("tree_count" in n for n in kernel_names), sorted(
         kernel_names)[:10]
+
+
+# ---------------------------------------------------------- mesh lanes
+
+
+def _split_parts(dev, members: int, n: int, lo_max: int, hi_max: int,
+                 seed: int) -> torch.Tensor:
+    """int32[M, 2, n] split channels, the first column's group sums at
+    the given maxima (a lane's bound exactly)."""
+    rng = np.random.default_rng(seed)
+    parts = np.zeros((members, 2, n), np.int32)
+    parts[:, 0] = rng.integers(0, lo_max // members + 1, (members, n))
+    parts[:, 1] = rng.integers(0, hi_max // members + 1, (members, n))
+    parts[:, 0, 0] = lo_max // members
+    parts[0, 0, 0] += lo_max % members
+    return torch.from_numpy(parts).to(dev)
+
+
+@pytest.mark.parametrize("members,groups,n,widths", [
+    (8, 2, 1, (1, 1)), (8, 4, 700, (2, 1)), (8, 2, 129, (4, 2)),
+    (4, 4, 3, (2, 4))])
+def test_lane_pack_and_fold_match_plain(dev, members, groups, n, widths):
+    """K12 into lanes of each width (sums at 255, 65 535 and past them),
+    then K13, against the plain versions, bit-exact, dtypes too."""
+    bound = {1: 255, 2: 65535, 4: 1 << 24}
+    parts = _split_parts(dev, members, n, bound[widths[0]] * groups,
+                         bound[widths[1]] * groups, members + n)
+    got = kernels.lane_pack(parts, groups, widths)
+    want = kernels.lane_pack_plain(parts, groups, widths)
+    for g, w in zip(got, want):
+        assert g.dtype == w.dtype == kernels.LANE_DTYPES[g.element_size()]
+        assert torch.equal(g, w)
+    assert torch.equal(kernels.lane_fold(got), kernels.lane_fold_plain(want))
+    flat = kernels.lane_fold((parts[:, 0], parts[:, 1]))
+    assert torch.equal(flat, kernels.lane_fold_plain(
+        (parts[:, 0], parts[:, 1])))
+    assert torch.equal(flat.cpu(), parts.cpu().sum(0, dtype=torch.int32))
+
+
+@pytest.mark.parametrize("dtype,width", [(torch.int64, 8), (torch.int32, 4),
+                                         (torch.int32, 1)])
+@pytest.mark.parametrize("mode", ["max", "min"])
+def test_lane_extrema_match_plain(dev, dtype, width, mode):
+    rng = np.random.default_rng(width)
+    hi = 2 if width == 1 else 1 << 40 if dtype == torch.int64 else 1 << 30
+    vals = torch.from_numpy(rng.integers(-hi if width > 1 else 0, hi,
+                                         (8, 5))).to(dtype).to(dev)
+    lanes = kernels.lane_pack(vals, 4, width, mode)
+    assert torch.equal(lanes, kernels.lane_pack_plain(vals, 4, width, mode))
+    assert torch.equal(kernels.lane_fold(lanes, mode),
+                       kernels.lane_fold_plain(lanes, mode))
+    assert torch.equal(kernels.lane_fold(vals, mode),
+                       kernels.lane_fold_plain(vals, mode))
+
+
+@pytest.mark.parametrize("rows,groups", [(1, 2), (300, 2), (65536, 4),
+                                         (1000, 4)])
+def test_quant_pack_and_fold_match_plain(dev, rows, groups):
+    """K14 then K15 against the plain versions: blocks past 255 (scales >
+    1), an all-small block (scale 1) and R not a multiple of 256."""
+    parts = _split_parts(dev, 8, rows, 1 << 20, 1 << 12, rows)
+    parts[:, 0, :256] %= 16  # the first block's totals <= 255: s == 1
+    parts[:, 1, :256] = 0
+    q, s = kernels.quant_pack(parts, groups)
+    qp, sp = kernels.quant_pack_plain(parts, groups)
+    assert torch.equal(q, qp) and torch.equal(s, sp)
+    assert int(s[:, 0].max()) == 1
+    got = kernels.quant_fold(q, s, rows)
+    assert torch.equal(got, kernels.quant_fold_plain(qp, sp, rows))
+    assert rows < 257 or int(s[:, 1:].max()) > 1
+
+
+def test_mesh_of_eight_members_on_one_card(dev, tmp_path):
+    """``make_mesh(8, devices=[cuda], groups=2)``: the Star-Trace Counts,
+    a Row, a TopN over the quantized lane and a Set between two reads,
+    each equal to the single-device executor's, with K12 and K13
+    launched."""
+    from pilosa_tpu_torch.executor import Executor, result_to_json
+    from pilosa_tpu_torch.parallel import DistExecutor, make_mesh
+    from pilosa_tpu_torch.storage import Holder
+
+    _serving_dir(tmp_path / "d")
+    h = Holder(str(tmp_path / "d"), device="cuda").open()
+    try:
+        mesh = DistExecutor(h, make_mesh(8, devices=[dev], groups=2),
+                            quantized_ranking=True, verify_quantized=True)
+        plain = Executor(h, device="cuda")
+        queries = ["Count(Intersect(Row(f=1), Row(g=7)))",
+                   "Count(Union(Row(f=2), Row(f=3)))",
+                   "Count(Xor(Row(f=1), Row(g=7)))", "Row(f=2)",
+                   "TopN(f, n=2)"]
+        kernels.reset_launches()
+        for q in queries:
+            want = result_to_json(plain.execute("i", q))
+            assert result_to_json(mesh.execute("i", q)) == want, q
+        # a write through the mesh patches the resident leaf it read
+        col = next(c for c in range(4 * W * 32) if not plain.execute(
+            "i", f"IncludesColumn(Row(f=1), column={c})")[0])
+        assert mesh.execute("i", f"Set({col}, f=1)") == [True]
+        for q in queries[:1] + ["Row(f=1)"]:
+            want = result_to_json(plain.execute("i", q))
+            assert result_to_json(mesh.execute("i", q)) == want, q
+        got = [d.result() for d in mesh.submit("i", " ".join(queries[:3]))]
+        assert got == plain.execute("i", " ".join(queries[:3]))
+        launched = kernels.launches()
+        assert launched["lane_pack"] > 0 and launched["lane_fold"] > 0
+    finally:
+        h.close()
+
+
+def test_server_use_mesh_on_one_card(dev, tmp_path):
+    """``use-mesh = true`` on one card builds a flat one-member mesh that
+    answers as the plain executor; unset, one card serves with the plain
+    Executor."""
+    import shutil
+
+    from pilosa_tpu_torch.executor import Executor
+    from pilosa_tpu_torch.parallel import DistExecutor
+    from pilosa_tpu_torch.server import Server
+
+    _serving_dir(tmp_path / "seed")
+    answers = {}
+    for name, kwargs in (("plain", {}), ("mesh", {"use_mesh": True})):
+        shutil.copytree(tmp_path / "seed", tmp_path / name)
+        server = Server(str(tmp_path / name), port=0, device="cuda",
+                        **kwargs).open()
+        try:
+            want = DistExecutor if kwargs else Executor
+            assert type(server.executor) is want
+            if kwargs:
+                assert server.executor.mesh.members == [
+                    torch.device("cuda", i)
+                    for i in range(torch.cuda.device_count())]
+            answers[name] = [_post(server.port, "/index/i/query", q)
+                             for q in (b"Count(Intersect(Row(f=1), Row(g=7)))",
+                                       b"TopN(f, n=2)", b"Row(g=7)")]
+        finally:
+            server.close()
+    assert answers["mesh"] == answers["plain"]
+    assert all(status == 200 for status, _ in answers["mesh"])

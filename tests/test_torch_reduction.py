@@ -1,0 +1,265 @@
+"""The mesh lanes' plain versions (K12-K15) against the reference's
+reduction functions, on the CPU.
+
+The reference's ``hier_split_channels``, ``gather_extreme`` and
+``hier_quantized_counts`` run under its own ``shard_map`` on
+``make_mesh(8, groups=g)`` (conftest's 8 forced CPU devices), after the
+intra-group ``psum`` / ``pmax`` that ``_dist_body`` runs before them;
+the port's functions take the same 8 members' partials stacked. Inputs
+are seeded numpy integers with group totals at the lane bounds (255 and
+256, 65 535 and 65 536), candidate counts that are not a multiple of 256
+and all-small blocks (scale 1). Tolerance 0 throughout. The host side
+(the lane widths, the byte model, the quantized window, the row frames)
+is compared function for function.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+from jax import lax
+
+from pilosa_tpu.parallel import dist as jdist
+from pilosa_tpu.parallel import reduction as jred
+from pilosa_tpu.parallel.mesh import GROUPS_AXIS, SHARDS_AXIS
+from pilosa_tpu.parallel.mesh import make_mesh as j_make_mesh
+from pilosa_tpu.parallel.mesh import shards_spec
+from pilosa_tpu_torch import kernels
+from pilosa_tpu_torch.parallel import reduction
+from pilosa_tpu_torch.shardwidth import WORDS_PER_SHARD
+
+torch.set_num_threads(1)
+
+MEMBERS = 8
+
+
+def _run_mesh(groups, body, *arrays):
+    """``body`` under the reference's shard_map, one member's rows a
+    device; returns member 0's (replicated) result."""
+    mesh = j_make_mesh(MEMBERS, groups=groups)
+    hier = (groups, MEMBERS // groups) if groups else None
+    spec = shards_spec(mesh)
+    fn = jax.jit(jdist._smap(lambda *a: body(*[x[0] for x in a])[None],
+                             mesh, tuple(spec for _ in arrays), spec, hier))
+    return np.asarray(fn(*arrays))[0]
+
+
+def _parts(rng, n: int, lo_total: int, hi_total: int) -> np.ndarray:
+    """int32[8, 2, n] member split channels whose every group sum stays
+    within (lo_total, hi_total), column 0 of group 0 exactly at them."""
+    out = np.zeros((MEMBERS, 2, n), np.int32)
+    out[:, 0] = rng.integers(0, lo_total // MEMBERS + 1, (MEMBERS, n))
+    out[:, 1] = rng.integers(0, hi_total // MEMBERS + 1, (MEMBERS, n))
+    out[:, 0, 0] = 0
+    out[:, 1, 0] = 0
+    out[0, 0, 0], out[0, 1, 0] = lo_total, hi_total
+    return out
+
+
+# (groups, group_slots): the lo lane uint16 or int32, the hi lane uint8 or
+# uint16, by the slots' static bounds
+SPLIT_CASES = [(2, 1), (2, 2), (4, 8), (2, 7), (4, 3)]
+
+
+@pytest.mark.parametrize("groups,group_slots", SPLIT_CASES)
+def test_hier_split_channels_matches_reference(groups, group_slots):
+    lo_b, hi_b = reduction.split_channel_bounds(group_slots)
+    assert (lo_b, hi_b) == jred.split_channel_bounds(group_slots)
+    rng = np.random.default_rng(group_slots * 10 + groups)
+    parts = _parts(rng, 37, lo_b, hi_b)
+    want = _run_mesh(groups, lambda p: jred.hier_split_channels(
+        lax.psum(p, SHARDS_AXIS), GROUPS_AXIS, group_slots), parts)
+    got = reduction.hier_split_channels(torch.from_numpy(parts), groups,
+                                        group_slots)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+    lanes = kernels.lane_pack(torch.from_numpy(parts), groups,
+                              (reduction.lane_dtype_bytes(lo_b),
+                               reduction.lane_dtype_bytes(hi_b)))
+    assert lanes[0].dtype == reduction.lane_dtype(lo_b)
+    assert lanes[1].dtype == reduction.lane_dtype(hi_b)
+    assert [np.dtype(str(l.dtype).split(".")[1]) for l in lanes] == [
+        np.dtype(jred.lane_dtype(lo_b)), np.dtype(jred.lane_dtype(hi_b))]
+
+
+def test_flat_mesh_sum_matches_reference_psum():
+    rng = np.random.default_rng(4)
+    parts = _parts(rng, 65, 1 << 20, 1 << 20)
+    want = _run_mesh(None, lambda p: lax.psum(p, SHARDS_AXIS), parts)
+    got = reduction.flat_split_sum(torch.from_numpy(parts))
+    assert np.array_equal(got.numpy(), want)
+
+
+# (want_max, bound, the largest value): the valid flag's 0/1, lanes at
+# 255/256 and 65 535/65 536, and the exact int32 lane (no bound)
+EXTREME_CASES = [(True, 1, 1), (True, 255, 255), (False, 256, 256),
+                 (True, 65535, 65535), (False, 65536, 65536),
+                 (True, None, 1 << 30), (False, None, 1 << 30)]
+
+
+@pytest.mark.parametrize("groups", [2, 4])
+@pytest.mark.parametrize("want_max,bound,top", EXTREME_CASES)
+def test_gather_extreme_matches_reference(groups, want_max, bound, top):
+    rng = np.random.default_rng(top % 1000 + groups)
+    low = 0 if bound is not None else -top
+    vals = rng.integers(low, top + 1, (MEMBERS, 5)).astype(np.int32)
+    vals[3, 2] = top
+    vals[6, 4] = low
+
+    def body(v):
+        best = (lax.pmax if want_max else lax.pmin)(v, SHARDS_AXIS)
+        return jred.gather_extreme(best, GROUPS_AXIS, want_max, bound=bound)
+
+    want = _run_mesh(groups, body, vals)
+    got = reduction.gather_extreme(torch.from_numpy(vals), groups, want_max,
+                                   bound=bound)
+    assert np.array_equal(got.numpy(), want)
+    flat = reduction.gather_extreme(torch.from_numpy(vals), None, want_max)
+    assert np.array_equal(flat.numpy(), (vals.max(0) if want_max
+                                         else vals.min(0)))
+
+
+def test_gather_extreme_keeps_int64_best():
+    """The port's Min/Max bests are int64 (K7 to depth 63): no lane
+    narrows them."""
+    vals = torch.tensor([[1 << 40], [-(1 << 50)], [7], [3]],
+                        dtype=torch.int64).repeat(2, 1)
+    assert reduction.gather_extreme(vals, 4, True).tolist() == [1 << 40]
+    assert reduction.gather_extreme(vals, 2, False).tolist() == [-(1 << 50)]
+
+
+def _quant_parts(rng, rows: int) -> np.ndarray:
+    """Split channels of member totals: block 0 all-small (every group's
+    sums <= 120: scale 1), block 1's group maximum exactly 255 (scale 1),
+    block 2's exactly 256 (scale 2), the rest far past 255."""
+    totals = rng.integers(0, 1 << 19, (MEMBERS, rows))
+    totals[:, :256] = rng.integers(0, 16, (MEMBERS, min(rows, 256)))
+    if rows > 512:
+        totals[:, 256:512] = 0
+        totals[0, 300] = 255
+    if rows > 768:
+        totals[:, 512:768] = 0
+        totals[0, 700] = 256
+    return np.stack([totals & reduction.SPLIT_MASK,
+                     totals >> reduction.SPLIT_SHIFT], 1).astype(np.int32)
+
+
+@pytest.mark.parametrize("groups", [None, 2, 4])
+@pytest.mark.parametrize("rows", [1, 255, 256, 300, 1000])
+def test_hier_quantized_counts_matches_reference(groups, rows):
+    rng = np.random.default_rng(rows + (groups or 0))
+    parts = _quant_parts(rng, rows)
+    want = _run_mesh(groups, lambda p: jred.hier_quantized_counts(
+        lax.psum(p, SHARDS_AXIS), GROUPS_AXIS if groups else None), parts)
+    got = reduction.hier_quantized_counts(torch.from_numpy(parts), groups)
+    assert got.shape == (2, reduction.quant_total_elems(rows))
+    assert np.array_equal(got.numpy(), want)
+    if groups:
+        q, s = kernels.quant_pack(torch.from_numpy(parts), groups)
+        assert q.dtype == torch.uint8 and s.dtype == torch.int32
+        assert int(s[:, 0].max()) == 1  # the all-small first block
+        if rows > 768:
+            assert int(s[:, 1].max()) == 1  # a block max of 255
+            assert int(s[:, 2].max()) == 2  # a block max of 256
+
+
+def test_quant_window_and_error_bound_properties():
+    """The decoded counts stay within the transmitted bound of the exact
+    totals, the window is the reference's and a superset of the exact
+    top n, and the host decode is the reference's."""
+    rng = np.random.default_rng(5)
+    for _ in range(12):
+        rows = int(rng.integers(1, 700))
+        groups = int(rng.choice([2, 4]))
+        parts = _quant_parts(rng, rows)
+        packed = reduction.hier_quantized_counts(torch.from_numpy(parts),
+                                                 groups).numpy()
+        merged = (packed[1].astype(np.int64) << 15) + packed[0]
+        approx, err = reduction.split_quantized(merged, rows)
+        japprox, jerr = jred.split_quantized(merged, rows)
+        assert np.array_equal(approx, japprox) and np.array_equal(err, jerr)
+        exact = (parts[:, 0].astype(np.int64)
+                 + (parts[:, 1].astype(np.int64) << 15)).sum(0)
+        assert np.all(np.abs(approx - exact) <= err)
+        for n in (0, 1, 5, rows, rows + 3):
+            widx = reduction.quant_topn_window(approx, err, n)
+            assert np.array_equal(widx, jred.quant_topn_window(approx, err,
+                                                               n))
+            top = sorted(range(rows), key=lambda r: (-exact[r], r))[:n]
+            assert set(top) <= set(widx.tolist())
+
+
+def test_byte_model_and_lane_widths_match_reference():
+    for bound in (0, 1, 255, 256, 65535, 65536, 1 << 30):
+        assert reduction.lane_dtype_bytes(bound) == jred.lane_dtype_bytes(
+            bound)
+    for total in range(1, 1200, 7):
+        assert reduction.quant_real_elems(total) == jred.quant_real_elems(
+            total)
+        assert reduction.quant_blocks(total) == jred.quant_blocks(total)
+        assert reduction.quant_payload_bytes(total) == \
+            jred.quant_payload_bytes(total)
+    for kind in ("count", "countrows", "bsisum", "min", "max", "groupby"):
+        for elems in (2, 3, 6, 48, 514):
+            for g, spg, slots in ((2, 4, 8), (4, 2, 1), (2, 1, 1024)):
+                assert reduction.hier_reduce_bytes(kind, elems, g, spg,
+                                                   slots) == \
+                    jred.hier_reduce_bytes(kind, elems, g, spg, slots)
+                assert reduction.dense_reduce_bytes(g * spg, elems) == \
+                    jred.dense_reduce_bytes(g * spg, elems)
+    for rows in (1, 256, 257, 4096):
+        assert reduction.quant_hier_bytes(rows, 4, 2, 16) == \
+            jred.quant_hier_bytes(rows, 4, 2, 16)
+
+
+def test_row_frames_match_reference_bytes():
+    rng = np.random.default_rng(3)
+    host = np.zeros((5, WORDS_PER_SHARD), np.uint32)
+    host[1, rng.integers(0, WORDS_PER_SHARD, 300)] = 0x80000001
+    host[2, :7] = 0xFFFFFFFF  # a run container
+    host[3] = rng.integers(0, 1 << 32, WORDS_PER_SHARD, dtype=np.uint32)
+    frames, nbytes = reduction.encode_row_frames(host)
+    jframes, jbytes = jred.encode_row_frames(host)
+    assert frames == jframes and nbytes == jbytes < host.nbytes
+    assert np.array_equal(reduction.decode_row_frames(frames, host.shape),
+                          host)
+
+
+def test_reduce_stats_snapshot_keys_match_reference():
+    stats = reduction.ReduceStats()
+    stats.note_reduce(10, 4, 2, True)
+    stats.note_quant_reduce(3, 9)
+    stats.note_quant_window(2, 7)
+    stats.note_row_gather(100, 10)
+    jstats = jred.ReduceStats()
+    jstats.note_reduce(10, 4, 2, True)
+    jstats.note_quant_reduce(3, 9)
+    jstats.note_quant_window(2, 7)
+    jstats.note_row_gather(100, 10)
+    assert stats.snapshot() == jstats.snapshot()
+    stats.reset()
+    jstats.reset()
+    assert stats.snapshot() == jstats.snapshot()
+
+
+def test_lane_wrappers_check_their_arguments():
+    parts = torch.zeros((8, 2, 3), dtype=torch.int32)
+    with pytest.raises(ValueError):
+        kernels.lane_pack(parts, 3, (1, 1))  # 3 groups over 8 members
+    with pytest.raises(ValueError):
+        kernels.lane_pack(parts, 2, (8, 1))  # no int64 split lane
+    with pytest.raises(TypeError):
+        kernels.lane_pack(parts.to(torch.int64), 2, (4, 4))
+    with pytest.raises(ValueError):
+        kernels.lane_pack(parts, 2, 4, "median")
+    with pytest.raises(TypeError):
+        kernels.lane_fold(torch.zeros((2, 3), dtype=torch.int16), "max")
+    with pytest.raises(ValueError):
+        kernels.quant_fold(torch.zeros((2, 2, 256), dtype=torch.uint8),
+                           torch.zeros((2, 2), dtype=torch.int32), 600)
+    with pytest.raises(ValueError):
+        kernels.quant_pack(parts[:, :1], 2)
+    lo, hi = kernels.lane_pack(parts, 2, (2, 1))
+    assert (lo.dtype, hi.dtype, lo.shape) == (torch.uint16, torch.uint8,
+                                              (2, 3))

@@ -360,11 +360,11 @@ def test_metrics_families_match_reference(pair):
         assert pages["jax"].get(name) == meta, name
     # the reference's families the port does not render are those of the
     # planes it has not ported: the cluster's (autopilot, elastic, CDC,
-    # the mesh's reduction lanes, range routing), multi-process serving,
-    # and the host-path and merge kernels' counters
+    # range routing), multi-process serving, and the host-path and merge
+    # kernels' counters (the mesh's dist_reduce_* are rendered)
     unported = ("pilosa_tpu_autopilot_", "pilosa_tpu_elastic_",
                 "pilosa_tpu_cdc_", "pilosa_tpu_cluster_",
-                "pilosa_tpu_dist_reduce_", "pilosa_tpu_routing_range_",
+                "pilosa_tpu_routing_range_",
                 "pilosa_tpu_wal_cdc_", "pilosa_tpu_hostpath_",
                 "pilosa_tpu_ingest_merge_")
     mp = {f"pilosa_tpu_{k}" for k in pair.japi.mp_metrics()}
@@ -382,7 +382,8 @@ def test_metrics_families_match_reference(pair):
                    "pilosa_tpu_result_cache_hits_total",
                    "pilosa_tpu_query_seconds",
                    "pilosa_tpu_query_hist_seconds",
-                   "pilosa_tpu_fragment_row_writes_total"):
+                   "pilosa_tpu_fragment_row_writes_total",
+                   "pilosa_tpu_dist_reduce_dispatches"):
         assert family in pages["port"], family
 
 

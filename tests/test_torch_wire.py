@@ -392,10 +392,11 @@ TIMING = ("pilosa_tpu_wal_groups_total", "pilosa_tpu_wal_fsyncs_total",
           "pilosa_tpu_wal_checkpoints_total")
 
 
-# the host-path kernel and merge-kernel counters: one set a process,
-# moved by every test's bitmaps, so compared by their movement over the
-# test's requests
-PROCESS_WIDE = ("pilosa_tpu_hostpath_", "pilosa_tpu_ingest_merge_")
+# the host-path kernel and merge-kernel counters and the mesh's
+# reduction counters: one set a process, moved by every test's bitmaps
+# and meshes, so compared by their movement over the test's requests
+PROCESS_WIDE = ("pilosa_tpu_hostpath_", "pilosa_tpu_ingest_merge_",
+                "pilosa_tpu_dist_reduce_")
 
 
 def test_metrics_families_match_reference(servers):
