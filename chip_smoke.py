@@ -31,9 +31,12 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    the cache calls it (into one compressed entry's storage), alone on a
    device index, and batched over 16 month leaves in one launch, its
    whole call apart from its device time (a CUDA graph of launches),
-   and the mesh lanes K12-K15 at the mesh path's shapes (8 members of
-   128 slots: a Count's one lane, the taxi candidates) and K14/K15 also
-   over 65 536 candidates in 4 groups, K13 beside torch.sum.
+   and the mesh lanes at the mesh path's shapes (8 members of 128
+   slots: a Count's one lane, the taxi candidates): K12+K13 from every
+   input layout the executor gives it, its whole call at a Count's
+   reduce beside its device time, its C call alone, torch.stack of the
+   members and torch.sum of that stack; K14/K15 also over 65 536
+   candidates in 4 groups.
    Meanwhile worker processes (one per field, three for the time
    field's views, one for the existence rows; the pickup_year worker
    also writes payment_type, the repository worker the users index and
@@ -123,7 +126,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       reversed: a quantized pruning level of 512 candidates) and a Set
       and its Clear through HTTP between mesh reads of the leaf they
       patch; every answer the oracle's and the single-device
-      executor's; K12-K15's launches per query kind, the reduction's
+      executor's; the lane kernels' launches and the reductions per
+      query kind, a 2-D mesh's Count ms beside M1's, the reduction's
       dense and actual bytes, the quantized windows and ms per query
       printed;
    g. the tier path (the NYC TLC months as Litwintschik's benchmark
@@ -3895,6 +3899,9 @@ MESH_MEMBERS = 8  # members of one card, as the reference's 8 forced devices
 MESH_CONFIGS = ((1, False), (2, True), (4, True))
 MESH_ROUNDS = 4    # each Star-Trace Count shape submitted this often a round
 MESH_TIP_RANGE = 50_000
+# a 2-D mesh's Count and submitted Count ms in M1 (an H100 run of this
+# script with K12 and K13 apart), printed beside this run's
+M1_MESH_COUNT_MS = {2: "3.6 / 1.5 ms", 4: "4.8 / 1.0 ms"}
 # the mesh path's oracle inputs the serving path leaves behind: the
 # Star-Trace Counts after its writes, and its PROFILE row's columns
 MESH_TRUTH: dict = {}
@@ -3909,15 +3916,57 @@ def _lane_case(torch, dev, members: int, n: int, seed: int):
     return torch.from_numpy(np.stack([lo, hi], 1).astype(np.int32)).to(dev)
 
 
+def _lane_layouts(torch, parts, mode: str) -> dict:
+    """The same [M, ...] partials as lane_reduce takes them: stacked, a
+    list of members (each its own allocation, as the members' kernels
+    write them), transposed member views (a micro-batch's [B, 2]) and
+    strided views of a wider buffer, stacked and as members."""
+    m = parts.shape[0]
+    wide = torch.zeros((*parts.shape[:-1], 3 * parts.shape[-1]),
+                       dtype=parts.dtype, device=parts.device)
+    wide[..., ::3] = parts
+    out = {"stacked": parts, "members": [parts[k].clone() for k in range(m)],
+           "stacked_strided": wide[..., ::3],
+           "members_strided": [wide[k, ..., ::3] for k in range(m)]}
+    if mode == "sum":
+        out["members_b2"] = [parts[k].t().contiguous().t() for k in range(m)]
+    return out
+
+
+def _check_lane_reduce(torch, kernels, parts, groups: int, widths,
+                       mode: str, what: str) -> int:
+    """K12+K13 from every layout of ``parts`` (and the executor's [2] or
+    0-d partials of its first element) against its plain version,
+    bit-exact, dtype too. Returns the largest difference (0)."""
+    want = kernels.lane_reduce_plain(parts, groups, widths, mode)
+    err = 0
+    layouts = _lane_layouts(torch, parts, mode)
+    layouts["first element"] = [parts[k, ..., 0]
+                                for k in range(parts.shape[0])]
+    for name, layout in layouts.items():
+        got = kernels.lane_reduce(layout, groups, widths, mode)
+        ref = want[..., :1] if name == "first element" else want
+        if got.dtype != ref.dtype or not torch.equal(got, ref):
+            fail(f"lane_reduce differs from its plain version at {what}, "
+                 f"{mode}, from the {name} layout")
+        err = max(err, max_abs_err(torch, got, ref))
+    return err
+
+
 def check_mesh_kernels(torch, kernels, dev) -> list:
-    """Phase 3, the mesh lanes: K12-K15 against their plain versions,
-    bit-exact (values and lane dtypes), at the mesh path's shapes (8
+    """Phase 3, the mesh lanes: K12+K13 and K14/K15 against their plain
+    versions, bit-exact (values and dtypes), at the mesh path's shapes (8
     members of 128 slots: a Count's N = 1, the taxi candidates 4, 80 and
-    512) and K14/K15 also at R = 65 536 over 4 groups. Times: the whole
-    wrapper call (host-bound at these sizes) and the plain version, the
-    byte bound beside the launch floor; K13 beside torch.sum over the
-    members' int32 partials, the one PyTorch call that computes the flat
-    fold."""
+    512, over 2 and 4 groups and the flat mesh; K12+K13 from every input
+    layout the executor gives it, the split channels and the int64 max
+    and min lanes) and K14/K15 also at R = 65 536 over 4 groups. Times:
+    the whole wrapper call (host-bound at these sizes), K12+K13's device
+    time apart (its calls in a CUDA graph), its C call alone and a
+    torch.empty of its output (the host's split of the call), the
+    plain version, the byte bound beside the launch floor; K12+K13 at a
+    Count's reduce from the list of member partials beside torch.stack of
+    that list, torch.sum of the stack (the PyTorch way to the same
+    function from the same inputs) and torch.sum of a stacked tensor."""
     from pilosa_tpu_torch.parallel import reduction
 
     floor = cuda_ms(torch, lambda: kernels.launch_floor(dev), launches=100)
@@ -3927,27 +3976,19 @@ def check_mesh_kernels(torch, kernels, dev) -> list:
         slots = N_SHARDS // groups
         widths = tuple(reduction.lane_dtype_bytes(b) for b in
                        reduction.split_channel_bounds(slots))
-        got = kernels.lane_pack(parts, groups, widths)
-        want = kernels.lane_pack_plain(parts, groups, widths)
-        for g, w in zip(got, want):
-            if g.dtype != w.dtype or not torch.equal(g, w):
-                fail(f"lane_pack differs from its plain version at n={n}, "
-                     f"groups={groups}")
-        folded = kernels.lane_fold(got)
-        if not torch.equal(folded, kernels.lane_fold_plain(want)):
-            fail(f"lane_fold differs from its plain version at n={n}")
-        flat = kernels.lane_fold((parts[:, 0], parts[:, 1]))
-        if not torch.equal(flat, parts.sum(0, dtype=torch.int32)):
-            fail(f"lane_fold's flat sum differs at n={n}")
-        err = max(err, max_abs_err(torch, folded, flat))
+        what = f"n={n}, groups={groups}"
+        err = max(err, _check_lane_reduce(torch, kernels, parts, groups,
+                                          widths, "sum", what))
+        err = max(err, _check_lane_reduce(torch, kernels, parts, 1, (4, 4),
+                                          "sum", f"n={n}, flat"))
+        if not torch.equal(kernels.lane_reduce(parts, 1, (4, 4)),
+                           parts.sum(0, dtype=torch.int32)):
+            fail(f"lane_reduce's flat sum differs from torch.sum at n={n}")
         best = parts[:, 0].to(torch.int64) - (1 << 40)
         for mode in ("max", "min"):
-            lanes = kernels.lane_pack(best, groups, 8, mode)
-            if not torch.equal(lanes, kernels.lane_pack_plain(
-                    best, groups, 8, mode)) or not torch.equal(
-                    kernels.lane_fold(lanes, mode),
-                    kernels.lane_fold_plain(lanes, mode)):
-                fail(f"the {mode} lanes differ from their plain versions")
+            for g in (groups, 1):
+                err = max(err, _check_lane_reduce(
+                    torch, kernels, best, g, 8, mode, f"n={n}, groups={g}"))
     for rows, groups in ((4, 2), (80, 4), (512, 2), (1 << 16, 4)):
         parts = _lane_case(torch, dev, MESH_MEMBERS, rows, rows)
         parts[:, :, :256] %= 2  # an all-small block: scale 1
@@ -3958,45 +3999,46 @@ def check_mesh_kernels(torch, kernels, dev) -> list:
         out = kernels.quant_fold(q, s, rows)
         if not torch.equal(out, kernels.quant_fold_plain(qp, sp, rows)):
             fail(f"quant_fold differs from its plain version at R={rows}")
-    # the Count's lanes (N = 1, 2 x 4) for K12/K13, R = 65 536 over 4
-    # groups for K14/K15
+    # a Count's reduce (N = 1, 2 x 4) from the members' partials for
+    # K12+K13, R = 65 536 over 4 groups for K14/K15
     parts = _lane_case(torch, dev, MESH_MEMBERS, 1, 3)
+    members = [parts[k].clone() for k in range(MESH_MEMBERS)]
     widths = tuple(reduction.lane_dtype_bytes(b) for b in
                    reduction.split_channel_bounds(N_SHARDS // 2))
-    lanes = kernels.lane_pack(parts, 2, widths)
     rows = 1 << 16
     qparts = _lane_case(torch, dev, MESH_MEMBERS, rows, rows)
     q, s = kernels.quant_pack(qparts, 4)
     nb = s.shape[1]
-    lane_bytes = 2 * (widths[0] + widths[1])
     common = {"route": "cuda", "max_abs_err": err, "bound_by": "bytes",
               "launch_floor_ms": floor}
+
+    def call():
+        return kernels.lane_reduce(members, 2, widths)
+
+    lane_bytes = _bytes_ms(MESH_MEMBERS * 2 * 4 + 2 * 4)
     return [{
-        **common, "name": "lane_pack",
-        "source": "pilosa_tpu_torch/csrc/lane_pack.cu",
+        **common, "name": "lane_reduce",
+        "source": "pilosa_tpu_torch/csrc/lane_reduce.cu",
         "replaces": "pilosa_tpu/parallel/reduction.py:211",
-        "ms": cuda_ms(torch, lambda: kernels.lane_pack(parts, 2, widths),
-                      launches=100),
-        "plain_ms": cuda_ms(torch, lambda: kernels.lane_pack_plain(
-            parts, 2, widths), launches=100),
-        "bound_ms": _bytes_ms(MESH_MEMBERS * 2 * 4 + lane_bytes),
-        "library_ms": None,
-        "shape": f"int32[{MESH_MEMBERS}, 2, 1] -> lanes [2, 1] of "
-                 f"{widths} bytes",
-    }, {
-        **common, "name": "lane_fold",
-        "source": "pilosa_tpu_torch/csrc/lane_fold.cu",
-        "replaces": "pilosa_tpu/parallel/reduction.py:221",
-        "ms": cuda_ms(torch, lambda: kernels.lane_fold(lanes), launches=100),
-        "plain_ms": cuda_ms(torch, lambda: kernels.lane_fold_plain(lanes),
-                            launches=100),
-        "bound_ms": _bytes_ms(lane_bytes + 2 * 4),
+        "ms": cuda_ms(torch, call, launches=100),
+        "device_ms": graph_ms(torch, call),
+        "c_call_ms": cuda_ms(torch, kernels.lane_reduce_staged(
+            members, 2, widths), launches=100),
+        "plain_ms": cuda_ms(torch, lambda: kernels.lane_reduce_plain(
+            members, 2, widths), launches=100),
+        "bound_ms": lane_bytes, "bytes_bound_ms": lane_bytes,
         "library_ms": cuda_ms(torch, lambda: torch.sum(
+            torch.stack(members), 0, dtype=torch.int32), launches=100),
+        "library_stacked_ms": cuda_ms(torch, lambda: torch.sum(
             parts, 0, dtype=torch.int32), launches=100),
-        "flat_ms": cuda_ms(torch, lambda: kernels.lane_fold(
-            (parts[:, 0], parts[:, 1])), launches=100),
-        "shape": f"lanes [2, 1] of {widths} bytes -> int32[2, 1] (flat: "
-                 f"int32[{MESH_MEMBERS}, 2, 1])",
+        "stack_ms": cuda_ms(torch, lambda: torch.stack(members),
+                            launches=100),
+        "empty_ms": cuda_ms(torch, lambda: torch.empty(
+            2, 1, dtype=torch.int32, device=dev), launches=100),
+        "flat_ms": cuda_ms(torch, lambda: kernels.lane_reduce(
+            members, 1, (4, 4)), launches=100),
+        "shape": f"{MESH_MEMBERS} members' int32[2, 1] -> lanes of {widths} "
+                 f"bytes over 2 groups -> int32[2, 1] (flat: 1 group)",
     }, {
         **common, "name": "quant_pack",
         "source": "pilosa_tpu_torch/csrc/quant_pack.cu",
@@ -4090,7 +4132,9 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
     patches (then its Clear). Every answer equals the oracle's and the
     server's single-device executor's; with the ranking lane on, TopN and
     GroupBy are the lossless answers (one pass with verify_quantized).
-    Prints, per mesh, K12-K15's launches per query kind, the reduction's
+    Prints, per mesh, the lane kernels' launches and the reductions per
+    query kind (one K12+K13 launch a lossless reduction, three a Min or
+    Max), the reduction's
     dense and actual bytes, the quantized windows and ms per query."""
     from pilosa_tpu_torch.parallel import DistExecutor, make_mesh
     from pilosa_tpu_torch.parallel.reduction import global_reduce_stats
@@ -4099,7 +4143,7 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
     single = server.executor
     star = MESH_TRUTH["star"]
     row_pql, row_cols = MESH_TRUTH["row"]
-    lanes = ("lane_pack", "lane_fold", "quant_pack", "quant_fold")
+    lanes = ("lane_reduce", "quant_pack", "quant_fold")
     kinds = {
         "count": [(pql, "repository", want) for pql, want in star.items()],
         "row": [(row_pql, "repository", {"attrs": {}, "columns": row_cols})],
@@ -4122,6 +4166,7 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
         cfg: dict = {"launches": {}, "ms": {}}
         for kind, queries in kinds.items():
             before = kernels.launches()
+            reductions = global_reduce_stats().snapshot()["dispatches"]
             t0 = time.perf_counter()
             for pql, index, want in queries:
                 got = _mesh_json(ex.execute(index, pql))[0]
@@ -4134,6 +4179,8 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
             cfg["ms"][kind] = 1e3 * (time.perf_counter() - t0) / len(queries)
             after = kernels.launches()
             cfg["launches"][kind] = {k: after[k] - before[k] for k in lanes}
+            cfg["launches"][kind]["reductions"] = global_reduce_stats(
+            ).snapshot()["dispatches"] - reductions
         # the Counts pipelined: MESH_ROUNDS of each shape, one micro-batch
         # a shape
         before = kernels.launches()
@@ -4181,13 +4228,17 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
         cfg["s"] = time.perf_counter() - t_cfg
         stats["configs"][f"{groups}x{MESH_MEMBERS // groups}"] = cfg
         print(f"mesh g={groups} quantized={quantized}: {cfg['s']:.1f}s, "
-              f"K12-K15 launches by kind {json.dumps(cfg['launches'])}, "
+              f"lane launches by kind {json.dumps(cfg['launches'])}, "
               f"reduce bytes dense {snap['dense_bytes']} actual "
               f"{snap['actual_bytes']} (rows {snap['row_dense_bytes']} -> "
               f"{snap['row_actual_bytes']}), window "
               f"{snap['quantized_window_rows']} of "
               f"{snap['quantized_candidate_rows']} candidates, ms a query "
-              f"{json.dumps({k: round(v, 3) for k, v in cfg['ms'].items()})}",
+              f"{json.dumps({k: round(v, 3) for k, v in cfg['ms'].items()})}"
+              + (f" (Count {cfg['ms']['count']:.3f} ms, submit "
+                 f"{cfg['ms']['count_submit']:.3f} ms; M1, before K12+K13 "
+                 f"were one kernel: {M1_MESH_COUNT_MS[groups]})"
+                 if groups in M1_MESH_COUNT_MS else ""),
               flush=True)
         del ex
     stats["path_s"] = time.perf_counter() - t_path
@@ -5217,7 +5268,7 @@ def main() -> int:
                  "groupby_level", "bsi_sum"),
         "mesh": ("tree_count", "tree_rows", "word_patch", "bsi_compare",
                  "bsi_sum", "bsi_minmax", "count_rows", "groupby_level",
-                 "lane_pack", "lane_fold", "quant_pack", "quant_fold"),
+                 "lane_reduce", "quant_pack", "quant_fold"),
         "tier": ("block_gather", "block_gather_batch", "block_scatter",
                  "tree_count", "count_rows", "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),
@@ -5246,7 +5297,8 @@ def main() -> int:
     # K11 the launch floor
     extra = ("device_ms", "single_ms", "single_device_ms",
              "library_device_ms", "launch_floor_ms", "bytes_bound_ms",
-             "flat_ms")
+             "flat_ms", "c_call_ms", "stack_ms", "empty_ms",
+             "library_stacked_ms")
     print(json.dumps({"kernels": [
         {**{k: r[k] for k in keys}, **{k: r[k] for k in extra if k in r}}
         for r in report]}), flush=True)

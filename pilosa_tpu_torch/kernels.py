@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Fifteen kernels carry the main paths (sources in ``csrc/``):
+Fourteen kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
   up to 16 stacked leaves, one launch per micro-batch, in the program's
@@ -32,13 +32,13 @@ Fifteen kernels carry the main paths (sources in ``csrc/``):
   ``residency._gather_blocks``);
 - K11 ``block_scatter``: the dense leaf from its compacted blocks
   (replaces ``residency._scatter_blocks``);
-- K12 ``lane_pack``: a mesh's intra-group sum (or best) of its members'
-  partials, cast to the narrow inter-group lane, every group in one
-  launch (replaces the encode of ``reduction.hier_split_channels`` and
-  ``gather_extreme`` with the psum/pmax before them);
-- K13 ``lane_fold``: the gathered lanes widened and summed (or folded by
-  max / min) on the receiver, and the flat mesh's sum over its members
-  (replaces those functions' folds and the flat psum);
+- K12+K13 ``lane_reduce``: a mesh's whole reduce of its members'
+  partials in one launch, read where the members' kernels wrote them:
+  the intra-group sum (or best), the cast to the narrow inter-group
+  lane and the receivers' widening fold, the lanes kept in registers;
+  on the flat mesh the int32 sum (or best) over the members (replaces
+  ``reduction.hier_split_channels`` and ``gather_extreme`` with the
+  psum/pmax before them, and the flat psum);
 - K14 ``quant_pack``: the 8-bit candidate-ranking lane's encode, per
   256-candidate block an integer scale and the rounded mantissas
   (replaces ``reduction.hier_quantized_counts`` up to its all_gather);
@@ -60,6 +60,7 @@ import heapq
 import itertools
 import os
 import shutil
+import struct
 import subprocess
 import threading
 import time
@@ -77,7 +78,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("tree_count", "tree_rows", "word_patch", "row_shift",
            "bsi_compare", "bsi_sum", "bsi_minmax", "count_rows",
            "groupby_level", "block_gather", "block_scatter",
-           "lane_pack", "lane_fold", "quant_pack", "quant_fold")
+           "lane_reduce", "quant_pack", "quant_fold")
 
 # Opcodes of the postfix program (csrc/tree_program.cuh holds the same).
 OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT, OP_NOT = range(1, 9)
@@ -111,11 +112,13 @@ BLOCK_WORDS = 1024  # words of a residency block (K10, K11): 4 KiB
 QUANT_BLOCK = 256
 SPLIT_SHIFT = 15
 SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
-# The mesh lanes' element types by width in bytes (K12, K13): the
-# narrow lanes unsigned, the exact ones signed.
+# The mesh lanes' element types by width in bytes (K12+K13): the
+# narrow lanes unsigned, the exact ones signed; the members one
+# lane_reduce launch takes (csrc/lane_reduce.cu holds the same).
 LANE_DTYPES = {1: torch.uint8, 2: torch.uint16, 4: torch.int32,
                8: torch.int64}
 _LANE_MODES = {"sum": 0, "max": 1, "min": 2}
+LANE_MAX_MEMBERS = 64
 
 # --------------------------------------------------------------- launches
 
@@ -231,8 +234,7 @@ def _bind(name: str, lib) -> None:
         "groupby_level": [p, p, i, p, p, p, p, i, ll, ll, i, i, p, p],
         "block_gather": [p, p, p, ll, i, p],
         "block_scatter": [p, p, i, p, ll, p],
-        "lane_pack": [p, i, p, i, p, i, i, i, i, ll, p],
-        "lane_fold": [p, i, ll, p, i, ll, i, i, ll, p, p],
+        "lane_reduce": [ctypes.c_char_p, p, p],
         "quant_pack": [p, i, i, ll, p, p, p],
         "quant_fold": [p, p, i, ll, ll, p, p],
     }
@@ -981,11 +983,11 @@ def _wrap32(x: torch.Tensor) -> torch.Tensor:
 
 def lane_pack_plain(parts: torch.Tensor, groups: int, lane_bytes,
                     mode: str = "sum"):
-    """K12's plain version. ``mode`` "sum": parts int32[M, 2, N] → (lo,
-    hi) lanes [G, N] of ``lane_bytes`` = (lo bytes, hi bytes), each the
-    int32 sum over the group's members cast to its lane type; "max" /
-    "min": parts [M, N] → the group's best [G, N] cast to ``lane_bytes``
-    bytes."""
+    """The encode half of K12+K13's plain version, the lanes' semantics.
+    ``mode`` "sum": parts int32[M, 2, N] → (lo, hi) lanes [G, N] of
+    ``lane_bytes`` = (lo bytes, hi bytes), each the int32 sum over the
+    group's members cast to its lane type; "max" / "min": parts [M, N] →
+    the group's best [G, N] cast to ``lane_bytes`` bytes."""
     m = parts.shape[0]
     if mode == "sum":
         n = parts.shape[2]
@@ -1004,15 +1006,30 @@ def _widen(lane: torch.Tensor) -> torch.Tensor:
 
 
 def lane_fold_plain(lanes, mode: str = "sum") -> torch.Tensor:
-    """K13's plain version. "sum": ``lanes`` = (lo [G, N], hi [G, N])
-    widened to int32 and summed over G → int32[2, N]; "max" / "min":
-    ``lanes`` [G, N] widened (int64 lanes stay int64) and folded → [N]."""
+    """The fold half of K12+K13's plain version. "sum": ``lanes`` = (lo
+    [G, N], hi [G, N]) widened to int32 and summed over G → int32[2, N];
+    "max" / "min": ``lanes`` [G, N] widened (int64 lanes stay int64) and
+    folded → [N]."""
     if mode == "sum":
         lo, hi = lanes
         return torch.stack([_wrap32(lo.to(torch.int64).sum(0)),
                             _wrap32(hi.to(torch.int64).sum(0))])
     wide = _widen(lanes)
     return wide.amax(0) if mode == "max" else wide.amin(0)
+
+
+def lane_reduce_plain(parts, groups: int, lane_bytes, mode: str = "sum"
+                      ) -> torch.Tensor:
+    """K12+K13's plain version: the members' partials (a sequence of
+    member tensors or one stacked [M, ...] tensor, as ``lane_reduce``
+    takes them) stacked, then the two lanes' plain halves composed:
+    ``lane_fold_plain(lane_pack_plain(...))``."""
+    stacked = parts if isinstance(parts, torch.Tensor) else torch.stack(
+        list(parts))
+    m = stacked.shape[0]
+    stacked = stacked.reshape((m, 2, -1) if mode == "sum" else (m, -1))
+    return lane_fold_plain(lane_pack_plain(stacked, groups, lane_bytes, mode),
+                           mode)
 
 
 def quant_pack_plain(parts: torch.Tensor, groups: int):
@@ -1752,102 +1769,134 @@ def intersect_count(a: torch.Tensor, b: torch.Tensor, salt: int = 0
 # ----------------------------------------------------------- mesh lanes
 
 
-def _lane_width(t: torch.Tensor) -> int:
-    w = t.element_size()
-    if LANE_DTYPES.get(w) != t.dtype:
-        raise TypeError(f"a lane is uint8, uint16, int32 or int64, not "
-                        f"{t.dtype}")
-    return w
-
-
-def lane_pack(parts: torch.Tensor, groups: int, lane_bytes,
-              mode: str = "sum"):
-    """K12: the intra-group reduce of a mesh's member partials and the
-    cast to the inter-group lane, every group in one launch. ``mode``
-    "sum": ``parts`` int32[M, 2, N] (each member's split channels) →
-    (lo, hi) lanes [G, N] of ``lane_bytes`` = (lo bytes, hi bytes) in
-    (1, 2, 4); "max" / "min": ``parts`` int32 or int64 [M, N] → the
-    groups' best [G, N] of ``lane_bytes`` in (1, 2, 4, 8). M is a
-    multiple of ``groups``; group g is members g·M/G .. (g+1)·M/G - 1.
-    The lanes are new tensors: on one card the gather buffer."""
-    if mode not in _LANE_MODES:
-        raise ValueError(f"bad lane mode {mode!r}")
-    want = 3 if mode == "sum" else 2
-    if parts.dim() != want or (mode == "sum" and parts.shape[1] != 2):
-        raise ValueError("lane_pack takes [members, 2, n] split channels "
-                         "or [members, n] extrema")
-    m, n = parts.shape[0], parts.shape[-1]
-    if groups < 1 or m % groups or n < 1:
-        raise ValueError(f"{groups} groups over {m} members")
-    ok = (torch.int32,) if mode == "sum" else (torch.int32, torch.int64)
-    if parts.dtype not in ok or not parts.is_contiguous():
-        raise TypeError("lane_pack takes contiguous int32 partials (int64 "
-                        "too for extrema)")
-    widths = tuple(lane_bytes) if mode == "sum" else (lane_bytes,)
-    if any(w not in LANE_DTYPES for w in widths) or \
-            (mode == "sum" and 8 in widths):
-        raise ValueError(f"bad lane widths {lane_bytes!r}")
-    if _on_cpu(parts):
-        return lane_pack_plain(parts, groups, lane_bytes, mode)
-    lib = _lib("lane_pack")
-    lo = torch.empty((groups, n), dtype=LANE_DTYPES[widths[0]],
-                     device=parts.device)
-    hi = (torch.empty((groups, n), dtype=LANE_DTYPES[widths[1]],
-                      device=parts.device) if mode == "sum" else None)
-    rc = lib.lane_pack_launch(
-        _ptr(parts), parts.element_size(), _ptr(lo), widths[0], _ptr(hi),
-        widths[1] if hi is not None else 0, _LANE_MODES[mode], m, groups, n,
-        _stream(parts))
-    _check("lane_pack", lib, rc)
-    _count_launch("lane_pack")
-    return (lo, hi) if mode == "sum" else lo
-
-
-def _lane_rows(t: torch.Tensor, n: int) -> int:
-    """Row stride in elements of a [G, N] lane (unit stride inside a
-    row)."""
-    if t.dim() != 2 or t.shape[1] != n or t.shape[0] < 1:
-        raise ValueError("a lane is [groups, n]")
-    if (n > 1 and t.stride(1) != 1) or (t.shape[0] > 1 and t.stride(0) < n):
-        raise ValueError("lane rows must be unit-stride and not overlap")
-    return t.stride(0) if t.shape[0] > 1 else n
-
-
-def lane_fold(lanes, mode: str = "sum") -> torch.Tensor:
-    """K13: the receiver's fold of the gathered lanes. "sum": ``lanes`` =
-    (lo, hi), each [G, N] of uint8, uint16 or int32 (rows may be strided,
-    as the columns of a flat mesh's int32[M, 2, N] partials are), widened
-    and summed → int32[2, N]; "max" / "min": ``lanes`` [G, N] of uint8,
-    uint16, int32 or int64 → [N], int32 (int64 for int64 lanes)."""
-    if mode not in _LANE_MODES:
-        raise ValueError(f"bad lane mode {mode!r}")
-    lo, hi = lanes if mode == "sum" else (lanes, None)
-    n = lo.shape[-1]
-    lo_stride = _lane_rows(lo, n)
-    widths = [_lane_width(lo)]
-    hi_stride = 0
-    if hi is not None:
-        hi_stride = _lane_rows(hi, n)
-        widths.append(_lane_width(hi))
-        if hi.shape[0] != lo.shape[0] or hi.device != lo.device:
-            raise ValueError("lo and hi lanes differ in groups or device")
-        if 8 in widths:
-            raise ValueError("split-channel lanes are at most int32")
-    if _on_cpu(lo):
-        return lane_fold_plain(lanes, mode)
-    lib = _lib("lane_fold")
+def _lane_layout(shape, strides, mode: str) -> tuple:
+    """(n, channel stride, element stride) of one member's partial of
+    ``shape`` and ``strides``: "sum" takes [2, N] (or [2]: N = 1), the
+    extrema [N] (or 0-d)."""
     if mode == "sum":
-        out = torch.empty((2, n), dtype=torch.int32, device=lo.device)
+        if len(shape) == 1 and shape[0] == 2:
+            return 1, strides[0], 1
+        if len(shape) != 2 or shape[0] != 2 or shape[1] < 1:
+            raise ValueError("a split-channel partial is [2, n] or [2]")
+        n = shape[1]
+        chan, elem = strides
+        # the two channels' n elements must be 2n distinct addresses
+        if chan == 0 or (n > 1 and (elem == 0 or (
+                chan % elem == 0 and chan < n * elem))):
+            raise ValueError("a partial's channels overlap")
+        return n, chan, elem
+    if not shape:
+        return 1, 0, 1
+    if len(shape) != 1 or shape[0] < 1:
+        raise ValueError("an extremum partial is [n] or 0-d")
+    if shape[0] > 1 and strides[0] == 0:
+        raise ValueError("a partial's elements overlap")
+    return shape[0], 0, strides[0]
+
+
+_lane_fn = None
+
+
+def _lane_prepare(parts, groups: int, lane_bytes, mode: str):
+    """Check lane_reduce's arguments in one pass over the members; None
+    for partials on the CPU, else (the bound C function, its arguments:
+    the packed blob csrc/lane_reduce.cu reads, the output's address and
+    the stream, and the output)."""
+    global _lane_fn
+    code = _LANE_MODES.get(mode)
+    if code is None:
+        raise ValueError(f"bad lane mode {mode!r}")
+    stacked = isinstance(parts, torch.Tensor)
+    m = parts.shape[0] if stacked and parts.dim() else len(parts)
+    if not 1 <= m <= LANE_MAX_MEMBERS:
+        raise ValueError(f"{m} members: lane_reduce takes 1 to "
+                         f"{LANE_MAX_MEMBERS}")
+    if groups < 1 or m % groups:
+        raise ValueError(f"{groups} groups over {m} members")
+    first = parts if stacked else parts[0]
+    dtype, device = first.dtype, first.device
+    if mode == "sum":
+        lo_b, hi_b = lane_bytes
+        if dtype != torch.int32:
+            raise TypeError(f"split channels are int32, not {dtype}")
+        if lo_b not in (1, 2, 4) or hi_b not in (1, 2, 4):
+            raise ValueError(f"bad lane widths {lane_bytes!r}")
     else:
-        out = torch.empty(n, dtype=torch.int64 if widths[0] == 8
-                          else torch.int32, device=lo.device)
-    rc = lib.lane_fold_launch(
-        _ptr(lo), widths[0], lo_stride, _ptr(hi),
-        widths[1] if hi is not None else 0, hi_stride, _LANE_MODES[mode],
-        lo.shape[0], n, _ptr(out), _stream(out))
-    _check("lane_fold", lib, rc)
-    _count_launch("lane_fold")
+        lo_b, hi_b = lane_bytes, 0
+        if dtype != torch.int32 and dtype != torch.int64:
+            raise TypeError(f"extrema are int32 or int64, not {dtype}")
+        if lo_b not in LANE_DTYPES:
+            raise ValueError(f"bad lane width {lane_bytes!r}")
+    size = first.element_size()
+    if stacked:
+        shape, strides = parts.shape[1:], parts.stride()
+        base, step = parts.data_ptr(), strides[0] * size
+        strides = strides[1:]
+        ptrs = [base + k * step for k in range(m)]
+    else:
+        shape, strides = first.shape, first.stride()
+        ptrs = []
+        for t in parts:
+            if t.dtype != dtype:
+                raise TypeError("the members' partials differ in dtype")
+            if t.device != device:
+                raise ValueError("the members' partials lie on different "
+                                 "devices")
+            if t.stride() != strides or t.shape != shape:
+                raise ValueError("the members' partials differ in layout")
+            ptrs.append(t.data_ptr())
+    n, chan, elem = _lane_layout(shape, strides, mode)
+    if _on_cpu(first):
+        return None
+    if _lane_fn is None:
+        _lane_fn = _lib("lane_reduce").lane_reduce_launch
+    out = torch.empty(2, n, dtype=torch.int32, device=device) if mode == \
+        "sum" else torch.empty(n, dtype=torch.int64 if lo_b == 8 else
+                               torch.int32, device=device)
+    blob = struct.pack(f"9q{m}Q", m, groups, size, lo_b, hi_b, code, n, chan,
+                       elem, *ptrs)
+    # the current stream's handle, without a torch.cuda.Stream object
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    return _lane_fn, (blob, out.data_ptr(), stream), out
+
+
+def lane_reduce(parts, groups: int, lane_bytes, mode: str = "sum"
+                ) -> torch.Tensor:
+    """K12+K13: a mesh's reduce of its members' partials, one launch that
+    reads them in place. ``parts``: a sequence of M member tensors of one
+    dtype, device, shape and strides, or one stacked [M, ...] tensor;
+    group g is members g·M/G .. (g+1)·M/G - 1, M <= 64. ``mode`` "sum":
+    each member's int32 split channels [2, N] (any strides: a [B, 2]
+    partial passes as its transposed view) or [2]; each group's sum is
+    cast to its lane of ``lane_bytes`` = (lo bytes, hi bytes) in (1, 2,
+    4) and widened back, and the groups summed → int32[2, N]. "max" /
+    "min": each member's int32 or int64 [N] or 0-d; each group's best is
+    cast to its lane of ``lane_bytes`` in (1, 2, 4, 8) and widened back,
+    and the groups folded → [N], int64 for an 8-byte lane, else int32.
+    The flat mesh is ``groups`` 1 with lanes as wide as the partials."""
+    prep = _lane_prepare(parts, groups, lane_bytes, mode)
+    if prep is None:
+        return lane_reduce_plain(parts, groups, lane_bytes, mode)
+    fn, args, out = prep
+    rc = fn(*args)
+    if rc:
+        _check("lane_reduce", _lib("lane_reduce"), rc)
+    _count_launch("lane_reduce")
     return out
+
+
+def lane_reduce_staged(parts, groups: int, lane_bytes, mode: str = "sum"):
+    """lane_reduce's C call alone, its arguments built once, into one
+    output (no count): a function that makes the call, for timing the
+    ctypes call and the launch apart from the wrapper's Python."""
+    fn, args, out = _lane_prepare(parts, groups, lane_bytes, mode)
+    lib = _lib("lane_reduce")
+
+    def call() -> torch.Tensor:
+        _check("lane_reduce", lib, fn(*args))
+        return out  # held while the call lives: the kernel writes it
+
+    return call
 
 
 def quant_pack(parts: torch.Tensor, groups: int):

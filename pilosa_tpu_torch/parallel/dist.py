@@ -17,21 +17,23 @@ members (``parallel/mesh.py``), each a ``torch.device``.
   a micro-batched Count and in a TopN or GroupBy filter, whose row is
   launched once over the whole leaf on the holder's device before the
   members read their views of it: the same words in one process.
-- **The reduce.** Flat mesh: one exact int32 sum of the members' split
-  channels (K13 over their int32 partials). 2-D mesh: the intra-group
-  sum cast into the narrow inter-group lane (K12), then the receivers'
-  fold (K13), as ``_dist_body`` does. Min / Max: the best over the
-  members (K13, or K12 then K13 per group), then the count at the best
-  value reduced like any split channel. TopN's quantized ranking pass
+- **The reduce.** One K12+K13 launch a reduction reads the members'
+  partials in place (no stack, no copy): on a flat mesh the exact int32
+  sum of their split channels, on a 2-D mesh the intra-group sum cast
+  into the narrow inter-group lane and the receivers' fold, as
+  ``_dist_body`` does. Min / Max: the best over the members (one
+  launch), the valid flag (one), then the count at the best value
+  reduced like any split channel (one). TopN's quantized ranking pass
   and GroupBy's quantized pruning levels cross the 8-bit lane (K14, then
-  K15). ``row`` stays per slot: the members' words are gathered into one
-  [padded, W] result, which a hierarchical mesh reads back through
-  roaring block frames (``_row_host``).
-- **The gather between members.** On one card, the lanes K12 and K14
-  write are the gather buffer every receiver reads, and the members'
-  partials are stacked on the lead member's device. Between cards it
-  would be a peer copy (``Tensor.copy_``), which a one-card machine
-  cannot run.
+  K15, over the partials stacked). ``row`` stays per slot: the members'
+  words are gathered into one [padded, W] result, which a hierarchical
+  mesh reads back through roaring block frames (``_row_host``).
+- **The gather between members.** On one card each member's partial is
+  read where its kernel wrote it, and the narrow lanes live in the
+  reducing kernel's registers (K14's lanes are the gather buffer every
+  receiver reads). A member on another device is first copied to the
+  lead member's; between cards that would be a peer copy
+  (``Tensor.copy_``), which a one-card machine cannot run.
 - **Writes** patch the one resident leaf through K3 as on one device; a
   member's view sees the patch.
 - **Accounting.** ``_note_reduce`` records, per reduction, the
@@ -122,13 +124,21 @@ class DistExecutor(Executor):
 
         return [piece_of(m, dev) for m, dev in enumerate(self.mesh.members)]
 
-    def _gather(self, parts: list) -> torch.Tensor:
-        """The members' partials stacked on the lead member's device."""
-        return torch.stack([p.to(self._lead) for p in parts])
+    def _members(self, parts: list) -> list:
+        """The members' partials on the lead member's device: each where
+        it lies when it lies there (one card), else a copy."""
+        lead = self._lead
+        return [p if p.device == lead else p.to(lead) for p in parts]
 
-    def _reduce_split(self, parts: torch.Tensor, padded: int) -> torch.Tensor:
-        """Split-sum partials int32[M, 2, N] → the mesh's exact
-        int32[2, N]: the flat sum, or the hierarchical lanes."""
+    def _gather(self, parts: list) -> torch.Tensor:
+        """The members' partials stacked on the lead member's device (the
+        8-bit lane's K14 takes them so)."""
+        return torch.stack(self._members(parts))
+
+    def _reduce_split(self, parts, padded: int) -> torch.Tensor:
+        """Split-sum partials (a list of the members' int32[2, N] or [2],
+        or int32[M, 2, N]) → the mesh's exact int32[2, N]: the flat sum,
+        or the hierarchical lanes."""
         if self._hier is None:
             return reduction.flat_split_sum(parts)
         g = self._hier[0]
@@ -156,9 +166,8 @@ class DistExecutor(Executor):
         if reduce_kind == "row":
             return torch.cat([p.to(self._lead) for p in parts])
         shape = parts[0].shape
-        out = self._reduce_split(
-            self._gather(parts).reshape(len(parts), 2, -1),
-            block.padded).reshape(shape)
+        out = self._reduce_split(self._members(parts),
+                                 block.padded).reshape(shape)
         self._note_reduce(reduce_kind, tuple(out.shape), block.padded)
         return out
 
@@ -177,17 +186,15 @@ class DistExecutor(Executor):
             anys.append(valid.any().to(torch.int32))
             members.append((values, counts, valid))
         groups = self._groups()
-        m = len(pieces)
         # the group best is exact (no bound: a sentinel is negative); the
         # valid flag is 0/1 and crosses as uint8
-        best = reduction.gather_extreme(self._gather(bests).reshape(m, 1),
-                                        groups, want_max)[0]
+        best = reduction.gather_extreme(self._members(bests), groups,
+                                        want_max)[0]
         any_valid = reduction.gather_extreme(
-            self._gather(anys).reshape(m, 1), groups, True, bound=1)[0] > 0
+            self._members(anys), groups, True, bound=1)[0] > 0
         ns = [batch.minmax_at_best(v, c, ok, best.to(v.device))
               for v, c, ok in members]
-        n = self._reduce_split(self._gather(ns).reshape(m, 2, 1),
-                               block.padded).reshape(2)
+        n = self._reduce_split(self._members(ns), block.padded).reshape(2)
         out = batch.minmax_finalize(best, n, any_valid)
         self._note_reduce(reduce_kind, tuple(out.shape), block.padded)
         return out
@@ -196,7 +203,7 @@ class DistExecutor(Executor):
                         rows: list) -> torch.Tensor:
         """The micro-batch (the reference's ``_dist_fn_batched``): one K1
         launch a member over the batch's slices, the [B, 2] partials
-        reduced as split channels [2, B]."""
+        reduced as split channels [2, B] (their transposed views)."""
         padded = rows[0][0].shape[0]
         if padded % self.mesh.size:
             return super()._launch_batched(node, reduce_kind, leaf_ranks,
@@ -206,8 +213,8 @@ class DistExecutor(Executor):
         for piece in self._pieces(padded):
             parts.append(batch.count_flat_batched(
                 program, [[piece(l) for l in leaves] for leaves in rows]))
-        stacked = self._gather(parts).transpose(1, 2).contiguous()
-        out = self._reduce_split(stacked, padded).t()
+        out = self._reduce_split([p.t() for p in self._members(parts)],
+                                 padded).t()
         # the reference pads a batch to a power of two
         self._note_reduce(reduce_kind,
                           (min(self.MICROBATCH_MAX, next_pow2(len(rows))), 2),
@@ -220,12 +227,12 @@ class DistExecutor(Executor):
             return super()._launch_countrows(matrix, filt, block, quantized)
         parts = [batch.count_rows_packed(piece(matrix), piece(filt))
                  for piece in self._pieces(block.padded)]
-        stacked = self._gather(parts)
         if quantized:
-            out = reduction.hier_quantized_counts(stacked, self._groups())
+            out = reduction.hier_quantized_counts(self._gather(parts),
+                                                  self._groups())
             self._note_reduce("countrows_q", tuple(out.shape), block.padded)
             return out
-        out = self._reduce_split(stacked, block.padded)
+        out = self._reduce_split(self._members(parts), block.padded)
         self._note_reduce("countrows", tuple(out.shape), block.padded)
         return out
 
@@ -244,7 +251,6 @@ class DistExecutor(Executor):
             [piece(d) for d in mats], idxs, piece(filt), piece(planes)),
             dim=0) for piece in self._pieces(block.padded)]
         _, k, c = parts[0].shape
-        stacked = self._gather(parts).reshape(len(parts), 2, k * c)
         padded = padded or next_pow2(c)
         if quantized:
             if planes is not None:
@@ -252,13 +258,16 @@ class DistExecutor(Executor):
                                      "aggregates (the last level is "
                                      "lossless)")
             out = reduction.hier_quantized_counts(
-                stacked, self._groups()).reshape(-1)
+                self._gather(parts).reshape(len(parts), 2, k * c),
+                self._groups()).reshape(-1)
             self._note_reduce(
                 "groupby_q", (2 * reduction.quant_total_elems(padded),),
                 block.padded)
             return out
         out = batch.pack_groupby_level(
-            self._reduce_split(stacked, block.padded).reshape(2, k, c),
+            self._reduce_split([p.reshape(2, k * c)
+                                for p in self._members(parts)],
+                               block.padded).reshape(2, k, c),
             planes is not None)
         self._note_reduce("groupby", (2 * padded * k,), block.padded)
         return out

@@ -14,12 +14,14 @@ crosses as roaring containers in block frames (``encode_row_frames``),
 and the result is decoded from them.
 
 Device side, each a hand-written kernel with a plain version beside it
-(``kernels.py``): K12 ``lane_pack`` is the intra-group sum (or best) and
-the cast into the gather buffer, K13 ``lane_fold`` the receiver's fold
-(also the flat mesh's sum over its members), K14 ``quant_pack`` and K15
-``quant_fold`` the 8-bit lane's encode and decode. On one card the
-gather between groups is K12's (or K14's) own write into the lanes every
-receiver reads; between cards it would be a peer copy
+(``kernels.py``): K12+K13 ``lane_reduce`` is a lossless or extremum
+reduce whole, in one launch that reads the members' partials where
+their kernels wrote them (the intra-group sum or best, the cast to the
+narrow lane and the receivers' fold, the lanes kept in registers; on
+the flat mesh the sum or best over the members), K14 ``quant_pack`` and
+K15 ``quant_fold`` the 8-bit lane's encode and decode. On one card the
+gather between groups is a register's cast (or K14's write into the
+lanes every receiver reads); between cards it would be a peer copy
 (``Tensor.copy_``), which a one-card machine cannot run. The host side
 (the lane widths, the byte model, the quantized lane's decode and
 window, the row frames, the counters) is the reference's.
@@ -100,41 +102,42 @@ def quant_payload_bytes(n_rows: int) -> int:
 # integer adds are exact and associative, so the intra-group sum plus the
 # narrow lane's fold equals the flat sum channel for channel, and the
 # narrow cast is a no-op on the values the static bound covers. Each
-# function takes the members' partials stacked on a leading member axis
-# (member g·S + s of the mesh at row g·S + s).
+# function takes the members' partials as ``kernels.lane_reduce`` does: a
+# list of member tensors, read in place, or one tensor stacked on a
+# leading member axis (member g·S + s of the mesh at row g·S + s).
 
 
-def flat_split_sum(parts: torch.Tensor) -> torch.Tensor:
-    """The flat mesh's reduce of split-sum partials int32[M, 2, N]: one
-    exact int32 sum over the members (K13 over their int32 channels)."""
-    return kernels.lane_fold((parts[:, 0], parts[:, 1]), "sum")
+def flat_split_sum(parts) -> torch.Tensor:
+    """The flat mesh's reduce of split-sum partials (each member's
+    int32[2, N]): one exact int32 sum over the members (K12+K13 with one
+    group and int32 lanes)."""
+    return kernels.lane_reduce(parts, 1, (4, 4))
 
 
-def hier_split_channels(parts: torch.Tensor, groups: int,
-                        group_slots: int) -> torch.Tensor:
-    """A 2-D mesh's reduce of split-sum partials int32[M, 2, N]: each
-    group's exact sum cast per channel to its narrowest lossless lane
-    (K12, into the gather buffer), then every receiver's int32 fold of
-    the G lanes (K13) → int32[2, N]."""
+def hier_split_channels(parts, groups: int, group_slots: int
+                        ) -> torch.Tensor:
+    """A 2-D mesh's reduce of split-sum partials (each member's
+    int32[2, N]): each group's exact sum cast per channel to its
+    narrowest lossless lane, then every receiver's int32 fold of the G
+    lanes → int32[2, N], one K12+K13 launch."""
     lo_b, hi_b = split_channel_bounds(group_slots)
-    lanes = kernels.lane_pack(parts, groups,
-                              (lane_dtype_bytes(lo_b), lane_dtype_bytes(hi_b)))
-    return kernels.lane_fold(lanes, "sum")
+    return kernels.lane_reduce(parts, groups, (lane_dtype_bytes(lo_b),
+                                               lane_dtype_bytes(hi_b)))
 
 
-def gather_extreme(parts: torch.Tensor, groups: int | None, want_max: bool,
+def gather_extreme(parts, groups: int | None, want_max: bool,
                    bound=None) -> torch.Tensor:
-    """The reduce of extremum partials [M, N] (int32 or int64): on a 2-D
-    mesh each group's best (narrowed when ``bound`` proves it lossless,
-    K12), then the fold of the G lanes (K13); on the flat mesh
-    (``groups`` None) the fold over the members alone. Returns [N]."""
-    mode = "max" if want_max else "min"
-    if groups is None:
-        return kernels.lane_fold(parts, mode)
-    width = (parts.element_size() if bound is None
-             else lane_dtype_bytes(bound))
-    return kernels.lane_fold(kernels.lane_pack(parts, groups, width, mode),
-                             mode)
+    """The reduce of extremum partials (each member's [N] or 0-d, int32
+    or int64): on a 2-D mesh each group's best (narrowed when ``bound``
+    proves it lossless), then the fold of the G lanes; on the flat mesh
+    (``groups`` None) the best over the members alone. One K12+K13
+    launch; returns [N]."""
+    width = (parts if isinstance(parts, torch.Tensor)
+             else parts[0]).element_size()
+    if groups is not None and bound is not None:
+        width = lane_dtype_bytes(bound)
+    return kernels.lane_reduce(parts, groups or 1, width,
+                               "max" if want_max else "min")
 
 
 def hier_quantized_counts(parts: torch.Tensor, groups: int | None
@@ -152,7 +155,7 @@ def hier_quantized_counts(parts: torch.Tensor, groups: int | None
     Returns split-form ``[2, R + n_blocks]``: approx counts followed by
     per-block error bounds (``batch.merge_split`` then
     ``split_quantized``). ``groups`` None (the flat mesh) is the
-    lossless pass-through: the exact sum (K13), bounds 0."""
+    lossless pass-through: the exact sum (K12+K13), bounds 0."""
     n_rows = parts.shape[2]
     nb = quant_blocks(n_rows)
     if groups is None:

@@ -1280,41 +1280,70 @@ def _split_parts(dev, members: int, n: int, lo_max: int, hi_max: int,
     return torch.from_numpy(parts).to(dev)
 
 
+def _lane_layouts(parts: torch.Tensor, mode: str) -> dict:
+    """The same [M, ...] partials as lane_reduce takes them: stacked, a
+    member list, transposed member views (a micro-batch's [B, 2]) and
+    strided views of a wider buffer."""
+    m = parts.shape[0]
+    wide = torch.zeros((*parts.shape[:-1], 3 * parts.shape[-1]),
+                       dtype=parts.dtype, device=parts.device)
+    wide[..., ::3] = parts
+    out = {"stacked": parts, "members": [parts[k].clone() for k in range(m)],
+           "stacked_strided": wide[..., ::3],
+           "members_strided": [wide[k, ..., ::3] for k in range(m)]}
+    if mode == "sum":
+        out["members_b2"] = [parts[k].t().contiguous().t() for k in range(m)]
+    return out
+
+
 @pytest.mark.parametrize("members,groups,n,widths", [
     (8, 2, 1, (1, 1)), (8, 4, 700, (2, 1)), (8, 2, 129, (4, 2)),
-    (4, 4, 3, (2, 4))])
-def test_lane_pack_and_fold_match_plain(dev, members, groups, n, widths):
-    """K12 into lanes of each width (sums at 255, 65 535 and past them),
-    then K13, against the plain versions, bit-exact, dtypes too."""
+    (4, 4, 3, (2, 4)), (64, 8, 5, (2, 2))])
+def test_lane_reduce_matches_plain(dev, members, groups, n, widths):
+    """K12+K13 through lanes of each width (group sums at 255, 65 535 and
+    past them), from the members' partials in every layout, against the
+    plain version, bit-exact, dtype too; the flat mesh's sum against
+    torch.sum."""
     bound = {1: 255, 2: 65535, 4: 1 << 24}
     parts = _split_parts(dev, members, n, bound[widths[0]] * groups,
                          bound[widths[1]] * groups, members + n)
-    got = kernels.lane_pack(parts, groups, widths)
-    want = kernels.lane_pack_plain(parts, groups, widths)
-    for g, w in zip(got, want):
-        assert g.dtype == w.dtype == kernels.LANE_DTYPES[g.element_size()]
-        assert torch.equal(g, w)
-    assert torch.equal(kernels.lane_fold(got), kernels.lane_fold_plain(want))
-    flat = kernels.lane_fold((parts[:, 0], parts[:, 1]))
-    assert torch.equal(flat, kernels.lane_fold_plain(
-        (parts[:, 0], parts[:, 1])))
+    want = kernels.lane_reduce_plain(parts, groups, widths)
+    before = kernels.launches()["lane_reduce"]
+    layouts = _lane_layouts(parts, "sum")
+    for name, layout in layouts.items():
+        got = kernels.lane_reduce(layout, groups, widths)
+        assert got.dtype == torch.int32 and torch.equal(got, want), name
+    assert kernels.launches()["lane_reduce"] == before + len(layouts)
+    flat = kernels.lane_reduce(list(parts), 1, (4, 4))
+    assert torch.equal(flat, kernels.lane_reduce_plain(parts, 1, (4, 4)))
     assert torch.equal(flat.cpu(), parts.cpu().sum(0, dtype=torch.int32))
+    column = [parts[k, :, 0] for k in range(members)]  # [2] partials
+    assert torch.equal(kernels.lane_reduce(column, groups, widths),
+                       want[:, :1])
 
 
 @pytest.mark.parametrize("dtype,width", [(torch.int64, 8), (torch.int32, 4),
-                                         (torch.int32, 1)])
+                                         (torch.int32, 1), (torch.int64, 2)])
 @pytest.mark.parametrize("mode", ["max", "min"])
 def test_lane_extrema_match_plain(dev, dtype, width, mode):
+    """The extremum lanes, narrowed where the width says (past their
+    bound too: the cast wraps), from every layout and 0-d partials, and
+    the flat fold over the members."""
     rng = np.random.default_rng(width)
     hi = 2 if width == 1 else 1 << 40 if dtype == torch.int64 else 1 << 30
     vals = torch.from_numpy(rng.integers(-hi if width > 1 else 0, hi,
                                          (8, 5))).to(dtype).to(dev)
-    lanes = kernels.lane_pack(vals, 4, width, mode)
-    assert torch.equal(lanes, kernels.lane_pack_plain(vals, 4, width, mode))
-    assert torch.equal(kernels.lane_fold(lanes, mode),
-                       kernels.lane_fold_plain(lanes, mode))
-    assert torch.equal(kernels.lane_fold(vals, mode),
-                       kernels.lane_fold_plain(vals, mode))
+    want = kernels.lane_reduce_plain(vals, 4, width, mode)
+    assert want.dtype == (torch.int64 if width == 8 else torch.int32)
+    for name, layout in _lane_layouts(vals, mode).items():
+        got = kernels.lane_reduce(layout, 4, width, mode)
+        assert got.dtype == want.dtype and torch.equal(got, want), name
+    scalars = [vals[k, 2] for k in range(8)]  # 0-d partials
+    assert torch.equal(kernels.lane_reduce(scalars, 4, width, mode),
+                       want[2:3])
+    size = vals.element_size()
+    assert torch.equal(kernels.lane_reduce(vals, 1, size, mode),
+                       kernels.lane_reduce_plain(vals, 1, size, mode))
 
 
 @pytest.mark.parametrize("rows,groups", [(1, 2), (300, 2), (65536, 4),
@@ -1337,8 +1366,8 @@ def test_quant_pack_and_fold_match_plain(dev, rows, groups):
 def test_mesh_of_eight_members_on_one_card(dev, tmp_path):
     """``make_mesh(8, devices=[cuda], groups=2)``: the Star-Trace Counts,
     a Row, a TopN over the quantized lane and a Set between two reads,
-    each equal to the single-device executor's, with K12 and K13
-    launched."""
+    each equal to the single-device executor's, with K12+K13 launched
+    and no other lane kernel."""
     from pilosa_tpu_torch.executor import Executor, result_to_json
     from pilosa_tpu_torch.parallel import DistExecutor, make_mesh
     from pilosa_tpu_torch.storage import Holder
@@ -1367,7 +1396,8 @@ def test_mesh_of_eight_members_on_one_card(dev, tmp_path):
         got = [d.result() for d in mesh.submit("i", " ".join(queries[:3]))]
         assert got == plain.execute("i", " ".join(queries[:3]))
         launched = kernels.launches()
-        assert launched["lane_pack"] > 0 and launched["lane_fold"] > 0
+        assert launched["lane_reduce"] > 0
+        assert "lane_pack" not in launched and "lane_fold" not in launched
     finally:
         h.close()
 

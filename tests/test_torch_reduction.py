@@ -1,11 +1,14 @@
-"""The mesh lanes' plain versions (K12-K15) against the reference's
-reduction functions, on the CPU.
+"""The mesh lanes' plain versions (K12+K13, K14, K15) against the
+reference's reduction functions, on the CPU.
 
 The reference's ``hier_split_channels``, ``gather_extreme`` and
 ``hier_quantized_counts`` run under its own ``shard_map`` on
 ``make_mesh(8, groups=g)`` (conftest's 8 forced CPU devices), after the
 intra-group ``psum`` / ``pmax`` that ``_dist_body`` runs before them;
-the port's functions take the same 8 members' partials stacked. Inputs
+the port's functions take the same 8 members' partials stacked, and
+``lane_reduce`` also takes them as a list of member tensors in each
+layout the executor gives it ([2, N], [B, 2] as its transposed view,
+[2], 0-d, strided views). Inputs
 are seeded numpy integers with group totals at the lane bounds (255 and
 256, 65 535 and 65 536), candidate counts that are not a multiple of 256
 and all-small blocks (scale 1). Tolerance 0 throughout. The host side
@@ -74,9 +77,9 @@ def test_hier_split_channels_matches_reference(groups, group_slots):
                                         group_slots)
     assert got.dtype == torch.int32
     assert np.array_equal(got.numpy(), want)
-    lanes = kernels.lane_pack(torch.from_numpy(parts), groups,
-                              (reduction.lane_dtype_bytes(lo_b),
-                               reduction.lane_dtype_bytes(hi_b)))
+    lanes = kernels.lane_pack_plain(torch.from_numpy(parts), groups,
+                                    (reduction.lane_dtype_bytes(lo_b),
+                                     reduction.lane_dtype_bytes(hi_b)))
     assert lanes[0].dtype == reduction.lane_dtype(lo_b)
     assert lanes[1].dtype == reduction.lane_dtype(hi_b)
     assert [np.dtype(str(l.dtype).split(".")[1]) for l in lanes] == [
@@ -246,20 +249,193 @@ def test_reduce_stats_snapshot_keys_match_reference():
 def test_lane_wrappers_check_their_arguments():
     parts = torch.zeros((8, 2, 3), dtype=torch.int32)
     with pytest.raises(ValueError):
-        kernels.lane_pack(parts, 3, (1, 1))  # 3 groups over 8 members
+        kernels.lane_reduce(parts, 3, (1, 1))  # 3 groups over 8 members
     with pytest.raises(ValueError):
-        kernels.lane_pack(parts, 2, (8, 1))  # no int64 split lane
+        kernels.lane_reduce(parts, 2, (8, 1))  # no int64 split lane
     with pytest.raises(TypeError):
-        kernels.lane_pack(parts.to(torch.int64), 2, (4, 4))
+        kernels.lane_reduce(parts.to(torch.int64), 2, (4, 4))
     with pytest.raises(ValueError):
-        kernels.lane_pack(parts, 2, 4, "median")
+        kernels.lane_reduce(parts, 2, 4, "median")
     with pytest.raises(TypeError):
-        kernels.lane_fold(torch.zeros((2, 3), dtype=torch.int16), "max")
+        kernels.lane_reduce(torch.zeros((2, 3), dtype=torch.int16), 1, 2,
+                            "max")
     with pytest.raises(ValueError):
         kernels.quant_fold(torch.zeros((2, 2, 256), dtype=torch.uint8),
                            torch.zeros((2, 2), dtype=torch.int32), 600)
     with pytest.raises(ValueError):
         kernels.quant_pack(parts[:, :1], 2)
-    lo, hi = kernels.lane_pack(parts, 2, (2, 1))
+    lo, hi = kernels.lane_pack_plain(parts, 2, (2, 1))
     assert (lo.dtype, hi.dtype, lo.shape) == (torch.uint16, torch.uint8,
                                               (2, 3))
+
+
+# ------------------------------------------ K12+K13 over member layouts
+
+
+def _member_layouts(parts: np.ndarray) -> dict:
+    """The same int32[8, 2, n] partials as lane_reduce takes them: the
+    executor's member lists ([2, n] each; [n, 2] each as its transposed
+    view, as a micro-batch's [B, 2]), the stacked tensor, and strided
+    views of a wider buffer, stacked and as members."""
+    t = torch.from_numpy(parts)
+    wide = torch.zeros((MEMBERS, 2, 3 * parts.shape[2]), dtype=torch.int32)
+    wide[:, :, ::3] = t
+    strided = wide[:, :, ::3]
+    return {
+        "members": [t[m].clone() for m in range(MEMBERS)],
+        "members_b2": [t[m].t().contiguous().t() for m in range(MEMBERS)],
+        "stacked": t,
+        "stacked_strided": strided,
+        "members_strided": [strided[m] for m in range(MEMBERS)],
+    }
+
+
+# (groups or None: flat, group_slots, the lo and hi group totals): the
+# lanes at their bounds (255, 65 535), past them (the cast wraps as
+# astype does), and int32 group sums that wrap
+LANE_REDUCE_CASES = [
+    (2, 2, 65535, 255),
+    (4, 1, 70000, 300),
+    (2, 8, (1 << 31) + 5, 65536),
+    (None, 1, (1 << 31) + 9, 70000),
+]
+
+
+@pytest.mark.parametrize("groups,group_slots,lo_total,hi_total",
+                         LANE_REDUCE_CASES)
+def test_lane_reduce_layouts_match_reference(groups, group_slots, lo_total,
+                                             hi_total):
+    rng = np.random.default_rng(lo_total % 997 + group_slots)
+    n = 300  # past one block of 256 threads, not a multiple of it
+    parts = np.zeros((MEMBERS, 2, n), np.int64)
+    parts[:, 0] = rng.integers(0, lo_total // MEMBERS + 1, (MEMBERS, n))
+    parts[:, 1] = rng.integers(0, hi_total // MEMBERS + 1, (MEMBERS, n))
+    parts[:, 0, 0] = lo_total // MEMBERS
+    parts[:, 1, 0] = hi_total // MEMBERS
+    parts[0, 0, 0] += lo_total % MEMBERS
+    parts[0, 1, 0] += hi_total % MEMBERS
+    parts = parts.astype(np.uint32).view(np.int32)  # int32 bit patterns
+    if groups is None:
+        want = _run_mesh(None, lambda p: lax.psum(p, SHARDS_AXIS), parts)
+        widths = (4, 4)
+    else:
+        want = _run_mesh(groups, lambda p: jred.hier_split_channels(
+            lax.psum(p, SHARDS_AXIS), GROUPS_AXIS, group_slots), parts)
+        widths = tuple(reduction.lane_dtype_bytes(b) for b in
+                       reduction.split_channel_bounds(group_slots))
+    for name, layout in _member_layouts(parts).items():
+        got = kernels.lane_reduce(layout, groups or 1, widths)
+        assert got.dtype == torch.int32 and got.shape == (2, n), name
+        assert np.array_equal(got.numpy(), want), name
+        via = (reduction.flat_split_sum(layout) if groups is None else
+               reduction.hier_split_channels(layout, groups, group_slots))
+        assert np.array_equal(via.numpy(), want), name
+    # the executor's [2] partials (a Count's, a Min's count at the best)
+    column = [torch.from_numpy(parts[m, :, 0].copy()) for m in range(MEMBERS)]
+    got = kernels.lane_reduce(column, groups or 1, widths)
+    assert got.shape == (2, 1)
+    assert np.array_equal(got.numpy()[:, 0], want[:, 0])
+
+
+# (groups or None: flat, want_max, bound, the largest value): the valid
+# flag's 0/1, the uint8 lane at 255 and past it (300 casts to 44), the
+# uint16 lane past 65 535, and the exact int32 lane
+EXTREME_LAYOUT_CASES = [(2, True, 1, 1), (4, True, 255, 300),
+                        (2, False, 65535, 70000), (4, False, None, 1 << 30),
+                        (None, True, None, 1 << 30)]
+
+
+@pytest.mark.parametrize("groups,want_max,bound,top", EXTREME_LAYOUT_CASES)
+def test_lane_reduce_extrema_layouts_match_reference(groups, want_max, bound,
+                                                     top):
+    rng = np.random.default_rng(top % 1000 + (groups or 0))
+    low = 0 if bound is not None else -top
+    vals = rng.integers(low, top + 1, (MEMBERS, 5)).astype(np.int32)
+    vals[3, 2] = top
+    vals[6, 4] = low
+
+    def body(v):
+        best = (lax.pmax if want_max else lax.pmin)(v, SHARDS_AXIS)
+        if groups is None:
+            return best
+        return jred.gather_extreme(best, GROUPS_AXIS, want_max, bound=bound)
+
+    want = _run_mesh(groups, body, vals)
+    mode = "max" if want_max else "min"
+    width = 4 if groups is None or bound is None else         reduction.lane_dtype_bytes(bound)
+    t = torch.from_numpy(vals)
+    wide = torch.zeros((MEMBERS, 10), dtype=torch.int32)
+    wide[:, ::2] = t
+    layouts = {"members": [t[m].clone() for m in range(MEMBERS)],
+               "stacked": t, "stacked_strided": wide[:, ::2],
+               "members_strided": [wide[m, ::2] for m in range(MEMBERS)]}
+    for name, layout in layouts.items():
+        got = kernels.lane_reduce(layout, groups or 1, width, mode)
+        assert got.dtype == torch.int32, name
+        assert np.array_equal(got.numpy(), want), name
+        via = reduction.gather_extreme(layout, groups, want_max, bound=bound)
+        assert np.array_equal(via.numpy(), want), name
+    # the executor's 0-d partials (a Min's or Max's best, its valid flag)
+    for col in range(5):
+        scalars = [torch.tensor(int(vals[m, col]), dtype=torch.int32)
+                   for m in range(MEMBERS)]
+        got = reduction.gather_extreme(scalars, groups, want_max, bound=bound)
+        assert got.tolist() == [int(want[col])]
+
+
+@pytest.mark.parametrize("groups", [None, 2, 4])
+def test_lane_reduce_keeps_int64_extrema_in_every_layout(groups):
+    """int64 bests (K7 to depth 63) cross unnarrowed, as members, stacked
+    and 0-d: the plain composition's answer, the members' true best."""
+    vals = torch.tensor([[1 << 40, -3], [-(1 << 50), 9], [7, 1 << 33],
+                         [3, -(1 << 62)]], dtype=torch.int64).repeat(2, 1)
+    for want_max in (True, False):
+        mode = "max" if want_max else "min"
+        want = vals.amax(0) if want_max else vals.amin(0)
+        for layout in (vals, list(vals), [v.clone() for v in vals]):
+            got = reduction.gather_extreme(layout, groups, want_max)
+            assert got.dtype == torch.int64 and torch.equal(got, want)
+            assert torch.equal(got, kernels.lane_reduce_plain(
+                layout, groups or 1, 8, mode))
+        got = reduction.gather_extreme([v[0] for v in vals], groups, want_max)
+        assert got.tolist() == [int(want[0])]
+
+
+def _refused(kind: str):
+    parts = [torch.zeros((2, 3), dtype=torch.int32) for _ in range(8)]
+    if kind == "too_many_members":
+        return [parts[0]] * (kernels.LANE_MAX_MEMBERS + 2), 2, ValueError
+    if kind == "mixed_devices":
+        return parts[:7] + [parts[7].to("meta")], 2, ValueError
+    if kind == "mixed_dtypes":
+        return parts[:7] + [parts[7].to(torch.int64)], 2, TypeError
+    if kind == "groups_do_not_divide":
+        return parts[:6], 4, ValueError
+    if kind == "mixed_layouts":
+        return parts[:7] + [torch.zeros((3, 2), dtype=torch.int32).t()], 2, \
+            ValueError
+    if kind == "overlapping_channels":
+        row = torch.zeros(3, dtype=torch.int32)
+        return [row.expand(2, 3)] * 8, 2, ValueError
+    if kind == "no_members":
+        return [], 1, ValueError
+    raise AssertionError(kind)
+
+
+@pytest.mark.parametrize("kind", [
+    "too_many_members", "mixed_devices", "mixed_dtypes",
+    "groups_do_not_divide", "mixed_layouts", "overlapping_channels",
+    "no_members"])
+def test_lane_reduce_refuses(kind):
+    parts, groups, err = _refused(kind)
+    with pytest.raises(err):
+        kernels.lane_reduce(parts, groups, (4, 4))
+
+
+def test_lane_reduce_takes_64_members():
+    """The cap itself: 64 members in 8 groups, from the numpy sum."""
+    rng = np.random.default_rng(64)
+    parts = rng.integers(0, 1 << 20, (64, 2, 7)).astype(np.int32)
+    got = kernels.lane_reduce([torch.from_numpy(p) for p in parts], 8,
+                              (4, 4))
+    assert np.array_equal(got.numpy(), parts.sum(0, dtype=np.int32))
