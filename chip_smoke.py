@@ -3,6 +3,9 @@
 
     python3 chip_smoke.py [--seed N] [--verify-on-load]
 
+(``python3 chip_smoke.py --load-client`` is one of its load-client
+processes, started by the serving path.)
+
 Phases, each of which ends the run with a non-zero exit when it fails:
 
 1. print the card's name and power limit (nvidia-smi); build the
@@ -80,8 +83,9 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       a window), the bool row, a GroupBy under a window and an empty
       window; then a timestamped Set into the resident 65-view leaf (one
       K3 launch) and a Clear (the slot re-decoded), a timestamped
-      /import at an hour with no view (one K3 launch), a mutex /import
-      moving 1024 columns (one K3 launch), a Store of a sparse row and a
+      /import of a bit in each of 128 shards at an hour with no view
+      (one K3 launch), a mutex /import moving a column in each of 128
+      shards (one K3 launch), a Store of a sparse row and a
       ClearRow of it (one K3 launch, the leaf still resident), every
       answer against the oracle after each;
    e. the keys path (upstream pilosa's ``keys`` option; the taxi
@@ -106,8 +110,8 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       in upstream pilosa's roaring layout), one K3 launch a request, and
       one body over the limit (413); 16 closed-loop protobuf clients
       (QueryRequest in, QueryResponse out, decoded by the port's
-      decode_results_json) for 2 s and the same five shapes as JSON
-      for 2 s (an Intersect Count, a filtered TopN, a Sum, a filtered
+      decode_results_json) for 1 s and the same five shapes as JSON
+      for 1 s (an Intersect Count, a filtered TopN, a Sum, a filtered
       GroupBy and a Row over two shards); a protobuf ImportRequest and
       ImportValueRequest of 4096 bits and values (one K3 launch each);
       the /export CSV (about 10.7 M lines) against the oracle's SHA-256;
@@ -133,7 +137,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    g. the tier path (the NYC TLC months as Litwintschik's benchmark
       loads them): a set field ``pickup_month`` of 84 contiguous-range
       rows on ``rides``; the budget lowered to 16 dense months beside
-      the cab_type leaves; 16 concurrent clients (6 queries each) over
+      the cab_type leaves; 16 concurrent clients (3 queries each) over
       a month x cab Count, a quarter's Count and a month's TopN(cab_type) (K10
       demotes each eviction's victims in one launch, K11 promotes); a
       Count of every month, one tierer pass to the host tier (the dense
@@ -147,7 +151,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       answer against the oracle; the budget restored;
    h. the serving envelope (on ``repository``, after the taxi path):
       16 closed-loop clients over the five Star-Trace Count shapes for
-      5 s through the pipeline wave, then 5 s with
+      3 s through the pipeline wave, then 3 s with
       ``api.serve_pipelined = False``, each with QPS, p50, p99, waves,
       coalesced and deduped requests, K1 launches a query and the mean
       micro-batch, and the operand memo's hits and misses a served
@@ -165,9 +169,29 @@ Phases, each of which ends the run with a non-zero exit when it fails:
       the load running until it answers (the trace's K1 kernel events
       counted); ``/debug/traces``, ``/debug/slo``,
       ``/debug/vars``, ``/debug/queries`` and ``/metrics`` with the
-      serving planes' families;
-5. the crash phase, on a 64-shard directory of its own: a port server
-   process on the card takes Set, Clear, /import, /import-value,
+      serving planes' families; then multi-process serving over the
+      same open server, started by ``Server.start_serving_workers`` (what
+      ``Server.open`` calls when ``serving-workers`` > 0) with 4
+      ``SO_REUSEPORT`` workers on a port of their own and rings sized to
+      ``/dev/shm`` (``df`` printed; ``os.cpu_count()`` printed): the five
+      Count shapes from 2 client processes of 8 keep-alive clients each
+      (``chip_smoke.py --load-client``, every answer against the oracle
+      passed in as JSON) for 3 s against the single-process wave, then
+      3 s through the workers, each with QPS, p50, p99, K1 launches and
+      operand-memo hits a served Count, the wave's counters and the
+      owner's batches, batched requests, deduped frames and queries
+      served, and the workers' ring round-trip p50/p99 from the control
+      block; a Set and a Clear through one worker read back through
+      each of the others; one worker SIGKILLed under the client
+      processes' load (no wrong answer, a respawn with a new pid, the
+      reaped worker counted); the workers handshake again after the
+      owner's half restarts and take a sample rate of 1, and one Count's
+      trace is a worker's ``http.query`` root holding the owner's
+      ``rpc.query`` subtree; ``/debug/workers`` and the ``serving_*``
+      families on ``/metrics``; the workers stopped;
+5. the crash phase, on a 64-shard directory of its own, run after phase
+   3 while the data-dir builders still run: a port server process on
+   the card takes Set, Clear, /import, /import-value,
    timestamped Sets into a YMDH field, Sets moving columns of a mutex
    field and keyed Sets (new column keys, new and old row keys) from 4
    HTTP clients and is SIGKILLed after 400 acknowledged writes; a port
@@ -183,7 +207,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    fragment (five quarantined, Count, TopN and Options(shards=) against
    the oracle without those fragments); a byte flipped under a resident
    cab_type leaf is healed by ``python -m pilosa_tpu_torch check --host``
-   (self_healed=1, no row-cache miss after); 16 Count clients for 2 s
+   (self_healed=1, no row-cache miss after); 16 Count clients for 1 s
    without and during a scrub pass, whose MB/s is printed; an ENOSPC on
    every fsync under the directory fails one Set, sheds the next and an
    index create with 503 and Retry-After with no K3 launch while 16
@@ -194,7 +218,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
 
 Before the kernels JSON a line gives the set-up seconds (the data dirs
 waited for, the server's open and close, each path's first touch)
-beside an earlier run's on the same card (H5 in PERF.md). The
+beside an earlier run's on the same card (P1 in PERF.md). The
 second-to-last line is the kernels JSON; the last line is
 ``{"ok": true, "device": {...}}``. No JAX, nothing of pilosa_tpu.
 """
@@ -213,6 +237,7 @@ import multiprocessing
 import os
 import resource
 import shutil
+import signal
 import statistics
 import struct
 import subprocess
@@ -291,12 +316,13 @@ TAXI_FIELDS = {
 # Device bytes the server may keep resident: the rides path's 7.2 GB
 # beside the taxi path's 10.25 GiB of dimension rows and TopN chunks
 SERVER_BUDGET_BYTES = 64 << 30
-# H5's set-up (an earlier run of this script on an NVIDIA H100 80GB HBM3
-# at 700 W, before the mesh path), printed beside this run's
-H5_SETUP_S = {"data_dirs": 345.8, "open": 208.5, "close": 72.8,
-              "first_touch Star-Trace": 1.851, "first_touch rides": 9.006,
-              "first_touch taxi": 19.018, "first_touch time": 4.534,
-              "first_touch keys": 4.550}
+# P1's set-up (an earlier run of this script on an NVIDIA H100 80GB HBM3
+# at 700 W, with the mesh path, before multi-process serving), printed
+# beside this run's
+P1_SETUP_S = {"data_dirs": 391.1, "open": 233.7, "close": 63.4,
+              "first_touch Star-Trace": 2.050, "first_touch rides": 9.327,
+              "first_touch taxi": 21.699, "first_touch time": 4.488,
+              "first_touch keys": 4.698}
 SETUP_S: dict = {}  # this run's set-up seconds, filled as they pass
 
 
@@ -2081,9 +2107,10 @@ def closed_loop(port: int, index: str, shapes: list, truth: dict,
 # ------------------------------------------------------ serving envelope
 
 ENVELOPE_CLIENTS = 16
-# cut from 10 s, 3 s and 3 s to hold the run under 1 100 s
-ENVELOPE_LOOP_S = 5.0     # each of the pipeline and the direct loops
-TENANT_LOOP_S = 2.0       # two tenants against the per-tenant gate
+# cut from 10 s, 3 s and 3 s to hold the run under 1 100 s, then from
+# 5 s and 2 s to pay for the multi-process serving step
+ENVELOPE_LOOP_S = 3.0     # each of the pipeline and the direct loops
+TENANT_LOOP_S = 1.0       # two tenants against the per-tenant gate
 TRACE_LEAD_S = 0.5        # the load's start before a trace-device capture
 TENANT_INFLIGHT = 2       # qos-tenant-inflight of that loop
 ENVELOPE_ROW = 20         # a stargazer row of known bits for PROFILE
@@ -2531,6 +2558,393 @@ def _serve_envelope(server, words: dict, taxi: dict, events: dict,
     stats["metrics_families"] = len(fams)
     c.close()
     step("debug_routes")
+
+    # (g) multi-process serving over this server: a column of shard 100
+    # (not in the PROFILE row's first 16 shards) whose existence bit
+    # stargazer 0 already set
+    free_col = 100 * WORDS * 32 + int(np.flatnonzero(np.unpackbits(
+        st[("stargazer", 0)].reshape(N_SHARDS, WORDS)[100].view(np.uint8),
+        bitorder="little"))[0])
+    stats["mp"] = _serve_mp(server, shapes, truth, kernels,
+                            ENVELOPE_ROW_BITS, free_col)
+    step("mp")
+    return stats
+
+
+# ------------------------------------------------- multi-process serving
+
+MP_WORKERS = 4            # SO_REUSEPORT workers in front of the owner
+MP_CLIENT_PROCS = 2       # load-client processes, each with
+MP_CLIENTS_PER_PROC = 8   # keep-alive clients of its own
+MP_LOOP_S = 3.0           # each of the single-process and workers' loops
+MP_KILL_LOAD_S = 2.0      # the load a worker is SIGKILLed under,
+MP_KILL_AT_S = 0.5        # this far into it
+# ring geometries, largest first: a ring that outgrows /dev/shm dies of
+# SIGBUS at its first write, not at its creation
+MP_RING_GEOMETRIES = ((1024, 65536), (256, 8192), (64, 4096))
+
+
+def _ring_geometry() -> tuple[int, int]:
+    """The largest of MP_RING_GEOMETRIES whose rings (two a worker) fill
+    at most half of /dev/shm's free bytes; prints ``df /dev/shm``."""
+    df = subprocess.run(["df", "-h", "/dev/shm"], capture_output=True,
+                        text=True, timeout=30)
+    print("df /dev/shm: " + " | ".join(df.stdout.strip().splitlines()),
+          flush=True)
+    free = shutil.disk_usage("/dev/shm").free
+    for slots, slot_bytes in MP_RING_GEOMETRIES:
+        need = MP_WORKERS * 2 * (64 + slots * (16 + slot_bytes))
+        if need <= free // 2:
+            print(f"serving rings: {slots} x {slot_bytes} B, {need} B of "
+                  f"/dev/shm for {MP_WORKERS} workers ({free} B free)",
+                  flush=True)
+            return slots, slot_bytes
+    fail(f"/dev/shm has {free} B free: too little for {MP_WORKERS} "
+         "workers' rings")
+
+
+def load_client() -> int:
+    """A load-client process (``chip_smoke.py --load-client``): reads
+    {port, index, shapes, truth, clients, seconds, tolerate} as a JSON
+    line on stdin, opens its keep-alive clients, prints ``ready``, waits
+    for a ``go`` line, runs them closed-loop for ``seconds`` holding
+    every answer against ``truth``, and prints one JSON line: the
+    latencies, the wrong answers, the statuses other than 200 and (with
+    ``tolerate``) the connections reset under it, which it reopens."""
+    cfg = json.loads(sys.stdin.readline())
+    lock = threading.Lock()
+    out = {"latencies": [], "errors": [], "statuses": {}, "resets": 0}
+    conns = [http.client.HTTPConnection("127.0.0.1", cfg["port"],
+                                        timeout=600)
+             for _ in range(cfg["clients"])]
+    for c in conns:
+        c.connect()
+    print("ready", flush=True)
+    if sys.stdin.readline().strip() != "go":
+        return 1
+    stop = time.perf_counter() + cfg["seconds"]
+    path = f"/index/{cfg['index']}/query"
+
+    def client(k: int) -> None:
+        c, j = conns[k], k
+        while time.perf_counter() < stop:
+            pql = cfg["shapes"][j % len(cfg["shapes"])]
+            j += 1
+            t = time.perf_counter()
+            try:
+                c.request("POST", path, body=pql.encode())
+                resp = c.getresponse()
+                body = resp.read()
+            except (OSError, http.client.HTTPException):
+                if not cfg["tolerate"]:
+                    raise
+                c.close()
+                c = http.client.HTTPConnection("127.0.0.1", cfg["port"],
+                                               timeout=600)
+                with lock:
+                    out["resets"] += 1
+                continue
+            dt = time.perf_counter() - t
+            with lock:
+                if resp.status != 200:
+                    key = str(resp.status)
+                    out["statuses"][key] = out["statuses"].get(key, 0) + 1
+                    continue
+                out["latencies"].append(dt)
+                got = json.loads(body)["results"][0]
+                if got != cfg["truth"][pql]:
+                    out["errors"].append([pql, got])
+        c.close()
+
+    threads = [threading.Thread(target=client, args=(k,))
+               for k in range(len(conns))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    print(json.dumps(out), flush=True)
+    return 0
+
+
+def _process_loop(port: int, shapes: list, truth: dict, seconds: float,
+                  tolerate: bool = False, during=None) -> dict:
+    """MP_CLIENT_PROCS load-client processes of MP_CLIENTS_PER_PROC
+    clients each against ``port`` for ``seconds``, started together once
+    every process has its connections open; ``during()`` runs while they
+    load. Their results merged; fails on a wrong answer, or (unless
+    ``tolerate``) on any status but 200."""
+    cfg = json.dumps({"port": port, "index": "repository", "shapes": shapes,
+                      "truth": truth, "clients": MP_CLIENTS_PER_PROC,
+                      "seconds": seconds, "tolerate": tolerate})
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    procs = [subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                               "--load-client"], stdin=subprocess.PIPE,
+                              stdout=subprocess.PIPE, text=True, env=env)
+             for _ in range(MP_CLIENT_PROCS)]
+    merged = {"latencies": [], "errors": [], "statuses": {}, "resets": 0,
+              "start_s": 0.0}
+    try:
+        for p in procs:
+            p.stdin.write(cfg + "\n")
+            p.stdin.flush()
+        t0 = time.perf_counter()
+        for p in procs:
+            if p.stdout.readline().strip() != "ready":
+                fail("a load-client process did not start")
+        merged["start_s"] = time.perf_counter() - t0
+        for p in procs:
+            p.stdin.write("go\n")
+            p.stdin.flush()
+        if during is not None:
+            during()
+        for p in procs:
+            line = p.stdout.readline()
+            if p.wait(timeout=seconds + 120) != 0 or not line:
+                fail(f"a load-client process exited {p.returncode}")
+            got = json.loads(line)
+            merged["latencies"] += got["latencies"]
+            merged["errors"] += got["errors"]
+            merged["resets"] += got["resets"]
+            for k, n in got["statuses"].items():
+                merged["statuses"][k] = merged["statuses"].get(k, 0) + n
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait(timeout=30)
+    if merged["errors"]:
+        fail(f"wrong answers under the process load: {merged['errors'][:3]}")
+    if not merged["latencies"] or (merged["statuses"] and not tolerate):
+        fail(f"process load on {port}: {len(merged['latencies'])} answers, "
+             f"statuses {merged['statuses']}")
+    return merged
+
+
+def _mp_run(server, port: int, shapes: list, truth: dict, kernels,
+            runtime=None) -> dict:
+    """One MP_LOOP_S process load against ``port``: QPS, p50, p99, K1
+    launches and operand-memo hits a served Count, the wave's and (with
+    ``runtime``) the owner's counters over it."""
+    ex = server.api.executor
+    k1 = kernels.launches()["tree_count"]
+    memo0 = ex.memo_hits
+    wave0 = server.api.pipeline_metrics()
+    own0 = runtime.metrics() if runtime is not None else None
+    got = _process_loop(port, shapes, truth, MP_LOOP_S)
+    out = _latency_stats(got["latencies"], MP_LOOP_S)
+    out["clients_start_s"] = got["start_s"]
+    wave = server.api.pipeline_metrics()
+    out.update({k: wave[k] - wave0[k] for k in wave})
+    out["k1_launches_per_query"] = \
+        (kernels.launches()["tree_count"] - k1) / out["queries"]
+    out["memo_hits_per_query"] = (ex.memo_hits - memo0) / out["queries"]
+    if runtime is not None:
+        own = runtime.metrics()
+        for name, key in (("batches", "serving_owner_batches_total"),
+                          ("batched_requests",
+                           "serving_owner_batched_requests_total"),
+                          ("deduped", "serving_ring_deduped_total"),
+                          ("queries_served", "serving_ring_queries_total")):
+            out[f"owner_{name}"] = own[key] - own0[key]
+        out["ring_rtt_us"] = [(w["id"], w["ringRttP50Us"], w["ringRttP99Us"])
+                              for w in runtime.workers_json()]
+        if out["owner_queries_served"] != out["queries"]:
+            fail(f"the owner served {out['owner_queries_served']} ring "
+                 f"queries of {out['queries']} answered")
+    if not kernels.launches()["tree_count"] - k1:
+        fail(f"{out['queries']} served Counts made no K1 launch")
+    return out
+
+
+def _worker_conns(port: int, n: int) -> dict:
+    """A keep-alive connection to each of the ``n`` workers (the kernel
+    spreads connections over them), keyed by worker id."""
+    by_worker: dict = {}
+    for _ in range(64):
+        c = Client(port)
+        c.conn.request("GET", "/debug/worker")
+        resp = c.conn.getresponse()
+        wid = json.loads(resp.read())["worker"]
+        if wid in by_worker:
+            c.close()
+        else:
+            by_worker[wid] = c
+        if len(by_worker) == n:
+            return by_worker
+    fail(f"64 connections reached workers {sorted(by_worker)} of {n}")
+
+
+def _serve_mp(server, shapes: list, truth: dict, kernels,
+              row_bits: int, free_col: int) -> dict:
+    """Phase 4h, last step: multi-process serving on the open server (see
+    the module docstring). Returns its numbers."""
+    from pilosa_tpu_torch.serving.mpserve import mp_unsupported_reason
+    from pilosa_tpu_torch.utils.tracing import global_tracer
+
+    stats: dict = {"cpu_count": os.cpu_count()}
+    print(f"serving mp: os.cpu_count() = {stats['cpu_count']}", flush=True)
+    steps = stats["step_s"] = {}
+    t_step = [time.perf_counter()]
+
+    def step(name: str) -> None:
+        now = time.perf_counter()
+        steps[name] = round(now - t_step[0], 3)
+        t_step[0] = now
+
+    reason = mp_unsupported_reason(server)
+    if reason is not None:
+        fail(f"multi-process serving cannot run here: {reason}")
+    slots, slot_bytes = _ring_geometry()
+    stats["rings"] = [slots, slot_bytes]
+    owner_port = server.port
+    # (1) the single-process wave under the client processes
+    stats["single"] = _mp_run(server, owner_port, shapes, truth, kernels)
+    step("single")
+    t0 = time.perf_counter()
+    rt = server.start_serving_workers(MP_WORKERS, port=0, ring_slots=slots,
+                                      ring_slot_bytes=slot_bytes)
+    stats["spawn_s"] = time.perf_counter() - t0
+    step("spawn")
+    conns: dict = {}
+    try:
+        if server.port == owner_port or rt.owner_port != owner_port:
+            fail("the workers did not take a port of their own")
+        # (2) the same load through the workers
+        stats["workers"] = _mp_run(server, server.port, shapes, truth,
+                                   kernels, rt)
+        step("workers")
+        for name in ("single", "workers"):
+            r = stats[name]
+            print(f"serving mp {name}: {r['qps']:.3f} QPS, p50 "
+                  f"{r['p50_ms']:.3f} ms, p99 {r['p99_ms']:.3f} ms; a served "
+                  f"Count: {r['k1_launches_per_query']:.3f} K1 launches, "
+                  f"{r['memo_hits_per_query']:.3f} memo hits; waves "
+                  f"{r['waves']}, deduped {r['deduped']}", flush=True)
+        w = stats["workers"]
+        print(f"serving mp owner: batches {w['owner_batches']}, "
+              f"batched_requests {w['owner_batched_requests']}, deduped "
+              f"{w['owner_deduped']}, queries_served "
+              f"{w['owner_queries_served']}; ring RTT (worker, p50 us, "
+              f"p99 us) {w['ring_rtt_us']}", flush=True)
+        stats["qps_ratio"] = w["qps"] / stats["single"]["qps"]
+        print(f"serving mp: workers/single QPS {stats['qps_ratio']:.3f}",
+              flush=True)
+        # (3) a Set and a Clear through one worker, read back through the
+        # others: a 200 means fsynced
+        conns = _worker_conns(server.port, MP_WORKERS)
+        ids = sorted(conns)
+        k3 = kernels.launches()["word_patch"]
+        count = f"Count(Row(stargazer={ENVELOPE_ROW}))"
+        for write, want in ((f"Set({free_col}, stargazer={ENVELOPE_ROW})",
+                             row_bits + 1),
+                            (f"Clear({free_col}, stargazer={ENVELOPE_ROW})",
+                             row_bits)):
+            if conns[ids[0]].query(write) != [True]:
+                fail(f"{write} through worker {ids[0]} was not applied")
+            for wid in ids[1:]:
+                got = conns[wid].query(count)[0]
+                if got != want:
+                    fail(f"after {write} through worker {ids[0]}, worker "
+                         f"{wid} read {got}, the oracle {want}")
+        stats["write_k3_launches"] = kernels.launches()["word_patch"] - k3
+        print(f"serving mp writes: Set and Clear through worker {ids[0]} "
+              f"read back through workers {ids[1:]} "
+              f"({stats['write_k3_launches']} K3 launches)", flush=True)
+        for c in conns.values():
+            c.close()
+        conns = {}
+        step("writes")
+        # (4) SIGKILL one worker under load: no wrong answer, a respawn
+        m0 = rt.metrics()
+        victim = rt.workers_json()[0]
+        killed = _process_loop(
+            server.port, shapes, truth, MP_KILL_LOAD_S, tolerate=True,
+            during=lambda: (time.sleep(MP_KILL_AT_S),
+                            os.kill(victim["pid"], signal.SIGKILL)))
+        step("kill_load")
+        if not rt.wait_workers(MP_WORKERS, timeout=30):
+            fail("the killed worker was not respawned")
+        step("respawn")
+        m1 = rt.metrics()
+        table = rt.workers_json()
+        stats["kill"] = {
+            "answers": len(killed["latencies"]), "resets": killed["resets"],
+            "statuses": killed["statuses"],
+            "respawns": m1["serving_worker_respawns_total"]
+            - m0["serving_worker_respawns_total"],
+            "reaped": m1["serving_workers_reaped_total"]
+            - m0["serving_workers_reaped_total"],
+            "dropped_inflight": sum(w["droppedInflight"] for w in table),
+            "responses_dropped": m1["serving_responses_dropped_total"]
+            - m0["serving_responses_dropped_total"],
+            "new_pid": table[0]["pid"] != victim["pid"]}
+        if (stats["kill"]["respawns"] != 1 or stats["kill"]["reaped"] < 1
+                or not stats["kill"]["new_pid"]):
+            fail(f"the kill: {stats['kill']}")
+        print(f"serving mp kill: worker {victim['id']} (pid {victim['pid']}) "
+              f"SIGKILLed under load: {stats['kill']}", flush=True)
+        # (5) the surfaces, and one stitched trace: the workers take the
+        # sample rate at their handshake, so the owner restarts its half
+        global_tracer().sample_rate = 1.0
+        rt.simulate_restart()
+        if not rt.wait_workers(MP_WORKERS, timeout=30):
+            fail("the workers did not handshake again after the restart")
+        step("restart")
+        c = Client(server.port)
+        try:
+            if c.query(shapes[0])[0] != truth[shapes[0]]:
+                fail(f"{shapes[0]} through a traced worker is wrong")
+        finally:
+            c.close()
+        tree = None
+        for _ in range(200):
+            for t in _get_json(server.port, "/debug/traces")["traces"]:
+                kids = [k for k in t["children"] if k["name"] == "rpc.query"]
+                if t["tags"].get("worker") and kids:
+                    tree = t
+            if tree is not None:
+                break
+            time.sleep(0.02)
+        global_tracer().sample_rate = 0.0
+        if tree is None:
+            fail("no stitched worker trace with the owner's rpc.query")
+        names: set = set()
+
+        def walk(t):
+            names.add(t["name"])
+            for ch in t["children"]:
+                walk(ch)
+
+        walk(tree)
+        stats["trace_spans"] = sorted(names)
+        step("trace")
+        table = _get_json(server.port, "/debug/workers")
+        if (not table["enabled"] or len(table["workers"]) != MP_WORKERS
+                or not all(w["alive"] for w in table["workers"])):
+            fail(f"/debug/workers: {table}")
+        status, _, body = _http(server.port, "GET", "/metrics")
+        fams = _metric_families(body.decode())
+        missing = [k for k in server.api.mp_metrics()
+                   if f"pilosa_tpu_{k}" not in fams]
+        if status != 200 or missing or \
+                fams["pilosa_tpu_serving_workers"] != MP_WORKERS:
+            fail(f"/metrics: serving families missing {missing}")
+        stats["metrics"] = {k: v for k, v in fams.items()
+                            if k.startswith("pilosa_tpu_serving_")
+                            and k[len("pilosa_tpu_"):]
+                            in server.api.mp_metrics()}
+        print(f"serving mp surfaces: {len(table['workers'])} workers alive, "
+              f"trace spans {stats['trace_spans']}", flush=True)
+        step("surfaces")
+    finally:
+        for c in conns.values():
+            c.close()
+        global_tracer().sample_rate = 0.0
+        server.stop_serving_workers()
+    step("stop")
+    print(f"serving mp steps (s): {steps}", flush=True)
+    if server.port != owner_port:
+        fail("the server's port did not return to its own listener")
     return stats
 
 
@@ -2560,6 +2974,11 @@ WINDOW = f"from='{WINDOW_A}', to='{WINDOW_B}'"
 YEAR_2019 = "from='2019-01-01T00:00', to='2020-01-01T00:00'"
 SET_STAMP = "2019-06-01T12:00"   # the timestamped Set's hour
 NEW_HOUR = "2019-09-17T05:00"    # no event there: its H, D and M views
+# the timestamped and the mutex /import write a column of every 8th shard
+# (128 of the 1024; every shard until the multi-process serving step
+# needed the seconds: the close then snapshots 7/8 fewer fragments of
+# them)
+TIME_WRITE_STRIDE = 8
 TIME_SHAPES = [
     f"Count(Row(t=0, {YEAR_2019}))",                        # one Y view
     f"Count(Row(t=1, {WINDOW}))",                           # 65 views
@@ -2797,18 +3216,19 @@ def _serve_time(server, o: dict) -> dict:
         fail(f"the timestamped Set made {stats['timestamped_set_k3_launches']}"
              " K3 launches, not 1")
 
-    # a timestamped /import of a bit a shard at an hour with no view: one
-    # K3 launch for the window leaves of rows 0 and 1 and the 2019 leaf
-    cols = _first_per_shard(o["any01"], want_set=False)
-    rows = np.arange(N_SHARDS) % 2
+    # a timestamped /import of a bit in every TIME_WRITE_STRIDE-th shard at
+    # an hour with no view: one K3 launch for the window leaves of rows 0
+    # and 1 and the 2019 leaf
+    cols = _first_per_shard(o["any01"], want_set=False)[::TIME_WRITE_STRIDE]
+    rows = np.arange(cols.size) % 2
     body = json.dumps({"rows": rows.tolist(), "columns": cols.tolist(),
-                       "timestamps": [NEW_HOUR] * N_SHARDS}).encode()
+                       "timestamps": [NEW_HOUR] * cols.size}).encode()
     before = _k3(kernels)
     t0 = time.perf_counter()
     status, resp = c.post("/index/events/field/t/import", body)
     stats["timestamped_import_ms"] = 1e3 * (time.perf_counter() - t0)
     stats["timestamped_import_k3_launches"] = _k3(kernels) - before
-    if status != 200 or json.loads(resp)["changed"] != N_SHARDS:
+    if status != 200 or json.loads(resp)["changed"] != cols.size:
         fail(f"the timestamped import answered {status} {resp!r}")
     if stats["timestamped_import_k3_launches"] != 1:
         fail(f"the timestamped import made "
@@ -2819,20 +3239,21 @@ def _serve_time(server, o: dict) -> dict:
     _set_bits(o["any01"], cols)
     _check_time(c, o, "after the timestamped import")
 
-    # a mutex /import moving a column a shard from kind=0 to kind=2, with
-    # both rows resident: one K3 launch (AND-NOT and OR)
+    # a mutex /import moving a column of every TIME_WRITE_STRIDE-th shard
+    # from kind=0 to kind=2, with both rows resident: one K3 launch
+    # (AND-NOT and OR)
     for r in (0, 2):
         if c.query(f"Count(Row(kind={r}))")[0] != _popcount(o["kind"][r]):
             fail(f"Count(Row(kind={r})) differs from the oracle")
-    cols = _first_per_shard(o["kind"][0], want_set=True)
-    body = json.dumps({"rows": [2] * N_SHARDS,
+    cols = _first_per_shard(o["kind"][0], want_set=True)[::TIME_WRITE_STRIDE]
+    body = json.dumps({"rows": [2] * cols.size,
                        "columns": cols.tolist()}).encode()
     before = _k3(kernels)
     t0 = time.perf_counter()
     status, resp = c.post("/index/events/field/kind/import", body)
     stats["mutex_import_ms"] = 1e3 * (time.perf_counter() - t0)
     stats["mutex_import_k3_launches"] = _k3(kernels) - before
-    if status != 200 or json.loads(resp)["changed"] != N_SHARDS:
+    if status != 200 or json.loads(resp)["changed"] != cols.size:
         fail(f"the mutex import answered {status} {resp!r}")
     if stats["mutex_import_k3_launches"] != 1:
         fail(f"the mutex import made {stats['mutex_import_k3_launches']} K3 "
@@ -3183,8 +3604,9 @@ SFF = "store_and_fwd_flag"
 SFF_P = 0.01
 WIRE_CLIENTS = 16
 # cut from 20 s and 10 s, then 5 s each, for the serving-envelope path
-WIRE_PROTO_S = 2.0    # the protobuf clients' closed loop (3.0 until the
-WIRE_JSON_S = 2.0     # mesh path came); the same shapes as JSON
+WIRE_PROTO_S = 1.0    # the protobuf clients' closed loop (3.0 until the
+WIRE_JSON_S = 1.0     # mesh path came, 2.0 until multi-process serving);
+#                       the same shapes as JSON
 WIRE_WRITES = 4096    # bits of the protobuf ImportRequest, values of the
 WIRE_SHARDS = (0, 1)  # ImportValueRequest; the Row shape's shards
 WIRE_SERIAL = 16      # import-roaring requests sent one at a time
@@ -3609,7 +4031,8 @@ def _serve_wire(server, wt: dict, kernels) -> dict:
 N_MONTHS = 84
 MONTH_JOB = "repository"
 TIER_CLIENTS = 16
-TIER_PER_CLIENT = 6       # 30, 18, then 10 before runs passed 1 100 s
+TIER_PER_CLIENT = 3       # 30, 18, then 10 before runs passed 1 100 s, 6
+#                           until multi-process serving
 TIER_DENSE_MONTHS = 16   # month leaves the lowered budget keeps dense
 TIER_MATRIX_ROWS = 4     # TopN(cab_type)'s candidate matrix: 3 rows + 1 pad
 TIER_SWEEP = 30          # months promoted after the writes
@@ -4551,7 +4974,8 @@ _BUILD_DATA: dict = {}
 INTEG_SHARDS = 64
 INTEG_FIELDS = ("cab_type", "pickup_year")
 INTEG_CLIENTS = 16
-INTEG_WINDOW_S = 2.0      # 5.0, then 3.0, before the run passed 1 100 s
+INTEG_WINDOW_S = 1.0      # 5.0, then 3.0, before the run passed 1 100 s,
+#                           2.0 until multi-process serving
 INTEG_PAIRS = ((0, 2009), (1, 2012), (2, 2016), (0, 2015))
 
 
@@ -5039,6 +5463,12 @@ def _build_part(job: str, out_dir: str) -> float:
     return time.perf_counter() - t0
 
 
+def _with_seconds(fn, *args):
+    """(fn(*args), its seconds)."""
+    t0 = time.perf_counter()
+    return fn(*args), time.perf_counter() - t0
+
+
 def start_data_dirs(scratch: Path, words: dict, rides: dict, taxi: dict,
                     events: dict, users: dict):
     """Fork one worker per DATA_JOBS entry to build the data dir in
@@ -5159,6 +5589,15 @@ def main() -> int:
 
     rng = np.random.default_rng(args.seed)
     dev = torch.device("cuda")
+    # the events and keys data come from generators of their own (seeded
+    # from --seed), so they are drawn in threads beside the Star-Trace,
+    # rides and taxi draws, which share one generator in order; numpy's
+    # bulk draws release the interpreter lock
+    t_data = time.perf_counter()
+    side = ThreadPoolExecutor(2)
+    events_f = side.submit(_with_seconds, make_events, args.seed)
+    keys_f = side.submit(_with_seconds, lambda: (make_payment(args.seed),
+                                                 make_users(args.seed)))
     t0 = time.perf_counter()
     words = {(f, r): rng.integers(0, 1 << 32, N_SHARDS * WORDS,
                                   dtype=np.uint32)
@@ -5174,19 +5613,19 @@ def main() -> int:
     t0 = time.perf_counter()
     taxi = make_taxi(path_rng)
     print(f"taxi categories: {time.perf_counter() - t0:.1f}s", flush=True)
-    t0 = time.perf_counter()
-    events = make_events(args.seed)
+    events, secs = events_f.result()
     print(f"events: {len(EVENT_HOURS)} event-hours x 4 rows, kind and "
-          f"active in {time.perf_counter() - t0:.1f}s", flush=True)
-    t0 = time.perf_counter()
-    taxi["payment_type"] = make_payment(args.seed)
-    users = make_users(args.seed)
+          f"active in {secs:.1f}s (in a thread)", flush=True)
+    (taxi["payment_type"], users), secs = keys_f.result()
+    side.shutdown()
     print(f"keys: payment_type of {N_SHARDS} shards and "
           f"{len(users['keys'])} user keys in {len(USER_SEGMENTS)} segments "
-          f"in {time.perf_counter() - t0:.1f}s", flush=True)
+          f"in {secs:.1f}s (in a thread)", flush=True)
+    print(f"data drawn in {time.perf_counter() - t_data:.1f}s", flush=True)
 
     scratch = Path(__file__).resolve().parent / "build" / "chip_smoke"
     shutil.rmtree(scratch, ignore_errors=True)
+    scratch.mkdir(parents=True)
     data_dir = scratch / "data"
     builders = start_data_dirs(scratch, words, rides, taxi, events, users)
     # the oracles run in a thread beside phase 3 and the data-dir build:
@@ -5222,6 +5661,16 @@ def main() -> int:
                   f" by {k['bound_by']}) at {k['shape']}", flush=True)
         print("kernel tree_rows with OP_NOT: bit-exact", flush=True)
 
+        # phase 5, the crash phase, on a directory of its own while the
+        # data-dir builders still run (its server process and the reopen
+        # are the only users of the card meanwhile)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        crash = run_crash_phase(scratch, args.seed, kernels)
+        crash_launches = kernels.launches()
+        print(f"crash phase (beside the data-dir build): "
+              f"{time.perf_counter() - t0:.1f}s", flush=True)
+
         # phase 4: the main paths
         t0 = time.perf_counter()
         finish_data_dirs(builders, scratch, data_dir)
@@ -5242,9 +5691,7 @@ def main() -> int:
                                taxi_truth, ev_oracle, users_o, wire_o,
                                months_o, mesh_truth(taxi_truth, rides, wire_o),
                                path_rng, kernels, args.verify_on_load)
-        kernels.reset_launches()
-        crash = run_crash_phase(scratch, args.seed, kernels)
-        paths["crash"] = (crash, kernels.launches())
+        paths["crash"] = (crash, crash_launches)
         kernels.reset_launches()
         t0 = time.perf_counter()
         integ = run_integrity_phase(data_dir, scratch, integ_o, args.seed,
@@ -5286,8 +5733,8 @@ def main() -> int:
     for path, (stats, launched) in paths.items():
         print(f"main path {path}: " + json.dumps(stats), flush=True)
         print(f"launches {path}: {json.dumps(launched)}", flush=True)
-    print("set-up s, this run against H5: "
-          + json.dumps({k: [round(v, 3), H5_SETUP_S.get(k)]
+    print("set-up s, this run against P1: "
+          + json.dumps({k: [round(v, 3), P1_SETUP_S.get(k)]
                         for k, v in SETUP_S.items()}), flush=True)
     print(f"run: {time.perf_counter() - t_run:.1f}s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
@@ -5309,4 +5756,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:] == ["--load-client"]:
+        sys.exit(load_client())
     sys.exit(main())

@@ -10,10 +10,16 @@ output and exit codes:
   ``--residency-host-tier-bytes``, ``--residency-promote-interval``,
   ``--residency-promote-heat``, ``--residency-demote-heat`` (tiering; an
   interval of 0, the default, runs no tierer), ``--scrub-interval`` and
-  ``--scrub-max-bytes-per-sec`` (the integrity scrubber; 0: none). A
-  config knob of a plane the port does not have (cluster, QoS, CDC,
-  autopilot, multi-process serving, TLS, ...) set to anything but its
-  default makes ``server`` exit with an error naming it.
+  ``--scrub-max-bytes-per-sec`` (the integrity scrubber; 0: none).
+  ``serving-workers``, ``ring-slots`` and ``ring-slot-bytes`` (config
+  file or ``PILOSA_TPU_*``) run multi-process serving. A config knob of
+  a plane the port does not have (cluster, CDC, autopilot, TLS, ...)
+  set to anything but its default makes ``server`` exit with an error
+  naming it.
+- ``serve-worker``: one ``SO_REUSEPORT`` serving worker, spawned by a
+  device owner with its listening socket and handshake channel, never
+  run by hand. It parses its arguments before anything that imports
+  torch, and imports none.
 - ``import``: bulk-import ``row,col[,ts]`` (or ``col,value`` with
   ``--values``) CSVs, in-process with ``-d`` or over HTTP with
   ``--host`` (batches clamped to the server's ``maxWritesPerRequest``
@@ -237,7 +243,11 @@ def _load_config(path: str | None) -> dict:
 
 def cmd_server(args) -> int:
     from pilosa_tpu_torch.server import Server
-    from pilosa_tpu_torch.server.server import MESH_KNOBS, SERVING_KNOBS
+    from pilosa_tpu_torch.server.server import (
+        MESH_KNOBS,
+        MP_KNOBS,
+        SERVING_KNOBS,
+    )
     from pilosa_tpu_torch.utils.logger import new_standard_logger
 
     if args.unported:
@@ -260,10 +270,11 @@ def cmd_server(args) -> int:
                     scrub_interval=args.scrub_interval,
                     scrub_max_bytes_per_sec=args.scrub_max_bytes_per_sec,
                     max_writes_per_request=args.max_writes_per_request,
-                    # the serving envelope's and the mesh's knobs: config
-                    # file and env
+                    # the serving envelope's, the mesh's and multi-process
+                    # serving's knobs: config file and env
                     **{k.replace("-", "_"): getattr(args, k.replace("-", "_"))
-                       for k in SERVING_KNOBS + MESH_KNOBS}).open()
+                       for k in SERVING_KNOBS + MESH_KNOBS
+                       + MP_KNOBS}).open()
     print(f"pilosa_tpu_torch serving {args.data_dir} on "
           f"http://{args.bind}:{server.port} ({server.holder.device})",
           flush=True)
@@ -275,6 +286,22 @@ def cmd_server(args) -> int:
     finally:
         server.close()
     return 0
+
+
+def cmd_serve_worker(args) -> int:
+    """One ``SO_REUSEPORT`` serving worker (``serving/worker.py``)."""
+    from pilosa_tpu_torch.serving.worker import worker_main
+
+    return worker_main(args.handshake_sock, args.listen_fd, args.worker_id)
+
+
+def _add_serve_worker(sub) -> None:
+    p = sub.add_parser("serve-worker",
+                       help="one serving worker (spawned by a server)")
+    p.add_argument("--handshake-sock", required=True)
+    p.add_argument("--listen-fd", type=int, required=True)
+    p.add_argument("--worker-id", type=int, required=True)
+    p.set_defaults(fn=cmd_serve_worker)
 
 
 # ------------------------------------------------------------ HTTP client
@@ -604,6 +631,13 @@ def cmd_check(args) -> int:
 
 
 def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["serve-worker"]:
+        # a worker parses before the server's imports: it loads no torch
+        parser = argparse.ArgumentParser(prog="pilosa_tpu_torch")
+        _add_serve_worker(parser.add_subparsers(dest="cmd", required=True))
+        args = parser.parse_args(argv)
+        return args.fn(args)
     from pilosa_tpu_torch.server.server import ServerConfig
     from pilosa_tpu_torch.storage.residency import DEFAULT_BUDGET_BYTES
     from pilosa_tpu_torch.storage.wal import DURABILITY_MODES
@@ -645,6 +679,8 @@ def main(argv=None) -> int:
     p.add_argument("--scrub-max-bytes-per-sec", type=int,
                    help="read budget of the scrubber (0: unpaced)")
     p.set_defaults(fn=cmd_server)
+
+    _add_serve_worker(sub)
 
     p = sub.add_parser("import",
                        help="bulk-import CSV (row,col[,ts] or col,value)")

@@ -44,8 +44,17 @@ executor sees it. ``scrub_now()`` runs one scrubber pass;
 one locked pass; the deletes purge the residency cache and the heat map
 of what they remove. The ``*_metrics`` methods and the ``*_json``
 inspectors feed ``/metrics`` and the ``/debug`` routes;
-``start_device_trace`` captures a ``torch.profiler`` trace. Cluster,
-CDC and multi-process serving are not ported yet.
+``start_device_trace`` captures a ``torch.profiler`` trace.
+
+Multi-process serving (``serving/mpserve.py``): ``mpserve`` is the
+``OwnerRuntime`` when ``SO_REUSEPORT`` workers front this process. It
+answers their ring queries through ``query_json_bytes(...,
+pre_admitted=True, on_submitted=...)``: the worker's gate already
+admitted the request, and ``on_submitted`` fires when the request's wave
+is submitted (or, on the eager path, when it starts to run), the cutoff
+of the owner's dedupe memo. ``mp_metrics`` and ``workers_json`` feed
+``/metrics``, ``/debug/vars`` and ``/debug/workers``. Cluster and CDC
+are not ported yet.
 """
 
 from __future__ import annotations
@@ -208,6 +217,9 @@ class API:
         self.default_deadline_s: float = 0.0
         self.cost = CostLedger()
         self.slo = SLOEngine()
+        # the multi-process serving runtime (serving/mpserve.py) while
+        # SO_REUSEPORT workers front this process; None otherwise
+        self.mpserve = None
 
     def node_id(self) -> str:
         return "local"
@@ -217,13 +229,19 @@ class API:
     def query_raw(self, index: str, pql: str, shards=None,
                   remote: bool = False, opts: dict | None = None,
                   tenant: str = "default", deadline=None,
-                  profile_out: list | None = None) -> list:
+                  profile_out: list | None = None,
+                  pre_admitted: bool = False,
+                  on_submitted=None) -> list:
         """Execute and return the raw result objects, with the request's
         result options ``opts`` applied; ``shards`` restricts the calls
         to those shards. ``remote`` marks a peer's sub-query: it passes
         no admission gate and records no ledger or SLO event, and its
         writes skip the storage-degraded shed, as the reference's do.
-        ``profile_out`` (a list) receives the PROFILE tree."""
+        ``profile_out`` (a list) receives the PROFILE tree.
+        ``pre_admitted``: a serving worker's gate already admitted the
+        request (gating it again would shed requests the node has room
+        for). ``on_submitted()`` is called once the request's wave is
+        submitted, or as the eager path starts to execute."""
         tracer = global_tracer()
         tracker = global_query_tracker()
         inflight = tracker.start(index, pql, tenant=tenant, remote=remote)
@@ -239,7 +257,7 @@ class API:
         err_status = None
         slot = None
         try:
-            if not remote:
+            if not remote and not pre_admitted:
                 if inflight is not None:
                     inflight.stage = "admission"
                 try:
@@ -250,7 +268,7 @@ class API:
                                    retry_after=e.retry_after) from e
             return self._query_raw_admitted(index, pql, shards, remote, opts,
                                             deadline, slot, inflight,
-                                            tracer)
+                                            tracer, on_submitted)
         except ApiError as e:
             err_status = e.status
             raise
@@ -281,7 +299,8 @@ class API:
         return self._pipeline
 
     def _query_raw_admitted(self, index, pql, shards, remote, opts,
-                            deadline, slot, inflight, tracer) -> list:
+                            deadline, slot, inflight, tracer,
+                            on_submitted=None) -> list:
         t0 = time.perf_counter()
         try:
             if inflight is not None:
@@ -310,6 +329,11 @@ class API:
                     inflight.stage = "pipeline.wave"
                 deferreds = self._pipeline_for().run(index, query, kwargs,
                                                      key=key)
+                if on_submitted is not None:
+                    # the wave holding this request is submitted: the
+                    # multi-process owner's dedupe cutoff, the boundary
+                    # the wave's own dedupe draws
+                    on_submitted()
                 if inflight is not None:
                     inflight.stage = "executor.resolve"
                 handles = iter(deferreds)
@@ -318,11 +342,15 @@ class API:
             elif writes:
                 if inflight is not None:
                     inflight.stage = "executor.execute"
+                if on_submitted is not None:
+                    on_submitted()  # the eager path runs right now
                 with self.holder.cache.batch_writes():
                     results = self.executor.execute(index, query, **kwargs)
             else:
                 if inflight is not None:
                     inflight.stage = "executor.execute"
+                if on_submitted is not None:
+                    on_submitted()
                 results = self.executor.execute(index, query, **kwargs)
             if opts:
                 results = self._apply_request_opts(index, results, opts)
@@ -417,13 +445,17 @@ class API:
                          remote: bool = False, opts: dict | None = None,
                          tenant: str = "default", deadline=None,
                          profile_out: list | None = None,
+                         pre_admitted: bool = False,
+                         on_submitted=None,
                          cache_hit_out: list | None = None) -> bytes:
         """The whole ``{"results": [...]}`` response envelope as bytes,
         with the result cache in front: a cache-eligible request (a plain
         edge read, as the pipeline's dedupe) is answered from cached
         bytes (``cache_hit_out`` receives True); a miss snapshots the
         write version before it runs and fills after, and the fill is
-        refused if a write landed in between."""
+        refused if a write landed in between. ``pre_admitted`` and
+        ``on_submitted`` as ``query_raw``'s (a cache hit is submitted
+        at once)."""
         scope = None
         snap = None
         cache = global_result_cache()
@@ -436,7 +468,8 @@ class API:
                 if payload is not None:
                     return self._serve_result_cache_hit(
                         cache, scope, index, pql, payload, tenant,
-                        profile_out, cache_hit_out)
+                        profile_out, pre_admitted, on_submitted,
+                        cache_hit_out)
                 if self._result_cacheable(pql):
                     # a miss only for fillable queries
                     cache.record_miss()
@@ -445,7 +478,8 @@ class API:
                     scope = None
         payload = results_json_bytes(self.query_raw(
             index, pql, shards=shards, remote=remote, opts=opts,
-            tenant=tenant, deadline=deadline, profile_out=profile_out))
+            tenant=tenant, deadline=deadline, profile_out=profile_out,
+            pre_admitted=pre_admitted, on_submitted=on_submitted))
         if snap is not None:
             cache.insert(scope, index, pql, payload,
                          query_field_deps(parse(pql)), snap)
@@ -462,7 +496,8 @@ class API:
         return not query.write_calls() and pipeline_coalescable(query)
 
     def _serve_result_cache_hit(self, cache, scope, index, pql, payload,
-                                tenant, profile_out, cache_hit_out) -> bytes:
+                                tenant, profile_out, pre_admitted,
+                                on_submitted, cache_hit_out) -> bytes:
         """A cache hit's request envelope: admission, in-flight tracking,
         a ``rescache.hit`` span, and ledger and SLO accounting (a hit is
         billed as a query with no launch). No heat: residency follows
@@ -477,17 +512,23 @@ class API:
         err_status = None
         slot = None
         try:
-            if inflight is not None:
-                inflight.stage = "admission"
-            try:
-                with tracer.span("qos.admit", tenant=tenant):
-                    slot = self.qos.admission.admit(tenant)
-            except AdmissionError as e:
-                raise ApiError(str(e), 429, retry_after=e.retry_after) from e
+            if not pre_admitted:
+                if inflight is not None:
+                    inflight.stage = "admission"
+                try:
+                    with tracer.span("qos.admit", tenant=tenant):
+                        slot = self.qos.admission.admit(tenant)
+                except AdmissionError as e:
+                    raise ApiError(str(e), 429,
+                                   retry_after=e.retry_after) from e
             if inflight is not None:
                 inflight.stage = "rescache"
             with tracer.span("rescache.hit", index=index):
                 cache.record_hit(scope, index, pql)
+            if on_submitted is not None:
+                # a hit resolves at once: later identical arrivals start
+                # their own (equally cached) pass
+                on_submitted()
             if cache_hit_out is not None:
                 cache_hit_out.append(True)
             if profile_out is not None:
@@ -813,7 +854,7 @@ class API:
 
     def status(self) -> dict:
         health = self.holder.health
-        return {
+        out = {
             "state": "NORMAL",
             "nodes": [{"id": "local", "uri": "localhost",
                        "isCoordinator": True, "state": "NORMAL"}],
@@ -824,6 +865,9 @@ class API:
             "storageDegraded": bool(health.degraded),
             "storageDegradedReason": health.reason,
         }
+        if self.mpserve is not None:
+            out["servingWorkers"] = self.mpserve.workers_json()
+        return out
 
     def info(self) -> dict:
         """The reference's ``/info``, but for ``devices``: the port lists
@@ -965,6 +1009,41 @@ class API:
             "remote_batched_queries_total": 0,
             "remote_batch_solo_total": 0,
             "remote_batch_fallbacks_total": 0,
+        }
+
+    def mp_metrics(self) -> dict:
+        """The multi-process serving series, zeros in single-process
+        mode from the first scrape."""
+        if self.mpserve is not None:
+            return self.mpserve.metrics()
+        return {
+            "serving_workers": 0,
+            "serving_ring_depth": 0,
+            "serving_ring_full_total": 0,
+            "serving_owner_batch_size": 0.0,
+            "serving_owner_batches_total": 0,
+            "serving_owner_batched_requests_total": 0,
+            "serving_ring_requests_total": 0,
+            "serving_worker_shed_total": 0,
+            "serving_worker_proxied_total": 0,
+            "serving_worker_respawns_total": 0,
+            "serving_workers_reaped_total": 0,
+            "serving_responses_dropped_total": 0,
+            "serving_ring_queries_total": 0,
+            "serving_ring_deduped_total": 0,
+        }
+
+    def workers_json(self) -> dict:
+        """``GET /debug/workers``: a row a worker (id, generation, pid,
+        liveness, ring depth, its counters, its ring round-trip
+        quantiles)."""
+        if self.mpserve is None:
+            return {"enabled": False, "workers": []}
+        return {
+            "enabled": True,
+            "port": self.mpserve.port,
+            "ownerPort": self.mpserve.owner_port,
+            "workers": self.mpserve.workers_json(),
         }
 
     def rescache_metrics(self) -> dict:

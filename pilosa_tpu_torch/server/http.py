@@ -42,7 +42,9 @@ Routes, with the reference's request and response bytes:
   ``/debug/queries``, ``/debug/queries/slow`` (and its old name
   ``/debug/long-queries``), ``/debug/vars``, ``/debug/pprof`` (thread
   stacks) and ``POST /debug/trace-device?secs=N`` (a ``torch.profiler``
-  capture).
+  capture);
+- ``GET /debug/workers``: the multi-process serving workers' table
+  (``{"enabled": false, ...}`` in single-process mode).
 
 A query's QoS envelope comes from its headers: ``X-Pilosa-Tenant`` and
 ``X-Pilosa-Deadline-Ms`` (a positive integer of milliseconds, else a
@@ -107,6 +109,7 @@ _ROUTES: list[tuple[str, re.Pattern, str]] = [
     ("GET", re.compile(r"^/debug/heatmap$"), "get_heatmap"),
     ("GET", re.compile(r"^/debug/rescache$"), "get_rescache"),
     ("GET", re.compile(r"^/debug/slo$"), "get_slo"),
+    ("GET", re.compile(r"^/debug/workers$"), "get_workers"),
     ("GET", re.compile(r"^/debug/queries$"), "get_inflight_queries"),
     ("GET", re.compile(r"^/debug/queries/slow$"), "get_long_queries"),
     ("GET", re.compile(r"^/debug/long-queries$"), "get_long_queries"),
@@ -487,7 +490,8 @@ class HTTPHandler(BaseHTTPRequestHandler):
         fast lane, the result cache, the tierer, the WAL, the integrity
         plane, the host roaring kernels and the merge kernels, the
         mesh's reduction lanes, QoS, observability, then the tenant
-        ledger, heat and the SLO engine."""
+        ledger, heat and the SLO engine. The multi-process serving
+        series follow the fast lane's (zeros in single-process mode)."""
         seen: set = set()  # a family's HELP and TYPE once a page
         api = self.api
         stats = global_stats()
@@ -502,6 +506,7 @@ class HTTPHandler(BaseHTTPRequestHandler):
             prefix, "serving", seen=seen)
         text += prometheus_block(self._fastlane_metrics(), prefix,
                                  "serving", seen=seen)
+        text += prometheus_block(api.mp_metrics(), prefix, seen=seen)
         text += prometheus_block(api.rescache_metrics(), prefix, seen=seen)
         text += prometheus_block(api.tiering_metrics(), prefix, seen=seen)
         text += prometheus_block(api.durability_metrics(), prefix, "wal",
@@ -627,6 +632,11 @@ class HTTPHandler(BaseHTTPRequestHandler):
     def get_slo(self):
         self._json(self.api.slo.to_json())
 
+    def get_workers(self):
+        """The multi-process serving workers: generation, pid, liveness,
+        ring depth, counters and ring round-trip quantiles of each."""
+        self._json(self.api.workers_json())
+
     def get_inflight_queries(self):
         tracker = global_query_tracker()
         self._json({"queries": tracker.snapshot(),
@@ -657,6 +667,7 @@ class HTTPHandler(BaseHTTPRequestHandler):
         snap["serving_pipeline"] = api.pipeline_metrics()
         snap["qos"] = api.qos.metrics()
         snap["serving_fastlane"] = self._fastlane_metrics()
+        snap["serving_mp"] = api.mp_metrics()
         snap["result_cache"] = api.rescache_metrics()
         snap["residency_tiering"] = api.tiering_metrics()
         snap["durability"] = api.durability_metrics()

@@ -36,6 +36,15 @@ and gating GroupBy pruning over the 8-bit lane, when ``use_mesh`` is
 set, or when it is unset and more than one CUDA device is visible; the
 plain ``Executor`` otherwise, so one card serves as before.
 
+Multi-process serving: ``serving_workers`` > 0 (the
+``serving-workers`` knob, or ``PILOSA_TPU_SERVING_WORKERS``) makes
+``open`` bind the full HTTP surface on loopback and start that many
+``SO_REUSEPORT`` worker processes on ``bind:port``
+(``start_serving_workers``, ``serving/mpserve.py``), each with a pair of
+``ring_slots`` x ``ring_slot_bytes`` shared-memory rings; ``port`` is
+then the workers'. Without ``SO_REUSEPORT`` the server warns and serves
+from one process. The owner keeps its device and executor.
+
 ``config_from_dict`` reads the knobs above (snake case too),
 ``config_from_toml`` from a TOML file, and ``Server.config()`` dumps
 them under the same names.
@@ -44,6 +53,7 @@ them under the same names.
 from __future__ import annotations
 
 import collections
+import logging
 
 import torch
 
@@ -70,6 +80,10 @@ from pilosa_tpu_torch.storage.wal import (
     DURABILITY_MODES,
     MODE_GROUP,
 )
+from pilosa_tpu_torch.serving.mpserve import (
+    MAX_WORKERS,
+    mp_unsupported_reason,
+)
 from pilosa_tpu_torch.serving.rescache import global_result_cache
 from pilosa_tpu_torch.utils.durations import parse_duration
 from pilosa_tpu_torch.utils.stats import global_stats
@@ -92,8 +106,6 @@ def _parse_list(value) -> list[str]:
     return list(value)
 
 
-MAX_WORKERS = 64  # the reference's ceiling on serving-workers
-
 # The serving envelope's knobs, under their config names.
 SERVING_KNOBS = (
     "qos-max-inflight", "qos-tenant-inflight", "qos-default-deadline",
@@ -106,6 +118,9 @@ SERVING_KNOBS = (
 
 # The device mesh's knobs (the executor the server builds).
 MESH_KNOBS = ("use-mesh", "mesh-groups", "topn-quantized-ranking")
+
+# Multi-process serving's knobs (serving/mpserve.py).
+MP_KNOBS = ("serving-workers", "ring-slots", "ring-slot-bytes")
 
 
 class ServerConfig:
@@ -124,7 +139,7 @@ class ServerConfig:
         "scrub-max-bytes-per-sec", "residency-promote-interval",
         "residency-promote-heat", "residency-demote-heat",
         "residency-host-tier-bytes",
-    ) + SERVING_KNOBS + MESH_KNOBS)
+    ) + SERVING_KNOBS + MESH_KNOBS + MP_KNOBS)
 
     def __init__(
         self,
@@ -663,9 +678,8 @@ class ServerConfig:
         }
 
     def unported(self) -> list[str]:
-        """The knobs of planes the port lacks (cluster, QoS, CDC,
-        autopilot, multi-process serving, TLS, tracing, ...) set to
-        anything but their defaults."""
+        """The knobs of planes the port lacks (cluster, CDC, autopilot,
+        TLS, statsd, ...) set to anything but their defaults."""
         default = ServerConfig().to_dict()
         return [name for name, value in self.to_dict().items()
                 if name not in self.PORTED and value != default[name]]
@@ -688,7 +702,7 @@ _KNOBS = ("verify-on-load", "durability-mode", "group-commit-max-ms",
           "group-commit-max-ops", "residency-host-tier-bytes",
           "residency-promote-interval", "residency-promote-heat",
           "residency-demote-heat", "scrub-interval",
-          "scrub-max-bytes-per-sec") + SERVING_KNOBS + MESH_KNOBS
+          "scrub-max-bytes-per-sec") + SERVING_KNOBS + MESH_KNOBS + MP_KNOBS
 
 
 def config_from_dict(d: dict) -> dict:
@@ -743,7 +757,10 @@ class Server:
                  heat_half_life: float = 300.0,
                  use_mesh: bool | None = None,
                  mesh_groups: int = 0,
-                 topn_quantized_ranking: bool = False):
+                 topn_quantized_ranking: bool = False,
+                 serving_workers: int = 0,
+                 ring_slots: int = 1024,
+                 ring_slot_bytes: int = 65536):
         # the serving envelope's knobs, validated as ServerConfig does
         cfg = ServerConfig(
             qos_max_inflight=qos_max_inflight,
@@ -760,7 +777,12 @@ class Server:
             result_cache_bytes=result_cache_bytes,
             ingest_workers=ingest_workers, heat_half_life=heat_half_life,
             use_mesh=use_mesh, mesh_groups=mesh_groups,
-            topn_quantized_ranking=topn_quantized_ranking)
+            topn_quantized_ranking=topn_quantized_ranking,
+            serving_workers=serving_workers, ring_slots=ring_slots,
+            ring_slot_bytes=ring_slot_bytes)
+        self.serving_workers = cfg.serving_workers
+        self.ring_slots = cfg.ring_slots
+        self.ring_slot_bytes = cfg.ring_slot_bytes
         self.use_mesh = cfg.use_mesh
         self.mesh_groups = cfg.mesh_groups
         self.topn_quantized_ranking = cfg.topn_quantized_ranking
@@ -814,9 +836,15 @@ class Server:
         self.api = None
         self._http = None
         self._thread = None
+        self._mpserve = None  # the OwnerRuntime while workers serve
 
     @property
     def port(self) -> int:
+        """The public port: the serving workers' while they run (the
+        owner's own listener is then on loopback), the HTTP listener's
+        otherwise."""
+        if self._mpserve is not None:
+            return self._mpserve.port
         return self._http.server_address[1] if self._http else self._port
 
     @property
@@ -863,6 +891,8 @@ class Server:
         rate = self.trace_sample_rate
         if rate <= 0 and self.tracing:
             rate = 1.0  # `tracing = true`: every request
+        # before the serving workers: each copies the sample rate from
+        # its handshake
         global_tracer().sample_rate = rate
         prepare_device_tracing(self.holder.device)
         if self.residency_promote_interval > 0:
@@ -877,9 +907,60 @@ class Server:
             self.api.scrubber = Scrubber(
                 self.holder, interval_s=self.scrub_interval,
                 max_bytes_per_sec=self.scrub_max_bytes_per_sec).start()
-        self._http, _, self._thread = serve_in_thread(self.api, self.bind,
-                                                      self._port)
+        mp_workers = 0
+        if self.serving_workers > 0:
+            reason = mp_unsupported_reason(self)
+            if reason is None:
+                mp_workers = self.serving_workers
+            else:
+                logging.getLogger("pilosa_tpu_torch").warning(
+                    "multi-process serving disabled: %s (falling back to "
+                    "single-process mode)", reason)
+        # with workers the public port is theirs, and this process (the
+        # device owner) keeps its whole HTTP surface on loopback
+        self._http, _, self._thread = serve_in_thread(
+            self.api, "127.0.0.1" if mp_workers else self.bind,
+            0 if mp_workers else self._port)
+        if mp_workers:
+            try:
+                self.start_serving_workers(mp_workers)
+            except BaseException:
+                self.close()
+                raise
         return self
+
+    def start_serving_workers(self, n_workers: int | None = None,
+                              port: int | None = None,
+                              ring_slots: int | None = None,
+                              ring_slot_bytes: int | None = None):
+        """Start multi-process serving over this open server: ``n_workers``
+        (default ``serving_workers``) ``SO_REUSEPORT`` worker processes
+        on ``bind:port`` (default the server's port; 0 picks a free one,
+        as a server already listening on its own port needs), with rings
+        of ``ring_slots`` x ``ring_slot_bytes`` (default the knobs').
+        ``open`` calls it when ``serving-workers`` > 0; ``port`` is the
+        workers' until ``stop_serving_workers``. Returns the
+        ``OwnerRuntime``."""
+        from pilosa_tpu_torch.serving.mpserve import OwnerRuntime
+
+        if self._mpserve is not None:
+            raise RuntimeError("serving workers are already running")
+        runtime = OwnerRuntime(
+            self, n_workers or self.serving_workers, self.bind,
+            self._port if port is None else port,
+            ring_slots or self.ring_slots,
+            ring_slot_bytes or self.ring_slot_bytes).start()
+        self._mpserve = runtime
+        self.api.mpserve = runtime
+        return runtime
+
+    def stop_serving_workers(self) -> None:
+        """Stop the workers and their rings; the owner's listener serves
+        on alone."""
+        if self._mpserve is not None:
+            runtime, self._mpserve = self._mpserve, None
+            self.api.mpserve = None
+            runtime.close()
 
     def _executor(self):
         """The reference's choice: a mesh when use-mesh is set, or when it
@@ -895,6 +976,9 @@ class Server:
         return Executor(self.holder, device=self.holder.device)
 
     def close(self) -> None:
+        # the workers first: they proxy to the owner's listener, and one
+        # outliving its owner would handshake into a closing runtime
+        self.stop_serving_workers()
         if self.api is not None and self.api.scrubber is not None:
             self.api.scrubber.close()  # no pass may walk a closing holder
         if self.api is not None and self.api.tierer is not None:

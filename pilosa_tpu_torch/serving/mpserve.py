@@ -1,0 +1,1126 @@
+"""Multi-process serving (the port's copy of
+``pilosa_tpu.serving.mpserve``): ``SO_REUSEPORT`` worker processes and
+one device owner.
+
+- The **device-owner process** is the ordinary ``Server``: it keeps the
+  holder, the WAL, the card's residency cache, the executor and every
+  ``/debug`` surface, and binds its full HTTP server on loopback.
+- ``OwnerRuntime`` (in the owner) spawns N **worker processes** with
+  ``subprocess`` (never a fork: the owner has initialised CUDA), each
+  inheriting a ``SO_REUSEPORT`` listening socket on the public
+  bind:port, so the kernel spreads client connections over them and
+  the request's host work (HTTP parse, QoS envelope, PQL parse,
+  admission, response writes) runs on N interpreters. A worker never
+  touches the card: it imports neither torch nor numpy, and is spawned
+  with ``CUDA_VISIBLE_DEVICES=""``.
+- Workers submit edge JSON queries over a pair of **pickle-free
+  shared-memory rings** each (``serving/shmring.py``): submit ring
+  worker to owner, response ring owner to worker. Everything else
+  (imports, protobuf, ``?profile=true``, ``remote`` hops, ``/debug``,
+  ``/internal``) is proxied to the owner's loopback listener over a
+  keep-alive pool.
+- A line-delimited **unix-socket handshake channel** a worker carries
+  ring names, config, doorbell bytes (``!``) and finished worker-side
+  trace trees. A worker's death is the socket's EOF: the owner reclaims
+  its in-flight ring slots (``ShmRing.reclaim``) and respawns it. The
+  owner's death or restart is the EOF on the worker's side: it tries to
+  handshake again, then exits if the owner stays gone.
+
+Contracts carried across the rings:
+
+- **WAL ACK barrier**: the owner answers through
+  ``api.query_json_bytes``, which runs ``_ack_durable`` before the
+  response frame is pushed, so a worker's 200 still means fsynced.
+- **Tenant, cost, SLO**: the tenant rides the frame header; the owner
+  runs the request under a cost context and bills egress by the payload
+  it produced, so ``/debug/tenants`` stays the one source of truth.
+- **Tracing**: the worker roots the edge span (sampled worker-side) and
+  ships ``trace_id:span_id`` in the frame; the owner roots an
+  ``rpc.query`` span and returns the finished subtree in the response
+  frame; the worker grafts it under its root and ships the stitched
+  tree back, so the owner's ``/debug/traces`` shows one tree.
+- **Degraded shedding**: the owner publishes the storage-degraded flag
+  into a shared control block; workers shed writes 503 without a ring
+  round trip (the owner re-checks any write that reaches it).
+- **Backpressure**: a full submit ring sheds 429 at the worker; the
+  owner drains rings only as fast as its bounded executor pool frees
+  capacity.
+
+This module imports no torch: the worker imports it too.
+"""
+
+from __future__ import annotations
+
+import json
+import logging
+import os
+import socket
+import struct
+import subprocess
+import sys
+import threading
+import time
+
+from pilosa_tpu_torch.qos import Deadline
+from pilosa_tpu_torch.serving.shmring import (
+    RingFull,
+    ShmRing,
+    decode_frame,
+    encode_frame,
+)
+from pilosa_tpu_torch.utils.cost import cost_enabled
+from pilosa_tpu_torch.utils.tracing import global_tracer, use_span
+
+# Messages on the handshake channel are newline-delimited: a bare `!` is
+# a doorbell (ring has records), a `{...}` line is a JSON control
+# message (hello/cfg/ready/trace).
+_DOORBELL = b"!\n"
+
+MAX_WORKERS = 64
+
+# 503 texts workers answer without a ring round trip, byte for byte the
+# API's degraded errors (the owner re-checks any write that reaches it).
+CLUSTER_DEGRADED_MSG = (
+    "cluster degraded (no member quorum): writes are shed on "
+    "this node until the partition heals; locally-owned reads "
+    "still serve"
+)
+
+
+def storage_degraded_msg(reason: str) -> str:
+    return (
+        f"storage degraded ({reason}): writes are shed on "
+        "this node until a probe write succeeds; reads still serve"
+    )
+
+
+def mp_unsupported_reason(config) -> str | None:
+    """Why multi-process serving cannot run here (None: it can). A
+    platform without ``SO_REUSEPORT``, or a TLS-terminating node (each
+    worker would need the key material), falls back to single-process
+    mode instead of failing startup."""
+    if not hasattr(socket, "SO_REUSEPORT"):
+        return "socket.SO_REUSEPORT is unavailable on this platform"
+    if getattr(config, "tls_enabled", False):
+        return "TLS termination is single-process only"
+    return None
+
+
+# --------------------------------------------------------------- control
+
+
+class ControlBlock:
+    """Tiny shared-memory block beside the rings: degraded flags +
+    reason (owner-written, worker-read on each write request) and one
+    fixed stats slot per worker (worker-written, owner-read for
+    /metrics and /debug/workers). Single writer per field — no
+    cross-process locking needed."""
+
+    FLAG_CLUSTER_DEGRADED = 1
+    FLAG_STORAGE_DEGRADED = 2
+
+    _HDR = 256
+    _SLOT = 128
+    # per-worker slot: gen u32 | pid u32 | requests u64 | ring u64 |
+    # proxied u64 | shed u64 | ring_full u64 | rtt_p50_us u32 |
+    # rtt_p99_us u32
+    _SLOT_FMT = struct.Struct("<IIQQQQQII")
+
+    def __init__(self, shm, created: bool):
+        self._shm = shm
+        self._created = created
+        self._buf = shm.buf
+
+    @classmethod
+    def create(cls, name: str) -> "ControlBlock":
+        from multiprocessing import shared_memory
+
+        size = cls._HDR + MAX_WORKERS * cls._SLOT
+        shm = shared_memory.SharedMemory(name=name, create=True, size=size)
+        shm.buf[:size] = b"\0" * size
+        return cls(shm, created=True)
+
+    @classmethod
+    def attach(cls, name: str) -> "ControlBlock":
+        from multiprocessing import shared_memory
+
+        shm = shared_memory.SharedMemory(name=name)
+        try:
+            from multiprocessing import resource_tracker
+
+            resource_tracker.unregister(shm._name, "shared_memory")
+        except Exception:  # noqa: BLE001 — CPython tracker internals
+            pass
+        return cls(shm, created=False)
+
+    @property
+    def name(self) -> str:
+        return self._shm.name
+
+    def close(self) -> None:
+        try:
+            self._buf = None
+            self._shm.close()
+        except (OSError, BufferError):
+            pass
+
+    def unlink(self) -> None:
+        try:
+            self._shm.unlink()
+        except FileNotFoundError:
+            pass
+
+    # owner side -----------------------------------------------------------
+
+    def set_flags(self, flags: int, reason: str = "") -> None:
+        raw = reason.encode()[:200]
+        struct.pack_into("<IH", self._buf, 0, flags, len(raw))
+        self._buf[8:8 + len(raw)] = raw
+
+    # worker side ----------------------------------------------------------
+
+    def flags(self) -> int:
+        return struct.unpack_from("<I", self._buf, 0)[0]
+
+    def reason(self) -> str:
+        (n,) = struct.unpack_from("<H", self._buf, 4)
+        return bytes(self._buf[8:8 + min(n, 200)]).decode(errors="replace")
+
+    def write_worker(self, wid: int, gen: int, pid: int, requests: int,
+                     ring: int, proxied: int, shed: int, ring_full: int,
+                     rtt_p50_us: int, rtt_p99_us: int) -> None:
+        self._SLOT_FMT.pack_into(
+            self._buf, self._HDR + wid * self._SLOT, gen, pid, requests,
+            ring, proxied, shed, ring_full,
+            min(rtt_p50_us, 0xFFFFFFFF), min(rtt_p99_us, 0xFFFFFFFF),
+        )
+
+    def read_worker(self, wid: int) -> dict:
+        (gen, pid, requests, ring, proxied, shed, ring_full, p50,
+         p99) = self._SLOT_FMT.unpack_from(
+            self._buf, self._HDR + wid * self._SLOT)
+        return {
+            "gen": gen, "pid": pid, "requests": requests,
+            "ringRequests": ring, "proxied": proxied, "shed": shed,
+            "ringFull": ring_full, "ringRttP50Us": p50,
+            "ringRttP99Us": p99,
+        }
+
+
+# ------------------------------------------------------------- owner side
+
+
+class _SharedExec:
+    """One in-flight dedupe-eligible ring query's share point: followers
+    that arrive while the leader's wave has NOT yet been submitted ride
+    the leader's execution — the exact join-cutoff the pipeline's own
+    wave dedupe uses, so read-your-writes is identical across
+    deployment shapes. Followers cost the owner follower-grade
+    accounting (ledger/SLO/egress) instead of a full API pass."""
+
+    __slots__ = ("submitted", "followers")
+
+    def __init__(self):
+        self.submitted = threading.Event()
+        self.followers: list = []  # (_WorkerState, gen, header)
+
+
+class _WorkerState:
+    """Owner-side record of one worker process."""
+
+    def __init__(self, wid: int):
+        self.id = wid
+        self.gen = 0
+        self.proc: subprocess.Popen | None = None
+        self.conn: socket.socket | None = None
+        self.conn_lock = threading.Lock()
+        self.sub: ShmRing | None = None   # worker -> owner (owner consumes)
+        self.rsp: ShmRing | None = None   # owner -> worker (owner produces)
+        self.alive = False
+        self.started_at = 0.0
+        self.dropped_inflight = 0
+
+    def to_json(self, ctl: ControlBlock | None) -> dict:
+        out = {
+            "id": self.id,
+            "gen": self.gen,
+            "pid": self.proc.pid if self.proc is not None else None,
+            "alive": self.alive,
+            "uptimeSeconds": (round(time.time() - self.started_at, 1)
+                              if self.alive else 0.0),
+            "ringDepth": self.sub.depth() if self.sub is not None else 0,
+            "droppedInflight": self.dropped_inflight,
+        }
+        if ctl is not None:
+            out.update(ctl.read_worker(self.id))
+        return out
+
+
+class OwnerRuntime:
+    """The device-owner half: spawns and supervises workers, drains their
+    submit rings into a bounded executor pool, and answers over the
+    response rings. ``Server.start_serving_workers`` makes one (so does
+    ``Server.open`` when ``serving-workers`` > 0 and the platform
+    supports it): ``n_workers`` workers on ``bind:port`` (port 0: the
+    first worker's socket picks a free one), rings of ``ring_slots`` x
+    ``ring_slot_bytes`` each way, the server's admission quotas shared
+    out among them."""
+
+    READY_TIMEOUT_S = 60.0
+    RESPAWN_DELAY_S = 0.2
+    FLAGS_INTERVAL_S = 0.5
+
+    def __init__(self, server, n_workers: int, bind: str, port: int,
+                 ring_slots: int, ring_slot_bytes: int):
+        self.server = server
+        self.api = server.api
+        self.logger = logging.getLogger("pilosa_tpu_torch")
+        self.n_workers = min(MAX_WORKERS, int(n_workers))
+        self.ring_slots = int(ring_slots)
+        self.ring_slot_bytes = int(ring_slot_bytes)
+        self.bind = bind
+        self.public_port = int(port)  # as asked; 0: any free port
+        self.port: int = 0           # public SO_REUSEPORT port
+        self.owner_port: int = 0     # loopback full-server port
+        self._token = f"psrv{os.getpid():x}-{id(self) & 0xFFFF:x}"
+        self._sock_path = ""
+        self._listener: socket.socket | None = None
+        self._workers: dict[int, _WorkerState] = {}
+        self._lock = threading.Lock()
+        self._closed = threading.Event()
+        self._ready = {}  # wid -> threading.Event
+        self.ctl: ControlBlock | None = None
+        self._threads: list[threading.Thread] = []
+        # owner executor pool: one thread per in-flight ring query, like
+        # the single-process handler had one thread per connection — the
+        # threads are cheap (they block in the wave pipeline's resolve,
+        # not on CPU) and a SMALL pool would both queue requests outside
+        # the pipeline (latency the client sees as ring overhead) and
+        # starve the wave gather of submitters (shallow waves = more
+        # device dispatch floors). Hand-rolled threads over a
+        # SimpleQueue rather than ThreadPoolExecutor, whose submit()
+        # builds a Future and a work item under a lock a record. Bounded
+        # by a capacity semaphore so ring drains stop (and rings fill,
+        # and workers shed) instead of queueing unboundedly behind a
+        # saturated pool.
+        import queue as _queue
+
+        self.pool_size = min(128, max(64, 16 * max(1, self.n_workers)))
+        self._workq: _queue.SimpleQueue = _queue.SimpleQueue()
+        self._capacity = threading.Semaphore(self.pool_size * 2)
+        for i in range(self.pool_size):
+            t = threading.Thread(target=self._exec_loop, daemon=True,
+                                 name=f"mpserve-exec-{i}")
+            t.start()
+            self._threads.append(t)
+        # owner-side dedupe memo: (index, pql) -> _SharedExec while a
+        # leader is between intake and wave submission
+        self._memo: dict = {}
+        self._memo_lock = threading.Lock()
+        # owner-side counters (serving_* metrics block)
+        self._mlock = threading.Lock()
+        # accumulated final counters of REPLACED worker processes: the
+        # live slots reset to zero when a new pid takes a worker id, so
+        # summed serving_*_total series would otherwise go backwards on
+        # every respawn (poison for Prometheus rate())
+        self._ctl_base = {"requests": 0, "ring": 0, "proxied": 0,
+                          "shed": 0, "ring_full": 0}
+        self.deduped = 0
+        self.batches = 0
+        self.batched_requests = 0
+        self.last_batch = 0
+        self.respawns = 0
+        self.reaped = 0
+        self.responses_dropped = 0
+        self.queries_served = 0
+
+    # ------------------------------------------------------------ lifecycle
+
+    def start(self) -> "OwnerRuntime":
+        self.owner_port = self.server._http.server_address[1]
+        self._sock_path = self._resolve_sock_path()
+        self._listen()
+        self.ctl = ControlBlock.create(f"{self._token}-ctl")
+        self._publish_flags()
+        t = threading.Thread(target=self._flags_loop, daemon=True,
+                             name="mpserve-flags")
+        t.start()
+        self._threads.append(t)
+        # resolve the public port with the first worker's socket, then
+        # spawn everyone
+        try:
+            for wid in range(self.n_workers):
+                self._ready[wid] = threading.Event()
+                self._spawn(wid)
+            deadline = time.monotonic() + self.READY_TIMEOUT_S
+            for wid, ev in self._ready.items():
+                if not ev.wait(max(0.1, deadline - time.monotonic())):
+                    raise RuntimeError(
+                        f"serving worker {wid} did not become ready "
+                        f"within {self.READY_TIMEOUT_S}s"
+                    )
+        except Exception:
+            self.close()
+            raise
+        self.logger.info(
+            "multi-process serving: %d workers on port %d "
+            "(owner on 127.0.0.1:%d, rings %dx%dB)",
+            self.n_workers, self.port, self.owner_port,
+            self.ring_slots, self.ring_slot_bytes,
+        )
+        return self
+
+    def _resolve_sock_path(self) -> str:
+        path = os.path.join(
+            os.path.expanduser(self.server.holder.data_dir), "mpserve.sock"
+        )
+        if len(path) < 100:  # AF_UNIX sun_path limit
+            return path
+        import tempfile
+
+        return os.path.join(tempfile.gettempdir(), f"{self._token}.sock")
+
+    def _new_listen_socket(self) -> socket.socket:
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+        sock.bind((self.bind, self.port or self.public_port))
+        sock.listen(128)
+        if not self.port:
+            self.port = sock.getsockname()[1]
+        return sock
+
+    def _spawn(self, wid: int) -> None:
+        sock = self._new_listen_socket()
+        sock.set_inheritable(True)
+        env = dict(os.environ)
+        # workers never touch the card: even a stray torch import in a
+        # worker-side module could not open a CUDA context
+        env["CUDA_VISIBLE_DEVICES"] = ""
+        # the package, wherever the owner's working directory is
+        root = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env["PYTHONPATH"] = os.pathsep.join(
+            [root] + [p for p in env.get("PYTHONPATH", "").split(os.pathsep)
+                      if p])
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "pilosa_tpu_torch", "serve-worker",
+             "--handshake-sock", self._sock_path,
+             "--listen-fd", str(sock.fileno()),
+             "--worker-id", str(wid)],
+            pass_fds=(sock.fileno(),), env=env, close_fds=True,
+        )
+        # the child inherited the fd; the owner MUST drop its copy, or a
+        # SIGKILLed worker's socket would stay in the reuseport group
+        # with nobody accepting — connections routed to it would hang
+        sock.close()
+        with self._lock:
+            ws = self._workers.get(wid)
+            if ws is None:
+                ws = self._workers[wid] = _WorkerState(wid)
+            ws.proc = proc
+
+    # ------------------------------------------------------------ handshake
+
+    def _listen(self) -> None:
+        """Bind the handshake listener at the socket path and start its
+        accept loop."""
+        if os.path.exists(self._sock_path):
+            os.unlink(self._sock_path)
+        listener = socket.socket(socket.AF_UNIX, socket.SOCK_STREAM)
+        listener.bind(self._sock_path)
+        listener.listen(MAX_WORKERS)
+        # a bounded accept: where closing (or shutting down) a listening
+        # socket does not wake a blocked accept(), the loop still sees
+        # its listener replaced or the runtime closed
+        listener.settimeout(0.2)
+        self._listener = listener
+        threading.Thread(target=self._accept_loop, args=(listener,),
+                         daemon=True, name="mpserve-accept").start()
+
+    def _accept_loop(self, listener: socket.socket) -> None:
+        while not self._closed.is_set() and listener is self._listener:
+            try:
+                conn, _ = listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return  # listener closed
+            # daemon + untracked: one io thread per worker CHANNEL, and
+            # channels churn with every respawn/re-handshake — keeping
+            # references would grow without bound on a long-lived owner
+            threading.Thread(target=self._serve_conn, args=(conn,),
+                             daemon=True, name="mpserve-worker-io").start()
+
+    def _serve_conn(self, conn: socket.socket) -> None:
+        buf = b""
+        ws = None
+        gen = 0
+        try:
+            conn.settimeout(15.0)
+            line, buf = self._read_line(conn, buf)
+            hello = json.loads(line)["hello"]
+            wid = int(hello["worker"])
+            if not 0 <= wid < MAX_WORKERS:
+                raise ValueError(f"bad worker id {wid}")
+            hello_pid = int(hello.get("pid") or 0)
+            with self._lock:
+                ws = self._workers.get(wid)
+                if (ws is not None and ws.proc is not None
+                        and ws.proc.poll() is None
+                        and hello_pid != ws.proc.pid):
+                    # a stray claimant: an orphan from a previous owner
+                    # incarnation racing the worker THIS runtime spawned
+                    # for the same id. Two processes duelling over one
+                    # worker slot would re-handshake each other's
+                    # channel closed forever — refuse the orphan (it
+                    # exits once its re-handshake window drains) and
+                    # keep our own process.
+                    ws = None
+                    raise ValueError(
+                        f"worker id {wid} already owned by pid "
+                        f"{self._workers[wid].proc.pid} (claimant pid "
+                        f"{hello_pid} refused)"
+                    )
+                if ws is None:
+                    # a worker this runtime did not spawn (owner-restart
+                    # re-handshake): adopt it — it still holds its
+                    # listening socket
+                    ws = self._workers[wid] = _WorkerState(wid)
+                if self.ctl is not None:
+                    slot = self.ctl.read_worker(wid)
+                    if slot["pid"] and slot["pid"] != hello_pid:
+                        # a NEW process is taking this worker id: fold
+                        # the dead process's final counters into the
+                        # owner-side base (keeps summed totals
+                        # monotonic) and zero the slot before the new
+                        # process's first write. Safe against racing
+                        # writes: the claimant cannot write until it
+                        # receives the cfg sent below, and the old
+                        # process is gone.
+                        with self._mlock:
+                            self._ctl_base["requests"] += slot["requests"]
+                            self._ctl_base["ring"] += slot["ringRequests"]
+                            self._ctl_base["proxied"] += slot["proxied"]
+                            self._ctl_base["shed"] += slot["shed"]
+                            self._ctl_base["ring_full"] += slot["ringFull"]
+                        self.ctl.write_worker(wid, 0, 0, 0, 0, 0, 0,
+                                              0, 0, 0)
+                ws.gen += 1
+                gen = ws.gen
+                old_conn, ws.conn = ws.conn, conn
+                old_sub, old_rsp = ws.sub, ws.rsp
+                ws.sub = ShmRing.create(f"{self._token}-{wid}g{gen}s",
+                                        self.ring_slots,
+                                        self.ring_slot_bytes)
+                ws.rsp = ShmRing.create(f"{self._token}-{wid}g{gen}r",
+                                        self.ring_slots,
+                                        self.ring_slot_bytes)
+            for ring in (old_sub, old_rsp):
+                if ring is not None:
+                    ring.close()
+                    ring.unlink()
+            if old_conn is not None:
+                try:
+                    old_conn.close()
+                except OSError:
+                    pass
+            qos = self.api.qos.admission
+            share = -(-qos.max_inflight // self.n_workers) \
+                if qos.max_inflight > 0 else 0
+            tshare = -(-qos.tenant_max // self.n_workers) \
+                if qos.tenant_max > 0 else 0
+            cfg = {
+                "worker": wid, "gen": gen, "ownerPort": self.owner_port,
+                "sub": ws.sub.name, "rsp": ws.rsp.name,
+                "ctl": self.ctl.name,
+                "maxWritesPerRequest": self.api.max_writes_per_request,
+                "defaultDeadlineS": self.api.default_deadline_s,
+                "qosMaxInflight": share, "qosTenantInflight": tshare,
+                "traceSampleRate": global_tracer().sample_rate,
+                "node": self.api.node_id(),
+            }
+            self._send_line(ws, {"cfg": cfg})
+            line, buf = self._read_line(conn, buf)
+            if not json.loads(line).get("ready"):
+                raise ValueError("worker handshake: expected ready")
+            conn.settimeout(None)
+            ws.alive = True
+            ws.started_at = time.time()
+            ev = self._ready.get(wid)
+            if ev is not None:
+                ev.set()
+            self._io_loop(ws, gen, conn, buf)
+        except Exception as e:  # noqa: BLE001 — one worker's handshake
+            if not self._closed.is_set():  # failure must not kill accept
+                self.logger.warning("mpserve worker channel error: %s", e)
+        finally:
+            if ws is not None:
+                self._reap(ws, gen)
+            else:
+                try:
+                    conn.close()
+                except OSError:
+                    pass
+
+    @staticmethod
+    def _read_line(conn: socket.socket, buf: bytes) -> tuple[bytes, bytes]:
+        while b"\n" not in buf:
+            chunk = conn.recv(65536)
+            if not chunk:
+                raise ConnectionError("handshake channel closed")
+            buf += chunk
+        line, _, rest = buf.partition(b"\n")
+        return line, rest
+
+    def _send_line(self, ws: _WorkerState, obj: dict) -> None:
+        data = json.dumps(obj, separators=(",", ":")).encode() + b"\n"
+        with ws.conn_lock:
+            ws.conn.sendall(data)
+
+    # --------------------------------------------------------------- intake
+
+    def _io_loop(self, ws: _WorkerState, gen: int, conn: socket.socket,
+                 buf: bytes) -> None:
+        """Drain this worker's submit ring; sleep on the handshake
+        socket (doorbells + control lines) only once the ring is
+        observably empty AFTER declaring the wait — the coalesced-
+        doorbell protocol (shmring.set_waiting), so a busy worker costs
+        one doorbell syscall per owner SLEEP, not per record."""
+        while not self._closed.is_set():
+            sub = ws.sub
+            if sub is not None:
+                self._drain(ws)
+                try:
+                    sub.set_waiting()
+                    if sub.depth() > 0:
+                        continue  # raced a push: drain again, no sleep
+                except (TypeError, ValueError):
+                    pass  # ring torn down by a concurrent reap
+            progressed = False
+            while b"\n" in buf:
+                line, _, buf = buf.partition(b"\n")
+                if line.startswith(b"{"):
+                    self._control(ws, line)
+                progressed = True  # a bare `!` just re-drains above
+            if progressed:
+                continue
+            chunk = conn.recv(65536)
+            if not chunk:
+                raise ConnectionError("worker channel closed")
+            buf += chunk
+
+    def _control(self, ws: _WorkerState, line: bytes) -> None:
+        try:
+            msg = json.loads(line)
+        except ValueError:
+            return
+        tree = msg.get("trace")
+        if tree is not None:
+            # a worker-side finished span tree (the edge root with the
+            # owner's rpc.query subtree grafted): record it in the
+            # owner's tracer so /debug/traces shows one tree a request
+            global_tracer().record_foreign_tree(tree)
+
+    def _drain(self, ws: _WorkerState) -> None:
+        """Drain one doorbell's worth of submissions — capacity-gated:
+        when the pool is saturated this loop BLOCKS, the submit ring
+        fills, and the worker sheds 429 (backpressure end to end).
+
+        Dedupe at intake: an eligible query (plain edge JSON read — no
+        shards/opts/deadline/trace) identical to a leader whose wave has
+        not yet been SUBMITTED joins that leader as a follower instead
+        of consuming an executor thread — worker waves group-commit into
+        the owner's micro-batched dispatches, and the follower pays only
+        follower-grade accounting (_finish_followers)."""
+        n = 0
+        while True:
+            # depth check BEFORE taking a capacity permit: with the
+            # pool saturated, an io thread blocked in acquire() over an
+            # EMPTY ring could not see its worker's EOF — exactly the
+            # overload window where worker deaths need reaping
+            ring = ws.sub
+            try:
+                if ring is None or ring.depth() == 0:
+                    break
+            except (TypeError, ValueError):
+                break  # ring torn down by a concurrent reap
+            # one blocking permit keeps the backpressure contract
+            # (saturated pool → this drain stalls → ring fills → the
+            # worker sheds 429); opportunistic non-blocking acquires
+            # size a batch so ONE consumer-lock acquisition pops a
+            # doorbell's worth of records, not one lock round trip a
+            # record
+            self._capacity.acquire()
+            permits = 1
+            while permits < 64 and self._capacity.acquire(blocking=False):
+                permits += 1
+            try:
+                recs = ring.pop_many(permits)
+            except (TypeError, ValueError):
+                recs = []  # torn down mid-drain
+            for _ in range(permits - len(recs)):
+                self._capacity.release()
+            for rec in recs:
+                n += 1
+                self._intake_frame(ws, rec)
+        if n:
+            with self._mlock:
+                self.batches += 1
+                self.batched_requests += n
+                self.last_batch = n
+
+    def _intake_frame(self, ws: _WorkerState, rec: bytes) -> None:
+        """Route one popped submit record (its capacity permit is held
+        by the caller and travels with the work item; every early
+        return releases it)."""
+        try:
+            header, body = decode_frame(rec)
+        except ValueError as e:
+            self._capacity.release()
+            self.logger.warning("mpserve: dropping bad frame: %s", e)
+            return
+        if (header.get("op", "q") == "q" and header.get("ro")
+                and "sh" not in header and "o" not in header
+                and "dl" not in header and "tr" not in header):
+            key = (header.get("ix", ""), body)
+            joined = False
+            with self._memo_lock:
+                ex = self._memo.get(key)
+                if ex is not None and not ex.submitted.is_set():
+                    ex.followers.append((ws, ws.gen, header))
+                    joined = True
+                else:
+                    ex = _SharedExec()
+                    self._memo[key] = ex
+            if joined:
+                self._capacity.release()
+                with self._mlock:
+                    self.deduped += 1
+                return
+            self._workq.put((ws, ws.gen, header, body, key, ex))
+        else:
+            self._workq.put((ws, ws.gen, header, body, None, None))
+
+    # ------------------------------------------------------------ execution
+
+    def _exec_loop(self) -> None:
+        while True:
+            item = self._workq.get()
+            if item is None:
+                return  # close() sentinel
+            self._run_frame(*item)
+
+    def _run_frame(self, ws: _WorkerState, gen: int, header: dict,
+                   body: bytes, key, ex: _SharedExec | None) -> None:
+        try:
+            if header.get("op", "q") == "q":
+                on_submitted = None
+                if ex is not None:
+                    # dedupe-join cutoff: once this leader's wave is
+                    # SUBMITTED, late arrivals start a fresh leader —
+                    # the same boundary the pipeline's own wave dedupe
+                    # draws, so read-your-writes is identical across
+                    # deployment shapes
+                    def on_submitted():
+                        self._close_memo(key, ex)
+                meta, payload = self._serve_query(header, body,
+                                                  on_submitted)
+            else:
+                meta = {"st": 400}
+                payload = json.dumps(
+                    {"error": f"unknown ring op {header.get('op')!r}"}
+                ).encode()
+            meta["id"] = header.get("id")
+            self._respond(ws, gen, self._fit_frame(meta, payload))
+            if ex is not None:
+                # a leader that errored before submission never fired
+                # on_submitted — close the memo either way, or its
+                # followers (and every later identical query) wedge
+                self._close_memo(key, ex)
+                self._finish_followers(ex, meta, payload)
+        finally:
+            self._capacity.release()
+
+    def _fit_frame(self, meta: dict, payload: bytes) -> bytes:
+        """Encode a response frame, degrading to a small 500 when the
+        record could NEVER fit the response ring — the worker's client
+        gets a prompt, explicit error instead of hanging out its full
+        timeout (and pinning its admission slot) on a frame the owner
+        would silently fail to push."""
+        frame = encode_frame(meta, payload)
+        if -(-len(frame) // self.ring_slot_bytes) <= self.ring_slots:
+            return frame
+        body = json.dumps({"error": (
+            f"response of {len(payload)} bytes exceeds the serving "
+            f"ring ({self.ring_slots} slots x {self.ring_slot_bytes} "
+            "bytes); raise ring-slot-bytes/ring-slots or narrow the "
+            "query")}).encode()
+        return encode_frame({"st": 500, "id": meta.get("id")}, body)
+
+    def _close_memo(self, key, ex: _SharedExec) -> None:
+        with self._memo_lock:
+            ex.submitted.set()
+            if self._memo.get(key) is ex:
+                del self._memo[key]
+
+    def _finish_followers(self, ex: _SharedExec, meta: dict,
+                          payload: bytes) -> None:
+        """Answer every follower that joined this leader before its
+        wave submitted: same status + payload bytes (the queries were
+        byte-identical), follower-grade accounting — one ledger fold,
+        one SLO event, and egress billing per follower, so
+        /debug/tenants and /debug/slo see N requests even though the
+        device saw one execution (exactly what the pipeline's in-wave
+        dedupe reports in single-process mode)."""
+        if not ex.followers:
+            return
+        st = int(meta.get("st", 200))
+        elapsed = float(meta.get("ex") or 0.0)
+        error = st >= 500
+        cache_hit = bool(meta.get("rc"))
+        billed = cost_enabled()
+        for fws, fgen, fheader in ex.followers:
+            fmeta = {"st": st, "ex": meta.get("ex", 0.0),
+                     "id": fheader.get("id")}
+            if meta.get("ra") is not None:
+                fmeta["ra"] = meta["ra"]
+            self._respond(fws, fgen, self._fit_frame(fmeta, payload))
+            tenant = fheader.get("t", "default")
+            index = fheader.get("ix", "")
+            if billed:
+                self.api.cost.record_query(tenant, index, None, elapsed,
+                                           error=error,
+                                           result_cache_hit=cache_hit)
+                self.api.cost.add_egress(tenant, index, len(payload))
+                if st != 429:
+                    self.api.slo.record(elapsed, error=error)
+        with self._mlock:
+            self.queries_served += len(ex.followers)
+
+    def _serve_query(self, header: dict, body: bytes,
+                     on_submitted=None):
+        """Execute one ring-submitted edge JSON query — the owner half
+        of server/http.py's ``post_query`` JSON branch. Admission
+        already ran worker-side (``pre_admitted``); the WAL ACK barrier,
+        cost/SLO accounting, and inflight tracking all run here exactly
+        as in single-process mode."""
+        # the API module brings torch: the owner has it loaded long
+        # before the first frame, and a worker (which imports this
+        # module) must never load it
+        from pilosa_tpu_torch.server.api import ApiError
+
+        index = header.get("ix", "")
+        tenant = header.get("t", "default")
+        deadline = (Deadline.from_millis(int(header["dl"]))
+                    if header.get("dl") else None)
+        t0 = time.perf_counter()
+        tracer = global_tracer()
+        meta: dict = {}
+
+        def run() -> bytes:
+            try:
+                cache_hit: list = []
+                payload = self.api.query_json_bytes(
+                    index, body.decode(), shards=header.get("sh"),
+                    opts=header.get("o") or {}, tenant=tenant,
+                    deadline=deadline, pre_admitted=True,
+                    on_submitted=on_submitted,
+                    cache_hit_out=cache_hit,
+                )
+                meta["st"] = 200
+                if cache_hit:
+                    # result-cache hit (serving/rescache.py): followers
+                    # of this leader bill as cache hits too — they got
+                    # the same cached bytes
+                    meta["rc"] = True
+                if cost_enabled():
+                    # egress billing for the worker's response bytes —
+                    # the handler's _note_egress, owner-side
+                    self.api.cost.add_egress(tenant, index, len(payload))
+                return payload
+            except ApiError as e:
+                # identical bytes to the handler's error path (_json
+                # uses default json.dumps separators)
+                meta["st"] = e.status
+                ra = getattr(e, "retry_after", None)
+                if ra is not None:
+                    meta["ra"] = max(1, int(ra))
+                return json.dumps({"error": str(e)}).encode()
+            except Exception as e:  # noqa: BLE001 — 500, never dead slot
+                meta["st"] = 500
+                return json.dumps({"error": f"internal: {e}"}).encode()
+
+        # DETACHED owner-side subtree (remote_span, not remote_root):
+        # it is finished and shipped back in the response frame for the
+        # WORKER to graft and return as one stitched tree over the
+        # handshake channel — recording the bare subtree in this
+        # process's finished ring too would put two trees per sampled
+        # request on /debug/traces
+        span = tracer.remote_span(header.get("tr"), "rpc.query",
+                                  node=self.api.node_id(), index=index)
+        if span is not None:
+            with use_span(span):
+                payload = run()
+            span.finish()
+            meta["tr"] = span.to_json()
+        else:
+            # no trace context: remote_root(None) is the SUPPRESS
+            # handle — without it, inner tracer.span() sites would mint
+            # their own sampled root trees for an unsampled request
+            with tracer.remote_root(None, "rpc.query"):
+                payload = run()
+        meta["ex"] = round(time.perf_counter() - t0, 6)
+        with self._mlock:
+            self.queries_served += 1
+        return meta, payload
+
+    def _respond(self, ws: _WorkerState, gen: int, frame: bytes) -> None:
+        """Push a response frame; NEVER wedge on a dead/slow worker —
+        bounded retries while the worker generation is still live, then
+        drop (the client's connection died with its worker anyway)."""
+        deadline = time.monotonic() + 2.0
+        while not self._closed.is_set():
+            if ws.gen != gen or not ws.alive:
+                break  # worker reaped/replaced: response has no reader
+            ring = ws.rsp
+            try:
+                if ring is not None and ring.push(frame):
+                    if ring.take_waiting():
+                        self._doorbell(ws)
+                    return
+            except (RingFull, ValueError, OSError, TypeError):
+                break
+            if time.monotonic() > deadline:
+                break
+            time.sleep(0.0005)
+        with self._mlock:
+            self.responses_dropped += 1
+
+    def _doorbell(self, ws: _WorkerState) -> None:
+        try:
+            with ws.conn_lock:
+                if ws.conn is not None:
+                    ws.conn.sendall(_DOORBELL)
+        except OSError:
+            pass  # EOF path reaps; responses already in the ring survive
+
+    # ----------------------------------------------------------------- reap
+
+    def _reap(self, ws: _WorkerState, gen: int) -> None:
+        """A worker channel died. Reclaim its in-flight submit slots (the
+        owner must not wedge on them — their clients never got an ack),
+        tear down the rings, and respawn a replacement."""
+        with self._lock:
+            if ws.gen != gen:
+                return  # already re-handshaked to a newer generation
+            ws.alive = False
+            sub, rsp, conn = ws.sub, ws.rsp, ws.conn
+            ws.sub = ws.rsp = ws.conn = None
+        if conn is not None:
+            try:
+                conn.close()
+            except OSError:
+                pass
+        if sub is not None:
+            ws.dropped_inflight += sub.reclaim()
+            sub.close()
+            sub.unlink()
+        if rsp is not None:
+            rsp.close()
+            rsp.unlink()
+        with self._mlock:
+            self.reaped += 1
+        if self._closed.is_set():
+            return
+        # respawn on actual death, not on a re-handshake in flight. For
+        # workers THIS runtime spawned, death is the process exiting
+        # (the EOF can arrive moments before the SIGKILLed process is
+        # reapable, so wait briefly instead of polling once). For
+        # ADOPTED workers (owner-restart re-handshake gave us no Popen
+        # handle) the only signal is that no newer generation handshakes
+        # within the grace window — without this, every adopted worker
+        # that later dies would silently shrink the public-port fleet.
+        proc = ws.proc
+
+        def respawn():
+            if proc is not None:
+                try:
+                    proc.wait(timeout=3.0)
+                except subprocess.TimeoutExpired:
+                    return  # still alive: a reconnect, not a death
+                time.sleep(self.RESPAWN_DELAY_S)
+            else:
+                time.sleep(max(self.RESPAWN_DELAY_S, 1.0))
+            if self._closed.is_set() or ws.gen != gen:
+                return  # shut down, or already re-handshaked
+            with self._mlock:
+                self.respawns += 1
+            self.logger.warning(
+                "serving worker %d (pid %s) died (exit %s) — respawning",
+                ws.id, proc.pid if proc is not None else "adopted",
+                proc.returncode if proc is not None else "?",
+            )
+            try:
+                self._spawn(ws.id)
+            except OSError as e:
+                self.logger.warning("worker %d respawn failed: %s",
+                                    ws.id, e)
+
+        threading.Thread(target=respawn, daemon=True,
+                         name="mpserve-respawn").start()
+
+    # -------------------------------------------------------------- flags
+
+    def _publish_flags(self) -> None:
+        flags = 0
+        reason = ""
+        health = getattr(self.server.holder, "health", None)
+        if health is not None and health.degraded:
+            flags |= ControlBlock.FLAG_STORAGE_DEGRADED
+            reason = health.reason or ""
+        if self.ctl is not None:
+            self.ctl.set_flags(flags, reason)
+
+    def _flags_loop(self) -> None:
+        while not self._closed.wait(self.FLAGS_INTERVAL_S):
+            try:
+                self._publish_flags()
+            except Exception:  # noqa: BLE001 — ticker must not die
+                pass
+
+    # ------------------------------------------------------------- surfaces
+
+    def workers_json(self) -> list[dict]:
+        with self._lock:
+            workers = sorted(self._workers.values(), key=lambda w: w.id)
+            return [w.to_json(self.ctl) for w in workers]
+
+    def metrics(self) -> dict:
+        with self._lock:
+            workers = list(self._workers.values())
+        alive = sum(1 for w in workers if w.alive)
+        depth = sum(w.sub.depth() for w in workers if w.sub is not None)
+        with self._mlock:
+            ring_full = self._ctl_base["ring_full"]
+            ring_requests = self._ctl_base["ring"]
+            shed = self._ctl_base["shed"]
+            proxied = self._ctl_base["proxied"]
+        if self.ctl is not None:
+            for w in workers:
+                slot = self.ctl.read_worker(w.id)
+                ring_full += slot["ringFull"]
+                ring_requests += slot["ringRequests"]
+                shed += slot["shed"]
+                proxied += slot["proxied"]
+        with self._mlock:
+            avg = (self.batched_requests / self.batches
+                   if self.batches else 0.0)
+            return {
+                "serving_workers": alive,
+                "serving_ring_depth": depth,
+                "serving_ring_full_total": ring_full,
+                "serving_owner_batch_size": round(avg, 3),
+                "serving_owner_batches_total": self.batches,
+                "serving_owner_batched_requests_total":
+                    self.batched_requests,
+                "serving_ring_requests_total": ring_requests,
+                "serving_worker_shed_total": shed,
+                "serving_worker_proxied_total": proxied,
+                "serving_worker_respawns_total": self.respawns,
+                "serving_workers_reaped_total": self.reaped,
+                "serving_responses_dropped_total": self.responses_dropped,
+                "serving_ring_queries_total": self.queries_served,
+                "serving_ring_deduped_total": self.deduped,
+            }
+
+    # ---------------------------------------------------------------- close
+
+    def simulate_restart(self) -> None:
+        """Test hook: tear down the owner half (listener + channels +
+        rings) WITHOUT killing worker processes, then come back up —
+        workers must detect the EOF and re-handshake (the owner-restart
+        drill; tests/test_torch_mpserve.py)."""
+        with self._lock:
+            conns = [w.conn for w in self._workers.values()
+                     if w.conn is not None]
+        # the path first: no handshake may reach the old listener while
+        # the workers' channels are torn down
+        if os.path.exists(self._sock_path):
+            os.unlink(self._sock_path)
+        self._close_listener()
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        # the per-conn io threads observe EOF and reap (rings torn down)
+        deadline = time.monotonic() + 10
+        while time.monotonic() < deadline:
+            with self._lock:
+                if not any(w.alive for w in self._workers.values()):
+                    break
+            time.sleep(0.05)
+        self._listen()
+
+    def _close_listener(self) -> None:
+        """Stop accepting handshakes. A shutdown first: closing the
+        socket alone leaves the accept loop blocked in ``accept()`` on
+        it, still taking connections."""
+        if self._listener is None:
+            return
+        for stop in (lambda: self._listener.shutdown(socket.SHUT_RDWR),
+                     self._listener.close):
+            try:
+                stop()
+            except OSError:
+                pass
+
+    def wait_workers(self, n: int, timeout: float = 30.0) -> bool:
+        """Block until ``n`` workers are alive (tests, chaos harness)."""
+        deadline = time.monotonic() + timeout
+        while time.monotonic() < deadline:
+            with self._lock:
+                if sum(1 for w in self._workers.values() if w.alive) >= n:
+                    return True
+            time.sleep(0.05)
+        return False
+
+    def close(self) -> None:
+        self._closed.set()
+        with self._lock:
+            workers = list(self._workers.values())
+        for ws in workers:
+            if ws.proc is not None:
+                try:
+                    ws.proc.terminate()
+                except OSError:
+                    pass
+        for ws in workers:
+            if ws.proc is not None:
+                try:
+                    ws.proc.wait(timeout=5)
+                except subprocess.TimeoutExpired:
+                    ws.proc.kill()
+                    ws.proc.wait(timeout=5)
+        self._close_listener()
+        for ws in workers:
+            for ring in (ws.sub, ws.rsp):
+                if ring is not None:
+                    ring.close()
+                    ring.unlink()
+            ws.sub = ws.rsp = None
+            if ws.conn is not None:
+                try:
+                    ws.conn.close()
+                except OSError:
+                    pass
+        if self.ctl is not None:
+            self.ctl.close()
+            self.ctl.unlink()
+        for _ in range(self.pool_size):
+            self._workq.put(None)
+        if self._sock_path and os.path.exists(self._sock_path):
+            try:
+                os.unlink(self._sock_path)
+            except OSError:
+                pass

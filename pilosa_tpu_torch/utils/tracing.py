@@ -42,10 +42,13 @@ class Span:
     """One timed operation in a trace tree.
 
     ``children`` may be appended from several threads (list.append is
-    atomic under the GIL); ``to_json`` snapshots."""
+    atomic under the GIL); ``to_json`` snapshots. ``remote`` holds
+    subtrees another process finished and serialized (a serving
+    worker's owner-side ``rpc.query``): they render as children with
+    their own span ids, whose ``parentId`` is this span's id."""
 
     __slots__ = ("name", "trace_id", "span_id", "parent_id", "parent",
-                 "start", "end", "tags", "children")
+                 "start", "end", "tags", "children", "remote")
 
     def __init__(self, name: str, tags: dict | None = None,
                  trace_id: str | None = None, parent: "Span | None" = None,
@@ -59,6 +62,7 @@ class Span:
         self.end = None
         self.tags = tags if tags is not None else {}
         self.children: list[Span] = []
+        self.remote: list[dict] = []
 
     @property
     def duration(self) -> float:
@@ -74,6 +78,11 @@ class Span:
             s = s.parent
         return s
 
+    def add_remote(self, subtree: dict) -> None:
+        """Attach a serialized span subtree under this span."""
+        if isinstance(subtree, dict):
+            self.remote.append(subtree)
+
     def header_value(self) -> str:
         """This span as an ``X-Pilosa-Trace`` value (child hops parent
         to it)."""
@@ -86,7 +95,8 @@ class Span:
             "spanId": self.span_id,
             "durationMs": round(self.duration * 1e3, 3),
             "tags": self.tags,
-            "children": [c.to_json() for c in list(self.children)],
+            "children": ([c.to_json() for c in list(self.children)]
+                         + list(self.remote)),
         }
         if self.parent_id is not None:
             out["parentId"] = self.parent_id
@@ -258,6 +268,26 @@ class Tracer:
             self, Span(name, tags, trace_id=trace_id, parent_id=parent_id)
         )
 
+    def remote_span(self, header_value: str | None, name: str,
+                    **tags) -> Span | None:
+        """A detached span rooted under ``X-Pilosa-Trace``'s parent, for
+        work whose subtree is shipped back to the caller (the serving
+        owner's ``rpc.query``) and activated with ``use_span``. None
+        when the header is absent or malformed. ``finish_root`` ends it
+        and records it here; a caller that ships it finishes it
+        itself."""
+        parsed = parse_trace_header(header_value)
+        if parsed is None:
+            return None
+        self.spans_started += 1
+        return Span(name, tags, trace_id=parsed[0], parent_id=parsed[1])
+
+    def finish_root(self, span: Span) -> None:
+        """End a detached root span (``remote_span``) and record it in
+        the finished ring."""
+        span.finish()
+        self._record_root(span)
+
     def _maybe_root(self, name: str, tags: dict):
         rate = self.sample_rate
         if rate <= 0.0:
@@ -272,6 +302,15 @@ class Tracer:
 
     def _record_root(self, span: Span) -> None:
         self.finished.append(span)  # deque(maxlen): atomic, bounded
+
+    def record_foreign_tree(self, tree: dict) -> None:
+        """Record a finished tree another process serialized: a serving
+        worker's edge span with the owner's subtree grafted, shipped over
+        the handshake channel, so ``/debug/traces`` shows one tree a
+        request in either deployment shape."""
+        if isinstance(tree, dict):
+            self.sampled_traces += 1
+            self.finished.append(_ForeignTree(tree))
 
     def recent(self) -> list[dict]:
         return [s.to_json() for s in list(self.finished)]
@@ -288,6 +327,19 @@ class Tracer:
             "tracing_finished_traces": len(self.finished),
             "tracing_sample_rate": self.sample_rate,
         }
+
+
+class _ForeignTree:
+    """A finished span tree serialized by another process; quacks like a
+    Span for the finished ring."""
+
+    __slots__ = ("tree",)
+
+    def __init__(self, tree: dict):
+        self.tree = tree
+
+    def to_json(self) -> dict:
+        return self.tree
 
 
 _global_tracer: Tracer | None = None

@@ -85,6 +85,29 @@ def test_boundary_covers_the_integrity_subpackages():
     assert {"parallel", "testing"} <= sources
 
 
+def test_boundary_covers_the_serving_plane():
+    """The rules above walk the multi-process serving modules too; the
+    ones a serving worker imports load neither torch nor numpy."""
+    names = _module_names()
+    worker_side = ("pilosa_tpu_torch.serving.shmring",
+                   "pilosa_tpu_torch.serving.mpserve",
+                   "pilosa_tpu_torch.serving.worker",
+                   "pilosa_tpu_torch.parallel.connpool",
+                   "pilosa_tpu_torch.testing.faults")
+    for name in worker_side + ("pilosa_tpu_torch.testing.chaos",):
+        assert name in names
+    code = (
+        "import importlib, json, sys\n"
+        f"for m in {list(worker_side)!r}:\n"
+        "    importlib.import_module(m)\n"
+        "print(json.dumps(sorted(m for m in sys.modules\n"
+        "    if m.split('.')[0] in ('torch', 'numpy'))))\n")
+    res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert json.loads(res.stdout.strip().splitlines()[-1]) == []
+
+
 def test_entry_points_need_cuda_unless_asked_for_cpu(tmp_path, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):

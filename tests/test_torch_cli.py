@@ -4,9 +4,9 @@ codes. ``import`` in-process (``-d``) and over HTTP (``--host``, batches
 clamped to the server's limit, ``--concurrency``, ``--values``,
 ``--clear``, ``--create``), ``export`` both ways, ``inspect``,
 ``config``, ``generate-config`` and ``version``; ``server`` refuses a set
-knob of a plane the port does not have (multi-process serving, cluster,
-CDC, autopilot, TLS) and takes the serving envelope's and the mesh's
-knobs.
+knob of a plane the port does not have (cluster, CDC, autopilot, TLS)
+and takes the serving envelope's, the mesh's and multi-process serving's
+knobs; ``serve-worker`` parses and starts a worker as the reference's.
 """
 
 import logging
@@ -178,13 +178,14 @@ SERVING_TOML = (
     'result-cache-bytes = 1048576\ningest-workers = 4\n'
     'heat-half-life = "90s"\n')
 
-# The refused planes' knobs: multi-process serving, the cluster, CDC,
-# the autopilot and TLS.
+# The refused planes' knobs: the cluster, CDC, the autopilot and TLS.
 REFUSED_TOML = (
-    'serving-workers = 2\nring-slots = 64\nring-slot-bytes = 4096\n'
     'seeds = ["http://a:1"]\nreplica-n = 2\ncdc-enabled = true\n'
     'autopilot-enabled = true\n'
     'tls-certificate = "c.crt"\ntls-key = "c.key"\n')
+
+# Multi-process serving's knobs, served since multi-process serving.
+MP_TOML = 'serving-workers = 2\nring-slots = 64\nring-slot-bytes = 4096\n'
 
 # The mesh's knobs, served since the single-process mesh.
 MESH_TOML = ('use-mesh = true\nmesh-groups = 2\n'
@@ -194,18 +195,17 @@ MESH_TOML = ('use-mesh = true\nmesh-groups = 2\n'
 def test_server_refuses_a_knob_of_an_unported_plane(capsys, tmp_path,
                                                     monkeypatch):
     toml = tmp_path / "node.toml"
-    toml.write_text(REFUSED_TOML + SERVING_TOML + MESH_TOML
+    toml.write_text(REFUSED_TOML + SERVING_TOML + MESH_TOML + MP_TOML
                     + 'scrub-interval = "1m"\n')
     rc = pcli.main(["server", "-d", str(tmp_path / "d"), "-c", str(toml),
                     "--device", "cpu"])
     err = capsys.readouterr().err
     assert rc == 1
-    for knob in ("serving-workers", "ring-slots", "ring-slot-bytes", "seeds",
-                 "replica-n", "cdc-enabled", "autopilot-enabled",
+    for knob in ("seeds", "replica-n", "cdc-enabled", "autopilot-enabled",
                  "tls-certificate", "tls-key"):
         assert knob in err, knob
     for line in (SERVING_TOML.splitlines() + MESH_TOML.splitlines()
-                 + ['scrub-interval = "1m"']):
+                 + MP_TOML.splitlines() + ['scrub-interval = "1m"']):
         knob = line.split(" = ")[0]
         assert knob not in err, knob
     monkeypatch.setenv("PILOSA_TPU_CDC_ENABLED", "true")
@@ -425,3 +425,88 @@ def test_heat_half_life_reaches_both_planes_as_the_reference(tmp_path,
         finally:
             psrv.close()
             jsrv.close()
+
+
+def test_server_takes_the_multi_process_knobs(capsys, tmp_path, monkeypatch):
+    """``serving-workers``, ``ring-slots`` and ``ring-slot-bytes`` in a
+    config file (and ``PILOSA_TPU_SERVING_WORKERS``) reach the Server as
+    the reference's ServerConfig parses them, and ``config`` prints them
+    as the reference's does."""
+    import tomllib
+
+    from pilosa_tpu.server import ServerConfig as JConfig
+    from pilosa_tpu_torch.server.server import MP_KNOBS
+
+    for k in [k for k in os.environ if k.startswith("PILOSA_TPU_")]:
+        monkeypatch.delenv(k)
+    toml = tmp_path / "node.toml"
+    toml.write_text(MP_TOML)
+    assert _same(capsys, ["config", "-c", str(toml)])[0] == 0
+    monkeypatch.setenv("PILOSA_TPU_SERVING_WORKERS", "3")
+    assert _same(capsys, ["config", "-c", str(toml)])[0] == 0
+    seen = {}
+
+    class Opened:
+        port = 0
+        holder = type("H", (), {"device": "cpu"})()
+
+        def close(self):
+            seen["closed"] = True
+
+    class FakeServer:
+        def __init__(self, data_dir, **kwargs):
+            seen.update(kwargs)
+
+        def open(self):
+            threading.Timer(0.2, os.kill,
+                            (os.getpid(), signal.SIGTERM)).start()
+            return Opened()
+
+    monkeypatch.setattr("pilosa_tpu_torch.server.Server", FakeServer)
+    handlers = {s: signal.getsignal(s) for s in (signal.SIGINT,
+                                                  signal.SIGTERM)}
+    log = logging.getLogger("pilosa_tpu_torch")
+    log_handlers, log_level = list(log.handlers), log.level
+    try:
+        rc = pcli.main(["server", "-d", str(tmp_path / "d"), "-c",
+                        str(toml), "--device", "cpu"])
+    finally:
+        for sig, h in handlers.items():
+            signal.signal(sig, h)
+        log.handlers[:] = log_handlers
+        log.setLevel(log_level)
+    assert rc == 0 and seen.pop("closed")
+    raw = tomllib.loads(MP_TOML)
+    raw["serving-workers"] = "3"
+    want = JConfig.from_dict(raw).to_dict()
+    assert (want["serving-workers"], want["ring-slots"],
+            want["ring-slot-bytes"]) == (3, 64, 4096)
+    for name in MP_KNOBS:
+        assert seen[name.replace("-", "_")] == want[name], name
+
+
+@pytest.mark.parametrize("argv,want", [
+    ([], SystemExit(2)),                        # its arguments are required
+    (["--help"], SystemExit(0)),
+    (["--handshake-sock", "{missing}", "--listen-fd", "0", "--worker-id",
+      "0"], FileNotFoundError()),               # no owner listens there
+], ids=["no-arguments", "help", "no-owner"])
+def test_serve_worker_verb_as_the_reference(capsys, tmp_path, argv, want):
+    """The hidden ``serve-worker`` verb: the same arguments as the
+    reference's, and a worker whose owner's handshake socket is missing
+    fails as the reference's does, before touching its listening
+    socket."""
+    argv = ["serve-worker"] + [a.format(missing=tmp_path / "no.sock")
+                               for a in argv]
+    outcomes = []
+    for main in (jcli.main, pcli.main):
+        capsys.readouterr()
+        with pytest.raises(type(want)) as e:
+            main(list(argv))
+        out = capsys.readouterr()
+        outcomes.append((getattr(e.value, "code", None),
+                         "--handshake-sock" in out.out + out.err,
+                         "--listen-fd" in out.out + out.err))
+    assert outcomes[1] == outcomes[0]
+    if isinstance(want, SystemExit):
+        assert outcomes[1] == (want.code, True, True)

@@ -360,18 +360,18 @@ def test_metrics_families_match_reference(pair):
         assert pages["jax"].get(name) == meta, name
     # the reference's families the port does not render are those of the
     # planes it has not ported: the cluster's (autopilot, elastic, CDC,
-    # range routing), multi-process serving, and the host-path and merge
-    # kernels' counters (the mesh's dist_reduce_* are rendered)
+    # range routing), and the host-path and merge kernels' counters (the
+    # mesh's dist_reduce_* and multi-process serving's serving_* are
+    # rendered)
     unported = ("pilosa_tpu_autopilot_", "pilosa_tpu_elastic_",
                 "pilosa_tpu_cdc_", "pilosa_tpu_cluster_",
                 "pilosa_tpu_routing_range_",
                 "pilosa_tpu_wal_cdc_", "pilosa_tpu_hostpath_",
                 "pilosa_tpu_ingest_merge_")
-    mp = {f"pilosa_tpu_{k}" for k in pair.japi.mp_metrics()}
     missing = [n for n in pages["jax"] if n not in pages["port"]]
     assert missing
     for name in missing:
-        assert name.startswith(unported) or name in mp, name
+        assert name.startswith(unported), name
     for family in ("pilosa_tpu_serving_waves_total",
                    "pilosa_tpu_qos_admitted_total",
                    "pilosa_tpu_slow_queries_total",
@@ -383,7 +383,9 @@ def test_metrics_families_match_reference(pair):
                    "pilosa_tpu_query_seconds",
                    "pilosa_tpu_query_hist_seconds",
                    "pilosa_tpu_fragment_row_writes_total",
-                   "pilosa_tpu_dist_reduce_dispatches"):
+                   "pilosa_tpu_dist_reduce_dispatches",
+                   "pilosa_tpu_serving_workers",
+                   "pilosa_tpu_serving_ring_queries_total"):
         assert family in pages["port"], family
 
 
