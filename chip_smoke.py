@@ -12,7 +12,7 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    fastbits host library (``pilosa_tpu_torch/native``, g++) and fail if
    it is not active: row decodes, small write merges and bit packing
    must run natively, not through their numpy fallbacks;
-2. build the fifteen CUDA kernels from ``pilosa_tpu_torch/csrc`` (one
+2. build the thirteen CUDA kernels from ``pilosa_tpu_torch/csrc`` (one
    nvcc per source, in parallel) and print the build time;
 3. hold each kernel against its plain PyTorch version on the card,
    bit-exact, at the main paths' shapes (int32[1024, 32768] leaves, a
@@ -38,8 +38,11 @@ Phases, each of which ends the run with a non-zero exit when it fails:
    slots: a Count's one lane, the taxi candidates): K12+K13 from every
    input layout the executor gives it, its whole call at a Count's
    reduce beside its device time, its C call alone, torch.stack of the
-   members and torch.sum of that stack; K14/K15 also over 65 536
-   candidates in 4 groups.
+   members and torch.sum of that stack; K14+K15 from the same layouts
+   (and a GroupBy level's [2, k, c] as [2, k*c]) over 2 and 4 groups and
+   the flat mesh, its whole call over 65 536 candidates in 4 groups
+   beside its device time, its C call alone and torch.stack of the
+   members.
    Meanwhile worker processes (one per field, three for the time
    field's views, one for the existence rows; the pickup_year worker
    also writes payment_type, the repository worker the users index and
@@ -4376,20 +4379,50 @@ def _check_lane_reduce(torch, kernels, parts, groups: int, widths,
     return err
 
 
+def _check_quant_reduce(torch, kernels, parts, groups, what: str) -> int:
+    """K14+K15 from every layout of ``parts`` (those of _lane_layouts and
+    GroupBy's [2, k, c] member partials viewed as [2, k*c], contiguous
+    and strided) against its plain version, bit-exact, dtype too.
+    Returns the largest difference (0)."""
+    want = kernels.quant_reduce_plain(parts, groups)
+    m, _, rows = parts.shape
+    k = 2 if rows % 2 == 0 else 1
+    cube = torch.zeros((m, 2, k, 2 * (rows // k)), dtype=parts.dtype,
+                       device=parts.device)
+    cube[..., ::2] = parts.reshape(m, 2, k, rows // k)
+    layouts = _lane_layouts(torch, parts, "sum")
+    layouts["groupby"] = [p.reshape(2, k, rows // k).clone().reshape(
+        2, rows) for p in parts]
+    layouts["groupby_strided"] = [cube[j, ..., ::2].reshape(2, rows)
+                                  for j in range(m)]
+    err = 0
+    for name, layout in layouts.items():
+        got = kernels.quant_reduce(layout, groups)
+        if got.dtype != want.dtype or not torch.equal(got, want):
+            fail(f"quant_reduce differs from its plain version at {what}, "
+                 f"from the {name} layout")
+        err = max(err, max_abs_err(torch, got, want))
+    return err
+
+
 def check_mesh_kernels(torch, kernels, dev) -> list:
-    """Phase 3, the mesh lanes: K12+K13 and K14/K15 against their plain
+    """Phase 3, the mesh lanes: K12+K13 and K14+K15 against their plain
     versions, bit-exact (values and dtypes), at the mesh path's shapes (8
     members of 128 slots: a Count's N = 1, the taxi candidates 4, 80 and
     512, over 2 and 4 groups and the flat mesh; K12+K13 from every input
     layout the executor gives it, the split channels and the int64 max
-    and min lanes) and K14/K15 also at R = 65 536 over 4 groups. Times:
-    the whole wrapper call (host-bound at these sizes), K12+K13's device
-    time apart (its calls in a CUDA graph), its C call alone and a
-    torch.empty of its output (the host's split of the call), the
-    plain version, the byte bound beside the launch floor; K12+K13 at a
-    Count's reduce from the list of member partials beside torch.stack of
-    that list, torch.sum of the stack (the PyTorch way to the same
-    function from the same inputs) and torch.sum of a stacked tensor."""
+    and min lanes) and K14+K15 at R = 4, 80, 512 and 65 536 over 2 and 4
+    groups and the flat mesh's lossless pass-through, from every layout
+    and with a block of scale 1. Times: the whole wrapper call
+    (host-bound at these sizes), its device time apart (its calls in a
+    CUDA graph), its C call alone and a torch.empty of its output (the
+    host's split of the call), the plain version, the byte bound beside
+    the launch floor; K12+K13 at a Count's reduce from the list of member
+    partials beside torch.stack of that list, torch.sum of the stack (the
+    PyTorch way to the same function from the same inputs) and torch.sum
+    of a stacked tensor; K14+K15 from the list of 8 members at R = 65 536
+    over 4 groups beside torch.stack of that list (the old path's first
+    step) and its flat pass-through."""
     from pilosa_tpu_torch.parallel import reduction
 
     floor = cuda_ms(torch, lambda: kernels.launch_floor(dev), launches=100)
@@ -4412,33 +4445,38 @@ def check_mesh_kernels(torch, kernels, dev) -> list:
             for g in (groups, 1):
                 err = max(err, _check_lane_reduce(
                     torch, kernels, best, g, 8, mode, f"n={n}, groups={g}"))
-    for rows, groups in ((4, 2), (80, 4), (512, 2), (1 << 16, 4)):
+    for rows in (4, 80, 512, 1 << 16):
         parts = _lane_case(torch, dev, MESH_MEMBERS, rows, rows)
-        parts[:, :, :256] %= 2  # an all-small block: scale 1
-        q, s = kernels.quant_pack(parts, groups)
-        qp, sp = kernels.quant_pack_plain(parts, groups)
-        if not (torch.equal(q, qp) and torch.equal(s, sp)):
-            fail(f"quant_pack differs from its plain version at R={rows}")
-        out = kernels.quant_fold(q, s, rows)
-        if not torch.equal(out, kernels.quant_fold_plain(qp, sp, rows)):
-            fail(f"quant_fold differs from its plain version at R={rows}")
+        parts[:, 0, :256] %= 2  # an all-small block: scale 1
+        parts[:, 1, :256] = 0
+        for groups in (2, 4, None):
+            if groups is not None and int(kernels.quant_pack_plain(
+                    parts, groups)[1][:, 0].max()) != 1:
+                fail(f"quant_reduce's check at R={rows} has no block of "
+                     "scale 1")
+            err = max(err, _check_quant_reduce(
+                torch, kernels, parts, groups, f"R={rows}, groups={groups}"))
     # a Count's reduce (N = 1, 2 x 4) from the members' partials for
-    # K12+K13, R = 65 536 over 4 groups for K14/K15
+    # K12+K13, R = 65 536 over 4 groups for K14+K15
     parts = _lane_case(torch, dev, MESH_MEMBERS, 1, 3)
     members = [parts[k].clone() for k in range(MESH_MEMBERS)]
     widths = tuple(reduction.lane_dtype_bytes(b) for b in
                    reduction.split_channel_bounds(N_SHARDS // 2))
     rows = 1 << 16
+    nb = -(-rows // reduction.QUANT_BLOCK)
     qparts = _lane_case(torch, dev, MESH_MEMBERS, rows, rows)
-    q, s = kernels.quant_pack(qparts, 4)
-    nb = s.shape[1]
+    qmembers = [qparts[k].clone() for k in range(MESH_MEMBERS)]
     common = {"route": "cuda", "max_abs_err": err, "bound_by": "bytes",
               "launch_floor_ms": floor}
 
     def call():
         return kernels.lane_reduce(members, 2, widths)
 
+    def quant_call():
+        return kernels.quant_reduce(qmembers, 4)
+
     lane_bytes = _bytes_ms(MESH_MEMBERS * 2 * 4 + 2 * 4)
+    quant_bytes = _bytes_ms(MESH_MEMBERS * 2 * rows * 4 + 2 * (rows + nb) * 4)
     return [{
         **common, "name": "lane_reduce",
         "source": "pilosa_tpu_torch/csrc/lane_reduce.cu",
@@ -4463,30 +4501,25 @@ def check_mesh_kernels(torch, kernels, dev) -> list:
         "shape": f"{MESH_MEMBERS} members' int32[2, 1] -> lanes of {widths} "
                  f"bytes over 2 groups -> int32[2, 1] (flat: 1 group)",
     }, {
-        **common, "name": "quant_pack",
-        "source": "pilosa_tpu_torch/csrc/quant_pack.cu",
+        **common, "name": "quant_reduce",
+        "source": "pilosa_tpu_torch/csrc/quant_reduce.cu",
         "replaces": "pilosa_tpu/parallel/reduction.py:132",
-        "ms": cuda_ms(torch, lambda: kernels.quant_pack(qparts, 4),
-                      launches=50),
-        "plain_ms": cuda_ms(torch, lambda: kernels.quant_pack_plain(
-            qparts, 4), launches=20),
-        "bound_ms": _bytes_ms(MESH_MEMBERS * 2 * rows * 4
-                              + 4 * nb * (256 + 4)),
+        "ms": cuda_ms(torch, quant_call, launches=100),
+        "device_ms": graph_ms(torch, quant_call),
+        "c_call_ms": cuda_ms(torch, kernels.quant_reduce_staged(
+            qmembers, 4), launches=100),
+        "plain_ms": cuda_ms(torch, lambda: kernels.quant_reduce_plain(
+            qmembers, 4), launches=20),
+        "bound_ms": quant_bytes, "bytes_bound_ms": quant_bytes,
         "library_ms": None,
-        "shape": f"int32[{MESH_MEMBERS}, 2, {rows}] -> uint8[4, {nb}, 256] "
-                 f"+ int32[4, {nb}]",
-    }, {
-        **common, "name": "quant_fold",
-        "source": "pilosa_tpu_torch/csrc/quant_fold.cu",
-        "replaces": "pilosa_tpu/parallel/reduction.py:169",
-        "ms": cuda_ms(torch, lambda: kernels.quant_fold(q, s, rows),
-                      launches=50),
-        "plain_ms": cuda_ms(torch, lambda: kernels.quant_fold_plain(
-            q, s, rows), launches=20),
-        "bound_ms": _bytes_ms(4 * nb * (256 + 4) + 2 * (rows + nb) * 4),
-        "library_ms": None,
-        "shape": f"uint8[4, {nb}, 256] + int32[4, {nb}] -> "
-                 f"int32[2, {rows + nb}]",
+        "stack_ms": cuda_ms(torch, lambda: torch.stack(qmembers),
+                            launches=100),
+        "empty_ms": cuda_ms(torch, lambda: torch.empty(
+            2, rows + nb, dtype=torch.int32, device=dev), launches=100),
+        "flat_ms": cuda_ms(torch, lambda: kernels.quant_reduce(
+            qmembers, None), launches=100),
+        "shape": f"{MESH_MEMBERS} members' int32[2, {rows}] -> 8-bit lanes "
+                 f"over 4 groups -> int32[2, {rows + nb}] (flat: lossless)",
     }]
 
 
@@ -4566,7 +4599,7 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
     single = server.executor
     star = MESH_TRUTH["star"]
     row_pql, row_cols = MESH_TRUTH["row"]
-    lanes = ("lane_reduce", "quant_pack", "quant_fold")
+    lanes = ("lane_reduce", "quant_reduce")
     kinds = {
         "count": [(pql, "repository", want) for pql, want in star.items()],
         "row": [(row_pql, "repository", {"attrs": {}, "columns": row_cols})],
@@ -4648,6 +4681,9 @@ def _serve_mesh(server, truth: dict, words: dict, kernels) -> dict:
         if quantized and not (snap["quantized_dispatches"]
                               and snap["quantized_window_rows"]):
             fail(f"mesh g={groups}: the 8-bit lane was not used")
+        if quantized and not cfg["launches"]["topn"]["quant_reduce"]:
+            fail(f"mesh g={groups}: the quantized TopN launched no "
+                 "quant_reduce")
         cfg["s"] = time.perf_counter() - t_cfg
         stats["configs"][f"{groups}x{MESH_MEMBERS // groups}"] = cfg
         print(f"mesh g={groups} quantized={quantized}: {cfg['s']:.1f}s, "
@@ -5715,7 +5751,7 @@ def main() -> int:
                  "groupby_level", "bsi_sum"),
         "mesh": ("tree_count", "tree_rows", "word_patch", "bsi_compare",
                  "bsi_sum", "bsi_minmax", "count_rows", "groupby_level",
-                 "lane_reduce", "quant_pack", "quant_fold"),
+                 "lane_reduce", "quant_reduce"),
         "tier": ("block_gather", "block_gather_batch", "block_scatter",
                  "tree_count", "count_rows", "word_patch"),
         "crash": ("tree_count", "tree_rows", "bsi_compare", "bsi_sum"),

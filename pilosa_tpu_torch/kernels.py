@@ -1,6 +1,6 @@
 """The port's hand-written CUDA kernels, their wrappers and plain versions.
 
-Fourteen kernels carry the main paths (sources in ``csrc/``):
+Thirteen kernels carry the main paths (sources in ``csrc/``):
 
 - K1 ``tree_count``: per-row popcount of a postfix bitwise program over
   up to 16 stacked leaves, one launch per micro-batch, in the program's
@@ -39,11 +39,14 @@ Fourteen kernels carry the main paths (sources in ``csrc/``):
   on the flat mesh the int32 sum (or best) over the members (replaces
   ``reduction.hier_split_channels`` and ``gather_extreme`` with the
   psum/pmax before them, and the flat psum);
-- K14 ``quant_pack``: the 8-bit candidate-ranking lane's encode, per
-  256-candidate block an integer scale and the rounded mantissas
-  (replaces ``reduction.hier_quantized_counts`` up to its all_gather);
-- K15 ``quant_fold``: its decode, approximate counts and per-block error
-  bounds in split form (the rest of ``hier_quantized_counts``).
+- K14+K15 ``quant_reduce``: the 8-bit candidate-ranking lane of a
+  mesh's reduce whole, in one launch that reads the members' partials in
+  place: the intra-group sum, per 256-candidate block each group's
+  integer scale and rounded mantissas, and the receivers' decode into
+  approximate counts and per-block error bounds in split form, the
+  lanes kept in registers; on the flat mesh the exact sum with zero
+  bounds (replaces ``reduction.hier_quantized_counts`` with the psum
+  before it).
 
 Each source builds with ``nvcc`` for ``sm_90a`` into a shared library
 with a plain C interface under ``build/kernels/`` at first use, and is
@@ -78,7 +81,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 SOURCES = ("tree_count", "tree_rows", "word_patch", "row_shift",
            "bsi_compare", "bsi_sum", "bsi_minmax", "count_rows",
            "groupby_level", "block_gather", "block_scatter",
-           "lane_reduce", "quant_pack", "quant_fold")
+           "lane_reduce", "quant_reduce")
 
 # Opcodes of the postfix program (csrc/tree_program.cuh holds the same).
 OP_LEAF, OP_ZERO, OP_AND, OP_OR, OP_XOR, OP_DIFF, OP_SALT, OP_NOT = range(1, 9)
@@ -107,14 +110,15 @@ GROUPBY_TILE_WORDS = (1024, 512, 256)  # word tiles the plan picks from
 GROUPBY_SRC_FILT = MAX_LEAVES          # slot sources past the dimensions
 GROUPBY_SRC_PLANES = MAX_LEAVES + 1
 BLOCK_WORDS = 1024  # words of a residency block (K10, K11): 4 KiB
-# Candidates a scale block of the 8-bit ranking lane covers (K14, K15;
-# csrc/quant_pack.cu holds the same) and the split-sum shift.
+# Candidates a scale block of the 8-bit ranking lane covers (K14+K15;
+# csrc/quant_reduce.cu holds the same) and the split-sum shift.
 QUANT_BLOCK = 256
 SPLIT_SHIFT = 15
 SPLIT_MASK = (1 << SPLIT_SHIFT) - 1
 # The mesh lanes' element types by width in bytes (K12+K13): the
 # narrow lanes unsigned, the exact ones signed; the members one
-# lane_reduce launch takes (csrc/lane_reduce.cu holds the same).
+# lane_reduce or quant_reduce launch takes (csrc/lane_reduce.cu and
+# csrc/quant_reduce.cu hold the same).
 LANE_DTYPES = {1: torch.uint8, 2: torch.uint16, 4: torch.int32,
                8: torch.int64}
 _LANE_MODES = {"sum": 0, "max": 1, "min": 2}
@@ -235,8 +239,7 @@ def _bind(name: str, lib) -> None:
         "block_gather": [p, p, p, ll, i, p],
         "block_scatter": [p, p, i, p, ll, p],
         "lane_reduce": [ctypes.c_char_p, p, p],
-        "quant_pack": [p, i, i, ll, p, p, p],
-        "quant_fold": [p, p, i, ll, ll, p, p],
+        "quant_reduce": [ctypes.c_char_p, p, p],
     }
     getattr(lib, f"{name}_launch").argtypes = argtypes[name]
     getattr(lib, f"{name}_launch").restype = i
@@ -1033,8 +1036,9 @@ def lane_reduce_plain(parts, groups: int, lane_bytes, mode: str = "sum"
 
 
 def quant_pack_plain(parts: torch.Tensor, groups: int):
-    """K14's plain version: parts int32[M, 2, R] → (q uint8[G, nb, 256],
-    scales int32[G, nb]), the reference's jnp arithmetic in torch."""
+    """The encode half of K14+K15's plain version, the 8-bit lane's
+    semantics: parts int32[M, 2, R] → (q uint8[G, nb, 256], scales
+    int32[G, nb]), the reference's jnp arithmetic in torch."""
     m, _, rows = parts.shape
     tot = parts.reshape(groups, m // groups, 2, rows).to(torch.int64).sum(1)
     flat = _wrap32(tot[:, 0] + (tot[:, 1] << SPLIT_SHIFT))
@@ -1053,14 +1057,33 @@ def quant_pack_plain(parts: torch.Tensor, groups: int):
 
 def quant_fold_plain(q: torch.Tensor, scales: torch.Tensor, rows: int
                      ) -> torch.Tensor:
-    """K15's plain version: q uint8[G, nb, 256] and scales int32[G, nb] →
-    the split-form int32[2, rows + nb] of approx counts then per-block
-    error bounds."""
+    """The decode half of K14+K15's plain version: q uint8[G, nb, 256]
+    and scales int32[G, nb] → the split-form int32[2, rows + nb] of
+    approx counts then per-block error bounds."""
     groups, nb, _ = q.shape
     approx = (q.to(torch.int64) * scales.to(torch.int64)[..., None]).sum(0)
     s = scales.to(torch.int64)
     err = torch.where(s > 1, (s + 1) >> 1, 0).sum(0)
     out = _wrap32(torch.cat([approx.reshape(-1)[:rows], err]))
+    return torch.stack([out & SPLIT_MASK, out >> SPLIT_SHIFT])
+
+
+def quant_reduce_plain(parts, groups: int | None) -> torch.Tensor:
+    """K14+K15's plain version: the members' split channels (a sequence
+    of member tensors [2, R] or [2], or one stacked [M, 2, R] tensor, as
+    ``quant_reduce`` takes them) stacked, then the two halves composed:
+    ``quant_fold_plain(*quant_pack_plain(...), R)``; ``groups`` None the
+    lossless pass-through, the exact sum over the members then nb zero
+    bounds → int32[2, R + nb]."""
+    stacked = parts if isinstance(parts, torch.Tensor) else torch.stack(
+        list(parts))
+    stacked = stacked.reshape(stacked.shape[0], 2, -1)
+    rows = stacked.shape[2]
+    if groups is not None:
+        return quant_fold_plain(*quant_pack_plain(stacked, groups), rows)
+    tot = stacked.to(torch.int64).sum(0)
+    flat = _wrap32(tot[0] + (tot[1] << SPLIT_SHIFT))
+    out = torch.cat([flat, flat.new_zeros(-(-rows // QUANT_BLOCK))])
     return torch.stack([out & SPLIT_MASK, out >> SPLIT_SHIFT])
 
 
@@ -1794,7 +1817,50 @@ def _lane_layout(shape, strides, mode: str) -> tuple:
     return shape[0], 0, strides[0]
 
 
-_lane_fn = None
+_fns: dict = {}
+
+
+def _launch_fn(name: str):
+    """The bound C launch function of ``name``, looked up once."""
+    fn = _fns.get(name)
+    if fn is None:
+        fn = _fns[name] = getattr(_lib(name), f"{name}_launch")
+    return fn
+
+
+def _walk_members(parts, groups: int) -> tuple:
+    """One pass over the members' partials that a mesh reduce takes (a
+    sequence of M member tensors of one dtype, device, shape and strides,
+    or one stacked [M, ...] tensor; 1 <= M <= 64, ``groups`` dividing M)
+    → (M, the first member, its shape, its strides, the members'
+    addresses)."""
+    stacked = isinstance(parts, torch.Tensor)
+    m = parts.shape[0] if stacked and parts.dim() else len(parts)
+    if not 1 <= m <= LANE_MAX_MEMBERS:
+        raise ValueError(f"{m} members: a mesh reduce takes 1 to "
+                         f"{LANE_MAX_MEMBERS}")
+    if groups < 1 or m % groups:
+        raise ValueError(f"{groups} groups over {m} members")
+    if stacked:
+        strides = parts.stride()
+        step = strides[0] * parts.element_size()
+        base = parts.data_ptr()
+        return (m, parts, parts.shape[1:], strides[1:],
+                [base + k * step for k in range(m)])
+    first = parts[0]
+    dtype, device = first.dtype, first.device
+    shape, strides = first.shape, first.stride()
+    ptrs = []
+    for t in parts:
+        if t.dtype != dtype:
+            raise TypeError("the members' partials differ in dtype")
+        if t.device != device:
+            raise ValueError("the members' partials lie on different "
+                             "devices")
+        if t.stride() != strides or t.shape != shape:
+            raise ValueError("the members' partials differ in layout")
+        ptrs.append(t.data_ptr())
+    return m, first, shape, strides, ptrs
 
 
 def _lane_prepare(parts, groups: int, lane_bytes, mode: str):
@@ -1802,18 +1868,10 @@ def _lane_prepare(parts, groups: int, lane_bytes, mode: str):
     for partials on the CPU, else (the bound C function, its arguments:
     the packed blob csrc/lane_reduce.cu reads, the output's address and
     the stream, and the output)."""
-    global _lane_fn
     code = _LANE_MODES.get(mode)
     if code is None:
         raise ValueError(f"bad lane mode {mode!r}")
-    stacked = isinstance(parts, torch.Tensor)
-    m = parts.shape[0] if stacked and parts.dim() else len(parts)
-    if not 1 <= m <= LANE_MAX_MEMBERS:
-        raise ValueError(f"{m} members: lane_reduce takes 1 to "
-                         f"{LANE_MAX_MEMBERS}")
-    if groups < 1 or m % groups:
-        raise ValueError(f"{groups} groups over {m} members")
-    first = parts if stacked else parts[0]
+    m, first, shape, strides, ptrs = _walk_members(parts, groups)
     dtype, device = first.dtype, first.device
     if mode == "sum":
         lo_b, hi_b = lane_bytes
@@ -1827,37 +1885,18 @@ def _lane_prepare(parts, groups: int, lane_bytes, mode: str):
             raise TypeError(f"extrema are int32 or int64, not {dtype}")
         if lo_b not in LANE_DTYPES:
             raise ValueError(f"bad lane width {lane_bytes!r}")
-    size = first.element_size()
-    if stacked:
-        shape, strides = parts.shape[1:], parts.stride()
-        base, step = parts.data_ptr(), strides[0] * size
-        strides = strides[1:]
-        ptrs = [base + k * step for k in range(m)]
-    else:
-        shape, strides = first.shape, first.stride()
-        ptrs = []
-        for t in parts:
-            if t.dtype != dtype:
-                raise TypeError("the members' partials differ in dtype")
-            if t.device != device:
-                raise ValueError("the members' partials lie on different "
-                                 "devices")
-            if t.stride() != strides or t.shape != shape:
-                raise ValueError("the members' partials differ in layout")
-            ptrs.append(t.data_ptr())
     n, chan, elem = _lane_layout(shape, strides, mode)
     if _on_cpu(first):
         return None
-    if _lane_fn is None:
-        _lane_fn = _lib("lane_reduce").lane_reduce_launch
+    fn = _launch_fn("lane_reduce")
     out = torch.empty(2, n, dtype=torch.int32, device=device) if mode == \
         "sum" else torch.empty(n, dtype=torch.int64 if lo_b == 8 else
                                torch.int32, device=device)
-    blob = struct.pack(f"9q{m}Q", m, groups, size, lo_b, hi_b, code, n, chan,
-                       elem, *ptrs)
+    blob = struct.pack(f"9q{m}Q", m, groups, first.element_size(), lo_b,
+                       hi_b, code, n, chan, elem, *ptrs)
     # the current stream's handle, without a torch.cuda.Stream object
     stream = torch._C._cuda_getCurrentRawStream(device.index)
-    return _lane_fn, (blob, out.data_ptr(), stream), out
+    return fn, (blob, out.data_ptr(), stream), out
 
 
 def lane_reduce(parts, groups: int, lane_bytes, mode: str = "sum"
@@ -1877,76 +1916,81 @@ def lane_reduce(parts, groups: int, lane_bytes, mode: str = "sum"
     prep = _lane_prepare(parts, groups, lane_bytes, mode)
     if prep is None:
         return lane_reduce_plain(parts, groups, lane_bytes, mode)
-    fn, args, out = prep
-    rc = fn(*args)
-    if rc:
-        _check("lane_reduce", _lib("lane_reduce"), rc)
-    _count_launch("lane_reduce")
-    return out
+    return _run_prepared("lane_reduce", prep)
 
 
 def lane_reduce_staged(parts, groups: int, lane_bytes, mode: str = "sum"):
     """lane_reduce's C call alone, its arguments built once, into one
     output (no count): a function that makes the call, for timing the
     ctypes call and the launch apart from the wrapper's Python."""
-    fn, args, out = _lane_prepare(parts, groups, lane_bytes, mode)
-    lib = _lib("lane_reduce")
+    return _staged("lane_reduce", _lane_prepare(parts, groups, lane_bytes,
+                                                mode))
+
+
+def _run_prepared(name: str, prep) -> torch.Tensor:
+    """Make a mesh reduce's prepared C call, count its launch and return
+    its output."""
+    fn, args, out = prep
+    rc = fn(*args)
+    if rc:
+        _check(name, _lib(name), rc)
+    _count_launch(name)
+    return out
+
+
+def _staged(name: str, prep):
+    """A function that makes a mesh reduce's prepared C call again and
+    again into one output, uncounted."""
+    fn, args, out = prep
+    lib = _lib(name)
 
     def call() -> torch.Tensor:
-        _check("lane_reduce", lib, fn(*args))
+        _check(name, lib, fn(*args))
         return out  # held while the call lives: the kernel writes it
 
     return call
 
 
-def quant_pack(parts: torch.Tensor, groups: int):
-    """K14: per group (the int32 sum of its members' split channels,
-    ``parts`` int32[M, 2, R]) and per QUANT_BLOCK of candidates, the
-    int32 scale and the uint8 mantissas of the 8-bit ranking lane →
-    (q uint8[G, nb, 256], scales int32[G, nb]), one launch."""
-    if parts.dim() != 3 or parts.shape[1] != 2 or parts.shape[2] < 1:
-        raise ValueError("quant_pack takes [members, 2, rows] split channels")
-    m, _, rows = parts.shape
-    if groups < 1 or m % groups:
-        raise ValueError(f"{groups} groups over {m} members")
-    if parts.dtype != torch.int32 or not parts.is_contiguous():
-        raise TypeError("quant_pack takes contiguous int32 partials")
-    if _on_cpu(parts):
-        return quant_pack_plain(parts, groups)
-    lib = _lib("quant_pack")
-    nb = -(-rows // QUANT_BLOCK)
-    q = torch.empty((groups, nb, QUANT_BLOCK), dtype=torch.uint8,
-                    device=parts.device)
-    scales = torch.empty((groups, nb), dtype=torch.int32, device=parts.device)
-    rc = lib.quant_pack_launch(_ptr(parts), m, groups, rows, _ptr(q),
-                               _ptr(scales), _stream(parts))
-    _check("quant_pack", lib, rc)
-    _count_launch("quant_pack")
-    return q, scales
+def _quant_prepare(parts, groups: int | None):
+    """Check quant_reduce's arguments in the members' one pass; None for
+    partials on the CPU, else (the bound C function, its arguments: the
+    packed blob csrc/quant_reduce.cu reads, the output's address and the
+    stream, and the output)."""
+    m, first, shape, strides, ptrs = _walk_members(
+        parts, 1 if groups is None else groups)
+    if first.dtype != torch.int32:
+        raise TypeError(f"split channels are int32, not {first.dtype}")
+    rows, chan, elem = _lane_layout(shape, strides, "sum")
+    if _on_cpu(first):
+        return None
+    fn = _launch_fn("quant_reduce")
+    device = first.device
+    out = torch.empty(2, rows + -(-rows // QUANT_BLOCK), dtype=torch.int32,
+                      device=device)
+    blob = struct.pack(f"6q{m}Q", m, groups or 1, groups is not None, rows,
+                       chan, elem, *ptrs)
+    stream = torch._C._cuda_getCurrentRawStream(device.index)
+    return fn, (blob, out.data_ptr(), stream), out
 
 
-def quant_fold(q: torch.Tensor, scales: torch.Tensor, rows: int
-               ) -> torch.Tensor:
-    """K15: the gathered 8-bit lanes decoded, q uint8[G, nb, 256] and
-    scales int32[G, nb] → split-form int32[2, rows + nb]: approx counts of
-    the ``rows`` candidates, then each block's error bound."""
-    if q.dim() != 3 or q.shape[2] != QUANT_BLOCK or q.dtype != torch.uint8:
-        raise ValueError("quant_fold takes uint8[groups, blocks, 256] "
-                         "mantissas")
-    groups, nb, _ = q.shape
-    if scales.shape != (groups, nb) or scales.dtype != torch.int32:
-        raise ValueError("quant_fold takes int32[groups, blocks] scales")
-    if not 1 <= rows or nb != -(-rows // QUANT_BLOCK):
-        raise ValueError(f"{rows} rows do not fill {nb} blocks")
-    if not (q.is_contiguous() and scales.is_contiguous()) or \
-            q.device != scales.device:
-        raise ValueError("quant_fold takes contiguous lanes on one device")
-    if _on_cpu(q):
-        return quant_fold_plain(q, scales, rows)
-    lib = _lib("quant_fold")
-    out = torch.empty((2, rows + nb), dtype=torch.int32, device=q.device)
-    rc = lib.quant_fold_launch(_ptr(q), _ptr(scales), groups, rows, nb,
-                               _ptr(out), _stream(out))
-    _check("quant_fold", lib, rc)
-    _count_launch("quant_fold")
-    return out
+def quant_reduce(parts, groups: int | None) -> torch.Tensor:
+    """K14+K15: a mesh's quantized candidate-ranking reduce, one launch
+    that reads the members' partials in place. ``parts``: a sequence of M
+    member tensors of int32 split channels [2, R] (or [2]: R = 1), of one
+    device, shape and strides, or one stacked [M, 2, R] tensor; group g is
+    members g·M/G .. (g+1)·M/G - 1, M <= 64. Each group's totals cross
+    as 8-bit max-scaled mantissas a 256-candidate block and are decoded
+    → split-form int32[2, R + nb]: approx counts, then each block's error
+    bound (nb = ceil(R / 256)). ``groups`` None (the flat mesh) is the
+    lossless pass-through: the exact sum over the members, bounds 0."""
+    prep = _quant_prepare(parts, groups)
+    if prep is None:
+        return quant_reduce_plain(parts, groups)
+    return _run_prepared("quant_reduce", prep)
+
+
+def quant_reduce_staged(parts, groups: int | None):
+    """quant_reduce's C call alone, its arguments built once, into one
+    output (no count): a function that makes the call, for timing the
+    ctypes call and the launch apart from the wrapper's Python."""
+    return _staged("quant_reduce", _quant_prepare(parts, groups))

@@ -24,16 +24,17 @@ members (``parallel/mesh.py``), each a ``torch.device``.
   ``_dist_body`` does. Min / Max: the best over the members (one
   launch), the valid flag (one), then the count at the best value
   reduced like any split channel (one). TopN's quantized ranking pass
-  and GroupBy's quantized pruning levels cross the 8-bit lane (K14, then
-  K15, over the partials stacked). ``row`` stays per slot: the members'
-  words are gathered into one [padded, W] result, which a hierarchical
-  mesh reads back through roaring block frames (``_row_host``).
+  and GroupBy's quantized pruning levels cross the 8-bit lane, one
+  K14+K15 launch that reads the partials in place too (a GroupBy
+  level's [2, k, c] as [2, k*c] views). ``row`` stays per slot: the
+  members' words are gathered into one [padded, W] result, which a
+  hierarchical mesh reads back through roaring block frames
+  (``_row_host``).
 - **The gather between members.** On one card each member's partial is
-  read where its kernel wrote it, and the narrow lanes live in the
-  reducing kernel's registers (K14's lanes are the gather buffer every
-  receiver reads). A member on another device is first copied to the
-  lead member's; between cards that would be a peer copy
-  (``Tensor.copy_``), which a one-card machine cannot run.
+  read where its kernel wrote it, and the narrow and 8-bit lanes live
+  in the reducing kernel's registers. A member on another device is
+  first copied to the lead member's; between cards that would be a peer
+  copy (``Tensor.copy_``), which a one-card machine cannot run.
 - **Writes** patch the one resident leaf through K3 as on one device; a
   member's view sees the patch.
 - **Accounting.** ``_note_reduce`` records, per reduction, the
@@ -130,11 +131,6 @@ class DistExecutor(Executor):
         lead = self._lead
         return [p if p.device == lead else p.to(lead) for p in parts]
 
-    def _gather(self, parts: list) -> torch.Tensor:
-        """The members' partials stacked on the lead member's device (the
-        8-bit lane's K14 takes them so)."""
-        return torch.stack(self._members(parts))
-
     def _reduce_split(self, parts, padded: int) -> torch.Tensor:
         """Split-sum partials (a list of the members' int32[2, N] or [2],
         or int32[M, 2, N]) → the mesh's exact int32[2, N]: the flat sum,
@@ -228,7 +224,7 @@ class DistExecutor(Executor):
         parts = [batch.count_rows_packed(piece(matrix), piece(filt))
                  for piece in self._pieces(block.padded)]
         if quantized:
-            out = reduction.hier_quantized_counts(self._gather(parts),
+            out = reduction.hier_quantized_counts(self._members(parts),
                                                   self._groups())
             self._note_reduce("countrows_q", tuple(out.shape), block.padded)
             return out
@@ -258,7 +254,7 @@ class DistExecutor(Executor):
                                      "aggregates (the last level is "
                                      "lossless)")
             out = reduction.hier_quantized_counts(
-                self._gather(parts).reshape(len(parts), 2, k * c),
+                [p.reshape(2, k * c) for p in self._members(parts)],
                 self._groups()).reshape(-1)
             self._note_reduce(
                 "groupby_q", (2 * reduction.quant_total_elems(padded),),

@@ -18,13 +18,14 @@ Device side, each a hand-written kernel with a plain version beside it
 reduce whole, in one launch that reads the members' partials where
 their kernels wrote them (the intra-group sum or best, the cast to the
 narrow lane and the receivers' fold, the lanes kept in registers; on
-the flat mesh the sum or best over the members), K14 ``quant_pack`` and
-K15 ``quant_fold`` the 8-bit lane's encode and decode. On one card the
-gather between groups is a register's cast (or K14's write into the
-lanes every receiver reads); between cards it would be a peer copy
-(``Tensor.copy_``), which a one-card machine cannot run. The host side
-(the lane widths, the byte model, the quantized lane's decode and
-window, the row frames, the counters) is the reference's.
+the flat mesh the sum or best over the members), and K14+K15
+``quant_reduce`` the 8-bit lane's reduce whole in the same way (the
+intra-group sum, each group's encode and the receivers' decode, or on
+the flat mesh the exact sum with zero bounds). On one card the gather
+between groups is a register's cast or encode; between cards it would
+be a peer copy (``Tensor.copy_``), which a one-card machine cannot run.
+The host side (the lane widths, the byte model, the quantized lane's
+decode and window, the row frames, the counters) is the reference's.
 """
 
 from __future__ import annotations
@@ -140,31 +141,23 @@ def gather_extreme(parts, groups: int | None, want_max: bool,
                                "max" if want_max else "min")
 
 
-def hier_quantized_counts(parts: torch.Tensor, groups: int | None
-                          ) -> torch.Tensor:
-    """The candidate-ranking lane for split-sum partials int32[M, 2, R].
+def hier_quantized_counts(parts, groups: int | None) -> torch.Tensor:
+    """The candidate-ranking lane for split-sum partials (each member's
+    int32[2, R], or int32[M, 2, R]).
 
     Per QUANT_BLOCK of candidates each group's totals are max-scaled to 8
     bits, ``s = max(1, ceil(max/255))`` and ``q = (v + s//2) // s`` in
-    int32 arithmetic (K14); the receivers decode ``approx = Σ q·s`` and
-    the per-block error bound ``Σ (s+1)//2`` over the groups with s > 1
-    (K15). A group's error is at most (s+1)//2, exactly 0 where s == 1
-    (max <= 255 quantizes losslessly), so the bound crossing with the
-    data covers the decoded total.
+    int32 arithmetic; the receivers decode ``approx = Σ q·s`` and the
+    per-block error bound ``Σ (s+1)//2`` over the groups with s > 1. A
+    group's error is at most (s+1)//2, exactly 0 where s == 1 (max <= 255
+    quantizes losslessly), so the bound crossing with the data covers the
+    decoded total. One K14+K15 launch.
 
     Returns split-form ``[2, R + n_blocks]``: approx counts followed by
     per-block error bounds (``batch.merge_split`` then
     ``split_quantized``). ``groups`` None (the flat mesh) is the
-    lossless pass-through: the exact sum (K12+K13), bounds 0."""
-    n_rows = parts.shape[2]
-    nb = quant_blocks(n_rows)
-    if groups is None:
-        part = flat_split_sum(parts)
-        flat = part[0] + (part[1] << SPLIT_SHIFT)  # exact int32 totals
-        out = torch.cat([flat, flat.new_zeros(nb)])
-        return torch.stack([out & SPLIT_MASK, out >> SPLIT_SHIFT])
-    q, scales = kernels.quant_pack(parts, groups)
-    return kernels.quant_fold(q, scales, n_rows)
+    lossless pass-through: the exact sum, bounds 0."""
+    return kernels.quant_reduce(parts, groups)
 
 
 def split_quantized(merged: np.ndarray, n_rows: int

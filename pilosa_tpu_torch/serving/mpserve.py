@@ -771,7 +771,9 @@ class OwnerRuntime:
         one SLO event, and egress billing per follower, so
         /debug/tenants and /debug/slo see N requests even though the
         device saw one execution (exactly what the pipeline's in-wave
-        dedupe reports in single-process mode)."""
+        dedupe reports in single-process mode). Each follower is
+        counted and billed before its answer goes out, as the leader is,
+        so a client holding its answer sees it accounted."""
         if not ex.followers:
             return
         st = int(meta.get("st", 200))
@@ -779,12 +781,9 @@ class OwnerRuntime:
         error = st >= 500
         cache_hit = bool(meta.get("rc"))
         billed = cost_enabled()
+        with self._mlock:
+            self.queries_served += len(ex.followers)
         for fws, fgen, fheader in ex.followers:
-            fmeta = {"st": st, "ex": meta.get("ex", 0.0),
-                     "id": fheader.get("id")}
-            if meta.get("ra") is not None:
-                fmeta["ra"] = meta["ra"]
-            self._respond(fws, fgen, self._fit_frame(fmeta, payload))
             tenant = fheader.get("t", "default")
             index = fheader.get("ix", "")
             if billed:
@@ -794,8 +793,11 @@ class OwnerRuntime:
                 self.api.cost.add_egress(tenant, index, len(payload))
                 if st != 429:
                     self.api.slo.record(elapsed, error=error)
-        with self._mlock:
-            self.queries_served += len(ex.followers)
+            fmeta = {"st": st, "ex": meta.get("ex", 0.0),
+                     "id": fheader.get("id")}
+            if meta.get("ra") is not None:
+                fmeta["ra"] = meta["ra"]
+            self._respond(fws, fgen, self._fit_frame(fmeta, payload))
 
     def _serve_query(self, header: dict, body: bytes,
                      on_submitted=None):

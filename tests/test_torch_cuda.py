@@ -1348,26 +1348,38 @@ def test_lane_extrema_match_plain(dev, dtype, width, mode):
 
 @pytest.mark.parametrize("rows,groups", [(1, 2), (300, 2), (65536, 4),
                                          (1000, 4)])
-def test_quant_pack_and_fold_match_plain(dev, rows, groups):
-    """K14 then K15 against the plain versions: blocks past 255 (scales >
-    1), an all-small block (scale 1) and R not a multiple of 256."""
+def test_quant_reduce_matches_plain(dev, rows, groups):
+    """K14+K15 against its plain version, bit-exact, dtype too: blocks
+    past 255 (scales > 1), an all-small block (scale 1), R not a multiple
+    of 256, from the members' partials in every layout (a GroupBy
+    level's [2, k, c] as [2, k*c] too), and the flat mesh's lossless
+    pass-through (groups None); one launch a call."""
     parts = _split_parts(dev, 8, rows, 1 << 20, 1 << 12, rows)
     parts[:, 0, :256] %= 16  # the first block's totals <= 255: s == 1
     parts[:, 1, :256] = 0
-    q, s = kernels.quant_pack(parts, groups)
-    qp, sp = kernels.quant_pack_plain(parts, groups)
-    assert torch.equal(q, qp) and torch.equal(s, sp)
+    _, s = kernels.quant_pack_plain(parts, groups)
     assert int(s[:, 0].max()) == 1
-    got = kernels.quant_fold(q, s, rows)
-    assert torch.equal(got, kernels.quant_fold_plain(qp, sp, rows))
     assert rows < 257 or int(s[:, 1:].max()) > 1
+    layouts = _lane_layouts(parts, "sum")
+    k = 2 if rows % 2 == 0 else 1
+    layouts["groupby"] = [p.reshape(2, k, rows // k).clone().reshape(2, rows)
+                          for p in parts]
+    for g in (groups, None):
+        want = kernels.quant_reduce_plain(parts, g)
+        assert want.shape == (2, rows + -(-rows // 256))
+        before = kernels.launches()["quant_reduce"]
+        for name, layout in layouts.items():
+            got = kernels.quant_reduce(layout, g)
+            assert got.dtype == torch.int32 and torch.equal(got, want), \
+                (name, g)
+        assert kernels.launches()["quant_reduce"] == before + len(layouts)
 
 
 def test_mesh_of_eight_members_on_one_card(dev, tmp_path):
     """``make_mesh(8, devices=[cuda], groups=2)``: the Star-Trace Counts,
     a Row, a TopN over the quantized lane and a Set between two reads,
-    each equal to the single-device executor's, with K12+K13 launched
-    and no other lane kernel."""
+    each equal to the single-device executor's, with K12+K13 and
+    K14+K15 launched and no other lane kernel."""
     from pilosa_tpu_torch.executor import Executor, result_to_json
     from pilosa_tpu_torch.parallel import DistExecutor, make_mesh
     from pilosa_tpu_torch.storage import Holder
@@ -1397,7 +1409,9 @@ def test_mesh_of_eight_members_on_one_card(dev, tmp_path):
         assert got == plain.execute("i", " ".join(queries[:3]))
         launched = kernels.launches()
         assert launched["lane_reduce"] > 0
+        assert launched["quant_reduce"] > 0  # the quantized TopN
         assert "lane_pack" not in launched and "lane_fold" not in launched
+        assert "quant_pack" not in launched and "quant_fold" not in launched
     finally:
         h.close()
 

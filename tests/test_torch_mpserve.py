@@ -310,19 +310,23 @@ def _own_server(tmp_path, seeded, n_workers=2, **kw):
 def test_dedupe_followers_share_one_execution(tmp_path, seeded):
     """Identical untraced reads that land while a leader's wave is not
     yet submitted join it in the owner: one execution, byte-equal
-    answers, each follower billed."""
+    answers, each follower billed. The leader is held until the owner's
+    intake has taken all six frames, so the followers join it however
+    slowly the clients reach the owner."""
     with fresh_planes():
         server = _own_server(tmp_path, seeded)
         try:
             rt = server._mpserve
             real = server.api.query_json_bytes
             want = _query(server.port, "Count(Row(f=2))")
+            taken = rt.batched_requests  # frames the intake has taken
+            release = threading.Event()
 
-            def slow(*a, **kw):
-                time.sleep(0.5)  # hold the leader past the burst
+            def held(*a, **kw):
+                release.wait(30)  # hold the leader past the burst
                 return real(*a, **kw)
 
-            server.api.query_json_bytes = slow
+            server.api.query_json_bytes = held
             results, lock = [], threading.Lock()
 
             def one():
@@ -334,7 +338,10 @@ def test_dedupe_followers_share_one_execution(tmp_path, seeded):
             try:
                 for t in threads:
                     t.start()
+                assert _poll(lambda: rt.batched_requests >= taken + 6, 30), \
+                    "the owner's intake did not take the six frames"
             finally:
+                release.set()
                 for t in threads:
                     t.join(30)
                 server.api.query_json_bytes = real

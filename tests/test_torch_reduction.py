@@ -1,19 +1,20 @@
-"""The mesh lanes' plain versions (K12+K13, K14, K15) against the
+"""The mesh lanes' plain versions (K12+K13, K14+K15) against the
 reference's reduction functions, on the CPU.
 
 The reference's ``hier_split_channels``, ``gather_extreme`` and
 ``hier_quantized_counts`` run under its own ``shard_map`` on
-``make_mesh(8, groups=g)`` (conftest's 8 forced CPU devices), after the
-intra-group ``psum`` / ``pmax`` that ``_dist_body`` runs before them;
-the port's functions take the same 8 members' partials stacked, and
-``lane_reduce`` also takes them as a list of member tensors in each
-layout the executor gives it ([2, N], [B, 2] as its transposed view,
-[2], 0-d, strided views). Inputs
-are seeded numpy integers with group totals at the lane bounds (255 and
-256, 65 535 and 65 536), candidate counts that are not a multiple of 256
-and all-small blocks (scale 1). Tolerance 0 throughout. The host side
-(the lane widths, the byte model, the quantized window, the row frames)
-is compared function for function.
+``make_mesh(8, groups=g)`` (conftest's 8 forced CPU devices; one group
+of 8 as a 1 x 8 grid), after the intra-group ``psum`` / ``pmax`` that
+``_dist_body`` runs before them; the port's functions take the same 8
+members' partials stacked, and ``lane_reduce`` and ``quant_reduce`` also
+take them as a list of member tensors in each layout the executor gives
+them ([2, N], [B, 2] as its transposed view, a GroupBy level's [2, k, c]
+as [2, k*c], [2], 0-d, strided views). Inputs are seeded numpy integers
+with group totals at the lane bounds (255 and 256, 65 535 and 65 536),
+candidate counts that are not a multiple of 256, all-small blocks (scale
+1), wrapped (negative) totals and sums that wrap. Tolerance 0
+throughout. The host side (the lane widths, the byte model, the
+quantized window, the row frames) is compared function for function.
 """
 
 import numpy as np
@@ -22,6 +23,7 @@ import torch
 
 import jax
 from jax import lax
+from jax.sharding import Mesh
 
 from pilosa_tpu.parallel import dist as jdist
 from pilosa_tpu.parallel import reduction as jred
@@ -39,8 +41,11 @@ MEMBERS = 8
 
 def _run_mesh(groups, body, *arrays):
     """``body`` under the reference's shard_map, one member's rows a
-    device; returns member 0's (replicated) result."""
-    mesh = j_make_mesh(MEMBERS, groups=groups)
+    device; returns member 0's (replicated) result. ``groups`` 1 is a
+    1 x 8 grid (make_mesh gives the flat mesh for it)."""
+    mesh = j_make_mesh(MEMBERS, groups=groups) if groups != 1 else Mesh(
+        np.asarray(jax.devices()[:MEMBERS]).reshape(1, MEMBERS),
+        (GROUPS_AXIS, SHARDS_AXIS))
     hier = (groups, MEMBERS // groups) if groups else None
     spec = shards_spec(mesh)
     fn = jax.jit(jdist._smap(lambda *a: body(*[x[0] for x in a])[None],
@@ -148,23 +153,140 @@ def _quant_parts(rng, rows: int) -> np.ndarray:
                      totals >> reduction.SPLIT_SHIFT], 1).astype(np.int32)
 
 
+def _quant_layouts(parts: np.ndarray) -> dict:
+    """The same int32[M, 2, R] partials as quant_reduce takes them:
+    stacked, a list of members, strided views of a wider buffer (stacked
+    and as members) and GroupBy's [2, k, c] member partials viewed as
+    [2, k*c], contiguous and strided."""
+    t = torch.from_numpy(parts)
+    m, _, rows = parts.shape
+    k = 2 if rows % 2 == 0 else 1
+    wide = torch.zeros((m, 2, 3 * rows), dtype=torch.int32)
+    wide[:, :, ::3] = t
+    cube = torch.zeros((m, 2, k, 2 * (rows // k)), dtype=torch.int32)
+    cube[..., ::2] = t.reshape(m, 2, k, rows // k)
+    return {
+        "stacked": t,
+        "members": [t[j].clone() for j in range(m)],
+        "stacked_strided": wide[:, :, ::3],
+        "members_strided": [wide[j, :, ::3] for j in range(m)],
+        "groupby": [t[j].reshape(2, k, rows // k).clone().reshape(2, rows)
+                    for j in range(m)],
+        "groupby_strided": [cube[j, ..., ::2].reshape(2, rows)
+                            for j in range(m)],
+    }
+
+
+def _check_quant_layouts(parts: np.ndarray, groups, want) -> None:
+    """quant_reduce, and hier_quantized_counts through it, from every
+    layout of ``parts`` against ``want``, bit-exact, dtype too; the plain
+    version is the composition of its two halves."""
+    rows = parts.shape[2]
+    assert want.shape == (2, reduction.quant_total_elems(rows))
+    for name, layout in _quant_layouts(parts).items():
+        got = kernels.quant_reduce(layout, groups)
+        assert got.dtype == torch.int32, name
+        assert np.array_equal(got.numpy(), want), name
+        via = reduction.hier_quantized_counts(layout, groups)
+        assert np.array_equal(via.numpy(), want), name
+    if groups is not None:
+        halves = kernels.quant_fold_plain(*kernels.quant_pack_plain(
+            torch.from_numpy(parts), groups), rows)
+        assert np.array_equal(halves.numpy(), want)
+
+
+def _reference_quantized(parts: np.ndarray, groups):
+    return _run_mesh(groups, lambda p: jred.hier_quantized_counts(
+        lax.psum(p, SHARDS_AXIS), GROUPS_AXIS if groups else None), parts)
+
+
 @pytest.mark.parametrize("groups", [None, 2, 4])
 @pytest.mark.parametrize("rows", [1, 255, 256, 300, 1000])
 def test_hier_quantized_counts_matches_reference(groups, rows):
     rng = np.random.default_rng(rows + (groups or 0))
     parts = _quant_parts(rng, rows)
-    want = _run_mesh(groups, lambda p: jred.hier_quantized_counts(
-        lax.psum(p, SHARDS_AXIS), GROUPS_AXIS if groups else None), parts)
+    want = _reference_quantized(parts, groups)
     got = reduction.hier_quantized_counts(torch.from_numpy(parts), groups)
     assert got.shape == (2, reduction.quant_total_elems(rows))
     assert np.array_equal(got.numpy(), want)
+    _check_quant_layouts(parts, groups, want)
     if groups:
-        q, s = kernels.quant_pack(torch.from_numpy(parts), groups)
+        q, s = kernels.quant_pack_plain(torch.from_numpy(parts), groups)
         assert q.dtype == torch.uint8 and s.dtype == torch.int32
         assert int(s[:, 0].max()) == 1  # the all-small first block
         if rows > 768:
             assert int(s[:, 1].max()) == 1  # a block max of 255
             assert int(s[:, 2].max()) == 2  # a block max of 256
+
+
+def _quant_edge(kind: str, rng) -> tuple:
+    """(int32[8, 2, R] member split channels, groups) of one edge of the
+    8-bit lane's int32 arithmetic."""
+    rows = 300  # the last block partly padded (44 real candidates)
+    totals = rng.integers(0, 1 << 19, (MEMBERS, rows)).astype(np.int64)
+    groups = 2
+    if kind == "wrapped_last_block":
+        # every real group total of the last block past 2^31 (4 members
+        # a group): negative as int32, so the block's max is a pad
+        # lane's 0 and its scale 1
+        totals[:, 256:] = rng.integers((1 << 29) + 1, 1 << 30,
+                                       (MEMBERS, rows - 256))
+    elif kind == "negative_numerator":
+        # one wrapped (negative) group total beside large ones: a
+        # negative numerator under a scale > 1 (floor division)
+        totals[:, 7] = rng.integers((1 << 29) + 1, 1 << 30, MEMBERS)
+    elif kind == "sums_wrap":
+        # every member near 2^31: the group sums wrap modulo 2^32
+        totals = rng.integers((1 << 31) - (1 << 20), 1 << 31,
+                              (MEMBERS, rows))
+    elif kind == "groups_are_members":
+        groups = MEMBERS
+    elif kind == "one_group":
+        groups = 1
+    else:
+        raise AssertionError(kind)
+    totals &= 0xFFFFFFFF
+    lo = totals & reduction.SPLIT_MASK
+    hi = totals >> reduction.SPLIT_SHIFT
+    return np.stack([lo, hi], 1).astype(np.uint32).view(np.int32), groups
+
+
+@pytest.mark.parametrize("kind", ["wrapped_last_block", "negative_numerator",
+                                  "sums_wrap", "groups_are_members",
+                                  "one_group"])
+def test_quant_reduce_edges_match_reference(kind):
+    """Wrapped totals (the last, partly padded block all negative: scale
+    1 from the pad lanes), a negative numerator under a scale > 1, group
+    sums that wrap, G = M and one quantized group of all 8 members, from
+    every member layout."""
+    parts, groups = _quant_edge(kind, np.random.default_rng(len(kind)))
+    want = _reference_quantized(parts, groups)
+    _check_quant_layouts(parts, groups, want)
+    _, s = kernels.quant_pack_plain(torch.from_numpy(parts), groups)
+    if kind == "wrapped_last_block":
+        assert int(s[:, 1].max()) == 1
+    if kind == "negative_numerator":
+        assert int(s[:, 0].min()) > 1
+
+
+@pytest.mark.parametrize("groups", [8, 4])
+def test_quant_reduce_takes_64_members(groups):
+    """The cap itself: 64 members against the reference on 8 devices,
+    each device one eighth of the members' wrapped int32 sum (the
+    intra-group psum is associative, so the groups' totals agree)."""
+    rng = np.random.default_rng(64 + groups)
+    totals = rng.integers(0, 1 << 16, (64, 2, 700))
+    totals[:, :, :256] %= 2  # an all-small block: scale 1
+    parts = totals.astype(np.int32)
+    per_device = parts.reshape(MEMBERS, 8, 2, 700).sum(
+        1, dtype=np.int64).astype(np.uint32).view(np.int32)
+    want = _reference_quantized(per_device, groups)
+    for layout in (torch.from_numpy(parts),
+                   [torch.from_numpy(p) for p in parts]):
+        got = kernels.quant_reduce(layout, groups)
+        assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(kernels.quant_reduce_plain(
+        torch.from_numpy(parts), groups).numpy(), want)
 
 
 def test_quant_window_and_error_bound_properties():
@@ -260,10 +382,14 @@ def test_lane_wrappers_check_their_arguments():
         kernels.lane_reduce(torch.zeros((2, 3), dtype=torch.int16), 1, 2,
                             "max")
     with pytest.raises(ValueError):
-        kernels.quant_fold(torch.zeros((2, 2, 256), dtype=torch.uint8),
-                           torch.zeros((2, 2), dtype=torch.int32), 600)
+        kernels.quant_reduce(parts, 3)  # 3 groups over 8 members
+    with pytest.raises(TypeError):
+        kernels.quant_reduce(parts.to(torch.int64), 2)
     with pytest.raises(ValueError):
-        kernels.quant_pack(parts[:, :1], 2)
+        kernels.quant_reduce(parts[:, :1], 2)  # one channel
+    with pytest.raises(ValueError):
+        kernels.quant_reduce(list(parts[:7]) + [parts[7].t().contiguous()
+                                                .t()], None)
     lo, hi = kernels.lane_pack_plain(parts, 2, (2, 1))
     assert (lo.dtype, hi.dtype, lo.shape) == (torch.uint16, torch.uint8,
                                               (2, 3))
@@ -430,6 +556,16 @@ def test_lane_reduce_refuses(kind):
     parts, groups, err = _refused(kind)
     with pytest.raises(err):
         kernels.lane_reduce(parts, groups, (4, 4))
+
+
+@pytest.mark.parametrize("kind", [
+    "too_many_members", "mixed_devices", "mixed_dtypes",
+    "groups_do_not_divide", "mixed_layouts", "overlapping_channels",
+    "no_members"])
+def test_quant_reduce_refuses(kind):
+    parts, groups, err = _refused(kind)
+    with pytest.raises(err):
+        kernels.quant_reduce(parts, groups)
 
 
 def test_lane_reduce_takes_64_members():
